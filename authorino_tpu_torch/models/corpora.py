@@ -16,7 +16,7 @@ from types import SimpleNamespace
 from typing import List
 
 __all__ = ["LANES_K", "all_lanes_corpus", "all_lanes_docs", "port_classes",
-           "widen_wire"]
+           "wide_config_corpus", "wide_config_docs", "widen_wire"]
 
 LANES_K = 4  # members_k small enough that role lists overflow on purpose
 
@@ -81,6 +81,30 @@ def all_lanes_docs(seed: int, n: int = 48) -> List[dict]:
             }},
         })
     return docs
+
+
+def wide_config_corpus(ns=None) -> list:
+    """One config whose own subcircuit outgrows a 64-slot row buffer (40
+    And nodes of two leaves under one Any_: 80 leaves, 41 nodes) beside a
+    small config with 36 evaluators: the mega-kernel's shared-memory
+    circuit path, and its verdict path for more than 31 evaluators."""
+    ns = ns or port_classes()
+    Op = ns.Operator
+    big = ns.Any_(*[ns.All(ns.Pattern("req.m", Op.EQ, f"m{i}"),
+                           ns.Pattern(f"req.h{i % 5}", Op.NEQ, f"v{i}"))
+                    for i in range(40)])
+    many = [(ns.Pattern(f"req.h{i % 5}", Op.EQ, f"v{i}") if i % 3 else None,
+             ns.Pattern("req.m", Op.NEQ, f"m{i}")) for i in range(35)]
+    return [ns.ConfigRules(name="big", evaluators=[(None, big)]),
+            ns.ConfigRules(name="small", evaluators=[
+                (None, ns.Pattern("req.m", Op.EQ, "m3"))] + many)]
+
+
+def wide_config_docs() -> List[dict]:
+    """Requests for ``wide_config_corpus``: about half match a term."""
+    return [{"req": {"m": f"m{i}", **{f"h{j}": f"v{i}" if p % 4 < 2 else "w"
+                                      for j in range(5)}}}
+            for p, i in enumerate(range(0, 44, 3))]
 
 
 def widen_wire(db):

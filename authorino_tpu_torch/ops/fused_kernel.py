@@ -30,14 +30,15 @@ from ..compiler.compile import (
     OP_NUM_GT, OP_NUM_LT, OP_REGEX_DFA, OP_RELATION, OP_TREE_CPU,
     CompiledPolicy)
 from . import _build
-from .operands import check_batch, defuse, fuse_batch, packed_width
+from .operands import _round16, check_batch, defuse, fuse_batch, packed_width
 
 __all__ = [
     "fused_packed_plain", "eval_fused_kernel", "launch_kernel",
     "dispatch_megakernel", "MegakernelHandle", "fused_kernel_supported",
     "launch_probe", "probe_plain",
     "prewarm_fused", "occupancy_pad", "reset_counts", "launches",
-    "probe_launches", "plain_calls", "smem_bytes", "SMEM_LIMIT",
+    "probe_launches", "plain_calls", "smem_bytes", "tables_in_smem",
+    "launch_stamped", "forget_launch_words", "SMEM_LIMIT", "WARPS",
 ]
 
 # kernel launches on the card (the wrapper adds one where it launches)
@@ -215,14 +216,25 @@ _ARG_FIELDS = (
     "off_attr_bytes", "off_byte_ovf", "off_attrs_num", "off_num_valid",
     "off_rel_rows", "off_member_ovf",
     "A", "M", "K", "C", "NB", "LB", "NN", "NR",
-    "leaf_op", "leaf_attr", "leaf_const", "member_slot_of_leaf",
-    "cpu_scatter_idx", "L", "children", "is_and", "level_meta", "n_levels",
-    "buf_size", "eval_cond", "eval_rule", "eval_has_cond", "G", "E", "W",
-    "dfa_tables", "dfa_accept", "dfa_tab_g", "dfa_slot_g", "leaf_dfa_pos",
-    "S", "R", "leaf_num_slot", "rel_bits", "leaf_rel_slot", "leaf_rel_col",
-    "RW",
+    "cfg_off", "leaf_rec", "node_rec", "node_kids", "lvl_end", "dfa_rec",
+    "ev", "G", "E", "W", "has_num", "dfa_image", "S", "tab_bytes",
+    "image_bytes", "rel_bits", "RW",
+    "smem_tables", "smem_head", "warp_bytes", "kids_at", "masks_at",
+    "stage_at", "stage_bytes", "s_mc", "s_movf", "s_bovf", "s_ab", "s_num",
+    "s_nv", "s_rel", "e_av", "e_mc", "e_movf", "e_bovf", "e_ab", "e_num",
+    "e_nv",
 )
-_MAGIC = 0x4155544846555345
+_MAGIC = 0x4155544846555633
+_IDX = {f: i for i, f in enumerate(_ARG_FIELDS)}
+# the words one batch's layout sets (everything else comes from the params)
+_BATCH_SLICE = slice(_IDX["B"], _IDX["NR"] + 1)
+_STAGE_SLICE = slice(_IDX["stage_bytes"], _IDX["e_nv"] + 1)
+# the operands a row stages in shared memory, in the kernel's order
+STAGE_SEGMENTS = ("attrs_val", "members_c", "member_ovf", "byte_ovf",
+                  "attr_bytes", "attrs_num", "num_valid", "rel_rows")
+# rows (one warp each) per block, the kernel's kWarps (chosen on the card
+# from 2, 4 and 8)
+WARPS = 4
 
 
 def _lib() -> ctypes.CDLL:
@@ -231,6 +243,10 @@ def _lib() -> ctypes.CDLL:
         lib.authz_fused_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         lib.authz_fused_launch.restype = ctypes.c_int
+        lib.authz_fused_stamp_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.authz_fused_stamp_launch.restype = ctypes.c_int
         lib.authz_probe_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.authz_probe_launch.restype = ctypes.c_int
@@ -250,33 +266,49 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else int(t.data_ptr())
 
 
-def smem_bytes(params, A: int = 0, MK: int = 0) -> int:
-    """Dynamic shared memory one block of the kernel takes: the circuit
-    buffer, one accept byte per DFA row, then (4-byte aligned) the row's
-    ``A`` attr ids and ``MK`` membership ids as int32."""
-    R = (int(params["fused"]["dfa_table_of_row_g"].shape[0])
-         if params["dfa_tables"] is not None else 0)
-    head = int(params["kernel"]["buf_size"]) + R
-    return (head + 3) // 4 * 4 + 4 * (A + MK)
+def _warp_layout(params, stage_bytes: int = 0):
+    """(children, ballot words, stage, total) offsets and bytes of one
+    warp's shared memory: the row's circuit buffer, the config's node
+    children as uint16, two ballot words per 32 evaluators, then the row's
+    staged operands, each part padded to 16 bytes."""
+    kp = params["kernel"]
+    E = int(params["eval_rule"].shape[1])
+    kids_at = _round16(kp["max_local"])
+    masks_at = kids_at + _round16(2 * kp["max_kids"])
+    stage_at = masks_at + _round16(8 * ((E + 31) // 32))
+    return kids_at, masks_at, stage_at, stage_at + _round16(stage_bytes)
+
+
+def smem_bytes(params, tables_in_smem: bool = True,
+               stage_bytes: int = 0) -> int:
+    """Dynamic shared memory one block of the kernel takes: the DFA table
+    image (when it is placed in shared memory and the corpus has one), a
+    16-byte slot for the copy's mbarrier, then ``WARPS`` warp regions for
+    rows that stage ``stage_bytes`` of operands each."""
+    img = params["kernel"]["dfa_image"]
+    head = (int(img.numel()) if tables_in_smem and img is not None else 0) + 16
+    return head + WARPS * _warp_layout(params, stage_bytes)[3]
+
+
+def tables_in_smem(params, stage_bytes: int = 0) -> bool:
+    """Whether the DFA table image fits in shared memory beside the block's
+    warp regions (else the kernel reads it from device memory)."""
+    return (params["kernel"]["dfa_image"] is not None
+            and smem_bytes(params, True, stage_bytes) <= SMEM_LIMIT)
 
 
 # every param tensor the kernel reads through a raw pointer: (subtree, name,
 # the element type the kernel reads it as)
 _KERNEL_PARAMS = (
-    ("fused", "leaf_op_i8", torch.int8), (None, "leaf_attr", torch.int32),
-    (None, "leaf_const", torch.int32),
-    (None, "member_slot_of_leaf", torch.int32),
-    (None, "cpu_scatter_idx", torch.int32), (None, "eval_cond", torch.int32),
-    (None, "eval_rule", torch.int32), (None, "eval_has_cond", torch.bool),
-    ("kernel", "children", torch.int32), ("kernel", "is_and", torch.bool),
-    ("kernel", "level_meta", torch.int32), (None, "dfa_tables", torch.uint8),
-    (None, "dfa_accept", torch.bool),
-    ("fused", "dfa_table_of_row_g", torch.int32),
-    ("fused", "dfa_byte_slot_g", torch.int32),
-    ("fused", "leaf_dfa_pos", torch.int32),
-    (None, "leaf_num_slot", torch.int32), (None, "rel_bits", torch.uint8),
-    (None, "leaf_rel_slot", torch.int32), (None, "leaf_rel_col", torch.int32),
+    ("kernel", "cfg_off", torch.int32), ("kernel", "leaf_rec", torch.int32),
+    ("kernel", "node_rec", torch.int32), ("kernel", "node_kids", torch.int32),
+    ("kernel", "lvl_end", torch.int32), ("kernel", "dfa_rec", torch.int32),
+    ("kernel", "ev", torch.int32), ("kernel", "dfa_image", torch.uint8),
+    (None, "rel_bits", torch.uint8),
 )
+# (name, columns, alignment in bytes) of the program's record arrays
+_RECORDS = (("cfg_off", 8, 16), ("leaf_rec", 4, 16), ("node_rec", 4, 16),
+            ("dfa_rec", 4, 16))
 
 
 def _check_kernel_tensors(params, dev: torch.device) -> None:
@@ -289,35 +321,58 @@ def _check_kernel_tensors(params, dev: torch.device) -> None:
                              f"tensor on {dev}")
 
 
-def launch_kernel(params, buf_dev: torch.Tensor, layout: tuple,
-                  out: torch.Tensor) -> None:
-    """Launch the kernel once over a staging buffer already on the card,
-    writing ``out`` [B, W] uint8.  Enqueues on the current stream and does
-    not synchronise."""
-    global launches
-    dev = buf_dev.device
-    if dev.type != "cuda":
-        raise ValueError("launch_kernel takes CUDA tensors only")
-    if buf_dev.dtype != torch.uint8 or not buf_dev.is_contiguous():
-        raise ValueError("staging buffer must be a contiguous uint8 tensor")
+def _param_words(params, dev: torch.device) -> np.ndarray:
+    """The argument block with every params field filled in, built and
+    checked once per params tree (cached in its ``"kernel"`` subtree; the
+    tree's tensors are never replaced after upload)."""
+    kp = params["kernel"]
+    cached = kp.get("launch_words")
+    if cached is not None and cached[0] == dev:
+        return cached[1]
     _check_kernel_tensors(params, dev)
+    G, E = params["eval_rule"].shape
+    if tuple(kp["cfg_off"].shape) != (G + 1, 8) \
+            or tuple(kp["ev"].shape) != (G, E):
+        raise ValueError("the per-config program does not match the "
+                         "evaluator table")
+    for name, cols, align in _RECORDS:
+        t = kp[name]
+        if t.dim() != 2 or t.shape[1] != cols or t.data_ptr() % align:
+            raise ValueError(f"program array {name} must be [*, {cols}] and "
+                             f"{align}-byte aligned")
+    img = kp["dfa_image"]
+    if img is not None and (img.data_ptr() % 16 or img.numel() % 16):
+        raise ValueError("dfa_image must be 16-byte aligned and padded")
+    w = np.zeros(len(_ARG_FIELDS), dtype=np.int64)
+    for name, value in (
+            ("magic", _MAGIC), ("G", G), ("E", E),
+            ("W", packed_width(1 + 2 * E)),
+            ("has_num", int(params["leaf_num_slot"] is not None)),
+            ("S", kp["S"]), ("tab_bytes", kp["tab_bytes"]),
+            ("image_bytes", 0 if img is None else img.numel()),
+            ("dfa_image", _ptr(img)), ("rel_bits", _ptr(params["rel_bits"])),
+            ("RW", 0 if params["rel_bits"] is None
+             else params["rel_bits"].shape[1]),
+            *zip(("kids_at", "masks_at", "stage_at"), _warp_layout(params)),
+            *((n, _ptr(kp[n])) for n in ("cfg_off", "leaf_rec", "node_rec",
+                                         "node_kids", "lvl_end", "dfa_rec",
+                                         "ev"))):
+        w[_IDX[name]] = value
+    kp["launch_words"] = (dev, w)
+    kp["launch_layouts"] = {}
+    return w
+
+
+def _layout_words(params, layout: tuple) -> np.ndarray:
+    """The batch's words of the argument block for one staging layout: B,
+    wire, offsets and dims, then the row stage (``stage_layout``: its
+    size, each segment's start after the first, each end but the last)."""
     lay = {name: (dt, shape, off) for name, dt, shape, off, _ in layout}
     dt_val, (B, A), off_val = lay["attrs_val"]
-    _, (_, M, K), off_mem = lay["members_c"]
-    smem = smem_bytes(params, A, M * K)
-    if smem > SMEM_LIMIT:
-        raise RuntimeError(
-            f"one row needs {smem} B of shared memory, over the card's "
-            f"{SMEM_LIMIT} B per block")
-    fz, kp = params["fused"], params["kernel"]
-    G, E = params["eval_rule"].shape
-    W = packed_width(1 + 2 * E)
-    if tuple(out.shape) != (B, W) or out.dtype != torch.uint8 \
-            or out.device != dev or not out.is_contiguous():
-        raise ValueError(f"out must be a contiguous [{B}, {W}] uint8 tensor")
     if lay["members_c"][0] != dt_val or dt_val not in ("int16", "int32"):
         raise ValueError("attrs_val and members_c must share an int16/int32 "
                          "wire dtype")
+    _, (_, M, K), off_mem = lay["members_c"]
 
     def off(name):
         return lay[name][2] if name in lay else -1
@@ -325,10 +380,8 @@ def launch_kernel(params, buf_dev: torch.Tensor, layout: tuple,
     def dim(name, axis):
         return lay[name][1][axis] if name in lay else 0
 
-    has_dfa = params["dfa_tables"] is not None
-    w = dict(
-        magic=_MAGIC, out=_ptr(out), buf=_ptr(buf_dev), B=B,
-        wide=int(dt_val == "int32"),
+    vals = dict(
+        B=B, wide=int(dt_val == "int32"),
         off_attrs_val=off_val, off_members_c=off_mem,
         off_cpu_dense=off("cpu_dense"), off_config_id=off("config_id"),
         off_attr_bytes=off("attr_bytes"), off_byte_ovf=off("byte_ovf"),
@@ -336,40 +389,137 @@ def launch_kernel(params, buf_dev: torch.Tensor, layout: tuple,
         off_rel_rows=off("rel_rows"), off_member_ovf=off("member_ovf"),
         A=A, M=M, K=K, C=dim("cpu_dense", 1), NB=dim("attr_bytes", 1),
         LB=dim("attr_bytes", 2), NN=dim("attrs_num", 1),
-        NR=dim("rel_rows", 1),
-        leaf_op=_ptr(fz["leaf_op_i8"]), leaf_attr=_ptr(params["leaf_attr"]),
-        leaf_const=_ptr(params["leaf_const"]),
-        member_slot_of_leaf=_ptr(params["member_slot_of_leaf"]),
-        cpu_scatter_idx=_ptr(params["cpu_scatter_idx"]),
-        L=int(params["leaf_op"].shape[0]),
-        children=_ptr(kp["children"]), is_and=_ptr(kp["is_and"]),
-        level_meta=_ptr(kp["level_meta"]),
-        n_levels=int(kp["level_meta"].shape[0]), buf_size=kp["buf_size"],
-        eval_cond=_ptr(params["eval_cond"]),
-        eval_rule=_ptr(params["eval_rule"]),
-        eval_has_cond=_ptr(params["eval_has_cond"]), G=G, E=E, W=W,
-        dfa_tables=_ptr(params["dfa_tables"]),
-        dfa_accept=_ptr(params["dfa_accept"]),
-        dfa_tab_g=_ptr(fz.get("dfa_table_of_row_g")),
-        dfa_slot_g=_ptr(fz.get("dfa_byte_slot_g")),
-        leaf_dfa_pos=_ptr(fz.get("leaf_dfa_pos")),
-        S=int(params["dfa_tables"].shape[1]) if has_dfa else 0,
-        R=int(fz["dfa_table_of_row_g"].shape[0]) if has_dfa else 0,
-        leaf_num_slot=_ptr(params["leaf_num_slot"]),
-        rel_bits=_ptr(params["rel_bits"]),
-        leaf_rel_slot=_ptr(params["leaf_rel_slot"]),
-        leaf_rel_col=_ptr(params["leaf_rel_col"]),
-        RW=int(params["rel_bits"].shape[1])
-        if params["rel_bits"] is not None else 0,
-    )
-    words = np.array([w[f] for f in _ARG_FIELDS], dtype=np.int64)
+        NR=dim("rel_rows", 1))
+    T, starts, ends = stage_layout(params, layout)
+    return np.array([vals[f] for f in _ARG_FIELDS[_BATCH_SLICE]]
+                    + [T, *starts[1:], *ends[:-1]], dtype=np.int64)
+
+
+def stage_layout(params, layout: tuple):
+    """(bytes, starts, ends) of one row's staged operands: one segment per
+    operand of ``STAGE_SEGMENTS`` that the kernel reads (an absent lane's
+    is empty), each starting 4-byte aligned so the kernel reads its ids,
+    numbers and byte words at their width."""
+    lay = {name: (dt, shape) for name, dt, shape, _, _ in layout}
+    dfa = params["kernel"]["dfa_image"] is not None and "attr_bytes" in lay
+    num = params["leaf_num_slot"] is not None and "attrs_num" in lay
+    rel = params["rel_bits"] is not None and "rel_rows" in lay
+    used = {"attrs_val": True, "members_c": True,
+            "member_ovf": "member_ovf" in lay, "byte_ovf": dfa,
+            "attr_bytes": dfa, "attrs_num": num, "num_valid": num,
+            "rel_rows": rel}
+    starts, ends, at = [], [], 0
+    for name in STAGE_SEGMENTS:
+        size = 0
+        if used[name]:
+            if name not in lay:
+                raise ValueError(f"batch lacks {name} beside its lane")
+            dt, shape = lay[name]
+            size = int(np.prod(shape[1:])) * np.dtype(dt).itemsize
+        at = (at + 3) // 4 * 4
+        starts.append(at)
+        at += size
+        ends.append(at)
+    return at, starts, ends
+
+
+def forget_launch_words(params) -> None:
+    """Drop the cached argument-block words of a params tree; the next
+    launch rebuilds and re-checks them."""
+    params["kernel"].pop("launch_words", None)
+    params["kernel"].pop("launch_layouts", None)
+
+
+def _launch_template(params, dev: torch.device, layout: tuple,
+                     global_tables: bool):
+    """(argument block without the out and buf pointers, dynamic shared
+    memory) of one (layout, placement), built and checked once and cached
+    beside the params words."""
+    cache = params["kernel"]["launch_layouts"]
+    key = (layout, global_tables)
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    words = _param_words(params, dev).copy()
+    lw = _layout_words(params, layout)
+    n_batch = _BATCH_SLICE.stop - _BATCH_SLICE.start
+    words[_BATCH_SLICE], words[_STAGE_SLICE] = lw[:n_batch], lw[n_batch:]
+    stage = int(words[_IDX["stage_bytes"]])
+    in_smem = not global_tables and tables_in_smem(params, stage)
+    smem = smem_bytes(params, in_smem, stage)
+    if smem > SMEM_LIMIT:
+        raise RuntimeError(
+            f"{WARPS} rows need {smem} B of shared memory, over the card's "
+            f"{SMEM_LIMIT} B per block")
+    warp_bytes = _warp_layout(params, stage)[3]
+    words[_IDX["smem_tables"]] = int(in_smem)
+    words[_IDX["warp_bytes"]] = warp_bytes
+    words[_IDX["smem_head"]] = smem - WARPS * warp_bytes
+    if len(cache) >= 64:
+        cache.clear()
+    cache[key] = (words, smem)
+    return words, smem
+
+
+def _words(params, buf_dev: torch.Tensor, layout: tuple, out: torch.Tensor,
+           global_tables: bool):
+    """(argument block, dynamic shared memory) of one launch."""
+    dev = buf_dev.device
+    if dev.type != "cuda":
+        raise ValueError("launch_kernel takes CUDA tensors only")
+    if buf_dev.dtype != torch.uint8 or not buf_dev.is_contiguous():
+        raise ValueError("staging buffer must be a contiguous uint8 tensor")
+    _param_words(params, dev)
+    template, smem = _launch_template(params, dev, layout, global_tables)
+    B, W = int(template[_IDX["B"]]), int(template[_IDX["W"]])
+    if out.shape != (B, W) or out.dtype != torch.uint8 \
+            or out.device != dev or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous [{B}, {W}] uint8 tensor")
+    words = template.copy()
+    words[_IDX["out"]] = out.data_ptr()
+    words[_IDX["buf"]] = buf_dev.data_ptr()
+    return words, smem
+
+
+def launch_kernel(params, buf_dev: torch.Tensor, layout: tuple,
+                  out: torch.Tensor, *, global_tables: bool = False) -> None:
+    """Launch the kernel once over a staging buffer already on the card,
+    writing ``out`` [B, W] uint8.  Enqueues on the current stream and does
+    not synchronise.  The DFA tables go to shared memory where they fit;
+    ``global_tables=True`` forces the instance that reads them from device
+    memory."""
+    global launches
+    words, smem = _words(params, buf_dev, layout, out, global_tables)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    dev = buf_dev.device
     with torch.cuda.device(dev):
         err = lib.authz_fused_launch(
-            words.ctypes.data, len(_ARG_FIELDS), smem, stream)
+            words.ctypes.data, len(_ARG_FIELDS), smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "fused mega-kernel launch")
     launches += 1
+
+
+def launch_stamped(params, buf_dev: torch.Tensor, layout: tuple,
+                   out: torch.Tensor, stamps: torch.Tensor, *,
+                   global_tables: bool = False) -> None:
+    """The instrumented instance, for measurement only: as
+    ``launch_kernel``, and writes 8 ``clock64()`` words per row into
+    ``stamps`` ([B, 8] int64 on the card): entry, then the end of the
+    prologue, leaves, copy wait, DFA walk, circuit and verdict phases.  It
+    is not a launch of the main path and is not counted."""
+    words, smem = _words(params, buf_dev, layout, out, global_tables)
+    B = int(words[_IDX["B"]])
+    if stamps.shape != (B, 8) or stamps.dtype != torch.int64 \
+            or stamps.device != buf_dev.device or not stamps.is_contiguous():
+        raise ValueError(f"stamps must be a contiguous [{B}, 8] int64 tensor")
+    lib = _lib()
+    dev = buf_dev.device
+    with torch.cuda.device(dev):
+        err = lib.authz_fused_stamp_launch(
+            words.ctypes.data, len(_ARG_FIELDS), smem, _ptr(stamps),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "stamped mega-kernel launch")
 
 
 def _stage(buf: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -493,10 +643,12 @@ def prewarm_fused(policy: CompiledPolicy, params) -> bool:
     dev = params["leaf_op"].device
     if dev.type == "cuda":
         fused_kernel_supported(dev, recheck=True)
-        if smem_bytes(params) > SMEM_LIMIT:
+        need = smem_bytes(params, tables_in_smem=False)
+        if need > SMEM_LIMIT:
             raise RuntimeError(
-                f"corpus circuit needs {smem_bytes(params)} B of shared "
-                f"memory per row, over the card's {SMEM_LIMIT} B per block")
+                f"the corpus's largest config needs {need} B of shared "
+                f"memory per block of {WARPS} rows, over the card's "
+                f"{SMEM_LIMIT} B")
     return True
 
 

@@ -6,8 +6,9 @@ Everything that surrounds the mega-kernel and runs on the host lives here:
     corpus as numpy arrays, with ``None`` kept structural for absent lanes;
   - ``params_from_numpy`` turns such a tree into torch tensors on a device,
     checks on the host that every index operand lies in range (so the kernel
-    needs no bounds checks), and adds the ``"kernel"`` subtree: the circuit
-    levels flattened into one children array plus a per-level table;
+    needs no bounds checks), and adds the ``"kernel"`` subtree: the
+    per-config program, each config's own leaves, nodes and DFA rows with
+    indices local to one row's circuit buffer;
   - ``fuse_batch`` concatenates one batch's operands into one uint8 staging
     buffer (one H2D copy per batch) and ``defuse`` decodes it in torch;
   - ``unpack_verdicts`` / ``firing_columns`` / ``unpack_attribution`` decode
@@ -27,7 +28,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..compiler.compile import CompiledPolicy
+from ..compiler.compile import (
+    OP_EQ, OP_EXCL, OP_INCL, OP_NEQ, OP_NUM_GT, OP_REGEX_DFA, OP_RELATION,
+    CompiledPolicy)
 
 __all__ = [
     "resolve_device", "host_operands", "fused_operands", "params_from_numpy",
@@ -133,16 +136,21 @@ def _max_or(arr: Optional[np.ndarray], default: int = -1) -> int:
     return int(arr.max()) if arr is not None and arr.size else default
 
 
-def _kernel_layout(tree: dict) -> dict:
-    """Validate the tree's internal indices and flatten the circuit for the
-    kernel.  Returns host numpy arrays plus python ints:
+# A row's circuit buffer is addressed by 16-bit local indices: the kernel
+# packs an evaluator's rule and cond slots into one 32-bit word.
+LOCAL_LIMIT = 1 << 16
 
-      - ``children`` / ``is_and``: every level's rows, concatenated;
-      - ``level_meta`` [n_levels, 4] int32: (rows, width, offset into
-        ``children``, buffer index of the level's first node);
-      - ``buf_size``: 2 + L + Σ rows, the circuit buffer of one request;
-      - ``bounds``: the largest index each leaf operand takes into a batch
-        operand, checked against each batch's shapes by ``check_batch``."""
+
+def _round16(n: int) -> int:
+    return (int(n) + 15) // 16 * 16
+
+
+def _kernel_layout(tree: dict) -> dict:
+    """Validate the tree's internal indices and build the kernel's
+    per-config program (``_own_program``).  Returns host numpy arrays plus
+    python ints, and ``bounds``: the largest index each leaf operand takes
+    into a batch operand, checked against each batch's shapes by
+    ``check_batch``."""
     fz = tree["fused"]
     L = int(tree["leaf_op"].shape[0])
     for name in ("leaf_attr", "leaf_const", "member_slot_of_leaf"):
@@ -156,6 +164,7 @@ def _kernel_layout(tree: dict) -> dict:
                       ("leaf_rel_col", tree["leaf_rel_col"])):
         if arr is not None and arr.shape != (L,):
             raise ValueError(f"operand {name} does not span the leaf axis")
+    _check_range("leaf_op_i8", fz["leaf_op_i8"], 0, 128)
     _check_range("leaf_attr", tree["leaf_attr"], 0, 1 << 31)
     _check_range("member_slot_of_leaf", tree["member_slot_of_leaf"], 0,
                  1 << 31)
@@ -165,17 +174,12 @@ def _kernel_layout(tree: dict) -> dict:
     if np.unique(real).size != real.size:
         raise ValueError("cpu_scatter_idx maps two CPU columns onto one leaf")
 
-    children, is_and, meta = [], [], []
-    base, off = 2 + L, 0
+    base = 2 + L
     for lv, (ch, ia) in enumerate(tree["levels"]):
-        rows, width = int(ch.shape[0]), int(ch.shape[1])
-        if ia.shape != (rows,):
+        rows = int(ch.shape[0])
+        if ch.ndim != 2 or ia.shape != (rows,):
             raise ValueError(f"level {lv}: is_and does not match children")
         _check_range(f"levels[{lv}].children", ch, 0, base)
-        children.append(np.ascontiguousarray(ch, dtype=np.int32).reshape(-1))
-        is_and.append(np.asarray(ia, dtype=bool))
-        meta.append((rows, width, off, base))
-        off += rows * width
         base += rows
     buf_size = base
     G, E = tree["eval_rule"].shape
@@ -194,6 +198,8 @@ def _kernel_layout(tree: dict) -> dict:
         T, S, nc = tree["dfa_tables"].shape
         if nc != 256 or tree["dfa_accept"].shape != (T, S):
             raise ValueError("dfa_tables/dfa_accept are not [T, S, 256]/[T, S]")
+        if tree["dfa_tables"].dtype != np.uint8:
+            raise ValueError("dfa_tables must be uint8")
         _check_range("dfa_tables", tree["dfa_tables"], 0, S)
         R = int(fz["dfa_table_of_row_g"].shape[0])
         if fz["dfa_byte_slot_g"].shape != (R,):
@@ -211,14 +217,196 @@ def _kernel_layout(tree: dict) -> dict:
         _check_range("leaf_rel_col", tree["leaf_rel_col"], 0, RW * 8)
         bounds["rel"] = _max_or(tree["leaf_rel_slot"])
         bounds["rel_rows"] = int(Rp)
+    prog = _own_program(tree, L, buf_size)
+    prog["bounds"] = bounds
+    return prog
+
+
+def _reached_slots(tree: dict, L: int, buf_size: int) -> np.ndarray:
+    """Every (config, buffer slot) its evaluators reach, as sorted unique
+    keys ``g * buf_size + slot`` (slots 0 and 1 excluded).  The walk starts
+    from ``eval_rule[g]`` and, where ``eval_has_cond``, ``eval_cond[g]``,
+    and goes down the levels from the last: a node's children lie in
+    earlier slots.  A node's padding children (TRUE under And, FALSE under
+    Or) are not its children."""
+    nb = np.int64(buf_size)
+    G, E = tree["eval_rule"].shape
+    g = np.repeat(np.arange(G, dtype=np.int64), E).reshape(G, E)
+    has = np.asarray(tree["eval_has_cond"], dtype=bool)
+    keys = [(g * nb + tree["eval_rule"]).ravel(),
+            (g * nb + tree["eval_cond"])[has]]
+    bases = np.cumsum([2 + L] + [int(c.shape[0]) for c, _ in tree["levels"]])
+    for lv in reversed(range(len(tree["levels"]))):
+        ch, ia = tree["levels"][lv]
+        k = np.unique(np.concatenate(keys))
+        slot = k % nb
+        k = k[(slot >= bases[lv]) & (slot < bases[lv + 1])]
+        row = k % nb - bases[lv]
+        kids = np.asarray(ch, dtype=np.int64)[row]
+        real = kids != np.where(np.asarray(ia)[row], 0, 1)[:, None]
+        keys.append(((k // nb * nb)[:, None] + kids)[real])
+    k = np.unique(np.concatenate(keys))
+    return k[k % nb >= 2]
+
+
+def _own_program(tree: dict, L: int, buf_size: int) -> dict:
+    """The per-config program: for each config g, only the leaves, nodes
+    and DFA rows its evaluators reach (``_reached_slots``), every index
+    local to one row's circuit buffer [TRUE, FALSE, own leaves..., own
+    nodes...].  Built with numpy over all configs at once.
+
+      - ``cfg_off`` [G+1, 8] int32: the CSR offsets of config g's leaves,
+        nodes, DFA rows, levels and node children, one column each (the
+        last three columns are 0, so a row is two 16-byte loads);
+      - ``leaf_rec`` [*, 4] int32, one 16-byte record per leaf: (op code,
+        constant or relation column, the one slot the op reads, CPU-lane
+        column or -1);
+      - ``node_rec`` [*, 4] int32: (offset of the node's children among
+        its config's, n_kids << 1 | is_and, then the 64-bit mask of its
+        children's local slots, low word first), each config's nodes in
+        level order.  The mask is filled where the config's whole buffer
+        fits 64 slots (and its leaves, nodes and DFA rows 32 each): the
+        kernel then runs that row's circuit on one 64-bit word;
+      - ``node_kids`` [*] int32: the children as local indices, config by
+        config (``max_kids``: the most one config has);
+      - ``lvl_end`` [*] int32: per level of a config, the end of that level
+        in the config's node list (one level's nodes are independent);
+      - ``dfa_rec`` [*, 4] int32: (table, byte slot, local leaf, 0), one
+        per reachable device-regex leaf, in the config's leaf order;
+      - ``ev`` [G, E] int32: local rule | local cond << 16, cond TRUE (0)
+        where the evaluator has none;
+      - ``dfa_image``: uint8 tables [T, S, 256] then accept [T, S], each
+        padded to 16 bytes (one bulk copy), ``tab_bytes`` the accept's
+        offset, ``S``;
+      - ``max_local``: the largest row buffer over all configs."""
+    fz = tree["fused"]
+    nb = np.int64(buf_size)
+    G, E = tree["eval_rule"].shape
+    k = _reached_slots(tree, L, buf_size)
+    kg, slot = k // nb, k % nb
+    cfg_start = np.searchsorted(k, np.arange(G + 1, dtype=np.int64) * nb)
+    gs = np.arange(G + 1)
+
+    def local(g, s):
+        """Local index of slot ``s`` (reached by config ``g``)."""
+        s = np.asarray(s, dtype=np.int64)
+        pos = np.searchsorted(k, g * nb + s)
+        return np.where(s < 2, s, 2 + pos - cfg_start[g])
+
+    is_leaf = slot < 2 + L
+    lg, l = kg[is_leaf], slot[is_leaf] - 2
+    ng, ns = kg[~is_leaf], slot[~is_leaf]
+    leaf_off = np.searchsorted(lg, gs)
+    node_off = np.searchsorted(ng, gs)
+    n_own = 2 + np.diff(leaf_off) + np.diff(node_off)
+    max_local = int(n_own.max(initial=2))
+    if max_local > LOCAL_LIMIT:
+        raise ValueError(f"a config's circuit buffer holds {max_local} slots; "
+                         f"local indices are 16 bits wide (< {LOCAL_LIMIT})")
+
+    # leaves: one 16-byte record each
+    op = np.asarray(fz["leaf_op_i8"], dtype=np.int64)[l]
+    const = np.asarray(tree["leaf_const"], dtype=np.int64)[l]
+    rd = np.zeros(l.shape, dtype=np.int64)
+    eq = (op == OP_EQ) | (op == OP_NEQ)
+    rd[eq] = tree["leaf_attr"][l[eq]]
+    mem = (op == OP_INCL) | (op == OP_EXCL)
+    rd[mem] = tree["member_slot_of_leaf"][l[mem]]
+    rel = op == OP_RELATION
+    if tree["rel_bits"] is not None:
+        rd[rel] = tree["leaf_rel_slot"][l[rel]]
+        const[rel] = tree["leaf_rel_col"][l[rel]]
+    num = (op >= OP_NUM_GT) & ~rel
+    if tree["leaf_num_slot"] is not None:
+        rd[num] = tree["leaf_num_slot"][l[num]]
+    sc = tree["cpu_scatter_idx"]
+    col_of = np.full(L + 1, -1, dtype=np.int64)
+    col_of[sc] = np.arange(sc.shape[0])
+    cpu_col = col_of[l]          # padding columns land on L, no leaf's
+    rx = np.zeros(l.shape, dtype=bool)
+    dfa_rec = np.zeros((0, 4), dtype=np.int32)
+    if tree["dfa_tables"] is not None:
+        rx = op == OP_REGEX_DFA
+        pos = np.asarray(fz["leaf_dfa_pos"], dtype=np.int64)[l[rx]]
+        bslot = np.asarray(fz["dfa_byte_slot_g"], dtype=np.int64)[pos]
+        rd[rx] = bslot
+        dg = lg[rx]
+        leaf_local = 2 + np.nonzero(rx)[0] - leaf_off[dg]
+        dfa_rec = np.stack([fz["dfa_table_of_row_g"][pos], bslot, leaf_local,
+                            np.zeros_like(bslot)], axis=1).astype(np.int32)
+    dfa_off = np.searchsorted(lg[rx], gs)
+    leaf_rec = np.stack([op, const, rd, cpu_col],
+                        axis=1).astype(np.int32)
+
+    # nodes: level order per config, children local
+    bases = np.cumsum([2 + L] + [int(c.shape[0]) for c, _ in tree["levels"]])
+    n_lv = max(len(tree["levels"]), 1)
+    level_of = np.searchsorted(bases, ns, side="right") - 1
+    n_kids = np.zeros(ns.shape, dtype=np.int64)
+    is_and = np.zeros(ns.shape, dtype=np.int64)
+    per_level = []
+    for lv, (ch, ia) in enumerate(tree["levels"]):
+        idx = np.nonzero(level_of == lv)[0]
+        row = ns[idx] - bases[lv]
+        kids = np.asarray(ch, dtype=np.int64)[row]
+        real = kids != np.where(np.asarray(ia)[row], 0, 1)[:, None]
+        n_kids[idx] = real.sum(axis=1)
+        is_and[idx] = np.asarray(ia)[row]
+        per_level.append((idx, kids, real))
+    kid_begin = np.cumsum(n_kids) - n_kids
+    node_kids = np.zeros(int(n_kids.sum()), dtype=np.int64)
+    for idx, kids, real in per_level:
+        at = kid_begin[idx][:, None] + np.cumsum(real, axis=1) - 1
+        node_kids[at[real]] = local(
+            np.broadcast_to(ng[idx][:, None], kids.shape)[real], kids[real])
+    node_local = 2 + np.diff(leaf_off)[ng] + np.arange(ng.size) - node_off[ng]
+    owner = np.repeat(np.arange(ng.size), n_kids)
+    if node_kids.size and np.any(node_kids >= node_local[owner]):
+        raise ValueError("a node reads a slot at or after its own")
+    kid_off = np.concatenate([[0], np.cumsum(n_kids)])[node_off]
+    # a config whose whole row buffer fits 64 bits (and one warp's lanes)
+    # runs its circuit on a bit mask: each node carries its children's bits
+    fast = ((np.diff(leaf_off) <= 32) & (np.diff(node_off) <= 32)
+            & (np.diff(dfa_off) <= 32) & (n_own <= 64))
+    kid_mask = np.zeros(ng.size, dtype=np.uint64)
+    on = fast[ng][owner]
+    np.bitwise_or.at(kid_mask, owner[on],
+                     np.left_shift(np.uint64(1), node_kids[on].astype(np.uint64)))
+    node_rec = np.stack([kid_begin - kid_off[ng], n_kids << 1 | is_and,
+                         (kid_mask & np.uint64(0xFFFFFFFF)).astype(np.int64),
+                         (kid_mask >> np.uint64(32)).astype(np.int64)],
+                        axis=1).astype(np.uint32).view(np.int32)
+    pair, counts = np.unique(ng * n_lv + level_of, return_counts=True)
+    pg = pair // n_lv
+    lvl_off = np.searchsorted(pg, gs)
+    lvl_end = (np.cumsum(counts) - node_off[pg]).astype(np.int32)
+
+    # evaluators, local
+    g = np.repeat(np.arange(G, dtype=np.int64), E).reshape(G, E)
+    cond = np.where(tree["eval_has_cond"], tree["eval_cond"], 0)
+    rule_l, cond_l = local(g, tree["eval_rule"]), local(g, cond)
+    if np.any(rule_l >= n_own[:G, None]) or np.any(cond_l >= n_own[:G, None]):
+        raise ValueError("an evaluator reads outside its config's buffer")
+    ev = rule_l | cond_l << 16
+
+    image, tab_bytes, S = None, 0, 0
+    if tree["dfa_tables"] is not None:
+        tab = np.ascontiguousarray(tree["dfa_tables"]).reshape(-1)
+        acc = np.asarray(tree["dfa_accept"]).astype(np.uint8).reshape(-1)
+        tab_bytes = _round16(tab.size)
+        image = np.zeros(tab_bytes + _round16(acc.size), dtype=np.uint8)
+        image[:tab.size] = tab
+        image[tab_bytes:tab_bytes + acc.size] = acc
+        S = int(tree["dfa_tables"].shape[1])
+    zero = np.zeros_like(leaf_off)
     return {
-        "children": (np.concatenate(children) if children
-                     else np.zeros((0,), np.int32)),
-        "is_and": (np.concatenate(is_and) if is_and
-                   else np.zeros((0,), bool)),
-        "level_meta": np.asarray(meta, dtype=np.int32).reshape(-1, 4),
-        "buf_size": int(buf_size),
-        "bounds": bounds,
+        "cfg_off": np.stack([leaf_off, node_off, dfa_off, lvl_off, kid_off,
+                             zero, zero, zero], axis=1).astype(np.int32),
+        "leaf_rec": leaf_rec, "node_rec": node_rec,
+        "node_kids": node_kids.astype(np.int32), "lvl_end": lvl_end,
+        "dfa_rec": dfa_rec, "ev": ev.astype(np.uint32).view(np.int32),
+        "dfa_image": image, "tab_bytes": int(tab_bytes), "S": S,
+        "max_local": max_local, "max_kids": int(np.diff(kid_off).max(initial=0)),
     }
 
 
@@ -238,7 +426,7 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     """The weight carry-over: a fused-lane numpy operand tree (the port's
     ``host_operands`` or the JAX package's ``to_device(policy, host=True,
     lane="fused")``) → the port's tensor tree on ``device``, validated, with
-    the ``"kernel"`` layout subtree added."""
+    the ``"kernel"`` subtree (the per-config program) added."""
     dev = resolve_device(device)
     host = {k: v for k, v in tree.items() if k != "kernel"}
     host["kernel"] = _kernel_layout(host)

@@ -10,14 +10,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and launch the probe kernel;
   3. the mega-kernel against its plain PyTorch version on the card, byte
      for byte: the all-lanes corpus at 3 seeds with ovf-assist on and off
-     on both wire dtypes, and the north-star corpus (1000 AuthConfigs × 10
-     rules, members_k 16) at B ∈ {16, 256} and LB ∈ {16, 64};
+     on both wire dtypes, a config past 64 circuit slots beside a small
+     one, and the north-star corpus (1000 AuthConfigs × 10 rules,
+     members_k 16) at B ∈ {16, 256} and LB ∈ {16, 64}; with the DFA tables
+     in shared memory and with the global-tables instance forced;
   4. the main path: a PolicyEngine on the north-star corpus (max_batch
      256) answers 4,096 concurrent submits; every verdict must equal the
      expression oracle, every batch one launch and a pad × W readback;
-  5. numbers: kernel, plain-version and transfer times at B = 256, and
-     the engine's decisions/s and batch latency, beside the card's name
-     and power limit.
+  5. numbers, beside the card's name and power limit: at B = 256 with
+     LB = 16 and 64 and at B = 16, the kernel's device time per call and
+     per launch back to back (N launches between one event pair) with the
+     tables in shared memory and in device memory, and the median
+     per-phase clock64() stamps of the instrumented instance; the
+     per-config program's size and host build time; the wrapper's host
+     enqueue with its words cached and rebuilt; plain-version and
+     transfer times; the probe's times; the engine's decisions/s and
+     batch latency.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -61,18 +69,34 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def kernel_vs_plain(params, db, dev):
-    """One launch through the wrapper against the plain version on the
-    same card, same inputs; returns the max abs byte difference."""
+def kernel_vs_plain(params, db, dev, **instance):
+    """One launch against the plain version on the same card, same inputs;
+    returns the max abs byte difference.  With no ``instance`` keywords the
+    launch goes through the wrapper as the engine calls it; else straight
+    to ``launch_kernel`` with them (``global_tables``)."""
     import torch
 
     from authorino_tpu_torch.ops import fused_kernel as fk
-    from authorino_tpu_torch.ops.operands import defuse, fuse_batch
+    from authorino_tpu_torch.ops.operands import check_batch, defuse, fuse_batch
 
-    got = fk.eval_fused_kernel(params, db)
     buf, layout = fuse_batch(db)
-    want = fk.fused_packed_plain(
-        params, defuse(torch.from_numpy(buf).to(dev), layout))
+    buf_dev = torch.from_numpy(buf).to(dev)
+    if instance:
+        check_batch(params, db)
+        got = torch.empty((db.attrs_val.shape[0],
+                           fk.packed_width(1 + 2 * params["eval_rule"].shape[1])),
+                          dtype=torch.uint8, device=dev)
+        fk.launch_kernel(params, buf_dev, layout, got, **instance)
+    else:
+        got = fk.eval_fused_kernel(params, db)
+    want = fk.fused_packed_plain(params, defuse(buf_dev, layout))
+    return max_byte_err(got, want)
+
+
+def max_byte_err(got, want) -> int:
+    """Max abs difference of two [B, W] uint8 results (raises unless 0)."""
+    import torch
+
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != torch.uint8:
         raise AssertionError(f"kernel output {tuple(got.shape)} {got.dtype} "
@@ -130,6 +154,111 @@ def wall_times_ms(fn, n: int, warm: int = 3):
     return times
 
 
+def enqueue_ms(fns: dict, rounds: int = 600) -> dict:
+    """Host time of one call of each ``fns`` entry, ms: the calls taken in
+    turns, round after round, so a shared host's drift hits all alike;
+    median over rounds.  Launches enqueue without waiting, with a
+    synchronise every 50 rounds to keep the queue short."""
+    import torch
+
+    times = {k: [] for k in fns}
+    for r in range(rounds):
+        for k, fn in fns.items():
+            t = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t) * 1e3)
+        if r % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def sleep_cycles_per_ms() -> float:
+    """The SM clock under a spin: ``torch.cuda._sleep(n)`` spins n clock64()
+    cycles, timed here with CUDA events (median of 5)."""
+    import torch
+
+    n, rates = 20_000_000, []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(n)
+        e.record()
+        e.synchronize()
+        rates.append(n / s.elapsed_time(e))
+    return statistics.median(rates)
+
+
+def back_to_back_ms(fn, cycles_per_ms: float, n: int = 200):
+    """Device time per call of ``n`` calls enqueued back to back between one
+    event pair, ms.  A ``torch.cuda._sleep`` in front holds the stream
+    until all n are enqueued, so the events see the device's work and not
+    the host's Python; returns (ms per call, sleep covered the enqueue)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        fn()
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+    torch.cuda.synchronize()
+    hold_ms = 3 * n * host_ms + 1
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        s.record()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        enq_ms = (time.perf_counter() - t) * 1e3
+        e.record()
+        e.synchronize()
+        if enq_ms < hold_ms:
+            return s.elapsed_time(e) / n, True
+        hold_ms = 2 * enq_ms
+    return s.elapsed_time(e) / n, False
+
+
+def stamp_phases(launch, B: int, names, cycles_per_us: float, dev):
+    """Median over rows of each phase's clock64() cycles, from one stamped
+    launch after 3 warm ones; rows without a config (no stamps) are
+    skipped.  Returns {phase: (cycles, us)} plus the median and the
+    largest total of a row."""
+    import numpy as np
+    import torch
+
+    stamps = torch.zeros((B, 8), dtype=torch.int64, device=dev)
+    for _ in range(4):
+        stamps.zero_()
+        launch(stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().numpy()[:, :len(names) + 1]
+    st = st[(st > 0).all(axis=1)]
+    if not len(st):
+        raise AssertionError("the stamped launch wrote no stamps")
+    d = np.diff(st, axis=1)
+    out = {}
+    for k, name in enumerate(names):
+        cyc = float(np.median(d[:, k]))
+        out[name] = (cyc, cyc / cycles_per_us)
+    total = st[:, -1] - st[:, 0]
+    for name, cyc in (("total", np.median(total)), ("slowest row", total.max())):
+        out[name] = (float(cyc), float(cyc) / cycles_per_us)
+    return out
+
+
+def fmt_phases(ph) -> str:
+    return ", ".join(f"{k} {c:.0f} cyc / {u:.3f} us" for k, (c, u) in ph.items())
+
+
+PHASES = ("prologue", "leaves", "copy wait", "DFA walk", "circuit",
+          "verdict")
+
+
 def own_config_ops(params, K: int, LB: int):
     """Integer operations one request needs, per config: a row's output is
     only its own config's verdict, rule[E] and skipped[E], so it needs the
@@ -142,17 +271,16 @@ def own_config_ops(params, K: int, LB: int):
     from authorino_tpu_torch.compiler.compile import (
         OP_EXCL, OP_INCL, OP_REGEX_DFA)
 
-    fz, kp = params["fused"], params["kernel"]
+    fz = params["fused"]
     op = fz["leaf_op_i8"].cpu().numpy()
     L = op.size
     leaf_cost = np.where(np.isin(op, (OP_INCL, OP_EXCL)), K, 1)
     dfa_pos = (fz["leaf_dfa_pos"].cpu().numpy()
                if LB and fz.get("leaf_dfa_pos") is not None else None)
-    flat = kp["children"].cpu().numpy()
-    is_and = kp["is_and"].cpu().numpy()
-    node_children = []
-    for rows, width, off, _ in kp["level_meta"].cpu().numpy().tolist():
-        node_children.extend(flat[off:off + rows * width].reshape(rows, width))
+    node_children, is_and = [], []
+    for ch, ia in params["levels"]:
+        node_children.extend(ch.cpu().numpy())
+        is_and.extend(ia.cpu().numpy())
     cond = params["eval_cond"].cpu().numpy()
     rule = params["eval_rule"].cpu().numpy()
     has_cond = params["eval_has_cond"].cpu().numpy()
@@ -199,14 +327,13 @@ def kernel_work(params, db):
             return x.numel() * x.element_size()
         return 0
 
-    kp = params["kernel"]
     read = {k: params[k] for k in (
         "leaf_attr", "leaf_const", "member_slot_of_leaf", "cpu_scatter_idx",
         "eval_cond", "eval_rule", "eval_has_cond", "dfa_tables",
         "dfa_accept", "leaf_num_slot", "rel_bits", "leaf_rel_slot",
         "leaf_rel_col")}
     read["fused"] = params["fused"]
-    read["kernel"] = {k: kp[k] for k in ("children", "is_and", "level_meta")}
+    read["levels"] = params["levels"]
     B = db.attrs_val.shape[0]
     E = int(params["eval_rule"].shape[1])
     W = (1 + 2 * E + 7) // 8
@@ -246,6 +373,7 @@ def main() -> int:
     from authorino_tpu_torch.models.policy_model import host_results
     from authorino_tpu_torch.ops import _build
     from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops import operands
     from authorino_tpu_torch.ops.operands import defuse, fuse_batch, to_device
     from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
 
@@ -267,14 +395,14 @@ def main() -> int:
     log(f"built fused_kernel in {report['build_s']:.2f}s "
         f"(nvcc {report['nvcc_s']})")
     for line in _build.build_log("fused_kernel").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
     fk.fused_kernel_supported(dev)
     log("probe kernel: int32[4] + 1 round-trips")
 
     # ---- 3. kernel vs plain on the card -----------------------------------
     max_err = 0
-    n_cases = 0
+    n_cases = n_global = 0
     for seed in (7, 19, 31):
         cfgs = corpora.all_lanes_corpus(seed)
         docs = corpora.all_lanes_docs(seed, 64)
@@ -284,26 +412,55 @@ def main() -> int:
             policy = compile_corpus(cfgs, members_k=corpora.LANES_K,
                                     ovf_assist=assist)
             params = to_device(policy, device=dev)
+            if not fk.tables_in_smem(params):
+                raise AssertionError("all-lanes tables should fit in smem")
             rows = [policy.config_ids[n] for n in names]
             db = pack_batch(policy, encode_batch(policy, docs, rows))
             for d in (db, corpora.widen_wire(db)):
                 max_err = max(max_err, kernel_vs_plain(params, d, dev))
+                max_err = max(max_err, kernel_vs_plain(
+                    params, d, dev, global_tables=True))
                 n_cases += 1
-    log(f"all-lanes corpus: {n_cases} cases byte-equal to plain (tolerance 0)")
+                n_global += 1
+    log(f"all-lanes corpus: {n_cases} cases byte-equal to plain, and "
+        f"{n_global} with the global-tables instance forced (tolerance 0)")
+    policy = compile_corpus(corpora.wide_config_corpus(),
+                            members_k=corpora.LANES_K)
+    params = to_device(policy, device=dev)
+    docs = corpora.wide_config_docs()
+    db = pack_batch(policy, encode_batch(policy, docs,
+                                         [i % 2 for i in range(len(docs))]))
+    for instance in ({}, {"global_tables": True}):
+        max_err = max(max_err, kernel_vs_plain(params, db, dev, **instance))
+    log("a config past 64 slots (shared-memory circuit) beside a small one: "
+        "byte-equal to plain (tolerance 0)")
 
     t = time.monotonic()
     ns_cfgs = northstar.build_corpus(1000, 10)
     ns_policy = compile_corpus(ns_cfgs, members_k=16)
     ns_params = to_device(ns_policy, device=dev)
     report["northstar_compile_upload_s"] = time.monotonic() - t
+    ns_tree = to_device(ns_policy, host=True)
+    build_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        prog = operands._kernel_layout(ns_tree)
+        build_ms.append((time.perf_counter() - t) * 1e3)
+    prog_bytes = {k: int(v.nbytes) for k, v in prog.items()
+                  if isinstance(v, np.ndarray)}
+    kp = ns_params["kernel"]
     report["northstar_shapes"] = {
         "L": ns_policy.n_leaves, "A": ns_policy.n_attrs,
         "G": ns_policy.n_configs, "E": int(ns_policy.eval_rule.shape[1]),
         "levels": [list(c.shape) for c, _ in ns_policy.levels],
-        "buf_size": int(ns_params["kernel"]["buf_size"]),
+        "max_local": kp["max_local"],
         "smem_bytes": fk.smem_bytes(ns_params),
+        "tables_in_smem": fk.tables_in_smem(ns_params),
         "dfa_rows": int(ns_policy.dfa_table_of_row.shape[0]),
-        "dfa_tables": list(ns_policy.dfa_tables.shape)}
+        "dfa_tables": list(ns_policy.dfa_tables.shape),
+        "program_bytes": prog_bytes,
+        "program_bytes_total": sum(prog_bytes.values()),
+        "program_build_ms_median": statistics.median(build_ms)}
     log(f"north-star corpus compiled + uploaded in "
         f"{report['northstar_compile_upload_s']:.1f}s: "
         f"{report['northstar_shapes']}")
@@ -319,9 +476,12 @@ def main() -> int:
             if db.attr_bytes.shape[2] != LB:
                 raise AssertionError(f"LB {db.attr_bytes.shape[2]} != {LB}")
             max_err = max(max_err, kernel_vs_plain(ns_params, db, dev))
+            max_err = max(max_err, kernel_vs_plain(ns_params, db, dev,
+                                                   global_tables=True))
             batches[(B, LB)] = db
     log("north-star corpus: B in {16, 256} x LB in {16, 64} byte-equal "
-        "to plain (tolerance 0)")
+        "to plain (tolerance 0), with tables in shared memory and with the "
+        "global-tables instance forced")
 
     # ---- 4. the main path -------------------------------------------------
     engine_entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c)
@@ -364,13 +524,53 @@ def main() -> int:
         f"all verdicts equal the oracle ({allowed} allowed)")
 
     # ---- 5. numbers -------------------------------------------------------
+    cycles_per_ms = sleep_cycles_per_ms()
+    report["sm_clock_mhz"] = cycles_per_ms / 1e3
+    log(f"[{card}] SM clock under a spin: {cycles_per_ms / 1e3:.0f} MHz")
+
+    shapes = {}
+    for (B, LB) in ((256, 16), (256, 64), (16, 16)):
+        db = batches[(B, LB)]
+        buf, layout = fuse_batch(db)
+        buf_dev = torch.from_numpy(buf).to(dev)
+        kout = torch.empty((B, W), dtype=torch.uint8, device=dev)
+        fig = {}
+        for name, global_tables in (("smem_tables", False),
+                                    ("global_tables", True)):
+            fn = (lambda g=global_tables: fk.launch_kernel(
+                ns_params, buf_dev, layout, kout, global_tables=g))
+            per_call, host = device_times_ms(fn, 100)
+            b2b, covered = back_to_back_ms(fn, cycles_per_ms)
+            fig[name] = {
+                "per_call_ms": statistics.median(per_call),
+                "per_call_ms_min": min(per_call), "host_enqueue_ms": host,
+                "back_to_back_ms": b2b, "covered": covered}
+        fig["stamps"] = stamp_phases(
+            lambda stp: fk.launch_stamped(ns_params, buf_dev, layout, kout,
+                                          stp),
+            B, PHASES, cycles_per_ms / 1e3, dev)
+        shapes[f"B{B}_LB{LB}"] = fig
+        log(f"[{card}] v3 B={B} LB={LB}: " + "; ".join(
+            f"{k} {v['per_call_ms']:.4f} ms/call {v['back_to_back_ms']:.4f} "
+            f"ms back to back" for k, v in fig.items() if k != "stamps"))
+        log(f"[{card}] v3 stamps B={B} LB={LB}: "
+            f"{fmt_phases(fig['stamps'])}")
+    report["v3_shapes"] = shapes
+
     db = batches[(256, 16)]
     buf, layout = fuse_batch(db)
     host_buf = torch.from_numpy(buf).pin_memory()
     buf_dev = host_buf.to(dev)
     kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
-    k_ms, k_host = device_times_ms(
-        lambda: fk.launch_kernel(ns_params, buf_dev, layout, kout), 100)
+    launch = (lambda: fk.launch_kernel(ns_params, buf_dev, layout, kout))
+    k_ms, _ = device_times_ms(launch, 100)
+    # the same wrapper with its words cache dropped before every launch:
+    # each launch rebuilds the argument block and re-checks every param
+    enq = enqueue_ms({
+        "cached": launch,
+        "rebuilt": lambda: (fk.forget_launch_words(ns_params), launch())})
+    k_host, k_host_rebuilt = enq["cached"], enq["rebuilt"]
+    k_b2b, _ = back_to_back_ms(launch, cycles_per_ms)
     p_ms, p_host = device_times_ms(
         lambda: fk.fused_packed_plain(ns_params, defuse(buf_dev, layout)), 30)
     host_out = torch.empty((256, W), dtype=torch.uint8, pin_memory=True)
@@ -392,6 +592,8 @@ def main() -> int:
     if pr_err != 0:
         raise AssertionError(f"probe kernel disagrees with plain by {pr_err}")
     pr_ms, pr_host = device_times_ms(lambda: fk.launch_probe(probe_x), 100)
+    pr_b2b, _ = back_to_back_ms(lambda: fk.launch_probe(probe_x),
+                                cycles_per_ms)
     prp_ms, _ = device_times_ms(lambda: fk.probe_plain(probe_x), 100)
     pr_bound, pr_by = bound_ms(32, 4)
 
@@ -414,7 +616,9 @@ def main() -> int:
         "kernel_ms_median": statistics.median(k_ms),
         "kernel_ms_min": min(k_ms),
         "kernel_launches_timed": len(k_ms),
+        "kernel_back_to_back_ms": k_b2b,
         "kernel_host_enqueue_ms_median": k_host,
+        "kernel_host_enqueue_rebuilt_ms_median": k_host_rebuilt,
         "plain_ms_median": statistics.median(p_ms),
         "plain_host_enqueue_ms_median": p_host,
         "h2d_d2h_ms_median": statistics.median(x_ms),
@@ -423,6 +627,7 @@ def main() -> int:
         "kernel_bytes_moved": moved, "kernel_int_ops": ops,
         "bound_ms": k_bound, "bound_by": k_by,
         "probe_ms_median": statistics.median(pr_ms),
+        "probe_back_to_back_ms": pr_b2b,
         "probe_host_enqueue_ms_median": pr_host,
         "probe_plain_ms_median": statistics.median(prp_ms),
         "engine_decisions_per_s": rates,
@@ -434,12 +639,16 @@ def main() -> int:
     }
     report["numbers"] = numbers
     log(f"[{card}] mega-kernel B=256 LB=16: {numbers['kernel_ms_median']:.4f} "
-        f"ms median of {len(k_ms)} (bound {k_bound:.6f} ms by {k_by}: "
+        f"ms median of {len(k_ms)} one-call timings, {k_b2b:.4f} ms per "
+        f"launch back to back (bound {k_bound:.7f} ms by {k_by}: "
         f"{moved} B, {ops} int ops); plain {numbers['plain_ms_median']:.3f} "
         f"ms; H2D {buf.size} B + D2H {256 * W} B "
         f"{numbers['h2d_d2h_ms_median']:.4f} ms; host enqueue of one launch "
-        f"{k_host:.4f} ms; one batch through the wrapper "
+        f"{k_host:.4f} ms (words rebuilt per launch: {k_host_rebuilt:.4f} "
+        f"ms); one batch through the wrapper "
         f"{numbers['wrapper_batch_wall_ms_median']:.4f} ms wall")
+    log(f"[{card}] probe: {numbers['probe_ms_median']:.4f} ms one-call, "
+        f"{pr_b2b:.4f} ms per launch back to back")
     log(f"[{card}] engine: {numbers['engine_decisions_per_s_median']:.0f} "
         f"decisions/s (runs {[round(r) for r in rates]}), batch latency "
         f"p50 {numbers['batch_latency_ms_p50']:.2f} ms p99 "
@@ -448,14 +657,14 @@ def main() -> int:
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
-         "replaces": "authorino_tpu/ops/fused_kernel.py:205",
+         "replaces": "authorino_tpu/ops/fused_kernel.py:237",
          "launches": main_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
-         "replaces": "authorino_tpu/ops/fused_kernel.py:247",
+         "replaces": "authorino_tpu/ops/fused_kernel.py:259",
          "launches": main_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,

@@ -21,7 +21,8 @@ from authorino_tpu_torch.compiler.pack import pack_batch
 from authorino_tpu_torch.models import PolicyModel, corpora, northstar
 from authorino_tpu_torch.models.policy_model import host_results
 from authorino_tpu_torch.ops import fused_kernel as fk
-from authorino_tpu_torch.ops.operands import to_device
+from authorino_tpu_torch.ops.operands import (check_batch, fuse_batch,
+                                              packed_width, to_device)
 from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
 
 pytestmark = pytest.mark.cuda
@@ -43,29 +44,83 @@ def lanes_case(seed, assist):
     return policy, docs, rows
 
 
+# how a case launches the kernel: through the wrapper as the engine does
+# (DFA tables in shared memory), or with the instance that reads the tables
+# from device memory forced
+INSTANCES = {"wrapper": None, "global_tables": {"global_tables": True}}
+
+
+def launch(params, db, instance, dev):
+    """One kernel launch on ``db``; returns the [B, W] readback."""
+    if INSTANCES[instance] is None:
+        return fk.eval_fused_kernel(params, db)
+    check_batch(params, db)
+    buf, layout = fuse_batch(db)
+    out = torch.empty((db.attrs_val.shape[0],
+                       packed_width(1 + 2 * params["eval_rule"].shape[1])),
+                      dtype=torch.uint8, device=dev)
+    fk.launch_kernel(params, torch.from_numpy(buf).to(dev), layout, out,
+                     **INSTANCES[instance])
+    return out
+
+
+@pytest.mark.parametrize("instance", ["wrapper", "global_tables"])
 @pytest.mark.parametrize("seed", [7, 19, 31])
 @pytest.mark.parametrize("assist", [True, False])
 @pytest.mark.parametrize("wide", [False, True])
-def test_kernel_matches_plain_on_all_lanes(card, seed, assist, wide):
+def test_kernel_matches_plain_on_all_lanes(card, seed, assist, wide,
+                                           instance):
     policy, docs, rows = lanes_case(seed, assist)
     db = pack_batch(policy, encode_batch(policy, docs, rows, batch_pad=33))
     db = corpora.widen_wire(db) if wide else db
     l0 = fk.launches
-    got = fk.eval_fused_kernel(to_device(policy, device=card), db)
+    got = launch(to_device(policy, device=card), db, instance, card)
     assert fk.launches - l0 == 1
     want = fk.eval_fused_kernel(to_device(policy, device="cpu"), db)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("B,LB", [(16, 16), (256, 64)])
-def test_kernel_matches_plain_on_northstar(card, B, LB):
+def mixed_rows(params, B):
+    """Row configs alternating between the corpus's smallest and largest
+    subcircuits, so every block holds rows of unequal sizes."""
+    off = params["kernel"]["cfg_off"].cpu().numpy()
+    size = np.diff(off[:, 0]) + np.diff(off[:, 1]) + np.diff(off[:, 2])
+    order = np.argsort(size, kind="stable")
+    small, large = order[:B // 2], order[::-1][:B - B // 2]
+    rows = np.empty(B, dtype=np.int64)
+    rows[0::2], rows[1::2] = small[:(B + 1) // 2], large[:B // 2]
+    assert size[rows[0::2]].max() < size[rows[1::2]].min()
+    return rows.tolist()
+
+
+@pytest.mark.parametrize("B,LB,instance,mixed", [
+    (16, 16, "wrapper", False), (256, 64, "wrapper", False),
+    (16, 16, "global_tables", False), (256, 64, "global_tables", False),
+    (64, 16, "wrapper", True)])
+def test_kernel_matches_plain_on_northstar(card, B, LB, instance, mixed):
     policy = compile_corpus(northstar.build_corpus(200, 10), members_k=16)
+    params = to_device(policy, device=card)
     docs = northstar.build_docs(B, seed=B)
-    rows = [i % policy.n_configs for i in range(B)]
+    rows = (mixed_rows(params, B) if mixed
+            else [i % policy.n_configs for i in range(B)])
     db = pack_batch(policy, encode_batch(policy, docs, rows),
                     trim_bytes=LB == 16)
     assert db.attr_bytes.shape[2] == LB
-    got = fk.eval_fused_kernel(to_device(policy, device=card), db)
+    got = launch(params, db, instance, card)
+    want = fk.eval_fused_kernel(to_device(policy, device="cpu"), db)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("instance", ["wrapper", "global_tables"])
+def test_kernel_matches_plain_past_a_64_slot_row(card, instance):
+    """A config past 64 slots runs its circuit in shared memory, beside a
+    small one on the register path, rows of both in each block."""
+    policy = compile_corpus(corpora.wide_config_corpus(),
+                            members_k=corpora.LANES_K)
+    docs = corpora.wide_config_docs()
+    db = pack_batch(policy, encode_batch(
+        policy, docs, [i % 2 for i in range(len(docs))]))
+    got = launch(to_device(policy, device=card), db, instance, card)
     want = fk.eval_fused_kernel(to_device(policy, device="cpu"), db)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
