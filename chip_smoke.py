@@ -24,8 +24,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      per-phase clock64() stamps of the instrumented instance; the
      per-config program's size and host build time; the wrapper's host
      enqueue with its words cached and rebuilt; plain-version and
-     transfer times; the probe's times; the engine's decisions/s and
-     batch latency.
+     transfer times; the probe's times and that of ``x + 1``; the
+     engine's submit-only decisions/s and batch latency;
+  6. the Check() request path: 1,000 north-star AuthConfigs (v1beta2
+     specs, a plain identity over Envoy's jwt_authn claims) and the V2
+     config of the control-plane tests translated with a card engine and
+     installed in one snapshot; 4,096 concurrent ``engine.check()`` calls
+     plus the V2 checks (with and without a key, an admin path, OPTIONS,
+     ``host:port``, an unknown host), every result held to the expression
+     oracle with its deny provenance, one launch per batch and a pad × W
+     readback; then checks/s (median of 3 runs) and per-Check() latency
+     p50/p99 beside the batch count, rows per batch and phase 5's
+     submit-only decisions/s, and the latency of a lone Check() (200
+     sent one at a time).  The kernels' launch counts in the summary
+     are this phase's.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -309,41 +321,47 @@ def own_config_ops(params, K: int, LB: int):
 
 
 def kernel_work(params, db):
-    """Bytes the kernel must move (each input once, the output once) and
-    the integer operations this batch's rows need (``own_config_ops`` of
-    each row's config; a pad row with no config needs none)."""
+    """Bytes the kernel must move and the integer operations this batch's
+    rows need, both by the own-config rule (a row's output is only its own
+    config's verdict, so it reads only its own config's program).
+
+    Bytes, each read once: the staging buffer but its ``cpu_dense`` block;
+    the ``cpu_dense`` columns the rows' own CPU-lane leaves read; the
+    program of each config present in the batch (its ``cfg_off`` row, its
+    leaf, node, DFA-row, child and level-end records and its evaluator
+    words); the DFA image when a present config reads a DFA row; the
+    [B, W] output.  Operations: ``own_config_ops`` of each row's config.
+    A pad row with no config needs neither."""
     import numpy as np
 
     from authorino_tpu_torch.ops.operands import staged_h2d_bytes
 
-    def nbytes(x):
-        if x is None:
-            return 0
-        if isinstance(x, dict):
-            return sum(nbytes(v) for k, v in x.items())
-        if isinstance(x, tuple):
-            return sum(nbytes(v) for v in x)
-        if hasattr(x, "element_size"):
-            return x.numel() * x.element_size()
-        return 0
-
-    read = {k: params[k] for k in (
-        "leaf_attr", "leaf_const", "member_slot_of_leaf", "cpu_scatter_idx",
-        "eval_cond", "eval_rule", "eval_has_cond", "dfa_tables",
-        "dfa_accept", "leaf_num_slot", "rel_bits", "leaf_rel_slot",
-        "leaf_rel_col")}
-    read["fused"] = params["fused"]
-    read["levels"] = params["levels"]
-    B = db.attrs_val.shape[0]
-    E = int(params["eval_rule"].shape[1])
+    kp = params["kernel"]
+    off = kp["cfg_off"].cpu().numpy().astype(np.int64)
+    cpu_col = kp["leaf_rec"].cpu().numpy()[:, 3]
+    G, E = params["eval_rule"].shape
+    cid = np.asarray(db.config_id, dtype=np.int64)
+    own = cid[(cid >= 0) & (cid < G)]
+    present = np.unique(own)
+    count = off[present + 1, :5] - off[present, :5]
+    leaves, nodes, dfa_rows, levels, kids = count.sum(axis=0)
+    program = (present.size * (off.shape[1] * 4 + E * 4)
+               + 16 * (leaves + nodes + dfa_rows) + 4 * (kids + levels))
+    image = kp["dfa_image"]
+    if dfa_rows and image is not None:
+        program += image.numel()
+    cpu_cols = np.array([int((cpu_col[off[g, 0]:off[g + 1, 0]] >= 0).sum())
+                         for g in range(G)], dtype=np.int64)
+    staging = staged_h2d_bytes(db)
+    if db.cpu_dense is not None:
+        staging += (int(cpu_cols[own].sum()) * db.cpu_dense.itemsize
+                    - db.cpu_dense.nbytes)
     W = (1 + 2 * E + 7) // 8
-    moved = staged_h2d_bytes(db) + nbytes(read) + B * W
+    moved = staging + int(program) + db.attrs_val.shape[0] * W
 
     has_dfa = params["dfa_tables"] is not None and db.attr_bytes is not None
     per_config = own_config_ops(params, db.members_c.shape[2],
                                 db.attr_bytes.shape[2] if has_dfa else 0)
-    cid = np.asarray(db.config_id, dtype=np.int64)
-    own = cid[(cid >= 0) & (cid < per_config.size)]
     return int(moved), int(per_config[own].sum())
 
 
@@ -356,6 +374,196 @@ def bound_ms(moved: int, ops: int):
 async def serve(engine, docs, names):
     return await asyncio.gather(*(engine.submit(d, n)
                                   for d, n in zip(docs, names)))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the Check() request path
+# ---------------------------------------------------------------------------
+
+# the AuthConfig of the control-plane tests: an API key from a cluster
+# Secret with an anonymous fallback, a named pattern, a top-level `when`, a
+# custom `unauthorized` and a json success header
+V2_HOST = "talker-api.example.com"
+V2_SPEC = {
+    "hosts": [V2_HOST],
+    "patterns": {"admin-path": [{"selector": "request.url_path",
+                                 "operator": "matches", "value": "^/admin"}]},
+    "when": [{"selector": "request.method", "operator": "neq",
+              "value": "OPTIONS"}],
+    "authentication": {
+        "api-clients": {
+            "apiKey": {"selector": {"matchLabels": {"audience": "talker-api"}}},
+            "credentials": {"authorizationHeader": {"prefix": "APIKEY"}}},
+        "anon": {"anonymous": {}, "priority": 1},
+    },
+    "authorization": {"admin-only": {
+        "patternMatching": {"patterns": [{"any": [
+            {"selector": "auth.identity.metadata.labels.role",
+             "operator": "eq", "value": "admin"},
+            {"selector": "auth.identity.anonymous", "operator": "neq",
+             "value": "true"}]}]},
+        "when": [{"patternRef": "admin-path"}]}},
+    "response": {
+        "unauthorized": {"code": 302, "message": {"value": "redirect"}},
+        "success": {"headers": {"x-auth": {"json": {"properties": {
+            "user": {"selector": "auth.identity.anonymous"}}}}}},
+    },
+}
+V2_KEY = {"authorization": "APIKEY secret-key-1"}
+# (host, method, path, headers) -> (code, HTTP status override, message)
+V2_CHECKS = [
+    ((V2_HOST, "GET", "/admin/x", V2_KEY), (0, 0, "")),
+    ((V2_HOST, "GET", "/admin/x", {}), (7, 302, "redirect")),
+    ((V2_HOST, "GET", "/public", {}), (0, 0, "")),
+    ((V2_HOST, "OPTIONS", "/admin/x", {}), (0, 0, "")),
+    ((V2_HOST + ":8000", "GET", "/admin/x", V2_KEY), (0, 0, "")),
+    (("unknown.example.com", "GET", "/admin/x", V2_KEY),
+     (5, 0, "Service not found")),
+]
+
+
+async def timed_checks(engine, requests):
+    """Every request's Check() at once; (result, seconds) per request."""
+    async def one(req):
+        t = time.perf_counter()
+        res = await engine.check(req)
+        return res, time.perf_counter() - t
+
+    return await asyncio.gather(*(one(r) for r in requests))
+
+
+def request_path(report: dict, card: str) -> dict:
+    """Phase 6: translate 1,000 north-star AuthConfigs and the V2 config
+    with a card engine, install them in one snapshot, answer 4,096
+    concurrent north-star Check()s and the V2 checks, hold every result to
+    the expression oracle, then time three more runs.  Returns the kernel
+    launch counts of the checked run (counts zeroed just before it)."""
+    import numpy as np
+
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes,
+                                              build_authorization_json)
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.k8s import InMemoryCluster, Secret
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.utils import rpc
+
+    acs = northstar.build_auth_configs(1000, 10)
+    rules = [c.evaluators[0][1] for c in northstar.build_corpus(1000, 10)]
+    ns_reqs = northstar.build_check_requests(4096, 1000)
+    v2_reqs = [CheckRequestModel(http=HttpRequestAttributes(
+        method=m, path=path, host=h, headers=dict(hd)))
+        for (h, m, path, hd), _ in V2_CHECKS]
+    cluster = InMemoryCluster()
+    cluster.put_secret(Secret(
+        name="client-1", namespace="tenant",
+        labels={"audience": "talker-api", "role": "admin"},
+        data={"api_key": b"secret-key-1"}))
+
+    fk.reset_counts()
+    engine = PolicyEngine(max_batch=256)
+
+    async def translate_all():
+        entries = [await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in acs]
+        entries.append(await translate_auth_config(
+            "ac", "tenant", V2_SPEC, cluster=cluster, engine=engine))
+        return entries
+
+    t = time.perf_counter()
+    entries = asyncio.run(translate_all())
+    t_translate = time.perf_counter() - t
+    t = time.perf_counter()
+    engine.apply_snapshot(entries)
+    t_install = time.perf_counter() - t
+    t = time.perf_counter()
+    out = asyncio.run(timed_checks(engine, ns_reqs + v2_reqs))
+    first_wall = time.perf_counter() - t
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+
+    st = dict(engine.stats)
+    W = engine._snapshot.policy.fused_pack_w
+    if st["failed_batches"]:
+        raise AssertionError(f"{st['failed_batches']} batches failed: {st}")
+    if not (st["launches"] == st["batches"] == fk.launches):
+        raise AssertionError(f"launches {fk.launches} vs batches {st}")
+    if st["d2h_bytes"] != st["pad_rows"] * W:
+        raise AssertionError(f"D2H {st['d2h_bytes']} != pad x W ({st})")
+    if fk.probe_launches < 1:
+        raise AssertionError("probe kernel did not run at snapshot install")
+
+    jwt = northstar.JWT_FILTER
+    allowed = 0
+    for k, (req, (res, _)) in enumerate(zip(ns_reqs, out)):
+        if res.code == rpc.UNAVAILABLE:
+            raise AssertionError(f"check {k} answered UNAVAILABLE: {res}")
+        i = int(req.http.host.split(".")[0][len("svc-"):])
+        claims = req.metadata_context["filter_metadata"][jwt]["verified_jwt"]
+        doc = build_authorization_json(req, {"identity": claims})
+        if rules[i].matches(doc):
+            want = (rpc.OK, 0, "", {})
+            allowed += 1
+        else:
+            want = (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
+                "ext_authz_provenance": {
+                    "authconfig": f"{northstar.NAMESPACE}/cfg-{i}",
+                    "rule_index": 0, "rule": str(rules[i]),
+                    "lane": "engine"}})
+        got = (res.code, res.status, res.message, res.metadata)
+        if got != want:
+            raise AssertionError(f"check {k} on cfg-{i}: {got} != oracle "
+                                 f"{want}")
+    for ((host, *_), want), (res, _) in zip(V2_CHECKS, out[len(ns_reqs):]):
+        if (res.code, res.status, res.message) != want:
+            raise AssertionError(f"V2 check on {host}: {res} != {want}")
+    log(f"request path: 1001 AuthConfigs translated in {t_translate:.2f}s, "
+        f"installed in {t_install:.2f}s; {len(out)} concurrent Check()s -> "
+        f"{st['batches']} batches, {fk.launches} mega-kernel launches, "
+        f"{fk.probe_launches} probe, D2H {st['d2h_bytes']} B = pad "
+        f"{st['pad_rows']} x W {W}; every code equals the oracle "
+        f"({allowed} of 4096 north-star allowed, every denial attributed), "
+        f"the V2 checks as expected (NOT_FOUND for the unknown host, "
+        f":port stripped)")
+
+    runs = []
+    for _ in range(3):
+        b0, r0 = engine.stats["batches"], engine.stats["rows"]
+        t = time.perf_counter()
+        timed = asyncio.run(timed_checks(engine, ns_reqs))
+        wall = time.perf_counter() - t
+        runs.append({"checks_per_s": len(ns_reqs) / wall,
+                     "latency_s": [x for _, x in timed],
+                     "batches": engine.stats["batches"] - b0,
+                     "rows": engine.stats["rows"] - r0})
+    lat = np.sort(np.concatenate([r["latency_s"] for r in runs])) * 1e3
+    rates = [r["checks_per_s"] for r in runs]
+
+    async def one_at_a_time(reqs):
+        return [(await timed_checks(engine, [r]))[0][1] for r in reqs]
+
+    # a lone Check(): nothing else in flight, a batch of one row
+    lone = np.sort(asyncio.run(one_at_a_time(ns_reqs[:200]))) * 1e3
+    n_batches = sum(r["batches"] for r in runs)
+    numbers = {
+        "card": card, "configs": len(entries), "checks": len(out),
+        "translate_s": t_translate, "install_s": t_install,
+        "first_run_wall_s": first_wall, "allowed": allowed,
+        "stats_checked_run": st,
+        "checks_per_s": rates,
+        "checks_per_s_median": statistics.median(rates),
+        "check_latency_ms_p50": float(np.percentile(lat, 50)),
+        "check_latency_ms_p99": float(np.percentile(lat, 99)),
+        "batches_timed": n_batches,
+        "mean_rows_per_batch": sum(r["rows"] for r in runs) / n_batches,
+        "lone_check_latency_ms_p50": float(np.percentile(lone, 50)),
+        "lone_check_latency_ms_p99": float(np.percentile(lone, 99)),
+    }
+    report["request_path"] = numbers
+    return launches
 
 
 def main() -> int:
@@ -595,6 +803,8 @@ def main() -> int:
     pr_b2b, _ = back_to_back_ms(lambda: fk.launch_probe(probe_x),
                                 cycles_per_ms)
     prp_ms, _ = device_times_ms(lambda: fk.probe_plain(probe_x), 100)
+    # the one PyTorch call that computes the probe's function
+    prl_ms, _ = device_times_ms(lambda: probe_x + 1, 100)
     pr_bound, pr_by = bound_ms(32, 4)
 
     # engine throughput: three more 4,096-request runs on the warm engine
@@ -630,6 +840,7 @@ def main() -> int:
         "probe_back_to_back_ms": pr_b2b,
         "probe_host_enqueue_ms_median": pr_host,
         "probe_plain_ms_median": statistics.median(prp_ms),
+        "probe_library_ms_median": statistics.median(prl_ms),
         "engine_decisions_per_s": rates,
         "engine_decisions_per_s_median": statistics.median(rates),
         "batch_latency_ms_p50": pct(lat, 0.50) * 1e3,
@@ -654,25 +865,41 @@ def main() -> int:
         f"p50 {numbers['batch_latency_ms_p50']:.2f} ms p99 "
         f"{numbers['batch_latency_ms_p99']:.2f} ms over {len(lat)} batches")
 
+    # ---- 6. the Check() request path --------------------------------------
+    path_launches = request_path(report, card)
+    rp = report["request_path"]
+    log(f"[{card}] request path: {rp['checks_per_s_median']:.0f} checks/s "
+        f"median of 3 runs ({[round(r) for r in rp['checks_per_s']]}), "
+        f"per-Check() latency p50 {rp['check_latency_ms_p50']:.2f} ms p99 "
+        f"{rp['check_latency_ms_p99']:.2f} ms; {rp['batches_timed']} "
+        f"batches, {rp['mean_rows_per_batch']:.1f} rows per batch; a lone "
+        f"Check() p50 {rp['lone_check_latency_ms_p50']:.3f} ms p99 "
+        f"{rp['lone_check_latency_ms_p99']:.3f} ms (200 one at a time); the "
+        f"engine's submit alone in this run: "
+        f"{numbers['engine_decisions_per_s_median']:.0f} decisions/s")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": main_launches["fused_megakernel"],
+         "launches": path_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": main_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": path_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
-         "bound_by": pr_by, "library_ms": None},
+         "bound_by": pr_by,
+         "library_ms": numbers["probe_library_ms_median"]},
     ]
-    for k in kernels:
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never launched on the main path")
+    for name in main_launches:
+        if main_launches[name] < 1 or path_launches[name] < 1:
+            raise AssertionError(
+                f"{name} never launched on a path: engine {main_launches}, "
+                f"request path {path_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

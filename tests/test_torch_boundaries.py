@@ -157,3 +157,129 @@ def test_build_dir_is_ignored_by_git():
     assert "authorino_tpu_torch/_build/" in ignore
     assert _build.BUILD_DIR == ROOT / "authorino_tpu_torch" / "_build"
     assert np.all([p.suffix in (".cu",) for p in _build.CSRC_DIR.iterdir()])
+
+
+# ---- the Check() request path ----------------------------------------------
+
+BLOCKED = ("jax", "authorino_tpu", "grpc", "google.protobuf", "aiohttp",
+           "cryptography", "prometheus_client", "yaml")
+
+
+def test_request_path_runs_without_the_reference_or_its_services():
+    """Every module of the port imports, and an anonymous and a
+    plain-identity Check() are answered on the CPU, in a process where
+    JAX, the JAX package and the serving and crypto libraries cannot be
+    imported: the card's machine has none of them."""
+    mods = port_modules()
+    for m in ("pipeline.pipeline", "controllers.translate", "index.index",
+              "evaluators.identity.api_key", "utils.metrics", "k8s.client",
+              "runtime.provenance", "authjson.wellknown"):
+        assert f"authorino_tpu_torch.{m}" in mods, m
+    code = (
+        "import importlib, sys, asyncio\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from authorino_tpu_torch.authjson import CheckRequestModel, "
+        "HttpRequestAttributes\n"
+        "from authorino_tpu_torch.controllers import translate_auth_config\n"
+        "from authorino_tpu_torch.runtime import PolicyEngine\n"
+        "rule = {'patternMatching': {'patterns': [{'selector': "
+        "'auth.identity.org', 'operator': 'eq', 'value': 'acme'}]}}\n"
+        "anon = {'hosts': ['anon.test'], 'authentication': "
+        "{'a': {'anonymous': {}}}, 'authorization': {'r': {"
+        "'patternMatching': {'patterns': [{'selector': 'request.method', "
+        "'operator': 'eq', 'value': 'GET'}]}}}}\n"
+        "plain = {'hosts': ['plain.test'], 'authentication': {'p': {'plain': "
+        "{'selector': 'request.headers.x-claims|@fromstr'}}}, "
+        "'authorization': {'r': rule}}\n"
+        "async def main():\n"
+        "    engine = PolicyEngine(device='cpu')\n"
+        "    engine.apply_snapshot([\n"
+        "        await translate_auth_config('anon', 'ns', anon, engine=engine),\n"
+        "        await translate_auth_config('plain', 'ns', plain, engine=engine)])\n"
+        "    def req(host, **h):\n"
+        "        return CheckRequestModel(http=HttpRequestAttributes(\n"
+        "            method='GET', path='/', host=host, headers=h))\n"
+        "    out = [await engine.check(req('anon.test')),\n"
+        "           await engine.check(req('plain.test', **{'x-claims': "
+        "'{\"org\": \"acme\"}'})),\n"
+        "           await engine.check(req('plain.test', **{'x-claims': "
+        "'{\"org\": \"evil\"}'}))]\n"
+        "    return [r.code for r in out], engine.stats\n"
+        "codes, stats = asyncio.run(main())\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None and "
+        f"any(m == b or m.startswith(b + '.') for b in {BLOCKED!r}))\n"
+        "print('CODES', codes, stats['plain_calls'], stats['batches'], "
+        "'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CODES [0, 0, 7] 3 3 BAD []" in proc.stdout, proc.stdout
+
+
+def _failing_launch(monkeypatch, where):
+    def launch_raises(params, db):
+        raise RuntimeError("kernel launch failed: secret detail")
+
+    class BrokenReadback:
+        nbytes = 0
+
+        def is_ready(self):
+            return True
+
+        def wait(self):
+            raise RuntimeError("readback failed: secret detail")
+
+    real = p_fk.dispatch_megakernel
+
+    def readback_raises(params, db):
+        handle = real(params, db)
+        broken = BrokenReadback()
+        broken.nbytes = handle.nbytes
+        return broken
+
+    monkeypatch.setattr(p_fk, "dispatch_megakernel",
+                        launch_raises if where == "launch" else readback_raises)
+
+
+@pytest.mark.parametrize("where", ["launch", "readback"])
+def test_batch_failure_answers_unavailable_not_a_denial(monkeypatch, where):
+    """A batch that fails resolves every Check() in it as the typed
+    UNAVAILABLE the reference engine's ``_resolve_error`` gives, counts the
+    batch in ``failed_batches``, and neither denies with the exception's
+    text nor falls back to another lane."""
+    import asyncio
+
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.utils.rpc import UNAVAILABLE
+
+    spec = {"hosts": ["f.test"], "authentication": {"a": {"anonymous": {}}},
+            "authorization": {"r": {"patternMatching": {"patterns": [
+                {"selector": "request.method", "operator": "eq",
+                 "value": "GET"}]}}}}
+    engine = PolicyEngine(max_batch=4, device="cpu")
+
+    async def body():
+        engine.apply_snapshot([await translate_auth_config(
+            "f", "ns", spec, engine=engine)])
+        _failing_launch(monkeypatch, where)
+        req = CheckRequestModel(http=HttpRequestAttributes(
+            method="GET", path="/", host="f.test"))
+        return await asyncio.gather(*(engine.check(req) for _ in range(6)))
+
+    loop = asyncio.new_event_loop()
+    try:
+        results = loop.run_until_complete(body())
+    finally:
+        loop.close()
+    for r in results:
+        assert (r.code, r.message) == (UNAVAILABLE,
+                                       "policy evaluation unavailable")
+        assert "secret detail" not in repr(r)
+    st = engine.stats
+    assert st["failed_batches"] == 2  # 6 checks, max_batch 4
+    assert st["host_fallback"] == 0

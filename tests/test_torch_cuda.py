@@ -160,3 +160,29 @@ def test_engine_one_launch_per_batch(card):
         own, _, w_skip = host_results(policy, d, policy.config_ids[n])
         assert bool(np.all(rule | skipped)) == own
         assert skipped.tolist() == w_skip.tolist()
+
+
+def test_check_on_the_card_equals_the_cpu(card):
+    """The Check() request path: 40 north-star AuthConfigs translated with
+    a card engine and a CPU engine give the same AuthResult for every
+    request, with one launch per batch on the card."""
+    from authorino_tpu_torch.controllers import translate_auth_config
+
+    acs = northstar.build_auth_configs(40, 10)
+    requests = northstar.build_check_requests(70, 40, seed=5)
+
+    async def serve(engine):
+        engine.apply_snapshot([await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in acs])
+        return await asyncio.gather(*(engine.check(r) for r in requests))
+
+    on_card = PolicyEngine(max_batch=32)
+    got = asyncio.run(serve(on_card))
+    want = asyncio.run(serve(PolicyEngine(max_batch=32, device="cpu")))
+    fields = ("code", "status", "message", "headers", "metadata", "body")
+    assert [[getattr(r, f) for f in fields] for r in got] == \
+        [[getattr(r, f) for f in fields] for r in want]
+    st = on_card.stats
+    assert st["launches"] == st["batches"] == 3
+    assert st["failed_batches"] == st["plain_calls"] == 0
