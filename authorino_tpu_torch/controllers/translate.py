@@ -10,11 +10,17 @@ engine: ``engine`` is required, and the engine refuses a snapshot whose
 pattern evaluators are bound to another.  Secret reads happen here (API
 keys), exactly like the reference reads Secrets at reconcile time.
 
-The port translates authentication ``apiKey``, ``plain`` and
-``anonymous``; authorization ``patternMatching``; success responses
-``json`` and ``plain``; and ``denyWith``.  Every other kind the reference
-accepts (``NOT_IN_PORT``) raises TranslationError naming the kind as not
-yet in the port."""
+An inline OPA policy whose ``allow`` is decidable (``rego_lower``) is
+lowered into one more slot of the same ConfigRules, so the mega-kernel
+decides it in the launch that decides the config's patterns; the pipeline
+keeps the interpreter for the evaluator's verdict, as the reference does.
+
+The port translates authentication ``apiKey``, ``kubernetesTokenReview``,
+``plain`` and ``anonymous``; authorization ``patternMatching``, inline
+``opa`` and ``kubernetesSubjectAccessReview``; success responses ``json``
+and ``plain``; and ``denyWith``.  Every other kind the reference accepts
+(``NOT_IN_PORT``), and ``opa.externalPolicy``, raises TranslationError
+naming the kind as not yet in the port."""
 
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..authjson.value import JSONProperty, JSONValue
 from ..compiler.compile import ConfigRules
 from ..evaluators import cache as cache_mod
-from ..evaluators.authorization import PatternMatching
+from ..evaluators.authorization import OPA, KubernetesAuthz, PatternMatching
 from ..evaluators.base import (
     AuthorizationConfig,
     DenyWith,
@@ -34,7 +40,7 @@ from ..evaluators.base import (
     RuntimeAuthConfig,
 )
 from ..evaluators.credentials import AuthCredentials
-from ..evaluators.identity import APIKey, Noop, Plain
+from ..evaluators.identity import APIKey, KubernetesAuth, Noop, Plain
 from ..evaluators.response import DynamicJSON
 from ..evaluators.response import Plain as PlainResponse
 from ..expressions.ast import All, Any_, Expression, InGroup, Operator, Pattern
@@ -48,10 +54,9 @@ __all__ = ["TranslationError", "translate_auth_config", "build_expression",
 # the kinds the reference translates and the port does not hold yet, per
 # spec section, in the reference's order of precedence
 NOT_IN_PORT = {
-    "authentication": ("jwt", "oauth2Introspection", "x509",
-                       "kubernetesTokenReview"),
+    "authentication": ("jwt", "oauth2Introspection", "x509"),
     "metadata": ("http", "userInfo", "uma"),
-    "authorization": ("opa", "kubernetesSubjectAccessReview", "spicedb"),
+    "authorization": ("spicedb",),
     "response": ("wristband",),
     "callbacks": ("http",),
 }
@@ -257,6 +262,14 @@ async def translate_auth_config(
             )
             await ev.load_secrets()
             etype = "API_KEY"
+        elif aspec.get("kubernetesTokenReview") is not None:
+            ev = KubernetesAuth(
+                auth_name,
+                audiences=aspec["kubernetesTokenReview"].get("audiences"),
+                credentials=creds,
+                cluster=cluster,
+            )
+            etype = "KUBERNETES_TOKEN_REVIEW"
         elif aspec.get("plain") is not None:
             ev = Plain(aspec["plain"].get("selector", ""))
             etype = "PLAIN"
@@ -292,27 +305,75 @@ async def translate_auth_config(
     pattern_slots: List[Tuple[Optional[Expression], Expression]] = []
     for az_name, azspec in (spec.get("authorization") or {}).items():
         _refuse_unported("authorization", az_name, azspec,
-                         before=("patternMatching",))
-        if azspec.get("patternMatching") is None:
-            raise TranslationError(f"unknown authorization method for {az_name!r}")
+                         before=("patternMatching", "opa",
+                                 "kubernetesSubjectAccessReview"))
         common = _common(azspec, named, relations)
-        rules = build_expression(azspec["patternMatching"].get("patterns"), named, relations)
-        if rules is None:
-            rules = All()
-        slot = len(pattern_slots)
-        pattern_slots.append((common["conditions"], rules))
-        ev = PatternMatching(
-            rules,
-            batched_provider=engine.provider_for(cfg_id),
-            evaluator_slot=slot,
-            # deny attribution: which rule fired rides the denial into
-            # dynamic_metadata / X-Ext-Auth-Reason
-            attributor=engine.attribution_for(cfg_id),
-        )
-        # conditions are compiled into the kernel; avoid double gating
-        common = {**common, "conditions": None}
-        runtime.authorization.append(
-            AuthorizationConfig(az_name, ev, type="PATTERN_MATCHING", **common))
+        if azspec.get("patternMatching") is not None:
+            rules = build_expression(azspec["patternMatching"].get("patterns"), named, relations)
+            if rules is None:
+                rules = All()
+            slot = len(pattern_slots)
+            pattern_slots.append((common["conditions"], rules))
+            ev = PatternMatching(
+                rules,
+                batched_provider=engine.provider_for(cfg_id),
+                evaluator_slot=slot,
+                # deny attribution: which rule fired rides the denial into
+                # dynamic_metadata / X-Ext-Auth-Reason
+                attributor=engine.attribution_for(cfg_id),
+            )
+            # conditions are compiled into the kernel; avoid double gating
+            common = {**common, "conditions": None}
+            etype = "PATTERN_MATCHING"
+        elif azspec.get("opa") is not None:
+            o = azspec["opa"]
+            if o.get("externalPolicy"):
+                raise TranslationError(
+                    f"authorization {az_name!r}: kind 'opa.externalPolicy' "
+                    "is not yet in the port")
+            try:
+                ev = OPA(
+                    f"{cfg_id}/{az_name}",
+                    inline_rego=o.get("rego", ""),
+                    all_values=bool(o.get("allValues", False)),
+                    # extension: a static document tree served under data.*
+                    # (the embedded-OPA equivalent of loaded data documents)
+                    data=o.get("data"),
+                )
+            except ValueError as e:
+                raise TranslationError(str(e))
+            # decidable Rego rides the kernel: the verdict lowers into the
+            # same compiled slots the pattern evaluators use (the analog of
+            # the reference's precompile-at-reconcile, ref
+            # pkg/evaluators/authorization/opa.go:141-176).  The pipeline
+            # keeps the interpreter (and the `when` gate); the kernel slot
+            # carries the same gate, so both agree; non-lowerable policies
+            # change nothing.
+            lowered = ev.lowered_verdict()
+            if lowered is not None:
+                ev.kernel_slot = len(pattern_slots)
+                pattern_slots.append((common["conditions"], lowered))
+            etype = "OPA"
+        elif azspec.get("kubernetesSubjectAccessReview") is not None:
+            k = azspec["kubernetesSubjectAccessReview"]
+            ra = k.get("resourceAttributes") or {}
+            ev = KubernetesAuthz(
+                az_name,
+                user=_value_or_selector(k.get("user")) or JSONValue(),
+                groups=k.get("groups"),
+                resource_attributes={
+                    key: _value_or_selector(ra.get(key)) or JSONValue()
+                    for key in ("namespace", "group", "resource", "name", "subresource", "verb")
+                    if ra.get(key) is not None
+                }
+                if ra
+                else None,
+                cluster=cluster,
+            )
+            etype = "KUBERNETES_SUBJECT_ACCESS_REVIEW"
+        else:
+            raise TranslationError(f"unknown authorization method for {az_name!r}")
+        runtime.authorization.append(AuthorizationConfig(az_name, ev, type=etype, **common))
 
     # ---- response (ref :457-560) ----
     response = spec.get("response") or {}
@@ -380,13 +441,17 @@ async def translate_auth_config(
     # where auth.identity is still None, whereas a folded gate evaluates
     # after identity resolution ({anonymous: true}) — an auth.*-referencing
     # gate would flip verdicts either way (fail-open for neq-style, OK→deny
-    # for eq-style), so those stay on the pipeline.  Every authorization
-    # evaluator of the port is a PatternMatching, which evaluates through
-    # the kernel, so each one's gate folds safely.
+    # for eq-style), so those stay on the pipeline.
     if (runtime.conditions is not None
             and _gate_selectors_request_rooted(runtime.conditions)
             and pattern_slots
             and len(pattern_slots) == len(runtime.authorization)
+            # lowered-OPA slots don't qualify: the pipeline runs the
+            # interpreter UNgated, so a folded gate would vanish from its
+            # verdict (PatternMatching decides through the kernel, so its
+            # gate folds safely)
+            and all(isinstance(c.evaluator, PatternMatching)
+                    for c in runtime.authorization)
             and len(runtime.identity) == 1
             and isinstance(runtime.identity[0].evaluator, Noop)
             # the anonymous identity must be unconditional: its own `when`

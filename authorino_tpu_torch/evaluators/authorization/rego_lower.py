@@ -1,0 +1,405 @@
+"""Lower decidable mini-Rego verdicts into the compiled pattern language.
+
+The reference evaluates inline Rego through embedded OPA at full server
+speed (ref pkg/evaluators/authorization/opa.go:86-141).  Here the analog is
+the mega-kernel: when a policy's ``allow`` reduces to conjunctions /
+disjunctions of string and integer comparisons over the request, the whole
+verdict compiles into the SAME ``ConfigRules`` slots the pattern-matching
+evaluators ride — one kernel launch decides Rego and patterns together.
+A copy of the JAX package's lowering: the same policy lowers to the same
+expression (``str``-equal) and compiles to the same corpus.
+
+Soundness is the whole game: the lowered expression must agree with the
+interpreter (`rego.RegoModule.evaluate`) on EVERY input, not just typical
+ones, because the slow lane keeps running the interpreter.  The subtle
+cases are all about missing keys and non-string values:
+
+  - Rego: a missing ``input`` path is *undefined* — the body fails, the
+    rule contributes nothing.  Patterns: a missing selector resolves to
+    ``""`` (gjson semantics, ref pkg/jsonexp/expressions.go:61).
+  - Rego ``==`` is typed (``"8080" != 8080``); patterns compare the
+    rendered string form.
+
+So lowering is restricted to selectors that are *provably strings when
+present* in the authorization JSON (``authjson/wellknown.py``), and each
+operator carries its own missing-key proof:
+
+  ==      sound when const != "" (missing → both false), or the selector
+          is guaranteed present (request.* scalar mirrors are always set).
+  !=      only guaranteed-present selectors (missing → Rego false but
+          pattern "" != c true).
+  not ==  → NEQ, sound for maybe-missing too (missing → Rego true — the
+          inner expr is undefined — and pattern "" != c true) when c != "".
+  not !=  → EQ, only guaranteed-present.
+  regex.match / startswith / endswith / contains → MATCHES, sound when the
+          regex provably rejects "" (missing → both false) or the selector
+          is guaranteed present.
+
+Anything else — data.* refs, auth.* refs (identity values are not provably
+strings), other rules, functions, else-chains, set rules, arithmetic,
+builtins — refuses to lower; the config simply stays on the interpreter
+path (slow lane), exactly as before.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, List, Optional, Tuple
+
+from ...expressions.ast import All, Any_, Expression, Operator, Pattern
+from . import rego
+
+__all__ = ["lower_verdict"]
+
+# request-rooted selectors that are strings-when-present.  True = the key
+# is ALWAYS set in the wellknown doc (build_authorization_json sets every
+# scalar unconditionally); False = may be absent (then Rego sees undefined
+# while patterns see "").
+_STRING_SCALARS = {
+    ("request", "id"): True,
+    ("request", "protocol"): True,
+    ("request", "scheme"): True,
+    ("request", "host"): True,
+    ("request", "method"): True,
+    ("request", "path"): True,
+    ("request", "url_path"): True,
+    ("request", "query"): True,
+    ("request", "referer"): True,
+    ("request", "user_agent"): True,
+    ("request", "time"): False,
+    ("request", "body"): False,
+    # legacy context.* mirror: context_dict filters ""-valued fields, so
+    # nothing under it is guaranteed present
+    ("context", "request", "http", "id"): False,
+    ("context", "request", "http", "method"): False,
+    ("context", "request", "http", "path"): False,
+    ("context", "request", "http", "host"): False,
+    ("context", "request", "http", "scheme"): False,
+    ("context", "request", "http", "query"): False,
+    ("context", "request", "http", "fragment"): False,
+    ("context", "request", "http", "protocol"): False,
+    ("context", "request", "http", "body"): False,
+    ("context", "request", "time"): False,
+    # peer mirrors (wellknown_dict filters empties)
+    ("source", "address"): False,
+    ("source", "service"): False,
+    ("source", "principal"): False,
+    ("source", "certificate"): False,
+    ("destination", "address"): False,
+    ("destination", "service"): False,
+    ("destination", "principal"): False,
+    ("destination", "certificate"): False,
+}
+
+# map roots: <prefix> + one more str key → string-valued, maybe-missing
+_STRING_MAPS = (
+    ("request", "headers"),
+    ("request", "context_extensions"),
+    ("context", "request", "http", "headers"),
+    ("context", "context_extensions"),
+)
+
+# input paths that are provably INTEGERS when present (the
+# numeric-comparator fragment).  True = always set in the wellknown doc.
+# Soundness of lowering `input.<path> <op> <int const>` to a numeric
+# Pattern: present → both sides compare the same integer (gjson renders an
+# int as its decimal string; parse_int_value restores it exactly);
+# missing → Rego undefined (body fails, False) and the pattern parses ""
+# as non-numeric (False).  Non-integer values cannot occur on these paths
+# (the wellknown builder types them), so the interpreter's
+# TypeError-→False cross-type branch is never reachable — no other path
+# qualifies: a string-valued selector compares False in Rego but
+# numerically in the pattern once it happens to render as digits.
+_INT_SCALARS = {
+    ("request", "size"): True,
+    ("source", "port"): False,        # peer dicts filter falsy fields
+    ("destination", "port"): False,
+}
+
+# selector path segments must survive the gjson-ish selector parser
+# unmangled: dots/pipes/hashes/escapes would change the parse
+_SAFE_KEY = re.compile(r"^[A-Za-z0-9_:\-]+$")
+
+
+def _ref_selector(term: Any) -> Optional[Tuple[str, bool]]:
+    """(selector, always_present) for an input-rooted Ref that is provably
+    a string when present, else None."""
+    if not isinstance(term, rego.Ref) or term.base != "input":
+        return None
+    keys: List[str] = []
+    for seg in term.path:
+        if isinstance(seg, rego.Const):
+            seg = seg.value
+        if not isinstance(seg, str) or not _SAFE_KEY.match(seg):
+            return None
+        keys.append(seg)
+    t = tuple(keys)
+    if t in _STRING_SCALARS:
+        return ".".join(keys), _STRING_SCALARS[t]
+    for prefix in _STRING_MAPS:
+        if len(t) == len(prefix) + 1 and t[: len(prefix)] == prefix:
+            return ".".join(keys), False
+    return None
+
+
+def _const_str(term: Any) -> Optional[str]:
+    if isinstance(term, rego.Const) and isinstance(term.value, str):
+        return term.value
+    return None
+
+
+_INT32 = 1 << 31
+
+
+def _const_int(term: Any) -> Optional[int]:
+    """An int Const STRICTLY inside the numeric lane's int32 bound (the
+    open range matches parse_int_const: values saturate to the closed
+    endpoints, so a constant AT an endpoint would make the saturated
+    compare diverge from the interpreter's true-magnitude compare; bools
+    are int subclasses in Python and must not qualify; constant
+    arithmetic is already folded to Const by the parser's _fold_const)."""
+    if isinstance(term, rego.Const) and isinstance(term.value, int) \
+            and not isinstance(term.value, bool) \
+            and -_INT32 < term.value < _INT32 - 1:
+        return term.value
+    return None
+
+
+def _int_ref_selector(term: Any) -> Optional[Tuple[str, bool]]:
+    """(selector, always_present) for an input Ref that is provably an
+    INTEGER when present (_INT_SCALARS), else None."""
+    if not isinstance(term, rego.Ref) or term.base != "input":
+        return None
+    keys: List[str] = []
+    for seg in term.path:
+        if isinstance(seg, rego.Const):
+            seg = seg.value
+        if not isinstance(seg, str) or not _SAFE_KEY.match(seg):
+            return None
+        keys.append(seg)
+    t = tuple(keys)
+    if t in _INT_SCALARS:
+        return ".".join(keys), _INT_SCALARS[t]
+    return None
+
+
+# rego comparison op (with the ref on the LEFT) → numeric pattern operator
+_NUM_OPS = {"<": Operator.LT, "<=": Operator.LE,
+            ">": Operator.GT, ">=": Operator.GE}
+_NUM_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+# negation under DEFINED operands: not (x < c) ≡ x >= c
+_NUM_NEG = {"<": Operator.GE, "<=": Operator.GT,
+            ">": Operator.LE, ">=": Operator.LT}
+
+
+def _normalize_num_cmp(expr: Any) -> Optional[Tuple[str, bool, str, int]]:
+    """(selector, always_present, rego op with ref-on-left, const) for a
+    BinExpr comparing a provably-int input Ref against an int Const —
+    either operand order — else None."""
+    if not isinstance(expr, rego.BinExpr):
+        return None
+    op = "==" if expr.op == "=" else expr.op
+    if op not in ("==", "!=", "<", "<=", ">", ">="):
+        return None
+    left, right = expr.left, expr.right
+    c = _const_int(right)
+    if c is None:
+        c = _const_int(left)
+        if c is None:
+            return None
+        left = expr.right
+        if op in _NUM_FLIP:
+            op = _NUM_FLIP[op]
+    ref = _int_ref_selector(left)
+    if ref is None:
+        return None
+    return ref[0], ref[1], op, c
+
+
+def _lower_num_cmp(norm: Tuple[str, bool, str, int],
+                   negated: bool = False) -> Optional[Pattern]:
+    """Numeric fragment: comparisons of provably-int selectors
+    lower into the kernel's int32 comparator lane.  Soundness table in
+    _INT_SCALARS; the subtle rows are missing-key ones:
+
+      <,<=,>,>=   missing → Rego undefined (False) and the pattern parses
+                  "" as non-numeric (False) — sound even maybe-missing.
+      ==          sound maybe-missing: "" == "c" is False for c != "".
+      !=          present-only (missing: Rego False, pattern "" != c True).
+      not (cmp)   present-only: the inner undefined flips to True in Rego
+                  but every numeric pattern reads False on "".
+    """
+    sel, present, op, c = norm
+    if negated:
+        if not present:
+            return None
+        if op in _NUM_NEG:
+            return Pattern(sel, _NUM_NEG[op], str(c))
+        if op == "==":
+            return Pattern(sel, Operator.NEQ, str(c))
+        return Pattern(sel, Operator.EQ, str(c))  # not (x != c)
+    if op in _NUM_OPS:
+        return Pattern(sel, _NUM_OPS[op], str(c))
+    if op == "==":
+        # rendered-string equality IS int equality for int-typed paths
+        # (gjson renders ints as their decimal form); missing-safe
+        return Pattern(sel, Operator.EQ, str(c))
+    if not present:
+        return None
+    return Pattern(sel, Operator.NEQ, str(c))
+
+
+def _regex_rejects_empty(pattern: str) -> Optional[bool]:
+    """True/False, or None when the pattern doesn't even compile (the
+    interpreter would raise → fail-closed deny; don't lower)."""
+    try:
+        return re.compile(pattern).search("") is None
+    except re.error:
+        return None
+
+
+def _normalize_cmp(expr: Any) -> Optional[Tuple[str, bool, str, str]]:
+    """(selector, always_present, op, const) for a BinExpr comparing a
+    lowerable input Ref against a string Const (either operand order;
+    ``=`` unification of ground terms is ``==``), else None."""
+    if not (isinstance(expr, rego.BinExpr) and expr.op in ("==", "!=", "=")):
+        return None
+    op = "==" if expr.op == "=" else expr.op
+    left, right = expr.left, expr.right
+    rc = _const_str(right)
+    if rc is None:
+        left, right, rc = right, left, _const_str(left)
+    if rc is None:
+        return None
+    ref = _ref_selector(left)
+    if ref is None:
+        return None
+    return ref[0], ref[1], op, rc
+
+
+def _lower_expr(expr: Any) -> Optional[Optional[Pattern]]:
+    """One body expression → Pattern, True (vacuous), or None (refuse).
+    Returns the sentinel False for a statically-false expression (the
+    whole body is unsatisfiable)."""
+    if isinstance(expr, rego.Const):
+        if expr.value is True:
+            return True
+        if expr.value is False:
+            return False
+        return None
+    if isinstance(expr, rego.BinExpr) and \
+            expr.op in ("==", "!=", "=", "<", "<=", ">", ">="):
+        if isinstance(expr.left, rego.Const) and isinstance(expr.right, rego.Const):
+            # static: Python semantics ARE the interpreter's (_compare,
+            # incl. the TypeError-→False cross-type branch)
+            a, b = expr.left.value, expr.right.value
+            op0 = "==" if expr.op == "=" else expr.op
+            try:
+                got = {"==": lambda: a == b, "!=": lambda: a != b,
+                       "<": lambda: a < b, "<=": lambda: a <= b,
+                       ">": lambda: a > b, ">=": lambda: a >= b}[op0]()
+            except TypeError:
+                got = False
+            return bool(got)
+        nnorm = _normalize_num_cmp(expr)
+        if nnorm is not None:
+            return _lower_num_cmp(nnorm)
+        if expr.op not in ("==", "!=", "="):
+            return None  # ordered comparison outside the int fragment
+        norm = _normalize_cmp(expr)
+        if norm is None:
+            return None
+        sel, present, op, want = norm
+        if op == "==":
+            if want == "" and not present:
+                return None  # missing: Rego false, pattern "" == "" true
+            return Pattern(sel, Operator.EQ, want)
+        # !=: missing → Rego false (undefined) but pattern "" != c true
+        if not present:
+            return None
+        return Pattern(sel, Operator.NEQ, want)
+    if isinstance(expr, rego.NotExpr):
+        nnorm = _normalize_num_cmp(expr.expr)
+        if nnorm is not None:
+            return _lower_num_cmp(nnorm, negated=True)
+        norm = _normalize_cmp(expr.expr)
+        if norm is None:
+            return None
+        sel, present, op, want = norm
+        if op == "==":
+            # not (x == c): missing → Rego true (undefined inner),
+            # pattern "" != c true — sound for maybe-missing iff c != ""
+            if want == "" and not present:
+                return None
+            return Pattern(sel, Operator.NEQ, want)
+        # not (x != c) ≡ x == c only when x is defined; missing →
+        # Rego true but pattern "" == c false → present-only
+        if not present:
+            return None
+        return Pattern(sel, Operator.EQ, want)
+    if isinstance(expr, rego.CallExpr) and not expr.path:
+        fn, args = expr.fn, expr.args
+        rx: Optional[str] = None
+        ref = None
+        if fn in ("regex.match", "re_match") and len(args) == 2:
+            pat = _const_str(args[0])
+            ref = _ref_selector(args[1])
+            rx = pat
+        elif fn in ("startswith", "endswith", "contains") and len(args) == 2:
+            lit = _const_str(args[1])
+            ref = _ref_selector(args[0])
+            if lit is not None:
+                esc = re.escape(lit)
+                rx = {"startswith": f"^{esc}",
+                      "endswith": f"{esc}$",
+                      "contains": esc}[fn]
+        if rx is None or ref is None:
+            return None
+        sel, present = ref
+        rejects_empty = _regex_rejects_empty(rx)
+        if rejects_empty is None:
+            return None  # invalid regex: interpreter raises (deny)
+        if not present and not rejects_empty:
+            return None  # missing: Rego false, pattern matches ""
+        return Pattern(sel, Operator.MATCHES, rx)
+    return None
+
+
+def lower_verdict(module: Optional[rego.RegoModule]) -> Optional[Expression]:
+    """Compile ``allow`` into a pattern Expression, or None when any part
+    of the module falls outside the provably-equivalent subset.
+
+    The interpreter evaluates EVERY rule of the package (an error anywhere
+    is a fail-closed deny), so only single-``allow`` modules qualify: other
+    rules, functions, or sibling packages could error or matter."""
+    if module is None:
+        return None
+    if module.funcs or module.siblings:
+        return None
+    if set(module.rules) - {"allow"}:
+        return None
+    default = module.defaults.get("allow")
+    if not (isinstance(default, rego.Const) and default.value is False):
+        return None
+    bodies: List[Expression] = []
+    for rule in module.rules.get("allow", []):
+        if rule.is_set or rule.else_chain:
+            return None
+        if not (isinstance(rule.value, rego.Const) and rule.value is not None
+                and rule.value.value is True):
+            return None
+        pats: List[Expression] = []
+        satisfiable = True
+        for expr in rule.body:
+            low = _lower_expr(expr)
+            if low is None:
+                return None
+            if low is True:
+                continue
+            if low is False:
+                satisfiable = False
+                break
+            pats.append(low)
+        if satisfiable:
+            bodies.append(All(*pats))
+    return Any_(*bodies)

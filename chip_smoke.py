@@ -36,8 +36,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      readback; then checks/s (median of 3 runs) and per-Check() latency
      p50/p99 beside the batch count, rows per batch and phase 5's
      submit-only decisions/s, and the latency of a lone Check() (200
-     sent one at a time).  The kernels' launch counts in the summary
-     are this phase's.
+     sent one at a time);
+  7. the OPA request path: 1,000 AuthConfigs of the OPA corpus
+     (``models/opa_corpus.py``: the phase-6 identity, one pattern and one
+     inline Rego policy each, about nine in ten of which lower into a
+     kernel slot) and one Kubernetes TokenReview + SubjectAccessReview
+     config translated with a card engine into one snapshot; 4,096
+     concurrent ``engine.check()`` calls plus the Kubernetes checks, every
+     result held to the oracle (the pattern's verdict and deny provenance,
+     then the interpreter's ``allow``), every batch one launch and a
+     pad × W readback; every lowered config's kernel bit held to
+     ``lower_verdict(module).matches(doc)`` and the interpreter's
+     ``allow``; the mega-kernel's [256, W] readback on this corpus
+     byte-equal to its plain version; then checks/s (median of 3 runs),
+     per-Check() p50/p99 under the burst and alone, the share of configs
+     lowered, the interpreter's host time per Check(), and the kernel's
+     device time on this corpus beside its bound.
+
+The kernels' launch counts in the summary are phase 7's; each kernel must
+have launched on the paths of phases 4, 6 and 7, with the counts zeroed
+just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -377,7 +395,7 @@ async def serve(engine, docs, names):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the Check() request path
+# phases 6 and 7: the Check() request path
 # ---------------------------------------------------------------------------
 
 # the AuthConfig of the control-plane tests: an API key from a cluster
@@ -564,6 +582,259 @@ def request_path(report: dict, card: str) -> dict:
     }
     report["request_path"] = numbers
     return launches
+
+
+def counted_batches(engine):
+    """Record each batch's (launches, D2H bytes, pad rows) from the
+    engine's encode-and-launch step."""
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.utils import bucket_pow2
+
+    per_batch = []
+    launch = engine._encode_and_launch
+
+    def counted(snap, batch):
+        l0 = fk.launches
+        out = launch(snap, batch)
+        per_batch.append((fk.launches - l0, out[1].nbytes,
+                          bucket_pow2(len(batch))))
+        return out
+
+    engine._encode_and_launch = counted
+    return per_batch
+
+
+def opa_oracle(entry, doc):
+    """(code, status, message, metadata) the OPA corpus's config answers
+    for ``doc``: the pattern first (priority 0), with its deny provenance,
+    then the inline Rego's ``allow`` (priority 1)."""
+    from authorino_tpu_torch.utils import rpc
+
+    pattern = entry.rules.evaluators[0][1]
+    if not pattern.matches(doc):
+        return (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
+            "ext_authz_provenance": {
+                "authconfig": entry.id, "rule_index": 0,
+                "rule": str(pattern), "lane": "engine"}})
+    opa = entry.runtime.authorization[1].evaluator
+    if not opa._module.evaluate(doc, data=opa.data)["allow"]:
+        return (rpc.PERMISSION_DENIED, 0, "Unauthorized", {})
+    return (rpc.OK, 0, "", {})
+
+
+def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
+    """Phase 7: translate the OPA corpus and the Kubernetes config with a
+    card engine, answer 4,096 concurrent Check()s and the Kubernetes
+    checks, hold every result, every lowered kernel slot and the kernel's
+    readback to their oracles, then time the path.  Returns the kernel
+    launch counts of the checked run (counts zeroed just before it) and
+    the mega-kernel's max abs byte error on this corpus."""
+    import numpy as np
+    import torch
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.evaluators.authorization.rego_lower import (
+        lower_verdict)
+    from authorino_tpu_torch.k8s import InMemoryCluster
+    from authorino_tpu_torch.models import opa_corpus
+    from authorino_tpu_torch.models.northstar import JWT_FILTER
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import fuse_batch
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.utils import rpc
+
+    acs = opa_corpus.build_auth_configs(1000)
+    reqs = opa_corpus.build_check_requests(4096, 1000)
+    k8s = opa_corpus.k8s_check_requests()
+    cluster = InMemoryCluster()
+    reviews, allowed_triples = opa_corpus.k8s_cluster_data()
+    cluster.token_reviews.update(reviews)
+    cluster.access_reviews = opa_corpus.k8s_access_review(allowed_triples)
+
+    fk.reset_counts()
+    engine = PolicyEngine(max_batch=256)
+    per_batch = counted_batches(engine)
+
+    async def translate_all():
+        entries = [await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in acs]
+        k = opa_corpus.k8s_auth_config()
+        entries.append(await translate_auth_config(
+            k["metadata"]["name"], k["metadata"]["namespace"], k["spec"],
+            cluster=cluster, engine=engine))
+        return entries
+
+    t = time.perf_counter()
+    entries = asyncio.run(translate_all())
+    t_translate = time.perf_counter() - t
+    t = time.perf_counter()
+    engine.apply_snapshot(entries)
+    t_install = time.perf_counter() - t
+    t = time.perf_counter()
+    out = asyncio.run(timed_checks(engine, reqs + [r for r, _ in k8s]))
+    first_wall = time.perf_counter() - t
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+
+    st = dict(engine.stats)
+    snap = engine._snapshot
+    W = snap.policy.fused_pack_w
+    if st["failed_batches"] or st["plain_calls"]:
+        raise AssertionError(f"failed or plain batches: {st}")
+    if not (st["launches"] == st["batches"] == fk.launches == len(per_batch)):
+        raise AssertionError(f"launches {fk.launches} vs batches {st}")
+    bad = [b for b in per_batch if b != (1, b[2] * W, b[2])]
+    if bad or st["d2h_bytes"] != st["pad_rows"] * W:
+        raise AssertionError(f"batches of other than one launch and a pad x "
+                             f"W readback: {bad[:4]} ({st})")
+    if fk.probe_launches < 1:
+        raise AssertionError("probe kernel did not run at snapshot install")
+
+    lowered = [e for e in entries[:-1]
+               if e.runtime.authorization[1].evaluator.kernel_slot is not None]
+    docs, rows = [], []
+    allowed = opa_denied = 0
+    for k, (req, (res, _)) in enumerate(zip(reqs, out)):
+        if res.code == rpc.UNAVAILABLE:
+            raise AssertionError(f"check {k} answered UNAVAILABLE: {res}")
+        i = int(req.http.host.split(".")[0][len("opa-"):])
+        claims = req.metadata_context["filter_metadata"][JWT_FILTER][
+            "verified_jwt"]
+        doc = build_authorization_json(req, {"identity": claims})
+        docs.append(doc)
+        rows.append(i)
+        want = opa_oracle(entries[i], doc)
+        got = (res.code, res.status, res.message, res.metadata)
+        if got != want:
+            raise AssertionError(f"check {k} on opa-{i}: {got} != oracle "
+                                 f"{want}")
+        allowed += res.code == rpc.OK
+        opa_denied += res.code != rpc.OK and not res.metadata
+    if not 0 < allowed < len(reqs) or not opa_denied:
+        raise AssertionError(f"degenerate verdicts: {allowed} allowed, "
+                             f"{opa_denied} denied by the Rego policy")
+    k8s_codes = {"allowed": rpc.OK, "denied": rpc.PERMISSION_DENIED,
+                 "unauthenticated": rpc.UNAUTHENTICATED}
+    for (req, outcome), (res, _) in zip(k8s, out[len(reqs):]):
+        if res.code != k8s_codes[outcome]:
+            raise AssertionError(f"Kubernetes check {req.http.headers}: "
+                                 f"{res.code} {res.message} != {outcome}")
+
+    # every lowered config's kernel slot against the lowered expression and
+    # the interpreter: each request's doc on its own config, and 8 docs on
+    # every lowered config
+    pairs = [(d, entries[i]) for d, i in zip(docs, rows)
+             if entries[i].runtime.authorization[1].evaluator.kernel_slot
+             is not None]
+    pairs += [(docs[(j * 8 + t) % len(docs)], e)
+              for j, e in enumerate(lowered) for t in range(8)]
+
+    async def submit_all():
+        return await asyncio.gather(*(engine.submit(d, e.id)
+                                      for d, e in pairs))
+
+    bits = asyncio.run(submit_all())
+    relowered = {e.id: lower_verdict(
+        e.runtime.authorization[1].evaluator._module) for e in lowered}
+    both = set()
+    for (doc, e), (rule, skipped) in zip(pairs, bits):
+        opa = e.runtime.authorization[1].evaluator
+        slot = opa.kernel_slot
+        allow = bool(opa._module.evaluate(doc, data=opa.data)["allow"])
+        low = relowered[e.id].matches(doc)
+        if skipped[slot] or bool(rule[slot]) != low or low != allow:
+            raise AssertionError(
+                f"{e.id} slot {slot}: kernel {bool(rule[slot])} skipped "
+                f"{bool(skipped[slot])}, lowered {low}, interpreter {allow}")
+        both.add(allow)
+    if both != {True, False}:
+        raise AssertionError(f"lowered slots took only {both}")
+
+    # the mega-kernel on this corpus against its plain version
+    policy, params = snap.policy, snap.params
+    db = pack_batch(policy, encode_batch(
+        policy, docs[:256], [policy.config_ids[entries[i].id]
+                             for i in rows[:256]]))
+    max_err = max(kernel_vs_plain(params, db, dev),
+                  kernel_vs_plain(params, db, dev, global_tables=True))
+    buf, layout = fuse_batch(db)
+    buf_dev = torch.from_numpy(buf).to(dev)
+    kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
+    launch = (lambda: fk.launch_kernel(params, buf_dev, layout, kout))
+    k_ms, _ = device_times_ms(launch, 100)
+    k_b2b, _ = back_to_back_ms(launch, cycles_per_ms)
+    moved, ops = kernel_work(params, db)
+    k_bound, k_by = bound_ms(moved, ops)
+    log(f"OPA path: {len(entries)} AuthConfigs translated in "
+        f"{t_translate:.2f}s ({len(lowered)} of {len(acs)} Rego policies "
+        f"lowered), installed in {t_install:.2f}s; {len(out)} concurrent "
+        f"Check()s -> {st['batches']} batches, "
+        f"{launches['fused_megakernel']} mega-kernel launches, "
+        f"{launches['probe_add_one']} probe, D2H {st['d2h_bytes']} B = pad "
+        f"{st['pad_rows']} x W {W}; every result equals the oracle "
+        f"({allowed} of {len(reqs)} allowed, {opa_denied} denied by Rego), "
+        f"the Kubernetes checks as expected; {len(pairs)} lowered-slot bits "
+        f"equal the lowered expression and the interpreter; B=256 readback "
+        f"byte-equal to plain")
+
+    runs = []
+    for _ in range(3):
+        b0, r0 = engine.stats["batches"], engine.stats["rows"]
+        t = time.perf_counter()
+        timed = asyncio.run(timed_checks(engine, reqs))
+        wall = time.perf_counter() - t
+        runs.append({"checks_per_s": len(reqs) / wall,
+                     "latency_s": [x for _, x in timed],
+                     "batches": engine.stats["batches"] - b0,
+                     "rows": engine.stats["rows"] - r0})
+    lat = np.sort(np.concatenate([r["latency_s"] for r in runs])) * 1e3
+    rates = [r["checks_per_s"] for r in runs]
+
+    async def one_at_a_time(rs):
+        return [(await timed_checks(engine, [r]))[0][1] for r in rs]
+
+    lone = np.sort(asyncio.run(one_at_a_time(reqs[:200]))) * 1e3
+    # the interpreter's host time: one evaluate per Check() whose pattern
+    # passed (the Rego evaluator runs after it), timed alone
+    ev_s, ev_n = 0.0, 0
+    for d, i in zip(docs, rows):
+        e = entries[i]
+        if e.rules.evaluators[0][1].matches(d):
+            opa = e.runtime.authorization[1].evaluator
+            t = time.perf_counter()
+            opa._module.evaluate(d, data=opa.data)
+            ev_s += time.perf_counter() - t
+            ev_n += 1
+    n_batches = sum(r["batches"] for r in runs)
+    numbers = {
+        "card": card, "configs": len(entries),
+        "lowered": len(lowered), "lowered_share": len(lowered) / len(acs),
+        "checks": len(out), "translate_s": t_translate,
+        "install_s": t_install, "first_run_wall_s": first_wall,
+        "allowed": allowed, "denied_by_rego": opa_denied,
+        "slot_bits_checked": len(pairs), "stats_checked_run": st,
+        "checks_per_s": rates,
+        "checks_per_s_median": statistics.median(rates),
+        "check_latency_ms_p50": float(np.percentile(lat, 50)),
+        "check_latency_ms_p99": float(np.percentile(lat, 99)),
+        "batches_timed": n_batches,
+        "mean_rows_per_batch": sum(r["rows"] for r in runs) / n_batches,
+        "lone_check_latency_ms_p50": float(np.percentile(lone, 50)),
+        "lone_check_latency_ms_p99": float(np.percentile(lone, 99)),
+        "rego_evaluate_us_per_check": ev_s / len(docs) * 1e6,
+        "rego_evaluate_us_per_call": ev_s / max(ev_n, 1) * 1e6,
+        "rego_evaluate_calls": ev_n,
+        "kernel_ms_median": statistics.median(k_ms),
+        "kernel_back_to_back_ms": k_b2b,
+        "kernel_bytes_moved": moved, "kernel_int_ops": ops,
+        "bound_ms": k_bound, "bound_by": k_by, "max_abs_err": max_err,
+    }
+    report["opa_path"] = numbers
+    return launches, max_err
 
 
 def main() -> int:
@@ -878,28 +1149,49 @@ def main() -> int:
         f"engine's submit alone in this run: "
         f"{numbers['engine_decisions_per_s_median']:.0f} decisions/s")
 
+    # ---- 7. the OPA request path ------------------------------------------
+    opa_launches, opa_err = opa_path(report, card, dev, cycles_per_ms)
+    max_err = max(max_err, opa_err)
+    op = report["opa_path"]
+    log(f"[{card}] OPA path: {op['checks_per_s_median']:.0f} checks/s "
+        f"median of 3 runs ({[round(r) for r in op['checks_per_s']]}; phase "
+        f"6: {rp['checks_per_s_median']:.0f}), per-Check() latency p50 "
+        f"{op['check_latency_ms_p50']:.2f} ms p99 "
+        f"{op['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
+        f"{op['lone_check_latency_ms_p50']:.3f} ms p99 "
+        f"{op['lone_check_latency_ms_p99']:.3f} ms; {op['lowered']} of 1000 "
+        f"configs lowered ({op['lowered_share']:.3f}); RegoModule.evaluate "
+        f"{op['rego_evaluate_us_per_check']:.1f} us host per Check() "
+        f"({op['rego_evaluate_us_per_call']:.1f} us per call, "
+        f"{op['rego_evaluate_calls']} calls); mega-kernel on this corpus "
+        f"B=256: {op['kernel_ms_median']:.4f} ms one call, "
+        f"{op['kernel_back_to_back_ms']:.4f} ms back to back, bound "
+        f"{op['bound_ms']:.7f} ms by {op['bound_by']} "
+        f"({op['kernel_bytes_moved']} B, {op['kernel_int_ops']} int ops)")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": path_launches["fused_megakernel"],
+         "launches": opa_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": path_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": opa_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
          "library_ms": numbers["probe_library_ms_median"]},
     ]
     for name in main_launches:
-        if main_launches[name] < 1 or path_launches[name] < 1:
+        if min(main_launches[name], path_launches[name],
+               opa_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
-                f"request path {path_launches}")
+                f"request path {path_launches}, OPA path {opa_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

@@ -49,6 +49,32 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "BAD []" in proc.stdout
 
 
+def test_port_imports_with_service_libraries_blocked():
+    """The card's machine has neither ``aiohttp`` nor ``cryptography``:
+    every module of the port (OPA and the Kubernetes reviews among them)
+    imports with both blocked, and with ``jax`` blocked too."""
+    mods = port_modules()
+    assert "authorino_tpu_torch.evaluators.authorization.opa" in mods
+    assert "authorino_tpu_torch.evaluators.identity.kubernetes" in mods
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'cryptography', 'jax', 'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print('IMPORTED', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
 def test_chip_smoke_imports_neither():
     src = (ROOT / "chip_smoke.py").read_text()
     for line in src.splitlines():

@@ -12,6 +12,7 @@ yet in the port, and that list is the one ROADMAP.md names) and the
 north-star request path at 40 AuthConfigs."""
 
 import asyncio
+import json
 import re
 from pathlib import Path
 
@@ -45,14 +46,17 @@ async def translate_all(ns, engine, configs, cluster):
         for name, spec in configs]
 
 
-def check_all(ns, configs, secrets, requests, concurrent=False):
+def check_all(ns, configs, secrets, requests, concurrent=False, setup=None):
     """Translate ``configs`` [(name, spec)] with one engine of ``ns``,
-    install them in one snapshot, and answer ``requests`` [http dict]."""
+    install them in one snapshot, and answer ``requests`` [http dict].
+    ``setup(cluster)`` seeds the cluster's reviews."""
     engine = engine_of(ns)
+    cluster = cluster_of(ns, secrets)
+    if setup is not None:
+        setup(cluster)
 
     async def body():
-        entries = await translate_all(ns, engine, configs,
-                                      cluster_of(ns, secrets))
+        entries = await translate_all(ns, engine, configs, cluster)
         engine.apply_snapshot(entries)
         reqs = [request_of(ns, dict(r)) for r in requests]
         if concurrent:
@@ -66,7 +70,8 @@ def check_all(ns, configs, secrets, requests, concurrent=False):
 
 def entry_shape(e):
     rt = e.runtime
-    phases = {ph: [(c.name, c.type, c.priority, c.conditions is not None)
+    phases = {ph: [(c.name, c.type, c.priority, c.conditions is not None,
+                    getattr(c.evaluator, "kernel_slot", None))
                    for c in getattr(rt, ph)]
               for ph in ("identity", "metadata", "authorization", "response",
                          "callbacks")}
@@ -141,6 +146,16 @@ NESTED_GATE = dict(_gated(
     {"anon": {"anonymous": {}}}),
     patterns={"who": [{"selector": "auth.identity.sub", "operator": "eq",
                        "value": "x"}]})
+# an anonymous config whose only authorization is a lowerable inline Rego:
+# its top-level gate must stay on the pipeline, because the pipeline runs
+# the interpreter, which the gate would no longer reach if it folded into
+# the kernel slot
+FOLD_OPA = {"hosts": ["gated-opa.test"],
+            "when": [{"selector": "request.method", "operator": "neq",
+                      "value": "OPTIONS"}],
+            "authentication": {"anon": {"anonymous": {}}},
+            "authorization": {"rules": {"opa": {
+                "rego": 'allow { input.request.headers["x-org"] == "acme" }'}}}}
 CONDITIONED_ANON = _gated(
     "gated-cond.test",
     [{"selector": "request.method", "operator": "neq", "value": "OPTIONS"}],
@@ -255,6 +270,153 @@ SLOT_REQUESTS = [
     req("other.test", "GET", "/z"),
 ]
 
+# inline OPA: a lowered policy beside a pattern, allValues read by a
+# success header, a data document, a `when`-gated policy and a policy that
+# does not lower (it stays on the interpreter)
+OPA_SPEC = {
+    "hosts": ["opa.test"],
+    "authentication": {"user": {"plain": {
+        "selector": "request.headers.x-user|@fromstr"}}},
+    "authorization": {
+        "not-banned": {"patternMatching": {"patterns": [
+            {"selector": "request.headers.x-banned", "operator": "neq",
+             "value": "yes"}]}},
+        "lowered": {"opa": {"rego": (
+            'allow { input.request.method == "GET"; '
+            'startswith(input.request.path, "/api") }\n'
+            'allow { regex.match("^t-[0-9]+$", input.request.headers["x-tier"]); '
+            'input.request.size < 1024 }\n'
+            'allow { input.request.method != "GET"; '
+            'not input.request.headers["x-org"] == "evil" }')}},
+        "values": {"opa": {"rego": (
+            'allow { input.auth.identity.role == "admin" }\n'
+            'allow { input.request.method != "DELETE" }\n'
+            'user := input.auth.identity.name\n'
+            'roles := [r | r := input.auth.identity.roles[_]]'),
+            "allValues": True}, "priority": 1},
+        "with-data": {"opa": {"rego": (
+            'allow { input.auth.identity.name == data.users[_] }\n'
+            'allow { input.request.method == "POST" }'),
+            "data": {"users": ["ann", "bob"]}}, "priority": 1},
+        "gated": {"opa": {"rego": 'allow { input.request.headers["x-org"] == "acme" }'},
+                  "when": [{"selector": "request.url_path", "operator": "matches",
+                            "value": "^/api/org"}]},
+        "procedural": {"opa": {"rego": 'allow { count(input.request.headers) < 3 }'},
+                       "priority": 2},
+    },
+    "response": {"success": {"headers": {"x-opa": {"json": {"properties": {
+        "user": {"selector": "auth.authorization.values.user"},
+        "roles": {"selector": "auth.authorization.values.roles"}}}}}}},
+}
+
+
+def _user(name, role="user", roles=None):
+    return json.dumps({"name": name, "role": role, "roles": roles or []})
+
+
+OPA_REQUESTS = [
+    req("opa.test", "GET", "/api/x", {"x-user": _user("ann", roles=["a", "b"])}),
+    req("opa.test", "GET", "/api/x", {"x-user": _user("ann"), "x-banned": "yes"}),
+    req("opa.test", "GET", "/web", {"x-user": _user("ann"), "x-tier": "t-7"}),
+    req("opa.test", "GET", "/web", {"x-user": _user("ann"), "x-tier": "gold"}),
+    req("opa.test", "POST", "/web", {"x-user": _user("zed")}),
+    req("opa.test", "POST", "/web", {"x-user": _user("zed"), "x-org": "evil"}),
+    req("opa.test", "DELETE", "/web", {"x-user": _user("bob", "admin")}),
+    req("opa.test", "DELETE", "/web", {"x-user": _user("zed", "admin")}),
+    req("opa.test", "DELETE", "/web", {"x-user": _user("ann")}),
+    req("opa.test", "POST", "/api/org/1", {"x-user": _user("ann"), "x-org": "acme"}),
+    req("opa.test", "POST", "/api/org/1", {"x-user": _user("ann"), "x-org": "other"}),
+    req("opa.test", "GET", "/api/x", {"x-user": _user("ann"), "x-org": "a",
+                                      "x-tier": "t-1"}),
+    req("opa.test", "GET", "/api/x", {}),
+    req("opa.test", "GET", "/api/x", {"x-user": "[1, 2]"}),
+]
+
+# Kubernetes TokenReview (an explicit audience through a custom header, the
+# default audience — the request's host — through the bearer token) and
+# SubjectAccessReview (resource attributes on /api, the request's path and
+# lower-cased verb elsewhere)
+K8S_SPEC = {
+    "hosts": ["k8s.test"],
+    "authentication": {
+        "explicit": {"kubernetesTokenReview": {"audiences": ["talker-api"]},
+                     "credentials": {"customHeader": {"name": "x-sa-token"}}},
+        "default-audience": {"kubernetesTokenReview": {}, "priority": 1},
+    },
+    "authorization": {
+        "resource": {"kubernetesSubjectAccessReview": {
+            "user": {"selector": "auth.identity.username"},
+            "groups": ["devs"],
+            "resourceAttributes": {
+                "namespace": {"selector": "request.headers.x-ns"},
+                "resource": {"value": "pods"},
+                "verb": {"value": "get"}}},
+            "when": [{"selector": "request.url_path", "operator": "matches",
+                      "value": "^/api"}]},
+        "non-resource": {"kubernetesSubjectAccessReview": {
+            "user": {"selector": "auth.identity.username"}},
+            "when": [{"selector": "request.url_path", "operator": "matches",
+                      "value": "^/healthz"}]},
+    },
+    "response": {"success": {"headers": {"x-k8s-user": {"plain": {
+        "selector": "auth.identity.username"}}}}},
+}
+# token -> (user, the audience the token was issued for)
+K8S_TOKENS = {"tok-alice": ("alice", "talker-api"), "tok-bob": ("bob", "k8s.test"),
+              "tok-carol": ("carol", "elsewhere")}
+K8S_ALLOWED = [
+    {"user": "alice", "groups": ["devs"], "resourceAttributes": {
+        "namespace": "dev", "resource": "pods", "verb": "get"}},
+    {"user": "bob", "nonResourceAttributes": {"path": "/healthz", "verb": "get"}},
+]
+
+
+def k8s_setup(cluster):
+    """Seed ``cluster``'s reviews: a token authenticates only for its own
+    audience, and a denied review names the spec it was asked."""
+    real = cluster.token_review
+    for token, (user, _) in K8S_TOKENS.items():
+        cluster.token_reviews[token] = {"status": {
+            "authenticated": True, "user": {"username": user,
+                                            "groups": ["devs"]}}}
+
+    async def token_review(token, audiences):
+        issued = K8S_TOKENS.get(token, (None, None))[1]
+        if issued is not None and issued not in audiences:
+            return {"status": {"authenticated": False,
+                               "error": f"audiences {audiences} exclude {issued}"}}
+        return await real(token, audiences)
+
+    def access_review(spec):
+        if spec in K8S_ALLOWED:
+            return {"status": {"allowed": True}}
+        return {"status": {"allowed": False,
+                           "reason": json.dumps(spec, sort_keys=True)}}
+
+    cluster.token_review = token_review
+    cluster.access_reviews = access_review
+
+
+def _k8s(method="GET", path="/api/pods", headers=None, host="k8s.test"):
+    return req(host, method, path, headers)
+
+
+K8S_REQUESTS = [
+    _k8s(headers={"x-sa-token": "tok-alice", "x-ns": "dev"}),
+    _k8s(headers={"x-sa-token": "tok-alice", "x-ns": "prod"}),
+    _k8s(path="/healthz", headers={"authorization": "Bearer tok-bob"}),
+    _k8s("POST", "/healthz", {"authorization": "Bearer tok-bob"}),
+    _k8s(path="/healthz", headers={"authorization": "Bearer tok-alice"}),
+    _k8s(path="/healthz", headers={"x-sa-token": "tok-bob"}),
+    _k8s(path="/healthz", headers={"authorization": "Bearer tok-bob"},
+         host="k8s.test:8443"),
+    _k8s(headers={"authorization": "Bearer tok-carol"}),
+    _k8s(headers={"authorization": "Bearer tok-nobody"}),
+    _k8s(headers={"x-sa-token": "tok-nobody"}),
+    _k8s(),
+    _k8s(path="/other", headers={"authorization": "Bearer tok-bob"}),
+]
+
 CASES = {
     "v2_spec": ([("ac", V2_SPEC)], [KEY_SECRET, USER_SECRET], V2_REQUESTS),
     "anonymous_gate_folds": ([("gated", FOLD)], [], _methods("gated.test")),
@@ -272,22 +434,28 @@ CASES = {
     "identities": ([("ids", IDENTITIES)], [USER_SECRET, OTHER_NS_SECRET],
                    IDENTITY_REQUESTS),
     "pattern_slots_and_responses": ([("slots", SLOTS)], [], SLOT_REQUESTS),
+    "opa": ([("opa", OPA_SPEC)], [], OPA_REQUESTS),
+    "opa_gate_does_not_fold": ([("gated-opa", FOLD_OPA)], [],
+                               _methods("gated-opa.test")),
+    "kubernetes_reviews": ([("k8s", K8S_SPEC)], [], K8S_REQUESTS, k8s_setup),
     "all_in_one_snapshot": (
         [("ac", V2_SPEC), ("gated", FOLD), ("gk", CREDENTIAL_GATE),
-         ("ga", AUTH_ROOTED_GATE), ("ids", IDENTITIES), ("slots", SLOTS)],
+         ("ga", AUTH_ROOTED_GATE), ("ids", IDENTITIES), ("slots", SLOTS),
+         ("opa", OPA_SPEC), ("k8s", K8S_SPEC)],
         [KEY_SECRET, USER_SECRET, OTHER_NS_SECRET],
         V2_REQUESTS + _methods("gated.test") + IDENTITY_REQUESTS
-        + SLOT_REQUESTS),
+        + SLOT_REQUESTS + OPA_REQUESTS + K8S_REQUESTS, k8s_setup),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_check_equals_reference(name):
-    configs, secrets, requests = CASES[name]
+    configs, secrets, requests, *setup = CASES[name]
     concurrent = name == "all_in_one_snapshot"
-    r_entries, want, _ = check_all(REF, configs, secrets, requests, concurrent)
+    r_entries, want, _ = check_all(REF, configs, secrets, requests, concurrent,
+                                   *setup)
     p_entries, got, engine = check_all(PORT, configs, secrets, requests,
-                                       concurrent)
+                                       concurrent, *setup)
     assert [entry_shape(e) for e in p_entries] == \
         [entry_shape(e) for e in r_entries]
     for i, (w, g) in enumerate(zip(want, got)):
@@ -301,8 +469,9 @@ def test_case_table_reaches_every_outcome():
     """Allow, 401, 403 with provenance, NOT_FOUND, a denyWith status, the
     kernel-folded gate and a port-stripped host all occur in the table."""
     codes, statuses, provenance = set(), set(), 0
-    for configs, secrets, requests in CASES.values():
-        entries, results, _ = check_all(PORT, configs, secrets, requests)
+    for configs, secrets, requests, *setup in CASES.values():
+        entries, results, _ = check_all(PORT, configs, secrets, requests,
+                                        False, *setup)
         for r in results:
             codes.add(r.code)
             statuses.add(r.status)
@@ -360,9 +529,9 @@ def test_check_equals_reference_with_deny_reason_exposed(name, monkeypatch):
     names the rule that fired, equal to the reference's."""
     for ns in (REF, PORT):
         monkeypatch.setattr(ns.provenance, "EXPOSE_DENY_REASON", True)
-    configs, secrets, requests = CASES[name]
-    _, want, _ = check_all(REF, configs, secrets, requests)
-    _, got, _ = check_all(PORT, configs, secrets, requests)
+    configs, secrets, requests, *setup = CASES[name]
+    _, want, _ = check_all(REF, configs, secrets, requests, False, *setup)
+    _, got, _ = check_all(PORT, configs, secrets, requests, False, *setup)
     for i, (w, g) in enumerate(zip(want, got)):
         assert result_fields(g) == result_fields(w), (i, requests[i])
     assert any(g.message.startswith("denied by t/") for g in got)
@@ -452,7 +621,10 @@ KINDS = {
         "x": {"uma": {"endpoint": "http://uma.invalid"}}}),
     ("authorization", "patternMatching"): _authz("patternMatching", {"patterns": [
         {"selector": "request.method", "operator": "eq", "value": "GET"}]}),
-    ("authorization", "opa"): _authz("opa", {"rego": "allow = true"}),
+    ("authorization", "opa"): _authz("opa", {
+        "rego": 'allow { input.request.method == "GET" }\nallow = true { '
+                'regex.match("^/api/v[0-9]+", input.request.path) }',
+        "allValues": True, "data": {"k": 1}}),
     ("authorization", "kubernetesSubjectAccessReview"): _authz(
         "kubernetesSubjectAccessReview", {"user": {"value": "u"}}),
     ("authorization", "spicedb"): _authz("spicedb", {"endpoint": "spicedb.invalid"}),
@@ -510,6 +682,56 @@ def test_translate_kind_matches_reference_or_is_refused(section, kind):
     assert_same_policy(want, got)
 
 
+def test_opa_external_policy_is_refused_by_name():
+    """The registry download waits for an HTTP client: translate refuses
+    ``opa.externalPolicy`` by name, also beside an inline policy."""
+    for opa in ({"externalPolicy": {"url": "http://registry.invalid/p"}},
+                {"rego": "allow = true",
+                 "externalPolicy": {"url": "http://registry.invalid/p",
+                                    "ttl": 60}}):
+        with pytest.raises(p_translate.TranslationError,
+                           match="authorization 'x': kind "
+                                 "'opa.externalPolicy' is not yet in the port"):
+            run(PORT.controllers.translate_auth_config(
+                "k", "t", _authz("opa", opa),
+                engine=PolicyEngine(device="cpu")))
+
+
+def test_invalid_rego_error_matches_reference():
+    spec = _authz("opa", {"rego": "default x = input.y"})
+    msgs = []
+    for ns in (REF, PORT):
+        with pytest.raises(ns.controllers.TranslationError) as e:
+            run(ns.controllers.translate_auth_config("k", "t", spec,
+                                                     engine=engine_of(ns)))
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0] and msgs[0].startswith("invalid rego policy")
+
+
+def test_gate_beside_lowered_opa_stays_on_the_pipeline():
+    """An anonymous config with a request-rooted top-level `when` whose
+    only authorization is a lowerable inline Rego: the gate does not fold
+    into the kernel slot (the pipeline's interpreter would then run
+    ungated), so a gate-unmatched request answers OK as in the reference,
+    and a gate-matched one takes the Rego verdict."""
+    requests = [req("gated-opa.test", "OPTIONS", "/x"),
+                req("gated-opa.test", "OPTIONS", "/x", {"x-org": "evil"}),
+                req("gated-opa.test", "GET", "/x"),
+                req("gated-opa.test", "GET", "/x", {"x-org": "acme"})]
+    results = {}
+    for ns in (REF, PORT):
+        entries, got, _ = check_all(ns, [("gated-opa", FOLD_OPA)], [],
+                                    requests)
+        results[ns is PORT] = (entries[0], got)
+    (r_entry, want), (p_entry, got) = results[False], results[True]
+    assert p_entry.runtime.conditions is not None
+    assert entry_shape(p_entry) == entry_shape(r_entry)
+    assert p_entry.rules.evaluators[0][0] is None  # the slot is ungated
+    assert [result_fields(g) for g in got] == [result_fields(w) for w in want]
+    assert [g.code for g in got] == [PORT.rpc.OK, PORT.rpc.OK,
+                                     PORT.rpc.PERMISSION_DENIED, PORT.rpc.OK]
+
+
 def test_unported_kind_behind_a_ported_one_keeps_reference_precedence():
     """A spec that sets a ported kind the reference tries first translates
     as the reference does; one that only sets an unported kind is refused
@@ -525,6 +747,22 @@ def test_unported_kind_behind_a_ported_one_keeps_reference_precedence():
     with pytest.raises(p_translate.TranslationError, match="'x509'"):
         run(PORT.controllers.translate_auth_config("k", "t", later,
                                                    engine=engine))
+    # the reference tries x509 before kubernetesTokenReview, and opa and
+    # kubernetesSubjectAccessReview before spicedb
+    review = _auth("kubernetesTokenReview", {})
+    review["authentication"]["x"]["x509"] = {"selector": SELECTOR}
+    with pytest.raises(p_translate.TranslationError, match="'x509'"):
+        run(PORT.controllers.translate_auth_config("k", "t", review,
+                                                   engine=engine))
+    for kind, body, etype in (
+            ("opa", {"rego": "allow = true"}, "OPA"),
+            ("kubernetesSubjectAccessReview", {"user": {"value": "u"}},
+             "KUBERNETES_SUBJECT_ACCESS_REVIEW")):
+        spec = _authz(kind, body)
+        spec["authorization"]["x"]["spicedb"] = {"endpoint": "s.invalid"}
+        entry = run(PORT.controllers.translate_auth_config(
+            "k", "t", spec, engine=engine))
+        assert entry.runtime.authorization[0].type == etype
 
 
 def test_translate_errors_match_reference():

@@ -186,3 +186,42 @@ def test_check_on_the_card_equals_the_cpu(card):
     st = on_card.stats
     assert st["launches"] == st["batches"] == 3
     assert st["failed_batches"] == st["plain_calls"] == 0
+
+
+def test_opa_check_on_the_card_equals_the_cpu(card):
+    """The OPA corpus: 40 AuthConfigs with inline Rego, most of it lowered
+    into kernel slots, give the same AuthResult and the same per-slot bits
+    on a card engine and a CPU engine."""
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.models import opa_corpus
+
+    acs = opa_corpus.build_auth_configs(40)
+    requests = opa_corpus.build_check_requests(70, 40, seed=5)
+    docs = [build_authorization_json(r, {"identity": r.metadata_context[
+        "filter_metadata"][northstar.JWT_FILTER]["verified_jwt"]})
+        for r in requests]
+    names = [f"{opa_corpus.NAMESPACE}/{r.http.host.split('.')[0]}"
+             for r in requests]
+
+    async def serve(engine):
+        engine.apply_snapshot([await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in acs])
+        results = await asyncio.gather(*(engine.check(r) for r in requests))
+        bits = await asyncio.gather(*(engine.submit(d, n)
+                                      for d, n in zip(docs, names)))
+        return results, bits
+
+    on_card = PolicyEngine(max_batch=32)
+    got, got_bits = asyncio.run(serve(on_card))
+    want, want_bits = asyncio.run(serve(PolicyEngine(max_batch=32,
+                                                     device="cpu")))
+    fields = ("code", "status", "message", "headers", "metadata", "body")
+    assert [[getattr(r, f) for f in fields] for r in got] == \
+        [[getattr(r, f) for f in fields] for r in want]
+    for (gr, gs), (wr, ws) in zip(got_bits, want_bits):
+        assert gr.tolist() == wr.tolist() and gs.tolist() == ws.tolist()
+    st = on_card.stats
+    assert st["launches"] == st["batches"] == 6
+    assert st["failed_batches"] == st["plain_calls"] == 0
