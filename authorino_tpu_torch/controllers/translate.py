@@ -1,26 +1,26 @@
 """AuthConfig translation: v1beta2-shaped spec (dict) → runtime evaluator
 graph + compilable rule corpus (semantics: ref
 controllers/auth_config_controller.go:159-603 translateAuthConfig +
-buildJSONExpression :805).
+buildJSONExpression :805 + buildGenericHttpEvaluator :721).
 
 Every pattern-matching authorization evaluator (and its `when` conditions)
 is lowered into the config's ConfigRules, so the engine compiles it into
 the corpus the mega-kernel evaluates, and the evaluator is bound to that
 engine: ``engine`` is required, and the engine refuses a snapshot whose
 pattern evaluators are bound to another.  Secret reads happen here (API
-keys), exactly like the reference reads Secrets at reconcile time.
+keys, OAuth2 credentials, shared secrets, wristband signing keys), exactly
+like the reference reads Secrets at reconcile time, and so does each
+``jwt`` identity's OIDC discovery.
 
 An inline OPA policy whose ``allow`` is decidable (``rego_lower``) is
 lowered into one more slot of the same ConfigRules, so the mega-kernel
 decides it in the launch that decides the config's patterns; the pipeline
 keeps the interpreter for the evaluator's verdict, as the reference does.
 
-The port translates authentication ``apiKey``, ``kubernetesTokenReview``,
-``plain`` and ``anonymous``; authorization ``patternMatching``, inline
-``opa`` and ``kubernetesSubjectAccessReview``; success responses ``json``
-and ``plain``; and ``denyWith``.  Every other kind the reference accepts
-(``NOT_IN_PORT``), and ``opa.externalPolicy``, raises TranslationError
-naming the kind as not yet in the port."""
+The port translates every kind the reference does but authentication
+``x509`` and authorization ``spicedb`` (``NOT_IN_PORT``), which raise
+TranslationError naming the kind as not yet in the port, as does
+``opa.externalPolicy``."""
 
 from __future__ import annotations
 
@@ -32,21 +32,25 @@ from ..evaluators import cache as cache_mod
 from ..evaluators.authorization import OPA, KubernetesAuthz, PatternMatching
 from ..evaluators.base import (
     AuthorizationConfig,
+    CallbackConfig,
     DenyWith,
     DenyWithValues,
     IdentityConfig,
     IdentityExtension,
+    MetadataConfig,
     ResponseConfig,
     RuntimeAuthConfig,
 )
 from ..evaluators.credentials import AuthCredentials
-from ..evaluators.identity import APIKey, KubernetesAuth, Noop, Plain
-from ..evaluators.response import DynamicJSON
+from ..evaluators.identity import APIKey, KubernetesAuth, Noop, OAuth2, OIDC, Plain
+from ..evaluators.metadata import UMA, GenericHttp, UserInfo
+from ..evaluators.response import DynamicJSON, SigningKey, Wristband
 from ..evaluators.response import Plain as PlainResponse
 from ..expressions.ast import All, Any_, Expression, InGroup, Operator, Pattern
 from ..k8s.client import ClusterReader, LabelSelector
 from ..relations.closure import RelationClosure
 from ..runtime.engine import EngineEntry, PolicyEngine
+from ..utils.oauth2cc import ClientCredentials
 
 __all__ = ["TranslationError", "translate_auth_config", "build_expression",
            "build_relations", "NOT_IN_PORT"]
@@ -54,11 +58,8 @@ __all__ = ["TranslationError", "translate_auth_config", "build_expression",
 # the kinds the reference translates and the port does not hold yet, per
 # spec section, in the reference's order of precedence
 NOT_IN_PORT = {
-    "authentication": ("jwt", "oauth2Introspection", "x509"),
-    "metadata": ("http", "userInfo", "uma"),
+    "authentication": ("x509",),
     "authorization": ("spicedb",),
-    "response": ("wristband",),
-    "callbacks": ("http",),
 }
 
 
@@ -206,6 +207,38 @@ def _credentials(spec: Optional[dict]) -> AuthCredentials:
     return AuthCredentials()
 
 
+async def _secret_value(cluster: Optional[ClusterReader], namespace: str, ref: Optional[dict], default_key: str = "") -> str:
+    """SecretKeyReference / LocalObjectReference resolution."""
+    if not ref:
+        return ""
+    if cluster is None:
+        raise TranslationError("spec references a Secret but no cluster access is configured")
+    name = ref.get("name", "")
+    key = ref.get("key", default_key)
+    secret = await cluster.get_secret(namespace, name)
+    if secret is None:
+        raise TranslationError(f"secret not found: {namespace}/{name}")
+    if key:
+        if key not in secret.data:
+            raise TranslationError(f"key {key!r} not found in secret {namespace}/{name}")
+        return secret.data[key].decode()
+    return ""
+
+
+async def _client_credentials(cluster: Optional[ClusterReader], namespace: str,
+                              ref: Optional[dict]) -> Tuple[str, str]:
+    """(clientID, clientSecret) of a ``credentialsRef`` Secret; empty
+    without a name or without cluster access."""
+    secret_name = (ref or {}).get("name", "")
+    if not secret_name or cluster is None:
+        return "", ""
+    secret = await cluster.get_secret(namespace, secret_name)
+    if secret is None:
+        raise TranslationError(f"secret not found: {namespace}/{secret_name}")
+    return (secret.data.get("clientID", b"").decode(),
+            secret.data.get("clientSecret", b"").decode())
+
+
 def _cache(spec: Optional[dict]) -> Optional[cache_mod.EvaluatorCache]:
     if not spec:
         return None
@@ -227,6 +260,36 @@ def _common(spec: dict, named: Dict[str, List[dict]],
 # main translation
 # ---------------------------------------------------------------------------
 
+async def _build_generic_http(
+    spec: dict, namespace: str, cluster: Optional[ClusterReader]
+) -> GenericHttp:
+    """(ref :721 buildGenericHttpEvaluator)"""
+    oauth2 = None
+    o = spec.get("oauth2")
+    if o:
+        client_secret = await _secret_value(
+            cluster, namespace, o.get("clientSecretRef"), default_key="clientSecret"
+        )
+        oauth2 = ClientCredentials(
+            o.get("tokenUrl", ""), o.get("clientId", ""), client_secret, o.get("scopes")
+        )
+    shared_secret = ""
+    if spec.get("sharedSecretRef"):
+        shared_secret = await _secret_value(cluster, namespace, spec["sharedSecretRef"])
+    url = spec.get("url", "") or spec.get("endpoint", "")
+    return GenericHttp(
+        endpoint=JSONValue(pattern=url) if "{" in url else JSONValue(static=url),
+        method=spec.get("method", "GET") or "GET",
+        body=_value_or_selector(spec.get("body")),
+        parameters=_named_values(spec.get("bodyParameters")),
+        headers=_named_values(spec.get("headers")),
+        content_type=spec.get("contentType", "") or "application/json",
+        shared_secret=shared_secret,
+        credentials=_credentials(spec.get("credentials")),
+        oauth2=oauth2,
+    )
+
+
 async def translate_auth_config(
     name: str,
     namespace: str,
@@ -246,10 +309,12 @@ async def translate_auth_config(
         conditions=build_expression(spec.get("when"), named, relations),
     )
 
+    oidc_by_name: Dict[str, OIDC] = {}
+
     # ---- authentication (ref :228-320) ----
     for auth_name, aspec in (spec.get("authentication") or {}).items():
         _refuse_unported("authentication", auth_name, aspec,
-                         before=("apiKey",))
+                         before=("apiKey", "jwt", "oauth2Introspection"))
         creds = _credentials(aspec.get("credentials"))
         if aspec.get("apiKey") is not None:
             sel = LabelSelector.from_spec(aspec["apiKey"].get("selector"))
@@ -262,6 +327,32 @@ async def translate_auth_config(
             )
             await ev.load_secrets()
             etype = "API_KEY"
+        elif aspec.get("jwt") is not None:
+            ev = OIDC(
+                auth_name,
+                aspec["jwt"].get("issuerUrl", ""),
+                ttl_s=int(aspec["jwt"].get("ttl", 0) or 0),
+                credentials=creds,
+            )
+            try:
+                await ev.refresh()
+            except Exception as e:
+                raise TranslationError(f"failed OIDC discovery for {auth_name!r}: {e}")
+            oidc_by_name[auth_name] = ev
+            etype = "JWT"
+        elif aspec.get("oauth2Introspection") is not None:
+            o = aspec["oauth2Introspection"]
+            client_id, client_secret = await _client_credentials(
+                cluster, namespace, o.get("credentialsRef"))
+            ev = OAuth2(
+                auth_name,
+                o.get("endpoint", ""),
+                client_id,
+                client_secret,
+                token_type_hint=o.get("tokenTypeHint", ""),
+                credentials=creds,
+            )
+            etype = "OAUTH2_INTROSPECTION"
         elif aspec.get("kubernetesTokenReview") is not None:
             ev = KubernetesAuth(
                 auth_name,
@@ -296,10 +387,29 @@ async def translate_auth_config(
             )
         )
 
-    # ---- metadata (ref :322-365): no kind is in the port yet ----
+    # ---- metadata (ref :322-365) ----
     for md_name, mspec in (spec.get("metadata") or {}).items():
-        _refuse_unported("metadata", md_name, mspec)
-        raise TranslationError(f"unknown metadata method for {md_name!r}")
+        if mspec.get("http") is not None:
+            ev = await _build_generic_http(mspec["http"], namespace, cluster)
+            etype = "METADATA_GENERIC_HTTP"
+        elif mspec.get("userInfo") is not None:
+            source = mspec["userInfo"].get("identitySource", "")
+            oidc = oidc_by_name.get(source)
+            if oidc is None:
+                raise TranslationError(
+                    f"missing OIDC identity source {source!r} for userInfo metadata {md_name!r}"
+                )
+            ev = UserInfo(oidc)
+            etype = "METADATA_USERINFO"
+        elif mspec.get("uma") is not None:
+            u = mspec["uma"]
+            client_id, client_secret = await _client_credentials(
+                cluster, namespace, u.get("credentialsRef"))
+            ev = UMA(u.get("endpoint", ""), client_id, client_secret)
+            etype = "METADATA_UMA"
+        else:
+            raise TranslationError(f"unknown metadata method for {md_name!r}")
+        runtime.metadata.append(MetadataConfig(md_name, ev, type=etype, **_common(mspec, named, relations)))
 
     # ---- authorization (ref :367-455) ----
     pattern_slots: List[Tuple[Optional[Expression], Expression]] = []
@@ -393,10 +503,32 @@ async def translate_auth_config(
             )
     runtime.deny_with = deny_with
 
-    def build_success(resp_name: str, rspec: dict, wrapper: str) -> ResponseConfig:
-        _refuse_unported("response", resp_name, rspec)
+    async def build_success(resp_name: str, rspec: dict, wrapper: str) -> ResponseConfig:
         common = _common(rspec, named, relations)
-        if rspec.get("json") is not None:
+        if rspec.get("wristband") is not None:
+            w = rspec["wristband"]
+            signing_keys: List[SigningKey] = []
+            for ref in w.get("signingKeyRefs") or []:
+                pem = await _secret_value(
+                    cluster, namespace, {"name": ref.get("name", ""), "key": "key.pem"}
+                )
+                try:
+                    signing_keys.append(
+                        SigningKey.from_pem(ref.get("name", ""), ref.get("algorithm", "ES256"), pem.encode())
+                    )
+                except ValueError as e:
+                    raise TranslationError(str(e))
+            try:
+                ev = Wristband(
+                    issuer=w.get("issuer", ""),
+                    custom_claims=_named_values(w.get("customClaims")),
+                    token_duration=w.get("tokenDuration"),
+                    signing_keys=signing_keys,
+                )
+            except ValueError as e:
+                raise TranslationError(str(e))
+            etype = "RESPONSE_WRISTBAND"
+        elif rspec.get("json") is not None:
             ev = DynamicJSON(_named_values(rspec["json"].get("properties")))
             etype = "RESPONSE_JSON"
         elif rspec.get("plain") is not None:
@@ -415,14 +547,18 @@ async def translate_auth_config(
 
     success = response.get("success") or {}
     for resp_name, rspec in (success.get("headers") or {}).items():
-        runtime.response.append(build_success(resp_name, rspec, "httpHeader"))
+        runtime.response.append(await build_success(resp_name, rspec, "httpHeader"))
     for resp_name, rspec in (success.get("dynamicMetadata") or {}).items():
-        runtime.response.append(build_success(resp_name, rspec, "envoyDynamicMetadata"))
+        runtime.response.append(await build_success(resp_name, rspec, "envoyDynamicMetadata"))
 
-    # ---- callbacks (ref :562-583): no kind is in the port yet ----
+    # ---- callbacks (ref :562-583) ----
     for cb_name, cbspec in (spec.get("callbacks") or {}).items():
-        _refuse_unported("callbacks", cb_name, cbspec)
-        raise TranslationError(f"unknown callback method for {cb_name!r}")
+        if cbspec.get("http") is None:
+            raise TranslationError(f"unknown callback method for {cb_name!r}")
+        ev = await _build_generic_http(cbspec["http"], namespace, cluster)
+        runtime.callbacks.append(
+            CallbackConfig(cb_name, ev, type="CALLBACK_HTTP", **_common(cbspec, named, relations))
+        )
 
     hosts = list(spec.get("hosts") or [])
     if not hosts:

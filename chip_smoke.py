@@ -51,10 +51,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      byte-equal to its plain version; then checks/s (median of 3 runs),
      per-Check() p50/p99 under the burst and alone, the share of configs
      lowered, the interpreter's host time per Check(), and the kernel's
-     device time on this corpus beside its bound.
+     device time on this corpus beside its bound;
+  8. the JWT request path (``models/oidc_corpus.py``, the Keycloak RBAC
+     deployment): keys made from a seed in pure Python and a fake
+     Keycloak on loopback; 1,000 AuthConfigs with a ``jwt`` identity and
+     the north-star rules, one config with every other kind of the family
+     (userInfo, http and uma metadata, a wristband, an http callback) and
+     one OAuth2-introspection config, translated with a card engine
+     (1,000 OIDC discoveries) into one snapshot; 4,096 concurrent
+     ``engine.check()`` calls with RS256 bearer tokens over 1,024 distinct
+     claim sets, one in 32 a bad token (a flipped signature byte, expired,
+     a foreign issuer, a key the JWKS lacks); every good token's result
+     held to the oracle with its deny provenance, every bad one
+     UNAUTHENTICATED without a batch row, one launch and a pad × W
+     readback per batch, the [256, W] readback on this corpus byte-equal
+     to plain; the full and introspection configs as expected (the
+     wristband verifies against its JWKS, its ``sub`` is the SHA-256 of
+     the identity, one callback per check); then checks/s (median of 3
+     runs) beside phase 6's, p50/p99 under the burst and alone, the host
+     time of an RS256 verify, an ES256 verify and an ES256 wristband sign,
+     and the kernel's device time on this corpus beside its bound.
 
-The kernels' launch counts in the summary are phase 7's; each kernel must
-have launched on the paths of phases 4, 6 and 7, with the counts zeroed
+The kernels' launch counts in the summary are phase 8's; each kernel must
+have launched on the paths of phases 4, 6, 7 and 8, with the counts zeroed
 just before each.
 
 The last lines are the kernels' JSON summary, the card line and
@@ -837,6 +856,277 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     return launches, max_err
 
 
+def jwt_oracle(entry_id, rule, doc):
+    """(code, status, message, metadata) a ``jwt-{i}`` config answers for
+    ``doc``: its one rule, with its deny provenance."""
+    from authorino_tpu_torch.utils import rpc
+
+    if rule.matches(doc):
+        return (rpc.OK, 0, "", {})
+    return (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
+        "ext_authz_provenance": {"authconfig": entry_id, "rule_index": 0,
+                                 "rule": str(rule), "lane": "engine"}})
+
+
+def host_us(fn, n: int) -> float:
+    """Median host microseconds of ``fn()`` over ``n`` calls."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e6
+
+
+def jwt_full_checks(engine, idp, keys, entries):
+    """The full and introspection configs' checks: an ES256 admin token
+    on a registered resource (allowed, with a wristband), an RS256 viewer
+    token and a resource UMA does not know (denied by the pattern over
+    the identity and ``auth.metadata.*``), an active and an inactive
+    opaque token.  Raises unless each answers as expected."""
+    import hashlib
+
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+    from authorino_tpu_torch.models import oidc_corpus as oc
+    from authorino_tpu_torch.utils import jose, rpc
+
+    admin = {"org": "org-7", "realm_access": {"roles": ["admin"]}}
+    es256 = idp.token(admin, alg="ES256")
+
+    def req(host, token, path="/pets"):
+        return CheckRequestModel(http=HttpRequestAttributes(
+            method="GET", path=path, host=host,
+            headers={"authorization": f"Bearer {token}"}))
+
+    cases = [
+        (req(oc.FULL_HOST, es256), rpc.OK),
+        (req(oc.FULL_HOST, idp.token(dict(admin, realm_access={
+            "roles": ["viewer"]}))), rpc.PERMISSION_DENIED),
+        (req(oc.FULL_HOST, es256, path="/orders"), rpc.PERMISSION_DENIED),
+        (req(oc.INTROSPECTION_HOST, "opaque-active"), rpc.OK),
+        (req(oc.INTROSPECTION_HOST, "opaque-unknown"), rpc.UNAUTHENTICATED),
+    ]
+    n_callbacks = len(idp.callbacks)
+
+    async def run_all():
+        return [await engine.check(r) for r, _ in cases]
+
+    out = asyncio.run(run_all())
+    for (r, want), res in zip(cases, out):
+        if res.code != want:
+            raise AssertionError(f"{r.http.host}{r.http.path}: {res.code} "
+                                 f"{res.message} != {want}")
+    full = next(e for e in entries if e.id == f"{oc.NAMESPACE}/full")
+    wristband = full.runtime.response[0].evaluator
+    token = out[0].headers[0]["x-wristband"]
+    claims = jose.verify_jws(token, json.loads(wristband.jwks())["keys"])
+    identity = jose.verify_jws(es256, idp.jwks)
+    sub = hashlib.sha256(json.dumps(identity, separators=(",", ":"),
+                                    sort_keys=True).encode()).hexdigest()
+    if (claims["iss"], claims["sub"], claims["org"]) != (
+            oc.WRISTBAND_ISSUER, sub, "org-7"):
+        raise AssertionError(f"wristband claims {claims}")
+    if len(idp.callbacks) - n_callbacks != 3:
+        raise AssertionError(f"{len(idp.callbacks) - n_callbacks} callbacks "
+                             f"for 3 checks on the full config")
+    return es256, wristband
+
+
+def jwt_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
+    """Phase 8: keys and a fake Keycloak, the Keycloak RBAC corpus
+    translated with a card engine, 4,096 concurrent Check()s with RS256
+    tokens (one in 32 bad) held to the oracle, the full and introspection
+    configs, the kernel's readback on this corpus against plain, then the
+    path's numbers.  Returns the kernel launch counts of the checked run
+    (counts zeroed just before it) and the mega-kernel's max abs byte
+    error on this corpus."""
+    import numpy as np
+    import torch
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.k8s import InMemoryCluster, Secret
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.models import oidc_corpus as oc
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import fuse_batch
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.utils import jose, rpc
+
+    t = time.perf_counter()
+    keys = oc.make_keys(42)
+    t_keygen = time.perf_counter() - t
+    idp = oc.FakeKeycloak(keys).start()
+    try:
+        t = time.perf_counter()
+        reqs, kinds, claims = oc.build_check_requests(idp, 4096, 1000)
+        t_mint = time.perf_counter() - t
+        n_tokens = len({r.http.headers["authorization"]
+                        for r, k in zip(reqs, kinds) if k is None})
+        log(f"JWT path: keys made in {t_keygen:.2f}s (2 x RSA-2048, 2 x "
+            f"P-256, pure Python), {n_tokens} RS256 tokens + "
+            f"{sum(map(bool, kinds))} bad ones minted in {t_mint:.2f}s")
+        rules = [c.evaluators[0][1] for c in northstar.build_corpus(1000, 10)]
+        cluster = InMemoryCluster()
+        for sec in oc.cluster_secrets(keys):
+            cluster.put_secret(Secret(**sec))
+        specs = (oc.build_auth_configs(1000, 10, idp.issuer)
+                 + [oc.full_auth_config(idp.issuer),
+                    oc.introspection_auth_config(idp.issuer)])
+
+        fk.reset_counts()
+        engine = PolicyEngine(max_batch=256)
+        per_batch = counted_batches(engine)
+
+        async def translate_all():
+            return [await translate_auth_config(
+                o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+                cluster=cluster, engine=engine) for o in specs]
+
+        t = time.perf_counter()
+        entries = asyncio.run(translate_all())
+        t_translate = time.perf_counter() - t
+        t = time.perf_counter()
+        engine.apply_snapshot(entries)
+        t_install = time.perf_counter() - t
+        t = time.perf_counter()
+        out = asyncio.run(timed_checks(engine, reqs))
+        first_wall = time.perf_counter() - t
+        launches = {"fused_megakernel": fk.launches,
+                    "probe_add_one": fk.probe_launches}
+
+        st = dict(engine.stats)
+        snap = engine._snapshot
+        W = snap.policy.fused_pack_w
+        n_good = sum(k is None for k in kinds)
+        if st["failed_batches"] or st["plain_calls"]:
+            raise AssertionError(f"failed or plain batches: {st}")
+        if not (st["launches"] == st["batches"] == fk.launches
+                == len(per_batch)):
+            raise AssertionError(f"launches {fk.launches} vs batches {st}")
+        bad = [b for b in per_batch if b != (1, b[2] * W, b[2])]
+        if bad or st["d2h_bytes"] != st["pad_rows"] * W:
+            raise AssertionError(f"batches of other than one launch and a "
+                                 f"pad x W readback: {bad[:4]} ({st})")
+        if st["rows"] != n_good:
+            raise AssertionError(f"{st['rows']} batch rows for {n_good} good "
+                                 f"tokens: a bad token reached a batch")
+        if fk.probe_launches < 1:
+            raise AssertionError("probe kernel did not run at snapshot install")
+
+        docs, rows = [], []
+        allowed = 0
+        for k, (req, kind, c, (res, _)) in enumerate(zip(reqs, kinds, claims,
+                                                         out)):
+            i = int(req.http.host.split(".")[0][len("jwt-"):])
+            if kind is not None:
+                if res.code != rpc.UNAUTHENTICATED:
+                    raise AssertionError(f"check {k}: a {kind} token answered "
+                                         f"{res.code} {res.message}")
+                continue
+            doc = build_authorization_json(req, {"identity": c})
+            docs.append(doc)
+            rows.append(i)
+            want = jwt_oracle(entries[i].id, rules[i], doc)
+            got = (res.code, res.status, res.message, res.metadata)
+            if got != want:
+                raise AssertionError(f"check {k} on jwt-{i}: {got} != oracle "
+                                     f"{want}")
+            allowed += res.code == rpc.OK
+        if not 0 < allowed < n_good:
+            raise AssertionError(f"degenerate verdicts: {allowed} of {n_good}")
+        es256, wristband = jwt_full_checks(engine, idp, keys, entries)
+
+        # the mega-kernel on this corpus against its plain version
+        policy, params = snap.policy, snap.params
+        db = pack_batch(policy, encode_batch(
+            policy, docs[:256], [policy.config_ids[entries[i].id]
+                                 for i in rows[:256]]))
+        max_err = max(kernel_vs_plain(params, db, dev),
+                      kernel_vs_plain(params, db, dev, global_tables=True))
+        buf, layout = fuse_batch(db)
+        buf_dev = torch.from_numpy(buf).to(dev)
+        kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
+        launch = (lambda: fk.launch_kernel(params, buf_dev, layout, kout))
+        k_ms, _ = device_times_ms(launch, 100)
+        k_b2b, _ = back_to_back_ms(launch, cycles_per_ms)
+        moved, ops = kernel_work(params, db)
+        k_bound, k_by = bound_ms(moved, ops)
+        n_jwt = sum(c.type == "JWT" for e in entries for c in e.runtime.identity)
+        log(f"JWT path: {len(entries)} AuthConfigs translated in "
+            f"{t_translate:.2f}s ({n_jwt} OIDC discoveries over loopback), "
+            f"installed in {t_install:.2f}s; {len(out)} concurrent Check()s "
+            f"-> {st['batches']} batches, {launches['fused_megakernel']} "
+            f"mega-kernel launches, {launches['probe_add_one']} probe, D2H "
+            f"{st['d2h_bytes']} B = pad {st['pad_rows']} x W {W}; every good "
+            f"token's result equals the oracle ({allowed} of {n_good} "
+            f"allowed), the {len(out) - n_good} bad tokens UNAUTHENTICATED "
+            f"with no batch row; the full config (ES256, userInfo, http, uma, "
+            f"wristband, callback) and introspection as expected; B=256 "
+            f"readback byte-equal to plain")
+
+        runs = []
+        for _ in range(3):
+            b0, r0 = engine.stats["batches"], engine.stats["rows"]
+            t = time.perf_counter()
+            timed = asyncio.run(timed_checks(engine, reqs))
+            wall = time.perf_counter() - t
+            runs.append({"checks_per_s": len(reqs) / wall,
+                         "latency_s": [x for _, x in timed],
+                         "batches": engine.stats["batches"] - b0,
+                         "rows": engine.stats["rows"] - r0})
+        lat = np.sort(np.concatenate([r["latency_s"] for r in runs])) * 1e3
+        rates = [r["checks_per_s"] for r in runs]
+
+        async def one_at_a_time(rs):
+            return [(await timed_checks(engine, [r]))[0][1] for r in rs]
+
+        good = [r for r, k in zip(reqs, kinds) if k is None]
+        lone = np.sort(asyncio.run(one_at_a_time(good[:200]))) * 1e3
+        rs256 = good[0].http.headers["authorization"][len("Bearer "):]
+        sign_claims = {"iss": oc.WRISTBAND_ISSUER, "sub": "x" * 64,
+                       "iat": 0, "exp": 300, "org": "org-7"}
+        wb_key = wristband.signing_keys[0]
+        host = {
+            "rs256_verify_us": host_us(
+                lambda: jose.verify_jws(rs256, idp.jwks), 200),
+            "es256_verify_us": host_us(
+                lambda: jose.verify_jws(es256, idp.jwks), 50),
+            "es256_wristband_sign_us": host_us(
+                lambda: jose.sign_jwt(sign_claims, wb_key.private_key,
+                                      "ES256", kid=wb_key.kid), 50),
+        }
+    finally:
+        idp.stop()
+    n_batches = sum(r["batches"] for r in runs)
+    numbers = {
+        "card": card, "configs": len(entries), "checks": len(out),
+        "good_tokens": n_good, "distinct_tokens": n_tokens,
+        "keygen_s": t_keygen, "mint_s": t_mint, "oidc_discoveries": n_jwt,
+        "translate_s": t_translate, "install_s": t_install,
+        "first_run_wall_s": first_wall, "allowed": allowed,
+        "stats_checked_run": st,
+        "checks_per_s": rates,
+        "checks_per_s_median": statistics.median(rates),
+        "check_latency_ms_p50": float(np.percentile(lat, 50)),
+        "check_latency_ms_p99": float(np.percentile(lat, 99)),
+        "batches_timed": n_batches,
+        "mean_rows_per_batch": sum(r["rows"] for r in runs) / n_batches,
+        "lone_check_latency_ms_p50": float(np.percentile(lone, 50)),
+        "lone_check_latency_ms_p99": float(np.percentile(lone, 99)),
+        **host,
+        "kernel_ms_median": statistics.median(k_ms),
+        "kernel_back_to_back_ms": k_b2b,
+        "kernel_bytes_moved": moved, "kernel_int_ops": ops,
+        "bound_ms": k_bound, "bound_by": k_by, "max_abs_err": max_err,
+    }
+    report["jwt_path"] = numbers
+    return launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1076,6 +1366,7 @@ def main() -> int:
     prp_ms, _ = device_times_ms(lambda: fk.probe_plain(probe_x), 100)
     # the one PyTorch call that computes the probe's function
     prl_ms, _ = device_times_ms(lambda: probe_x + 1, 100)
+    prl_b2b, _ = back_to_back_ms(lambda: probe_x + 1, cycles_per_ms)
     pr_bound, pr_by = bound_ms(32, 4)
 
     # engine throughput: three more 4,096-request runs on the warm engine
@@ -1112,6 +1403,7 @@ def main() -> int:
         "probe_host_enqueue_ms_median": pr_host,
         "probe_plain_ms_median": statistics.median(prp_ms),
         "probe_library_ms_median": statistics.median(prl_ms),
+        "probe_library_back_to_back_ms": prl_b2b,
         "engine_decisions_per_s": rates,
         "engine_decisions_per_s_median": statistics.median(rates),
         "batch_latency_ms_p50": pct(lat, 0.50) * 1e3,
@@ -1130,7 +1422,10 @@ def main() -> int:
         f"ms); one batch through the wrapper "
         f"{numbers['wrapper_batch_wall_ms_median']:.4f} ms wall")
     log(f"[{card}] probe: {numbers['probe_ms_median']:.4f} ms one-call, "
-        f"{pr_b2b:.4f} ms per launch back to back")
+        f"{pr_b2b:.4f} ms per launch back to back; x + 1: "
+        f"{numbers['probe_library_ms_median']:.4f} ms one-call, "
+        f"{prl_b2b:.4f} ms back to back (bound {pr_bound:.9f} ms by "
+        f"{pr_by})")
     log(f"[{card}] engine: {numbers['engine_decisions_per_s_median']:.0f} "
         f"decisions/s (runs {[round(r) for r in rates]}), batch latency "
         f"p50 {numbers['batch_latency_ms_p50']:.2f} ms p99 "
@@ -1169,18 +1464,40 @@ def main() -> int:
         f"{op['bound_ms']:.7f} ms by {op['bound_by']} "
         f"({op['kernel_bytes_moved']} B, {op['kernel_int_ops']} int ops)")
 
+    # ---- 8. the JWT request path -------------------------------------------
+    jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms)
+    max_err = max(max_err, jwt_err)
+    jp = report["jwt_path"]
+    log(f"[{card}] JWT path: {jp['checks_per_s_median']:.0f} checks/s "
+        f"median of 3 runs ({[round(r) for r in jp['checks_per_s']]}; phase "
+        f"6 in this run: {rp['checks_per_s_median']:.0f}), per-Check() "
+        f"latency p50 {jp['check_latency_ms_p50']:.2f} ms p99 "
+        f"{jp['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
+        f"{jp['lone_check_latency_ms_p50']:.3f} ms p99 "
+        f"{jp['lone_check_latency_ms_p99']:.3f} ms; host per RS256 verify "
+        f"{jp['rs256_verify_us']:.1f} us, per ES256 verify "
+        f"{jp['es256_verify_us']:.1f} us, per ES256 wristband sign "
+        f"{jp['es256_wristband_sign_us']:.1f} us; checked run: "
+        f"{jp['stats_checked_run']['batches']} batches, "
+        f"{jwt_launches['fused_megakernel']} launches, D2H "
+        f"{jp['stats_checked_run']['d2h_bytes']} B; mega-kernel on this "
+        f"corpus B=256: {jp['kernel_ms_median']:.4f} ms one call, "
+        f"{jp['kernel_back_to_back_ms']:.4f} ms back to back, bound "
+        f"{jp['bound_ms']:.7f} ms by {jp['bound_by']} "
+        f"({jp['kernel_bytes_moved']} B, {jp['kernel_int_ops']} int ops)")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": opa_launches["fused_megakernel"],
+         "launches": jwt_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": opa_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": jwt_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -1188,10 +1505,11 @@ def main() -> int:
     ]
     for name in main_launches:
         if min(main_launches[name], path_launches[name],
-               opa_launches[name]) < 1:
+               opa_launches[name], jwt_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
-                f"request path {path_launches}, OPA path {opa_launches}")
+                f"request path {path_launches}, OPA path {opa_launches}, "
+                f"JWT path {jwt_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

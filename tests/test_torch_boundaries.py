@@ -49,13 +49,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "BAD []" in proc.stdout
 
 
+# the JOSE layer, the HTTP client and every module standing on them
+JWT_AND_HTTP_MODULES = (
+    "utils.pki", "utils.jose", "utils.http", "utils.workers",
+    "utils.oauth2cc", "evaluators.identity.oidc", "evaluators.identity.oauth2",
+    "evaluators.metadata.generic_http", "evaluators.metadata.user_info",
+    "evaluators.metadata.uma", "evaluators.response.wristband",
+    "models.oidc_corpus")
+
+
 def test_port_imports_with_service_libraries_blocked():
     """The card's machine has neither ``aiohttp`` nor ``cryptography``:
     every module of the port (OPA and the Kubernetes reviews among them)
     imports with both blocked, and with ``jax`` blocked too."""
     mods = port_modules()
-    assert "authorino_tpu_torch.evaluators.authorization.opa" in mods
-    assert "authorino_tpu_torch.evaluators.identity.kubernetes" in mods
+    for m in ("evaluators.authorization.opa", "evaluators.identity.kubernetes",
+              *JWT_AND_HTTP_MODULES):
+        assert f"authorino_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         "BLOCKED = ('aiohttp', 'cryptography', 'jax', 'authorino_tpu')\n"
@@ -309,3 +319,65 @@ def test_batch_failure_answers_unavailable_not_a_denial(monkeypatch, where):
     st = engine.stats
     assert st["failed_batches"] == 2  # 6 checks, max_batch 4
     assert st["host_fallback"] == 0
+
+
+def test_jwt_request_path_runs_without_the_reference_or_its_services():
+    """The JWT path end to end on the CPU engine, in a process where JAX,
+    the JAX package, aiohttp, cryptography and grpc cannot be imported:
+    keys made in pure Python, the fake Keycloak on loopback, discovery
+    and JWKS over the port's HTTP client at translate time, then an RS256
+    and an ES256 token verified by the port's JOSE, a bad token, the full
+    config (userInfo, http and uma metadata, a wristband, a callback) and
+    an introspected opaque token."""
+    code = (
+        "import importlib, sys, asyncio\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        "from authorino_tpu_torch.authjson import CheckRequestModel, "
+        "HttpRequestAttributes\n"
+        "from authorino_tpu_torch.controllers import translate_auth_config\n"
+        "from authorino_tpu_torch.k8s import InMemoryCluster, Secret\n"
+        "from authorino_tpu_torch.models import oidc_corpus as oc\n"
+        "from authorino_tpu_torch.runtime import PolicyEngine\n"
+        "from authorino_tpu_torch.utils import jose\n"
+        "keys = oc.make_keys(5, rsa_bits=1024)\n"
+        "async def main(idp):\n"
+        "    engine = PolicyEngine(device='cpu')\n"
+        "    cluster = InMemoryCluster()\n"
+        "    for s in oc.cluster_secrets(keys): cluster.put_secret(Secret(**s))\n"
+        "    specs = oc.build_auth_configs(2, 6, idp.issuer) + [\n"
+        "        oc.full_auth_config(idp.issuer), "
+        "oc.introspection_auth_config(idp.issuer)]\n"
+        "    engine.apply_snapshot([await translate_auth_config(\n"
+        "        o['metadata']['name'], o['metadata']['namespace'], o['spec'],\n"
+        "        cluster=cluster, engine=engine) for o in specs])\n"
+        "    def req(host, token, path='/pets', method='GET'):\n"
+        "        return CheckRequestModel(http=HttpRequestAttributes(\n"
+        "            method=method, path=path, host=host,\n"
+        "            headers={'authorization': f'Bearer {token}'}))\n"
+        "    rs = idp.token({'org': 'org-0'})\n"
+        "    es = idp.token({'org': 'org-7', 'realm_access': {'roles': "
+        "['admin']}}, alg='ES256')\n"
+        "    out = [await engine.check(r) for r in (\n"
+        "        req(oc.host_of(0), rs, method='POST'),\n"
+        "        req(oc.host_of(0), idp.bad_token('signature', {})),\n"
+        "        req(oc.FULL_HOST, es), req(oc.INTROSPECTION_HOST, "
+        "'opaque-active'),\n"
+        "        req(oc.INTROSPECTION_HOST, 'opaque-other'))]\n"
+        "    wb = out[2].headers[0]['x-wristband']\n"
+        "    jwks = [jose.jwk_from_public_key(keys.wristband.public_key(), "
+        "kid='wristband-key', alg='ES256')]\n"
+        "    claims = jose.verify_jws(wb, jwks)\n"
+        "    return [r.code for r in out], claims['org'], "
+        "len(idp.callbacks), engine.stats['rows']\n"
+        "with oc.FakeKeycloak(keys) as idp:\n"
+        "    codes, org, callbacks, rows = asyncio.run(main(idp))\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None and "
+        f"any(m == b or m.startswith(b + '.') for b in {BLOCKED!r}))\n"
+        "print('CODES', codes, org, callbacks, rows, 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CODES [7, 16, 0, 0, 16] org-7 1 3 BAD []" in proc.stdout, \
+        proc.stdout

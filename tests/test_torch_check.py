@@ -13,13 +13,16 @@ north-star request path at 40 AuthConfigs."""
 
 import asyncio
 import json
+import random
 import re
 from pathlib import Path
 
 import pytest
 
+from authorino_tpu.utils import http as ref_http
 from authorino_tpu_torch.controllers import translate as p_translate
-from authorino_tpu_torch.models import northstar
+from authorino_tpu_torch.models import northstar, oidc_corpus
+from authorino_tpu_torch.utils import pki
 from authorino_tpu_torch.runtime import PolicyEngine
 
 from test_control_plane import V2_SPEC
@@ -603,11 +606,16 @@ def _resp(kind, body, wrapper):
 
 
 SELECTOR = {"matchLabels": {"audience": "talker-api"}}
+# the fake Keycloak's issuer, filled in when a case reads it
+IDP = "http://idp.placeholder"
+WRISTBAND_SECRET = {"name": "wristband-key", "namespace": "t", "data": {
+    "key.pem": pki.private_key_to_pem(
+        pki.generate_ec_private_key(pki.P256, random.Random(5)))}}
 KINDS = {
     ("authentication", "apiKey"): _auth("apiKey", {"selector": SELECTOR}),
     ("authentication", "plain"): _auth("plain", {"selector": "request.headers.x-u"}),
     ("authentication", "anonymous"): _auth("anonymous", {}),
-    ("authentication", "jwt"): _auth("jwt", {"issuerUrl": "http://issuer.invalid"}),
+    ("authentication", "jwt"): _auth("jwt", {"issuerUrl": IDP}),
     ("authentication", "oauth2Introspection"): _auth(
         "oauth2Introspection", {"endpoint": "http://introspect.invalid"}),
     ("authentication", "x509"): _auth("x509", {"selector": SELECTOR}),
@@ -615,7 +623,7 @@ KINDS = {
         "kubernetesTokenReview", {"audiences": ["a"]}),
     ("metadata", "http"): dict(_authz("patternMatching", {"patterns": []}),
                                metadata={"x": {"http": {"url": "http://md.invalid"}}}),
-    ("metadata", "userInfo"): dict(_auth("anonymous", {}), metadata={
+    ("metadata", "userInfo"): dict(_auth("jwt", {"issuerUrl": IDP}), metadata={
         "x": {"userInfo": {"identitySource": "x"}}}),
     ("metadata", "uma"): dict(_auth("anonymous", {}), metadata={
         "x": {"uma": {"endpoint": "http://uma.invalid"}}}),
@@ -631,8 +639,9 @@ KINDS = {
     ("response", "json"): _resp("json", {"properties": {"a": {"value": 1}}},
                                 "headers"),
     ("response", "plain"): _resp("plain", {"value": "v"}, "dynamicMetadata"),
-    ("response", "wristband"): _resp("wristband", {"issuer": "http://w.invalid"},
-                                     "headers"),
+    ("response", "wristband"): _resp("wristband", {
+        "issuer": "http://w.invalid", "signingKeyRefs": [
+            {"name": "wristband-key", "algorithm": "ES256"}]}, "headers"),
     ("callbacks", "http"): dict(_auth("anonymous", {}), callbacks={
         "x": {"http": {"url": "http://cb.invalid"}}}),
 }
@@ -659,17 +668,29 @@ def test_not_in_port_list_is_the_roadmaps():
 @pytest.mark.parametrize("section,kind", sorted(KINDS))
 def test_translate_kind_matches_reference_or_is_refused(section, kind):
     spec = KINDS[(section, kind)]
-    if kind in p_translate.NOT_IN_PORT[section]:
+    if IDP in json.dumps(spec):
+        with oidc_corpus.FakeKeycloak(oidc_corpus.make_keys(
+                3, rsa_bits=1024)) as idp:
+            spec = json.loads(json.dumps(spec).replace(IDP, idp.issuer))
+            _translate_kind_matches_reference(section, kind, spec)
+        run(ref_http.close_sessions())
+        return
+    _translate_kind_matches_reference(section, kind, spec)
+
+
+def _translate_kind_matches_reference(section, kind, spec):
+    if kind in p_translate.NOT_IN_PORT.get(section, ()):
         with pytest.raises(p_translate.TranslationError,
                            match=f"kind '{kind}' is not yet in the port"):
             run(PORT.controllers.translate_auth_config(
                 "k", "t", spec, cluster=cluster_of(PORT, [KEY_SECRET]),
                 engine=PolicyEngine(device="cpu")))
         return
+    secrets = [KEY_SECRET, WRISTBAND_SECRET]
     shapes, rules = [], []
     for ns in (REF, PORT):
         entry = run(ns.controllers.translate_auth_config(
-            "k", "t", spec, cluster=cluster_of(ns, [KEY_SECRET]),
+            "k", "t", spec, cluster=cluster_of(ns, secrets),
             engine=engine_of(ns)))
         shapes.append(entry_shape(entry))
         rules.append(entry.rules)
