@@ -14,12 +14,17 @@ little-endian bitmask [own verdict, own rule[E], own skipped[E]] per row:
     compares the kernel with).
 
 ``launches`` counts kernel launches (CUDA only); ``plain_calls`` counts the
-CPU path's calls of the plain version through the same entry point.
+CPU path's calls of the plain version through the same entry point.  Both
+are process-wide and lock-guarded; a caller that counts its own batches
+reads the ``launches``/``plain_calls`` of the ``MegakernelHandle`` it got
+back, since launches from other threads move the module counts too.  The
+wrapper may be called from any number of threads at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,10 +55,19 @@ plain_calls = 0
 # dynamic shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 232448
 
+# guards the counts above and the first build of a params tree's words
+_lock = threading.Lock()
+
 
 def reset_counts() -> None:
     global launches, probe_launches, plain_calls
-    launches = probe_launches = plain_calls = 0
+    with _lock:
+        launches = probe_launches = plain_calls = 0
+
+
+def _count(name: str) -> None:
+    with _lock:
+        globals()[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -321,14 +335,26 @@ def _check_kernel_tensors(params, dev: torch.device) -> None:
                              f"tensor on {dev}")
 
 
-def _param_words(params, dev: torch.device) -> np.ndarray:
-    """The argument block with every params field filled in, built and
-    checked once per params tree (cached in its ``"kernel"`` subtree; the
-    tree's tensors are never replaced after upload)."""
+def _param_words(params, dev: torch.device):
+    """(argument block with every params field filled in, its cache of
+    per-layout templates), built and checked once per params tree and
+    cached in its ``"kernel"`` subtree as one object, so a thread never
+    sees the words without their template cache (the tree's tensors are
+    never replaced after upload)."""
     kp = params["kernel"]
     cached = kp.get("launch_words")
     if cached is not None and cached[0] == dev:
-        return cached[1]
+        return cached[1:]
+    with _lock:
+        cached = kp.get("launch_words")
+        if cached is not None and cached[0] == dev:
+            return cached[1:]
+        w = _build_param_words(params, kp, dev)
+        kp["launch_words"] = (dev, w, {})
+        return w, kp["launch_words"][2]
+
+
+def _build_param_words(params, kp, dev: torch.device) -> np.ndarray:
     _check_kernel_tensors(params, dev)
     G, E = params["eval_rule"].shape
     if tuple(kp["cfg_off"].shape) != (G + 1, 8) \
@@ -358,8 +384,6 @@ def _param_words(params, dev: torch.device) -> np.ndarray:
                                          "node_kids", "lvl_end", "dfa_rec",
                                          "ev"))):
         w[_IDX[name]] = value
-    kp["launch_words"] = (dev, w)
-    kp["launch_layouts"] = {}
     return w
 
 
@@ -426,8 +450,8 @@ def stage_layout(params, layout: tuple):
 def forget_launch_words(params) -> None:
     """Drop the cached argument-block words of a params tree; the next
     launch rebuilds and re-checks them."""
-    params["kernel"].pop("launch_words", None)
-    params["kernel"].pop("launch_layouts", None)
+    with _lock:
+        params["kernel"].pop("launch_words", None)
 
 
 def _launch_template(params, dev: torch.device, layout: tuple,
@@ -435,12 +459,12 @@ def _launch_template(params, dev: torch.device, layout: tuple,
     """(argument block without the out and buf pointers, dynamic shared
     memory) of one (layout, placement), built and checked once and cached
     beside the params words."""
-    cache = params["kernel"]["launch_layouts"]
+    words, cache = _param_words(params, dev)
     key = (layout, global_tables)
     hit = cache.get(key)
     if hit is not None:
         return hit
-    words = _param_words(params, dev).copy()
+    words = words.copy()
     lw = _layout_words(params, layout)
     n_batch = _BATCH_SLICE.stop - _BATCH_SLICE.start
     words[_BATCH_SLICE], words[_STAGE_SLICE] = lw[:n_batch], lw[n_batch:]
@@ -488,7 +512,6 @@ def launch_kernel(params, buf_dev: torch.Tensor, layout: tuple,
     not synchronise.  The DFA tables go to shared memory where they fit;
     ``global_tables=True`` forces the instance that reads them from device
     memory."""
-    global launches
     words, smem = _words(params, buf_dev, layout, out, global_tables)
     lib = _lib()
     dev = buf_dev.device
@@ -497,7 +520,7 @@ def launch_kernel(params, buf_dev: torch.Tensor, layout: tuple,
             words.ctypes.data, len(_ARG_FIELDS), smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "fused mega-kernel launch")
-    launches += 1
+    _count("launches")
 
 
 def launch_stamped(params, buf_dev: torch.Tensor, layout: tuple,
@@ -523,22 +546,24 @@ def launch_stamped(params, buf_dev: torch.Tensor, layout: tuple,
 
 
 def _stage(buf: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """One pinned host buffer → one async H2D copy on the current stream."""
+    """One pinned host buffer → one async H2D copy on the current stream.
+    The pinned block is not reused before the copy ends: PyTorch's
+    host allocator records the copy's stream on it when it is freed."""
     host = torch.empty((buf.size,), dtype=torch.uint8, pin_memory=True)
     host.numpy()[:] = buf
     return host.to(dev, non_blocking=True)
 
 
 def eval_fused_kernel(params, db) -> torch.Tensor:
-    """One packed batch through the mega-kernel; returns the [B, W] uint8
-    bitpacked result on the params' device (decode with
+    """One packed batch through the mega-kernel (one launch on the current
+    stream) or, for CPU params, its plain version; returns the [B, W]
+    uint8 bitpacked result on the params' device (decode with
     ``operands.unpack_verdicts``)."""
-    global plain_calls
     dev = params["leaf_op"].device
     check_batch(params, db)
     buf, layout = fuse_batch(db)
     if dev.type == "cpu":
-        plain_calls += 1
+        _count("plain_calls")
         return fused_packed_plain(params, defuse(torch.from_numpy(buf), layout))
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -552,19 +577,25 @@ def eval_fused_kernel(params, db) -> torch.Tensor:
 
 class MegakernelHandle:
     """An in-flight batch: the [B, W] result copied asynchronously into
-    pinned host memory.  ``is_ready()`` polls without blocking;
-    ``np.asarray(handle)`` waits for the copy."""
+    pinned host memory on ``stream``, the stream its H2D copy and launch
+    were enqueued on.  ``is_ready()`` polls without blocking;
+    ``np.asarray(handle)`` waits for the copy.  ``launches`` and
+    ``plain_calls`` are this batch's own (1 and 0 on the card, 0 and 1 on
+    the CPU)."""
 
-    def __init__(self, out: torch.Tensor):
+    def __init__(self, out: torch.Tensor, stream=None):
         self.nbytes = out.numel() * out.element_size()
+        self.stream = stream
         if out.device.type == "cpu":
             self._host, self._event = out, None
+            self.launches, self.plain_calls = 0, 1
             return
+        self.launches, self.plain_calls = 1, 0
         self._host = torch.empty(out.shape, dtype=torch.uint8,
                                  pin_memory=True)
         self._host.copy_(out, non_blocking=True)
         self._event = torch.cuda.Event()
-        self._event.record(torch.cuda.current_stream(out.device))
+        self._event.record(stream)
 
     def is_ready(self) -> bool:
         return self._event is None or self._event.query()
@@ -580,8 +611,13 @@ class MegakernelHandle:
 
 
 def dispatch_megakernel(params, db) -> MegakernelHandle:
-    """Non-blocking launch of one batch; the D2H copy starts at once."""
-    return MegakernelHandle(eval_fused_kernel(params, db))
+    """Non-blocking launch of one batch; the D2H copy starts at once.  The
+    H2D copy, the launch, the D2H copy and the handle's event all go on
+    the calling thread's current stream of the params' device, whichever
+    thread calls."""
+    dev = params["leaf_op"].device
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    return MegakernelHandle(eval_fused_kernel(params, db), stream)
 
 
 # ---------------------------------------------------------------------------
@@ -598,7 +634,6 @@ def probe_plain(x: torch.Tensor) -> torch.Tensor:
 
 def launch_probe(x: torch.Tensor) -> torch.Tensor:
     """Launch the probe kernel once: int32 [n] → x + 1."""
-    global probe_launches
     if x.device.type != "cuda" or x.dtype != torch.int32 \
             or not x.is_contiguous():
         raise ValueError("the probe takes a contiguous int32 CUDA tensor")
@@ -609,7 +644,7 @@ def launch_probe(x: torch.Tensor) -> torch.Tensor:
             _ptr(x), _ptr(y), int(x.numel()),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "probe launch")
-    probe_launches += 1
+    _count("probe_launches")
     return y
 
 

@@ -4,48 +4,83 @@ in front of it.
 ``check(request)`` is the full request-time flow: host lookup in the
 snapshot's ``HostIndex`` (with a retry that strips ``:port``), then the
 AuthConfig's five-phase ``AuthPipeline``, whose pattern-matching evaluators
-reach the engine through ``provider_for``.
+reach the engine through ``provider_for`` (which carries the Check()'s
+span and deadline into ``submit``).
 
-``submit(doc, config_name)`` queues one request and resolves to that
-request's per-evaluator ``(rule_results [E], skipped [E])``.  Every submit
-scheduled in the same event-loop iteration lands in one batch cut: the
-dispatch decision is deferred one iteration (``call_soon``), so a burst of
-concurrent submits is cut into batches of at most ``max_batch`` rows while a
-lone request still dispatches right after its iteration.
+``submit(doc, config_name)`` admits one request and resolves to that
+request's per-evaluator ``(rule_results [E], skipped [E])``.  Dispatch is a
+three-stage pipeline shared by every event loop (futures resolve on their
+own loop through ``call_soon_threadsafe``):
 
-Each batch is padded to a power-of-two bucket (≥ 16 rows) and goes
-encode → pack → one staging buffer → one kernel launch → one asynchronous
-D2H readback → ``unpack_verdicts`` → host-oracle re-decision of the rows the
-compact encoding could not represent (``apply_host_fallback``).  Encode
-runs on the event loop (the Python encoder); launched batches complete on
-a worker thread, so the card works on batch N+1 while the host waits for
-batch N.
+  1. admission — ``AdmissionController`` (runtime/admission.py) rejects,
+     typed and before the request queues, work past the queue caps
+     (RESOURCE_EXHAUSTED) and work whose deadline lands inside the
+     predicted wait + one device round trip (DEADLINE_EXCEEDED); a
+     draining engine answers UNAVAILABLE;
+  2. cut + encode — the dispatch decision is deferred one loop iteration
+     (``call_soon``), so a burst of concurrent submits lands in one cut;
+     batches of at most ``max_batch`` are cut while the in-flight window
+     (``AdaptiveWindow``, at most ``max_inflight_batches``) has a free
+     slot, and each cut goes to the process-wide encode pool.  There a
+     worker sheds the requests whose deadline passed, encodes and packs
+     the batch, answers the rows whose verdict is cached, collapses the
+     rest to unique rows (``batch_dedup``), pads them to a power of two
+     ≥ 16 and launches the kernel once on them — none at all when every
+     row was cached;
+  3. completion — one process-wide completer thread polls the in-flight
+     readbacks and finalizes each arrived batch itself: it fans the
+     verdicts back out, re-decides the rows the compact encoding could not
+     represent through the host oracle (``apply_host_fallback``), fills
+     the verdict cache and resolves the futures; the freed slot cuts the
+     next batch.  Completion order is arrival order, not launch order.
+     (The reference hands finalize to the encode pool; with a Python
+     encoder holding the interpreter lock that hand-off queues a finished
+     batch behind every encode job of its burst, so here the completer
+     finalizes.)
 
-A batch that fails (encode, launch, readback) fails its requests with a
-typed ``CheckAbort(UNAVAILABLE)``, which the pipeline passes through as the
-Check()'s code: never the raw exception, whose text would otherwise become
-a deny reason, and never a switch to the host oracle or the plain version.
-The raw cause is logged and the batch counted in ``stats["failed_batches"]``.
+A batch that fails (encode, launch, readback, or a readback wedged past
+``device_timeout_s``) is retried once on a fresh dispatch on the same card;
+if that fails too, its requests answer a typed ``CheckAbort(UNAVAILABLE)``,
+which the pipeline passes through as the Check()'s code: never the raw
+exception, whose text would otherwise become a deny reason, and never a
+switch to the host oracle or the plain version.
 
-``stats`` counts batches, kernel launches, rows, pad rows and the H2D/D2H
-bytes per batch; ``batch_latency_s`` keeps each batch's time from its cut to
-its resolved futures.
+The verdict cache is keyed by (the config's cache token, the encoded row's
+bytes): the token (snapshots/fingerprint.py) is the encoding epoch and the
+config's source fingerprint, so a swap that leaves a config unchanged keeps
+its entries reachable and one that changes it makes them unreachable.
+Rows of a config compiled uncacheable and lossy host-fallback rows never
+enter the cache.
+
+``stats`` counts batches (one per dispatch attempt), kernel launches, plain
+calls, rows, device rows, rows saved by dedup and by the cache, batches the
+cache answered whole, pad rows and H2D/D2H bytes of what went to the
+device, host-fallback rows, retries, failed batches, deadline sheds and
+watchdog timeouts; ``batch_records`` keeps the same per batch, and
+``batch_latency_s`` each batch's time from its encode to its verdicts.
+The structural contract: one launch per batch with at least one unique
+uncached row and none for a batch the cache answers whole; D2H = Σ pad_u
+× W; rows = device rows + rows saved by dedup + rows saved by the cache.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..authjson.wellknown import CheckRequestModel
 from ..compiler.compile import CompiledPolicy, ConfigRules, compile_corpus
 from ..compiler.encode import encode_batch
-from ..compiler.pack import pack_batch
+from ..compiler.intern import StringInterner
+from ..compiler.pack import batch_row_keys, dedup_rows, pack_batch, select_rows
 from ..evaluators.authorization import PatternMatching
 from ..index import HostIndex
 from ..models.policy_model import apply_host_fallback, host_results
@@ -53,13 +88,25 @@ from ..ops import fused_kernel as fk
 from ..ops.operands import (packed_width, resolve_device, staged_h2d_bytes,
                             to_device, unpack_verdicts)
 from ..pipeline import AuthPipeline, AuthResult
+from ..snapshots.fingerprint import cache_tokens, rules_fingerprint
 from ..utils import bucket_pow2
-from ..utils.rpc import NOT_FOUND, UNAVAILABLE, CheckAbort
+from ..utils import metrics as metrics_mod
+from ..utils.rpc import DEADLINE_EXCEEDED, NOT_FOUND, UNAVAILABLE, CheckAbort
+from ..utils.verdict_cache import VerdictCache
 from . import provenance as prov_mod
+from .admission import AdaptiveWindow, AdmissionController
 
 __all__ = ["EngineEntry", "PolicyEngine"]
 
 log = logging.getLogger(__name__)
+
+# per-batch records and batch latencies kept (the newest)
+BATCH_RECORDS = 65536
+
+_STAT_KEYS = ("batches", "launches", "plain_calls", "rows", "device_rows",
+              "dedup_rows", "cache_rows", "cached_batches", "pad_rows",
+              "h2d_bytes", "d2h_bytes", "host_fallback", "retries",
+              "failed_batches", "deadline_shed", "watchdog_timeouts")
 
 
 @dataclass
@@ -74,20 +121,31 @@ class EngineEntry:
 
 class _Snapshot:
     """Compiled corpus + its device params + the host index of every entry
-    (those without compilable rules too), swapped whole on reconcile."""
+    (those without compilable rules too), swapped whole on reconcile.
+    ``generation`` is set at the swap; ``cache_tokens`` key the verdict
+    cache per config row."""
 
     def __init__(self, entries: Sequence[EngineEntry], members_k: int,
-                 ovf_assist: Optional[bool], device, override: bool = True):
+                 ovf_assist: Optional[bool], device,
+                 interner: StringInterner, override: bool = True):
         self.index: HostIndex[EngineEntry] = HostIndex()
         for e in entries:
             for host in e.hosts:
                 self.index.set(e.id, host, e, override=override)
         rules = [e.rules for e in entries if e.rules is not None]
+        self.generation = 0
         self.policy: Optional[CompiledPolicy] = None
         self.params = None
+        self.fingerprints: Dict[str, str] = {}
+        self.cache_tokens = None
         if rules:
             self.policy = compile_corpus(rules, members_k=members_k,
-                                         ovf_assist=ovf_assist)
+                                         ovf_assist=ovf_assist,
+                                         interner=interner)
+            memo: Dict[int, str] = {}
+            self.fingerprints = {c.name: rules_fingerprint(c, memo)
+                                 for c in rules}
+            self.cache_tokens = cache_tokens(self.policy, self.fingerprints)
             self.params = to_device(self.policy, device=device)
             fk.prewarm_fused(self.policy, self.params)
 
@@ -97,29 +155,131 @@ class _Pending:
     doc: Any
     config_name: str
     future: asyncio.Future
+    loop: Any                         # owning event loop
+    span: Any = None                  # the Check()'s RequestSpan
+    t_enq: float = 0.0                # monotonic enqueue time
+    deadline: Optional[float] = None  # monotonic Check() deadline
+
+
+class _Resolved:
+    """The handle of a batch the cache answered whole: ready at once, no
+    launch, no bytes."""
+
+    nbytes = launches = plain_calls = 0
+
+    def is_ready(self) -> bool:
+        return True
+
+    def wait(self) -> np.ndarray:
+        return np.zeros((0, 1), dtype=np.uint8)
+
+
+class _Inflight:
+    """One launched micro-batch riding the device window: the result
+    handle plus everything the completion stage needs to finalize and
+    resolve it.  ``handle`` needs ``is_ready()`` (non-blocking) and
+    ``wait()`` (the readback as numpy) — tests substitute stubs."""
+
+    __slots__ = ("engine", "batch", "handle", "finalize", "binfo", "waits",
+                 "t_launch", "snap", "attempt")
+
+    def __init__(self, engine, batch, handle, finalize, binfo, waits,
+                 snap=None, attempt=0):
+        self.engine = engine
+        self.batch = batch
+        self.handle = handle
+        self.finalize = finalize
+        self.binfo = binfo
+        self.waits = waits
+        self.t_launch = time.monotonic()
+        self.snap = snap          # pinned snapshot (retry path)
+        self.attempt = attempt    # 0 = first dispatch, 1 = the one retry
+
+    def ready(self) -> bool:
+        is_ready = getattr(self.handle, "is_ready", None)
+        if is_ready is None:
+            return True  # no readiness probe: wait() blocks
+        try:
+            return bool(is_ready())
+        except Exception:
+            return True  # let wait() surface the real error
+
+    def expired(self) -> bool:
+        """Watchdog probe: True once this batch has been in the window
+        past the engine's ``device_timeout_s``."""
+        t = self.engine.device_timeout_s
+        return bool(t) and (time.monotonic() - self.t_launch) > t
 
 
 class PolicyEngine:
     def __init__(self, max_batch: int = 256, members_k: int = 16,
                  ovf_assist: Optional[bool] = None, device=None,
-                 timeout_s: Optional[float] = None):
+                 timeout_s: Optional[float] = None,
+                 max_inflight_batches: int = 48,
+                 dispatch_workers: int = 4,
+                 verdict_cache_size: int = 32768,
+                 batch_dedup: bool = True,
+                 admission_target_s: float = 0.05,
+                 admission_queue_cap: int = 0,
+                 admission_min_cap: Optional[int] = None,
+                 adaptive_window: bool = True,
+                 device_timeout_s: Optional[float] = None):
+        """``max_inflight_batches`` caps the dispatch window (launched
+        batches awaiting readback); the adaptive controller tunes the live
+        window inside it.  ``dispatch_workers`` sizes the process-wide
+        encode pool (the first engine in the process sets it).
+        ``batch_dedup`` collapses identical encoded rows of a batch before
+        the launch; ``verdict_cache_size`` bounds the verdict LRU (0 turns
+        it off).  ``admission_target_s``, ``admission_queue_cap`` (0 = no
+        hard cap) and ``admission_min_cap`` (None = one full window of
+        batches) parameterize the admission gate.  ``device_timeout_s``
+        (None = off) abandons a batch whose readback has not arrived by
+        then and retries it once.  ``timeout_s`` bounds one Check()'s
+        pipeline."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
         self.device = resolve_device(device)
-        self.timeout_s = timeout_s  # bound of one Check()'s pipeline
+        self.timeout_s = timeout_s
+        self.max_inflight_batches = max(1, int(max_inflight_batches))
+        self.dispatch_workers = max(1, int(dispatch_workers))
+        self.batch_dedup = bool(batch_dedup)
+        self.device_timeout_s = (float(device_timeout_s)
+                                 if device_timeout_s else None)
+        self._verdict_cache = (VerdictCache(verdict_cache_size)
+                               if verdict_cache_size else None)
+        # one string table for every snapshot: ids stay stable across
+        # reconciles, so an unchanged config keeps its encoding epoch
+        self._interner = StringInterner()
+        self.generation = 0
         self._snapshot: Optional[_Snapshot] = None
-        self._queue: List[_Pending] = []
-        self._scheduled = False
-        self._inflight: set = set()
-        # "launches": kernel launches on the card; "plain_calls": batches
-        # the CPU device ran through the kernel's plain version instead;
-        # "failed_batches": batches whose requests got UNAVAILABLE
-        self.stats = {"batches": 0, "launches": 0, "plain_calls": 0,
-                      "rows": 0, "pad_rows": 0, "h2d_bytes": 0,
-                      "d2h_bytes": 0, "host_fallback": 0,
-                      "failed_batches": 0}
-        self.batch_latency_s: List[float] = []
+        self._swap_lock = threading.Lock()
+        self._queue: deque = deque()
+        self._queue_lock = threading.Lock()
+        self._inflight = 0
+        self.inflight_peak = 0
+        self._draining = False
+        # EWMA of launch → readback: the shedding horizon
+        self._device_ewma = 0.0
+        if admission_min_cap is None:
+            admission_min_cap = max(64, self.max_inflight_batches * max_batch)
+        self.admission = AdmissionController(
+            "engine", target_s=admission_target_s,
+            queue_cap=admission_queue_cap, min_cap=admission_min_cap)
+        self.controller = AdaptiveWindow(
+            "engine", cap=self.max_inflight_batches, batch_cap=max_batch,
+            enabled=adaptive_window)
+        self._g_inflight = metrics_mod.inflight_batches.labels("engine")
+        self._g_depth = metrics_mod.dispatch_queue_depth.labels("engine")
+        self._stats_lock = threading.Lock()
+        self.stats = dict.fromkeys(_STAT_KEYS, 0)
+        self.batch_records: deque = deque(maxlen=BATCH_RECORDS)
+        self.batch_latency_s: deque = deque(maxlen=BATCH_RECORDS)
+
+    def _add_stats(self, **counts) -> None:
+        with self._stats_lock:
+            for k, v in counts.items():
+                self.stats[k] += v
 
     # ---- control plane ----------------------------------------------------
 
@@ -128,13 +288,18 @@ class PolicyEngine:
         """Index, compile, upload and swap in a new corpus.  The host index
         rides on the snapshot, so one store swaps both: a lookup never
         finds an entry whose config the installed snapshot lacks.
-        In-flight batches finish on the snapshot they were encoded
-        against.  An entry whose pattern evaluators are not bound to this
-        engine is refused (ValueError) before anything is swapped."""
+        In-flight batches finish on the snapshot they were cut against,
+        and insert and serve verdicts under its cache tokens.  An entry
+        whose pattern evaluators are not bound to this engine is refused
+        (ValueError) before anything is swapped."""
         for e in entries:
             self._check_bound(e)
-        self._snapshot = _Snapshot(entries, self.members_k, self.ovf_assist,
-                                   self.device, override=override)
+        snap = _Snapshot(entries, self.members_k, self.ovf_assist,
+                         self.device, self._interner, override=override)
+        with self._swap_lock:
+            self.generation += 1
+            snap.generation = self.generation
+            self._snapshot = snap
 
     def _check_bound(self, entry: EngineEntry) -> None:
         """Every PatternMatching of ``entry`` must take its verdicts from
@@ -177,13 +342,34 @@ class PolicyEngine:
                     deadline: Optional[float] = None) -> AuthResult:
         """Full request-time flow (ref: pkg/service/auth.go:239-310).
         ``deadline`` is the propagated Envoy Check() deadline (monotonic
-        seconds): it bounds the pipeline below ``timeout_s``."""
+        seconds): it bounds the pipeline below ``timeout_s`` and arms
+        admission and deadline shedding in the dispatcher."""
         entry = self.lookup(request.host())
         if entry is None:
             return AuthResult(code=NOT_FOUND, message="Service not found")
         pipeline = AuthPipeline(request, entry.runtime, timeout=self.timeout_s,
                                 span=span, deadline=deadline)
         return await pipeline.evaluate()
+
+    def admission_precheck(self, deadline: Optional[float] = None):
+        """Front-door overload check at the actual queue depth: a request
+        arriving into a full hard cap, or doomed on arrival while the lane
+        is OVERLOADED, is answered typed before a pipeline is built.
+        Deterministic — the submit-time gate stays the one true admission
+        point and this never rejects anything that gate would accept.
+        Returns an AuthResult to serve, or None to proceed."""
+        rej = self.admission.precheck(len(self._queue), deadline=deadline,
+                                      rtt_s=self._device_ewma)
+        if rej is None:
+            return None
+        code, reason = rej
+        self.admission.count_reject(reason)
+        if code == DEADLINE_EXCEEDED:
+            self._count_shed(1)
+            return AuthResult(code=code,
+                              message="rejected at admission: deadline "
+                                      "cannot be met")
+        return AuthResult(code=code, message=f"server overloaded ({reason})")
 
     def provider_for(self, config_name: str):
         """BatchedVerdictProvider bound to one compiled config — handed to
@@ -192,6 +378,8 @@ class PolicyEngine:
         async def provider(pipeline, evaluator_slot: int) -> Tuple[bool, bool]:
             rule, skipped, snap = await self.submit(
                 pipeline.authorization_json(), config_name,
+                span=pipeline.span,
+                deadline=getattr(pipeline, "deadline", None),
                 return_snapshot=True)
             # pin the evaluating snapshot on the pipeline: a deny built
             # moments later attributes against THIS corpus, not whatever
@@ -227,103 +415,472 @@ class PolicyEngine:
 
         return attributor
 
-    async def submit(self, doc: Any, config_name: str,
+    def _count_shed(self, n: int) -> None:
+        metrics_mod.deadline_shed.labels("engine").inc(n)
+        self._add_stats(deadline_shed=n)
+
+    async def submit(self, doc: Any, config_name: str, span: Any = None,
+                     deadline: Optional[float] = None,
                      return_snapshot: bool = False):
-        """Queue one request for the next micro-batch; resolves to that
+        """Admit one request for the next micro-batch; resolves to that
         request's per-evaluator ``(rule_results [E], skipped [E])``, plus
-        the snapshot that evaluated it when ``return_snapshot``."""
+        the snapshot that evaluated it when ``return_snapshot``.
+        ``deadline`` (monotonic seconds) arms shedding: a request that
+        cannot make it answers a typed DEADLINE_EXCEEDED before encode.
+
+        The dispatch decision is deferred one loop iteration (call_soon):
+        every submit scheduled in the same iteration lands in one batch
+        cut, while a lone request still dispatches right after its
+        iteration."""
+        if self._draining:
+            raise CheckAbort(UNAVAILABLE, "server draining")
         snap = self._snapshot
         if snap is None or snap.policy is None:
             raise RuntimeError("no compiled snapshot is installed")
         if config_name not in snap.policy.config_ids:
             raise KeyError(f"unknown AuthConfig {config_name!r}")
+        rej = self.admission.admit(len(self._queue), deadline=deadline,
+                                   rtt_s=self._device_ewma)
+        if rej is not None:
+            code, reason = rej
+            self.admission.count_reject(reason)
+            if code == DEADLINE_EXCEEDED:
+                self._count_shed(1)
+                raise CheckAbort(code, "rejected at admission: deadline "
+                                       "cannot be met")
+            raise CheckAbort(code, f"server overloaded ({reason}): "
+                                   "admission rejected")
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
-        self._queue.append(_Pending(doc, config_name, fut))
-        if not self._scheduled:
-            self._scheduled = True
-            loop.call_soon(self._dispatch)
+        with self._queue_lock:
+            self._queue.append(_Pending(doc, config_name, fut, loop,
+                                        span=span, t_enq=time.monotonic(),
+                                        deadline=deadline))
+            self.controller.observe_arrivals()
+        loop.call_soon(self._maybe_dispatch)
         rule, skipped, used = await fut
         return (rule, skipped, used) if return_snapshot else (rule, skipped)
 
-    def _fail(self, batch: List[_Pending], exc: Exception) -> None:
-        """Fail a batch's unresolved requests with a TYPED CheckAbort —
-        never the raw exception, whose text would otherwise serve as a
-        deny reason; the raw cause is logged here.  There is no degrade
-        path: the batch's requests answer UNAVAILABLE."""
-        log.error("batch of %d failed: %r", len(batch), exc, exc_info=exc)
-        self.stats["failed_batches"] += 1
-        abort = CheckAbort(UNAVAILABLE, "policy evaluation unavailable")
-        for p in batch:
-            if not p.future.done():
-                p.future.set_exception(abort)
+    # ---- pipelined dispatch -----------------------------------------------
 
-    def _dispatch(self) -> None:
-        """Cut the queue into batches of at most ``max_batch`` and launch
-        each; completions run as tasks."""
-        self._scheduled = False
-        while self._queue:
-            batch = self._queue[:self.max_batch]
-            del self._queue[:self.max_batch]
-            try:
-                inflight = self._encode_and_launch(self._snapshot, batch)
-            except Exception as exc:
-                self._fail(batch, exc)
-                continue
-            task = asyncio.get_running_loop().create_task(
-                self._complete(*inflight))
-            self._inflight.add(task)
-            task.add_done_callback(self._inflight.discard)
+    def _maybe_dispatch(self) -> None:
+        """Cut and hand off batches while the window has a free slot and
+        the queue is not empty.  Runs on event loops (after a submit) and
+        on the completer and pool threads (after a batch resolves); a call
+        with nothing to do is a cheap no-op, so no timer is needed: a full
+        window means a completion will come, and it cuts the next batch."""
+        while True:
+            with self._queue_lock:
+                if not self._queue or \
+                        self._inflight >= self.controller.window:
+                    break
+                n = min(len(self._queue), self.max_batch)
+                batch = [self._queue.popleft() for _ in range(n)]
+                self._inflight += 1
+                self.inflight_peak = max(self.inflight_peak, self._inflight)
+                inflight = self._inflight
+            self._g_inflight.set(inflight)
+            # pinned per batch: a swap admitted later never relabels it
+            _encode_pool(self.dispatch_workers).submit(
+                self._encode_launch_job, self._snapshot, batch)
+        self._g_depth.set(len(self._queue))
 
-    def _encode_and_launch(self, snap: _Snapshot, batch: List[_Pending]):
-        t0 = time.monotonic()
+    def _encode_launch_job(self, snap: Optional[_Snapshot],
+                           batch: List[_Pending], attempt: int = 0) -> None:
+        """Encode stage (pool thread): shed the expired, encode + launch
+        without waiting on the device, hand the batch to the completer.
+        A failure takes the retry path (``_batch_failed``)."""
+        batch = self._shed_expired(batch)
+        if not batch:
+            self._launch_done()
+            return
+        if snap is None or snap.policy is None:
+            self._resolve_error(batch, CheckAbort(
+                UNAVAILABLE, "no compiled policy snapshot"))
+            self._launch_done()
+            return
+        try:
+            item = self._encode_and_launch(snap, batch)
+            item.snap = snap
+            item.attempt = attempt
+        except Exception as e:
+            self._batch_failed(snap, batch, attempt, e)
+            return
+        _completer_submit(item)
+
+    def _shed_expired(self, batch: List[_Pending]) -> List[_Pending]:
+        """Requests whose propagated deadline lands inside one expected
+        device round trip (EWMA) answer a typed DEADLINE_EXCEEDED here
+        instead of riding a launch whose answer would arrive dead."""
+        if all(p.deadline is None for p in batch):
+            return batch
+        horizon = time.monotonic() + self._device_ewma
+        live = [p for p in batch if p.deadline is None or p.deadline > horizon]
+        shed = [p for p in batch if p.deadline is not None
+                and p.deadline <= horizon]
+        if shed:
+            self._count_shed(len(shed))
+            self._resolve_error(shed, CheckAbort(
+                DEADLINE_EXCEEDED,
+                "request shed before dispatch: deadline cannot be met"))
+        return live
+
+    def _batch_failed(self, snap: _Snapshot, batch: List[_Pending],
+                      attempt: int, exc: Exception) -> None:
+        """A launched (or launching) batch failed: retry it once on a fresh
+        dispatch, then answer its requests UNAVAILABLE.  The window slot
+        stays held until the batch resolves (the retry owns it)."""
+        if attempt == 0:
+            metrics_mod.batch_retries.labels("engine").inc()
+            self._add_stats(retries=1)
+            log.warning("micro-batch of %d failed (%r): retrying once on a "
+                        "fresh dispatch", len(batch), exc)
+            _encode_pool(self.dispatch_workers).submit(
+                self._encode_launch_job, snap, batch, 1)
+            return
+        self._resolve_error(batch, exc)
+        self._launch_done()
+
+    def _watchdog_fire(self, item: _Inflight) -> None:
+        """An in-flight batch wedged past ``device_timeout_s``: abandon its
+        handle (a late readback is dropped) and take the retry path."""
+        metrics_mod.watchdog_timeouts.labels("engine").inc()
+        self._add_stats(watchdog_timeouts=1)
+        log.warning("device batch (%d requests, attempt %d) wedged past "
+                    "device_timeout_s %.3fs: abandoning the handle",
+                    len(item.batch), item.attempt, self.device_timeout_s)
+        self._batch_failed(item.snap, item.batch, item.attempt,
+                           TimeoutError("device readback watchdog timeout"))
+
+    # ---- graceful drain ---------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Stop admitting (submit answers a typed UNAVAILABLE); queued and
+        in-flight work keeps flowing to completion."""
+        if not self._draining:
+            self._draining = True
+            log.info("engine draining: admission stopped "
+                     "(queue=%d, inflight=%d)", len(self._queue),
+                     self._inflight)
+
+    def drain(self, timeout_s: float = 10.0) -> bool:
+        """Block until every queued request and in-flight batch has
+        resolved (True), or the timeout expires (False).  Call from a
+        worker thread; begin_drain() is implied."""
+        self.begin_drain()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._queue_lock:
+                if not self._queue and self._inflight == 0:
+                    return True
+            time.sleep(0.01)
+        log.warning("engine drain timed out after %.1fs (queue=%d, "
+                    "inflight=%d)", timeout_s, len(self._queue),
+                    self._inflight)
+        return False
+
+    # ---- dedup and the verdict cache ---------------------------------------
+
+    def _cache_keys(self, keys, n, snap, rows):
+        """Full verdict-cache keys of one batch: (the row's config cache
+        token, the row's bytes)."""
+        if keys is None or self._verdict_cache is None:
+            return None
+        tokens = snap.cache_tokens
+        return [(tokens[rows[r]], keys[r]) for r in range(n)]
+
+    def _dedup_plan(self, keys, ckeys, n, eligible):
+        """Cache lookup + within-batch collapse of one batch.
+        ``eligible(r)`` gates the cache (a cacheable config and not a lossy
+        host-fallback row).  Returns (cached {row: value}, miss_rows,
+        unique_rows, inverse, eligible_misses)."""
+        cache = self._verdict_cache
+        cached: Dict[int, Any] = {}
+        eligible_misses = 0
+        if cache is not None and ckeys is not None:
+            miss_rows: List[int] = []
+            for r in range(n):
+                if eligible(r):
+                    v = cache.get(ckeys[r])
+                    if v is not None:
+                        cached[r] = v
+                        continue
+                    eligible_misses += 1
+                miss_rows.append(r)
+        else:
+            miss_rows = list(range(n))
+        if self.batch_dedup and keys is not None:
+            unique_rows, inverse = dedup_rows(keys, miss_rows)
+        else:
+            unique_rows, inverse = miss_rows, np.arange(len(miss_rows))
+        return cached, miss_rows, unique_rows, inverse, eligible_misses
+
+    def _cache_insert(self, ckeys, unique_rows, eligible,
+                      own_rule, own_skipped) -> int:
+        """Insert freshly evaluated unique rows under the keys taken from
+        the batch's pinned snapshot; returns the evictions it caused."""
+        cache = self._verdict_cache
+        if cache is None or ckeys is None:
+            return 0
+        evict0 = cache.evictions
+        for r in unique_rows:
+            if eligible(r):
+                cache.put(ckeys[r],
+                          (own_rule[r].copy(), own_skipped[r].copy()))
+        return cache.evictions - evict0
+
+    def _encode_and_launch(self, snap: _Snapshot,
+                           batch: List[_Pending]) -> _Inflight:
+        """Encode, pack, answer cached rows, collapse the rest to unique
+        rows and launch once on them; returns the in-flight batch.  The
+        finalize closure runs on the completion stage with the readback
+        and fans the verdicts back out (bit-identical: the kernel is a
+        pure per-row function of the operand bytes)."""
         n = len(batch)
         pad = bucket_pow2(n)
+        t0 = time.monotonic()
+        waits = np.array([(t0 - p.t_enq) if p.t_enq else 0.0 for p in batch])
+        self.admission.observe_waits(waits, now=t0)
         policy = snap.policy
         docs = [p.doc for p in batch]
         rows = [policy.config_ids[p.config_name] for p in batch]
         db = pack_batch(policy, encode_batch(policy, docs, rows,
                                              batch_pad=pad))
-        launches0, plain0 = fk.launches, fk.plain_calls
-        handle = fk.dispatch_megakernel(snap.params, db)
+        cacheable = policy.config_cacheable
+        keys = (batch_row_keys(db, n)
+                if self.batch_dedup or self._verdict_cache is not None
+                else None)
+        ckeys = self._cache_keys(keys, n, snap, rows)
+
+        def eligible(r: int) -> bool:
+            return bool(cacheable[rows[r]]) and not bool(db.host_fallback[r])
+
+        cached, miss_rows, unique_rows, inverse, elig_miss = self._dedup_plan(
+            keys, ckeys, n, eligible)
+        u = len(unique_rows)
         E = int(policy.eval_rule.shape[1])
-        st = self.stats
-        st["batches"] += 1
-        st["launches"] += fk.launches - launches0
-        st["plain_calls"] += fk.plain_calls - plain0
-        st["rows"] += n
-        st["pad_rows"] += pad
-        st["h2d_bytes"] += staged_h2d_bytes(db)
-        st["d2h_bytes"] += handle.nbytes
-        if handle.nbytes != pad * packed_width(1 + 2 * E):
-            raise RuntimeError("readback is not [pad, W] uint8")
+        W = packed_width(1 + 2 * E)
+        if u == n:
+            db_u, pad_u = db, pad   # nothing collapsed: ship the batch as is
+        elif u:
+            pad_u = bucket_pow2(u)
+            db_u = select_rows(db, unique_rows, batch_pad=pad_u)
+        else:
+            db_u, pad_u = None, 0   # every row from the cache: no launch
+        if db_u is not None:
+            handle = fk.dispatch_megakernel(snap.params, db_u)
+            if handle.nbytes != pad_u * W:
+                raise RuntimeError("readback is not [pad, W] uint8")
+        else:
+            handle = _Resolved()
+        record = {"rows": n, "device_rows": u, "pad_rows": pad_u,
+                  "dedup_rows": len(miss_rows) - u, "cache_rows": len(cached),
+                  "launches": handle.launches,
+                  "plain_calls": handle.plain_calls,
+                  "h2d_bytes": staged_h2d_bytes(db_u) if u else 0,
+                  "d2h_bytes": handle.nbytes}
+        self.batch_records.append(record)
+        self._add_stats(batches=1, cached_batches=int(u == 0), **record)
+        binfo = {"batch_size": n, "device_rows": u, "t0": t0}
 
         def finalize(packed):
-            cols = unpack_verdicts(packed, 1 + 2 * E)
-            own_rule = cols[:n, 1:1 + E].copy()
-            own_skipped = cols[:n, 1 + E:1 + 2 * E].copy()
+            # rows the cache answered start from the kernel's pad values
+            # and are overwritten below
+            own_rule = np.ones((n, E), dtype=bool)
+            own_skipped = np.zeros((n, E), dtype=bool)
+            if u:
+                cols = unpack_verdicts(packed, 1 + 2 * E)
+                mr = np.asarray(miss_rows)
+                own_rule[mr] = cols[inverse, 1:1 + E]
+                own_skipped[mr] = cols[inverse, 1 + E:1 + 2 * E]
+            for r, (c_rule, c_skip) in cached.items():
+                own_rule[r] = c_rule
+                own_skipped[r] = c_skip
             fb = np.nonzero(db.host_fallback[:n])[0]
             if len(fb):
-                st["host_fallback"] += len(fb)
+                # the compact payload was lossy for these rows (membership
+                # overflow): exact re-decision through the host oracle
+                self._add_stats(host_fallback=len(fb))
                 apply_host_fallback(
                     lambda r: host_results(policy, docs[r], rows[r])[1:],
                     fb, own_rule, own_skipped, None)
+            evicted = self._cache_insert(ckeys, unique_rows, eligible,
+                                         own_rule, own_skipped)
+            metrics_mod.observe_dedup("engine", n, u, len(cached),
+                                      elig_miss, evicted)
             return own_rule, own_skipped
 
-        return batch, handle, finalize, t0, snap
+        return _Inflight(self, batch, handle, finalize, binfo, waits)
 
-    async def _complete(self, batch, handle, finalize, t0, snap) -> None:
+    # ---- completion -------------------------------------------------------
+
+    def _complete(self, item: _Inflight) -> None:
+        """Completion stage (the completer thread, once the readback
+        arrived): finalize, resolve the futures on their own loops, free
+        the window slot.  A readback or finalize failure is a device
+        failure and takes the retry path; a failure after the verdicts
+        exist is a host bug and answers the unresolved requests
+        UNAVAILABLE without a retry."""
         try:
-            if handle.is_ready():
-                packed = handle.wait()
-            else:
-                packed = await asyncio.get_running_loop().run_in_executor(
-                    None, handle.wait)
-            own_rule, own_skipped = finalize(packed)
-        except Exception as exc:
-            self._fail(batch, exc)
+            t_done = time.monotonic()
+            packed = item.handle.wait()
+            own_rule, own_skipped = item.finalize(packed)
+        except Exception as e:
+            self._batch_failed(item.snap, item.batch, item.attempt, e)
             return
-        for i, p in enumerate(batch):
-            if not p.future.done():
-                p.future.set_result((own_rule[i], own_skipped[i], snap))
-        self.batch_latency_s.append(time.monotonic() - t0)
+        try:
+            dur = t_done - item.t_launch
+            self._device_ewma = (dur if not self._device_ewma
+                                 else 0.8 * self._device_ewma + 0.2 * dur)
+            n = item.binfo["batch_size"]
+            self.controller.observe_batch(dur, n, len(self._queue),
+                                          now=t_done)
+            self.admission.observe_service(n, now=t_done)
+            by_loop: Dict[Any, list] = {}
+            for i, p in enumerate(item.batch):
+                by_loop.setdefault(p.loop, []).append(
+                    (p.future, own_rule[i], own_skipped[i], item.snap))
+            for loop, resolutions in by_loop.items():
+                try:
+                    loop.call_soon_threadsafe(_resolve_many, resolutions)
+                except RuntimeError:
+                    pass  # the loop closed since submit: its futures are moot
+            self.batch_latency_s.append(time.monotonic() - item.binfo["t0"])
+        except Exception as e:
+            log.exception("post-completion work failed (batch verdicts "
+                          "already computed)")
+            self._resolve_error(item.batch, e)
+        finally:
+            self._launch_done()
+
+    def _resolve_error(self, batch: List[_Pending], exc: Exception) -> None:
+        """Fail unresolved requests with a TYPED CheckAbort — never the raw
+        exception, whose text would otherwise serve as a deny reason; the
+        raw cause is logged here and the batch counted in
+        ``failed_batches`` (deadline sheds are not failures)."""
+        if not isinstance(exc, CheckAbort):
+            log.error("batch of %d failed: %r", len(batch), exc,
+                      exc_info=exc)
+            exc = CheckAbort(UNAVAILABLE, "policy evaluation unavailable")
+        if exc.code != DEADLINE_EXCEEDED:
+            self._add_stats(failed_batches=1)
+        by_loop: Dict[Any, list] = {}
+        for p in batch:
+            by_loop.setdefault(p.loop, []).append(p.future)
+        for loop, futs in by_loop.items():
+            try:
+                loop.call_soon_threadsafe(_fail_many, futs, exc)
+            except RuntimeError:
+                pass
+
+    def _launch_done(self) -> None:
+        with self._queue_lock:
+            self._inflight -= 1
+            inflight = self._inflight
+        self._g_inflight.set(inflight)
+        self._maybe_dispatch()
+
+
+def _resolve_many(resolutions) -> None:
+    for fut, rule, skipped, snap in resolutions:
+        if not fut.done():
+            fut.set_result((rule, skipped, snap))
+
+
+def _fail_many(futs, exc) -> None:
+    for fut in futs:
+        if not fut.done():
+            fut.set_exception(exc)
+
+
+# ---------------------------------------------------------------------------
+# shared pipeline stages, process-wide: engines are created freely (tests,
+# reconciles) and per-engine threads with no shutdown path would leak.
+#
+#   encode pool — workers for the encode stage and the retries; its size
+#                 bounds host parallelism, not the in-flight window (each
+#                 engine's own counter)
+#   completer   — one thread that polls the in-flight readbacks and
+#                 finalizes each arrived batch the moment it lands
+# ---------------------------------------------------------------------------
+
+_ENCODE_POOL: Optional[ThreadPoolExecutor] = None
+_ENCODE_POOL_LOCK = threading.Lock()
+
+
+def _encode_pool(workers: int = 4) -> ThreadPoolExecutor:
+    global _ENCODE_POOL
+    if _ENCODE_POOL is None:
+        with _ENCODE_POOL_LOCK:
+            if _ENCODE_POOL is None:
+                _ENCODE_POOL = ThreadPoolExecutor(
+                    max_workers=max(1, workers),
+                    thread_name_prefix="authz-engine-encode")
+    return _ENCODE_POOL
+
+
+_COMPLETER: Optional[threading.Thread] = None
+_COMPLETER_LOCK = threading.Lock()
+_COMPLETER_ITEMS: deque = deque()
+_COMPLETER_EVT = threading.Event()
+# the completer's poll while nothing in flight is ready (a new batch wakes
+# it at once)
+POLL_S = 5e-4
+
+
+def _completer_submit(item: _Inflight) -> None:
+    _ensure_completer()
+    _COMPLETER_ITEMS.append(item)
+    _COMPLETER_EVT.set()
+
+
+def _ensure_completer() -> None:
+    global _COMPLETER
+    if _COMPLETER is None or not _COMPLETER.is_alive():
+        with _COMPLETER_LOCK:
+            if _COMPLETER is None or not _COMPLETER.is_alive():
+                t = threading.Thread(target=_completer_loop,
+                                     name="authz-engine-completer",
+                                     daemon=True)
+                t.start()
+                _COMPLETER = t
+
+
+def _completer_loop() -> None:
+    pending: List[_Inflight] = []
+    while True:
+        while _COMPLETER_ITEMS:
+            try:
+                pending.append(_COMPLETER_ITEMS.popleft())
+            except IndexError:
+                break
+        if not pending:
+            _COMPLETER_EVT.wait()
+            _COMPLETER_EVT.clear()
+            continue
+        progressed = False
+        for item in list(pending):
+            if item.ready():
+                job = item.engine._complete
+            elif item.expired():
+                # the watchdog: abandon the handle, retry the batch
+                job = item.engine._watchdog_fire
+            else:
+                continue
+            pending.remove(item)
+            progressed = True
+            try:
+                # here, not on the encode pool, whose queue may hold the
+                # rest of the burst's encode jobs ahead of it
+                job(item)
+            except Exception:
+                log.exception("batch completion failed")
+        if not progressed:
+            # nothing ready: a sub-millisecond poll keeps resolution
+            # independent of launch order
+            _COMPLETER_EVT.wait(POLL_S)
+            _COMPLETER_EVT.clear()

@@ -4,17 +4,26 @@
 JSON-or-text response parsing with the reference's tolerance (ref:
 pkg/json/json.go:63-94 UnmashalJSONResponse).
 
-What the callers see is what an aiohttp session gives them: a ``data=``
-dict is form-encoded, ``auth=(user, password)`` is Basic auth, ``params=``
-extends the query string, redirects of a GET are followed (at most 10),
-and the environment's proxy variables are ignored (aiohttp's default
-``trust_env=False``).  Every request has a timeout."""
+What the callers see is what an aiohttp session with its defaults gives
+them: a ``data=`` dict is form-encoded, ``auth=(user, password)`` is Basic
+auth, ``params=`` extends the query string, and the environment's proxy
+variables are ignored (``trust_env=False``).  Redirects are followed for
+every method as aiohttp follows them: a 303 (and a 301/302 answering a
+POST) turns into a GET without a body, any other 301/302/307/308 keeps the
+method and the body, the ``Authorization`` header is dropped when the
+redirect leaves the origin, and the tenth redirect in a row raises
+``TooManyRedirects``.  A URL is requoted as ``yarl`` requotes it (a space
+in the query becomes ``+``, a stray ``%`` becomes ``%25``, an escape of a
+character the component allows is decoded).  A request's timeout is
+aiohttp's default total of 300 s unless the caller passes another; the
+Check() itself is bounded by the engine's ``timeout_s`` and its deadline."""
 
 from __future__ import annotations
 
 import asyncio
 import base64
 import json
+import string
 import threading
 import urllib.error
 import urllib.parse
@@ -25,18 +34,29 @@ from email.message import Message
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 __all__ = ["Response", "request", "parse_response", "HttpError",
-           "close_sessions"]
+           "TooManyRedirects", "close_sessions"]
 
-TIMEOUT_S = 30.0
+# aiohttp's default ClientTimeout total
+TIMEOUT_S = 300.0
 MAX_WORKERS = 16
-# characters a URL may carry as they are; anything else is percent-encoded
-# (and an existing %XX escape is kept), as aiohttp's URL parsing does
-_URL_SAFE = "!#$%&'()*+,-./:;=?@[]_~"
+# aiohttp's max_redirects: the tenth redirect in a row raises
+MAX_REDIRECTS = 10
+REDIRECT_CODES = (301, 302, 303, 307, 308)
 
 _lock = threading.Lock()
 _pool: Optional[ThreadPoolExecutor] = None
+
+
+class _NoRedirect(urllib.request.HTTPRedirectHandler):
+    """Hand every 3xx back as a response: ``_open`` follows redirects."""
+
+    def redirect_request(self, req, fp, code, msg, headers, newurl):
+        return None
+
+
 # no ProxyHandler entries: the environment's proxy variables are ignored
-_opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+_opener = urllib.request.build_opener(urllib.request.ProxyHandler({}),
+                                      _NoRedirect())
 
 
 class HttpError(Exception):
@@ -44,6 +64,10 @@ class HttpError(Exception):
         self.status = status
         self.body = body
         super().__init__(f"{status}: {body[:200]}")
+
+
+class TooManyRedirects(OSError):
+    """The tenth redirect in a row (aiohttp's ``TooManyRedirects``)."""
 
 
 @dataclass
@@ -56,6 +80,75 @@ class Response:
         """The body decoded by its charset, UTF-8 when it names none."""
         return self.body.decode(self.headers.get_content_charset() or "utf-8")
 
+
+# ---- URL requoting, as yarl does it -----------------------------------------
+
+_UNRESERVED = string.ascii_letters + string.digits + "-._~"
+_SUB_DELIMS = "!$'()*,"
+_HEX = set(string.hexdigits)
+
+
+def _requote(val: str, safe: str, protected: str = "", qs: bool = False,
+             requote: bool = True) -> str:
+    """Percent-encode ``val`` the way yarl's quoter does: characters of
+    ``safe`` (plus the unreserved and sub-delimiter sets, and ``+&=;`` out
+    of a query) stay; an existing ``%XX`` escape is upper-cased and
+    decoded when its character may stand bare and is not ``protected``; a
+    ``%`` that starts no escape becomes ``%25``; in a query (``qs``) a
+    space becomes ``+``; anything else becomes its UTF-8 ``%XX`` bytes."""
+    allowed = set(safe + _UNRESERVED + _SUB_DELIMS + protected
+                  + ("" if qs else "+&=;"))
+    out = []
+    i, n = 0, len(val)
+    while i < n:
+        ch = val[i]
+        if ch == "%" and requote:
+            esc = val[i + 1:i + 3]
+            if len(esc) == 2 and set(esc) <= _HEX:
+                esc = esc.upper()
+                bare = chr(int(esc, 16))
+                out.append(bare if bare in allowed and bare not in protected
+                           else "%" + esc)
+                i += 3
+                continue
+            out.append("%25")
+            i += 1
+            continue
+        if qs and ch == " ":
+            out.append("+")
+        elif ch in allowed:
+            out.append(ch)
+        else:
+            out.extend(f"%{b:02X}" for b in ch.encode("utf-8", "ignore"))
+        i += 1
+    return "".join(out)
+
+
+def _requote_url(url: str) -> str:
+    """The request target aiohttp sends for ``url``: path and query
+    requoted (yarl's PATH_REQUOTER and QUERY_REQUOTER), an empty query
+    dropped, the fragment left off."""
+    parts = urllib.parse.urlsplit(url)
+    path = _requote(parts.path, safe="@:", protected="/+") or "/"
+    query = _requote(parts.query, safe="?/:@", protected="=+&;", qs=True)
+    return urllib.parse.urlunsplit(
+        (parts.scheme, parts.netloc, path, query, ""))
+
+
+def _query_of(params: Mapping[str, str]) -> str:
+    """``params`` as yarl encodes a query mapping (QUERY_PART_QUOTER)."""
+    def q(v):
+        return _requote(str(v), safe="?/:@", qs=True, requote=False)
+
+    return "&".join(f"{q(k)}={q(v)}" for k, v in params.items())
+
+
+def _origin(url: str) -> Tuple[str, str]:
+    parts = urllib.parse.urlsplit(url)
+    return parts.scheme, parts.netloc.rsplit("@", 1)[-1].lower()
+
+
+# ---- the client -------------------------------------------------------------
 
 def _executor() -> ThreadPoolExecutor:
     global _pool
@@ -75,38 +168,78 @@ async def close_sessions() -> None:
         pool.shutdown(wait=False)
 
 
-def _open(method: str, url: str, headers: Dict[str, str],
-          data: Optional[bytes]) -> Response:
+def _send(method: str, url: str, headers: Dict[str, str],
+          data: Optional[bytes], form: bool,
+          timeout: Optional[float]) -> Response:
+    if data is not None and not any(k.lower() == "content-type"
+                                    for k in headers):
+        # the payload's own type, which goes with the body (aiohttp's; urllib
+        # would call raw bytes a form)
+        headers = dict(headers, **{"Content-Type": (
+            "application/x-www-form-urlencoded" if form
+            else "application/octet-stream")})
     req = urllib.request.Request(url, data=data, headers=headers,
                                  method=method)
     try:
-        with _opener.open(req, timeout=TIMEOUT_S) as r:
+        with _opener.open(req, timeout=timeout) as r:
             return Response(r.status, r.headers, r.read())
-    except urllib.error.HTTPError as e:  # any status but 2xx
+    except urllib.error.HTTPError as e:  # any status but 2xx, 3xx included
         with e:
             return Response(e.code, e.headers, e.read())
+
+
+def _open(method: str, url: str, headers: Dict[str, str],
+          data: Optional[bytes], form: bool,
+          timeout: Optional[float]) -> Response:
+    """One request and the redirects aiohttp would follow from it."""
+    redirects = 0
+    while True:
+        resp = _send(method, url, headers, data, form, timeout)
+        if resp.status not in REDIRECT_CODES:
+            return resp
+        redirects += 1
+        if redirects >= MAX_REDIRECTS:
+            raise TooManyRedirects(
+                f"{resp.status}, message='Too many redirects', url={url!r}")
+        if (resp.status == 303 and method != "HEAD") or (
+                resp.status in (301, 302) and method == "POST"):
+            method, data = "GET", None
+            headers = {k: v for k, v in headers.items()
+                       if k.lower() != "content-length"}
+        location = resp.headers.get("Location") or resp.headers.get("URI")
+        if location is None:
+            return resp
+        target = urllib.parse.urljoin(url, location)
+        if urllib.parse.urlsplit(target).scheme not in ("http", "https"):
+            raise OSError(f"redirect to a non-HTTP URL {location!r}")
+        if _origin(target) != _origin(url):
+            headers = {k: v for k, v in headers.items()
+                       if k.lower() != "authorization"}
+        url = _requote_url(target)
 
 
 async def request(method: str, url: str, *,
                   headers: Optional[Mapping[str, str]] = None,
                   data: Union[bytes, Mapping[str, str], None] = None,
                   params: Optional[Mapping[str, str]] = None,
-                  auth: Optional[Tuple[str, str]] = None) -> Response:
-    """One request; raises OSError (URLError, a timeout) when no response
-    came back."""
+                  auth: Optional[Tuple[str, str]] = None,
+                  timeout: Optional[float] = TIMEOUT_S) -> Response:
+    """One request, redirects followed; raises OSError (URLError, a
+    timeout, TooManyRedirects) when no final response came back.
+    ``timeout`` (seconds; None for none) bounds each hop."""
     hdrs = dict(headers or {})
-    if isinstance(data, Mapping):
+    form = isinstance(data, Mapping)
+    if form:
         data = urllib.parse.urlencode(data).encode()
-        hdrs.setdefault("Content-Type", "application/x-www-form-urlencoded")
     if auth is not None:
         cred = f"{auth[0]}:{auth[1]}".encode("latin-1")
         hdrs["Authorization"] = "Basic " + base64.b64encode(cred).decode()
+    url = _requote_url(url)
     if params:
-        url = f"{url}{'&' if '?' in url else '?'}{urllib.parse.urlencode(params)}"
-    url = urllib.parse.quote(url, safe=_URL_SAFE)
+        url = f"{url}{'&' if '?' in url else '?'}{_query_of(params)}"
     loop = asyncio.get_running_loop()
     return await loop.run_in_executor(_executor(), _open, method.upper(),
-                                      url, hdrs, data)
+                                      url, hdrs, data, form, timeout)
 
 
 def parse_response(resp: Response) -> Any:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import contextlib
 
 try:
-    from prometheus_client import REGISTRY, Counter, Histogram
+    from prometheus_client import REGISTRY, Counter, Gauge, Histogram
 
     _PROM = True
 except ImportError:
@@ -36,6 +36,9 @@ class _NoopMetric:
         pass
 
     def observe(self, *a):
+        pass
+
+    def set(self, *a):
         pass
 
     def time(self):
@@ -58,12 +61,13 @@ def _existing_collector(name):
     return None
 
 
-def _register(kind, name, doc, labels):
+def _register(kind, name, doc, labels, buckets=None):
     if not _PROM:
         return _NoopMetric()
-    cls = Counter if kind == "counter" else Histogram
+    cls = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}[kind]
+    kw = {"buckets": buckets} if buckets is not None else {}
     try:
-        return cls(name, doc, labels)
+        return cls(name, doc, labels, **kw)
     except ValueError:  # already registered
         return _existing_collector(name) or _NoopMetric()
 
@@ -108,3 +112,131 @@ authconfig_duration = _register(
     "Response latency of authconfig enforced by the auth server (in seconds).",
     _CONF_LABELS,
 )
+
+
+# ---------------------------------------------------------------------------
+# the engine's serving core (runtime/engine.py, runtime/admission.py): the
+# dispatch window, batch dedup and the verdict cache, admission and
+# deadline shedding, retries and the completer watchdog.  Reference names.
+# ---------------------------------------------------------------------------
+
+_LANE_LABELS = ("lane",)
+OCCUPANCY_BUCKETS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9,
+                     0.95, 1.0)
+
+inflight_batches = _register(
+    "gauge", "auth_server_inflight_batches",
+    "Micro-batches currently in flight on the device (launched, readback "
+    "not yet resolved).  The dispatch window bounds this at "
+    "max_inflight_batches.",
+    _LANE_LABELS,
+)
+dispatch_queue_depth = _register(
+    "gauge", "auth_server_dispatch_queue_depth",
+    "Requests queued for the next micro-batch cut (sampled at each "
+    "dispatch/completion).",
+    _LANE_LABELS,
+)
+batch_dedup_ratio = _register(
+    "histogram", "auth_server_batch_dedup_ratio",
+    "Per-micro-batch fraction of rows collapsed before device dispatch "
+    "(1 - unique_rows / rows, cache-resolved rows included): 0 = all rows "
+    "shipped, 0.9 = the device evaluated one row in ten.",
+    _LANE_LABELS, buckets=OCCUPANCY_BUCKETS,
+)
+verdict_cache_hits = _register(
+    "counter", "auth_server_verdict_cache_hits_total",
+    "Rows resolved from the snapshot-scoped verdict cache without touching "
+    "the device.",
+    _LANE_LABELS,
+)
+verdict_cache_misses = _register(
+    "counter", "auth_server_verdict_cache_misses_total",
+    "Cache-eligible rows whose verdict was not cached (evaluated on device, "
+    "then inserted).",
+    _LANE_LABELS,
+)
+verdict_cache_evictions = _register(
+    "counter", "auth_server_verdict_cache_evictions_total",
+    "Verdict-cache entries dropped by the LRU bound (raise "
+    "verdict_cache_size if this grows at steady state).",
+    _LANE_LABELS,
+)
+batch_retries = _register(
+    "counter", "auth_server_batch_retries_total",
+    "Failed micro-batches retried once on a fresh device dispatch.",
+    _LANE_LABELS,
+)
+deadline_shed = _register(
+    "counter", "auth_server_deadline_shed_total",
+    "Requests failed fast (DEADLINE_EXCEEDED) at admission or before "
+    "encode because their propagated Check() deadline could not be met "
+    "(queue wait + estimated device RTT exceed the time remaining).",
+    _LANE_LABELS,
+)
+watchdog_timeouts = _register(
+    "counter", "auth_server_device_watchdog_timeouts_total",
+    "In-flight micro-batches abandoned by the completer watchdog because "
+    "their readback never arrived within device_timeout_s (the batch "
+    "retries once, then answers UNAVAILABLE).",
+    _LANE_LABELS,
+)
+admission_state = _register(
+    "gauge", "auth_server_admission_state",
+    "Admission-control state per lane: 0 = admitting, 1 = overloaded (the "
+    "minimum queue wait stayed above the CoDel target for a full "
+    "interval).",
+    _LANE_LABELS,
+)
+admission_rejected = _register(
+    "counter", "auth_server_admission_rejected_total",
+    "Requests rejected at admission (before queueing, before encode): "
+    "queue-full = hard queue cap, overload = wait-targeted effective cap, "
+    "doomed-deadline = the propagated deadline lands inside the predicted "
+    "queue wait + device RTT (typed DEADLINE_EXCEEDED; the others are "
+    "typed RESOURCE_EXHAUSTED).",
+    _LANE_LABELS + ("reason",),
+)
+admission_queue_wait = _register(
+    "gauge", "auth_server_admission_queue_wait_ewma_seconds",
+    "EWMA of the per-request submit-queue wait the admission controller "
+    "tracks.",
+    _LANE_LABELS,
+)
+adaptive_window = _register(
+    "gauge", "auth_server_adaptive_window",
+    "Live in-flight window chosen by the adaptive controller (Little's "
+    "law, clamped to [1, max_inflight_batches]).",
+    _LANE_LABELS,
+)
+adaptive_batch_cut = _register(
+    "gauge", "auth_server_adaptive_batch_cut",
+    "Live batch-cut target chosen by the adaptive controller (advisory; "
+    "clamped to [1, max_batch]).",
+    _LANE_LABELS,
+)
+
+_dedup_children: dict = {}
+
+
+def observe_dedup(lane, n_rows, n_device_rows, cache_hits, cache_misses,
+                  evictions_delta=0) -> None:
+    """Fold one micro-batch's dedup/cache outcome: ``n_device_rows`` of
+    ``n_rows`` actually shipped (after cache hits AND within-batch
+    collapse).  Cached label children — runs once per micro-batch."""
+    ch = _dedup_children.get(lane)
+    if ch is None:
+        ch = _dedup_children[lane] = (
+            batch_dedup_ratio.labels(lane),
+            verdict_cache_hits.labels(lane),
+            verdict_cache_misses.labels(lane),
+            verdict_cache_evictions.labels(lane),
+        )
+    if n_rows:
+        ch[0].observe(1.0 - n_device_rows / n_rows)
+    if cache_hits:
+        ch[1].inc(cache_hits)
+    if cache_misses:
+        ch[2].inc(cache_misses)
+    if evictions_delta:
+        ch[3].inc(evictions_delta)

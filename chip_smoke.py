@@ -16,7 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      in shared memory and with the global-tables instance forced;
   4. the main path: a PolicyEngine on the north-star corpus (max_batch
      256) answers 4,096 concurrent submits; every verdict must equal the
-     expression oracle, every batch one launch and a pad × W readback;
+     expression oracle, every batch one launch and a pad × W readback
+     (phases 4 and 6-8 run with batch dedup and the verdict cache off,
+     ``NO_REUSE``, so every row reaches the kernel as in earlier runs; each
+     batch is read from the engine's own ``batch_records``);
   5. numbers, beside the card's name and power limit: at B = 256 with
      LB = 16 and 64 and at B = 16, the kernel's device time per call and
      per launch back to back (N launches between one event pair) with the
@@ -70,11 +73,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the identity, one callback per check); then checks/s (median of 3
      runs) beside phase 6's, p50/p99 under the burst and alone, the host
      time of an RS256 verify, an ES256 verify and an ES256 wristband sign,
-     and the kernel's device time on this corpus beside its bound.
+     and the kernel's device time on this corpus beside its bound;
+  9. the engine's serving core at the reference's defaults (batch dedup,
+     a 32,768-entry verdict cache, a 48-batch completion-driven window,
+     admission): phase 8's translated entries and minted tokens through a
+     default engine; the same 4,096-Check() burst twice, every result
+     equal to phase 8's oracle and every batch held to the structural
+     contract (one launch for a batch with a device row, none for one the
+     cache answered whole, D2H = pad_u × W, rows = device rows + rows
+     saved by dedup + by the cache), the second burst mostly from the
+     cache; one dedup-selected [pad_u, W] readback byte-equal to plain and
+     fanned out equal to the whole batch's; a burst with one good request
+     in eight doomed by a deadline inside one device round trip (each
+     DEADLINE_EXCEEDED with no batch row, the rest equal to the oracle); a
+     burst against a queue cap of 64 (the excess RESOURCE_EXHAUSTED, typed
+     and counted); then checks/s (median of 3), burst and lone p50/p99,
+     device rows and the rows saved by dedup and by the cache, each run
+     beside one of phase 8's engine (dedup and cache off) in the same
+     call, and beside phase 8's figures.
 
-The kernels' launch counts in the summary are phase 8's; each kernel must
-have launched on the paths of phases 4, 6, 7 and 8, with the counts zeroed
-just before each.
+The kernels' launch counts in the summary are phase 9's; each kernel must
+have launched on the paths of phases 4, 6, 7, 8 and 9, with the counts
+zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -413,6 +433,40 @@ async def serve(engine, docs, names):
                                   for d, n in zip(docs, names)))
 
 
+# phases 4 and 6-8 run with batch dedup and the verdict cache off, so every
+# row reaches the kernel and their figures compare with earlier runs
+NO_REUSE = {"verdict_cache_size": 0, "batch_dedup": False}
+
+
+def checked_records(engine, start: int = 0):
+    """The engine's per-batch records from ``start`` on, each held to the
+    structural contract: one launch for a batch with a device row and none
+    for one the cache answered whole, the device rows padded to a power of
+    two >= 16, D2H = pad x W, rows = device rows + rows saved by dedup +
+    rows saved by the cache.  Raises on the first batch that breaks it."""
+    from authorino_tpu_torch.utils import bucket_pow2
+
+    W = engine._snapshot.policy.fused_pack_w
+    on_card = engine.device.type == "cuda"
+    recs = list(engine.batch_records)[start:]
+    for r in recs:
+        u = r["device_rows"]
+        want = {"launches": int(u > 0 and on_card),
+                "plain_calls": int(u > 0 and not on_card),
+                "pad_rows": bucket_pow2(u) if u else 0,
+                "d2h_bytes": (bucket_pow2(u) if u else 0) * W,
+                "rows": u + r["dedup_rows"] + r["cache_rows"]}
+        got = {k: r[k] for k in want}
+        if got != want:
+            raise AssertionError(f"batch breaks the structural contract: "
+                                 f"{r} (expected {want})")
+        if not engine.batch_dedup and engine._verdict_cache is None \
+                and u != r["rows"]:
+            raise AssertionError(f"a row skipped the kernel with dedup and "
+                                 f"the cache off: {r}")
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phases 6 and 7: the Check() request path
 # ---------------------------------------------------------------------------
@@ -500,7 +554,7 @@ def request_path(report: dict, card: str) -> dict:
         data={"api_key": b"secret-key-1"}))
 
     fk.reset_counts()
-    engine = PolicyEngine(max_batch=256)
+    engine = PolicyEngine(max_batch=256, **NO_REUSE)
 
     async def translate_all():
         entries = [await translate_auth_config(
@@ -526,7 +580,8 @@ def request_path(report: dict, card: str) -> dict:
     W = engine._snapshot.policy.fused_pack_w
     if st["failed_batches"]:
         raise AssertionError(f"{st['failed_batches']} batches failed: {st}")
-    if not (st["launches"] == st["batches"] == fk.launches):
+    if not (st["launches"] == st["batches"] == fk.launches
+            == len(checked_records(engine))):
         raise AssertionError(f"launches {fk.launches} vs batches {st}")
     if st["d2h_bytes"] != st["pad_rows"] * W:
         raise AssertionError(f"D2H {st['d2h_bytes']} != pad x W ({st})")
@@ -603,26 +658,6 @@ def request_path(report: dict, card: str) -> dict:
     return launches
 
 
-def counted_batches(engine):
-    """Record each batch's (launches, D2H bytes, pad rows) from the
-    engine's encode-and-launch step."""
-    from authorino_tpu_torch.ops import fused_kernel as fk
-    from authorino_tpu_torch.utils import bucket_pow2
-
-    per_batch = []
-    launch = engine._encode_and_launch
-
-    def counted(snap, batch):
-        l0 = fk.launches
-        out = launch(snap, batch)
-        per_batch.append((fk.launches - l0, out[1].nbytes,
-                          bucket_pow2(len(batch))))
-        return out
-
-    engine._encode_and_launch = counted
-    return per_batch
-
-
 def opa_oracle(entry, doc):
     """(code, status, message, metadata) the OPA corpus's config answers
     for ``doc``: the pattern first (priority 0), with its deny provenance,
@@ -674,8 +709,7 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     cluster.access_reviews = opa_corpus.k8s_access_review(allowed_triples)
 
     fk.reset_counts()
-    engine = PolicyEngine(max_batch=256)
-    per_batch = counted_batches(engine)
+    engine = PolicyEngine(max_batch=256, **NO_REUSE)
 
     async def translate_all():
         entries = [await translate_auth_config(
@@ -704,12 +738,11 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     W = snap.policy.fused_pack_w
     if st["failed_batches"] or st["plain_calls"]:
         raise AssertionError(f"failed or plain batches: {st}")
+    per_batch = checked_records(engine)
     if not (st["launches"] == st["batches"] == fk.launches == len(per_batch)):
         raise AssertionError(f"launches {fk.launches} vs batches {st}")
-    bad = [b for b in per_batch if b != (1, b[2] * W, b[2])]
-    if bad or st["d2h_bytes"] != st["pad_rows"] * W:
-        raise AssertionError(f"batches of other than one launch and a pad x "
-                             f"W readback: {bad[:4]} ({st})")
+    if st["d2h_bytes"] != st["pad_rows"] * W:
+        raise AssertionError(f"D2H {st['d2h_bytes']} != pad x W ({st})")
     if fk.probe_launches < 1:
         raise AssertionError("probe kernel did not run at snapshot install")
 
@@ -933,14 +966,17 @@ def jwt_full_checks(engine, idp, keys, entries):
     return es256, wristband
 
 
-def jwt_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
+def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
+             ctx: dict) -> dict:
     """Phase 8: keys and a fake Keycloak, the Keycloak RBAC corpus
     translated with a card engine, 4,096 concurrent Check()s with RS256
     tokens (one in 32 bad) held to the oracle, the full and introspection
     configs, the kernel's readback on this corpus against plain, then the
     path's numbers.  Returns the kernel launch counts of the checked run
     (counts zeroed just before it) and the mega-kernel's max abs byte
-    error on this corpus."""
+    error on this corpus.  Leaves in ``ctx`` what phase 9 reuses: the
+    running fake Keycloak (the caller stops it), the engine, its entries,
+    the requests and each one's oracle answer."""
     import numpy as np
     import torch
 
@@ -959,148 +995,147 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     t = time.perf_counter()
     keys = oc.make_keys(42)
     t_keygen = time.perf_counter() - t
-    idp = oc.FakeKeycloak(keys).start()
-    try:
+    idp = ctx["idp"] = oc.FakeKeycloak(keys).start()
+    t = time.perf_counter()
+    reqs, kinds, claims = oc.build_check_requests(idp, 4096, 1000)
+    t_mint = time.perf_counter() - t
+    n_tokens = len({r.http.headers["authorization"]
+                    for r, k in zip(reqs, kinds) if k is None})
+    log(f"JWT path: keys made in {t_keygen:.2f}s (2 x RSA-2048, 2 x "
+        f"P-256, pure Python), {n_tokens} RS256 tokens + "
+        f"{sum(map(bool, kinds))} bad ones minted in {t_mint:.2f}s")
+    rules = [c.evaluators[0][1] for c in northstar.build_corpus(1000, 10)]
+    cluster = InMemoryCluster()
+    for sec in oc.cluster_secrets(keys):
+        cluster.put_secret(Secret(**sec))
+    specs = (oc.build_auth_configs(1000, 10, idp.issuer)
+             + [oc.full_auth_config(idp.issuer),
+                oc.introspection_auth_config(idp.issuer)])
+
+    fk.reset_counts()
+    engine = PolicyEngine(max_batch=256, **NO_REUSE)
+
+    async def translate_all():
+        return [await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            cluster=cluster, engine=engine) for o in specs]
+
+    t = time.perf_counter()
+    entries = asyncio.run(translate_all())
+    t_translate = time.perf_counter() - t
+    t = time.perf_counter()
+    engine.apply_snapshot(entries)
+    t_install = time.perf_counter() - t
+    t = time.perf_counter()
+    out = asyncio.run(timed_checks(engine, reqs))
+    first_wall = time.perf_counter() - t
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+
+    st = dict(engine.stats)
+    snap = engine._snapshot
+    W = snap.policy.fused_pack_w
+    n_good = sum(k is None for k in kinds)
+    if st["failed_batches"] or st["plain_calls"]:
+        raise AssertionError(f"failed or plain batches: {st}")
+    per_batch = checked_records(engine)
+    if not (st["launches"] == st["batches"] == fk.launches
+            == len(per_batch)):
+        raise AssertionError(f"launches {fk.launches} vs batches {st}")
+    if st["d2h_bytes"] != st["pad_rows"] * W:
+        raise AssertionError(f"D2H {st['d2h_bytes']} != pad x W ({st})")
+    if st["rows"] != n_good:
+        raise AssertionError(f"{st['rows']} batch rows for {n_good} good "
+                             f"tokens: a bad token reached a batch")
+    if fk.probe_launches < 1:
+        raise AssertionError("probe kernel did not run at snapshot install")
+
+    docs, rows, oracle = [], [], []
+    allowed = 0
+    for k, (req, kind, c, (res, _)) in enumerate(zip(reqs, kinds, claims,
+                                                     out)):
+        i = int(req.http.host.split(".")[0][len("jwt-"):])
+        if kind is not None:
+            oracle.append(kind)
+            if res.code != rpc.UNAUTHENTICATED:
+                raise AssertionError(f"check {k}: a {kind} token answered "
+                                     f"{res.code} {res.message}")
+            continue
+        doc = build_authorization_json(req, {"identity": c})
+        docs.append(doc)
+        rows.append(i)
+        want = jwt_oracle(entries[i].id, rules[i], doc)
+        oracle.append(want)
+        got = (res.code, res.status, res.message, res.metadata)
+        if got != want:
+            raise AssertionError(f"check {k} on jwt-{i}: {got} != oracle "
+                                 f"{want}")
+        allowed += res.code == rpc.OK
+    if not 0 < allowed < n_good:
+        raise AssertionError(f"degenerate verdicts: {allowed} of {n_good}")
+    es256, wristband = jwt_full_checks(engine, idp, keys, entries)
+
+    # the mega-kernel on this corpus against its plain version
+    policy, params = snap.policy, snap.params
+    db = pack_batch(policy, encode_batch(
+        policy, docs[:256], [policy.config_ids[entries[i].id]
+                             for i in rows[:256]]))
+    max_err = max(kernel_vs_plain(params, db, dev),
+                  kernel_vs_plain(params, db, dev, global_tables=True))
+    buf, layout = fuse_batch(db)
+    buf_dev = torch.from_numpy(buf).to(dev)
+    kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
+    launch = (lambda: fk.launch_kernel(params, buf_dev, layout, kout))
+    k_ms, _ = device_times_ms(launch, 100)
+    k_b2b, _ = back_to_back_ms(launch, cycles_per_ms)
+    moved, ops = kernel_work(params, db)
+    k_bound, k_by = bound_ms(moved, ops)
+    n_jwt = sum(c.type == "JWT" for e in entries for c in e.runtime.identity)
+    log(f"JWT path: {len(entries)} AuthConfigs translated in "
+        f"{t_translate:.2f}s ({n_jwt} OIDC discoveries over loopback), "
+        f"installed in {t_install:.2f}s; {len(out)} concurrent Check()s "
+        f"-> {st['batches']} batches, {launches['fused_megakernel']} "
+        f"mega-kernel launches, {launches['probe_add_one']} probe, D2H "
+        f"{st['d2h_bytes']} B = pad {st['pad_rows']} x W {W}; every good "
+        f"token's result equals the oracle ({allowed} of {n_good} "
+        f"allowed), the {len(out) - n_good} bad tokens UNAUTHENTICATED "
+        f"with no batch row; the full config (ES256, userInfo, http, uma, "
+        f"wristband, callback) and introspection as expected; B=256 "
+        f"readback byte-equal to plain")
+
+    runs = []
+    for _ in range(3):
+        b0, r0 = engine.stats["batches"], engine.stats["rows"]
         t = time.perf_counter()
-        reqs, kinds, claims = oc.build_check_requests(idp, 4096, 1000)
-        t_mint = time.perf_counter() - t
-        n_tokens = len({r.http.headers["authorization"]
-                        for r, k in zip(reqs, kinds) if k is None})
-        log(f"JWT path: keys made in {t_keygen:.2f}s (2 x RSA-2048, 2 x "
-            f"P-256, pure Python), {n_tokens} RS256 tokens + "
-            f"{sum(map(bool, kinds))} bad ones minted in {t_mint:.2f}s")
-        rules = [c.evaluators[0][1] for c in northstar.build_corpus(1000, 10)]
-        cluster = InMemoryCluster()
-        for sec in oc.cluster_secrets(keys):
-            cluster.put_secret(Secret(**sec))
-        specs = (oc.build_auth_configs(1000, 10, idp.issuer)
-                 + [oc.full_auth_config(idp.issuer),
-                    oc.introspection_auth_config(idp.issuer)])
+        timed = asyncio.run(timed_checks(engine, reqs))
+        wall = time.perf_counter() - t
+        runs.append({"checks_per_s": len(reqs) / wall,
+                     "latency_s": [x for _, x in timed],
+                     "batches": engine.stats["batches"] - b0,
+                     "rows": engine.stats["rows"] - r0})
+    lat = np.sort(np.concatenate([r["latency_s"] for r in runs])) * 1e3
+    rates = [r["checks_per_s"] for r in runs]
 
-        fk.reset_counts()
-        engine = PolicyEngine(max_batch=256)
-        per_batch = counted_batches(engine)
+    async def one_at_a_time(rs):
+        return [(await timed_checks(engine, [r]))[0][1] for r in rs]
 
-        async def translate_all():
-            return [await translate_auth_config(
-                o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
-                cluster=cluster, engine=engine) for o in specs]
-
-        t = time.perf_counter()
-        entries = asyncio.run(translate_all())
-        t_translate = time.perf_counter() - t
-        t = time.perf_counter()
-        engine.apply_snapshot(entries)
-        t_install = time.perf_counter() - t
-        t = time.perf_counter()
-        out = asyncio.run(timed_checks(engine, reqs))
-        first_wall = time.perf_counter() - t
-        launches = {"fused_megakernel": fk.launches,
-                    "probe_add_one": fk.probe_launches}
-
-        st = dict(engine.stats)
-        snap = engine._snapshot
-        W = snap.policy.fused_pack_w
-        n_good = sum(k is None for k in kinds)
-        if st["failed_batches"] or st["plain_calls"]:
-            raise AssertionError(f"failed or plain batches: {st}")
-        if not (st["launches"] == st["batches"] == fk.launches
-                == len(per_batch)):
-            raise AssertionError(f"launches {fk.launches} vs batches {st}")
-        bad = [b for b in per_batch if b != (1, b[2] * W, b[2])]
-        if bad or st["d2h_bytes"] != st["pad_rows"] * W:
-            raise AssertionError(f"batches of other than one launch and a "
-                                 f"pad x W readback: {bad[:4]} ({st})")
-        if st["rows"] != n_good:
-            raise AssertionError(f"{st['rows']} batch rows for {n_good} good "
-                                 f"tokens: a bad token reached a batch")
-        if fk.probe_launches < 1:
-            raise AssertionError("probe kernel did not run at snapshot install")
-
-        docs, rows = [], []
-        allowed = 0
-        for k, (req, kind, c, (res, _)) in enumerate(zip(reqs, kinds, claims,
-                                                         out)):
-            i = int(req.http.host.split(".")[0][len("jwt-"):])
-            if kind is not None:
-                if res.code != rpc.UNAUTHENTICATED:
-                    raise AssertionError(f"check {k}: a {kind} token answered "
-                                         f"{res.code} {res.message}")
-                continue
-            doc = build_authorization_json(req, {"identity": c})
-            docs.append(doc)
-            rows.append(i)
-            want = jwt_oracle(entries[i].id, rules[i], doc)
-            got = (res.code, res.status, res.message, res.metadata)
-            if got != want:
-                raise AssertionError(f"check {k} on jwt-{i}: {got} != oracle "
-                                     f"{want}")
-            allowed += res.code == rpc.OK
-        if not 0 < allowed < n_good:
-            raise AssertionError(f"degenerate verdicts: {allowed} of {n_good}")
-        es256, wristband = jwt_full_checks(engine, idp, keys, entries)
-
-        # the mega-kernel on this corpus against its plain version
-        policy, params = snap.policy, snap.params
-        db = pack_batch(policy, encode_batch(
-            policy, docs[:256], [policy.config_ids[entries[i].id]
-                                 for i in rows[:256]]))
-        max_err = max(kernel_vs_plain(params, db, dev),
-                      kernel_vs_plain(params, db, dev, global_tables=True))
-        buf, layout = fuse_batch(db)
-        buf_dev = torch.from_numpy(buf).to(dev)
-        kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
-        launch = (lambda: fk.launch_kernel(params, buf_dev, layout, kout))
-        k_ms, _ = device_times_ms(launch, 100)
-        k_b2b, _ = back_to_back_ms(launch, cycles_per_ms)
-        moved, ops = kernel_work(params, db)
-        k_bound, k_by = bound_ms(moved, ops)
-        n_jwt = sum(c.type == "JWT" for e in entries for c in e.runtime.identity)
-        log(f"JWT path: {len(entries)} AuthConfigs translated in "
-            f"{t_translate:.2f}s ({n_jwt} OIDC discoveries over loopback), "
-            f"installed in {t_install:.2f}s; {len(out)} concurrent Check()s "
-            f"-> {st['batches']} batches, {launches['fused_megakernel']} "
-            f"mega-kernel launches, {launches['probe_add_one']} probe, D2H "
-            f"{st['d2h_bytes']} B = pad {st['pad_rows']} x W {W}; every good "
-            f"token's result equals the oracle ({allowed} of {n_good} "
-            f"allowed), the {len(out) - n_good} bad tokens UNAUTHENTICATED "
-            f"with no batch row; the full config (ES256, userInfo, http, uma, "
-            f"wristband, callback) and introspection as expected; B=256 "
-            f"readback byte-equal to plain")
-
-        runs = []
-        for _ in range(3):
-            b0, r0 = engine.stats["batches"], engine.stats["rows"]
-            t = time.perf_counter()
-            timed = asyncio.run(timed_checks(engine, reqs))
-            wall = time.perf_counter() - t
-            runs.append({"checks_per_s": len(reqs) / wall,
-                         "latency_s": [x for _, x in timed],
-                         "batches": engine.stats["batches"] - b0,
-                         "rows": engine.stats["rows"] - r0})
-        lat = np.sort(np.concatenate([r["latency_s"] for r in runs])) * 1e3
-        rates = [r["checks_per_s"] for r in runs]
-
-        async def one_at_a_time(rs):
-            return [(await timed_checks(engine, [r]))[0][1] for r in rs]
-
-        good = [r for r, k in zip(reqs, kinds) if k is None]
-        lone = np.sort(asyncio.run(one_at_a_time(good[:200]))) * 1e3
-        rs256 = good[0].http.headers["authorization"][len("Bearer "):]
-        sign_claims = {"iss": oc.WRISTBAND_ISSUER, "sub": "x" * 64,
-                       "iat": 0, "exp": 300, "org": "org-7"}
-        wb_key = wristband.signing_keys[0]
-        host = {
-            "rs256_verify_us": host_us(
-                lambda: jose.verify_jws(rs256, idp.jwks), 200),
-            "es256_verify_us": host_us(
-                lambda: jose.verify_jws(es256, idp.jwks), 50),
-            "es256_wristband_sign_us": host_us(
-                lambda: jose.sign_jwt(sign_claims, wb_key.private_key,
-                                      "ES256", kid=wb_key.kid), 50),
-        }
-    finally:
-        idp.stop()
+    good = [r for r, k in zip(reqs, kinds) if k is None]
+    lone = np.sort(asyncio.run(one_at_a_time(good[:200]))) * 1e3
+    rs256 = good[0].http.headers["authorization"][len("Bearer "):]
+    sign_claims = {"iss": oc.WRISTBAND_ISSUER, "sub": "x" * 64,
+                   "iat": 0, "exp": 300, "org": "org-7"}
+    wb_key = wristband.signing_keys[0]
+    host = {
+        "rs256_verify_us": host_us(
+            lambda: jose.verify_jws(rs256, idp.jwks), 200),
+        "es256_verify_us": host_us(
+            lambda: jose.verify_jws(es256, idp.jwks), 50),
+        "es256_wristband_sign_us": host_us(
+            lambda: jose.sign_jwt(sign_claims, wb_key.private_key,
+                                  "ES256", kid=wb_key.kid), 50),
+    }
+    ctx.update(engine=engine, entries=entries, reqs=reqs, oracle=oracle,
+               docs=docs, rows=rows)
     n_batches = sum(r["batches"] for r in runs)
     numbers = {
         "card": card, "configs": len(entries), "checks": len(out),
@@ -1125,6 +1160,250 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     }
     report["jwt_path"] = numbers
     return launches, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serving core at the reference's defaults
+# ---------------------------------------------------------------------------
+
+
+def bind(entries, engine) -> None:
+    """Point every pattern evaluator of ``entries`` at ``engine``'s
+    provider and attributor for its config (the translate binding), so
+    phase 8's translated entries serve through another engine."""
+    from authorino_tpu_torch.evaluators.authorization import PatternMatching
+
+    for e in entries:
+        for conf in e.runtime.authorization:
+            ev = conf.evaluator
+            if isinstance(ev, PatternMatching):
+                name = ev.batched_provider.config_name
+                ev.batched_provider = engine.provider_for(name)
+                ev.attributor = engine.attribution_for(name)
+
+
+_ROW_KEYS = ("rows", "device_rows", "dedup_rows", "cache_rows", "batches",
+             "cached_batches", "launches", "plain_calls", "deadline_shed",
+             "failed_batches")
+
+
+def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
+    """Phase 9: phase 8's translated entries and minted tokens through an
+    engine at the reference's defaults (dedup, a 32,768-entry verdict
+    cache, a 48-batch window, admission).  Two identical 4,096-Check()
+    bursts held to phase 8's oracle and, batch by batch, to the
+    structural contract, the second mostly from the cache; the readback
+    of one dedup-selected batch byte-equal to plain; a burst where one
+    good request in eight has a deadline inside one device round trip
+    (DEADLINE_EXCEEDED, no batch row) and the rest equal the oracle; a
+    burst against a queue cap of 64 (the excess RESOURCE_EXHAUSTED, typed
+    and counted); then checks/s, latencies and rows, each run beside one
+    of phase 8's engine (dedup and cache off) in the same call.  Returns
+    the kernel launch counts of the two bursts (counts zeroed just before
+    the engine's install) and the max abs byte error of the selected
+    batch."""
+    import numpy as np
+
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import (batch_row_keys,
+                                                   dedup_rows, pack_batch,
+                                                   select_rows)
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.utils import bucket_pow2, rpc
+
+    off, entries = ctx["engine"], ctx["entries"]
+    reqs, oracle = ctx["reqs"], ctx["oracle"]
+    good = [k for k, o in enumerate(oracle) if not isinstance(o, str)]
+
+    def hold(out, label, skip=frozenset()):
+        for k, (res, _) in enumerate(out):
+            if k in skip:
+                continue
+            want = oracle[k]
+            if isinstance(want, str):
+                if res.code != rpc.UNAUTHENTICATED:
+                    raise AssertionError(f"{label}: check {k}, a {want} "
+                                         f"token, answered {res.code}")
+                continue
+            got = (res.code, res.status, res.message, res.metadata)
+            if got != want:
+                raise AssertionError(f"{label}: check {k}: {got} != oracle "
+                                     f"{want}")
+
+    def counted(engine, fn):
+        st0, n0 = dict(engine.stats), len(engine.batch_records)
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        recs = checked_records(engine, n0)
+        d = {k: engine.stats[k] - st0[k] for k in _ROW_KEYS}
+        if d["batches"] != len(recs) or d["failed_batches"]:
+            raise AssertionError(f"batch records {len(recs)} vs {d}")
+        return out, dict(d, wall_s=wall), recs
+
+    fk.reset_counts()
+    engine = PolicyEngine(max_batch=256)
+    bind(entries, engine)
+    t = time.perf_counter()
+    engine.apply_snapshot(entries)
+    t_install = time.perf_counter() - t
+    bursts, rtt = [], 0.0
+    for b in range(2):
+        out, d, _ = counted(engine, lambda: asyncio.run(
+            timed_checks(engine, reqs)))
+        hold(out, f"serving core burst {b + 1}")
+        if d["rows"] != len(good):
+            raise AssertionError(f"{d['rows']} batch rows for {len(good)} "
+                                 f"good tokens")
+        if b == 0:
+            rtt = engine._device_ewma
+        d["latency_s"] = [x for _, x in out]
+        bursts.append(d)
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    if engine.stats["launches"] != fk.launches or not (
+            bursts[0]["launches"] + bursts[0]["plain_calls"]):
+        raise AssertionError(f"launches {fk.launches} vs {engine.stats}")
+    if bursts[1]["cache_rows"] * 2 < len(good):
+        raise AssertionError(f"the second burst was not served mostly from "
+                             f"the cache: {bursts[1]}")
+    log(f"serving core: default engine installed in {t_install:.2f}s; two "
+        f"{len(reqs)}-Check() bursts equal the oracle, every batch keeps "
+        f"the structural contract; burst 1: {bursts[0]['batches']} batches, "
+        f"{bursts[0]['launches']} launches, {bursts[0]['device_rows']} "
+        f"device rows, {bursts[0]['dedup_rows']} saved by dedup, "
+        f"{bursts[0]['cache_rows']} by the cache; burst 2: "
+        f"{bursts[1]['batches']} batches, {bursts[1]['launches']} launches, "
+        f"{bursts[1]['device_rows']} device rows, {bursts[1]['dedup_rows']} "
+        f"by dedup, {bursts[1]['cache_rows']} by the cache")
+
+    # one dedup-selected batch, as the engine builds it, against plain; and
+    # its fanned-out readback against the whole batch's
+    snap = engine._snapshot
+    policy, params = snap.policy, snap.params
+    docs = ctx["docs"][:128] * 2
+    rows = [policy.config_ids[entries[i].id] for i in ctx["rows"][:128]] * 2
+    db = pack_batch(policy, encode_batch(policy, docs, rows, batch_pad=256))
+    unique, inverse = dedup_rows(batch_row_keys(db, 256), list(range(256)))
+    pad_u = bucket_pow2(len(unique))
+    db_u = select_rows(db, unique, batch_pad=pad_u)
+    sel_err = max(kernel_vs_plain(params, db_u, dev),
+                  kernel_vs_plain(params, db_u, dev, global_tables=True))
+    whole = fk.eval_fused_kernel(params, db).cpu().numpy()
+    part = fk.eval_fused_kernel(params, db_u).cpu().numpy()
+    if len(unique) > 128 or not np.array_equal(part[inverse], whole):
+        raise AssertionError(f"the dedup-selected batch ({len(unique)} "
+                             f"unique rows) does not fan out to the whole")
+    log(f"a dedup-selected batch: 256 rows -> {len(unique)} unique at pad "
+        f"{pad_u}, [{pad_u}, W] readback byte-equal to plain (max abs err "
+        f"{sel_err}) and fanned out equal to the whole batch's")
+
+    # a deadline burst: one good request in eight doomed
+    doomed = frozenset(good[::8])
+
+    async def deadline_burst():
+        async def one(k, req):
+            dl = (time.monotonic() + 0.5 * engine._device_ewma
+                  if k in doomed else None)
+            return await engine.check(req, deadline=dl), 0.0
+
+        return await asyncio.gather(*(one(k, r) for k, r in enumerate(reqs)))
+
+    out, d, _ = counted(engine, lambda: asyncio.run(deadline_burst()))
+    hold(out, "deadline burst", skip=doomed)
+    how = {}
+    for k in doomed:
+        res = out[k][0]
+        if res.code != rpc.DEADLINE_EXCEEDED:
+            raise AssertionError(f"doomed check {k} answered {res.code} "
+                                 f"{res.message}")
+        how[res.message] = how.get(res.message, 0) + 1
+    if d["rows"] != len(good) - len(doomed):
+        raise AssertionError(f"{d['rows']} batch rows for "
+                             f"{len(good) - len(doomed)} undoomed good "
+                             f"tokens: a doomed request reached a batch")
+    deadline = {"doomed": len(doomed), "answered_by": how,
+                "engine_deadline_shed": d["deadline_shed"],
+                "rtt_ewma_s_after_burst_1": rtt}
+    log(f"deadline burst: {len(doomed)} doomed requests all "
+        f"DEADLINE_EXCEEDED with no batch row ({how}); the other "
+        f"{len(reqs) - len(doomed)} equal the oracle")
+
+    # an admission burst against a queue cap of 64
+    engine.admission.queue_cap = 64
+    rej0 = engine.admission.rejected.get("queue-full", 0)
+    try:
+        out, d, _ = counted(engine, lambda: asyncio.run(
+            timed_checks(engine, reqs)))
+    finally:
+        engine.admission.queue_cap = 0
+    rejected = frozenset(k for k, (res, _) in enumerate(out)
+                         if res.code == rpc.RESOURCE_EXHAUSTED)
+    counted_rej = engine.admission.rejected.get("queue-full", 0) - rej0
+    if not rejected or counted_rej != len(rejected) or any(
+            out[k][0].message != "server overloaded (queue-full): "
+                                 "admission rejected" for k in rejected):
+        raise AssertionError(f"{len(rejected)} RESOURCE_EXHAUSTED answers, "
+                             f"{counted_rej} counted")
+    hold(out, "admission burst", skip=rejected)
+    admission = {"queue_cap": 64, "rejected": len(rejected),
+                 "served_rows": d["rows"]}
+    log(f"admission burst (queue cap 64): {len(rejected)} "
+        f"RESOURCE_EXHAUSTED, typed and counted; {d['rows']} rows served, "
+        f"each equal to the oracle")
+
+    # the figures: each default-engine run beside one of phase 8's engine
+    def timed(e):
+        bind(entries, e)
+        out, d, _ = counted(e, lambda: asyncio.run(
+            timed_checks(e, reqs)))
+        return dict(d, checks_per_s=len(reqs) / d["wall_s"],
+                    latency_s=[x for _, x in out])
+
+    async def one_at_a_time(e, rs):
+        return [(await timed_checks(e, [r]))[0][1] for r in rs]
+
+    runs = {"on": [], "off": []}
+    for _ in range(3):
+        runs["on"].append(timed(engine))
+        runs["off"].append(timed(off))
+    lone = {}
+    for key, e in (("on", engine), ("off", off)):
+        bind(entries, e)
+        lone[key] = np.sort(asyncio.run(one_at_a_time(
+            e, [reqs[k] for k in good[:200]]))) * 1e3
+
+    def fig(key):
+        rs = runs[key]
+        lat = np.sort(np.concatenate([r["latency_s"] for r in rs])) * 1e3
+        rates = [r["checks_per_s"] for r in rs]
+        return {
+            "checks_per_s": rates,
+            "checks_per_s_median": statistics.median(rates),
+            "check_latency_ms_p50": float(np.percentile(lat, 50)),
+            "check_latency_ms_p99": float(np.percentile(lat, 99)),
+            "lone_check_latency_ms_p50": float(np.percentile(lone[key], 50)),
+            "lone_check_latency_ms_p99": float(np.percentile(lone[key], 99)),
+            **{k: [r[k] for r in rs] for k in
+               ("rows", "device_rows", "dedup_rows", "cache_rows",
+                "batches", "launches")}}
+
+    numbers = {
+        "card": card, "install_s": t_install,
+        "bursts": [{k: v for k, v in b.items() if k != "latency_s"}
+                   for b in bursts],
+        "first_burst_check_latency_ms_p50": float(
+            np.percentile(bursts[0]["latency_s"], 50) * 1e3),
+        "first_burst_check_latency_ms_p99": float(
+            np.percentile(bursts[0]["latency_s"], 99) * 1e3),
+        "selected_batch": {"rows": 256, "unique": len(unique),
+                           "pad_u": pad_u, "max_abs_err": sel_err},
+        "deadline": deadline, "admission": admission,
+        "default": fig("on"), "no_reuse": fig("off"),
+    }
+    report["serving_core"] = numbers
+    return launches, sel_err
 
 
 def main() -> int:
@@ -1256,7 +1535,7 @@ def main() -> int:
     engine_entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c)
                       for c in ns_cfgs]
     fk.reset_counts()
-    engine = PolicyEngine(max_batch=256)
+    engine = PolicyEngine(max_batch=256, **NO_REUSE)
     engine.apply_snapshot(engine_entries)
     t = time.monotonic()
     out = asyncio.run(serve(engine, ns_docs, ns_names))
@@ -1266,7 +1545,8 @@ def main() -> int:
     st = dict(engine.stats)
     policy = engine._snapshot.policy
     W = policy.fused_pack_w
-    if not (st["launches"] == st["batches"] == fk.launches == 16):
+    if not (st["launches"] == st["batches"] == fk.launches == 16
+            == len(checked_records(engine))):
         raise AssertionError(f"launches {fk.launches} vs batches {st}")
     if st["d2h_bytes"] != st["pad_rows"] * W or st["pad_rows"] != 4096:
         raise AssertionError(f"D2H {st['d2h_bytes']} != pad x W ({st})")
@@ -1464,9 +1744,16 @@ def main() -> int:
         f"{op['bound_ms']:.7f} ms by {op['bound_by']} "
         f"({op['kernel_bytes_moved']} B, {op['kernel_int_ops']} int ops)")
 
-    # ---- 8. the JWT request path -------------------------------------------
-    jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms)
-    max_err = max(max_err, jwt_err)
+    # ---- 8. the JWT request path, 9. the serving core ---------------------
+    ctx = {}
+    try:
+        jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms,
+                                         ctx)
+        core_launches, core_err = serving_core(report, card, dev, ctx)
+    finally:
+        if "idp" in ctx:
+            ctx["idp"].stop()
+    max_err = max(max_err, jwt_err, core_err)
     jp = report["jwt_path"]
     log(f"[{card}] JWT path: {jp['checks_per_s_median']:.0f} checks/s "
         f"median of 3 runs ({[round(r) for r in jp['checks_per_s']]}; phase "
@@ -1486,18 +1773,42 @@ def main() -> int:
         f"{jp['bound_ms']:.7f} ms by {jp['bound_by']} "
         f"({jp['kernel_bytes_moved']} B, {jp['kernel_int_ops']} int ops)")
 
+    sc = report["serving_core"]
+    for key, label in (("default", "defaults (dedup, cache)"),
+                       ("no_reuse", "dedup and cache off")):
+        f = sc[key]
+        log(f"[{card}] serving core, {label}: {f['checks_per_s_median']:.0f} "
+            f"checks/s median of 3 runs "
+            f"({[round(r) for r in f['checks_per_s']]}), per-Check() "
+            f"latency p50 {f['check_latency_ms_p50']:.2f} ms p99 "
+            f"{f['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
+            f"{f['lone_check_latency_ms_p50']:.3f} ms p99 "
+            f"{f['lone_check_latency_ms_p99']:.3f} ms; per run "
+            f"{f['rows']} rows, {f['device_rows']} device rows, "
+            f"{f['dedup_rows']} saved by dedup, {f['cache_rows']} by the "
+            f"cache, {f['launches']} launches")
+    b1 = sc["bursts"][0]
+    log(f"[{card}] serving core, first (cold) burst: "
+        f"{4096 / b1['wall_s']:.0f} checks/s, p50 "
+        f"{sc['first_burst_check_latency_ms_p50']:.2f} ms p99 "
+        f"{sc['first_burst_check_latency_ms_p99']:.2f} ms, "
+        f"{b1['device_rows']} device rows of {b1['rows']}; phase 8 in this "
+        f"run: {jp['checks_per_s_median']:.0f} checks/s, p50 "
+        f"{jp['check_latency_ms_p50']:.2f} ms p99 "
+        f"{jp['check_latency_ms_p99']:.2f} ms")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": jwt_launches["fused_megakernel"],
+         "launches": core_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": jwt_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": core_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -1505,11 +1816,12 @@ def main() -> int:
     ]
     for name in main_launches:
         if min(main_launches[name], path_launches[name],
-               opa_launches[name], jwt_launches[name]) < 1:
+               opa_launches[name], jwt_launches[name],
+               core_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
                 f"request path {path_launches}, OPA path {opa_launches}, "
-                f"JWT path {jwt_launches}")
+                f"JWT path {jwt_launches}, serving core {core_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

@@ -209,7 +209,8 @@ def test_request_path_runs_without_the_reference_or_its_services():
     mods = port_modules()
     for m in ("pipeline.pipeline", "controllers.translate", "index.index",
               "evaluators.identity.api_key", "utils.metrics", "k8s.client",
-              "runtime.provenance", "authjson.wellknown"):
+              "runtime.provenance", "authjson.wellknown", "runtime.admission",
+              "utils.verdict_cache", "snapshots.fingerprint"):
         assert f"authorino_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys, asyncio\n"

@@ -465,7 +465,11 @@ def test_check_equals_reference(name):
         assert result_fields(g) == result_fields(w), (i, requests[i])
     st = engine.stats
     assert st["failed_batches"] == 0
-    assert st["launches"] + st["plain_calls"] == st["batches"]
+    # one kernel entry per batch but those the verdict cache answered whole
+    assert st["launches"] + st["plain_calls"] == \
+        st["batches"] - st["cached_batches"]
+    assert st["rows"] == st["device_rows"] + st["dedup_rows"] + \
+        st["cache_rows"]
 
 
 def test_case_table_reaches_every_outcome():

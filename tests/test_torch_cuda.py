@@ -154,7 +154,11 @@ def test_engine_one_launch_per_batch(card):
     out = asyncio.run(go())
     policy = engine._snapshot.policy
     st = engine.stats
-    assert st["launches"] == st["batches"] == 3
+    # one launch per batch but those the verdict cache answered whole
+    assert st["batches"] == 3
+    assert st["launches"] == st["batches"] - st["cached_batches"]
+    assert st["rows"] == 70 == (st["device_rows"] + st["dedup_rows"]
+                                + st["cache_rows"])
     assert st["d2h_bytes"] == st["pad_rows"] * policy.fused_pack_w
     for (rule, skipped), d, n in zip(out, docs, names):
         own, _, w_skip = host_results(policy, d, policy.config_ids[n])
@@ -184,7 +188,8 @@ def test_check_on_the_card_equals_the_cpu(card):
     assert [[getattr(r, f) for f in fields] for r in got] == \
         [[getattr(r, f) for f in fields] for r in want]
     st = on_card.stats
-    assert st["launches"] == st["batches"] == 3
+    assert st["batches"] == 3
+    assert st["launches"] == st["batches"] - st["cached_batches"]
     assert st["failed_batches"] == st["plain_calls"] == 0
 
 
@@ -223,5 +228,89 @@ def test_opa_check_on_the_card_equals_the_cpu(card):
     for (gr, gs), (wr, ws) in zip(got_bits, want_bits):
         assert gr.tolist() == wr.tolist() and gs.tolist() == ws.tolist()
     st = on_card.stats
-    assert st["launches"] == st["batches"] == 6
+    assert st["batches"] == 6
+    assert st["launches"] == st["batches"] - st["cached_batches"]
     assert st["failed_batches"] == st["plain_calls"] == 0
+
+
+def test_first_launch_of_a_params_tree_from_8_threads(card):
+    """Eight threads launch on a params tree nobody launched on yet, all
+    at once: the argument words are built once and published whole, every
+    readback equals plain, and no launch goes uncounted."""
+    import threading
+
+    policy, docs, rows = lanes_case(7, False)
+    db = pack_batch(policy, encode_batch(policy, docs, rows))
+    want = fk.eval_fused_kernel(to_device(policy, device="cpu"), db).numpy()
+    params = to_device(policy, device=card)
+    fk.fused_kernel_supported(card)
+    assert "launch_words" not in params["kernel"]
+    barrier = threading.Barrier(8)
+    got, errors = [None] * 8, []
+
+    def one(i):
+        try:
+            barrier.wait()
+            got[i] = fk.eval_fused_kernel(params, db).cpu().numpy()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    l0 = fk.launches
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert fk.launches - l0 == 8
+    for g in got:
+        np.testing.assert_array_equal(g, want)
+    entry = params["kernel"]["launch_words"]
+    assert entry[0] == card and len(entry) == 3 and len(entry[2]) == 1
+
+
+def test_launch_counts_under_concurrent_encoders(card):
+    """A burst of many batches through the engine's encode pool: each
+    batch counts its own launch, the counts sum to the module's, every
+    H2D copy, launch and readback of a batch went on one stream, and
+    every verdict equals the oracle."""
+    import threading
+
+    cfgs = northstar.build_corpus(20, 10)
+    engine = PolicyEngine(max_batch=16, verdict_cache_size=0,
+                          batch_dedup=False)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    docs = northstar.build_docs(256, seed=9)
+    names = [f"cfg-{i % 20}" for i in range(256)]
+    seen = []
+    real = fk.dispatch_megakernel
+
+    def spy(params, db):
+        handle = real(params, db)
+        seen.append((threading.current_thread().name, handle.stream,
+                     torch.cuda.current_stream(card)))
+        return handle
+
+    fk.dispatch_megakernel = spy
+    try:
+        l0 = fk.launches
+
+        async def go():
+            return await asyncio.gather(*(engine.submit(d, n)
+                                          for d, n in zip(docs, names)))
+
+        out = asyncio.run(go())
+    finally:
+        fk.dispatch_megakernel = real
+    recs = list(engine.batch_records)
+    assert len(recs) == 16 and all(r["launches"] == 1 for r in recs)
+    assert engine.stats["launches"] == fk.launches - l0 == 16
+    assert all(s == cur for _, s, cur in seen) and len(seen) == 16
+    assert all(name.startswith("authz-engine-encode") for name, _, _ in seen)
+    policy = engine._snapshot.policy
+    for (rule, skipped), d, n in zip(out, docs, names):
+        own, _, w_skip = host_results(policy, d, policy.config_ids[n])
+        assert bool(np.all(rule | skipped)) == own
+        assert skipped.tolist() == w_skip.tolist()

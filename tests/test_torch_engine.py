@@ -71,8 +71,11 @@ def test_engine_matches_reference_engine(kind, ovf_assist):
 
 
 def test_burst_costs_one_batch_and_one_plain_call():
+    # dedup and the verdict cache off: every row reaches the kernel's entry
+    # point (the contract with them on is tests/test_torch_dedup_cache.py's)
     cfgs = northstar.build_corpus(20, 10)
-    engine = PolicyEngine(max_batch=64, device="cpu")
+    engine = PolicyEngine(max_batch=64, device="cpu", verdict_cache_size=0,
+                          batch_dedup=False)
     engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                            for c in cfgs])
     policy = engine._snapshot.policy
