@@ -17,10 +17,12 @@ lowered into one more slot of the same ConfigRules, so the mega-kernel
 decides it in the launch that decides the config's patterns; the pipeline
 keeps the interpreter for the evaluator's verdict, as the reference does.
 
-The port translates every kind the reference does but authentication
-``x509`` and authorization ``spicedb`` (``NOT_IN_PORT``), which raise
-TranslationError naming the kind as not yet in the port, as does
-``opa.externalPolicy``."""
+The port translates every kind the reference does but authorization
+``spicedb`` (``NOT_IN_PORT``), which raises TranslationError naming the
+kind as not yet in the port.  An ``opa.externalPolicy`` is downloaded here
+(and refreshed on its TTL by the evaluator) and never lowered: a refresh
+swaps the policy without a reconcile.  AuthConfig annotations (tenancy)
+are not read yet."""
 
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..authjson.value import JSONProperty, JSONValue
 from ..compiler.compile import ConfigRules
 from ..evaluators import cache as cache_mod
-from ..evaluators.authorization import OPA, KubernetesAuthz, PatternMatching
+from ..evaluators.authorization import OPA, KubernetesAuthz, OPAExternalSource, PatternMatching
 from ..evaluators.base import (
     AuthorizationConfig,
     CallbackConfig,
@@ -42,7 +44,7 @@ from ..evaluators.base import (
     RuntimeAuthConfig,
 )
 from ..evaluators.credentials import AuthCredentials
-from ..evaluators.identity import APIKey, KubernetesAuth, Noop, OAuth2, OIDC, Plain
+from ..evaluators.identity import MTLS, APIKey, KubernetesAuth, Noop, OAuth2, OIDC, Plain
 from ..evaluators.metadata import UMA, GenericHttp, UserInfo
 from ..evaluators.response import DynamicJSON, SigningKey, Wristband
 from ..evaluators.response import Plain as PlainResponse
@@ -58,7 +60,6 @@ __all__ = ["TranslationError", "translate_auth_config", "build_expression",
 # the kinds the reference translates and the port does not hold yet, per
 # spec section, in the reference's order of precedence
 NOT_IN_PORT = {
-    "authentication": ("x509",),
     "authorization": ("spicedb",),
 }
 
@@ -313,8 +314,6 @@ async def translate_auth_config(
 
     # ---- authentication (ref :228-320) ----
     for auth_name, aspec in (spec.get("authentication") or {}).items():
-        _refuse_unported("authentication", auth_name, aspec,
-                         before=("apiKey", "jwt", "oauth2Introspection"))
         creds = _credentials(aspec.get("credentials"))
         if aspec.get("apiKey") is not None:
             sel = LabelSelector.from_spec(aspec["apiKey"].get("selector"))
@@ -353,6 +352,17 @@ async def translate_auth_config(
                 credentials=creds,
             )
             etype = "OAUTH2_INTROSPECTION"
+        elif aspec.get("x509") is not None:
+            sel = LabelSelector.from_spec(aspec["x509"].get("selector"))
+            ev = MTLS(
+                auth_name,
+                sel,
+                namespace="" if aspec["x509"].get("allNamespaces") else namespace,
+                credentials=creds,
+                cluster=cluster,
+            )
+            await ev.load_secrets()
+            etype = "X509"
         elif aspec.get("kubernetesTokenReview") is not None:
             ev = KubernetesAuth(
                 auth_name,
@@ -437,14 +447,22 @@ async def translate_auth_config(
             etype = "PATTERN_MATCHING"
         elif azspec.get("opa") is not None:
             o = azspec["opa"]
+            external = None
             if o.get("externalPolicy"):
-                raise TranslationError(
-                    f"authorization {az_name!r}: kind 'opa.externalPolicy' "
-                    "is not yet in the port")
+                ext = o["externalPolicy"]
+                shared = ""
+                if ext.get("sharedSecretRef"):
+                    shared = await _secret_value(cluster, namespace, ext["sharedSecretRef"])
+                external = OPAExternalSource(
+                    ext.get("url", "") or ext.get("endpoint", ""),
+                    shared_secret=shared,
+                    ttl_s=int(ext.get("ttl", 0) or 0),
+                )
             try:
                 ev = OPA(
                     f"{cfg_id}/{az_name}",
                     inline_rego=o.get("rego", ""),
+                    external_source=external,
                     all_values=bool(o.get("allValues", False)),
                     # extension: a static document tree served under data.*
                     # (the embedded-OPA equivalent of loaded data documents)
@@ -452,6 +470,11 @@ async def translate_auth_config(
                 )
             except ValueError as e:
                 raise TranslationError(str(e))
+            if external is not None:
+                try:
+                    await ev.load_external()
+                except Exception as e:
+                    raise TranslationError(f"failed to fetch external rego policy: {e}")
             # decidable Rego rides the kernel: the verdict lowers into the
             # same compiled slots the pattern evaluators use (the analog of
             # the reference's precompile-at-reconcile, ref

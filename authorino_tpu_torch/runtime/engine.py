@@ -56,11 +56,20 @@ enter the cache.
 calls, rows, device rows, rows saved by dedup and by the cache, batches the
 cache answered whole, pad rows and H2D/D2H bytes of what went to the
 device, host-fallback rows, retries, failed batches, deadline sheds and
-watchdog timeouts; ``batch_records`` keeps the same per batch, and
+watchdog timeouts; ``batch_records`` keeps the same per batch with the
+generation of the snapshot the batch was cut against, and
 ``batch_latency_s`` each batch's time from its encode to its verdicts.
 The structural contract: one launch per batch with at least one unique
 uncached row and none for a batch the cache answers whole; D2H = Σ pad_u
 × W; rows = device rows + rows saved by dedup + rows saved by the cache.
+
+``apply_snapshot`` may run on a worker thread (the reconciler calls it
+through ``asyncio.to_thread``) while batches are in flight: the new corpus
+compiles, uploads and passes the probe kernel before it is published under
+the swap lock, every batch keeps the snapshot it was cut against, and the
+old snapshot's device memory goes when its last in-flight batch resolves.
+Swap listeners fire after each swap, and ``notify_swap_listeners`` fires
+them without one (the Secret reconciler after an in-place rotation).
 """
 
 from __future__ import annotations
@@ -138,7 +147,12 @@ class _Snapshot:
         self.params = None
         self.fingerprints: Dict[str, str] = {}
         self.cache_tokens = None
-        if rules:
+        if not rules:
+            # no compiled config (the bootstrap deny-all): nothing to
+            # upload, but the card still proves it launches at install
+            if device.type == "cuda":
+                fk.fused_kernel_supported(device, recheck=True)
+        else:
             self.policy = compile_corpus(rules, members_k=members_k,
                                          ovf_assist=ovf_assist,
                                          interner=interner)
@@ -271,6 +285,7 @@ class PolicyEngine:
             enabled=adaptive_window)
         self._g_inflight = metrics_mod.inflight_batches.labels("engine")
         self._g_depth = metrics_mod.dispatch_queue_depth.labels("engine")
+        self._swap_listeners: List[Any] = []
         self._stats_lock = threading.Lock()
         self.stats = dict.fromkeys(_STAT_KEYS, 0)
         self.batch_records: deque = deque(maxlen=BATCH_RECORDS)
@@ -282,6 +297,21 @@ class PolicyEngine:
                 self.stats[k] += v
 
     # ---- control plane ----------------------------------------------------
+
+    def add_swap_listener(self, cb) -> None:
+        self._swap_listeners.append(cb)
+
+    def remove_swap_listener(self, cb) -> None:
+        if cb in self._swap_listeners:
+            self._swap_listeners.remove(cb)
+
+    def notify_swap_listeners(self) -> None:
+        """Fire swap listeners without a corpus swap — used by the secret
+        reconciler after in-place API-key/mTLS rotation
+        (ref controllers/secret_controller.go:40-130 mutates evaluators in
+        place)."""
+        for cb in list(self._swap_listeners):
+            cb()
 
     def apply_snapshot(self, entries: Sequence[EngineEntry],
                        override: bool = True) -> None:
@@ -300,6 +330,7 @@ class PolicyEngine:
             self.generation += 1
             snap.generation = self.generation
             self._snapshot = snap
+        self.notify_swap_listeners()
 
     def _check_bound(self, entry: EngineEntry) -> None:
         """Every PatternMatching of ``entry`` must take its verdicts from
@@ -683,7 +714,7 @@ class PolicyEngine:
                   "plain_calls": handle.plain_calls,
                   "h2d_bytes": staged_h2d_bytes(db_u) if u else 0,
                   "d2h_bytes": handle.nbytes}
-        self.batch_records.append(record)
+        self.batch_records.append(dict(record, generation=snap.generation))
         self._add_stats(batches=1, cached_batches=int(u == 0), **record)
         binfo = {"batch_size": n, "device_rows": u, "t0": t0}
 

@@ -16,13 +16,22 @@ redirect leaves the origin, and the tenth redirect in a row raises
 in the query becomes ``+``, a stray ``%`` becomes ``%25``, an escape of a
 character the component allows is decoded).  A request's timeout is
 aiohttp's default total of 300 s unless the caller passes another; the
-Check() itself is bounded by the engine's ``timeout_s`` and its deadline."""
+Check() itself is bounded by the engine's ``timeout_s`` and its deadline.
+
+``ssl=`` takes an ``ssl.SSLContext`` for an HTTPS origin with its own CA
+(aiohttp's keyword).  ``LineStream`` is the streamed read a Kubernetes
+watch needs: one ``http.client`` connection whose body a thread of its own
+reads, its lines handed to the event loop; ``close()`` shuts the socket,
+which ends a read blocked on it at once."""
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import http.client
 import json
+import socket
+import ssl as ssl_mod
 import string
 import threading
 import urllib.error
@@ -31,10 +40,10 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from email.message import Message
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, AsyncIterator, Dict, Mapping, Optional, Tuple, Union
 
 __all__ = ["Response", "request", "parse_response", "HttpError",
-           "TooManyRedirects", "close_sessions"]
+           "TooManyRedirects", "close_sessions", "LineStream"]
 
 # aiohttp's default ClientTimeout total
 TIMEOUT_S = 300.0
@@ -54,9 +63,15 @@ class _NoRedirect(urllib.request.HTTPRedirectHandler):
         return None
 
 
-# no ProxyHandler entries: the environment's proxy variables are ignored
-_opener = urllib.request.build_opener(urllib.request.ProxyHandler({}),
-                                      _NoRedirect())
+def _build_opener(context: Optional[ssl_mod.SSLContext] = None):
+    # no ProxyHandler entries: the environment's proxy variables are ignored
+    handlers = [urllib.request.ProxyHandler({}), _NoRedirect()]
+    if context is not None:
+        handlers.append(urllib.request.HTTPSHandler(context=context))
+    return urllib.request.build_opener(*handlers)
+
+
+_opener = _build_opener()
 
 
 class HttpError(Exception):
@@ -170,7 +185,7 @@ async def close_sessions() -> None:
 
 def _send(method: str, url: str, headers: Dict[str, str],
           data: Optional[bytes], form: bool,
-          timeout: Optional[float]) -> Response:
+          timeout: Optional[float], opener) -> Response:
     if data is not None and not any(k.lower() == "content-type"
                                     for k in headers):
         # the payload's own type, which goes with the body (aiohttp's; urllib
@@ -181,7 +196,7 @@ def _send(method: str, url: str, headers: Dict[str, str],
     req = urllib.request.Request(url, data=data, headers=headers,
                                  method=method)
     try:
-        with _opener.open(req, timeout=timeout) as r:
+        with opener.open(req, timeout=timeout) as r:
             return Response(r.status, r.headers, r.read())
     except urllib.error.HTTPError as e:  # any status but 2xx, 3xx included
         with e:
@@ -190,11 +205,11 @@ def _send(method: str, url: str, headers: Dict[str, str],
 
 def _open(method: str, url: str, headers: Dict[str, str],
           data: Optional[bytes], form: bool,
-          timeout: Optional[float]) -> Response:
+          timeout: Optional[float], opener=_opener) -> Response:
     """One request and the redirects aiohttp would follow from it."""
     redirects = 0
     while True:
-        resp = _send(method, url, headers, data, form, timeout)
+        resp = _send(method, url, headers, data, form, timeout, opener)
         if resp.status not in REDIRECT_CODES:
             return resp
         redirects += 1
@@ -223,10 +238,12 @@ async def request(method: str, url: str, *,
                   data: Union[bytes, Mapping[str, str], None] = None,
                   params: Optional[Mapping[str, str]] = None,
                   auth: Optional[Tuple[str, str]] = None,
-                  timeout: Optional[float] = TIMEOUT_S) -> Response:
+                  timeout: Optional[float] = TIMEOUT_S,
+                  ssl: Optional[ssl_mod.SSLContext] = None) -> Response:
     """One request, redirects followed; raises OSError (URLError, a
     timeout, TooManyRedirects) when no final response came back.
-    ``timeout`` (seconds; None for none) bounds each hop."""
+    ``timeout`` (seconds; None for none) bounds each hop; ``ssl`` verifies
+    an HTTPS origin against its context instead of the default one."""
     hdrs = dict(headers or {})
     form = isinstance(data, Mapping)
     if form:
@@ -234,12 +251,116 @@ async def request(method: str, url: str, *,
     if auth is not None:
         cred = f"{auth[0]}:{auth[1]}".encode("latin-1")
         hdrs["Authorization"] = "Basic " + base64.b64encode(cred).decode()
+    url = _with_params(url, params)
+    opener = _opener if ssl is None else _build_opener(ssl)
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(_executor(), _open, method.upper(),
+                                      url, hdrs, data, form, timeout, opener)
+
+
+def _with_params(url: str, params: Optional[Mapping[str, str]]) -> str:
     url = _requote_url(url)
     if params:
         url = f"{url}{'&' if '?' in url else '?'}{_query_of(params)}"
-    loop = asyncio.get_running_loop()
-    return await loop.run_in_executor(_executor(), _open, method.upper(),
-                                      url, hdrs, data, form, timeout)
+    return url
+
+
+class LineStream:
+    """A GET whose body streams in: ``status`` after ``open()``, then the
+    body's non-empty lines (bytes, without the newline) from ``lines()``,
+    as they arrive.  A thread of its own does the blocking reads; each
+    read waits at most ``read_timeout`` seconds (``socket.timeout`` then
+    ends the stream with that error).  ``close()``, from any thread, shuts
+    the socket down, so a blocked read returns at once and the stream
+    ends."""
+
+    CHUNK = 65536
+
+    def __init__(self, url: str, *, headers: Optional[Mapping[str, str]] = None,
+                 params: Optional[Mapping[str, str]] = None,
+                 read_timeout: Optional[float] = None,
+                 ssl: Optional[ssl_mod.SSLContext] = None):
+        self.url = _with_params(url, params)
+        self.headers = dict(headers or {})
+        self.read_timeout = read_timeout
+        self.ssl = ssl
+        self.status = 0
+        self._conn: Optional[http.client.HTTPConnection] = None
+        self._resp: Optional[http.client.HTTPResponse] = None
+        self._closed = False
+
+    def _connect(self) -> int:
+        parts = urllib.parse.urlsplit(self.url)
+        target = urllib.parse.urlunsplit(("", "", parts.path or "/",
+                                          parts.query, ""))
+        if parts.scheme == "https":
+            conn = http.client.HTTPSConnection(
+                parts.hostname, parts.port, timeout=self.read_timeout,
+                context=self.ssl or ssl_mod.create_default_context())
+        else:
+            conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                              timeout=self.read_timeout)
+        self._conn = conn
+        conn.request("GET", target, headers=self.headers)
+        self._resp = conn.getresponse()
+        return self._resp.status
+
+    async def open(self) -> int:
+        """Connect, send the request, read the status line and headers."""
+        self.status = await asyncio.to_thread(self._connect)
+        return self.status
+
+    def body(self) -> str:
+        """The rest of the body (for an error status)."""
+        return self._resp.read().decode("utf-8", "replace")
+
+    async def lines(self) -> AsyncIterator[bytes]:
+        loop = asyncio.get_running_loop()
+        queue: asyncio.Queue = asyncio.Queue()
+
+        def put(item) -> None:
+            try:
+                loop.call_soon_threadsafe(queue.put_nowait, item)
+            except RuntimeError:
+                pass  # the loop closed: nobody reads the stream any more
+
+        def reader() -> None:
+            try:
+                while True:
+                    chunk = self._resp.read1(self.CHUNK)
+                    if not chunk:
+                        break
+                    put(chunk)
+                put(None)
+            except BaseException as e:  # surfaced to the consumer
+                put(e if not self._closed else None)
+
+        threading.Thread(target=reader, name="authorino-http-stream",
+                         daemon=True).start()
+        buf = b""
+        while True:
+            item = await queue.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            buf += item
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                if line.strip():
+                    yield line
+
+    def close(self) -> None:
+        self._closed = True
+        conn = self._conn
+        sock = getattr(conn, "sock", None) if conn is not None else None
+        if sock is not None:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        if conn is not None:
+            conn.close()
 
 
 def parse_response(resp: Response) -> Any:

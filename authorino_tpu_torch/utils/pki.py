@@ -44,10 +44,15 @@ class InvalidSignature(Exception):
     pass
 
 
-_HASH = {"256": hashlib.sha256, "384": hashlib.sha384, "512": hashlib.sha512}
+# SHA-1 and SHA-224 only for X.509 signatures (utils/x509.py); the JOSE
+# layer admits 256, 384 and 512 alone
+_HASH = {"1": hashlib.sha1, "224": hashlib.sha224, "256": hashlib.sha256,
+         "384": hashlib.sha384, "512": hashlib.sha512}
 
 # DER DigestInfo prefixes, RFC 8017 §9.2 note 1
 _DIGEST_INFO = {
+    "1": bytes.fromhex("3021300906052b0e03021a05000414"),
+    "224": bytes.fromhex("302d300d06096086480165030402040500041c"),
     "256": bytes.fromhex("3031300d060960864801650304020105000420"),
     "384": bytes.fromhex("3041300d060960864801650304020205000430"),
     "512": bytes.fromhex("3051300d060960864801650304020305000440"),

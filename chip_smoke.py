@@ -92,9 +92,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      beside one of phase 8's engine (dedup and cache off) in the same
      call, and beside phase 8's figures.
 
-The kernels' launch counts in the summary are phase 9's; each kernel must
-have launched on the paths of phases 4, 6, 7, 8 and 9, with the counts
-zeroed just before each.
+ 10. the control plane (``models/control_plane.py``): 1,000 API-key
+     AuthConfigs with ``northstar``'s rules (half v1beta1, half v1beta2),
+     their 1,000 Secrets, 16 x509 AuthConfigs trusting an RSA-2048 and a
+     P-256 CA Secret (keys and certificates made from a seed with the
+     port's own keys and certificate writer) and one
+     ``opa.externalPolicy`` AuthConfig on a loopback registry: (a) as
+     manifests through ``YamlDirSource`` into a default engine — a
+     Check() during the bootstrap answers 503 "Busy", a burst of 4,096
+     (API keys valid and unknown; good, other-organization, expired and
+     foreign-CA client certificates) equals the oracle, one rule flipped
+     in its file is served after one sync, 64 API keys rotated with no
+     swap, the RSA CA's removal rejects its clients, and a policy changed
+     in the registry is followed after one TTL with no reconcile; (b) the
+     same corpus through ``K8sWatchSource`` and ``RestCluster`` against a
+     loopback API server (a 410 and a dropped watch; two leader-elected
+     status writers, exactly one of which writes, every AuthConfig
+     Ready); (c) waves of Check()s while three reconciles alternate
+     between two corpora that differ in 100 rules, every verdict equal to
+     the oracle of its batch's generation, and device memory after ten
+     swaps within one snapshot's upload of its value after the first;
+     the [256, W] readback on this corpus byte-equal to plain.
+
+The kernels' launch counts in the summary are phase 10's; each kernel
+must have launched on the paths of phases 4, 6, 7, 8, 9 and 10, with the
+counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -1406,6 +1428,594 @@ def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
     return launches, sel_err
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the control plane
+# ---------------------------------------------------------------------------
+
+CP_CONFIGS, CP_RULES, CP_MTLS = 1000, 10, 16
+CP_FLIPPED = 100          # configs whose rule differs between (c)'s corpora
+OPA_TTL_S = 1
+# phase 10's engines keep the reference's defaults but for wide admission
+# bounds: the event loop is busy translating (or verifying certificates)
+# for seconds at a time, and the phase holds verdicts, not shedding
+WIDE_ADMISSION = {"admission_target_s": 60.0, "admission_min_cap": 1 << 20}
+OPA_V1 = 'allow { input.request.method == "GET" }'
+OPA_V2 = 'allow { input.request.method == "POST" }'
+
+
+def tensor_bytes(tree) -> int:
+    """Device bytes of every tensor in a params tree: one snapshot's
+    upload."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def mtls_material():
+    """Two trusted CAs (RSA-2048 and P-256) and one foreign CA (P-256,
+    the P-256 CA's name, another key), made from a seed with the port's
+    keys; per mTLS config k, client certificates under config k's CA: good
+    (organization org-k), another organization, expired, and one of the
+    foreign CA.  Returns (rsa_ca, ec_ca, [(k, pem, kind, signed by the RSA
+    CA)])."""
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.utils import pki
+
+    O = cp.OID
+    rng = random.Random(11)
+    rsa_ca = cp.CertAuthority(pki.generate_rsa_private_key(2048, rng),
+                              [[(O["CN"], "clients-rsa")], [(O["O"], "keys")]])
+    ec_ca = cp.CertAuthority(pki.generate_ec_private_key(pki.P256, rng),
+                             [[(O["CN"], "clients-p256")]])
+    foreign = cp.CertAuthority(pki.generate_ec_private_key(pki.P256, rng),
+                               [[(O["CN"], "clients-p256")]])
+    certs = []
+    for k in range(CP_MTLS):
+        ca = rsa_ca if k % 2 == 0 else ec_ca
+
+        def subject(org):
+            return [[(O["CN"], f"client-{k}")], [(O["O"], org, cp.PRINTABLE)]]
+
+        certs += [
+            (k, ca.issue(subject(f"org-{k}"), dns_names=[f"client-{k}.keys"]),
+             "good", ca is rsa_ca),
+            (k, ca.issue(subject(f"org-{k + 1}")), "other-org", ca is rsa_ca),
+            (k, ca.issue(subject(f"org-{k}"), valid_from_days=-30,
+                         valid_days=10), "expired", ca is rsa_ca),
+            (k, foreign.issue(subject(f"org-{k}")), "foreign", False)]
+    return rsa_ca, ec_ca, certs
+
+
+def mtls_request(k: int, pem: bytes):
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+    from authorino_tpu_torch.models import control_plane as cp
+
+    req = CheckRequestModel(http=HttpRequestAttributes(
+        method="GET", path="/", host=cp.MTLS_HOST.format(k=k)))
+    req.source.certificate = pem.decode()
+    return req
+
+
+def mtls_expected(kind: str, rsa_signed: bool, rsa_trusted: bool) -> int:
+    from authorino_tpu_torch.utils import rpc
+
+    if kind in ("expired", "foreign") or (rsa_signed and not rsa_trusted):
+        return rpc.UNAUTHENTICATED
+    return rpc.OK if kind == "good" else rpc.PERMISSION_DENIED
+
+
+def write_manifests(d: Path, configs, key_gen, with_rsa_ca: bool, rsa_ca,
+                    ec_ca, registry_url: str, rvs) -> None:
+    """The phase-10 manifest directory, one JSON document per file:
+    ``configs`` AuthConfigs (resourceVersion from ``rvs``), each config's
+    API-key Secret of generation ``key_gen[i]``, the mTLS configs and CA
+    Secrets, and the external-policy config.  Files that are not part of
+    this state are removed."""
+    from authorino_tpu_torch.models import control_plane as cp
+
+    docs = {}
+    for i, ac in enumerate(configs):
+        ac = json.loads(json.dumps(ac))
+        ac["metadata"]["resourceVersion"] = rvs[i]
+        docs[f"ac-{i:04d}.json"] = ac
+        docs[f"key-{i:04d}-{key_gen[i]}.json"] = cp.api_key_secret(i, key_gen[i])
+    for k in range(CP_MTLS):
+        docs[f"mtls-{k:02d}.json"] = dict(cp.mtls_auth_config(k), metadata=dict(
+            cp.mtls_auth_config(k)["metadata"], resourceVersion="1"))
+    if with_rsa_ca:
+        docs["ca-rsa.json"] = cp.ca_secret("ca-rsa", rsa_ca.pem)
+    docs["ca-p256.json"] = cp.ca_secret("ca-p256", ec_ca.pem)
+    opa = cp.opa_external_auth_config(f"{registry_url}/policy", OPA_TTL_S)
+    opa["metadata"]["resourceVersion"] = "1"
+    docs["opa-external.json"] = opa
+    for f in d.iterdir():
+        if f.name not in docs:
+            f.unlink()
+    for name, doc in docs.items():
+        path = d / name
+        text = json.dumps(doc)
+        if not path.exists() or path.read_text() != text:
+            path.write_text(text)
+
+
+def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
+                  n_checks: int = 4096) -> tuple:
+    """Phase 10, the control plane on the card: (a) AuthConfig and Secret
+    manifests through ``YamlDirSource`` into a default engine (bootstrap
+    deny-all answering 503 while the corpus compiles; a burst held to the
+    oracle; one rule flipped in its file; 64 API keys rotated with no swap;
+    a CA removed; an external policy changed in its registry and followed
+    after one TTL with no reconcile); (b) the same corpus through
+    ``K8sWatchSource`` and ``RestCluster`` against a loopback API server
+    (a 410 and a dropped connection, two leader-elected status writers);
+    (c) a burst during which three reconciles alternate between two
+    corpora, every verdict held to its batch's generation, and device
+    memory after ten swaps.  Returns (the kernels' launches in phase 10,
+    counts zeroed just before it; the max abs byte error of its batch
+    against plain)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from authorino_tpu_torch.apis import to_v1beta2
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.controllers import (AuthConfigReconciler,
+                                                 AuthConfigStatusUpdater,
+                                                 SecretReconciler)
+    from authorino_tpu_torch.controllers.sources import (K8sWatchSource,
+                                                         YamlDirSource)
+    from authorino_tpu_torch.evaluators.identity.mtls import _verify_signed_by
+    from authorino_tpu_torch.k8s import InMemoryCluster, RestCluster
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.utils import rpc, x509
+
+    on_card = dev.type == "cuda"
+    t = time.perf_counter()
+    rsa_ca, ec_ca, certs = mtls_material()
+    t_keys = time.perf_counter() - t
+    base = cp.build_auth_configs(n, CP_RULES)
+    rules = cp.config_rules(n, CP_RULES)
+    n_mtls = 2 * len(certs)
+    reqs, cfgs, known = cp.build_check_requests(n_checks - n_mtls, n)
+    mtls_reqs = [(mtls_request(k, pem), kind, rsa) for k, pem, kind, rsa
+                 in certs * 2]
+    numbers = {"card": card, "configs": n + CP_MTLS + 1,
+               "secrets": n + 2, "keys_and_certs_s": t_keys}
+
+    def hold(results, key_gen, rsa_trusted, label, rules=rules):
+        """Every burst result against the oracle: an API-key request with
+        the key of generation 0 (a rotated config's old key is revoked),
+        and the mTLS requests by their certificate's kind."""
+        allowed = 0
+        for k, (res, req, i, good) in enumerate(zip(results, reqs, cfgs, known)):
+            if res.code == rpc.UNAVAILABLE:
+                raise AssertionError(f"{label}: check {k} UNAVAILABLE: {res}")
+            want = cp.expected_code(req, i, rules, good and key_gen[i] == 0)
+            if res.code != want:
+                raise AssertionError(f"{label}: check {k} on config {i}: "
+                                     f"{res.code} != oracle {want} ({res})")
+            allowed += res.code == rpc.OK
+        for k, (res, (_, kind, rsa)) in enumerate(
+                zip(results[len(reqs):], mtls_reqs)):
+            want = mtls_expected(kind, rsa, rsa_trusted)
+            if res.code != want:
+                raise AssertionError(f"{label}: mTLS check {k} ({kind}, RSA "
+                                     f"CA {rsa}): {res.code} != {want} "
+                                     f"({res.message})")
+        return allowed
+
+    async def burst(engine):
+        t = time.perf_counter()
+        out = await timed_checks(engine, reqs + [r for r, _, _ in mtls_reqs])
+        return ([r for r, _ in out], [s for _, s in out],
+                time.perf_counter() - t)
+
+    def with_key(i: int, gen: int):
+        """Request 0's method, path, headers and claims to config i with
+        its API key of generation ``gen``."""
+        q = cp.build_check_requests(1, n)[0][0]
+        q.http.host = cp.host_of(i)
+        q.http.headers["authorization"] = f"APIKEY {cp.api_key_of(i, gen)}"
+        return q
+
+    # the config whose flipped rule changes a request's verdict
+    flip_j = next(j for j, (q, i, good) in enumerate(zip(reqs, cfgs, known))
+                  if good and cp.expected_code(q, i, rules, True)
+                  != cp.expected_code(q, i, cp.config_rules(
+                      n, CP_RULES, flip=[i]), True))
+    flip_i = cfgs[flip_j]
+    flipped = cp.config_rules(n, CP_RULES, flip=[flip_i])
+    want_new = cp.expected_code(reqs[flip_j], flip_i, flipped, True)
+
+    fk.reset_counts()
+    a, b = {}, {}
+
+    # ---- (a) manifests through YamlDirSource, (b) the Kubernetes path -----
+    # one event loop for both: the external policy's refresher lives on it
+    async def manifests_path(d: Path, registry):
+        key_gen, rvs = [0] * n, ["1"] * n
+        write = (lambda configs, with_rsa: write_manifests(
+            d, configs, key_gen, with_rsa, rsa_ca, ec_ca, registry.url, rvs))
+        write(base, True)
+        engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+        cluster = InMemoryCluster()
+        rec = AuthConfigReconciler(engine, cluster=cluster)
+        source = YamlDirSource(str(d), rec, cluster, SecretReconciler(engine))
+        swap_times = []
+        engine.add_swap_listener(lambda: swap_times.append(time.perf_counter()))
+        seen = {}
+
+        async def probe_bootstrap():
+            # runs at the sync's first yield: the deny-all is installed and
+            # the real corpus is still translating or compiling
+            while not swap_times:
+                await asyncio.sleep(0)
+            seen["gen"] = engine.generation
+            seen["res"] = await engine.check(reqs[0])
+            seen["after_gen"] = engine.generation
+
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(probe_bootstrap())
+        await source.sync()
+        a["cold_reconcile_s"] = time.perf_counter() - t0
+        a["bootstrap_swap_s"] = swap_times[0] - t0
+        await task
+        res = seen["res"]
+        a["bootstrap_check"] = [res.code, res.status, res.message]
+        if (res.code, res.status, res.message) != (
+                rpc.PERMISSION_DENIED, 503, "Busy") \
+                or seen["gen"] != 1 or seen["after_gen"] != 1:
+            raise AssertionError(f"bootstrap: {res} at generation "
+                                 f"{seen['gen']}-{seen['after_gen']}")
+        if not rec.ready() or engine.generation != 2:
+            raise AssertionError(f"cold sync: ready {rec.ready()}, "
+                                 f"generation {engine.generation}")
+
+        results, lat, wall = await burst(engine)
+        a["burst_allowed"] = hold(results, key_gen, True, "(a) burst")
+        lat_ms = np.sort(np.array(lat)) * 1e3
+        a.update({"burst_checks": len(results),
+                  "checks_per_s": len(results) / wall,
+                  "check_latency_ms_p50": float(np.percentile(lat_ms, 50)),
+                  "check_latency_ms_p99": float(np.percentile(lat_ms, 99))})
+        checked_records(engine)
+
+        # one rule flipped in its file: from the write to the first Check()
+        # that sees the new rule
+        gen0 = engine.generation
+        t = time.perf_counter()
+        rvs[flip_i] = "2"
+        configs = cp.build_auth_configs(n, CP_RULES, flip=[flip_i])
+        write(configs, True)
+        await source.sync()
+        r = await engine.check(reqs[flip_j])
+        a["one_file_rebuild_s"] = time.perf_counter() - t
+        if r.code != want_new or engine.generation != gen0 + 1:
+            raise AssertionError(f"flipped config {flip_i}: {r.code} != "
+                                 f"{want_new}, generation {engine.generation}")
+
+        # 64 API-key Secrets deleted and 64 new ones added: revoked keys
+        # UNAUTHENTICATED, new ones allowed, no swap
+        gen0 = engine.generation
+        rotated = sorted(set(cfgs))[:64]
+        for i in rotated:
+            key_gen[i] = 1
+        t = time.perf_counter()
+        write(configs, True)
+        await source.sync()
+        a["rotation_sync_s"] = time.perf_counter() - t
+        r_new = await engine.check(with_key(rotated[0], 1))
+        a["rotation_latency_s"] = time.perf_counter() - t
+        if engine.generation != gen0:
+            raise AssertionError(f"Secret rotation swapped the corpus "
+                                 f"({gen0} -> {engine.generation})")
+        results, _, _ = await burst(engine)
+        hold(results, key_gen, True, "(a) after rotation", rules=flipped)
+        for i in rotated:
+            q = with_key(i, 1)
+            code = (await engine.check(q)).code
+            want = cp.expected_code(q, i, flipped, True, generation=1)
+            if code != want:
+                raise AssertionError(f"new key of config {i}: {code} != {want}")
+        if r_new.code != cp.expected_code(with_key(rotated[0], 1), rotated[0],
+                                          flipped, True, generation=1):
+            raise AssertionError(f"first new key: {r_new.code}")
+        a["rotated_keys"] = len(rotated)
+
+        # the RSA CA removed: its clients UNAUTHENTICATED, P-256 ones kept
+        gen0 = engine.generation
+        write(configs, False)
+        await source.sync()
+        for (q, kind, rsa) in mtls_reqs:
+            code = (await engine.check(q)).code
+            if code != mtls_expected(kind, rsa, False):
+                raise AssertionError(f"after the RSA CA's removal: {kind} "
+                                     f"(RSA {rsa}) answered {code}")
+        if engine.generation != gen0:
+            raise AssertionError("the CA's removal swapped the corpus")
+
+        # the registry's policy changes: after one TTL the decision
+        # follows, with no reconcile
+        opa = [cp.CheckRequestModel(http=cp.HttpRequestAttributes(
+            method=m, path="/", host=cp.OPA_HOST)) for m in ("GET", "POST")]
+        before = [(await engine.check(q)).code for q in opa]
+        registry.policy = OPA_V2
+        t = time.perf_counter()
+        while time.perf_counter() - t < 10 * OPA_TTL_S:
+            after = [(await engine.check(q)).code for q in opa]
+            if after == [rpc.PERMISSION_DENIED, rpc.OK]:
+                break
+            await asyncio.sleep(0.02)
+        a["policy_follow_s"] = time.perf_counter() - t
+        if before != [rpc.OK, rpc.PERMISSION_DENIED] \
+                or after != [rpc.PERMISSION_DENIED, rpc.OK] \
+                or engine.generation != gen0:
+            raise AssertionError(f"external policy: {before} -> {after}, "
+                                 f"generation {gen0} -> {engine.generation}")
+        a["swaps"] = engine.generation
+        await engine.lookup(cp.OPA_HOST).runtime.clean()
+        registry.policy = OPA_V1
+        log(f"control plane (a): cold {a['cold_reconcile_s']:.2f}s, "
+            f"burst {a['checks_per_s']:.0f} checks/s, one file "
+            f"{a['one_file_rebuild_s']:.2f}s, rotation "
+            f"{a['rotation_latency_s']:.2f}s, policy "
+            f"{a['policy_follow_s']:.2f}s")
+
+        # ---- (b) the same corpus through K8sWatchSource and RestCluster --
+        with cp.FakeApiServer() as api:
+            for i, ac in enumerate(base):
+                api.put("authconfigs", to_v1beta2(json.loads(json.dumps(ac))))
+                api.put("secrets", cp.api_key_secret(i))
+            for k in range(CP_MTLS):
+                api.put("authconfigs", cp.mtls_auth_config(k))
+            api.put("authconfigs", cp.opa_external_auth_config(
+                f"{registry.url}/policy", OPA_TTL_S))
+            api.put("secrets", cp.ca_secret("ca-rsa", rsa_ca.pem))
+            api.put("secrets", cp.ca_secret("ca-p256", ec_ca.pem))
+            k_engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+            rest = RestCluster(api.url, token="authorino")
+            k_rec = AuthConfigReconciler(k_engine, cluster=rest)
+            watch = K8sWatchSource(rest, k_rec, SecretReconciler(k_engine),
+                                   resync_interval_s=0.2)
+            updaters = [AuthConfigStatusUpdater(
+                k_rec, RestCluster(api.url, token=f"replica-{r}"),
+                leases=RestCluster(api.url, token=f"replica-{r}"),
+                namespace=cp.NAMESPACE, identity=f"replica-{r}",
+                interval_s=0.05) for r in "ab"]
+            t = time.perf_counter()
+            await watch.sync()
+            b["cold_reconcile_s"] = time.perf_counter() - t
+            watch.start()
+            for u in updaters:
+                u.start()
+            sample = list(range(0, len(reqs), 8))
+            for j in sample:
+                code = (await k_engine.check(reqs[j])).code
+                want = cp.expected_code(reqs[j], cfgs[j], rules, known[j])
+                if code != want:
+                    raise AssertionError(f"(b) check {j}: {code} != {want}")
+            # a 410 on the AuthConfig watch, then a changed rule; a dropped
+            # Secret watch, then a revoked key
+            api.fault("authconfigs", "gone")
+            api.put("authconfigs", to_v1beta2(json.loads(json.dumps(
+                configs[flip_i]))))
+            api.fault("secrets", "drop")
+            revoked = next(j for j in range(len(reqs))
+                           if known[j] and cfgs[j] != flip_i)
+            api.delete("secrets", cp.NAMESPACE, f"key-{cfgs[revoked]}-0")
+            t = time.perf_counter()
+            while time.perf_counter() - t < 20:
+                c1 = (await k_engine.check(reqs[flip_j])).code
+                c2 = (await k_engine.check(reqs[revoked])).code
+                if c1 == want_new and c2 == rpc.UNAUTHENTICATED:
+                    break
+                await asyncio.sleep(0.05)
+            else:
+                raise AssertionError(f"(b) the watch did not converge: "
+                                     f"{c1}, {c2}")
+            b["watch_converge_s"] = time.perf_counter() - t
+            log(f"control plane (b): cold {b['cold_reconcile_s']:.2f}s, "
+                f"the watch converged in {b['watch_converge_s']:.2f}s")
+            # every AuthConfig Ready, written by exactly one replica
+            t = time.perf_counter()
+            ids = set(api.objects["authconfigs"])
+            while time.perf_counter() - t < 30:
+                written = {(ns, nm) for _, ns, nm, _ in api.status_writes}
+                ready = all((api.objects["authconfigs"][key].get("status")
+                             or {}).get("summary", {}).get("ready")
+                            for key in ids)
+                if written >= ids and ready:
+                    break
+                await asyncio.sleep(0.05)
+            else:
+                stale = sorted(key for key in ids if not (
+                    api.objects["authconfigs"][key].get("status") or {}).get(
+                        "summary", {}).get("ready"))
+                raise AssertionError(f"(b) statuses: {len(written)} of "
+                                     f"{len(ids)} written, not Ready: "
+                                     f"{stale[:5]}")
+            b["status_write_s"] = time.perf_counter() - t
+            # counted while both run: on stop the leader releases its Lease
+            # and the other may take over
+            writers = sorted({tok for tok, *_ in api.status_writes})
+            leaders = [u.elector.is_leader() for u in updaters]
+            for u in updaters:
+                await u.stop()
+            await watch.stop()
+            rest.stop()
+            await k_engine.lookup(cp.OPA_HOST).runtime.clean()
+            if len(writers) != 1 or sorted(leaders) != [False, True]:
+                raise AssertionError(f"(b) status writers: {writers}, "
+                                     f"leaders {leaders}")
+            b.update({"status_writes": len(api.status_writes),
+                      "status_writer": writers[0],
+                      "ready": k_rec.ready(),
+                      "watches": dict(api.watches),
+                      "api_requests": len(api.requests)})
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            cp.PolicyRegistry(OPA_V1) as registry:
+        asyncio.run(manifests_path(Path(tmp), registry))
+
+    # µs of host per mTLS verify (RSA-2048 and P-256 CA signatures)
+    rsa_cert = x509.load_pem_x509_certificate(certs[0][1])
+    ec_cert = x509.load_pem_x509_certificate(certs[4][1])
+    rsa_ca_cert = x509.load_pem_x509_certificate(rsa_ca.pem)
+    ec_ca_cert = x509.load_pem_x509_certificate(ec_ca.pem)
+    if not (_verify_signed_by(rsa_cert, rsa_ca_cert)
+            and _verify_signed_by(ec_cert, ec_ca_cert)):
+        raise AssertionError("a good client certificate did not verify")
+    a["mtls_verify_us_rsa2048"] = host_us(
+        lambda: _verify_signed_by(rsa_cert, rsa_ca_cert), 200)
+    a["mtls_verify_us_p256"] = host_us(
+        lambda: _verify_signed_by(ec_cert, ec_ca_cert), 50)
+    a["mtls_parse_us"] = host_us(
+        lambda: x509.load_pem_x509_certificate(certs[0][1]), 200)
+    numbers["manifests"], numbers["kubernetes"] = a, b
+
+    # ---- (c) swaps under load ----------------------------------------------
+    c = {}
+    flips = list(range(0, n, max(1, n // CP_FLIPPED)))[:CP_FLIPPED]
+    corpora = {name: [to_v1beta2(dict(ac, metadata=dict(
+        ac["metadata"], resourceVersion=name))) for ac in configs]
+        for name, configs in (("A", base), ("B", cp.build_auth_configs(
+            n, CP_RULES, flip=flips)))}
+    oracle_rules = {"A": rules, "B": cp.config_rules(n, CP_RULES, flip=flips)}
+    s_engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+    gens = cp.GenerationLog(s_engine)
+    gen_corpus = {}
+    target = ["A"]
+    s_engine.add_swap_listener(
+        lambda: gen_corpus.__setitem__(s_engine.generation, target[0]))
+    s_cluster = InMemoryCluster()
+    for i in range(n):
+        s_cluster.put_secret(cp.Secret(
+            name=f"key-{i}-0", namespace=cp.NAMESPACE,
+            labels=cp.api_key_secret(i)["metadata"]["labels"],
+            data={"api_key": cp.api_key_of(i).encode()}))
+    s_rec = AuthConfigReconciler(s_engine, cluster=s_cluster)
+
+    async def swaps_under_load():
+        """Four turns of four waves of 256 Check()s, one wave at a time:
+        each of the first three turns beside a reconcile (B, A, B) that
+        it waits for before the next turn, so batches are cut while each
+        new corpus compiles, uploads and swaps in; the last turn on the
+        last corpus.  Each Check() has a request object of its own, so each has its
+        own generation record."""
+        t = time.perf_counter()
+        await s_rec.reconcile_all(corpora["A"])
+        t_one = time.perf_counter() - t
+        c_reqs, c_cfgs, c_known = cp.build_check_requests(n_checks, n,
+                                                          seed=8)
+        size = -(-n_checks // 16)
+        waves = [[(c_reqs[j], c_cfgs[j], c_known[j])
+                  for j in range(lo, min(lo + size, n_checks))]
+                 for lo in range(0, n_checks, size)]
+        issued, out = [], []
+        t = time.perf_counter()
+        for turn, name in enumerate(("B", "A", "B", None)):
+            task = None
+            if name is not None:
+                target[0] = name
+                task = asyncio.ensure_future(s_rec.reconcile_all(corpora[name]))
+            for wave in waves[4 * turn:4 * turn + 4]:
+                issued += wave
+                out += await timed_checks(s_engine, [q for q, _, _ in wave])
+            if task is not None:
+                await task
+        return t_one, issued, [r for r, _ in out], time.perf_counter() - t
+
+    c["reconcile_s"], issued, results, c["burst_wall_s"] = asyncio.run(
+        swaps_under_load())
+    c["burst_checks"] = len(results)
+    seen = {}
+    for k, (res, (req, i, good)) in enumerate(zip(results, issued)):
+        if not good:
+            if res.code != rpc.UNAUTHENTICATED:
+                raise AssertionError(f"(c) unknown key {k}: {res.code}")
+            continue
+        gen = gens.by_request.get(id(req))
+        if gen is None or gen not in gen_corpus:
+            raise AssertionError(f"(c) check {k}: no generation ({gen}): "
+                                 f"{res}")
+        want = cp.expected_code(req, i, oracle_rules[gen_corpus[gen]], True)
+        if res.code != want:
+            raise AssertionError(f"(c) check {k} on config {i} at generation "
+                                 f"{gen} ({gen_corpus[gen]}): {res.code} != "
+                                 f"{want}")
+        seen[gen] = seen.get(gen, 0) + 1
+    if s_engine.generation != 5 or len(seen) < 2:
+        raise AssertionError(f"(c) generations: engine "
+                             f"{s_engine.generation}, verdicts from {seen}")
+    c["verdicts_by_generation"] = {f"{g} ({gen_corpus[g]})": v
+                                   for g, v in sorted(seen.items())}
+    c["batches_by_generation"] = {}
+    for r in checked_records(s_engine):
+        key = str(r["generation"])
+        c["batches_by_generation"][key] = c["batches_by_generation"].get(key, 0) + 1
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+
+    # device memory over ten more swaps, alternating the two corpora's
+    # entries (compile, upload, probe and swap each time)
+    entries = {}
+    for name in ("A", "B"):
+        asyncio.run(s_rec.reconcile_all(corpora[name]))
+        entries[name] = s_engine.index.list()
+    snap_bytes = tensor_bytes(s_engine._snapshot.params)
+
+    def allocated():
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            return torch.cuda.memory_allocated(dev)
+        return 0
+
+    mem = []
+    for k in range(10):
+        s_engine.apply_snapshot(entries["AB"[k % 2]])
+        mem.append(allocated())
+    c.update({"snapshot_upload_bytes": snap_bytes,
+              "memory_allocated_after_swap": mem,
+              "memory_growth_bytes": mem[-1] - mem[0]})
+    if abs(mem[-1] - mem[0]) > snap_bytes:
+        raise AssertionError(f"device memory grew by {mem[-1] - mem[0]} B "
+                             f"over ten swaps (one snapshot: {snap_bytes} B)")
+    numbers["swaps"] = c
+
+    # the mega-kernel on this corpus against its plain version, after the
+    # counts were read (comparison launches do not count)
+    policy, params = s_engine._snapshot.policy, s_engine._snapshot.params
+    from authorino_tpu_torch.authjson import build_authorization_json
+
+    docs, rows = [], []
+    for req, i, good in zip(reqs, cfgs, known):
+        if good and len(docs) < 256:
+            claims = req.metadata_context["filter_metadata"][cp.JWT_FILTER]["verified_jwt"]
+            docs.append(build_authorization_json(req, {"identity": claims}))
+            rows.append(policy.config_ids[f"{cp.NAMESPACE}/key-{i}"])
+    db = pack_batch(policy, encode_batch(policy, docs, rows))
+    max_err = 0
+    if on_card:
+        max_err = max(kernel_vs_plain(params, db, dev),
+                      kernel_vs_plain(params, db, dev, global_tables=True))
+    numbers["launches"] = launches
+    report["control_plane"] = numbers
+    return launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -1797,18 +2407,59 @@ def main() -> int:
         f"{jp['check_latency_ms_p50']:.2f} ms p99 "
         f"{jp['check_latency_ms_p99']:.2f} ms")
 
+    # ---- 10. the control plane --------------------------------------------
+    cp_launches, cp_err = control_plane(report, card, dev)
+    max_err = max(max_err, cp_err)
+    cpn = report["control_plane"]
+    a, kb, sw = cpn["manifests"], cpn["kubernetes"], cpn["swaps"]
+    log(f"control plane (a): {cpn['configs']} AuthConfigs + {cpn['secrets']} "
+        f"Secrets as manifests; bootstrap deny-all swapped in "
+        f"{a['bootstrap_swap_s']:.3f}s (a Check() meanwhile: "
+        f"{a['bootstrap_check']}), ready in {a['cold_reconcile_s']:.2f}s; "
+        f"{a['burst_checks']} concurrent Check()s equal the oracle "
+        f"({a['burst_allowed']} API-key requests allowed, mTLS good, other "
+        f"organization, expired and foreign-CA certificates as expected); "
+        f"{a['rotated_keys']} API keys rotated with no swap; the RSA CA's "
+        f"clients UNAUTHENTICATED after its removal; the external policy "
+        f"followed its registry in {a['policy_follow_s']:.2f}s (TTL "
+        f"{OPA_TTL_S}s) with no reconcile")
+    log(f"control plane (b): {kb['cold_reconcile_s']:.2f}s cold reconcile "
+        f"through K8sWatchSource + RestCluster ({kb['api_requests']} API "
+        f"requests); a 410 and a dropped watch, converged in "
+        f"{kb['watch_converge_s']:.2f}s; {kb['status_writes']} status writes, "
+        f"all by {kb['status_writer']}, every AuthConfig Ready")
+    log(f"control plane (c): {sw['burst_checks']} Check()s across three "
+        f"reconciles, every verdict equal to its batch's generation "
+        f"{sw['verdicts_by_generation']}; device memory after ten swaps "
+        f"{sw['memory_growth_bytes']:+d} B (one snapshot: "
+        f"{sw['snapshot_upload_bytes']} B)")
+    log(f"[{card}] control plane: cold reconcile {a['cold_reconcile_s']:.3f}s "
+        f"(bootstrap swap {a['bootstrap_swap_s']:.3f}s); rebuild for one "
+        f"changed file {a['one_file_rebuild_s']:.3f}s; Secret rotation "
+        f"{a['rotation_latency_s']:.3f}s from the write to the first Check() "
+        f"with the new key (the sync {a['rotation_sync_s']:.3f}s); "
+        f"{a['checks_per_s']:.0f} checks/s, p50 "
+        f"{a['check_latency_ms_p50']:.2f} ms p99 "
+        f"{a['check_latency_ms_p99']:.2f} ms; host per mTLS verify "
+        f"{a['mtls_verify_us_rsa2048']:.1f} us RSA-2048, "
+        f"{a['mtls_verify_us_p256']:.1f} us P-256 (certificate parse "
+        f"{a['mtls_parse_us']:.1f} us); one reconcile of (c)'s corpus "
+        f"{sw['reconcile_s']:.3f}s; phase 10 launches: "
+        f"{cp_launches['fused_megakernel']} mega-kernel, "
+        f"{cp_launches['probe_add_one']} probe")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": core_launches["fused_megakernel"],
+         "launches": cp_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": core_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": cp_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -1817,11 +2468,12 @@ def main() -> int:
     for name in main_launches:
         if min(main_launches[name], path_launches[name],
                opa_launches[name], jwt_launches[name],
-               core_launches[name]) < 1:
+               core_launches[name], cp_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
                 f"request path {path_launches}, OPA path {opa_launches}, "
-                f"JWT path {jwt_launches}, serving core {core_launches}")
+                f"JWT path {jwt_launches}, serving core {core_launches}, "
+                f"control plane {cp_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

@@ -58,13 +58,21 @@ JWT_AND_HTTP_MODULES = (
     "models.oidc_corpus")
 
 
+# the control plane and the X.509 identity
+CONTROL_PLANE_MODULES = (
+    "apis.convert", "k8s.client", "k8s.leader", "evaluators.deny_all",
+    "utils.x509", "evaluators.identity.mtls", "controllers.reconciler",
+    "controllers.sources", "controllers.status_updater",
+    "models.control_plane")
+
+
 def test_port_imports_with_service_libraries_blocked():
     """The card's machine has neither ``aiohttp`` nor ``cryptography``:
     every module of the port (OPA and the Kubernetes reviews among them)
     imports with both blocked, and with ``jax`` blocked too."""
     mods = port_modules()
     for m in ("evaluators.authorization.opa", "evaluators.identity.kubernetes",
-              *JWT_AND_HTTP_MODULES):
+              *JWT_AND_HTTP_MODULES, *CONTROL_PLANE_MODULES):
         assert f"authorino_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -197,8 +205,10 @@ def test_build_dir_is_ignored_by_git():
 
 # ---- the Check() request path ----------------------------------------------
 
+# ``yaml`` is not blocked: the card's machine has PyYAML (6.0.3), and the
+# manifest loader imports it as the reference does
 BLOCKED = ("jax", "authorino_tpu", "grpc", "google.protobuf", "aiohttp",
-           "cryptography", "prometheus_client", "yaml")
+           "cryptography", "prometheus_client")
 
 
 def test_request_path_runs_without_the_reference_or_its_services():
@@ -382,3 +392,72 @@ def test_jwt_request_path_runs_without_the_reference_or_its_services():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "CODES [7, 16, 0, 0, 16] org-7 1 3 BAD []" in proc.stdout, \
         proc.stdout
+
+
+def test_control_plane_runs_without_the_reference_or_its_services():
+    """Manifests in a directory through ``YamlDirSource`` into a CPU
+    engine, in a process where JAX, the JAX package, aiohttp,
+    cryptography and grpc cannot be imported: v1beta1 and v1beta2 API-key
+    configs with their Secrets, an x509 config trusting a CA Secret made
+    with the port's own keys and certificate writer, then a revoked key
+    and a removed CA after a second ``sync()``."""
+    code = (
+        "import importlib, sys, asyncio, json, os, random, tempfile\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        "from authorino_tpu_torch.controllers import AuthConfigReconciler, "
+        "SecretReconciler\n"
+        "from authorino_tpu_torch.controllers.sources import YamlDirSource\n"
+        "from authorino_tpu_torch.k8s import InMemoryCluster\n"
+        "from authorino_tpu_torch.models import control_plane as cp\n"
+        "from authorino_tpu_torch.runtime import PolicyEngine\n"
+        "from authorino_tpu_torch.utils import pki\n"
+        "ca = cp.CertAuthority(pki.generate_ec_private_key(pki.P256, "
+        "random.Random(1)), [[(cp.OID['CN'], 'ca')]])\n"
+        "client = ca.issue([[(cp.OID['O'], 'org-0')]]).decode()\n"
+        "reqs, cfgs, known = cp.build_check_requests(8, 2, unknown_every=4)\n"
+        "def write(d, n_keys, with_ca):\n"
+        "    for f in os.listdir(d): os.remove(os.path.join(d, f))\n"
+        "    docs = cp.build_auth_configs(2, 6) + [cp.mtls_auth_config(0)]\n"
+        "    docs += [cp.api_key_secret(i) for i in range(n_keys)]\n"
+        "    if with_ca: docs.append(cp.ca_secret('ca', ca.pem))\n"
+        "    for k, doc in enumerate(docs):\n"
+        "        with open(os.path.join(d, f'{k}.json'), 'w') as f: "
+        "json.dump(doc, f)\n"
+        "async def main(d):\n"
+        "    engine = PolicyEngine(device='cpu')\n"
+        "    cluster = InMemoryCluster()\n"
+        "    rec = AuthConfigReconciler(engine, cluster=cluster)\n"
+        "    src = YamlDirSource(d, rec, cluster, SecretReconciler(engine))\n"
+        "    mtls = cp.CheckRequestModel(http=cp.HttpRequestAttributes(\n"
+        "        method='GET', path='/', host=cp.MTLS_HOST.format(k=0)))\n"
+        "    mtls.source.certificate = client\n"
+        "    out = []\n"
+        "    for n_keys, with_ca in ((2, True), (1, False)):\n"
+        "        write(d, n_keys, with_ca)\n"
+        "        await src.sync()\n"
+        "        out.append([(await engine.check(r)).code for r in reqs])\n"
+        "        out.append((await engine.check(mtls)).code)\n"
+        "    return out, rec.ready(), engine.generation\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    out, ready, gen = asyncio.run(main(d))\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None and "
+        f"any(m == b or m.startswith(b + '.') for b in {BLOCKED!r}))\n"
+        "print('OUT', json.dumps([out, cfgs, known, ready, gen]), 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("OUT ")][0]
+    assert line.endswith("BAD []"), line
+    import json
+
+    (first, m1, second, m2), cfgs, known, ready, gen = json.loads(
+        line[4:-len(" BAD []")])
+    assert ready and (m1, m2) == (0, 16)
+    for codes, n_keys in ((first, 2), (second, 1)):
+        for code, i, good in zip(codes, cfgs, known):
+            # a known key is allowed or denied by its rule; an unknown or
+            # revoked one is UNAUTHENTICATED
+            assert (code in (0, 7)) == (good and i < n_keys), (code, i, good)
+    assert gen == 3  # the bootstrap deny-all and one swap per sync

@@ -707,19 +707,69 @@ def _translate_kind_matches_reference(section, kind, spec):
     assert_same_policy(want, got)
 
 
-def test_opa_external_policy_is_refused_by_name():
-    """The registry download waits for an HTTP client: translate refuses
-    ``opa.externalPolicy`` by name, also beside an inline policy."""
-    for opa in ({"externalPolicy": {"url": "http://registry.invalid/p"}},
-                {"rego": "allow = true",
-                 "externalPolicy": {"url": "http://registry.invalid/p",
-                                    "ttl": 60}}):
-        with pytest.raises(p_translate.TranslationError,
-                           match="authorization 'x': kind "
-                                 "'opa.externalPolicy' is not yet in the port"):
-            run(PORT.controllers.translate_auth_config(
-                "k", "t", _authz("opa", opa),
-                engine=PolicyEngine(device="cpu")))
+def test_opa_external_policy_is_fetched_and_decided_as_the_reference():
+    """An ``opa.externalPolicy`` (alone, and beside an inline policy that
+    it replaces) is downloaded at translate time from one loopback
+    registry by both packages, with the ``sharedSecretRef`` as the bearer
+    token; it is never lowered into a kernel slot, and every Check()
+    answers as the reference's.  An unreachable registry fails translate
+    with the reference's message."""
+    from authorino_tpu_torch.models.control_plane import PolicyRegistry
+
+    policy = ('allow { input.request.method == "GET" }\n'
+              'allow { input.request.headers["x-org"] == "acme" }')
+    secret = {"name": "registry", "namespace": "t",
+              "data": {"token": b"s3cr3t"}}
+    requests = [req("k.test", "GET"), req("k.test", "POST"),
+                req("k.test", "POST", "/", {"x-org": "acme"})]
+    with PolicyRegistry(policy, secret="s3cr3t", as_json=True) as reg:
+        url = f"{reg.url}/policy"
+        for opa in ({"externalPolicy": {
+                        "url": url, "sharedSecretRef": {
+                            "name": "registry", "key": "token"}}},
+                    {"rego": "allow = true", "externalPolicy": {
+                        "url": url, "ttl": 60, "sharedSecretRef": {
+                            "name": "registry", "key": "token"}}}):
+            spec = _authz("opa", opa)
+            shapes, codes = [], []
+            for ns in (REF, PORT):
+                async def body(ns=ns, spec=spec):
+                    engine = engine_of(ns)
+                    entry = await ns.controllers.translate_auth_config(
+                        "k", "t", spec, cluster=cluster_of(ns, [secret]),
+                        engine=engine)
+                    engine.apply_snapshot([entry])
+                    got = [await engine.check(request_of(ns, dict(r)))
+                           for r in requests]
+                    await entry.runtime.clean()  # stops a TTL refresher
+                    return entry, got
+
+                entry, got = run(body())
+                ev = entry.runtime.authorization[0].evaluator
+                assert ev.kernel_slot is None and entry.rules is None
+                assert ev._refresher is None
+                shapes.append(entry_shape(entry))
+                codes.append([result_fields(g) for g in got])
+            assert shapes[1] == shapes[0]
+            assert codes[1] == codes[0]
+            assert [c[0] for c in codes[1]] == [PORT.rpc.OK,
+                                               PORT.rpc.PERMISSION_DENIED,
+                                               PORT.rpc.OK]
+        assert {h.get("Authorization") for _, _, h in reg.requests} == {
+            "Bearer s3cr3t"}
+        assert reg.downloads == 4
+    run(ref_http.close_sessions())
+    msgs = []
+    for ns in (REF, PORT):
+        with pytest.raises(ns.controllers.TranslationError) as e:
+            run(ns.controllers.translate_auth_config(
+                "k", "t", _authz("opa", {"externalPolicy": {
+                    "url": "http://127.0.0.1:9/policy"}}),
+                engine=engine_of(ns)))
+        msgs.append(str(e.value))
+    run(ref_http.close_sessions())
+    prefix = "failed to fetch external rego policy: "
+    assert all(m.startswith(prefix) for m in msgs), msgs
 
 
 def test_invalid_rego_error_matches_reference():
@@ -760,25 +810,25 @@ def test_gate_beside_lowered_opa_stays_on_the_pipeline():
 def test_unported_kind_behind_a_ported_one_keeps_reference_precedence():
     """A spec that sets a ported kind the reference tries first translates
     as the reference does; one that only sets an unported kind is refused
-    even beside a later ported kind."""
+    even beside a later ported kind.  Since x509 is ported, a spec that
+    sets it beside a kind tried later takes x509, in both packages."""
     both = _auth("apiKey", {"selector": SELECTOR})
     both["authentication"]["x"]["jwt"] = {"issuerUrl": "http://issuer.invalid"}
     engine = PolicyEngine(device="cpu")
     entry = run(PORT.controllers.translate_auth_config(
         "k", "t", both, cluster=cluster_of(PORT, []), engine=engine))
     assert entry.runtime.identity[0].type == "API_KEY"
-    later = _auth("plain", {"selector": "request.headers.x"})
-    later["authentication"]["x"]["x509"] = {"selector": SELECTOR}
-    with pytest.raises(p_translate.TranslationError, match="'x509'"):
-        run(PORT.controllers.translate_auth_config("k", "t", later,
-                                                   engine=engine))
-    # the reference tries x509 before kubernetesTokenReview, and opa and
-    # kubernetesSubjectAccessReview before spicedb
-    review = _auth("kubernetesTokenReview", {})
-    review["authentication"]["x"]["x509"] = {"selector": SELECTOR}
-    with pytest.raises(p_translate.TranslationError, match="'x509'"):
-        run(PORT.controllers.translate_auth_config("k", "t", review,
-                                                   engine=engine))
+    # the reference tries x509 before kubernetesTokenReview and plain, and
+    # opa and kubernetesSubjectAccessReview before spicedb
+    for kind, body in (("plain", {"selector": "request.headers.x"}),
+                       ("kubernetesTokenReview", {})):
+        spec = _auth(kind, body)
+        spec["authentication"]["x"]["x509"] = {"selector": SELECTOR}
+        shapes = [entry_shape(run(ns.controllers.translate_auth_config(
+            "k", "t", spec, cluster=cluster_of(ns, []),
+            engine=engine_of(ns)))) for ns in (REF, PORT)]
+        assert shapes[1] == shapes[0]
+        assert shapes[1][2]["identity"][0][1] == "X509"
     for kind, body, etype in (
             ("opa", {"rego": "allow = true"}, "OPA"),
             ("kubernetesSubjectAccessReview", {"user": {"value": "u"}},

@@ -314,3 +314,117 @@ def test_launch_counts_under_concurrent_encoders(card):
         own, _, w_skip = host_results(policy, d, policy.config_ids[n])
         assert bool(np.all(rule | skipped)) == own
         assert skipped.tolist() == w_skip.tolist()
+
+
+# ---- the control plane on the card -------------------------------------------
+
+def test_bootstrap_deny_all_on_the_card(card):
+    """A snapshot of deny-all entries only (no compiled config): nothing is
+    uploaded, the probe kernel still runs at the install, and a Check()
+    answers 503 "Busy" without a batch."""
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+    from authorino_tpu_torch.evaluators.deny_all import new_deny_all_config
+
+    engine = PolicyEngine(device=card)
+    p0 = fk.probe_launches
+    engine.apply_snapshot([EngineEntry(id="t/a", hosts=["a.test"],
+                                       runtime=new_deny_all_config())])
+    assert fk.probe_launches - p0 == 1
+    assert engine._snapshot.params is None and engine._snapshot.policy is None
+    res = asyncio.run(engine.check(CheckRequestModel(
+        http=HttpRequestAttributes(method="GET", path="/", host="a.test"))))
+    assert (res.status, res.message) == (503, "Busy")
+    assert engine.stats["batches"] == 0
+
+
+def test_swaps_under_load_on_the_card(card):
+    """Waves of Check()s while three reconciles alternate between two
+    corpora that differ in some configs' rules: every verdict equals the
+    oracle of the generation its batch was cut against, batches were cut
+    against several generations, and device memory after ten more swaps
+    is within one snapshot's upload of its value after the first."""
+    import dataclasses
+    import gc
+
+    from authorino_tpu_torch.apis import to_v1beta2
+    from authorino_tpu_torch.controllers import AuthConfigReconciler
+    from authorino_tpu_torch.k8s import InMemoryCluster
+    from authorino_tpu_torch.models import control_plane as cp
+
+    n, flips = 40, list(range(0, 40, 4))
+    corpora = {name: [to_v1beta2(dict(ac, metadata=dict(
+        ac["metadata"], resourceVersion=name))) for ac in configs]
+        for name, configs in (("A", cp.build_auth_configs(n, 10)),
+                              ("B", cp.build_auth_configs(n, 10, flip=flips)))}
+    rules = {"A": cp.config_rules(n, 10), "B": cp.config_rules(n, 10, flip=flips)}
+    reqs, cfgs, known = cp.build_check_requests(512, n)
+    # wide admission bounds: the loop is busy translating for a while,
+    # and this case holds verdicts, not shedding
+    engine = PolicyEngine(max_batch=64, device=card, admission_target_s=60.0,
+                          admission_min_cap=1 << 20)
+    gens = cp.GenerationLog(engine)
+    gen_corpus, target = {}, ["A"]
+    engine.add_swap_listener(
+        lambda: gen_corpus.__setitem__(engine.generation, target[0]))
+    cluster = InMemoryCluster()
+    for i in range(n):
+        cluster.put_secret(cp.Secret(
+            name=f"key-{i}-0", namespace=cp.NAMESPACE,
+            labels=cp.api_key_secret(i)["metadata"]["labels"],
+            data={"api_key": cp.api_key_of(i).encode()}))
+    rec = AuthConfigReconciler(engine, cluster=cluster)
+
+    async def go():
+        await rec.reconcile_all(corpora["A"])
+        waves = [[(dataclasses.replace(reqs[j]), cfgs[j], known[j])
+                  for j in range(lo, lo + 64)] for lo in range(0, 512, 64)]
+        issued, out = [], []
+        for turn, name in enumerate(("B", "A", "B", None)):
+            task = None
+            if name is not None:
+                target[0] = name
+                task = asyncio.ensure_future(rec.reconcile_all(corpora[name]))
+            for wave in waves[2 * turn:2 * turn + 2]:
+                issued += wave
+                out += await asyncio.gather(*(engine.check(q) for q, _, _ in wave))
+            if task is not None:
+                await task
+        return issued, out
+
+    issued, out = asyncio.run(go())
+    seen = set()
+    for (q, i, good), res in zip(issued, out):
+        if not good:
+            assert res.code == 16
+            continue
+        gen = gens.by_request.get(id(q))
+        assert gen in gen_corpus, (res, gen)
+        seen.add(gen)
+        assert res.code == cp.expected_code(q, i, rules[gen_corpus[gen]], True)
+    assert engine.generation == 5 and len(seen) >= 2
+
+    entries = {}
+    for name in "AB":
+        asyncio.run(rec.reconcile_all(corpora[name]))
+        entries[name] = engine.index.list()
+    mem = []
+    for k in range(10):
+        engine.apply_snapshot(entries["AB"[k % 2]])
+        gc.collect()
+        torch.cuda.synchronize(card)
+        mem.append(torch.cuda.memory_allocated(card))
+    params = engine._snapshot.params
+    upload = sum(t.numel() * t.element_size() for t in _tensors(params))
+    assert abs(mem[-1] - mem[0]) <= upload
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
