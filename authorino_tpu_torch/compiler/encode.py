@@ -122,9 +122,19 @@ def encode_batch(
     config_rows: Sequence[int],
     batch_pad: int = 0,
 ) -> EncodedBatch:
-    """Encode a batch against a compiled corpus with the Python encoder
-    below.  ``config_rows[i]`` is the row of the request's host's config;
-    ``batch_pad`` pads B up for shape-bucketing."""
+    """Encode a batch against a compiled corpus — the native (C++) encoder
+    for a corpus in its domain, else the Python implementation below (also
+    where the native path hands a batch back: a document it cannot
+    render).  ``config_rows[i]`` is the row of the request's host's config;
+    ``batch_pad`` pads B up for shape-bucketing.  A failed native build
+    raises (``native.BuildError``)."""
+    from ..native import get_native_encoder  # lazy: avoids import cycle
+
+    nat = get_native_encoder(policy)
+    if nat is not None:
+        out = nat.encode_batch(docs, config_rows, batch_pad)
+        if out is not None:
+            return out
     return encode_batch_py(policy, docs, config_rows, batch_pad)
 
 
@@ -134,7 +144,7 @@ def encode_batch_py(
     config_rows: Sequence[int],
     batch_pad: int = 0,
 ) -> EncodedBatch:
-    """Pure-Python reference encoder."""
+    """Pure-Python encoder (the semantic oracle for the native path)."""
     B = max(len(docs), 1)
     if batch_pad and batch_pad > B:
         B = batch_pad

@@ -13,6 +13,7 @@ the differential-test oracle for the kernel.
 
 from __future__ import annotations
 
+import json
 from typing import Any, List, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +21,7 @@ import numpy as np
 from ..compiler.compile import CompiledPolicy, ConfigRules, compile_corpus
 from ..compiler.encode import encode_batch
 from ..compiler.pack import DeviceBatch, pack_batch
+from ..native import get_native_encoder
 from ..ops.fused_kernel import dispatch_megakernel, prewarm_fused
 from ..ops.operands import resolve_device, to_device, unpack_verdicts
 
@@ -91,6 +93,21 @@ class PolicyModel:
                batch_pad: int = 0) -> DeviceBatch:
         enc = encode_batch(self.policy, docs, config_rows, batch_pad=batch_pad)
         return pack_batch(self.policy, enc)
+
+    def encode_json(self, parts: Sequence[bytes], config_rows: Sequence[int],
+                    batch_pad: int = 0) -> DeviceBatch:
+        """Encode from raw authorization-JSON bytes (one UTF-8 blob per
+        request — what a wire frontend already holds), parsed by the native
+        encoder with the interpreter lock released.  A corpus outside the
+        native domain (or a batch the native path hands back) takes the
+        Python encoder via ``json.loads``."""
+        nat = get_native_encoder(self.policy)
+        if nat is not None:
+            enc = nat.encode_json_parts(parts, config_rows, batch_pad)
+            if enc is not None:
+                return pack_batch(self.policy, enc)
+        return self.encode([json.loads(pt) for pt in parts], config_rows,
+                           batch_pad)
 
     def apply(self, db: DeviceBatch
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

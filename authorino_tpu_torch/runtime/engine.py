@@ -22,8 +22,9 @@ own loop through ``call_soon_threadsafe``):
      batches of at most ``max_batch`` are cut while the in-flight window
      (``AdaptiveWindow``, at most ``max_inflight_batches``) has a free
      slot, and each cut goes to the process-wide encode pool.  There a
-     worker sheds the requests whose deadline passed, encodes and packs
-     the batch, answers the rows whose verdict is cached, collapses the
+     worker sheds the requests whose deadline passed, encodes (the
+     snapshot's native encoder where its corpus allows) and packs the
+     batch, answers the rows whose verdict is cached, collapses the
      rest to unique rows (``batch_dedup``), pads them to a power of two
      ≥ 16 and launches the kernel once on them — none at all when every
      row was cached;
@@ -31,8 +32,10 @@ own loop through ``call_soon_threadsafe``):
      readbacks and finalizes each arrived batch itself: it fans the
      verdicts back out, re-decides the rows the compact encoding could not
      represent through the host oracle (``apply_host_fallback``), fills
-     the verdict cache and resolves the futures; the freed slot cuts the
-     next batch.  Completion order is arrival order, not launch order.
+     the verdict cache, folds the batch's which-rule-fired columns into
+     the snapshot's rule heat map (and samples the decision log), and
+     resolves the futures; the freed slot cuts the next batch.
+     Completion order is arrival order, not launch order.
      (The reference hands finalize to the encode pool; with a Python
      encoder holding the interpreter lock that hand-off queues a finished
      batch behind every encode job of its burst, so here the completer
@@ -93,9 +96,10 @@ from ..compiler.pack import batch_row_keys, dedup_rows, pack_batch, select_rows
 from ..evaluators.authorization import PatternMatching
 from ..index import HostIndex
 from ..models.policy_model import apply_host_fallback, host_results
+from ..native import get_native_encoder
 from ..ops import fused_kernel as fk
-from ..ops.operands import (packed_width, resolve_device, staged_h2d_bytes,
-                            to_device, unpack_verdicts)
+from ..ops.operands import (firing_columns, packed_width, resolve_device,
+                            staged_h2d_bytes, to_device, unpack_verdicts)
 from ..pipeline import AuthPipeline, AuthResult
 from ..snapshots.fingerprint import cache_tokens, rules_fingerprint
 from ..utils import bucket_pow2
@@ -132,7 +136,9 @@ class _Snapshot:
     """Compiled corpus + its device params + the host index of every entry
     (those without compilable rules too), swapped whole on reconcile.
     ``generation`` is set at the swap; ``cache_tokens`` key the verdict
-    cache per config row."""
+    cache per config row.  The corpus's native encoder is built here (None
+    for a corpus outside its domain): a failed build fails the install,
+    never a batch.  ``heat`` is the corpus's rule heat map."""
 
     def __init__(self, entries: Sequence[EngineEntry], members_k: int,
                  ovf_assist: Optional[bool], device,
@@ -147,6 +153,9 @@ class _Snapshot:
         self.params = None
         self.fingerprints: Dict[str, str] = {}
         self.cache_tokens = None
+        self.encoder = None
+        self.encoder_build_s = 0.0
+        self.heat: Optional[prov_mod.HeatMap] = None
         if not rules:
             # no compiled config (the bootstrap deny-all): nothing to
             # upload, but the card still proves it launches at install
@@ -160,8 +169,15 @@ class _Snapshot:
             self.fingerprints = {c.name: rules_fingerprint(c, memo)
                                  for c in rules}
             self.cache_tokens = cache_tokens(self.policy, self.fingerprints)
+            t0 = time.perf_counter()
+            self.encoder = get_native_encoder(self.policy)
+            self.encoder_build_s = time.perf_counter() - t0
             self.params = to_device(self.policy, device=device)
             fk.prewarm_fused(self.policy, self.params)
+            try:
+                self.heat = prov_mod.HeatMap.for_snapshot(self.policy)
+            except Exception:
+                log.exception("rule heat map build failed (swap unaffected)")
 
 
 @dataclass
@@ -743,9 +759,84 @@ class PolicyEngine:
                                          own_rule, own_skipped)
             metrics_mod.observe_dedup("engine", n, u, len(cached),
                                       elig_miss, evicted)
+            # attribution: one per-batch fold over the FINAL columns —
+            # cache hits, dedup fan-out and fallback rows are already
+            # folded back in, so every path attributes identically
+            self._observe_provenance(snap, batch, rows, own_rule,
+                                     own_skipped)
             return own_rule, own_skipped
 
         return _Inflight(self, batch, handle, finalize, binfo, waits)
+
+    # ---- decision observability -------------------------------------------
+
+    def _observe_provenance(self, snap: _Snapshot, pendings: List[_Pending],
+                            rows, own_rule, own_skipped):
+        """Per-batch decision-observability fold: which-rule-fired columns →
+        the snapshot's heat map (one vectorized composite-key add), plus at
+        most one head-sampled decision record per authconfig.  Never
+        raises — a telemetry fault must not re-dispatch a decided batch.
+        Returns the firing columns (None when nothing was folded)."""
+        try:
+            heat = snap.heat
+            if heat is None:
+                return None
+            firing = firing_columns(own_rule, own_skipped)
+            p = pendings[0] if pendings else None
+            now_m = time.monotonic()
+            prov_mod.fold_and_sample(
+                heat, rows, firing, len(pendings), lane="engine",
+                host=_doc_host(p.doc) if p is not None else "",
+                latency_ms=((now_m - p.t_enq) * 1e3
+                            if p is not None and p.t_enq else 0.0),
+                generation=snap.generation,
+                # each sampled authconfig's record carries ITS OWN
+                # request's host/latency, not the batch head's
+                host_of=lambda i: _doc_host(pendings[i].doc),
+                latency_of=lambda i: ((now_m - pendings[i].t_enq) * 1e3
+                                      if pendings[i].t_enq else 0.0))
+        except Exception:
+            log.exception("provenance fold failed (decision unaffected)")
+            return None
+        return firing
+
+    def debug_vars(self) -> Dict[str, Any]:
+        """JSON-safe live state: the config generation, the dispatcher's
+        backlog and in-flight window, admission and the adaptive window,
+        and decision provenance (heat-map shape and fold evidence, the
+        never-fired rules, the decision log's state).  Read-only."""
+        snap = self._snapshot
+        heat = snap.heat if snap is not None else None
+        return {
+            "generation": self.generation,
+            "max_batch": self.max_batch,
+            "members_k": self.members_k,
+            "queue_depth": len(self._queue),
+            "inflight_batches": self._inflight,
+            "inflight_peak": self.inflight_peak,
+            "max_inflight_batches": self.max_inflight_batches,
+            "dispatch_workers": self.dispatch_workers,
+            "batch_dedup": self.batch_dedup,
+            "verdict_cache": (self._verdict_cache.counts()
+                              if self._verdict_cache is not None else None),
+            "draining": self._draining,
+            "device_timeout_s": self.device_timeout_s,
+            "device_rtt_ewma_s": self._device_ewma,
+            "admission": self.admission.to_json(),
+            "adaptive": self.controller.to_json(),
+            "provenance": {
+                "expose_deny_reason": prov_mod.EXPOSE_DENY_REASON,
+                "heat": heat.to_json() if heat is not None else None,
+                # no static policy analysis in the port yet: every
+                # never-fired rule is reported unexplained
+                "dead_rules": prov_mod.dead_rule_report(heat, None),
+                "decisions": {
+                    "capacity": prov_mod.DECISIONS.capacity,
+                    "sample_n": prov_mod.DECISIONS.sample_n,
+                    "records_total": prov_mod.DECISIONS.records_total,
+                },
+            },
+        }
 
     # ---- completion -------------------------------------------------------
 
@@ -814,6 +905,14 @@ class PolicyEngine:
             inflight = self._inflight
         self._g_inflight.set(inflight)
         self._maybe_dispatch()
+
+
+def _doc_host(doc) -> str:
+    """Best-effort host of one authorization JSON (decision-log records)."""
+    try:
+        return str((doc.get("request") or {}).get("host", ""))
+    except Exception:
+        return ""
 
 
 def _resolve_many(resolutions) -> None:
@@ -910,6 +1009,9 @@ def _completer_loop() -> None:
                 job(item)
             except Exception:
                 log.exception("batch completion failed")
+        # drop the last batch: its snapshot (device params, encoder) must
+        # not outlive a swap while the completer idles
+        item = job = None
         if not progressed:
             # nothing ready: a sub-millisecond poll keeps resolution
             # independent of launch order

@@ -240,3 +240,30 @@ def observe_dedup(lane, n_rows, n_device_rows, cache_hits, cache_misses,
         ch[2].inc(cache_misses)
     if evictions_delta:
         ch[3].inc(evictions_delta)
+
+
+# ---------------------------------------------------------------------------
+# decision provenance (runtime/provenance.py): the rule heat map, folded
+# once per micro-batch from the readback's rule columns, and the
+# head-sampled decision log.  Reference names.
+# ---------------------------------------------------------------------------
+
+rule_fired = _register(
+    "counter", "auth_server_rule_fired_total",
+    "Denials attributed to one compiled authorization rule (the FIRST "
+    "evaluator column that evaluated false and was not condition-skipped — "
+    "the same short-circuit order the reference's pipeline denies in).  "
+    "rule = '<evaluator idx>:<rule source>' (truncated); folded once per "
+    "micro-batch from the readback's rule columns on every lane — device, "
+    "cached, deduped, degraded, brownout.  The runtime rule heat map: "
+    "never-incremented rules cross-reference the static constant/shadowed "
+    "findings in the /debug/vars dead-rule report.",
+    ("authconfig", "rule"),
+)
+decision_records = _register(
+    "counter", "auth_server_decision_records_total",
+    "Head-sampled structured decision records appended to the bounded "
+    "decision log (served on /debug/decisions; one record at most per "
+    "micro-batch, sampled 1-in-N decisions).",
+    _LANE_LABELS,
+)

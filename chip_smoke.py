@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build the CUDA kernels from ``authorino_tpu_torch/ops/csrc`` with nvcc
-     and launch the probe kernel;
+     and launch the probe kernel; build the host encoder from
+     ``authorino_tpu_torch/native/csrc`` with g++;
   3. the mega-kernel against its plain PyTorch version on the card, byte
      for byte: the all-lanes corpus at 3 seeds with ovf-assist on and off
      on both wire dtypes, a config past 64 circuit slots beside a small
@@ -112,11 +113,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      between two corpora that differ in 100 rules, every verdict equal to
      the oracle of its batch's generation, and device memory after ten
      swaps within one snapshot's upload of its value after the first;
-     the [256, W] readback on this corpus byte-equal to plain.
+     the [256, W] readback on this corpus byte-equal to plain; host RSS,
+     each snapshot's native-encoder build inside its reconcile, and every
+     swapped-out snapshot's encoder gone after the ten swaps;
+ 11. the per-batch host work on either side of the launch, on the
+     north-star corpus at full width: (a) host time per batch of the
+     native encoder (dict walk, JSON, JSON from bytes) and the Python
+     encoder at B = 256 and 16, in turns, every array byte-equal across
+     them; (b) phase 6's 4,096-Check() burst through a native-encoding
+     and a Python-encoding engine in turns (checks/s, burst and lone
+     p50/p99, batch latency p50/p99), every result equal to the oracle;
+     (c), inside phases 6 and 9 (dedup and cache off, then on): the rule
+     heat map over the checked bursts equal to the host oracle's firing
+     columns, the dead-rule report equal to the oracle's never-fired set,
+     the decision records within the sampler's bound.
 
-The kernels' launch counts in the summary are phase 10's; each kernel
-must have launched on the paths of phases 4, 6, 7, 8, 9 and 10, with the
-counts zeroed just before each.
+Every phase that serves batches names the encoder that served them
+(native by mode, or Python and why) and fails if it is not the one the
+reference would pick: native for phases 4, 6 and 8-10, Python for phase
+7's numeric lanes.  The kernels' launch counts in the summary are phase
+10's; each kernel must have launched on the paths of phases 4, 6, 7, 8, 9
+and 10, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -490,6 +507,143 @@ def checked_records(engine, start: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# the per-batch host work on either side of the launch: which encoder
+# served a phase's batches, and the rule heat map against the oracle
+# ---------------------------------------------------------------------------
+
+
+def reset_host_counts() -> None:
+    """Zero the native encoder's process-wide batch counts (beside
+    ``fk.reset_counts()`` at the start of a phase's counted window)."""
+    from authorino_tpu_torch.native.encoder import reset_totals
+
+    reset_totals()
+
+
+def encoder_used(engine, batches: int) -> dict:
+    """Which encoder served the ``batches`` encoded since the counts were
+    zeroed: the native encoder's batches by mode and those it handed back,
+    the rest Python's, with the reason ``engine``'s corpus took it."""
+    from authorino_tpu_torch.native.encoder import TOTALS, out_of_domain
+
+    t = dict(TOTALS)
+    native = t["object"] + t["json"]
+    why = None
+    if batches > native:
+        policy = engine._snapshot.policy
+        why = (out_of_domain(policy) if policy is not None else None) or (
+            "native off (AUTHORINO_TPU_NATIVE=0)"
+            if getattr(policy, "_native_encoder", None) is False
+            else "handed back")
+    return {"batches": batches, "native_object": t["object"],
+            "native_json": t["json"], "handed_back": t["bailed"],
+            "python": batches - native, "python_why": why}
+
+
+def fmt_encoder(u: dict) -> str:
+    parts = [f"{label} {u[k]}" for k, label in
+             (("native_object", "native object"),
+              ("native_json", "native JSON")) if u[k]]
+    if u["python"]:
+        parts.append(f"Python {u['python']} ({u['python_why']})")
+    back = f", {u['handed_back']} handed back" if u["handed_back"] else ""
+    return f"encoder: {', '.join(parts) or 'none'} of {u['batches']} " \
+           f"batches{back}"
+
+
+def require_encoder(label: str, u: dict, want: str) -> None:
+    """``want`` is "native" (every batch native, none handed back) or the
+    reason every batch took the Python encoder."""
+    native = u["native_object"] + u["native_json"]
+    if want == "native":
+        ok = (native == u["batches"] > 0 and not u["python"]
+              and not u["handed_back"])
+    else:
+        ok = native == 0 and u["python"] == u["batches"] > 0 and \
+            u["python_why"] == want
+    if not ok:
+        raise AssertionError(f"{label}: expected the {want} encoder: {u}")
+
+
+def watch_heat(engine):
+    """Open an observed window on ``engine``'s heat map: flush every live
+    heat map, clear the process-wide fired set, and record every row
+    submitted (the wrapper is the engine's own ``submit``)."""
+    from authorino_tpu_torch.runtime import provenance as prov
+
+    prov.flush_heatmaps()
+    prov._reset_fired_for_tests()
+    seen = []
+    inner = engine.submit
+
+    async def submit(doc, name, **kw):
+        seen.append((doc, name))
+        return await inner(doc, name, **kw)
+
+    engine.submit = submit
+    heat = engine._snapshot.heat
+    return (seen, heat._counts.copy(), heat.fold_calls,
+            prov.DECISIONS.records_total)
+
+
+def check_heat(label: str, engine, window) -> dict:
+    """Close the window: the heat map's counts over it equal the host
+    oracle's firing column of every submitted row (the expression trees,
+    not the kernel), the dead-rule report's never-fired set equals the
+    registered rules the oracle never saw fire, and the decision records
+    stay within the sampler's bound (at most one per authconfig per
+    batch)."""
+    import numpy as np
+
+    from authorino_tpu_torch.models.policy_model import host_results
+    from authorino_tpu_torch.ops.operands import firing_columns
+    from authorino_tpu_torch.runtime import provenance as prov
+
+    del engine.submit   # the class's own again
+    seen, counts0, folds0, records0 = window
+    snap = engine._snapshot
+    heat, policy = snap.heat, snap.policy
+    want = {}
+    for doc, name in seen:
+        row = policy.config_ids[name]
+        _, rule, skipped = host_results(policy, doc, row)
+        col = int(firing_columns(rule[None, :], skipped[None, :])[0])
+        if col >= 0:
+            want[(row, col)] = want.get((row, col), 0) + 1
+    delta = heat._counts - counts0
+    got = {divmod(int(k), heat.E + 1): int(delta[k])
+           for k in np.nonzero(delta)[0]}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))[:8]
+        raise AssertionError(f"{label}: heat map != oracle on "
+                             f"{len(set(got.items()) ^ set(want.items()))} "
+                             f"(row, rule) counts, e.g. {diff}")
+    report = prov.dead_rule_report(heat, None, limit=1 << 30)
+    fired = {(heat.names_by_row[r], c) for r, c in want}
+    oracle_never = sorted(
+        (name, prov.rule_label(col, src))
+        for name, col, src in heat.registered_rules()
+        if (name, col) not in fired)
+    got_never = sorted((d["authconfig"], d["rule"])
+                       for d in report["never_fired"])
+    if got_never != oracle_never:
+        raise AssertionError(f"{label}: the dead-rule report's "
+                             f"{len(got_never)} never-fired rules != the "
+                             f"oracle's {len(oracle_never)}")
+    folds = heat.fold_calls - folds0
+    records = prov.DECISIONS.records_total - records0
+    bound = min(len(seen), folds * len({name for _, name in seen}))
+    if not 0 <= records <= bound:
+        raise AssertionError(f"{label}: {records} decision records over "
+                             f"{folds} folds, bound {bound}")
+    return {"rows": len(seen), "denials": sum(want.values()),
+            "pairs_fired": len(want), "rules_total": report["rules_total"],
+            "never_fired": report["never_fired_count"], "folds": folds,
+            "decision_records": records, "records_bound": bound,
+            "sample_n": prov.DECISIONS.sample_n}
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: the Check() request path
 # ---------------------------------------------------------------------------
 
@@ -545,12 +699,14 @@ async def timed_checks(engine, requests):
     return await asyncio.gather(*(one(r) for r in requests))
 
 
-def request_path(report: dict, card: str) -> dict:
+def request_path(report: dict, card: str, ctx: dict) -> dict:
     """Phase 6: translate 1,000 north-star AuthConfigs and the V2 config
     with a card engine, install them in one snapshot, answer 4,096
-    concurrent north-star Check()s and the V2 checks, hold every result to
-    the expression oracle, then time three more runs.  Returns the kernel
-    launch counts of the checked run (counts zeroed just before it)."""
+    concurrent north-star Check()s and the V2 checks, hold every result
+    (and the heat map over them) to the expression oracle, then time three
+    more runs.  Returns the kernel launch counts of the checked run
+    (counts zeroed just before it); leaves in ``ctx`` what phase 11
+    reuses."""
     import numpy as np
 
     from authorino_tpu_torch.authjson import (CheckRequestModel,
@@ -576,6 +732,7 @@ def request_path(report: dict, card: str) -> dict:
         data={"api_key": b"secret-key-1"}))
 
     fk.reset_counts()
+    reset_host_counts()
     engine = PolicyEngine(max_batch=256, **NO_REUSE)
 
     async def translate_all():
@@ -592,13 +749,17 @@ def request_path(report: dict, card: str) -> dict:
     t = time.perf_counter()
     engine.apply_snapshot(entries)
     t_install = time.perf_counter() - t
+    window = watch_heat(engine)
     t = time.perf_counter()
     out = asyncio.run(timed_checks(engine, ns_reqs + v2_reqs))
     first_wall = time.perf_counter() - t
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
+    heat = check_heat("request path", engine, window)
 
     st = dict(engine.stats)
+    enc = encoder_used(engine, st["batches"])
+    require_encoder("request path", enc, "native")
     W = engine._snapshot.policy.fused_pack_w
     if st["failed_batches"]:
         raise AssertionError(f"{st['failed_batches']} batches failed: {st}")
@@ -611,26 +772,35 @@ def request_path(report: dict, card: str) -> dict:
         raise AssertionError("probe kernel did not run at snapshot install")
 
     jwt = northstar.JWT_FILTER
-    allowed = 0
-    for k, (req, (res, _)) in enumerate(zip(ns_reqs, out)):
-        if res.code == rpc.UNAVAILABLE:
-            raise AssertionError(f"check {k} answered UNAVAILABLE: {res}")
-        i = int(req.http.host.split(".")[0][len("svc-"):])
-        claims = req.metadata_context["filter_metadata"][jwt]["verified_jwt"]
-        doc = build_authorization_json(req, {"identity": claims})
-        if rules[i].matches(doc):
-            want = (rpc.OK, 0, "", {})
-            allowed += 1
-        else:
-            want = (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
-                "ext_authz_provenance": {
-                    "authconfig": f"{northstar.NAMESPACE}/cfg-{i}",
-                    "rule_index": 0, "rule": str(rules[i]),
-                    "lane": "engine"}})
-        got = (res.code, res.status, res.message, res.metadata)
-        if got != want:
-            raise AssertionError(f"check {k} on cfg-{i}: {got} != oracle "
-                                 f"{want}")
+
+    def hold(out, label="request path") -> int:
+        """Every north-star result against the expression oracle with its
+        deny provenance; returns how many were allowed."""
+        allowed = 0
+        for k, (req, (res, _)) in enumerate(zip(ns_reqs, out)):
+            if res.code == rpc.UNAVAILABLE:
+                raise AssertionError(f"{label}: check {k} answered "
+                                     f"UNAVAILABLE: {res}")
+            i = int(req.http.host.split(".")[0][len("svc-"):])
+            claims = req.metadata_context["filter_metadata"][jwt][
+                "verified_jwt"]
+            doc = build_authorization_json(req, {"identity": claims})
+            if rules[i].matches(doc):
+                want = (rpc.OK, 0, "", {})
+                allowed += 1
+            else:
+                want = (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
+                    "ext_authz_provenance": {
+                        "authconfig": f"{northstar.NAMESPACE}/cfg-{i}",
+                        "rule_index": 0, "rule": str(rules[i]),
+                        "lane": "engine"}})
+            got = (res.code, res.status, res.message, res.metadata)
+            if got != want:
+                raise AssertionError(f"{label}: check {k} on cfg-{i}: {got} "
+                                     f"!= oracle {want}")
+        return allowed
+
+    allowed = hold(out)
     for ((host, *_), want), (res, _) in zip(V2_CHECKS, out[len(ns_reqs):]):
         if (res.code, res.status, res.message) != want:
             raise AssertionError(f"V2 check on {host}: {res} != {want}")
@@ -641,7 +811,13 @@ def request_path(report: dict, card: str) -> dict:
         f"{st['pad_rows']} x W {W}; every code equals the oracle "
         f"({allowed} of 4096 north-star allowed, every denial attributed), "
         f"the V2 checks as expected (NOT_FOUND for the unknown host, "
-        f":port stripped)")
+        f":port stripped); {fmt_encoder(enc)}; heat map over the "
+        f"{heat['rows']} rows equal to the oracle's {heat['denials']} "
+        f"denials on {heat['pairs_fired']} rules, dead-rule report equal "
+        f"to its {heat['never_fired']} never-fired of {heat['rules_total']}, "
+        f"{heat['decision_records']} decision records (bound "
+        f"{heat['records_bound']})")
+    ctx.update(engine=engine, entries=entries, reqs=ns_reqs, hold=hold)
 
     runs = []
     for _ in range(3):
@@ -666,7 +842,7 @@ def request_path(report: dict, card: str) -> dict:
         "card": card, "configs": len(entries), "checks": len(out),
         "translate_s": t_translate, "install_s": t_install,
         "first_run_wall_s": first_wall, "allowed": allowed,
-        "stats_checked_run": st,
+        "stats_checked_run": st, "encoder": enc, "heat": heat,
         "checks_per_s": rates,
         "checks_per_s_median": statistics.median(rates),
         "check_latency_ms_p50": float(np.percentile(lat, 50)),
@@ -731,6 +907,7 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     cluster.access_reviews = opa_corpus.k8s_access_review(allowed_triples)
 
     fk.reset_counts()
+    reset_host_counts()
     engine = PolicyEngine(max_batch=256, **NO_REUSE)
 
     async def translate_all():
@@ -754,6 +931,10 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
     first_wall = time.perf_counter() - t
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
+    # the corpus has numeric lanes: the Python encoder, as the reference
+    # decides
+    enc = encoder_used(engine, engine.stats["batches"])
+    require_encoder("OPA path", enc, "numeric lanes")
 
     st = dict(engine.stats)
     snap = engine._snapshot
@@ -853,7 +1034,7 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
         f"({allowed} of {len(reqs)} allowed, {opa_denied} denied by Rego), "
         f"the Kubernetes checks as expected; {len(pairs)} lowered-slot bits "
         f"equal the lowered expression and the interpreter; B=256 readback "
-        f"byte-equal to plain")
+        f"byte-equal to plain; {fmt_encoder(enc)}")
 
     runs = []
     for _ in range(3):
@@ -891,6 +1072,7 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
         "install_s": t_install, "first_run_wall_s": first_wall,
         "allowed": allowed, "denied_by_rego": opa_denied,
         "slot_bits_checked": len(pairs), "stats_checked_run": st,
+        "encoder": enc,
         "checks_per_s": rates,
         "checks_per_s_median": statistics.median(rates),
         "check_latency_ms_p50": float(np.percentile(lat, 50)),
@@ -1035,6 +1217,7 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
                 oc.introspection_auth_config(idp.issuer)])
 
     fk.reset_counts()
+    reset_host_counts()
     engine = PolicyEngine(max_batch=256, **NO_REUSE)
 
     async def translate_all():
@@ -1053,6 +1236,8 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
     first_wall = time.perf_counter() - t
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
+    enc = encoder_used(engine, engine.stats["batches"])
+    require_encoder("JWT path", enc, "native")
 
     st = dict(engine.stats)
     snap = engine._snapshot
@@ -1123,7 +1308,7 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
         f"allowed), the {len(out) - n_good} bad tokens UNAUTHENTICATED "
         f"with no batch row; the full config (ES256, userInfo, http, uma, "
         f"wristband, callback) and introspection as expected; B=256 "
-        f"readback byte-equal to plain")
+        f"readback byte-equal to plain; {fmt_encoder(enc)}")
 
     runs = []
     for _ in range(3):
@@ -1165,7 +1350,7 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
         "keygen_s": t_keygen, "mint_s": t_mint, "oidc_discoveries": n_jwt,
         "translate_s": t_translate, "install_s": t_install,
         "first_run_wall_s": first_wall, "allowed": allowed,
-        "stats_checked_run": st,
+        "stats_checked_run": st, "encoder": enc,
         "checks_per_s": rates,
         "checks_per_s_median": statistics.median(rates),
         "check_latency_ms_p50": float(np.percentile(lat, 50)),
@@ -1265,12 +1450,14 @@ def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
         return out, dict(d, wall_s=wall), recs
 
     fk.reset_counts()
+    reset_host_counts()
     engine = PolicyEngine(max_batch=256)
     bind(entries, engine)
     t = time.perf_counter()
     engine.apply_snapshot(entries)
     t_install = time.perf_counter() - t
     bursts, rtt = [], 0.0
+    window = watch_heat(engine)
     for b in range(2):
         out, d, _ = counted(engine, lambda: asyncio.run(
             timed_checks(engine, reqs)))
@@ -1284,6 +1471,9 @@ def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
         bursts.append(d)
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
+    enc = encoder_used(engine, engine.stats["batches"])
+    require_encoder("serving core", enc, "native")
+    heat = check_heat("serving core", engine, window)
     if engine.stats["launches"] != fk.launches or not (
             bursts[0]["launches"] + bursts[0]["plain_calls"]):
         raise AssertionError(f"launches {fk.launches} vs {engine.stats}")
@@ -1298,7 +1488,13 @@ def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
         f"{bursts[0]['cache_rows']} by the cache; burst 2: "
         f"{bursts[1]['batches']} batches, {bursts[1]['launches']} launches, "
         f"{bursts[1]['device_rows']} device rows, {bursts[1]['dedup_rows']} "
-        f"by dedup, {bursts[1]['cache_rows']} by the cache")
+        f"by dedup, {bursts[1]['cache_rows']} by the cache; "
+        f"{fmt_encoder(enc)}; heat map over both bursts' {heat['rows']} "
+        f"rows (dedup and cache on) equal to the oracle's {heat['denials']} "
+        f"denials on {heat['pairs_fired']} rules, dead-rule report equal to "
+        f"its {heat['never_fired']} never-fired of {heat['rules_total']}, "
+        f"{heat['decision_records']} decision records (bound "
+        f"{heat['records_bound']})")
 
     # one dedup-selected batch, as the engine builds it, against plain; and
     # its fanned-out readback against the whole batch's
@@ -1422,6 +1618,7 @@ def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
         "selected_batch": {"rows": 256, "unique": len(unique),
                            "pad_u": pad_u, "max_abs_err": sel_err},
         "deadline": deadline, "admission": admission,
+        "encoder": enc, "heat": heat,
         "default": fig("on"), "no_reuse": fig("off"),
     }
     report["serving_core"] = numbers
@@ -1561,7 +1758,9 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
     counts zeroed just before it; the max abs byte error of its batch
     against plain)."""
     import gc
+    import os
     import tempfile
+    import weakref
 
     import numpy as np
     import torch
@@ -1640,7 +1839,9 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
     want_new = cp.expected_code(reqs[flip_j], flip_i, flipped, True)
 
     fk.reset_counts()
+    reset_host_counts()
     a, b = {}, {}
+    engines = []   # every engine of the phase, for the encoder's count
 
     # ---- (a) manifests through YamlDirSource, (b) the Kubernetes path -----
     # one event loop for both: the external policy's refresher lives on it
@@ -1650,6 +1851,7 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
             d, configs, key_gen, with_rsa, rsa_ca, ec_ca, registry.url, rvs))
         write(base, True)
         engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+        engines.append(engine)
         cluster = InMemoryCluster()
         rec = AuthConfigReconciler(engine, cluster=cluster)
         source = YamlDirSource(str(d), rec, cluster, SecretReconciler(engine))
@@ -1785,6 +1987,7 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
             api.put("secrets", cp.ca_secret("ca-rsa", rsa_ca.pem))
             api.put("secrets", cp.ca_secret("ca-p256", ec_ca.pem))
             k_engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+            engines.append(k_engine)
             rest = RestCluster(api.url, token="authorino")
             k_rec = AuthConfigReconciler(k_engine, cluster=rest)
             watch = K8sWatchSource(rest, k_rec, SecretReconciler(k_engine),
@@ -1894,11 +2097,23 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
             n, CP_RULES, flip=flips)))}
     oracle_rules = {"A": rules, "B": cp.config_rules(n, CP_RULES, flip=flips)}
     s_engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+    engines.append(s_engine)
     gens = cp.GenerationLog(s_engine)
     gen_corpus = {}
     target = ["A"]
     s_engine.add_swap_listener(
         lambda: gen_corpus.__setitem__(s_engine.generation, target[0]))
+    # each swap's native encoder: its build (policy_new) inside the
+    # reconcile, and a weak reference that must die with its snapshot
+    encoder_builds, encoder_refs = [], []
+
+    def on_swap():
+        snap = s_engine._snapshot
+        if snap.encoder is not None:
+            encoder_builds.append(snap.encoder_build_s)
+            encoder_refs.append(weakref.ref(snap.encoder))
+
+    s_engine.add_swap_listener(on_swap)
     s_cluster = InMemoryCluster()
     for i in range(n):
         s_cluster.put_secret(cp.Secret(
@@ -1967,6 +2182,9 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
         c["batches_by_generation"][key] = c["batches_by_generation"].get(key, 0) + 1
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
+    enc = encoder_used(s_engine, sum(e.stats["batches"] for e in engines))
+    require_encoder("control plane", enc, "native")
+    numbers["encoder"] = enc
 
     # device memory over ten more swaps, alternating the two corpora's
     # entries (compile, upload, probe and swap each time)
@@ -1983,16 +2201,36 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
             return torch.cuda.memory_allocated(dev)
         return 0
 
-    mem = []
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    mem, host = [], []
+    n_refs = len(encoder_refs)
     for k in range(10):
         s_engine.apply_snapshot(entries["AB"[k % 2]])
         mem.append(allocated())
+        host.append(rss())
+    alive = sum(r() is not None for r in encoder_refs)
     c.update({"snapshot_upload_bytes": snap_bytes,
               "memory_allocated_after_swap": mem,
-              "memory_growth_bytes": mem[-1] - mem[0]})
+              "memory_growth_bytes": mem[-1] - mem[0],
+              "host_rss_after_swap": host,
+              "host_rss_growth_bytes": host[-1] - host[0],
+              "native_encoders_built": len(encoder_refs),
+              "native_encoders_alive": alive,
+              "encoder_build_s": encoder_builds})
     if abs(mem[-1] - mem[0]) > snap_bytes:
         raise AssertionError(f"device memory grew by {mem[-1] - mem[0]} B "
                              f"over ten swaps (one snapshot: {snap_bytes} B)")
+    # every swapped-out snapshot's native encoder is gone (its capsule
+    # freed the C tables): only the serving one lives
+    if len(encoder_refs) != n_refs + 10 or alive != 1:
+        raise AssertionError(f"{alive} of {len(encoder_refs)} native "
+                             f"encoders alive after ten swaps")
+    if host[-1] - host[1] > 256 << 20:
+        raise AssertionError(f"host RSS grew {host[-1] - host[1]} B over "
+                             f"swaps 2-10")
     numbers["swaps"] = c
 
     # the mega-kernel on this corpus against its plain version, after the
@@ -2016,6 +2254,258 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
     return launches, max_err
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the per-batch host work on either side of the launch
+# ---------------------------------------------------------------------------
+
+ENCODE_RUNS = 5           # timed runs per encoder and batch size
+ENCODE_BATCHES = 20       # batches per timed run
+BURST_RUNS = 5            # phase 6's burst (and phase 4's submits) per
+                          # engine, in turns
+
+
+def encode_times(policy, docs, rows, B: int) -> dict:
+    """Host time per batch of ``B`` rows of each encoder on ``policy``:
+    the native encoder walking the dicts (object), the native encoder from
+    ``json.dumps`` of each document (JSON, as ``encode_batch`` runs it in
+    that mode), the native JSON parse from bytes already serialized (what
+    a wire frontend holds), and the Python encoder; ENCODE_RUNS runs of
+    ENCODE_BATCHES distinct batches each, the encoders in turns (the order
+    rotates per run).  Every batch's arrays are held byte-equal across
+    the encoders.  Also the pack of a native batch."""
+    import numpy as np
+
+    from authorino_tpu_torch.compiler.encode import encode_batch_py
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.native import get_native_encoder
+
+    enc = get_native_encoder(policy)
+    n = len(docs)
+    slices = [([docs[(k * B + j) % n] for j in range(B)],
+               [rows[(k * B + j) % n] for j in range(B)])
+              for k in range(ENCODE_BATCHES)]
+    parts = [[json.dumps(d, separators=(",", ":"), ensure_ascii=False)
+              .encode() for d in ds] for ds, _ in slices]
+
+    def native(mode):
+        def run(k):
+            enc.mode = mode
+            return enc.encode_batch(*slices[k])
+        return run
+
+    fns = {"native_object": native("object"), "native_json": native("json"),
+           "native_json_bytes": lambda k: enc.encode_json_parts(
+               parts[k], slices[k][1]),
+           "python": lambda k: encode_batch_py(policy, *slices[k])}
+    fields = ("attrs_val", "attrs_members", "overflow", "cpu_lane",
+              "config_id", "attr_bytes", "byte_ovf")
+    names = list(fns)
+    per_batch = {m: [] for m in names}
+    try:
+        for r in range(ENCODE_RUNS):
+            outs = {}
+            for m in names[r % len(names):] + names[:r % len(names)]:
+                t = time.perf_counter()
+                outs[m] = [fns[m](k) for k in range(ENCODE_BATCHES)]
+                per_batch[m].append(
+                    (time.perf_counter() - t) * 1e3 / ENCODE_BATCHES)
+            for m in names:
+                for k, (got, want) in enumerate(zip(outs[m],
+                                                    outs["python"])):
+                    if got is None:
+                        raise AssertionError(f"B={B} {m} batch {k}: the "
+                                             f"native encoder handed it back")
+                    for f in fields:
+                        g, w = getattr(got, f), getattr(want, f)
+                        if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+                            raise AssertionError(f"B={B} {m} batch {k}: "
+                                                 f"{f} differs from Python's")
+    finally:
+        enc.mode = "object"
+    pack_ms = []
+    for k in range(ENCODE_BATCHES):
+        e = outs["native_object"][k]
+        t = time.perf_counter()
+        pack_batch(policy, e)
+        pack_ms.append((time.perf_counter() - t) * 1e3)
+    return {"B": B, "runs": ENCODE_RUNS, "batches_per_run": ENCODE_BATCHES,
+            "ms_per_batch_runs": per_batch,
+            "ms_per_batch_median": {m: statistics.median(v)
+                                    for m, v in per_batch.items()},
+            "pack_ms_median": statistics.median(pack_ms),
+            "arrays_byte_equal": True}
+
+
+def python_encoding_engine(entries, **kw):
+    """An engine whose snapshot was installed with AUTHORINO_TPU_NATIVE=0:
+    its corpus encodes in Python for the engine's life."""
+    import os
+
+    from authorino_tpu_torch.runtime import PolicyEngine
+
+    old = os.environ.get("AUTHORINO_TPU_NATIVE")
+    os.environ["AUTHORINO_TPU_NATIVE"] = "0"
+    try:
+        engine = PolicyEngine(max_batch=256, **kw)
+        bind([e for e in entries if e.runtime is not None], engine)
+        engine.apply_snapshot(entries)
+    finally:
+        if old is None:
+            del os.environ["AUTHORINO_TPU_NATIVE"]
+        else:
+            os.environ["AUTHORINO_TPU_NATIVE"] = old
+    if engine._snapshot.encoder is not None:
+        raise AssertionError("AUTHORINO_TPU_NATIVE=0 installed a native "
+                             "encoder")
+    return engine
+
+
+def host_work(report: dict, card: str, ctx: dict, main: dict, policy,
+              docs, rows, batch_p50_ms: float) -> None:
+    """Phase 11 on the north-star corpus at full width: (a) the encoders'
+    host time per batch at B = 256 and 16, every array byte-equal across
+    them; (b) phase 6's 4,096-Check() burst through phase 6's engine
+    (native encoder) and a Python-encoding engine, in turns, every result
+    held to phase 6's oracle; and phase 4's 4,096 submits the same way,
+    every verdict held to the expression oracle.  (c), the heat maps
+    against the oracle, ran inside phases 6 and 9."""
+    import numpy as np
+
+    from authorino_tpu_torch.models.policy_model import host_results
+
+    # ---- (a) encode time per batch -----------------------------------------
+    enc_times = {B: encode_times(policy, docs, rows, B) for B in (256, 16)}
+    for B, e in enc_times.items():
+        m = e["ms_per_batch_median"]
+        log(f"[{card}] encode B={B} (median of {e['runs']} runs x "
+            f"{e['batches_per_run']} batches, host ms per batch): native "
+            f"object {m['native_object']:.3f}, native JSON "
+            f"{m['native_json']:.3f} (from bytes "
+            f"{m['native_json_bytes']:.3f}), Python {m['python']:.3f}; "
+            f"pack {e['pack_ms_median']:.3f}; arrays byte-equal across all")
+
+    # ---- (b) phase 6's burst, native against Python, in turns --------------
+    nat, entries, reqs, hold = (ctx["engine"], ctx["entries"], ctx["reqs"],
+                                ctx["hold"])
+    py = python_encoding_engine(entries, **NO_REUSE)
+    if nat._snapshot.encoder is None:
+        raise AssertionError("phase 11 (b): phase 6's engine is not native")
+    engines = {"native": nat, "python": py}
+    want = {"native": "native", "python": "native off (AUTHORINO_TPU_NATIVE=0)"}
+    runs = {k: [] for k in engines}
+    order = [("native", "python"), ("python", "native")]
+    for r in range(BURST_RUNS):
+        for key in order[r % 2]:
+            e = engines[key]
+            bind(entries, e)
+            e.batch_latency_s.clear()
+            b0 = e.stats["batches"]
+            reset_host_counts()
+            t = time.perf_counter()
+            out = asyncio.run(timed_checks(e, reqs))
+            wall = time.perf_counter() - t
+            hold(out, f"phase 11 (b) {key} run {r + 1}")
+            use = encoder_used(e, e.stats["batches"] - b0)
+            require_encoder(f"phase 11 (b) {key}", use, want[key])
+            runs[key].append({"checks_per_s": len(reqs) / wall,
+                              "latency_s": [x for _, x in out],
+                              "batch_latency_s": list(e.batch_latency_s),
+                              "encoder": use})
+
+    async def one_at_a_time(e, rs):
+        return [(await timed_checks(e, [q]))[0][1] for q in rs]
+
+    lone = {}
+    for key in ("native", "python", "python", "native"):
+        e = engines[key]
+        bind(entries, e)
+        lone.setdefault(key, []).extend(asyncio.run(one_at_a_time(
+            e, reqs[:100])))
+    bind(entries, nat)
+
+    def fig(key):
+        rs = runs[key]
+        lat = np.sort(np.concatenate([x["latency_s"] for x in rs])) * 1e3
+        blat = np.sort(np.concatenate([x["batch_latency_s"]
+                                       for x in rs])) * 1e3
+        lo = np.sort(lone[key]) * 1e3
+        rates = [x["checks_per_s"] for x in rs]
+        return {"checks_per_s": rates,
+                "checks_per_s_median": statistics.median(rates),
+                "check_latency_ms_p50": float(np.percentile(lat, 50)),
+                "check_latency_ms_p99": float(np.percentile(lat, 99)),
+                "lone_check_latency_ms_p50": float(np.percentile(lo, 50)),
+                "lone_check_latency_ms_p99": float(np.percentile(lo, 99)),
+                "batch_latency_ms_p50": float(np.percentile(blat, 50)),
+                "batch_latency_ms_p99": float(np.percentile(blat, 99)),
+                "batches": len(blat), "encoder": rs[-1]["encoder"]}
+
+    burst = {k: fig(k) for k in engines}
+    for key, f in burst.items():
+        log(f"[{card}] phase 6's burst, {key} encoder ({BURST_RUNS} runs in "
+            f"turns): {f['checks_per_s_median']:.0f} checks/s "
+            f"({[round(x) for x in f['checks_per_s']]}), Check() p50 "
+            f"{f['check_latency_ms_p50']:.2f} ms p99 "
+            f"{f['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
+            f"{f['lone_check_latency_ms_p50']:.3f} ms p99 "
+            f"{f['lone_check_latency_ms_p99']:.3f} ms; batch latency p50 "
+            f"{f['batch_latency_ms_p50']:.2f} ms p99 "
+            f"{f['batch_latency_ms_p99']:.2f} ms over {f['batches']} "
+            f"batches; every result equals the oracle")
+    # phase 4's submits (no pipeline: encode is a larger share)
+    m_engines = {"native": main["engine"],
+                 "python": python_encoding_engine(main["entries"],
+                                                  **NO_REUSE)}
+    m_docs, m_names = main["docs"], main["names"]
+    m_runs = {k: [] for k in m_engines}
+    for r in range(BURST_RUNS):
+        for key in order[r % 2]:
+            e = m_engines[key]
+            e.batch_latency_s.clear()
+            t = time.perf_counter()
+            out = asyncio.run(serve(e, m_docs, m_names))
+            m_runs[key].append((len(m_docs) / (time.perf_counter() - t),
+                                list(e.batch_latency_s)))
+            if key == "python" and r == 0:
+                pol = e._snapshot.policy
+                for k, ((rule, skipped), d, n) in enumerate(
+                        zip(out, m_docs, m_names)):
+                    own, w_rule, w_skip = host_results(
+                        pol, d, pol.config_ids[n])
+                    if (bool(np.all(skipped | rule)) != own
+                            or skipped.tolist() != w_skip.tolist()):
+                        raise AssertionError(f"phase 11 (b) submit {k}: "
+                                             f"differs from the oracle")
+    submit = {}
+    for key, rs in m_runs.items():
+        blat = np.sort(np.concatenate([b for _, b in rs])) * 1e3
+        rates = [x for x, _ in rs]
+        submit[key] = {"decisions_per_s": rates,
+                       "decisions_per_s_median": statistics.median(rates),
+                       "batch_latency_ms_p50": float(np.percentile(blat, 50)),
+                       "batch_latency_ms_p99": float(np.percentile(blat, 99))}
+        log(f"[{card}] phase 4's submits, {key} encoder ({BURST_RUNS} runs "
+            f"in turns): {submit[key]['decisions_per_s_median']:.0f} "
+            f"decisions/s ({[round(x) for x in rates]}), batch latency p50 "
+            f"{submit[key]['batch_latency_ms_p50']:.2f} ms p99 "
+            f"{submit[key]['batch_latency_ms_p99']:.2f} ms")
+    share = {k: enc_times[256]["ms_per_batch_median"][k] / batch_p50_ms
+             for k in ("native_object", "python")}
+    log(f"[{card}] encode B=256 against phase 5's batch latency p50 "
+        f"{batch_p50_ms:.2f} ms: native object {share['native_object']:.3f}"
+        f", Python {share['python']:.3f} of it")
+    report["host_work"] = {
+        "card": card,
+        "encode": {str(B): e for B, e in enc_times.items()},
+        "burst": burst, "burst_runs": BURST_RUNS, "submit": submit,
+        "encode_share_of_phase5_batch_p50": share,
+        "heat": {"request_path (dedup, cache off)":
+                 report["request_path"]["heat"],
+                 "serving_core (dedup, cache on)":
+                 report["serving_core"]["heat"]},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2028,6 +2518,7 @@ def main() -> int:
     from authorino_tpu_torch.compiler.encode import encode_batch
     from authorino_tpu_torch.compiler.pack import pack_batch
     from authorino_tpu_torch.models import corpora, northstar
+    from authorino_tpu_torch import native
     from authorino_tpu_torch.models.policy_model import host_results
     from authorino_tpu_torch.ops import _build
     from authorino_tpu_torch.ops import fused_kernel as fk
@@ -2057,6 +2548,12 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     fk.fused_kernel_supported(dev)
     log("probe kernel: int32[4] + 1 round-trips")
+    t = time.monotonic()
+    native.load_library()
+    report["native_build_s"] = time.monotonic() - t
+    report["gxx_s"] = native.build_seconds()
+    log(f"built the native encoder in {report['native_build_s']:.2f}s (g++ "
+        f"{report['gxx_s']}) from authorino_tpu_torch/native/csrc")
 
     # ---- 3. kernel vs plain on the card -----------------------------------
     max_err = 0
@@ -2145,6 +2642,7 @@ def main() -> int:
     engine_entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c)
                       for c in ns_cfgs]
     fk.reset_counts()
+    reset_host_counts()
     engine = PolicyEngine(max_batch=256, **NO_REUSE)
     engine.apply_snapshot(engine_entries)
     t = time.monotonic()
@@ -2153,6 +2651,8 @@ def main() -> int:
     main_launches = {"fused_megakernel": fk.launches,
                      "probe_add_one": fk.probe_launches}
     st = dict(engine.stats)
+    main_enc = encoder_used(engine, st["batches"])
+    require_encoder("main path", main_enc, "native")
     policy = engine._snapshot.policy
     W = policy.fused_pack_w
     if not (st["launches"] == st["batches"] == fk.launches == 16
@@ -2176,11 +2676,12 @@ def main() -> int:
         raise AssertionError(f"{wrong} of 4096 verdicts differ from the oracle")
     report["main_path"] = dict(st, requests=4096, wall_s=wall,
                                allowed=int(allowed),
-                               launches=main_launches)
+                               launches=main_launches, encoder=main_enc)
     log(f"main path: 4096 submits -> {st['batches']} batches, "
         f"{fk.launches} mega-kernel launches, {fk.probe_launches} probe, "
         f"D2H {st['d2h_bytes']} B = pad {st['pad_rows']} x W {W}; "
-        f"all verdicts equal the oracle ({allowed} allowed)")
+        f"all verdicts equal the oracle ({allowed} allowed); "
+        f"{fmt_encoder(main_enc)}")
 
     # ---- 5. numbers -------------------------------------------------------
     cycles_per_ms = sleep_cycles_per_ms()
@@ -2322,7 +2823,8 @@ def main() -> int:
         f"{numbers['batch_latency_ms_p99']:.2f} ms over {len(lat)} batches")
 
     # ---- 6. the Check() request path --------------------------------------
-    path_launches = request_path(report, card)
+    ctx6 = {}
+    path_launches = request_path(report, card, ctx6)
     rp = report["request_path"]
     log(f"[{card}] request path: {rp['checks_per_s_median']:.0f} checks/s "
         f"median of 3 runs ({[round(r) for r in rp['checks_per_s']]}), "
@@ -2432,7 +2934,10 @@ def main() -> int:
         f"reconciles, every verdict equal to its batch's generation "
         f"{sw['verdicts_by_generation']}; device memory after ten swaps "
         f"{sw['memory_growth_bytes']:+d} B (one snapshot: "
-        f"{sw['snapshot_upload_bytes']} B)")
+        f"{sw['snapshot_upload_bytes']} B); host RSS after ten swaps "
+        f"{sw['host_rss_growth_bytes']:+d} B; {sw['native_encoders_built']} "
+        f"native encoders built, {sw['native_encoders_alive']} alive after "
+        f"the swaps; {fmt_encoder(cpn['encoder'])}")
     log(f"[{card}] control plane: cold reconcile {a['cold_reconcile_s']:.3f}s "
         f"(bootstrap swap {a['bootstrap_swap_s']:.3f}s); rebuild for one "
         f"changed file {a['one_file_rebuild_s']:.3f}s; Secret rotation "
@@ -2444,9 +2949,18 @@ def main() -> int:
         f"{a['mtls_verify_us_rsa2048']:.1f} us RSA-2048, "
         f"{a['mtls_verify_us_p256']:.1f} us P-256 (certificate parse "
         f"{a['mtls_parse_us']:.1f} us); one reconcile of (c)'s corpus "
-        f"{sw['reconcile_s']:.3f}s; phase 10 launches: "
+        f"{sw['reconcile_s']:.3f}s, of which the native encoder's build "
+        f"(policy_new) {statistics.median(sw['encoder_build_s']) * 1e3:.2f} "
+        f"ms median over {len(sw['encoder_build_s'])} swaps; phase 10 "
+        f"launches: "
         f"{cp_launches['fused_megakernel']} mega-kernel, "
         f"{cp_launches['probe_add_one']} probe")
+
+    # ---- 11. the per-batch host work on either side of the launch ---------
+    host_work(report, card, ctx6,
+              {"engine": engine, "entries": engine_entries, "docs": ns_docs,
+               "names": ns_names},
+              ns_policy, ns_docs, ns_rows, numbers["batch_latency_ms_p50"])
 
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",

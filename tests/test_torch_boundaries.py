@@ -2,10 +2,12 @@
 package; its entry points refuse to guess a device; its kernel build
 refuses to proceed without nvcc; its kernel wrappers never hand a CUDA
 tensor's work to the plain version (and never take a CPU tensor to the
-kernel)."""
+kernel); its native encoder builds from its own sources into its own
+build directory."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -220,6 +222,7 @@ def test_request_path_runs_without_the_reference_or_its_services():
     for m in ("pipeline.pipeline", "controllers.translate", "index.index",
               "evaluators.identity.api_key", "utils.metrics", "k8s.client",
               "runtime.provenance", "authjson.wellknown", "runtime.admission",
+              "native", "native.encoder",
               "utils.verdict_cache", "snapshots.fingerprint"):
         assert f"authorino_tpu_torch.{m}" in mods, m
     code = (
@@ -461,3 +464,84 @@ def test_control_plane_runs_without_the_reference_or_its_services():
             # revoked one is UNAUTHENTICATED
             assert (code in (0, 7)) == (good and i < n_keys), (code, i, good)
     assert gen == 3  # the bootstrap deny-all and one swap per sync
+
+
+# ---- the native encoder's build ---------------------------------------------
+
+def test_native_build_reads_only_its_csrc_and_writes_only_build(monkeypatch,
+                                                                tmp_path):
+    """The port's native loader compiles only the sources under
+    ``authorino_tpu_torch/native/csrc/`` (never the JAX package's root
+    ``native/``), whose includes stay inside that directory, and writes
+    only under ``authorino_tpu_torch/_build/``."""
+    from authorino_tpu_torch import native
+
+    csrc = ROOT / "authorino_tpu_torch" / "native" / "csrc"
+    assert native.CSRC_DIR == csrc
+    assert sorted(p.name for p in csrc.iterdir()) == sorted(native.SOURCES)
+    for name in native.SOURCES:
+        for inc in re.findall(r'#include\s+"([^"]+)"',
+                              (csrc / name).read_text()):
+            assert (csrc / inc).resolve().parent == csrc, (name, inc)
+    lib = native.library_path()
+    assert lib.parent == _build.BUILD_DIR == ROOT / "authorino_tpu_torch" \
+        / "_build"
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    out = _build.BUILD_DIR / "_atpuenc_torch-boundary-test.so"
+    try:
+        native._build(out)
+        assert out.exists()
+    finally:
+        out.unlink(missing_ok=True)
+    (cmd,) = calls
+    inputs = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".c"))]
+    assert inputs == [csrc / "pymod.cpp"]
+    tmp_out = Path(cmd[cmd.index("-o") + 1])
+    assert tmp_out.parent == _build.BUILD_DIR
+    assert cmd[cmd.index("-I") + 1] == native._include_dir()
+    root_native = ROOT / "native"
+    assert not any(str(root_native) + os.sep in a or a == str(root_native)
+                   for a in map(str, cmd))
+
+
+def test_native_encoder_runs_without_the_reference_or_its_services():
+    """The north-star corpus encodes natively, in both modes, in a process
+    where JAX, the JAX package and the serving and crypto libraries cannot
+    be imported: the library builds (or loads) from the port's own
+    sources, and the engine's snapshot carries the encoder."""
+    code = (
+        "import sys, asyncio\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        "from authorino_tpu_torch.models import northstar\n"
+        "from authorino_tpu_torch.native.encoder import TOTALS\n"
+        "from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine\n"
+        "e = PolicyEngine(max_batch=64, device='cpu')\n"
+        "cfgs = northstar.build_corpus(20, 10)\n"
+        "e.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c) "
+        "for c in cfgs])\n"
+        "docs = northstar.build_docs(64)\n"
+        "async def go(): return await asyncio.gather(*(e.submit(d, "
+        "f'cfg-{i % 20}') for i, d in enumerate(docs)))\n"
+        "out = asyncio.run(go())\n"
+        "enc = e._snapshot.encoder\n"
+        "enc.mode = 'json'\n"
+        "enc.encode_batch(docs, [i % 20 for i in range(64)])\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None and "
+        f"any(m == b or m.startswith(b + '.') for b in {BLOCKED!r}))\n"
+        "print('ENC', len(out), dict(TOTALS), 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("AUTHORINO_TPU_NATIVE", None)
+    env.pop("AUTHORINO_TPU_ENCODE_MODE", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("ENC 64 {'object': 1, 'json': 1, 'bailed': 0} BAD []"
+            in proc.stdout), proc.stdout

@@ -10,6 +10,7 @@ Without a card every test skips."""
 
 import asyncio
 import random
+import time
 
 import numpy as np
 import pytest
@@ -428,3 +429,49 @@ def _tensors(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tensors(v)
+
+
+def test_engine_encodes_natively_and_folds_the_heat_map(card):
+    """An engine on the card encodes the north-star corpus with the native
+    encoder (its counters move, nothing handed back), and its heat map
+    counts the same (config, rule) denials as the oracle's firing
+    columns."""
+    from authorino_tpu_torch.native.encoder import TOTALS, reset_totals
+    from authorino_tpu_torch.ops.operands import firing_columns
+
+    cfgs = northstar.build_corpus(50, 10)
+    engine = PolicyEngine(max_batch=128, device=card, batch_dedup=False,
+                          verdict_cache_size=0)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    snap = engine._snapshot
+    assert snap.encoder is not None
+    docs = northstar.build_docs(512, seed=11)
+    rng = random.Random(2)
+    names = [f"cfg-{rng.randrange(50)}" for _ in docs]
+    reset_totals()
+    b0 = snap.encoder.batches
+
+    async def burst():
+        return await asyncio.gather(*(engine.submit(d, n)
+                                      for d, n in zip(docs, names)))
+
+    asyncio.run(burst())
+    deadline = time.monotonic() + 30
+    while engine._inflight and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert engine._inflight == 0
+    assert snap.encoder.batches - b0 == engine.stats["batches"] >= 4
+    assert TOTALS["bailed"] == 0 and TOTALS["object"] == engine.stats[
+        "batches"]
+    want = {}
+    for d, n in zip(docs, names):
+        row = snap.policy.config_ids[n]
+        _, rule, skipped = host_results(snap.policy, d, row)
+        col = int(firing_columns(rule[None, :], skipped[None, :])[0])
+        if col >= 0:
+            want[(row, col)] = want.get((row, col), 0) + 1
+    heat = snap.heat
+    got = {divmod(int(k), heat.E + 1): int(heat._counts[k])
+           for k in np.nonzero(heat._counts)[0]}
+    assert want and got == want
