@@ -6,3 +6,5 @@ operands and the hand-written CUDA mega-kernel), ``models.PolicyModel`` and
 ``runtime.PolicyEngine``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``, which runs the kernel's plain PyTorch
 version instead."""
+
+__version__ = "0.1.0"

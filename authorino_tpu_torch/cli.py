@@ -1,0 +1,556 @@
+"""CLI bootstrap (the analog of main.go: `authorino server|webhooks|version`,
+ref main.go:134-220).  One process boots the gRPC ext_authz server, the
+raw-HTTP /check server, the wristband OIDC discovery server and the control
+plane (YAML-dir source standalone, or in-cluster watch when running in
+Kubernetes), with the policy engine on the CUDA card.
+
+The parser takes every flag of the reference's, with the same names,
+defaults and environment variables; ``--jax-platform`` becomes ``--device``
+(default ``cuda``: the engine raises before any port binds when no card is
+visible; ``--device cpu`` runs the kernel's plain PyTorch version).  A flag
+that tunes a plane the port does not hold yet stops the start, naming the
+flag and its ROADMAP item, unless it has its inert default; a flag that
+only turns such a plane off is accepted.
+
+Flags fall back to env vars through a typed helper
+(ref: pkg/utils/envvar.go:13-33)."""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import os
+import signal
+import sys
+import time
+from typing import Any
+
+
+def env_var(name: str, default: Any) -> Any:
+    """(ref: pkg/utils/envvar.go)"""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    if isinstance(default, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(default, int):
+        try:
+            return int(raw)
+        except ValueError:
+            return default
+    if isinstance(default, float):
+        try:
+            return float(raw)
+        except ValueError:
+            return default
+    return raw
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="authorino-tpu-torch")
+    sub = p.add_subparsers(dest="command")
+
+    s = sub.add_parser("server", help="Run the authorization server")
+    a = s.add_argument
+    a("--watch-dir", default=env_var("WATCH_DIR", ""), help="Directory of AuthConfig/Secret manifests (standalone mode)")
+    a("--in-cluster", action="store_true", default=env_var("IN_CLUSTER", False), help="Watch AuthConfigs via the Kubernetes API")
+    a("--ext-auth-grpc-port", type=int, default=env_var("EXT_AUTH_GRPC_PORT", 50051))
+    a("--ext-auth-http-port", type=int, default=env_var("EXT_AUTH_HTTP_PORT", 5001))
+    a("--oidc-http-port", type=int, default=env_var("OIDC_HTTP_PORT", 8083))
+    a("--metrics-addr-port", type=int, default=env_var("METRICS_PORT", 8080))
+    a("--timeout", type=int, default=env_var("TIMEOUT", 0), help="Per-request timeout in ms (0 = none)")
+    a("--max-http-request-body-size", type=int, default=env_var("MAX_HTTP_REQUEST_BODY_SIZE", 1024 * 1024))
+    a("--batch-size", type=int, default=env_var("BATCH_SIZE", 256), help="Max micro-batch size for device dispatch")
+    a("--batch-window-us", type=int, default=env_var("BATCH_WINDOW_US", 500),
+      help="Micro-batch gather window of the native frontend's batcher "
+           "(the engine dispatches adaptively and does not read it)")
+    a("--max-inflight-batches", type=int, default=env_var("MAX_INFLIGHT_BATCHES", 48),
+      help="Device dispatch window: micro-batches in flight concurrently")
+    a("--dispatch-workers", type=int, default=env_var("DISPATCH_WORKERS", 4),
+      help="CPU workers for the encode stage of the dispatcher")
+    a("--verdict-cache-size", type=int, default=env_var("VERDICT_CACHE_SIZE", 32768),
+      help="Entries in the verdict LRU (0 disables it)")
+    a("--no-batch-dedup", action="store_true", default=not env_var("BATCH_DEDUP", True),
+      help="Disable within-micro-batch row dedup")
+    a("--device-timeout", type=int, default=env_var("DEVICE_TIMEOUT_MS", 30000),
+      help="Completer watchdog in ms (0 disables)")
+    a("--breaker-threshold", type=int, default=env_var("BREAKER_THRESHOLD", 5),
+      help="Device circuit breaker trip count (not in the port yet)")
+    a("--breaker-reset", type=float, default=env_var("BREAKER_RESET_S", 5.0),
+      help="Device circuit breaker half-open delay (not in the port yet)")
+    a("--admission-target-ms", type=float, default=env_var("ADMISSION_TARGET_MS", 50.0),
+      help="CoDel-style admission wait target in ms")
+    a("--admission-queue-cap", type=int, default=env_var("ADMISSION_QUEUE_CAP", 0),
+      help="Hard cap on the engine submit queue (0 = the dynamic cap only)")
+    a("--no-adaptive-window", action="store_true", default=not env_var("ADAPTIVE_WINDOW", True),
+      help="Disable the adaptive in-flight window")
+    a("--no-brownout", action="store_true", default=not env_var("BROWNOUT", True),
+      help="Disable host-lane brownout (the port has none)")
+    a("--brownout-max-batch", type=int, default=env_var("BROWNOUT_MAX_BATCH", 32),
+      help="Rows per brownout spill batch (not in the port yet)")
+    a("--no-lane-select", action="store_true", default=not env_var("LANE_SELECT", True),
+      help="Disable cost-model lane selection (the port has none)")
+    a("--lane-host-max-rows", type=int, default=env_var("LANE_HOST_MAX_ROWS", 64),
+      help="Largest cut the host lane may answer (not in the port yet)")
+    a("--no-speculative-dispatch", action="store_true", default=not env_var("SPECULATIVE_DISPATCH", True),
+      help="Disable speculative dual-dispatch (the port has none)")
+    a("--no-tenant-qos", action="store_true", default=not env_var("TENANT_QOS", True),
+      help="Disable the tenant QoS plane (the port has none)")
+    a("--tenant-weight", action="append", default=[], metavar="TENANT=WEIGHT",
+      help="Tenant weight override (not in the port yet)")
+    a("--tenant-default-weight", type=float, default=env_var("TENANT_DEFAULT_WEIGHT", 1.0))
+    a("--tenant-quota-rps", type=float, default=env_var("TENANT_QUOTA_RPS", 0.0))
+    a("--tenant-contain-threshold", type=float, default=env_var("TENANT_CONTAIN_THRESHOLD", 3.0))
+    a("--tenant-top-k", type=int, default=env_var("TENANT_TOP_K", 16))
+    a("--expose-deny-reason", action="store_true", default=env_var("EXPOSE_DENY_REASON", False),
+      help="PRIVACY KNOB: name the attributed firing rule in the "
+           "client-visible X-Ext-Auth-Reason header on denials")
+    a("--slo-ms", type=float, default=env_var("SLO_MS", 0.0),
+      help="Per-request latency SLO in ms (not in the port yet)")
+    a("--decision-log-size", type=int, default=env_var("DECISION_LOG_SIZE", 1024),
+      help="Bounded decision-log ring capacity (/debug/decisions)")
+    a("--decision-log-sample", type=int, default=env_var("DECISION_LOG_SAMPLE", 64),
+      help="Head-sample 1-in-N decisions into the decision log")
+    a("--canary-fraction", type=float, default=env_var("CANARY_FRACTION", 0.0))
+    a("--canary-window", type=float, default=env_var("CANARY_WINDOW_S", 30.0))
+    a("--capture", action="store_true", default=env_var("CAPTURE", False))
+    a("--capture-log-dir", default=env_var("CAPTURE_LOG_DIR", ""))
+    a("--capture-log-size-mb", type=float, default=env_var("CAPTURE_LOG_SIZE_MB", 64.0))
+    a("--capture-sample", type=int, default=env_var("CAPTURE_SAMPLE", 1))
+    a("--replay-pregate", action="store_true", default=env_var("REPLAY_PREGATE", False))
+    a("--replay-pregate-budget-ms", type=float, default=env_var("REPLAY_PREGATE_BUDGET_MS", 2000.0))
+    a("--corpus-pregate", default=env_var("CORPUS_PREGATE", ""))
+    a("--corpus-pregate-budget-ms", type=float, default=env_var("CORPUS_PREGATE_BUDGET_MS", 2000.0))
+    a("--snapshot-history", type=int, default=env_var("SNAPSHOT_HISTORY", 4))
+    a("--flight-keep", type=int, default=env_var("AUTHORINO_TPU_FLIGHT_KEEP", 16))
+    a("--flight-dir", default=env_var("AUTHORINO_TPU_FLIGHT_DIR", ""))
+    a("--no-flight-recorder", action="store_true",
+      default=not env_var("AUTHORINO_TPU_FLIGHT_RECORDER", True),
+      help="Disable the flight recorder (the port has none)")
+    a("--drain-timeout", type=float, default=env_var("DRAIN_TIMEOUT_S", 10.0),
+      help="Graceful-shutdown bound in seconds: SIGTERM stops admission, "
+           "then in-flight requests/batches get this long to complete")
+    a("--fault-profile", default=env_var("AUTHORINO_TPU_FAULTS", ""))
+    a("--ovf-assist", action="store_true", default=env_var("AUTHORINO_TPU_OVF_ASSIST", False),
+      help="Answer membership-overflow rows in the kernel from exact "
+           "assist columns")
+    a("--kernel-lane", choices=("auto", "fused", "gather", "matmul"),
+      default=env_var("AUTHORINO_TPU_KERNEL_LANE", "auto"),
+      help="Device-eval kernel lane: the port runs the fused mega-kernel "
+           "('auto' or 'fused')")
+    a("--no-metadata-prefetch", action="store_true",
+      default=not env_var("AUTHORINO_TPU_METADATA_PREFETCH", True),
+      help="Disable the metadata prefetch cache (the port has none)")
+    a("--metadata-max-age", type=float, default=env_var("METADATA_PREFETCH_MAX_AGE_S", 300.0))
+    a("--metadata-refresh", type=float, default=env_var("METADATA_PREFETCH_REFRESH_S", 60.0))
+    a("--strict-verify", action="store_true", default=env_var("STRICT_VERIFY", False))
+    a("--snapshot-publish-dir", default=env_var("SNAPSHOT_PUBLISH_DIR", ""))
+    a("--snapshot-source", default=env_var("SNAPSHOT_SOURCE", ""))
+    a("--snapshot-poll", type=float, default=env_var("SNAPSHOT_POLL_S", 5.0))
+    a("--fleet-hotset-k", type=int, default=env_var("FLEET_HOTSET_K", 1024))
+    a("--fleet-hotset-s", type=float, default=env_var("FLEET_HOTSET_S", 30.0))
+    a("--state-dir", default=env_var("STATE_DIR", ""))
+    a("--max-snapshot-age", type=float, default=env_var("MAX_SNAPSHOT_AGE_S", 0.0))
+    a("--native-frontend", choices=["auto", "on", "off"], default=env_var("NATIVE_FRONTEND", "auto"),
+      help="Serve gRPC from the native frontend: not in the port yet, so "
+           "'auto' serves grpc.aio and 'on' raises")
+    a("--evaluator-cache-size", type=int, default=env_var("EVALUATOR_CACHE_SIZE", 4096))
+    a("--deep-metrics-enabled", action="store_true", default=env_var("DEEP_METRICS_ENABLED", False))
+    a("--debug-profile", action="store_true", default=env_var("DEBUG_PROFILE", False),
+      help="Arm the /debug/profile?seconds=N endpoint (a torch.profiler "
+           "trace to a temp dir on demand)")
+    a("--auth-config-label-selector", default=env_var("AUTH_CONFIG_LABEL_SELECTOR", ""))
+    a("--secret-label-selector", default=env_var("SECRET_LABEL_SELECTOR", "authorino.kuadrant.io/managed-by=authorino"))
+    a("--allow-superseding-host-subsets", action="store_true", default=env_var("ALLOW_SUPERSEDING_HOST_SUBSETS", False))
+    a("--enable-leader-election", action="store_true", default=env_var("ENABLE_LEADER_ELECTION", False), help="Leader-elect the status writer (in-cluster mode)")
+    a("--tls-cert", default=env_var("TLS_CERT", ""), help="PEM cert for the ext_authz gRPC + HTTP listeners (ref main.go:456-470; TLS >= 1.2)")
+    a("--tls-cert-key", default=env_var("TLS_CERT_KEY", ""))
+    a("--oidc-tls-cert", default=env_var("OIDC_TLS_CERT", ""), help="PEM cert for the OIDC discovery listener")
+    a("--oidc-tls-cert-key", default=env_var("OIDC_TLS_CERT_KEY", ""))
+    a("--tracing-service-endpoint", default=env_var("TRACING_SERVICE_ENDPOINT", ""), help="OTLP endpoint (http(s)://...; rpc:// only propagates)")
+    a("--tracing-service-insecure", action="store_true", default=env_var("TRACING_SERVICE_INSECURE", False))
+    a("--log-level", default=env_var("LOG_LEVEL", "info"))
+    a("--device", default=env_var("AUTHORINO_DEVICE", "cuda"),
+      help="Torch device of the policy engine: 'cuda' (the default; the "
+           "start fails without a card) or 'cpu' (the kernel's plain "
+           "PyTorch version)")
+
+    w = sub.add_parser("webhooks", help="Run the CRD conversion/validation webhook server")
+    w.add_argument("--webhook-service-port", type=int, default=env_var("WEBHOOK_SERVICE_PORT", 9443))
+    w.add_argument("--tls-cert", default=env_var("TLS_CERT", ""), help="PEM cert for the webhook listener")
+    w.add_argument("--tls-cert-key", default=env_var("TLS_CERT_KEY", ""))
+    w.add_argument("--log-level", default=env_var("LOG_LEVEL", "info"))
+
+    sub.add_parser("version", help="Print version")
+    return p
+
+
+# the reference's planes the port does not hold yet, with the ROADMAP.md
+# item (queue 1) that brings each
+UNPORTED_PLANES = {
+    "breaker": 3, "brownout": 3, "lane selection": 3,
+    "speculative dispatch": 3, "tenancy": 3, "canary": 3,
+    "snapshot history": 3, "metadata prefetch": 5,
+    "state plane": 7, "snapshot distribution": 7, "flight recorder": 7,
+    "faults": 7, "kernel lanes": 9, "SLO": 10, "native frontend": 11,
+    "strict verify": 12, "capture": 12, "replay pregate": 12,
+    "corpus pregate": 12, "fleet": 13,
+}
+
+# a flag of an unported plane → (its inert value, the plane).  A flag that
+# only turns a plane off (--no-brownout, --no-lane-select, ...) is absent:
+# it is accepted with either value
+UNPORTED_FLAGS = {
+    "breaker_threshold": (5, "breaker"),
+    "breaker_reset": (5.0, "breaker"),
+    "brownout_max_batch": (32, "brownout"),
+    "lane_host_max_rows": (64, "lane selection"),
+    "tenant_weight": ([], "tenancy"),
+    "tenant_default_weight": (1.0, "tenancy"),
+    "tenant_quota_rps": (0.0, "tenancy"),
+    "tenant_contain_threshold": (3.0, "tenancy"),
+    "tenant_top_k": (16, "tenancy"),
+    "slo_ms": (0.0, "SLO"),
+    "canary_fraction": (0.0, "canary"),
+    "canary_window": (30.0, "canary"),
+    "capture": (False, "capture"),
+    "capture_log_dir": ("", "capture"),
+    "capture_log_size_mb": (64.0, "capture"),
+    "capture_sample": (1, "capture"),
+    "replay_pregate": (False, "replay pregate"),
+    "replay_pregate_budget_ms": (2000.0, "replay pregate"),
+    "corpus_pregate": ("", "corpus pregate"),
+    "corpus_pregate_budget_ms": (2000.0, "corpus pregate"),
+    "snapshot_history": (4, "snapshot history"),
+    "flight_keep": (16, "flight recorder"),
+    "flight_dir": ("", "flight recorder"),
+    "fault_profile": ("", "faults"),
+    "metadata_max_age": (300.0, "metadata prefetch"),
+    "metadata_refresh": (60.0, "metadata prefetch"),
+    "strict_verify": (False, "strict verify"),
+    "snapshot_publish_dir": ("", "snapshot distribution"),
+    "snapshot_source": ("", "snapshot distribution"),
+    "snapshot_poll": (5.0, "snapshot distribution"),
+    "fleet_hotset_k": (1024, "fleet"),
+    "fleet_hotset_s": (30.0, "fleet"),
+    "state_dir": ("", "state plane"),
+    "max_snapshot_age": (0.0, "state plane"),
+}
+
+
+def refuse_unported(args) -> None:
+    """Stop the start for a flag of a plane the port does not hold yet
+    that is set to anything but its inert value."""
+    for dest, (inert, plane) in UNPORTED_FLAGS.items():
+        value = getattr(args, dest)
+        if value != inert:
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(
+                f"{flag}={value!r}: the {plane} plane is not in this server "
+                f"yet (ROADMAP.md queue 1 item {UNPORTED_PLANES[plane]})")
+    if args.kernel_lane not in ("auto", "fused"):
+        raise SystemExit(
+            f"--kernel-lane={args.kernel_lane!r}: this server runs the fused "
+            "mega-kernel only; the other kernel lanes are not in it yet "
+            f"(ROADMAP.md queue 1 item {UNPORTED_PLANES['kernel lanes']})")
+
+
+def _ssl_ctx(cert: str, key: str, what: str = "--tls-cert"):
+    """Server-side TLS context, minimum 1.2 like the reference
+    (ref main.go:456-470)."""
+    import ssl
+
+    if bool(cert) != bool(key):
+        raise SystemExit(f"{what} and {what}-key must be provided together")
+    if not cert:
+        return None
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+    ctx.load_cert_chain(cert, key)
+    return ctx
+
+
+def _stop_on_signals(loop, stop: asyncio.Event) -> list:
+    """SIGINT/SIGTERM set ``stop``; returns the signals handled.  Off the
+    main thread (an embedder's loop) no handler can be installed, and the
+    caller stops the server by cancelling its task."""
+    handled = []
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+            handled.append(sig)
+        except (NotImplementedError, RuntimeError):
+            pass
+    return handled
+
+
+async def run_webhooks(args) -> None:
+    """(ref: main.go `webhooks` command — conversion webhook server)"""
+    from aiohttp import web
+
+    from .service.webhooks import build_webhook_app
+
+    logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO))
+    log = logging.getLogger("authorino_tpu.webhooks")
+
+    ssl_ctx = _ssl_ctx(args.tls_cert, args.tls_cert_key)
+
+    runner = web.AppRunner(build_webhook_app())
+    await runner.setup()
+    await web.TCPSite(runner, "0.0.0.0", args.webhook_service_port, ssl_context=ssl_ctx).start()
+    log.info("webhooks listening on :%d (tls=%s)", args.webhook_service_port, bool(ssl_ctx))
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    handled = _stop_on_signals(loop, stop)
+    try:
+        await stop.wait()
+    finally:
+        for sig in handled:
+            loop.remove_signal_handler(sig)
+        await runner.cleanup()
+
+
+async def run_server(args, on_engine=None) -> None:
+    """Serve until SIGINT/SIGTERM or until the task is cancelled, then
+    drain.  ``on_engine(engine)``, when given, is called as soon as the
+    policy engine exists, before the control plane's first sync (an
+    embedder's handle on the engine: its records, its swaps)."""
+    from aiohttp import web
+
+    from .controllers.reconciler import AuthConfigReconciler, SecretReconciler
+    from .controllers.sources import YamlDirSource
+    from .evaluators import cache as cache_mod
+    from .k8s.client import InMemoryCluster, LabelSelector, RestCluster
+    from .runtime import provenance as prov_mod
+    from .runtime.engine import PolicyEngine
+    from .service.grpc_server import build_server
+    from .service.http_server import build_app
+    from .service.oidc_server import build_oidc_app
+    from .utils import metrics as metrics_mod
+    from .utils.tracing import setup_tracing, shutdown_tracing
+
+    logging.basicConfig(
+        level=getattr(logging, args.log_level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s %(message)s",
+    )
+    log = logging.getLogger("authorino_tpu")
+
+    refuse_unported(args)
+    native_mode = str(args.native_frontend).lower()
+    if native_mode not in ("auto", "on", "off"):
+        # argparse validates choices only for CLI tokens, not env defaults —
+        # a NATIVE_FRONTEND typo must not silently serve another path
+        raise RuntimeError(f"invalid --native-frontend/NATIVE_FRONTEND value "
+                           f"{native_mode!r} (want auto|on|off)")
+    if native_mode == "on":
+        raise RuntimeError(
+            "--native-frontend=on: the native frontend is not in this server "
+            f"yet (ROADMAP.md queue 1 item {UNPORTED_PLANES['native frontend']})")
+
+    cache_mod.EVALUATOR_CACHE_MAX_ENTRIES = args.evaluator_cache_size
+    metrics_mod.DEEP_METRICS_ENABLED = args.deep_metrics_enabled
+
+    # TLS material loads BEFORE the control plane starts: a bad flag/path
+    # must fail at startup, not mid-boot with a leader lease already held
+    ext_ssl = _ssl_ctx(args.tls_cert, args.tls_cert_key)
+    oidc_ssl = _ssl_ctx(args.oidc_tls_cert, args.oidc_tls_cert_key, "--oidc-tls-cert")
+    tls_credentials = None
+    if ext_ssl is not None:
+        import grpc
+
+        with open(args.tls_cert_key, "rb") as f:
+            key_pem = f.read()
+        with open(args.tls_cert, "rb") as f:
+            cert_pem = f.read()
+        tls_credentials = grpc.ssl_server_credentials([(key_pem, cert_pem)])
+
+    if args.tracing_service_endpoint:
+        # --tracing-service-insecure parses as the reference's; it only
+        # matters to an OTLP gRPC exporter, which this server does not have
+        setup_tracing(args.tracing_service_endpoint)
+
+    # decision observability: the deny-reason privacy knob and the
+    # decision-log ring
+    prov_mod.EXPOSE_DENY_REASON = bool(args.expose_deny_reason)
+    prov_mod.DECISIONS.configure(capacity=int(args.decision_log_size),
+                                 sample_n=int(args.decision_log_sample))
+
+    device_timeout_ms = int(args.device_timeout or 0)
+    # the engine resolves its device first: without a card (and without
+    # --device cpu) the start raises here, before any port binds
+    engine = PolicyEngine(
+        max_batch=args.batch_size,
+        device=args.device,
+        timeout_s=(args.timeout / 1000.0) if args.timeout else None,
+        admission_target_s=float(args.admission_target_ms) / 1e3,
+        admission_queue_cap=int(args.admission_queue_cap),
+        adaptive_window=not args.no_adaptive_window,
+        max_inflight_batches=args.max_inflight_batches,
+        dispatch_workers=args.dispatch_workers,
+        verdict_cache_size=args.verdict_cache_size,
+        batch_dedup=not args.no_batch_dedup,
+        device_timeout_s=(device_timeout_ms / 1000.0) or None,
+        ovf_assist=bool(args.ovf_assist) or None,
+    )
+    if engine.device.type == "cuda":
+        import torch
+
+        log.info("policy engine on %s (%s)", engine.device,
+                 torch.cuda.get_device_name(engine.device))
+    else:
+        log.info("policy engine on %s (the kernel's plain PyTorch version)",
+                 engine.device)
+    if on_engine is not None:
+        on_engine(engine)
+    log.info("this server runs without the reference's %s",
+             ", ".join(f"{plane} (ROADMAP item {item})"
+                       for plane, item in UNPORTED_PLANES.items()))
+
+    selector = LabelSelector.parse(args.auth_config_label_selector) if args.auth_config_label_selector else None
+    secret_selector = LabelSelector.parse(args.secret_label_selector) if args.secret_label_selector else None
+
+    source = None
+    status_updater = None
+    cluster = RestCluster() if args.in_cluster else InMemoryCluster()
+    reconciler = AuthConfigReconciler(
+        engine,
+        cluster=cluster,
+        label_selector=selector,
+        allow_superseding_host_subsets=args.allow_superseding_host_subsets,
+    )
+    secret_reconciler = SecretReconciler(engine, secret_label_selector=secret_selector)
+    if args.in_cluster:
+        # real-cluster control plane: watch AuthConfigs/Secrets, leader-elect
+        # the status writer (ref: main.go:241-336)
+        from .controllers.sources import K8sWatchSource
+        from .controllers.status_updater import AuthConfigStatusUpdater
+        from .k8s.leader import leader_election_id
+
+        source = K8sWatchSource(
+            cluster, reconciler, secret_reconciler, secret_label_selector=secret_selector
+        )
+        # block serving until the first list lands (cache-sync semantics);
+        # retries internally while the apiserver is unreachable
+        await source.sync()
+        source.start()
+        status_updater = AuthConfigStatusUpdater(
+            reconciler, cluster, leases=cluster,
+            namespace=os.environ.get("POD_NAMESPACE", "default"),
+            leader_election=args.enable_leader_election,
+            # per-shard lease: derived from the watched label selector so
+            # label-sharded instances don't contend for one lease
+            lease_name=leader_election_id(args.auth_config_label_selector or ""),
+        ).start()
+        log.info("watching AuthConfigs via the Kubernetes API")
+    elif args.watch_dir:
+        source = YamlDirSource(args.watch_dir, reconciler, cluster, secret_reconciler)
+        await source.sync()
+        source.start()
+        log.info("watching manifests under %s", args.watch_dir)
+    else:
+        log.warning("no --watch-dir and not --in-cluster: serving an empty index")
+
+    # HTTP /check (+ /metrics, /debug/vars, /debug/profile)
+    app = build_app(engine, readiness=reconciler.ready,
+                    max_body=args.max_http_request_body_size,
+                    enable_profile=bool(args.debug_profile))
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "0.0.0.0", args.ext_auth_http_port, ssl_context=ext_ssl).start()
+    log.info("http /check listening on :%d (tls=%s)", args.ext_auth_http_port, bool(ext_ssl))
+
+    # OIDC discovery (wristbands)
+    oidc_runner = web.AppRunner(build_oidc_app(engine))
+    await oidc_runner.setup()
+    await web.TCPSite(oidc_runner, "0.0.0.0", args.oidc_http_port, ssl_context=oidc_ssl).start()
+    log.info("oidc discovery listening on :%d (tls=%s)", args.oidc_http_port, bool(oidc_ssl))
+
+    # gRPC ext_authz on grpc.aio: the reference's course when its native
+    # frontend does not load (ref cli.py:892-903)
+    if native_mode == "auto":
+        log.warning("native frontend unavailable (not in this server yet, "
+                    "ROADMAP.md queue 1 item %d); using grpc.aio",
+                    UNPORTED_PLANES["native frontend"])
+    grpc_server = build_server(
+        engine, address=f"0.0.0.0:{args.ext_auth_grpc_port}",
+        tls_credentials=tls_credentials,
+    )
+    await grpc_server.start()
+    log.info("grpc ext_authz listening on :%d (tls=%s)", args.ext_auth_grpc_port, bool(tls_credentials))
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    handled = _stop_on_signals(loop, stop)
+    try:
+        await stop.wait()
+    finally:
+        # graceful drain: SIGTERM → stop admitting (readyz flips 503 so the
+        # LB stops routing here; new engine submits fail fast UNAVAILABLE),
+        # let in-flight RPCs and device batches complete within
+        # --drain-timeout, flush telemetry, then exit.  Runs on signal AND
+        # on task cancellation (embedders and tests cancel the serve task).
+        # Every step is isolated — a second cancellation or one failing
+        # stop must not skip the remaining teardown
+        for sig in handled:
+            loop.remove_signal_handler(sig)
+        drain_s = float(args.drain_timeout)
+        # ONE shared deadline across every drain stage: the gRPC grace and
+        # the engine drain each consume only what is left, so
+        # SIGTERM-to-exit stays ≈ --drain-timeout
+        drain_deadline = time.monotonic() + drain_s
+
+        def drain_left() -> float:
+            return max(0.5, drain_deadline - time.monotonic())
+
+        log.info("shutting down: draining (bound %.1fs)", drain_s)
+        engine.begin_drain()
+
+        async def best_effort(awaitable) -> None:
+            try:
+                await asyncio.shield(asyncio.ensure_future(awaitable))
+            except (Exception, asyncio.CancelledError) as e:
+                log.warning("shutdown step failed: %r", e)
+
+        # control plane first: no new snapshots compile mid-drain
+        if status_updater is not None:
+            await best_effort(status_updater.stop())
+        if source is not None:
+            await best_effort(source.stop())
+        # the gRPC server stops ACCEPTING and waits out in-flight Checks
+        await best_effort(grpc_server.stop(drain_left()))
+        # the engine dispatcher: every queued request and in-flight batch
+        # resolves before exit
+        drained = True
+        try:
+            drained = await loop.run_in_executor(None, engine.drain,
+                                                 drain_left())
+        except Exception as e:
+            log.warning("engine drain failed: %r", e)
+        log.info("drain %s", "complete" if drained else
+                 "TIMED OUT (undrained work abandoned)")
+        await best_effort(runner.cleanup())
+        await best_effort(oidc_runner.cleanup())
+        await best_effort(shutdown_tracing())  # flush the last spans
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command == "version":
+        from . import __version__
+
+        print(__version__)
+        return 0
+    if args.command == "server":
+        asyncio.run(run_server(args))
+        return 0
+    if args.command == "webhooks":
+        asyncio.run(run_webhooks(args))
+        return 0
+    build_parser().print_help()
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,9 +17,8 @@ lowered into one more slot of the same ConfigRules, so the mega-kernel
 decides it in the launch that decides the config's patterns; the pipeline
 keeps the interpreter for the evaluator's verdict, as the reference does.
 
-The port translates every kind the reference does but authorization
-``spicedb`` (``NOT_IN_PORT``), which raises TranslationError naming the
-kind as not yet in the port.  An ``opa.externalPolicy`` is downloaded here
+The port translates every kind the reference does (``NOT_IN_PORT`` is
+empty).  An ``opa.externalPolicy`` is downloaded here
 (and refreshed on its TTL by the evaluator) and never lowered: a refresh
 swaps the policy without a reconcile.  AuthConfig annotations (tenancy)
 are not read yet."""
@@ -31,7 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..authjson.value import JSONProperty, JSONValue
 from ..compiler.compile import ConfigRules
 from ..evaluators import cache as cache_mod
-from ..evaluators.authorization import OPA, KubernetesAuthz, OPAExternalSource, PatternMatching
+from ..evaluators.authorization import (OPA, Authzed, KubernetesAuthz,
+                                        OPAExternalSource, PatternMatching)
 from ..evaluators.base import (
     AuthorizationConfig,
     CallbackConfig,
@@ -58,29 +58,13 @@ __all__ = ["TranslationError", "translate_auth_config", "build_expression",
            "build_relations", "NOT_IN_PORT"]
 
 # the kinds the reference translates and the port does not hold yet, per
-# spec section, in the reference's order of precedence
-NOT_IN_PORT = {
-    "authorization": ("spicedb",),
-}
+# spec section: none
+NOT_IN_PORT: Dict[str, Tuple[str, ...]] = {}
 
 
 class TranslationError(Exception):
     """Invalid AuthConfig spec — the analog of the reference's reconcile
-    failure → CachingError status — or a kind the port does not hold
-    yet."""
-
-
-def _refuse_unported(section: str, name: str, spec: dict,
-                     before: Tuple[str, ...] = ()) -> None:
-    """Raise for the first kind of ``NOT_IN_PORT[section]`` that ``spec``
-    sets, unless a kind of ``before`` (one that the reference tries
-    earlier) is set too."""
-    if any(spec.get(k) is not None for k in before):
-        return
-    for kind in NOT_IN_PORT[section]:
-        if spec.get(kind) is not None:
-            raise TranslationError(
-                f"{section} {name!r}: kind {kind!r} is not yet in the port")
+    failure → CachingError status."""
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +408,6 @@ async def translate_auth_config(
     # ---- authorization (ref :367-455) ----
     pattern_slots: List[Tuple[Optional[Expression], Expression]] = []
     for az_name, azspec in (spec.get("authorization") or {}).items():
-        _refuse_unported("authorization", az_name, azspec,
-                         before=("patternMatching", "opa",
-                                 "kubernetesSubjectAccessReview"))
         common = _common(azspec, named, relations)
         if azspec.get("patternMatching") is not None:
             rules = build_expression(azspec["patternMatching"].get("patterns"), named, relations)
@@ -504,6 +485,25 @@ async def translate_auth_config(
                 cluster=cluster,
             )
             etype = "KUBERNETES_SUBJECT_ACCESS_REVIEW"
+        elif azspec.get("spicedb") is not None:
+            s = azspec["spicedb"]
+            shared = ""
+            if s.get("sharedSecretRef"):
+                shared = await _secret_value(cluster, namespace, s["sharedSecretRef"])
+            subj = s.get("subject") or {}
+            res = s.get("resource") or {}
+            ev = Authzed(
+                az_name,
+                endpoint=s.get("endpoint", ""),
+                insecure=bool(s.get("insecure", False)),
+                shared_secret=shared,
+                subject_kind=_value_or_selector(subj.get("kind")),
+                subject_name=_value_or_selector(subj.get("name")),
+                resource_kind=_value_or_selector(res.get("kind")),
+                resource_name=_value_or_selector(res.get("name")),
+                permission=_value_or_selector(s.get("permission")),
+            )
+            etype = "SPICEDB"
         else:
             raise TranslationError(f"unknown authorization method for {az_name!r}")
         runtime.authorization.append(AuthorizationConfig(az_name, ev, type=etype, **common))

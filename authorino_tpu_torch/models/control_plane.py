@@ -49,6 +49,7 @@ from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from ..authjson.value import JSONValue
 from ..authjson.wellknown import (CheckRequestModel, HttpRequestAttributes,
                                   build_authorization_json)
 from ..expressions import All, Any_, Pattern
@@ -64,7 +65,8 @@ __all__ = ["OID", "make_certificate", "pem", "CertAuthority",
            "opa_external_auth_config", "build_check_requests",
            "PolicyRegistry", "FakeApiServer", "MTLS_HOST", "OPA_HOST",
            "CA_LABEL", "CLAIMS", "config_rules", "expected_code",
-           "GenerationLog"]
+           "GenerationLog", "SlowEndpoint", "callback_auth_config",
+           "CALLBACK_HOST"]
 
 NAMESPACE = "keys"
 MTLS_HOST = "mtls-{k}.keys"
@@ -352,10 +354,18 @@ def expected_code(req: CheckRequestModel, i: int, rules, key_known: bool,
     """The oracle of a request to config i: UNAUTHENTICATED without a
     known key; else the config's rule over the authorization JSON whose
     identity is the key's Secret (of ``generation``) with the verified
-    claims as overrides."""
+    claims as overrides.  A request without the claims (one over HTTP
+    /check, which carries no metadata) gets each override as its selector
+    resolves over that request."""
     if not key_known:
         return rpc.UNAUTHENTICATED
-    claims = req.metadata_context["filter_metadata"][JWT_FILTER]["verified_jwt"]
+    filters = req.metadata_context.get("filter_metadata") or {}
+    if JWT_FILTER in filters:
+        claims = filters[JWT_FILTER]["verified_jwt"]
+    else:
+        doc = build_authorization_json(req, {})
+        claims = {k: JSONValue(pattern=f"{CLAIMS}.{k}").resolve_for(doc)
+                  for k in ("org", "roles", "groups")}
     doc = api_key_secret(i, generation)
     identity = Secret(
         name=doc["metadata"]["name"], namespace=NAMESPACE,
@@ -477,6 +487,63 @@ class PolicyRegistry(_Loopback):
                 self.wfile.write(body)
 
         return H
+
+
+class SlowEndpoint(_Loopback):
+    """Answers every GET or POST with ``{"ok": true}`` after ``delay_s``;
+    ``hits`` counts the requests that arrived (a callback target that
+    keeps Check()s in flight after their verdict)."""
+
+    name = "slow-endpoint"
+
+    def __init__(self, delay_s: float):
+        super().__init__()
+        self.delay_s = delay_s
+        self.hits = 0
+        self._lock = threading.Lock()
+
+    def _handler(self):
+        ep = self
+
+        class H(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _answer(self):
+                with ep._lock:
+                    ep.hits += 1
+                length = int(self.headers.get("Content-Length") or 0)
+                if length:
+                    self.rfile.read(length)
+                time.sleep(ep.delay_s)
+                body = b'{"ok": true}'
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            do_GET = do_POST = _answer
+
+        return H
+
+
+CALLBACK_HOST = f"callback.{NAMESPACE}"
+
+
+def callback_auth_config(url: str) -> dict:
+    """``callback``: anonymous, a GET is allowed, and every Check() then
+    calls ``url`` (its verdict is decided before the callback runs)."""
+    return {
+        "apiVersion": "authorino.kuadrant.io/v1beta2", "kind": "AuthConfig",
+        "metadata": {"name": "callback", "namespace": NAMESPACE},
+        "spec": {
+            "hosts": [CALLBACK_HOST],
+            "authentication": {"anon": {"anonymous": {}}},
+            "authorization": {"get": {"patternMatching": {"patterns": [
+                {"selector": "request.method", "operator": "eq",
+                 "value": "GET"}]}}},
+            "callbacks": {"done": {"http": {"url": url}}}}}
 
 
 def _merge_patch(target: Any, patch: Any) -> Any:

@@ -104,6 +104,7 @@ from ..pipeline import AuthPipeline, AuthResult
 from ..snapshots.fingerprint import cache_tokens, rules_fingerprint
 from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
+from ..utils import tracing as tracing_mod
 from ..utils.rpc import DEADLINE_EXCEEDED, NOT_FOUND, UNAVAILABLE, CheckAbort
 from ..utils.verdict_cache import VerdictCache
 from . import provenance as prov_mod
@@ -718,6 +719,8 @@ class PolicyEngine:
             db_u = select_rows(db, unique_rows, batch_pad=pad_u)
         else:
             db_u, pad_u = None, 0   # every row from the cache: no launch
+        # the DeviceBatch span's window opens at the launch
+        start_ns = time.time_ns()
         if db_u is not None:
             handle = fk.dispatch_megakernel(snap.params, db_u)
             if handle.nbytes != pad_u * W:
@@ -732,7 +735,11 @@ class PolicyEngine:
                   "d2h_bytes": handle.nbytes}
         self.batch_records.append(dict(record, generation=snap.generation))
         self._add_stats(batches=1, cached_batches=int(u == 0), **record)
-        binfo = {"batch_size": n, "device_rows": u, "t0": t0}
+        binfo = {"batch_size": n, "device_rows": u, "t0": t0, "pad": pad_u,
+                 "eff": (int(db_u.attr_bytes.shape[-1])
+                         if db_u is not None and db_u.attr_bytes is not None
+                         and snap.params["dfa_tables"] is not None else 0),
+                 "start_ns": start_ns}
 
         def finalize(packed):
             # rows the cache answered start from the kernel's pad values
@@ -862,6 +869,18 @@ class PolicyEngine:
             self.controller.observe_batch(dur, n, len(self._queue),
                                           now=t_done)
             self.admission.observe_service(n, now=t_done)
+            if tracing_mod.tracing_active():
+                # one DeviceBatch span per batch, span-linked to every
+                # constituent request's trace (export only: a link list per
+                # batch, nothing per request)
+                links = [(p.span.trace_id, p.span.span_id)
+                         for p in item.batch if p.span is not None
+                         and getattr(p.span, "sampled", True)]
+                if links:
+                    binfo = item.binfo
+                    tracing_mod.export_device_batch_span(
+                        n, binfo["pad"], binfo["eff"], links,
+                        binfo["start_ns"], dur)
             by_loop: Dict[Any, list] = {}
             for i, p in enumerate(item.batch):
                 by_loop.setdefault(p.loop, []).append(

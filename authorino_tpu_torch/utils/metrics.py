@@ -112,6 +112,11 @@ authconfig_duration = _register(
     "Response latency of authconfig enforced by the auth server (in seconds).",
     _CONF_LABELS,
 )
+response_status = _register(
+    "counter", "auth_server_response_status",
+    "Status of HTTP response sent by the auth server.",
+    ("status",),
+)
 
 
 # ---------------------------------------------------------------------------

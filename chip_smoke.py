@@ -128,12 +128,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      columns, the dead-rule report equal to the oracle's never-fired set,
      the decision records within the sampler's bound.
 
+
+ 12. the serving surfaces, at phase 10's full width: the port's CLI
+     (``cli.run_server``) as a task on this loop over phase 10's manifests
+     plus a wristband and a SpiceDB config (a fake CheckPermission server
+     on loopback): (a) the bootstrap — an in-process Check() meets the
+     deny-all, a gRPC one finds no listener yet (the listeners bind after
+     the first reconcile, as the reference's), then /readyz turns 200;
+     (b) phase 10 (a)'s 4,096 requests encoded by the port's protobuf
+     codec and sent at once over one gRPC channel, each response's code
+     and HTTP status the oracle's and its bytes those of the in-process
+     Check()'s response, 256 API-key requests over HTTP /check held to the
+     oracle the same way, every batch to the structural contract; (c) gRPC
+     health, /metrics, /debug/vars, the wristband's OIDC discovery and
+     JWKS, the webhooks server converting and validating a review, SpiceDB
+     allow and deny; (d) gRPC checks/s (median of 3 bursts), burst and
+     lone p50/p99 beside phase 10 (a)'s ``engine.check()`` figures, the
+     codec's host µs per Check(); then the server drained by cancelling
+     its task; (e) ``python3 -m authorino_tpu_torch server`` as a
+     subprocess over 16 API-key configs and a config whose callback keeps
+     each Check() in flight after its verdict: 32 gRPC and 8 HTTP Check()s
+     equal to the oracle, its log naming the CUDA device, SIGTERM with 64
+     Check()s in flight — all 64 answered, exit 0 within --drain-timeout
+     + 5 s.
+
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
-reference would pick: native for phases 4, 6 and 8-10, Python for phase
-7's numeric lanes.  The kernels' launch counts in the summary are phase
-10's; each kernel must have launched on the paths of phases 4, 6, 7, 8, 9
-and 10, with the counts zeroed just before each.
+reference would pick: native for phases 4, 6, 8-10 and 12, Python for
+phase 7's numeric lanes.  The kernels' launch counts in the summary are
+phase 12's; each kernel must have launched on the paths of phases 4, 6,
+7, 8, 9, 10 and 12, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -1743,7 +1767,7 @@ def write_manifests(d: Path, configs, key_gen, with_rsa_ca: bool, rsa_ca,
 
 
 def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
-                  n_checks: int = 4096) -> tuple:
+                  n_checks: int = 4096, ctx: dict = None) -> tuple:
     """Phase 10, the control plane on the card: (a) AuthConfig and Secret
     manifests through ``YamlDirSource`` into a default engine (bootstrap
     deny-all answering 503 while the corpus compiles; a burst held to the
@@ -1756,7 +1780,8 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
     corpora, every verdict held to its batch's generation, and device
     memory after ten swaps.  Returns (the kernels' launches in phase 10,
     counts zeroed just before it; the max abs byte error of its batch
-    against plain)."""
+    against plain); leaves the mTLS keys and certificates in ``ctx`` for
+    phase 12."""
     import gc
     import os
     import tempfile
@@ -1784,6 +1809,8 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
     t = time.perf_counter()
     rsa_ca, ec_ca, certs = mtls_material()
     t_keys = time.perf_counter() - t
+    if ctx is not None:
+        ctx["material"] = (rsa_ca, ec_ca, certs)
     base = cp.build_auth_configs(n, CP_RULES)
     rules = cp.config_rules(n, CP_RULES)
     n_mtls = 2 * len(certs)
@@ -2251,6 +2278,697 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
                       kernel_vs_plain(params, db, dev, global_tables=True))
     numbers["launches"] = launches
     report["control_plane"] = numbers
+    return launches, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the serving surfaces
+# ---------------------------------------------------------------------------
+
+SERVE_BURSTS = 3          # timed gRPC bursts; checks/s is their median
+SERVE_HTTP = 256          # burst requests also sent over HTTP /check
+SERVE_LONE = 200          # gRPC Check()s sent one at a time
+ENTRY_CONFIGS = 16        # API-key configs the process entry point serves
+ENTRY_DRAIN_S = 10.0      # its --drain-timeout
+CHECK_METHOD = "/envoy.service.auth.v3.Authorization/Check"
+HEALTH_METHOD = "/grpc.health.v1.Health/Check"
+WRISTBAND_HOST = "wristband.keys"
+SPICEDB_HOST = "spicedb.keys"
+MANAGED = {"authorino.kuadrant.io/managed-by": "authorino"}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def listening(port: int) -> bool:
+    """Whether a listener holds ``port``."""
+    import socket
+
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("0.0.0.0", port))
+        except OSError:
+            return True
+    return False
+
+
+def http_call(port: int, path: str, headers=None, body=None, method=None,
+              timeout: float = 30.0):
+    """(status, headers as [(name, value)], body text) of one request to
+    127.0.0.1:port; (None, [], "") when nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {}, data=body,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.getheaders(), r.read().decode()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.headers.items(), e.read().decode()
+    except OSError:
+        return None, [], ""
+
+
+class FakeSpiceDB:
+    """authzed.api.v1 CheckPermission on loopback (a grpcio generic
+    handler on the caller's loop): HAS_PERMISSION for the subject
+    ``alice``, NO_PERMISSION otherwise."""
+
+    def __init__(self):
+        self.checks = 0
+
+    async def start(self):
+        import grpc
+
+        from authorino_tpu_torch.protos import wire
+
+        async def check(request: bytes, context):
+            self.checks += 1
+            return wire.encode_check_permission_response(
+                2 if b"alice" in request else 1, "zed")
+
+        self.server = grpc.aio.server()
+        self.server.add_generic_rpc_handlers((
+            grpc.method_handlers_generic_handler(
+                "authzed.api.v1.PermissionsService",
+                {"CheckPermission": grpc.unary_unary_rpc_method_handler(
+                    check, request_deserializer=lambda b: b,
+                    response_serializer=lambda b: b)}),))
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        await self.server.start()
+        return self
+
+
+def surface_manifests(d: Path, spicedb_port: int) -> None:
+    """The wristband config (its signing key in a Secret) and the SpiceDB
+    config (its bearer token in a Secret) beside phase 10's manifests.
+    Each AuthConfig carries a resourceVersion, as phase 10's do, so the
+    source's first poll after the start finds the state it serves and
+    skips the rebuild."""
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.utils import pki
+
+    key = pki.private_key_to_pem(pki.generate_ec_private_key(
+        pki.P256, random.Random(12))).decode()
+    anon = {"anon": {"anonymous": {}}}
+    docs = {
+        "wristband.json": {
+            "apiVersion": "authorino.kuadrant.io/v1beta2",
+            "kind": "AuthConfig",
+            "metadata": {"name": "wristband", "namespace": cp.NAMESPACE,
+                         "resourceVersion": "1"},
+            "spec": {"hosts": [WRISTBAND_HOST], "authentication": anon,
+                     "response": {"success": {"headers": {"x-wristband": {
+                         "wristband": {
+                             "issuer": "https://authorino.example/keys/"
+                                       "wristband/x-wristband",
+                             "signingKeyRefs": [{
+                                 "name": "wristband-key",
+                                 "algorithm": "ES256"}]}}}}}}},
+        "wristband-key.json": {
+            "apiVersion": "v1", "kind": "Secret",
+            "metadata": {"name": "wristband-key", "namespace": cp.NAMESPACE,
+                         "labels": dict(MANAGED)},
+            "stringData": {"key.pem": key}},
+        "spicedb.json": {
+            "apiVersion": "authorino.kuadrant.io/v1beta2",
+            "kind": "AuthConfig",
+            "metadata": {"name": "spicedb", "namespace": cp.NAMESPACE,
+                         "resourceVersion": "1"},
+            "spec": {"hosts": [SPICEDB_HOST], "authentication": anon,
+                     "authorization": {"spicedb": {"spicedb": {
+                         "endpoint": f"127.0.0.1:{spicedb_port}",
+                         "insecure": True,
+                         "sharedSecretRef": {"name": "spicedb",
+                                             "key": "token"},
+                         "subject": {"kind": {"value": "user"},
+                                     "name": {"selector":
+                                              "request.headers.x-user"}},
+                         "resource": {"kind": {"value": "doc"},
+                                      "name": {"selector":
+                                               "request.url_path"}},
+                         "permission": {"value": "read"}}}}}},
+        "spicedb-token.json": {
+            "apiVersion": "v1", "kind": "Secret",
+            "metadata": {"name": "spicedb", "namespace": cp.NAMESPACE,
+                         "labels": dict(MANAGED)},
+            "stringData": {"token": "s3cr3t"}},
+    }
+    for name, doc in docs.items():
+        (d / name).write_text(json.dumps(doc))
+
+
+def latency_ms(xs) -> tuple:
+    import numpy as np
+
+    ms = np.sort(np.array(xs)) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def serving_surfaces(report: dict, card: str, dev, material: tuple,
+                     n: int = CP_CONFIGS, n_checks: int = 4096) -> tuple:
+    """Phase 12, the serving surfaces on the card: ``run_server`` (the
+    port's CLI) on phase 10's manifests plus a wristband and a SpiceDB
+    config, as a task on this loop: (a) the bootstrap; (b) phase 10 (a)'s
+    burst through the gRPC server, each response held to the oracle and
+    to the in-process answer, 256 of them over HTTP /check, every batch
+    to the structural contract; (c) health, /metrics, /debug/vars, OIDC
+    discovery, the webhooks, SpiceDB; (d) gRPC checks/s, burst and lone
+    latency, the codec's host µs; then the server drained by cancelling
+    its task.  (e) ``python3 -m authorino_tpu_torch server`` as a
+    subprocess, drained by SIGTERM with 64 Check()s in flight.  Returns
+    (the kernels' launches in (a)-(d), counts zeroed just before them; the
+    max abs byte error of a batch of this corpus against plain)."""
+    import os
+    import signal
+    import tempfile
+
+    import grpc
+
+    from authorino_tpu_torch import cli
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes,
+                                              build_authorization_json)
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.service.grpc_server import (
+        check_response_from_result, request_model_from_proto,
+        request_proto_from_model)
+    from authorino_tpu_torch.utils import rpc
+
+    on_card = dev.type == "cuda"
+    rsa_ca, ec_ca, certs = material
+    base = cp.build_auth_configs(n, CP_RULES)
+    rules = cp.config_rules(n, CP_RULES)
+    n_mtls = 2 * len(certs)
+    reqs, cfgs, known = cp.build_check_requests(n_checks - n_mtls, n)
+    mtls_reqs = [(mtls_request(k, pem), kind, rsa) for k, pem, kind, rsa
+                 in certs * 2]
+    models = reqs + [q for q, _, _ in mtls_reqs]
+    oracle = ([cp.expected_code(q, i, rules, good)
+               for q, i, good in zip(reqs, cfgs, known)]
+              + [mtls_expected(kind, rsa, True)
+                 for _, kind, rsa in mtls_reqs])
+    payloads = [wire.encode_check_request(request_proto_from_model(q))
+                for q in models]
+    ports = {k: free_port() for k in ("grpc", "http", "oidc", "webhooks")}
+    numbers = {"card": card, "ports": ports}
+    swaps = []
+    holder = {}
+
+    def on_engine(engine):
+        holder["engine"] = engine
+        engine.add_swap_listener(lambda: swaps.append(
+            (time.perf_counter(), engine.generation)))
+
+    async def grpc_burst(call, items):
+        """Every payload at once over one channel: (bytes, seconds)."""
+        async def one(p):
+            t = time.perf_counter()
+            raw = await call(p)
+            return raw, time.perf_counter() - t
+
+        return await asyncio.gather(*(one(p) for p in items))
+
+    def hold_wire(k, raw, want_code, in_process):
+        """One gRPC answer: its code and HTTP status the oracle's, its
+        bytes those of the in-process Check()'s response (reason, headers,
+        body, dynamic metadata)."""
+        resp = wire.decode_check_response(raw)
+        status = (resp.denied_response.status.code
+                  if resp.denied_response is not None else 200)
+        if (resp.status.code, status) != (want_code,
+                                          rpc.http_status_for(want_code)):
+            raise AssertionError(f"(b) gRPC check {k}: {resp.status.code}, "
+                                 f"HTTP {status} != oracle {want_code} "
+                                 f"({resp})")
+        want = wire.encode_check_response(
+            check_response_from_result(in_process))
+        if raw != want:
+            raise AssertionError(f"(b) gRPC check {k}: the response differs "
+                                 f"from the in-process answer: "
+                                 f"{resp} != {wire.decode_check_response(want)}")
+
+    async def serve_and_drive(d: Path):
+        fake = await FakeSpiceDB().start()
+        surface_manifests(d, fake.port)
+        argv = ["server", "--watch-dir", str(d), "--debug-profile",
+                "--ext-auth-grpc-port", str(ports["grpc"]),
+                "--ext-auth-http-port", str(ports["http"]),
+                "--oidc-http-port", str(ports["oidc"])]
+        if not on_card:
+            argv += ["--device", "cpu"]
+        args = cli.build_parser().parse_args(argv)
+        a = {}
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(cli.run_server(args, on_engine=on_engine))
+        # ---- (a) the bootstrap ---------------------------------------------
+        while not swaps:
+            if task.done():
+                task.result()
+            await asyncio.sleep(0)
+        engine = holder["engine"]
+        a["bootstrap_swap_s"] = swaps[0][0] - t0
+        res = await engine.check(reqs[0])
+        a["bootstrap_check_in_process"] = [res.code, res.status, res.message]
+        if (res.code, res.status, res.message) != (
+                rpc.PERMISSION_DENIED, 503, "Busy"):
+            raise AssertionError(f"(a) bootstrap: {res}")
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports['grpc']}") as ch:
+            try:
+                await ch.unary_unary(CHECK_METHOD, request_serializer=None)(
+                    payloads[0], timeout=2.0)
+                raise AssertionError("(a) the gRPC port answered before the "
+                                     "first reconcile")
+            except grpc.aio.AioRpcError as e:
+                a["bootstrap_grpc"] = e.code().name
+                if e.code() not in (grpc.StatusCode.UNAVAILABLE,
+                                    grpc.StatusCode.DEADLINE_EXCEEDED):
+                    raise
+        while True:
+            status, _, _ = await asyncio.to_thread(
+                http_call, ports["http"], "/readyz", timeout=2)
+            if status == 200:
+                break
+            if task.done():
+                task.result()
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("(a) /readyz never turned 200")
+            await asyncio.sleep(0.05)
+        a["ready_s"] = time.perf_counter() - t0
+        a["generation"] = engine.generation
+        if engine.generation != 2:
+            raise AssertionError(f"(a) generation {engine.generation} after "
+                                 f"the first sync (want 2: the deny-all, "
+                                 f"then the corpus)")
+        log(f"serving surfaces (a): bootstrap deny-all swapped in "
+            f"{a['bootstrap_swap_s']:.3f}s (an in-process Check() meanwhile "
+            f"{a['bootstrap_check_in_process']}; a gRPC Check() "
+            f"{a['bootstrap_grpc']}: the listeners bind after the first "
+            f"reconcile, as the reference's), /readyz 200 after "
+            f"{a['ready_s']:.2f}s")
+
+        # ---- (b) the burst -------------------------------------------------
+        b = {}
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports['grpc']}") as ch:
+            call = ch.unary_unary(CHECK_METHOD)
+            rec0, l0 = len(engine.batch_records), fk.launches
+            t = time.perf_counter()
+            out = await grpc_burst(call, payloads)
+            b["first_burst_s"] = time.perf_counter() - t
+            recs = checked_records(engine, rec0)
+            device_batches = sum(r["device_rows"] > 0 for r in recs)
+            if on_card and fk.launches - l0 != device_batches:
+                raise AssertionError(f"(b) {fk.launches - l0} launches for "
+                                     f"{device_batches} batches with a "
+                                     f"device row")
+            b["first_burst"] = {k: sum(r[k] for r in recs) for k in (
+                "rows", "device_rows", "dedup_rows", "cache_rows",
+                "launches", "plain_calls")}
+            b["first_burst"]["batches"] = len(recs)
+            in_process = await asyncio.gather(*(engine.check(q)
+                                                for q in models))
+            for k, ((raw, _), want, res) in enumerate(zip(out, oracle,
+                                                         in_process)):
+                hold_wire(k, raw, want, res)
+            b["allowed"] = sum(c == rpc.OK for c in oracle)
+            # HTTP /check: API-key requests as Envoy's HTTP filter sends
+            # them (no metadata: the claims overrides resolve to nothing)
+            picks = [j for j in range(0, len(reqs), max(1, len(reqs)
+                                                        // SERVE_HTTP))
+                     ][:SERVE_HTTP]
+
+            def http_model(q):
+                return CheckRequestModel(http=HttpRequestAttributes(
+                    method=q.http.method, path=q.http.path, host=q.http.host,
+                    headers=dict(q.http.headers)))
+
+            http_out = await asyncio.gather(*(asyncio.to_thread(
+                http_call, ports["http"], reqs[j].http.path,
+                dict(reqs[j].http.headers, Host=reqs[j].http.host),
+                None, reqs[j].http.method) for j in picks))
+            http_in = await asyncio.gather(*(engine.check(http_model(reqs[j]))
+                                             for j in picks))
+            http_codes = {}
+            for j, (status, headers, body), res in zip(picks, http_out,
+                                                       http_in):
+                want = cp.expected_code(http_model(reqs[j]), cfgs[j], rules,
+                                        known[j])
+                reason = dict((k.lower(), v) for k, v in headers).get(
+                    "x-ext-auth-reason")
+                if (status != rpc.http_status_for(want)
+                        or res.code != want
+                        or reason != (res.message or None if want else None)
+                        or body != (res.body or "")):
+                    raise AssertionError(
+                        f"(b) HTTP check {j}: {status} {reason!r} {body!r} "
+                        f"(oracle {want}; in process {res})")
+                http_codes[status] = http_codes.get(status, 0) + 1
+            b["http_statuses"] = http_codes
+            recs = checked_records(engine, rec0)
+            log(f"serving surfaces (b): {len(payloads)} concurrent gRPC "
+                f"Check()s over one channel equal the oracle and the "
+                f"in-process answer byte for byte ({b['allowed']} allowed); "
+                f"{len(picks)} over HTTP /check equal the oracle "
+                f"{http_codes}; {len(recs)} batches keep the structural "
+                f"contract; first burst {b['first_burst']}")
+
+            # ---- (c) the surfaces ------------------------------------------
+            c = {}
+            health = ch.unary_unary(
+                HEALTH_METHOD,
+                request_serializer=wire.encode_health_request,
+                response_deserializer=wire.decode_health_response)
+            hr = await health(wire.HealthCheckRequest())
+            if hr.status != wire.SERVING:
+                raise AssertionError(f"(c) health {hr}")
+            status, _, metrics = await asyncio.to_thread(
+                http_call, ports["http"], "/metrics")
+            c["metrics_has_response_status"] = \
+                "auth_server_response_status" in metrics
+            status_v, _, dvars = await asyncio.to_thread(
+                http_call, ports["http"], "/debug/vars")
+            c["debug_vars_generation"] = json.loads(dvars)["engine"][
+                "generation"]
+            if status != 200 or not c["metrics_has_response_status"] \
+                    or c["debug_vars_generation"] != engine.generation:
+                raise AssertionError(f"(c) /metrics {status}, /debug/vars "
+                                     f"{status_v}: {c}")
+            wb = engine.lookup(WRISTBAND_HOST).runtime.response[0].evaluator
+            for doc, want in (("openid-configuration", wb.openid_config()),
+                              ("openid-connect/certs", wb.jwks())):
+                status, _, got = await asyncio.to_thread(
+                    http_call, ports["oidc"],
+                    f"/{cp.NAMESPACE}/wristband/x-wristband/.well-known/{doc}")
+                if (status, got) != (200, want):
+                    raise AssertionError(f"(c) OIDC {doc}: {status} {got!r}")
+            wh = asyncio.ensure_future(cli.run_webhooks(
+                cli.build_parser().parse_args(
+                    ["webhooks", "--webhook-service-port",
+                     str(ports["webhooks"])])))
+            try:
+                resource = json.loads(json.dumps(base[0]))
+                conv = {"request": {
+                    "uid": "u1",
+                    "desiredAPIVersion": "authorino.kuadrant.io/v1beta2",
+                    "objects": [resource]}}
+                review = {"request": {"uid": "u2", "operation": "CREATE",
+                                      "object": dict(resource, spec={})}}
+                while not listening(ports["webhooks"]):
+                    await asyncio.sleep(0.02)
+                s1, _, r1 = await asyncio.to_thread(
+                    http_call, ports["webhooks"], "/convert",
+                    {"Content-Type": "application/json"},
+                    json.dumps(conv).encode())
+                s2, _, r2 = await asyncio.to_thread(
+                    http_call, ports["webhooks"], "/validate-authconfig",
+                    {"Content-Type": "application/json"},
+                    json.dumps(review).encode())
+            finally:
+                wh.cancel()
+                try:
+                    await wh
+                except asyncio.CancelledError:
+                    pass
+            r1, r2 = json.loads(r1), json.loads(r2)
+            converted = r1["response"]["convertedObjects"][0]
+            if (s1, s2) != (200, 200) or r1["response"]["result"] != {
+                    "status": "Success"} or converted["apiVersion"] != \
+                    "authorino.kuadrant.io/v1beta2" or \
+                    r2["response"]["allowed"] is not False:
+                raise AssertionError(f"(c) webhooks: {s1} {r1} {s2} {r2}")
+            c["webhooks"] = {"converted": converted["apiVersion"],
+                             "validate_message": r2["response"]["status"][
+                                 "message"]}
+            db_codes = []
+            for user in ("alice", "bob"):
+                q = CheckRequestModel(http=HttpRequestAttributes(
+                    method="GET", path="/doc-1", host=SPICEDB_HOST,
+                    headers={"x-user": user}))
+                raw = await call(wire.encode_check_request(
+                    request_proto_from_model(q)))
+                db_codes.append(wire.decode_check_response(raw).status.code)
+            if db_codes != [rpc.OK, rpc.PERMISSION_DENIED] or fake.checks != 2:
+                raise AssertionError(f"(c) SpiceDB: {db_codes}, "
+                                     f"{fake.checks} CheckPermission calls")
+            c["spicedb"] = db_codes
+            log(f"serving surfaces (c): gRPC health SERVING; /metrics carries "
+                f"auth_server_response_status; /debug/vars generation "
+                f"{c['debug_vars_generation']}; OIDC discovery and JWKS equal "
+                f"the wristband's; the webhooks converted one review and "
+                f"refused one ({c['webhooks']['validate_message']!r}); "
+                f"SpiceDB alice {db_codes[0]}, bob {db_codes[1]}")
+
+            # ---- (d) numbers -----------------------------------------------
+            def counts(before):
+                return {k: engine.stats[k] - before[k] for k in (
+                    "batches", "rows", "device_rows", "cache_rows",
+                    "launches")}
+
+            rates, lat, cuts = [], [], []
+            for _ in range(SERVE_BURSTS):
+                st0 = dict(engine.stats)
+                t = time.perf_counter()
+                out_t = await grpc_burst(call, payloads)
+                rates.append(len(payloads) / (time.perf_counter() - t))
+                lat += [s for _, s in out_t]
+                cuts.append(counts(st0))
+            # the same requests as CheckRequestModels straight into
+            # engine.check() on this engine, beside the wire's bursts
+            st0 = dict(engine.stats)
+            t = time.perf_counter()
+            timed = await timed_checks(engine, models)
+            in_process_s = time.perf_counter() - t
+            in_process_cuts = counts(st0)
+            lone = []
+            for p in payloads[:SERVE_LONE]:
+                t = time.perf_counter()
+                await call(p)
+                lone.append(time.perf_counter() - t)
+            launches = {"fused_megakernel": fk.launches,
+                        "probe_add_one": fk.probe_launches}
+            # /debug/profile: a torch.profiler capture during a burst of
+            # requests the verdict cache has not seen
+            fresh, _, _ = cp.build_check_requests(1024, n, seed=31)
+            prof = asyncio.ensure_future(asyncio.to_thread(
+                http_call, ports["http"], "/debug/profile?seconds=1.5",
+                None, None, None, 60))
+            await asyncio.sleep(0.3)
+            await grpc_burst(call, [wire.encode_check_request(
+                request_proto_from_model(q)) for q in fresh])
+            status, _, body = await prof
+            if status != 200:
+                raise AssertionError(f"(d) /debug/profile {status}: {body}")
+            trace = json.loads((Path(json.loads(body)["trace_dir"])
+                                / "trace.json").read_text())
+            events = trace.get("traceEvents", [])
+            profile = {"events": len(events),
+                       "kernel_events": sum(ev.get("cat") == "kernel"
+                                            for ev in events),
+                       "megakernel_events": sum(
+                           ev.get("cat") == "kernel"
+                           and "fused" in ev.get("name", "")
+                           for ev in events)}
+        d_ = {"checks_per_s": rates,
+              "checks_per_s_median": statistics.median(rates),
+              "first_burst_checks_per_s": len(payloads) / b["first_burst_s"],
+              "burst_batches": cuts,
+              "in_process_checks_per_s": len(models) / in_process_s,
+              "in_process_batches": in_process_cuts}
+        d_["in_process_latency_ms_p50"], d_["in_process_latency_ms_p99"] = \
+            latency_ms([s for _, s in timed])
+        d_["burst_latency_ms_p50"], d_["burst_latency_ms_p99"] = \
+            latency_ms(lat)
+        d_["first_burst_latency_ms_p50"], \
+            d_["first_burst_latency_ms_p99"] = latency_ms(
+                [s for _, s in out])
+        d_["lone_latency_ms_p50"], d_["lone_latency_ms_p99"] = \
+            latency_ms(lone)
+        # the codec's host time per Check(): the request's decode, its
+        # CheckRequestModel, the response's encode
+        responses = [check_response_from_result(r) for r in in_process]
+        decoded = [wire.decode_check_request(p) for p in payloads]
+        for key, fn, items in (
+                ("decode_us", wire.decode_check_request, payloads),
+                ("model_us", request_model_from_proto, decoded),
+                ("encode_us", wire.encode_check_response, responses)):
+            t = time.perf_counter()
+            for _ in range(3):
+                for x in items:
+                    fn(x)
+            d_[key] = (time.perf_counter() - t) / (3 * len(items)) * 1e6
+        d_["codec_us_per_check"] = d_["decode_us"] + d_["encode_us"]
+        d_["launches"] = dict(launches)
+        d_["debug_profile"] = profile
+
+        # the server drains on cancellation and lets every port go
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        bound = [p for k, p in ports.items() if listening(p)]
+        if bound:
+            raise AssertionError(f"ports still bound after the drain: {bound}")
+        await fake.server.stop(None)
+        return engine, a, b, c, d_, launches
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            cp.PolicyRegistry(OPA_V1) as registry:
+        d = Path(tmp)
+        write_manifests(d, base, [0] * n, True, rsa_ca, ec_ca, registry.url,
+                        ["1"] * n)
+        fk.reset_counts()
+        reset_host_counts()
+        engine, a, b, c, d_, launches = asyncio.run(serve_and_drive(d))
+    enc = encoder_used(engine, engine.stats["batches"])
+    require_encoder("serving surfaces", enc, "native")
+    numbers.update({"bootstrap": a, "burst": b, "surfaces": c,
+                    "numbers": d_, "configs": n + CP_MTLS + 3,
+                    "encoder": enc})
+
+    # the mega-kernel on this corpus against its plain version, after the
+    # counts were read (comparison launches do not count)
+    policy, params = engine._snapshot.policy, engine._snapshot.params
+    docs, rows = [], []
+    for req, i, good in zip(reqs, cfgs, known):
+        if good and len(docs) < 256:
+            claims = req.metadata_context["filter_metadata"][cp.JWT_FILTER][
+                "verified_jwt"]
+            docs.append(build_authorization_json(req, {"identity": claims}))
+            rows.append(policy.config_ids[f"{cp.NAMESPACE}/key-{i}"])
+    db = pack_batch(policy, encode_batch(policy, docs, rows))
+    max_err = 0
+    if on_card:
+        max_err = max(kernel_vs_plain(params, db, dev),
+                      kernel_vs_plain(params, db, dev, global_tables=True))
+
+    # ---- (e) the process entry point -----------------------------------------
+    e = {}
+    eports = [free_port() for _ in range(3)]
+    n_e = ENTRY_CONFIGS
+    e_rules = cp.config_rules(n_e, CP_RULES)
+    e_reqs, e_cfgs, e_known = cp.build_check_requests(32, n_e, seed=9)
+    with tempfile.TemporaryDirectory() as tmp, \
+            cp.SlowEndpoint(0.3) as slow:
+        d2 = Path(tmp)
+        docs = cp.build_auth_configs(n_e, CP_RULES) + [
+            cp.api_key_secret(i) for i in range(n_e)] + [
+            cp.callback_auth_config(slow.url + "/done")]
+        for k, doc in enumerate(docs):
+            (d2 / f"{k:03d}.json").write_text(json.dumps(doc))
+        log_path = Path("smoke_out") / "entry_point.log"
+        log_path.parent.mkdir(exist_ok=True)
+        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
+                "--watch-dir", str(d2), "--ext-auth-grpc-port",
+                str(eports[0]), "--ext-auth-http-port", str(eports[1]),
+                "--oidc-http-port", str(eports[2]), "--drain-timeout",
+                str(ENTRY_DRAIN_S)]
+        if not on_card:
+            argv += ["--device", "cpu"]
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(argv, cwd=str(root), env=env,
+                                    stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            while http_call(eports[1], "/readyz", timeout=2)[0] != 200:
+                if proc.poll() is not None:
+                    raise AssertionError(f"(e) the server exited "
+                                         f"{proc.returncode}: "
+                                         f"{log_path.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("(e) the server never got ready")
+                time.sleep(0.1)
+            e["ready_s"] = time.perf_counter() - t0
+            e_payloads = [wire.encode_check_request(
+                request_proto_from_model(q)) for q in e_reqs]
+            cb_payload = wire.encode_check_request(wire.CheckRequest(
+                attributes=wire.AttributeContext(request=wire.Request(
+                    http=wire.HttpRequest(method="GET", path="/",
+                                          host=cp.CALLBACK_HOST)))))
+
+            async def drive_entry():
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{eports[0]}") as ch:
+                    call = ch.unary_unary(CHECK_METHOD)
+                    got = [wire.decode_check_response(r).status.code
+                           for r in await asyncio.gather(
+                               *(call(p) for p in e_payloads))]
+                    http = [await asyncio.to_thread(
+                        http_call, eports[1], q.http.path,
+                        dict(q.http.headers, Host=q.http.host), None,
+                        q.http.method) for q in e_reqs[:8]]
+                    futs = [asyncio.ensure_future(call(cb_payload))
+                            for _ in range(64)]
+                    while slow.hits < 8:
+                        await asyncio.sleep(0.01)
+                    await asyncio.sleep(0.1)
+                    proc.send_signal(signal.SIGTERM)
+                    t_term = time.perf_counter()
+                    answers = await asyncio.gather(*futs,
+                                                   return_exceptions=True)
+                    return got, http, answers, t_term
+
+            got, http, answers, t_term = asyncio.run(drive_entry())
+            rc = proc.wait(timeout=ENTRY_DRAIN_S + 30)
+            e["sigterm_to_exit_s"] = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        e["callback_hits"] = slow.hits
+    text = log_path.read_text()
+    want = [cp.expected_code(q, i, e_rules, good)
+            for q, i, good in zip(e_reqs, e_cfgs, e_known)]
+    if got != want:
+        raise AssertionError(f"(e) gRPC {got} != oracle {want}")
+    http_want = [rpc.http_status_for(cp.expected_code(
+        CheckRequestModel(http=HttpRequestAttributes(
+            method=q.http.method, path=q.http.path, host=q.http.host,
+            headers=dict(q.http.headers))), i, e_rules, good))
+        for q, i, good in zip(e_reqs[:8], e_cfgs, e_known)]
+    if [s for s, _, _ in http] != http_want:
+        raise AssertionError(f"(e) HTTP {[s for s, _, _ in http]} != "
+                             f"{http_want}")
+    codes = [wire.decode_check_response(r).status.code
+             if isinstance(r, bytes) else repr(r) for r in answers]
+    device_named = (f"policy engine on cuda" in text) if on_card else \
+        ("policy engine on cpu" in text)
+    if (rc != 0 or codes != [rpc.OK] * 64 or e["callback_hits"] != 64
+            or e["sigterm_to_exit_s"] > ENTRY_DRAIN_S + 5
+            or "drain complete" not in text or not device_named):
+        raise AssertionError(f"(e) exit {rc} after "
+                             f"{e['sigterm_to_exit_s']:.2f}s, in-flight "
+                             f"answers {codes}, {e['callback_hits']} "
+                             f"callbacks; log: {text[-3000:]}")
+    e.update({"exit_code": rc, "grpc_codes": got,
+              "http_statuses": [s for s, _, _ in http],
+              "device_line": next((ln for ln in text.splitlines()
+                                   if "policy engine on" in ln), "")})
+    numbers["entry_point"] = e
+    log(f"serving surfaces (e): python3 -m authorino_tpu_torch server ready "
+        f"in {e['ready_s']:.1f}s ({e['device_line'].split(' INFO ')[-1]}); "
+        f"32 gRPC and 8 HTTP Check()s equal the oracle; SIGTERM with 64 "
+        f"Check()s in flight: all 64 answered OK, exit {rc} after "
+        f"{e['sigterm_to_exit_s']:.2f}s (--drain-timeout {ENTRY_DRAIN_S:g})")
+    numbers["launches"] = launches
+    report["serving_surfaces"] = numbers
     return launches, max_err
 
 
@@ -2910,7 +3628,8 @@ def main() -> int:
         f"{jp['check_latency_ms_p99']:.2f} ms")
 
     # ---- 10. the control plane --------------------------------------------
-    cp_launches, cp_err = control_plane(report, card, dev)
+    cp_ctx = {}
+    cp_launches, cp_err = control_plane(report, card, dev, ctx=cp_ctx)
     max_err = max(max_err, cp_err)
     cpn = report["control_plane"]
     a, kb, sw = cpn["manifests"], cpn["kubernetes"], cpn["swaps"]
@@ -2962,18 +3681,55 @@ def main() -> int:
                "names": ns_names},
               ns_policy, ns_docs, ns_rows, numbers["batch_latency_ms_p50"])
 
+    # ---- 12. the serving surfaces -----------------------------------------
+    serve_launches, serve_err = serving_surfaces(report, card, dev,
+                                                 cp_ctx["material"])
+    max_err = max(max_err, serve_err)
+    sv = report["serving_surfaces"]
+    sn, sb = sv["numbers"], sv["burst"]
+    log(f"[{card}] serving surfaces: {sv['configs']} AuthConfigs ready in "
+        f"{sv['bootstrap']['ready_s']:.2f}s; gRPC "
+        f"{sn['checks_per_s_median']:.0f} checks/s median of "
+        f"{SERVE_BURSTS} bursts ({[round(r) for r in sn['checks_per_s']]}; "
+        f"the first, cache cold: {sn['first_burst_checks_per_s']:.0f}), "
+        f"burst p50 {sn['burst_latency_ms_p50']:.2f} ms p99 "
+        f"{sn['burst_latency_ms_p99']:.2f} ms (first burst "
+        f"{sn['first_burst_latency_ms_p50']:.2f} / "
+        f"{sn['first_burst_latency_ms_p99']:.2f} ms); a lone gRPC Check() "
+        f"p50 {sn['lone_latency_ms_p50']:.3f} ms p99 "
+        f"{sn['lone_latency_ms_p99']:.3f} ms ({SERVE_LONE} one at a time); "
+        f"rows per batch in the gRPC bursts "
+        f"{[round(c['rows'] / max(1, c['batches']), 2) for c in sn['burst_batches']]}"
+        f", launches {[c['launches'] for c in sn['burst_batches']]}; the same "
+        f"requests into this engine's check() in process: "
+        f"{sn['in_process_checks_per_s']:.0f} checks/s, p50 "
+        f"{sn['in_process_latency_ms_p50']:.2f} ms p99 "
+        f"{sn['in_process_latency_ms_p99']:.2f} ms, "
+        f"{sn['in_process_batches']['rows'] / max(1, sn['in_process_batches']['batches']):.2f}"
+        f" rows per batch; phase 10 (a) engine.check() in this run: "
+        f"{a['checks_per_s']:.0f} checks/s, p50 "
+        f"{a['check_latency_ms_p50']:.2f} ms p99 "
+        f"{a['check_latency_ms_p99']:.2f} ms; codec host per Check(): "
+        f"decode {sn['decode_us']:.1f} us + encode {sn['encode_us']:.1f} us "
+        f"= {sn['codec_us_per_check']:.1f} us (CheckRequestModel "
+        f"{sn['model_us']:.1f} us); first burst {sb['first_burst']}; "
+        f"phase 12 launches: {serve_launches['fused_megakernel']} "
+        f"mega-kernel, {serve_launches['probe_add_one']} probe; "
+        f"/debug/profile during a fresh burst: {sn['debug_profile']}; "
+        f"{fmt_encoder(sv['encoder'])}")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": cp_launches["fused_megakernel"],
+         "launches": serve_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": cp_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": serve_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -2982,12 +3738,14 @@ def main() -> int:
     for name in main_launches:
         if min(main_launches[name], path_launches[name],
                opa_launches[name], jwt_launches[name],
-               core_launches[name], cp_launches[name]) < 1:
+               core_launches[name], cp_launches[name],
+               serve_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
                 f"request path {path_launches}, OPA path {opa_launches}, "
                 f"JWT path {jwt_launches}, serving core {core_launches}, "
-                f"control plane {cp_launches}")
+                f"control plane {cp_launches}, serving surfaces "
+                f"{serve_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

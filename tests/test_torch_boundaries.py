@@ -27,8 +27,11 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def port_modules():
+    """Every module of the port but ``__main__`` (importing it runs the
+    CLI; tests/test_torch_cli.py runs it)."""
     return sorted(m.name for m in pkgutil.walk_packages(
-        authorino_tpu_torch.__path__, "authorino_tpu_torch."))
+        authorino_tpu_torch.__path__, "authorino_tpu_torch.")
+        if m.name != "authorino_tpu_torch.__main__")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -68,17 +71,32 @@ CONTROL_PLANE_MODULES = (
     "models.control_plane")
 
 
+# the serving modules: the only ones that import ``grpc`` and ``aiohttp``
+# (``Authzed.call`` imports ``grpc`` at its first call)
+SERVING_MODULES = ("service", "service.grpc_server", "service.http_server",
+                   "service.oidc_server", "service.webhooks", "cli")
+
+
+def below_serving(mods):
+    return [m for m in mods if m.split(".", 1)[1] not in SERVING_MODULES]
+
+
 def test_port_imports_with_service_libraries_blocked():
-    """The card's machine has neither ``aiohttp`` nor ``cryptography``:
-    every module of the port (OPA and the Kubernetes reviews among them)
-    imports with both blocked, and with ``jax`` blocked too."""
+    """Every module of the port below the serving modules (OPA, the
+    Kubernetes reviews, SpiceDB and the protobuf codec among them) imports
+    with ``aiohttp``, ``grpc`` and ``cryptography`` blocked, and with
+    ``jax`` blocked too."""
     mods = port_modules()
     for m in ("evaluators.authorization.opa", "evaluators.identity.kubernetes",
-              *JWT_AND_HTTP_MODULES, *CONTROL_PLANE_MODULES):
+              "evaluators.authorization.authzed", "protos.wire",
+              *JWT_AND_HTTP_MODULES, *CONTROL_PLANE_MODULES, *SERVING_MODULES):
         assert f"authorino_tpu_torch.{m}" in mods, m
+    mods = below_serving(mods)
+    assert "authorino_tpu_torch.protos.wire" in mods
     code = (
         "import importlib, sys\n"
-        "BLOCKED = ('aiohttp', 'cryptography', 'jax', 'authorino_tpu')\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'cryptography', 'jax', "
+        "'authorino_tpu')\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
@@ -93,6 +111,33 @@ def test_port_imports_with_service_libraries_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED" in proc.stdout
+
+
+def test_serving_modules_import_without_the_reference_or_its_libraries():
+    """The serving modules import with ``jax``, the JAX package,
+    ``google.protobuf``, ``cryptography`` and ``opentelemetry`` blocked:
+    ``grpc`` and ``aiohttp`` are all they add, over the port's own
+    protobuf codec."""
+    mods = [f"authorino_tpu_torch.{m}" for m in SERVING_MODULES]
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('jax', 'authorino_tpu', 'google.protobuf', "
+        "'cryptography', 'opentelemetry')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if any(name == b or name.startswith(b + '.') "
+        "for b in BLOCKED):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print('SERVING', 'grpc' in sys.modules, 'aiohttp' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SERVING True True" in proc.stdout
 
 
 def test_chip_smoke_imports_neither():
@@ -214,11 +259,12 @@ BLOCKED = ("jax", "authorino_tpu", "grpc", "google.protobuf", "aiohttp",
 
 
 def test_request_path_runs_without_the_reference_or_its_services():
-    """Every module of the port imports, and an anonymous and a
-    plain-identity Check() are answered on the CPU, in a process where
-    JAX, the JAX package and the serving and crypto libraries cannot be
-    imported: the card's machine has none of them."""
-    mods = port_modules()
+    """Every module of the port below the serving modules imports, a
+    ``spicedb`` config translates, and an anonymous and a plain-identity
+    Check() are answered on the CPU, in a process where JAX, the JAX
+    package and the serving and crypto libraries cannot be imported: the
+    request path needs none of them."""
+    mods = below_serving(port_modules())
     for m in ("pipeline.pipeline", "controllers.translate", "index.index",
               "evaluators.identity.api_key", "utils.metrics", "k8s.client",
               "runtime.provenance", "authjson.wellknown", "runtime.admission",
@@ -242,11 +288,15 @@ def test_request_path_runs_without_the_reference_or_its_services():
         "plain = {'hosts': ['plain.test'], 'authentication': {'p': {'plain': "
         "{'selector': 'request.headers.x-claims|@fromstr'}}}, "
         "'authorization': {'r': rule}}\n"
+        "spicedb = {'hosts': ['db.test'], 'authentication': {'a': "
+        "{'anonymous': {}}}, 'authorization': {'s': {'spicedb': {"
+        "'endpoint': '127.0.0.1:1', 'insecure': True}}}}\n"
         "async def main():\n"
         "    engine = PolicyEngine(device='cpu')\n"
         "    engine.apply_snapshot([\n"
         "        await translate_auth_config('anon', 'ns', anon, engine=engine),\n"
-        "        await translate_auth_config('plain', 'ns', plain, engine=engine)])\n"
+        "        await translate_auth_config('plain', 'ns', plain, engine=engine),\n"
+        "        await translate_auth_config('db', 'ns', spicedb, engine=engine)])\n"
         "    def req(host, **h):\n"
         "        return CheckRequestModel(http=HttpRequestAttributes(\n"
         "            method='GET', path='/', host=host, headers=h))\n"
@@ -545,3 +595,24 @@ def test_native_encoder_runs_without_the_reference_or_its_services():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert ("ENC 64 {'object': 1, 'json': 1, 'bailed': 0} BAD []"
             in proc.stdout), proc.stdout
+
+
+def test_package_data_ships_every_kernel_and_encoder_source():
+    """An installed port builds its kernel and its host encoder at first
+    use: every file under ``authorino_tpu_torch/*/csrc/`` must match a
+    ``package-data`` pattern of ``pyproject.toml``, and the console script
+    must name the port's CLI."""
+    import fnmatch
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = conf["tool"]["setuptools"]["package-data"]["authorino_tpu_torch"]
+    pkg = ROOT / "authorino_tpu_torch"
+    sources = sorted(str(f.relative_to(pkg)) for f in pkg.glob("*/csrc/*")
+                     if f.is_file())
+    assert "ops/csrc/fused_kernel.cu" in sources
+    assert "native/csrc/encoder.cpp" in sources
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, pat) for pat in patterns), src
+    assert conf["project"]["scripts"]["authorino-tpu-torch"] == \
+        "authorino_tpu_torch.cli:main"

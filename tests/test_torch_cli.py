@@ -1,0 +1,431 @@
+"""The port's process entry point (``authorino_tpu_torch/cli.py``,
+``__main__.py``) against the reference's:
+
+* every flag of the reference's ``server`` and ``webhooks`` parsers
+  parses to the same value in the port's, under the defaults, under their
+  environment variables and given on the command line (``--jax-platform``
+  is the one exception: the port has ``--device``);
+* a flag of a plane the port does not hold yet stops the start, naming
+  it; ``--native-frontend on`` raises;
+* ``run_server --device cpu --watch-dir`` gets ready on free ports and
+  answers gRPC and HTTP Check()s equal to the reference's, then drains on
+  cancellation;
+* ``python -m authorino_tpu_torch version``, and ``server --device cpu``
+  in a subprocess that exits 0 on SIGTERM within ``--drain-timeout``;
+* without a card and without ``--device cpu`` the start raises before
+  anything binds."""
+
+import asyncio
+import json
+import os
+import re
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import grpc
+import pytest
+import torch
+
+from authorino_tpu import cli as ref_cli
+from authorino_tpu import protos as ref_protos
+from authorino_tpu_torch import cli as port_cli
+from authorino_tpu_torch.models import control_plane as cp
+from authorino_tpu_torch.protos import wire
+from authorino_tpu_torch.service import grpc_server as port_grpc
+
+ROOT = Path(__file__).resolve().parent.parent
+pb = ref_protos.external_auth_pb2
+CHECK = "/envoy.service.auth.v3.Authorization/Check"
+TIMEOUT = 60
+
+
+def env_names():
+    """Every environment variable the reference's parser reads."""
+    src = (ROOT / "authorino_tpu" / "cli.py").read_text()
+    return sorted(set(re.findall(r'env_var\("([A-Z_]+)"', src))
+                  - {"JAX_PLATFORM"})
+
+
+def parsed(module, argv):
+    ns = vars(module.build_parser().parse_args(argv))
+    ns.pop("jax_platform", None)
+    ns.pop("device", None)
+    return ns
+
+
+@pytest.mark.parametrize("command", ["server", "webhooks", "version"])
+def test_defaults_parse_equal(command, monkeypatch):
+    for name in env_names():
+        monkeypatch.delenv(name, raising=False)
+    assert parsed(port_cli, [command]) == parsed(ref_cli, [command])
+
+
+@pytest.mark.parametrize("value", ["1", "0", "7", "2.5", "true", "x"])
+def test_environment_variables_parse_equal(value, monkeypatch):
+    for name in env_names():
+        monkeypatch.setenv(name, value)
+    for command in ("server", "webhooks"):
+        assert parsed(port_cli, [command]) == parsed(ref_cli, [command])
+
+
+def every_flag_argv(parser_module, command):
+    """The reference's ``command`` flags, each given on the command line
+    (a store_true flag bare, a choice its last choice, any other "3")."""
+    parser = parser_module.build_parser()
+    sub = next(a for a in parser._actions
+               if isinstance(a, type(parser._subparsers._group_actions[0])))
+    argv = [command]
+    for action in sub.choices[command]._actions:
+        if not action.option_strings or action.dest in ("help",
+                                                        "jax_platform"):
+            continue
+        flag = action.option_strings[0]
+        if action.nargs == 0:
+            argv.append(flag)
+        elif action.choices:
+            argv += [flag, list(action.choices)[-1]]
+        else:
+            argv += [flag, "3"]
+    return argv
+
+
+@pytest.mark.parametrize("command", ["server", "webhooks"])
+def test_every_flag_given_parses_equal(command):
+    argv = every_flag_argv(ref_cli, command)
+    assert len(argv) > (80 if command == "server" else 4)
+    assert parsed(port_cli, argv) == parsed(ref_cli, argv)
+    assert every_flag_argv(port_cli, command) == argv + (
+        ["--device", "3"] if command == "server" else [])
+
+
+def test_deployment_args_parse():
+    for argv in (["server", "--in-cluster", "--enable-leader-election"],
+                 ["webhooks"]):
+        assert parsed(port_cli, argv) == parsed(ref_cli, argv)
+
+
+def server_args(*extra, watch_dir=None):
+    argv = ["server", "--device", "cpu", "--ext-auth-grpc-port",
+            str(free_port()), "--ext-auth-http-port", str(free_port()),
+            "--oidc-http-port", str(free_port()), "--drain-timeout", "5"]
+    if watch_dir is not None:
+        argv += ["--watch-dir", str(watch_dir)]
+    return port_cli.build_parser().parse_args(argv + list(extra))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def listening(port: int) -> bool:
+    """Whether a listener holds ``port`` (a closed server's connections in
+    TIME_WAIT do not count)."""
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("0.0.0.0", port))
+        except OSError:
+            return True
+    return False
+
+
+def run(coro):
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(asyncio.wait_for(coro, 120))
+    finally:
+        loop.close()
+
+
+@pytest.mark.parametrize("dest", sorted(port_cli.UNPORTED_FLAGS))
+def test_an_unported_planes_flag_stops_the_start(dest):
+    inert, plane = port_cli.UNPORTED_FLAGS[dest]
+    flag = "--" + dest.replace("_", "-")
+    extra = ([flag] if isinstance(inert, bool)
+             else [flag, "ns/a=2"] if isinstance(inert, list)
+             else [flag, "/x" if isinstance(inert, str) else "9"])
+    args = server_args(*extra)
+    with pytest.raises(SystemExit, match=re.escape(flag)) as e:
+        run(port_cli.run_server(args))
+    assert "ROADMAP.md queue 1 item" in str(e.value)
+
+
+def test_other_refusals_and_off_switches():
+    with pytest.raises(SystemExit, match="--kernel-lane"):
+        run(port_cli.run_server(server_args("--kernel-lane", "matmul")))
+    with pytest.raises(RuntimeError, match="native frontend"):
+        run(port_cli.run_server(server_args("--native-frontend", "on")))
+    # flags that only turn a plane off are accepted
+    port_cli.refuse_unported(server_args(
+        "--no-brownout", "--no-lane-select", "--no-speculative-dispatch",
+        "--no-tenant-qos", "--no-flight-recorder", "--no-metadata-prefetch",
+        "--kernel-lane", "fused"))
+
+
+def test_without_a_card_the_start_raises_before_binding():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device exists")
+    args = port_cli.build_parser().parse_args(
+        ["server", "--ext-auth-http-port", str(free_port())])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(port_cli.run_server(args))
+    assert not listening(args.ext_auth_http_port)
+
+
+def write_manifests(d, n=4):
+    docs = cp.build_auth_configs(n, 3) + [cp.api_key_secret(i)
+                                          for i in range(n)]
+    for k, doc in enumerate(docs):
+        (d / f"{k}.json").write_text(json.dumps(doc))
+
+
+def wire_request(model) -> bytes:
+    return wire.encode_check_request(port_grpc.request_proto_from_model(model))
+
+
+def http_get(port, path, headers=None, timeout=10):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def reference_answers(d, reqs):
+    """The reference's gRPC CheckResponses and HTTP statuses for ``reqs``
+    over the same manifests (its reconciler, source, servers)."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from authorino_tpu.controllers.reconciler import (AuthConfigReconciler,
+                                                      SecretReconciler)
+    from authorino_tpu.controllers.sources import YamlDirSource
+    from authorino_tpu.k8s.client import InMemoryCluster
+    from authorino_tpu.runtime import PolicyEngine
+    from authorino_tpu.service.grpc_server import build_server
+    from authorino_tpu.service.http_server import build_app
+
+    async def body():
+        engine = PolicyEngine(max_batch=16, mesh=None, lane_select=False,
+                              kernel_lane="fused")
+        cluster = InMemoryCluster()
+        await YamlDirSource(str(d), AuthConfigReconciler(engine, cluster=cluster),
+                            cluster, SecretReconciler(engine)).sync()
+        server = build_server(engine, address="127.0.0.1:0")
+        await server.start()
+        try:
+            async with grpc.aio.insecure_channel(
+                    f"127.0.0.1:{server.bound_port}") as ch:
+                call = ch.unary_unary(CHECK, request_serializer=lambda b: b,
+                                      response_deserializer=lambda b: b)
+                got = [pb.CheckResponse.FromString(r) for r in
+                       await asyncio.gather(*(call(wire_request(q))
+                                              for q in reqs))]
+        finally:
+            await server.stop(None)
+        async with TestClient(TestServer(build_app(engine))) as client:
+            http = []
+            for q in reqs:
+                r = await client.get(q.http.path, headers=dict(
+                    q.http.headers, Host=q.http.host))
+                http.append((r.status, await r.text()))
+        return got, http
+
+    return run(body())
+
+
+def test_run_server_answers_as_the_reference_then_drains_on_cancel(tmp_path):
+    n = 4
+    write_manifests(tmp_path, n)
+    args = server_args(watch_dir=tmp_path)
+    reqs, cfgs, known = cp.build_check_requests(24, n)
+    rules = cp.config_rules(n, 3)
+
+    async def body():
+        task = asyncio.ensure_future(port_cli.run_server(args))
+        t0 = time.monotonic()
+        while True:   # ready: the listeners bind after the first sync
+            status, _ = await asyncio.to_thread(
+                http_get_or_none, args.ext_auth_http_port, "/readyz")
+            if status == 200:
+                break
+            assert not task.done(), task
+            assert time.monotonic() - t0 < 60
+            await asyncio.sleep(0.05)
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{args.ext_auth_grpc_port}") as ch:
+            call = ch.unary_unary(CHECK, request_serializer=lambda b: b,
+                                  response_deserializer=lambda b: b)
+            got = [pb.CheckResponse.FromString(r) for r in
+                   await asyncio.gather(*(call(wire_request(q))
+                                          for q in reqs))]
+        # over HTTP the claims of metadata_context are absent, as for the
+        # reference's adapter
+        http = [await asyncio.to_thread(
+            http_get, args.ext_auth_http_port, q.http.path,
+            dict(q.http.headers, Host=q.http.host)) for q in reqs]
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        return got, http
+
+    got, http = run(body())
+    want, want_http = reference_answers(tmp_path, reqs)
+    assert got == want
+    assert [g.status.code for g in got] == [
+        cp.expected_code(q, i, rules, good)
+        for q, i, good in zip(reqs, cfgs, known)]
+    assert http == want_http
+    assert {s for s, _ in http} >= {401, 403}
+    for port in (args.ext_auth_http_port, args.ext_auth_grpc_port,
+                 args.oidc_http_port):
+        assert not listening(port)
+
+
+def http_get_or_none(port, path):
+    try:
+        return http_get(port, path, timeout=2)
+    except OSError:
+        return None, ""
+
+
+def test_version_runs_as_a_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-m", "authorino_tpu_torch",
+                          "version"], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0.1.0"
+
+
+def test_server_subprocess_drains_on_sigterm(tmp_path):
+    """64 Check()s in flight (each past its verdict, in a callback to a
+    slow endpoint) when SIGTERM arrives: every one is answered with its
+    verdict and the process exits 0 within ``--drain-timeout``."""
+    write_manifests(tmp_path)
+    ports = [free_port() for _ in range(3)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with cp.SlowEndpoint(0.3) as slow:
+        (tmp_path / "callback.json").write_text(
+            json.dumps(cp.callback_auth_config(slow.url + "/done")))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "authorino_tpu_torch", "server",
+             "--device", "cpu", "--watch-dir", str(tmp_path),
+             "--ext-auth-grpc-port", str(ports[0]), "--ext-auth-http-port",
+             str(ports[1]), "--oidc-http-port", str(ports[2]),
+             "--drain-timeout", "5"],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            t0 = time.monotonic()
+            while http_get_or_none(ports[1], "/readyz")[0] != 200:
+                assert proc.poll() is None, proc.stdout.read()
+                assert time.monotonic() - t0 < 90
+                time.sleep(0.1)
+            req = wire.CheckRequest(attributes=wire.AttributeContext(
+                request=wire.Request(http=wire.HttpRequest(
+                    method="GET", path="/", host=cp.CALLBACK_HOST))))
+            payload = wire.encode_check_request(req)
+
+            async def in_flight():
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{ports[0]}") as ch:
+                    call = ch.unary_unary(CHECK,
+                                          request_serializer=lambda b: b,
+                                          response_deserializer=lambda b: b)
+                    futs = [asyncio.ensure_future(call(payload))
+                            for _ in range(64)]
+                    while slow.hits < 8:
+                        await asyncio.sleep(0.01)
+                    await asyncio.sleep(0.1)
+                    proc.send_signal(signal.SIGTERM)
+                    t_term = time.monotonic()
+                    answers = await asyncio.gather(*futs,
+                                                   return_exceptions=True)
+                    return answers, t_term, slow.hits
+
+            answers, t_term, hits_at_end = run(in_flight())
+            rc = proc.wait(timeout=30)
+            took = time.monotonic() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log = proc.stdout.read()
+    assert rc == 0, log
+    assert took < 5 + 5, (took, log)
+    assert "drain complete" in log and "policy engine on cpu" in log
+    assert [pb.CheckResponse.FromString(a).status.code if isinstance(
+        a, bytes) else a for a in answers] == [0] * 64
+    assert hits_at_end == 64
+
+
+def test_run_server_serves_tls_from_its_flags(tmp_path):
+    """--tls-cert/--tls-cert-key put both ext_authz listeners on TLS
+    (certificates from the port's own writer): a gRPC Check() over a
+    secure channel and an HTTPS /readyz answer."""
+    import datetime
+    import random
+    import ssl
+
+    from authorino_tpu_torch.utils import pki
+
+    key = pki.generate_ec_private_key(pki.P256, random.Random(8))
+    name = [[(cp.OID["CN"], "localhost")]]
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = cp.pem(cp.make_certificate(
+        name, name, key.public_key(), key,
+        now - datetime.timedelta(minutes=1), now + datetime.timedelta(hours=1),
+        dns_names=["localhost"]))
+    (tmp_path / "tls.crt").write_bytes(cert)
+    (tmp_path / "tls.key").write_bytes(pki.private_key_to_pem(key))
+    manifests = tmp_path / "m"
+    manifests.mkdir()
+    write_manifests(manifests, 2)
+    args = server_args("--tls-cert", str(tmp_path / "tls.crt"),
+                       "--tls-cert-key", str(tmp_path / "tls.key"),
+                       watch_dir=manifests)
+    reqs, cfgs, known = cp.build_check_requests(4, 2)
+    rules = cp.config_rules(2, 3)
+    ctx = ssl.create_default_context(cadata=cert.decode())
+    ctx.check_hostname = False
+
+    def https_ready():
+        try:
+            with urllib.request.urlopen(
+                    f"https://127.0.0.1:{args.ext_auth_http_port}/readyz",
+                    context=ctx, timeout=2) as r:
+                return r.status
+        except OSError:
+            return None
+
+    async def body():
+        task = asyncio.ensure_future(port_cli.run_server(args))
+        t0 = time.monotonic()
+        while await asyncio.to_thread(https_ready) != 200:
+            assert not task.done(), task
+            assert time.monotonic() - t0 < 60
+            await asyncio.sleep(0.05)
+        creds = grpc.ssl_channel_credentials(root_certificates=cert)
+        async with grpc.aio.secure_channel(
+                f"localhost:{args.ext_auth_grpc_port}", creds) as ch:
+            call = ch.unary_unary(CHECK, request_serializer=lambda b: b,
+                                  response_deserializer=lambda b: b)
+            got = [pb.CheckResponse.FromString(await call(wire_request(q)))
+                   .status.code for q in reqs]
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        return got
+
+    assert run(body()) == [cp.expected_code(q, i, rules, good)
+                           for q, i, good in zip(reqs, cfgs, known)]

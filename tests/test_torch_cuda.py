@@ -475,3 +475,46 @@ def test_engine_encodes_natively_and_folds_the_heat_map(card):
     got = {divmod(int(k), heat.E + 1): int(heat._counts[k])
            for k in np.nonzero(heat._counts)[0]}
     assert want and got == want
+
+
+def test_grpc_server_on_the_card_answers_as_the_cpu(card):
+    """The gRPC ext_authz server over a card engine and over a CPU engine
+    (40 north-star AuthConfigs): the same CheckRequest bytes give the same
+    CheckResponse bytes, with one launch per batch on the card."""
+    import grpc
+
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.service.grpc_server import (
+        build_server, request_proto_from_model)
+
+    acs = northstar.build_auth_configs(40, 10)
+    payloads = [wire.encode_check_request(request_proto_from_model(r))
+                for r in northstar.build_check_requests(70, 40, seed=5)]
+
+    async def serve(engine):
+        engine.apply_snapshot([await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in acs])
+        server = build_server(engine, address="127.0.0.1:0")
+        await server.start()
+        try:
+            async with grpc.aio.insecure_channel(
+                    f"127.0.0.1:{server.bound_port}") as ch:
+                call = ch.unary_unary(
+                    "/envoy.service.auth.v3.Authorization/Check",
+                    request_serializer=lambda b: b,
+                    response_deserializer=lambda b: b)
+                return await asyncio.wait_for(
+                    asyncio.gather(*(call(p) for p in payloads)), 120)
+        finally:
+            await server.stop(None)
+
+    on_card = PolicyEngine(max_batch=32)
+    got = asyncio.run(serve(on_card))
+    want = asyncio.run(serve(PolicyEngine(max_batch=32, device="cpu")))
+    assert got == want
+    assert {wire.decode_check_response(b).status.code for b in got} == {0, 7}
+    st = on_card.stats
+    assert st["launches"] == st["batches"] - st["cached_batches"] > 0
+    assert st["failed_batches"] == st["plain_calls"] == 0
