@@ -107,7 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="PRIVACY KNOB: name the attributed firing rule in the "
            "client-visible X-Ext-Auth-Reason header on denials")
     a("--slo-ms", type=float, default=env_var("SLO_MS", 0.0),
-      help="Per-request latency SLO in ms (not in the port yet)")
+      help="Per-request latency SLO in ms (0 = SLO tracking off): arms the "
+           "multi-window burn-rate tracker (auth_server_slo_burn_rate"
+           "{lane,window} gauges + the /debug/vars slo block)")
     a("--decision-log-size", type=int, default=env_var("DECISION_LOG_SIZE", 1024),
       help="Bounded decision-log ring capacity (/debug/decisions)")
     a("--decision-log-sample", type=int, default=env_var("DECISION_LOG_SAMPLE", 64),
@@ -123,11 +125,18 @@ def build_parser() -> argparse.ArgumentParser:
     a("--corpus-pregate", default=env_var("CORPUS_PREGATE", ""))
     a("--corpus-pregate-budget-ms", type=float, default=env_var("CORPUS_PREGATE_BUDGET_MS", 2000.0))
     a("--snapshot-history", type=int, default=env_var("SNAPSHOT_HISTORY", 4))
-    a("--flight-keep", type=int, default=env_var("AUTHORINO_TPU_FLIGHT_KEEP", 16))
-    a("--flight-dir", default=env_var("AUTHORINO_TPU_FLIGHT_DIR", ""))
+    a("--flight-keep", type=int, default=env_var("AUTHORINO_TPU_FLIGHT_KEEP", 16),
+      help="Flight-recorder on-disk bundle retention: only the newest N "
+           "diagnostic bundles survive in --flight-dir")
+    a("--flight-dir", default=env_var("AUTHORINO_TPU_FLIGHT_DIR", ""),
+      help="Directory for flight-recorder diagnostic bundles (default: "
+           "<tmp>/authorino-tpu-flight).  Bundles auto-dump on anomalies: "
+           "watchdog fire, admission OVERLOADED, a modeled kernel-cost "
+           "regression")
     a("--no-flight-recorder", action="store_true",
       default=not env_var("AUTHORINO_TPU_FLIGHT_RECORDER", True),
-      help="Disable the flight recorder (the port has none)")
+      help="Disable the lifecycle flight recorder (the bounded event ring "
+           "+ anomaly bundle dumps)")
     a("--drain-timeout", type=float, default=env_var("DRAIN_TIMEOUT_S", 10.0),
       help="Graceful-shutdown bound in seconds: SIGTERM stops admission, "
            "then in-flight requests/batches get this long to complete")
@@ -192,8 +201,8 @@ UNPORTED_PLANES = {
     "breaker": 3, "brownout": 3, "lane selection": 3,
     "speculative dispatch": 3, "tenancy": 3, "canary": 3,
     "snapshot history": 3, "metadata prefetch": 5,
-    "state plane": 7, "snapshot distribution": 7, "flight recorder": 7,
-    "faults": 7, "kernel lanes": 9, "SLO": 10, "native frontend": 11,
+    "state plane": 7, "snapshot distribution": 7,
+    "faults": 7, "kernel lanes": 9, "native frontend": 11,
     "strict verify": 12, "capture": 12, "replay pregate": 12,
     "corpus pregate": 12, "fleet": 13,
 }
@@ -211,7 +220,6 @@ UNPORTED_FLAGS = {
     "tenant_quota_rps": (0.0, "tenancy"),
     "tenant_contain_threshold": (3.0, "tenancy"),
     "tenant_top_k": (16, "tenancy"),
-    "slo_ms": (0.0, "SLO"),
     "canary_fraction": (0.0, "canary"),
     "canary_window": (30.0, "canary"),
     "capture": (False, "capture"),
@@ -223,8 +231,6 @@ UNPORTED_FLAGS = {
     "corpus_pregate": ("", "corpus pregate"),
     "corpus_pregate_budget_ms": (2000.0, "corpus pregate"),
     "snapshot_history": (4, "snapshot history"),
-    "flight_keep": (16, "flight recorder"),
-    "flight_dir": ("", "flight recorder"),
     "fault_profile": ("", "faults"),
     "metadata_max_age": (300.0, "metadata prefetch"),
     "metadata_refresh": (60.0, "metadata prefetch"),
@@ -325,6 +331,7 @@ async def run_server(args, on_engine=None) -> None:
     from .k8s.client import InMemoryCluster, LabelSelector, RestCluster
     from .runtime import provenance as prov_mod
     from .runtime.engine import PolicyEngine
+    from .runtime.flight_recorder import RECORDER
     from .service.grpc_server import build_server
     from .service.http_server import build_app
     from .service.oidc_server import build_oidc_app
@@ -371,11 +378,14 @@ async def run_server(args, on_engine=None) -> None:
         # matters to an OTLP gRPC exporter, which this server does not have
         setup_tracing(args.tracing_service_endpoint)
 
-    # decision observability: the deny-reason privacy knob and the
-    # decision-log ring
+    # decision observability: the deny-reason privacy knob, the
+    # decision-log ring, and the flight recorder
     prov_mod.EXPOSE_DENY_REASON = bool(args.expose_deny_reason)
     prov_mod.DECISIONS.configure(capacity=int(args.decision_log_size),
                                  sample_n=int(args.decision_log_sample))
+    RECORDER.configure(dump_dir=args.flight_dir or None,
+                       enabled=not args.no_flight_recorder,
+                       keep=int(args.flight_keep))
 
     device_timeout_ms = int(args.device_timeout or 0)
     # the engine resolves its device first: without a card (and without
@@ -393,6 +403,7 @@ async def run_server(args, on_engine=None) -> None:
         batch_dedup=not args.no_batch_dedup,
         device_timeout_s=(device_timeout_ms / 1000.0) or None,
         ovf_assist=bool(args.ovf_assist) or None,
+        slo_ms=float(args.slo_ms),
     )
     if engine.device.type == "cuda":
         import torch

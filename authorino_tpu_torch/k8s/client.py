@@ -512,17 +512,18 @@ class RestCluster:
                 "leaseTransitions": lease.transitions,
             },
         }
+        # compare-and-swap both ways: a lease the elector read is replaced
+        # only at the resourceVersion it read, and one it found absent is
+        # only created, so of two replicas that both found none, the
+        # second's POST meets a 409 and loses (the reference PUTs without
+        # a version first, which lets both lead)
         rv = getattr(lease, "_resource_version", None)
-        if rv:
-            body["metadata"]["resourceVersion"] = rv
         try:
-            try:
+            if rv:
+                body["metadata"]["resourceVersion"] = rv
                 await self._request("PUT", self._lease_path(namespace, name), json_body=body)
-            except RuntimeError as e:
-                if "404" in str(e):
-                    await self._request("POST", self._lease_path(namespace), json_body=body)
-                else:
-                    raise
+            else:
+                await self._request("POST", self._lease_path(namespace), json_body=body)
             return True
         except RuntimeError:
-            return False  # conflict: another holder updated first
+            return False  # conflict: another holder created or updated first

@@ -745,14 +745,34 @@ def encode_check_permission(resource_type: str, resource_id: str,
 
 
 def decode_check_permission(data: bytes) -> int:
-    """The permissionship (field 2) of a CheckPermissionResponse; 0 when
-    absent."""
+    """The permissionship (field 2) of a CheckPermissionResponse, read as
+    the reference reads it, which fails closed: one-byte keys, the first
+    varint field 2 with its whole value, 0 when absent or at the first
+    field of a wire type other than varint or length-delimited.  Anything
+    but 2 denies, so a response a strict protobuf parser would read as
+    HAS_PERMISSION past an unexpected field still denies here.  A
+    truncated varint raises IndexError, as the reference's does."""
     data = bytes(data)
-    out = 0
-    for num, wire, v in _fields(data, 0, len(data)):
-        if num == 2 and wire == 0:
-            out = _signed(v, 32)
-    return out
+    i = 0
+    while i < len(data):
+        key = data[i]
+        field, wire = key >> 3, key & 7
+        i += 1
+        if wire not in (0, 2):
+            break
+        val = shift = 0
+        while True:
+            b = data[i]
+            i += 1
+            val |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        if wire == 0 and field == 2:
+            return val
+        if wire == 2:
+            i += val
+    return 0
 
 
 def encode_check_permission_response(permissionship: int,

@@ -53,6 +53,7 @@ from typing import Any, Dict, Optional, Tuple
 from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
 from ..utils.rpc import DEADLINE_EXCEEDED, RESOURCE_EXHAUSTED
+from .flight_recorder import RECORDER
 
 __all__ = ["AdmissionController", "AdaptiveWindow", "ADMIT", "OVERLOADED"]
 
@@ -308,6 +309,11 @@ class AdmissionController:
         if state != self._state:
             self._state = state
             self._g_state.set(_STATE_VALUE[state])
+            # admission flips ride the flight recorder's ring; entering
+            # OVERLOADED is an anomaly trigger (auto-dump)
+            RECORDER.record(
+                "admission-overloaded" if state is OVERLOADED
+                else "admission", lane=self.lane, detail={"state": state})
 
     @property
     def state(self) -> str:

@@ -66,6 +66,18 @@ The structural contract: one launch per batch with at least one unique
 uncached row and none for a batch the cache answers whole; D2H = Σ pad_u
 × W; rows = device rows + rows saved by dedup + rows saved by the cache.
 
+The observability planes ride the reference's sites: the encode and launch
+stages are timed in the encode stage and the device and resolve stages
+at completion (``auth_server_pipeline_stage_seconds``); each cut folds
+once into the process-wide cost ledger (``runtime/kernel_cost.py``: one
+device computation per cut with a device row, none for one the cache
+answered whole) and each completed batch into the batch families with
+its true per-request queue waits and, behind ``slo_ms``, into the SLO
+tracker; a swap, a reconcile (its compile and upload phases), a watchdog
+fire and a drain are flight-recorder events, and each generation gets a
+modeled kernel cost.  Every plane is advisory: its fault is logged and
+never changes a verdict or re-dispatches a batch.
+
 ``apply_snapshot`` may run on a worker thread (the reconciler calls it
 through ``asyncio.to_thread``) while batches are in flight: the new corpus
 compiles, uploads and passes the probe kernel before it is published under
@@ -106,9 +118,13 @@ from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
 from ..utils import tracing as tracing_mod
 from ..utils.rpc import DEADLINE_EXCEEDED, NOT_FOUND, UNAVAILABLE, CheckAbort
+from ..utils.slo import SloTracker
 from ..utils.verdict_cache import VerdictCache
+from . import kernel_cost as kernel_cost_mod
 from . import provenance as prov_mod
 from .admission import AdaptiveWindow, AdmissionController
+from .flight_recorder import RECORDER
+from .kernel_cost import LEDGER, CostModel
 
 __all__ = ["EngineEntry", "PolicyEngine"]
 
@@ -157,12 +173,17 @@ class _Snapshot:
         self.encoder = None
         self.encoder_build_s = 0.0
         self.heat: Optional[prov_mod.HeatMap] = None
+        # reconcile phases, seconds: compile (the corpus, its fingerprints
+        # and cache tokens), upload (operands and the per-config program to
+        # the device, the probe launch)
+        self.phase_s: Dict[str, float] = {}
         if not rules:
             # no compiled config (the bootstrap deny-all): nothing to
             # upload, but the card still proves it launches at install
             if device.type == "cuda":
                 fk.fused_kernel_supported(device, recheck=True)
         else:
+            t0 = time.perf_counter()
             self.policy = compile_corpus(rules, members_k=members_k,
                                          ovf_assist=ovf_assist,
                                          interner=interner)
@@ -170,11 +191,14 @@ class _Snapshot:
             self.fingerprints = {c.name: rules_fingerprint(c, memo)
                                  for c in rules}
             self.cache_tokens = cache_tokens(self.policy, self.fingerprints)
+            self.phase_s["compile"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             self.encoder = get_native_encoder(self.policy)
             self.encoder_build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
             self.params = to_device(self.policy, device=device)
             fk.prewarm_fused(self.policy, self.params)
+            self.phase_s["upload"] = time.perf_counter() - t0
             try:
                 self.heat = prov_mod.HeatMap.for_snapshot(self.policy)
             except Exception:
@@ -254,7 +278,8 @@ class PolicyEngine:
                  admission_queue_cap: int = 0,
                  admission_min_cap: Optional[int] = None,
                  adaptive_window: bool = True,
-                 device_timeout_s: Optional[float] = None):
+                 device_timeout_s: Optional[float] = None,
+                 slo_ms: float = 0.0):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -266,7 +291,9 @@ class PolicyEngine:
         batches) parameterize the admission gate.  ``device_timeout_s``
         (None = off) abandons a batch whose readback has not arrived by
         then and retries it once.  ``timeout_s`` bounds one Check()'s
-        pipeline."""
+        pipeline.  ``slo_ms`` (0 = off) arms the SLO burn-rate tracker:
+        a request is bad when its queue wait plus its batch's device
+        stage exceeds it, or when it fails with a serving error."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
@@ -307,6 +334,12 @@ class PolicyEngine:
         self.stats = dict.fromkeys(_STAT_KEYS, 0)
         self.batch_records: deque = deque(maxlen=BATCH_RECORDS)
         self.batch_latency_s: deque = deque(maxlen=BATCH_RECORDS)
+        self.slo = SloTracker("engine", slo_ms) if slo_ms else None
+        # the modeled kernel cost per generation, and the last reconcile's
+        # phases (the /debug/vars control_plane block)
+        self._cost_model = CostModel("engine")
+        self._control_plane: Optional[Dict[str, Any]] = None
+        RECORDER.register_provider("engine", self, "debug_vars")
 
     def _add_stats(self, **counts) -> None:
         with self._stats_lock:
@@ -347,7 +380,40 @@ class PolicyEngine:
             self.generation += 1
             snap.generation = self.generation
             self._snapshot = snap
+            metrics_mod.snapshot_generation.labels("engine").set(
+                self.generation)
+        RECORDER.record("snapshot-swap", lane="engine", detail={
+            "generation": snap.generation, "configs": len(entries)})
+        self._record_control_plane(snap)
         self.notify_swap_listeners()
+
+    def _record_control_plane(self, snap: _Snapshot) -> None:
+        """Reconcile telemetry after a swap: the phase histograms, a
+        ``reconcile`` flight-recorder event, the /debug/vars control_plane
+        block, and the modeled kernel cost of the new generation (a >=2x
+        per-row regression raises the cost-regression anomaly).  Advisory:
+        never fails a swap."""
+        phases_ms = {k: round(v * 1e3, 3) for k, v in snap.phase_s.items()}
+        try:
+            for phase, dt in snap.phase_s.items():
+                metrics_mod.reconcile_phase.labels(phase).observe(dt)
+            RECORDER.record("reconcile", lane="engine", detail={
+                "generation": snap.generation, "phases_ms": phases_ms})
+            self._control_plane = {"generation": snap.generation,
+                                   "phases_ms": phases_ms}
+        except Exception:
+            log.exception("control-plane telemetry failed (swap unaffected)")
+        try:
+            t0 = time.perf_counter()
+            cost_rec = self._cost_model.analyze(
+                snap.generation, policy=snap.policy, params=snap.params,
+                recorder=RECORDER)
+            if isinstance(self._control_plane, dict):
+                self._control_plane["kernel_cost"] = cost_rec
+                self._control_plane["kernel_cost_ms"] = round(
+                    (time.perf_counter() - t0) * 1e3, 3)
+        except Exception:
+            log.exception("kernel cost analysis failed (swap unaffected)")
 
     def _check_bound(self, entry: EngineEntry) -> None:
         """Every PatternMatching of ``entry`` must take its verdicts from
@@ -594,6 +660,9 @@ class PolicyEngine:
         handle (a late readback is dropped) and take the retry path."""
         metrics_mod.watchdog_timeouts.labels("engine").inc()
         self._add_stats(watchdog_timeouts=1)
+        RECORDER.record("watchdog-timeout", lane="engine", detail={
+            "requests": len(item.batch), "attempt": item.attempt,
+            "device_timeout_s": self.device_timeout_s})
         log.warning("device batch (%d requests, attempt %d) wedged past "
                     "device_timeout_s %.3fs: abandoning the handle",
                     len(item.batch), item.attempt, self.device_timeout_s)
@@ -611,6 +680,8 @@ class PolicyEngine:
         in-flight work keeps flowing to completion."""
         if not self._draining:
             self._draining = True
+            RECORDER.record("drain", lane="engine", detail={
+                "queue": len(self._queue), "inflight": self._inflight})
             log.info("engine draining: admission stopped "
                      "(queue=%d, inflight=%d)", len(self._queue),
                      self._inflight)
@@ -719,7 +790,9 @@ class PolicyEngine:
             db_u = select_rows(db, unique_rows, batch_pad=pad_u)
         else:
             db_u, pad_u = None, 0   # every row from the cache: no launch
+        _observe_stage("encode", time.monotonic() - t0)
         # the DeviceBatch span's window opens at the launch
+        t1 = time.monotonic()
         start_ns = time.time_ns()
         if db_u is not None:
             handle = fk.dispatch_megakernel(snap.params, db_u)
@@ -727,6 +800,7 @@ class PolicyEngine:
                 raise RuntimeError("readback is not [pad, W] uint8")
         else:
             handle = _Resolved()
+        _observe_stage("launch", time.monotonic() - t1)
         record = {"rows": n, "device_rows": u, "pad_rows": pad_u,
                   "dedup_rows": len(miss_rows) - u, "cache_rows": len(cached),
                   "launches": handle.launches,
@@ -735,6 +809,18 @@ class PolicyEngine:
                   "d2h_bytes": handle.nbytes}
         self.batch_records.append(dict(record, generation=snap.generation))
         self._add_stats(batches=1, cached_batches=int(u == 0), **record)
+        # the structural cost fold: one device computation per cut with a
+        # device row (the kernel's launch on a card, its plain version's
+        # call on the CPU), none for a cut the cache answered whole
+        try:
+            LEDGER.observe(
+                "engine", rows=n, device_rows=u,
+                launches=record["launches"] + record["plain_calls"],
+                h2d_bytes=record["h2d_bytes"], d2h_bytes=record["d2h_bytes"],
+                pad_rows=pad_u, dedup_avoided_rows=record["dedup_rows"],
+                cache_avoided_rows=record["cache_rows"])
+        except Exception:
+            log.exception("kernel cost fold failed (batch unaffected)")
         binfo = {"batch_size": n, "device_rows": u, "t0": t0, "pad": pad_u,
                  "eff": (int(db_u.attr_bytes.shape[-1])
                          if db_u is not None and db_u.attr_bytes is not None
@@ -755,6 +841,7 @@ class PolicyEngine:
                 own_rule[r] = c_rule
                 own_skipped[r] = c_skip
             fb = np.nonzero(db.host_fallback[:n])[0]
+            binfo["fallback_n"] = len(fb)
             if len(fb):
                 # the compact payload was lossy for these rows (membership
                 # overflow): exact re-decision through the host oracle
@@ -810,8 +897,10 @@ class PolicyEngine:
     def debug_vars(self) -> Dict[str, Any]:
         """JSON-safe live state: the config generation, the dispatcher's
         backlog and in-flight window, admission and the adaptive window,
-        and decision provenance (heat-map shape and fold evidence, the
-        never-fired rules, the decision log's state).  Read-only."""
+        the last reconcile's phases and modeled kernel cost, the SLO
+        burn-rate windows, the flight recorder's tail, the kernel cost
+        ledger, and decision provenance (heat-map shape and fold evidence,
+        the never-fired rules, the decision log's state).  Read-only."""
         snap = self._snapshot
         heat = snap.heat if snap is not None else None
         return {
@@ -831,6 +920,18 @@ class PolicyEngine:
             "device_rtt_ewma_s": self._device_ewma,
             "admission": self.admission.to_json(),
             "adaptive": self.controller.to_json(),
+            "control_plane": self._control_plane,
+            "slo": self.slo.to_json() if self.slo is not None else None,
+            "flight_recorder": RECORDER.to_json(),
+            # the process-wide structural ledger (launches, bytes, pad
+            # waste per lane), the modeled per-row cost lineage, and the
+            # kernel entry points the serving snapshot dispatches through
+            "kernel_cost": {
+                "ledger": LEDGER.to_json(),
+                "modeled": self._cost_model.to_json(),
+                "entry_points": kernel_cost_mod.entry_points(
+                    snap.policy if snap is not None else None),
+            },
             "provenance": {
                 "expose_deny_reason": prov_mod.EXPOSE_DENY_REASON,
                 "heat": heat.to_json() if heat is not None else None,
@@ -861,6 +962,7 @@ class PolicyEngine:
         except Exception as e:
             self._batch_failed(item.snap, item.batch, item.attempt, e)
             return
+        slo_counted = False
         try:
             dur = t_done - item.t_launch
             self._device_ewma = (dur if not self._device_ewma
@@ -869,6 +971,7 @@ class PolicyEngine:
             self.controller.observe_batch(dur, n, len(self._queue),
                                           now=t_done)
             self.admission.observe_service(n, now=t_done)
+            slo_counted = self._observe_batch(item, dur)
             if tracing_mod.tracing_active():
                 # one DeviceBatch span per batch, span-linked to every
                 # constituent request's trace (export only: a link list per
@@ -891,24 +994,57 @@ class PolicyEngine:
                 except RuntimeError:
                     pass  # the loop closed since submit: its futures are moot
             self.batch_latency_s.append(time.monotonic() - item.binfo["t0"])
+            _observe_stage("resolve", time.monotonic() - t_done)
         except Exception as e:
             log.exception("post-completion work failed (batch verdicts "
                           "already computed)")
-            self._resolve_error(item.batch, e)
+            self._resolve_error(item.batch, e, slo_counted=slo_counted)
         finally:
             self._launch_done()
 
-    def _resolve_error(self, batch: List[_Pending], exc: Exception) -> None:
+    def _observe_batch(self, item: _Inflight, dur: float) -> bool:
+        """The per-batch observability fold at completion, O(1) or one
+        vectorized pass over the batch: the SLO (a request is bad when its
+        queue wait plus this batch's device stage exceeds the target), the
+        device stage and the batch families.  Never raises — a telemetry
+        fault must not change a decided batch's verdicts.  Returns whether
+        the SLO counted the batch."""
+        counted = False
+        try:
+            if self.slo is not None:
+                lat = np.asarray(item.waits) + dur
+                self.slo.observe(len(item.batch), int(np.count_nonzero(
+                    lat > self.slo.slo_s)))
+                counted = True
+            binfo = item.binfo
+            metrics_mod.observe_pipeline_stage("engine", "device", dur)
+            metrics_mod.observe_batch(
+                "engine", binfo["batch_size"], binfo.get("pad", 0),
+                item.waits, dur, binfo.get("fallback_n"),
+                device_rows=binfo.get("device_rows"))
+        except Exception:
+            log.exception("batch telemetry fold failed (decision unaffected)")
+        return counted
+
+    def _resolve_error(self, batch: List[_Pending], exc: Exception,
+                       slo_counted: bool = False) -> None:
         """Fail unresolved requests with a TYPED CheckAbort — never the raw
         exception, whose text would otherwise serve as a deny reason; the
         raw cause is logged here and the batch counted in
-        ``failed_batches`` (deadline sheds are not failures)."""
+        ``failed_batches`` (deadline sheds are not failures).  Serving
+        errors burn the SLO budget (``slo_counted``: a failure after the
+        success path already observed the batch does not burn twice)."""
         if not isinstance(exc, CheckAbort):
             log.error("batch of %d failed: %r", len(batch), exc,
                       exc_info=exc)
             exc = CheckAbort(UNAVAILABLE, "policy evaluation unavailable")
         if exc.code != DEADLINE_EXCEEDED:
             self._add_stats(failed_batches=1)
+            if self.slo is not None and not slo_counted:
+                try:
+                    self.slo.observe_errors(len(batch))
+                except Exception:
+                    log.exception("SLO error fold failed")
         by_loop: Dict[Any, list] = {}
         for p in batch:
             by_loop.setdefault(p.loop, []).append(p.future)
@@ -924,6 +1060,15 @@ class PolicyEngine:
             inflight = self._inflight
         self._g_inflight.set(inflight)
         self._maybe_dispatch()
+
+
+def _observe_stage(stage: str, seconds: float) -> None:
+    """One pipeline-stage sample; never raises (a telemetry fault must not
+    fail a decided batch)."""
+    try:
+        metrics_mod.observe_pipeline_stage("engine", stage, seconds)
+    except Exception:
+        log.exception("pipeline stage fold failed (decision unaffected)")
 
 
 def _doc_host(doc) -> str:

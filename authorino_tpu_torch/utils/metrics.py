@@ -1,5 +1,9 @@
-"""Prometheus metrics of the auth pipeline — the reference's metric names
-and labels (ref: pkg/service/auth_pipeline.go:26-36, pkg/metrics/metrics.go).
+"""Prometheus metrics — the reference's metric names, types, labels and
+buckets (ref: pkg/service/auth_pipeline.go:26-36, pkg/metrics/metrics.go):
+the auth pipeline's families, and those of the planes the port holds (the
+serving core, provenance, the per-batch and stage telemetry, the reconcile
+phases, the SLO tracker, the flight recorder, the kernel cost ledger).
+The families of planes not in the port yet come with them.
 
 Per-evaluator (deep) metrics are gated by the evaluator's ``metrics: true``
 flag or the global DEEP_METRICS_ENABLED (ref: pkg/metrics/metrics.go:86-96,
@@ -14,6 +18,10 @@ record into one series."""
 from __future__ import annotations
 
 import contextlib
+import logging
+import math
+
+import numpy as np
 
 try:
     from prometheus_client import REGISTRY, Counter, Gauge, Histogram
@@ -62,6 +70,11 @@ def _existing_collector(name):
 
 
 def _register(kind, name, doc, labels, buckets=None):
+    """The reference's ``_counter``/``_gauge``/``_histogram`` in one: a
+    collector of ``kind`` registered under ``name``, or the one already
+    registered under it, which must be of the same kind (a name registered
+    twice with two types would record one package's series into the
+    other's and garble both)."""
     if not _PROM:
         return _NoopMetric()
     cls = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}[kind]
@@ -69,7 +82,13 @@ def _register(kind, name, doc, labels, buckets=None):
     try:
         return cls(name, doc, labels, **kw)
     except ValueError:  # already registered
-        return _existing_collector(name) or _NoopMetric()
+        col = _existing_collector(name)
+        if col is None:
+            return _NoopMetric()
+        if not isinstance(col, cls):
+            raise ValueError(f"metric {name!r} is registered as a "
+                             f"{type(col).__name__}, not a {cls.__name__}")
+        return col
 
 
 evaluator_total = _register(
@@ -272,3 +291,344 @@ decision_records = _register(
     "micro-batch, sampled 1-in-N decisions).",
     _LANE_LABELS,
 )
+
+
+# ---------------------------------------------------------------------------
+# per-batch engine telemetry (runtime/engine.py), recorded ONCE PER
+# MICRO-BATCH, never per request: batch size and pad occupancy, the true
+# per-request queue waits folded in O(buckets), the launch-to-readback
+# wall time, host-oracle fallback rows, and the four pipeline stages.
+# Reference names, labels and buckets.
+# ---------------------------------------------------------------------------
+
+# µs-scale stage bounds (the reference's native frontend buckets in the
+# same bounds, so its drains map 1:1)
+STAGE_BUCKETS = (
+    10e-6, 25e-6, 50e-6, 100e-6, 250e-6, 500e-6,
+    1e-3, 2.5e-3, 5e-3, 10e-3, 25e-3, 50e-3, 100e-3, 250e-3, 1.0,
+)
+# powers of two: batches pad to pow2 buckets (utils.bucket_pow2), so these
+# bounds land exactly on the pad grid
+BATCH_SIZE_BUCKETS = tuple(float(1 << i) for i in range(13))  # 1 .. 4096
+FALLBACK_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                    512.0, 1024.0)
+
+batch_size = _register(
+    "histogram", "auth_server_batch_size",
+    "Requests per micro-batch at kernel launch (before padding).",
+    _LANE_LABELS, buckets=BATCH_SIZE_BUCKETS,
+)
+batch_pad_occupancy = _register(
+    "histogram", "auth_server_batch_pad_occupancy",
+    "Per-batch occupancy of the chosen pad bucket (device rows / pad): "
+    "1.0 = a full bucket, low values = pad waste (device cycles spent on "
+    "discarded rows).",
+    _LANE_LABELS, buckets=OCCUPANCY_BUCKETS,
+)
+batch_queue_wait = _register(
+    "histogram", "auth_server_batch_queue_wait_seconds",
+    "Per-request queue wait (enqueue to dispatch cut), engine lane only — "
+    "every member's wait is folded per batch (bucketed, O(buckets)/batch).",
+    _LANE_LABELS, buckets=STAGE_BUCKETS,
+)
+device_dispatch_duration = _register(
+    "histogram", "auth_server_device_dispatch_seconds",
+    "Wall time of one kernel launch: operand upload + device execute + "
+    "verdict readback.",
+    _LANE_LABELS, buckets=STAGE_BUCKETS,
+)
+batch_host_fallback = _register(
+    "histogram", "auth_server_batch_host_fallback",
+    "Host-oracle fallback requests (membership overflow) per micro-batch.",
+    _LANE_LABELS, buckets=FALLBACK_BUCKETS,
+)
+snapshot_generation = _register(
+    "gauge", "auth_server_snapshot_generation",
+    "Monotonic generation of the serving snapshot, per component (engine = "
+    "compiled-corpus swaps via apply_snapshot).",
+    ("component",),
+)
+pipeline_stage_duration = _register(
+    "histogram", "auth_server_pipeline_stage_seconds",
+    "Per-batch wall time of each dispatch pipeline stage: encode = host "
+    "encode/pack + cache lookup and dedup; launch = the non-blocking "
+    "kernel dispatch call (staging buffer H2D enqueue + launch + D2H "
+    "enqueue); device = launch to readback arrival (copies + kernel); "
+    "resolve = readback to future resolution.",
+    _LANE_LABELS + ("stage",), buckets=STAGE_BUCKETS,
+)
+reconcile_phase = _register(
+    "histogram", "auth_server_reconcile_phase_seconds",
+    "Per-phase reconcile timing on the engine lane: compile (corpus "
+    "compile), upload (the operand tree to the device, the per-config "
+    "kernel program and the probe launch).  The sum is what a reconcile "
+    "costs the control plane.",
+    ("phase",),
+    buckets=(.0005, .002, .01, .05, .1, .25, .5, 1.0, 2.5, 5.0, 10.0),
+)
+
+_bucketed_fallback_warned = False
+
+
+def observe_bucketed(hist_child, bucket_counts, sum_seconds) -> None:
+    """Fold pre-bucketed counts (non-cumulative per-le, same bounds as the
+    histogram) into a prometheus_client Histogram child in O(buckets):
+    per-request observe() calls would put Python back on the per-request
+    path.  Uses the histogram's ``_buckets``/``_sum`` internals, probed
+    here so a library change degrades loudly; the fallback keeps the
+    distribution's shape by spreading observes across each bucket's
+    midpoint, shifted to match the drained sum."""
+    try:
+        # resolve EVERY internal before mutating anything: a partial apply
+        # followed by the fallback would double-count the distribution
+        bucket_incs = [b.inc for b in hist_child._buckets]
+        sum_inc = hist_child._sum.inc
+    except (AttributeError, TypeError):
+        bucket_incs = None
+    if bucket_incs is not None:
+        for i, n in enumerate(bucket_counts):
+            if n:
+                bucket_incs[i](n)
+        if sum_seconds:
+            sum_inc(sum_seconds)
+        return
+    global _bucketed_fallback_warned
+    if not _bucketed_fallback_warned:
+        _bucketed_fallback_warned = True
+        logging.getLogger(__name__).warning(
+            "prometheus_client histogram internals changed "
+            "(_buckets/_sum missing) — falling back to per-bucket midpoint "
+            "observes for bucketed folds")
+    if not hasattr(hist_child, "observe"):
+        return
+    bounds = list(getattr(hist_child, "_upper_bounds", ()))[:len(bucket_counts)]
+    total = sum(bucket_counts)
+    if not total:
+        return
+    if not bounds:
+        hist_child.observe(sum_seconds / total)
+        return
+    # a huge backlog must not stall the caller for seconds: counts above
+    # the cap are thinned proportionally (logged)
+    cap = 200_000
+    scale = 1.0
+    if total > cap:
+        scale = cap / total
+        logging.getLogger(__name__).warning(
+            "histogram fallback fold thinned %d observations to %d",
+            total, cap)
+    counts: list = []
+    values: list = []
+    lo = 0.0
+    for i, n in enumerate(bucket_counts):
+        hi = bounds[i] if i < len(bounds) else float("inf")
+        if hi == float("inf"):
+            # strictly above the last finite bound, else observe() bins
+            # these overflow counts into the last finite bucket (le is <=)
+            v = math.nextafter(lo, math.inf)
+        else:
+            v = (lo + hi) / 2.0
+        if n:
+            counts.append((int(round(n * scale)), len(values)))
+            values.append((v, lo, hi))
+        if hi != float("inf"):
+            lo = hi
+    # match the folded sum by shifting values inside their buckets, from
+    # the top bucket down (the +Inf bucket is unbounded above)
+    residual = sum_seconds * scale - sum(n * values[j][0] for n, j in counts)
+    for n, j in reversed(counts):
+        if not n or abs(residual) <= 1e-12:
+            continue
+        v, b_lo, b_hi = values[j]
+        want = v + residual / n
+        got = max(want, math.nextafter(b_lo, math.inf))
+        if b_hi != float("inf"):
+            got = min(got, b_hi)
+        values[j] = (got, b_lo, b_hi)
+        residual -= (got - v) * n
+    for n, j in counts:
+        v = values[j][0]
+        for _ in range(n):
+            hist_child.observe(v)
+
+
+_batch_children: dict = {}
+_stage_children: dict = {}
+
+
+def observe_pipeline_stage(lane, stage, seconds) -> None:
+    """Record one pipeline-stage wall-time sample (cached label children:
+    this runs up to four times per micro-batch)."""
+    ch = _stage_children.get((lane, stage))
+    if ch is None:
+        ch = _stage_children[(lane, stage)] = (
+            pipeline_stage_duration.labels(lane, stage))
+    ch.observe(seconds)
+
+
+def fold_queue_waits(lane, waits) -> None:
+    """Fold TRUE per-request queue waits (seconds, array-like) into the
+    batch_queue_wait histogram in O(buckets) via observe_bucketed."""
+    waits = np.asarray(waits, dtype=np.float64)
+    if waits.size == 0:
+        return
+    ch = _ensure_batch_children(lane)
+    edges = [0.0] + list(STAGE_BUCKETS) + [np.inf]
+    counts, _ = np.histogram(np.clip(waits, 0.0, None), bins=edges)
+    observe_bucketed(ch[2], counts.tolist(), float(waits.sum()))
+
+
+def _ensure_batch_children(lane):
+    ch = _batch_children.get(lane)
+    if ch is None:
+        ch = _batch_children[lane] = (
+            batch_size.labels(lane),
+            batch_pad_occupancy.labels(lane),
+            batch_queue_wait.labels(lane),
+            device_dispatch_duration.labels(lane),
+            batch_host_fallback.labels(lane),
+        )
+    return ch
+
+
+def observe_batch(lane, n, pad, queue_wait_s, dispatch_s,
+                  fallback_n=None, device_rows=None) -> None:
+    """Record one batch's telemetry (size, pad occupancy, queue wait,
+    dispatch wall time, host-fallback rows).  ``queue_wait_s`` may be a
+    scalar (one representative wait) or an array of TRUE per-request waits
+    (folded in O(buckets), not O(batch)).  ``device_rows`` is the row count
+    that shipped after dedup and cache hits (defaults to ``n``): occupancy
+    stays the device-true ratio ≤ 1.  Label children are cached."""
+    ch = _ensure_batch_children(lane)
+    ch[0].observe(n)
+    if pad:
+        ch[1].observe((n if device_rows is None else device_rows) / pad)
+    if queue_wait_s is not None:
+        if hasattr(queue_wait_s, "__len__"):
+            fold_queue_waits(lane, queue_wait_s)
+        else:
+            ch[2].observe(queue_wait_s)
+    ch[3].observe(dispatch_s)
+    if fallback_n is not None:
+        ch[4].observe(fallback_n)
+
+
+# ---------------------------------------------------------------------------
+# the SLO burn-rate tracker (utils/slo.py) and the flight recorder
+# (runtime/flight_recorder.py).  Reference names.
+# ---------------------------------------------------------------------------
+
+slo_burn_rate = _register(
+    "gauge", "auth_server_slo_burn_rate",
+    "Multi-window SLO burn rate per lane: (bad fraction in the window) / "
+    "(error budget fraction), where bad = latency over --slo-ms or a "
+    "non-deadline serving error.  1.0 = burning exactly the budget; "
+    "sustained values over ~14 on the short window are page-worthy "
+    "(multi-window multi-burn alerting).",
+    _LANE_LABELS + ("window",),
+)
+slo_bad_total = _register(
+    "counter", "auth_server_slo_bad_total",
+    "Requests counted against the SLO error budget (latency over --slo-ms "
+    "or a serving error), per lane.  The companion total rides "
+    "auth_server_slo_observed_total.",
+    _LANE_LABELS,
+)
+slo_observed_total = _register(
+    "counter", "auth_server_slo_observed_total",
+    "Requests observed by the SLO burn-rate tracker, per lane (the "
+    "denominator for auth_server_slo_bad_total).",
+    _LANE_LABELS,
+)
+flight_events = _register(
+    "counter", "auth_server_flight_recorder_events_total",
+    "Lifecycle events appended to the flight-recorder ring (watchdog "
+    "fires, snapshot swaps, admission flips, reconcile phases, drain).",
+    ("kind",),
+)
+flight_dumps = _register(
+    "counter", "auth_server_flight_recorder_dumps_total",
+    "Diagnostic bundles auto-dumped by the flight recorder on anomaly "
+    "triggers (watchdog fire, admission OVERLOADED, cost regression), by "
+    "the anomaly kind that triggered the dump.",
+    ("trigger",),
+)
+state_write_failures = _register(
+    "counter", "auth_server_state_write_failures_total",
+    "Durable-artifact writes that failed inside the shared atomic writer "
+    "(utils/atomicio.py), by artifact kind (flight, ...); the destination "
+    "is left old-valid.",
+    ("artifact",),
+)
+
+
+# ---------------------------------------------------------------------------
+# the kernel cost observatory (runtime/kernel_cost.py): structural device
+# cost folded ONCE PER MICRO-BATCH by the CostLedger (launches, bytes,
+# rows — counts that do not swing with the host), and the modeled cost of
+# the serving snapshot's kernel.  Reference names.
+# ---------------------------------------------------------------------------
+
+kernel_launches = _register(
+    "counter", "auth_server_kernel_launches_total",
+    "Kernel launches per lane.  One batch with a device row = ONE launch "
+    "of the mega-kernel; a batch the verdict cache answers whole counts "
+    "ZERO.",
+    _LANE_LABELS,
+)
+kernel_h2d_bytes = _register(
+    "counter", "auth_server_kernel_h2d_bytes_total",
+    "Request-operand bytes staged host-to-device per lane (the fused "
+    "staging buffer of each launch).  Snapshot uploads are not counted "
+    "here.",
+    _LANE_LABELS,
+)
+kernel_d2h_bytes = _register(
+    "counter", "auth_server_kernel_d2h_bytes_total",
+    "Verdict readback bytes device-to-host per lane: the bitpacked "
+    "[pad, packed_width(1+2E)] uint8 result of each launch.",
+    _LANE_LABELS,
+)
+kernel_pad_waste_rows = _register(
+    "counter", "auth_server_kernel_pad_waste_rows_total",
+    "Padded-minus-real rows per launch (device cycles spent on discarded "
+    "rows), the counter twin of the auth_server_batch_pad_occupancy "
+    "ratio.",
+    _LANE_LABELS,
+)
+kernel_modeled_flops_per_row = _register(
+    "gauge", "auth_server_kernel_modeled_flops_per_row",
+    "Modeled operations per row of the serving snapshot's kernel, computed "
+    "at reconcile from its per-config program by the own-config rule "
+    "(a row runs only its own config's leaves, circuit and DFA rows; the "
+    "mean over configs).  The CUDA mega-kernel does no floating point: the "
+    "value counts INTEGER operations (the name is the reference's).  "
+    "Modeled, not measured: compare generations, not wall clock.  A >=2x "
+    "jump vs the previous generation raises the cost-regression "
+    "flight-recorder anomaly.",
+    ("entry",),
+)
+
+_kernel_children: dict = {}
+
+
+def observe_kernel_cost(lane, launches, h2d_bytes, d2h_bytes,
+                        pad_waste_rows) -> None:
+    """Fold one batch's structural device cost (cached label children —
+    runs once per micro-batch, zero values skipped)."""
+    ch = _kernel_children.get(lane)
+    if ch is None:
+        ch = _kernel_children[lane] = (
+            kernel_launches.labels(lane),
+            kernel_h2d_bytes.labels(lane),
+            kernel_d2h_bytes.labels(lane),
+            kernel_pad_waste_rows.labels(lane),
+        )
+    if launches:
+        ch[0].inc(launches)
+    if h2d_bytes:
+        ch[1].inc(h2d_bytes)
+    if d2h_bytes:
+        ch[2].inc(d2h_bytes)
+    if pad_waste_rows:
+        ch[3].inc(pad_waste_rows)

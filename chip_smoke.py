@@ -150,14 +150,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each Check() in flight after its verdict: 32 gRPC and 8 HTTP Check()s
      equal to the oracle, its log naming the CUDA device, SIGTERM with 64
      Check()s in flight — all 64 answered, exit 0 within --drain-timeout
-     + 5 s.
+     + 5 s.  Its server runs with ``--slo-ms`` and ``--flight-dir``: its
+     /metrics must carry every family of the observability planes and its
+     /debug/vars their sections (phase 13 (e));
+ 13. the observability planes, on phase 6's translated north-star corpus
+     at full width through an engine at the serving defaults, the flight
+     recorder on: (c) 4,096-Check() bursts, each with an SLO target of its
+     own (the phase's lone-Check() p50, 1 ns: every request bad, 10 s:
+     none, the p50 of the burst before: some, retried at most 5 times
+     until a run lands strictly inside), the tracker's total
+     and bad equal to the script's own count over the latencies the engine
+     hands it and to ``auth_server_slo_*``; (f) planes on and off in
+     alternating pairs; (d) warm bursts with the admission target at 1 µs
+     until admission entered OVERLOADED 3 times: one bundle per entry and
+     none of another kind, ``--flight-keep`` of them on disk, schema 1,
+     the engine's debug vars with ``kernel_cost`` and an exposition whose
+     engine launch count equals the ledger's; (a) the cost ledger's
+     deltas over the phase equal the batch records' sums and the
+     wrapper's launch count, one launch per batch with a device row; (b)
+     the package's kernel-cost model equal to ``own_config_ops`` on every
+     config and to ``kernel_work`` on a 256-row batch, printed beside the
+     bound and the kernel's time on that batch, and the model's time at
+     the swap beside the upload phase.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 12's; each kernel must have launched on the paths of phases 4, 6,
-7, 8, 9, 10 and 12, with the counts zeroed just before each.
+phase 13's; each kernel must have launched on the paths of phases 4, 6,
+7, 8, 9, 10, 12 and 13, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -2288,6 +2309,7 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
 SERVE_BURSTS = 3          # timed gRPC bursts; checks/s is their median
 SERVE_HTTP = 256          # burst requests also sent over HTTP /check
 SERVE_LONE = 200          # gRPC Check()s sent one at a time
+SERVE_SLO_MS = 250.0      # the server's --slo-ms (phase 13 (e))
 ENTRY_CONFIGS = 16        # API-key configs the process entry point serves
 ENTRY_DRAIN_S = 10.0      # its --drain-timeout
 CHECK_METHOD = "/envoy.service.auth.v3.Authorization/Check"
@@ -2527,7 +2549,9 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
         argv = ["server", "--watch-dir", str(d), "--debug-profile",
                 "--ext-auth-grpc-port", str(ports["grpc"]),
                 "--ext-auth-http-port", str(ports["http"]),
-                "--oidc-http-port", str(ports["oidc"])]
+                "--oidc-http-port", str(ports["oidc"]),
+                "--slo-ms", str(SERVE_SLO_MS),
+                "--flight-dir", str(d / "flight")]
         if not on_card:
             argv += ["--device", "cpu"]
         args = cli.build_parser().parse_args(argv)
@@ -2668,6 +2692,9 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                     or c["debug_vars_generation"] != engine.generation:
                 raise AssertionError(f"(c) /metrics {status}, /debug/vars "
                                      f"{status_v}: {c}")
+            # phase 13 (e): the observability planes through the wire
+            c["planes"] = plane_surfaces(metrics, json.loads(dvars)["engine"],
+                                         d / "flight")
             wb = engine.lookup(WRISTBAND_HOST).runtime.response[0].evaluator
             for doc, want in (("openid-configuration", wb.openid_config()),
                               ("openid-connect/certs", wb.jwks())):
@@ -2914,11 +2941,21 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                         http_call, eports[1], q.http.path,
                         dict(q.http.headers, Host=q.http.host), None,
                         q.http.method) for q in e_reqs[:8]]
+                    async def rows() -> int:
+                        body = (await asyncio.to_thread(
+                            http_call, eports[1], "/debug/vars"))[2]
+                        return json.loads(body)["engine"]["kernel_cost"][
+                            "ledger"]["engine"]["rows"]
+
+                    rows0 = await rows()
                     futs = [asyncio.ensure_future(call(cb_payload))
                             for _ in range(64)]
-                    while slow.hits < 8:
+                    # SIGTERM once every one of the 64 has its verdict (the
+                    # server's cost ledger counted its row): each is then
+                    # in its callback or queued for it, certainly in flight
+                    while await rows() < rows0 + 64:
                         await asyncio.sleep(0.01)
-                    await asyncio.sleep(0.1)
+                    e["hits_at_sigterm"] = slow.hits
                     proc.send_signal(signal.SIGTERM)
                     t_term = time.perf_counter()
                     answers = await asyncio.gather(*futs,
@@ -2951,6 +2988,7 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
     device_named = (f"policy engine on cuda" in text) if on_card else \
         ("policy engine on cpu" in text)
     if (rc != 0 or codes != [rpc.OK] * 64 or e["callback_hits"] != 64
+            or e["hits_at_sigterm"] >= 64
             or e["sigterm_to_exit_s"] > ENTRY_DRAIN_S + 5
             or "drain complete" not in text or not device_named):
         raise AssertionError(f"(e) exit {rc} after "
@@ -2964,8 +3002,9 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
     numbers["entry_point"] = e
     log(f"serving surfaces (e): python3 -m authorino_tpu_torch server ready "
         f"in {e['ready_s']:.1f}s ({e['device_line'].split(' INFO ')[-1]}); "
-        f"32 gRPC and 8 HTTP Check()s equal the oracle; SIGTERM with 64 "
-        f"Check()s in flight: all 64 answered OK, exit {rc} after "
+        f"32 gRPC and 8 HTTP Check()s equal the oracle; SIGTERM once 64 "
+        f"Check()s had their verdicts ({e['hits_at_sigterm']} callbacks "
+        f"begun): all 64 answered OK, exit {rc} after "
         f"{e['sigterm_to_exit_s']:.2f}s (--drain-timeout {ENTRY_DRAIN_S:g})")
     numbers["launches"] = launches
     report["serving_surfaces"] = numbers
@@ -3224,6 +3263,452 @@ def host_work(report: dict, card: str, ctx: dict, main: dict, policy,
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the engine's observability planes
+# ---------------------------------------------------------------------------
+
+# every family the observability planes export (the reference's names)
+PLANE_FAMILIES = (
+    "auth_server_batch_size", "auth_server_batch_pad_occupancy",
+    "auth_server_batch_queue_wait_seconds",
+    "auth_server_device_dispatch_seconds", "auth_server_batch_host_fallback",
+    "auth_server_pipeline_stage_seconds",
+    "auth_server_reconcile_phase_seconds", "auth_server_snapshot_generation",
+    "auth_server_kernel_launches_total", "auth_server_kernel_h2d_bytes_total",
+    "auth_server_kernel_d2h_bytes_total",
+    "auth_server_kernel_pad_waste_rows_total",
+    "auth_server_kernel_modeled_flops_per_row", "auth_server_slo_burn_rate",
+    "auth_server_slo_bad_total", "auth_server_slo_observed_total",
+    "auth_server_flight_recorder_events_total",
+    "auth_server_flight_recorder_dumps_total",
+    "auth_server_state_write_failures_total")
+FLIGHT_KEEP = 2           # phase 13 (d)'s --flight-keep
+OVERLOAD_ENTRIES = 3      # entries into OVERLOADED (d) drives, at most
+OVERLOAD_BURSTS = 8       # warm bursts (d) may take to get them
+PLANE_PAIRS = 5           # (f): planes on / off pairs, order alternating
+SLO_P50_TRIES = 5         # (c): runs the p50 target may take
+LEDGER_OF_RECORD = {"rows": "rows", "device_rows": "device_rows",
+                    "pad_rows": "pad_rows", "dedup_avoided_rows": "dedup_rows",
+                    "cache_avoided_rows": "cache_rows",
+                    "h2d_bytes": "h2d_bytes", "d2h_bytes": "d2h_bytes"}
+
+
+def plane_surfaces(metrics: str, dv: dict, flight_dir: Path) -> dict:
+    """Phase 13 (e): a server's /metrics carries every family of the
+    planes and its /debug/vars engine block the slo, flight_recorder,
+    kernel_cost and control_plane sections, set by its flags."""
+    typed = {ln.split()[2] for ln in metrics.splitlines()
+             if ln.startswith("# TYPE ")}
+    missing = [f for f in PLANE_FAMILIES
+               if not {f, f.removesuffix("_total")} & typed]
+    slo, fr, kc = dv.get("slo"), dv.get("flight_recorder"), dv.get(
+        "kernel_cost")
+    cp = dv.get("control_plane")
+    if (missing or not slo or slo["slo_ms"] != SERVE_SLO_MS or not fr
+            or fr["dump_dir"] != str(flight_dir) or not kc
+            or "engine" not in kc["ledger"]
+            or kc["entry_points"][0]["entry"] != "fused_kernel"
+            or not kc["modeled"]["current"]["entries"] or not cp
+            or set(cp["phases_ms"]) != {"compile", "upload"}):
+        raise AssertionError(f"(e) the planes through the wire: missing "
+                             f"families {missing}; slo {slo}; flight "
+                             f"recorder {fr and fr['dump_dir']}; control "
+                             f"plane {cp}")
+    return {"families": len(PLANE_FAMILIES), "slo_observed": slo[
+        "observed_total"], "ledger_launches": kc["ledger"]["engine"][
+        "launches"], "flight_events": fr["events_recorded"],
+        "phases_ms": cp["phases_ms"]}
+
+
+def prom_sample(family: str, name: str, labels: dict) -> float:
+    """One sample of the port's metric ``family`` (its attribute in
+    ``utils/metrics.py``), read from that family's own collector: a
+    registry-wide lookup collects every series of the process, tens of
+    thousands of rule-fired series by now."""
+    from authorino_tpu_torch.utils import metrics
+
+    for fam in getattr(metrics, family).collect():
+        for smp in fam.samples:
+            if smp.name == name and smp.labels == labels:
+                return smp.value
+    return 0.0
+
+
+STAGES = ("encode", "launch", "device", "resolve")
+
+
+def stage_histograms() -> dict:
+    """The engine lane's ``auth_server_pipeline_stage_seconds`` per stage:
+    (count, sum, {le: cumulative count})."""
+    from authorino_tpu_torch.utils.metrics import STAGE_BUCKETS
+
+    from authorino_tpu_torch.utils import metrics
+
+    got = {}
+    for fam in metrics.pipeline_stage_duration.collect():
+        for smp in fam.samples:
+            if smp.labels.get("lane") == "engine":
+                got[(smp.name, smp.labels["stage"],
+                     smp.labels.get("le"))] = smp.value
+    name = "auth_server_pipeline_stage_seconds"
+    return {st: (got.get((name + "_count", st, None), 0.0),
+                 got.get((name + "_sum", st, None), 0.0),
+                 {le: got.get((name + "_bucket", st, repr(float(le))), 0.0)
+                  for le in STAGE_BUCKETS})
+            for st in STAGES}
+
+
+def stage_split(before: dict, after: dict) -> dict:
+    """Per stage over a window: batches, mean ms, and the bucket that holds
+    the median batch (its bounds in ms), from the histograms' deltas."""
+    out = {}
+    for st in STAGES:
+        n = after[st][0] - before[st][0]
+        total = after[st][1] - before[st][1]
+        lo, p50 = 0.0, None
+        for le, c in after[st][2].items():
+            if c - before[st][2][le] >= n / 2:
+                p50 = (lo * 1e3, le * 1e3)
+                break
+            lo = le
+        out[st] = {"batches": int(n), "mean_ms": total / n * 1e3 if n else 0.0,
+                   "median_bucket_ms": p50 or (lo * 1e3, float("inf"))}
+    return out
+
+
+def wait_idle(engine, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while engine._inflight or engine._queue:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"engine not idle after {timeout}s")
+        time.sleep(0.005)
+
+
+def observability_planes(report: dict, card: str, dev, ctx6: dict,
+                         cycles_per_ms: float) -> tuple:
+    """Phase 13: phase 6's translated north-star corpus (1,000 AuthConfigs
+    x 10 rules + the V2 config) rebound to an engine at the reference's
+    serving defaults (dedup and the cache on; wide admission bounds, so
+    the phase holds verdicts, not shedding), with the flight recorder on
+    and its bundles in ``smoke_out/flight-13``.  Every count is zeroed just
+    before the engine is built.  (c) 4,096-Check() bursts, each held to
+    the oracle, each with its own SLO target: the phase's lone-Check()
+    p50, 1 ns, 10 s, and the p50 of the SLO latencies of the burst before
+    (retried until a run has some bad and some good requests);
+    (f) planes on / off in alternating pairs; (d) warm bursts with the
+    admission target at 1 µs and its interval at 0.1 s, until admission
+    has entered OVERLOADED ``OVERLOAD_ENTRIES`` times; then (a) the cost
+    ledger's deltas against the batch records and the wrapper's count;
+    (b) the model against ``own_config_ops``/``kernel_work`` and the
+    kernel's time on a batch of this corpus (after the counted window).
+    (e) is phase 12's server.  Returns (the kernels' launches, counts
+    zeroed just before the engine; the max abs byte error against
+    plain)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import fuse_batch
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.runtime import kernel_cost as kc
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+    from authorino_tpu_torch.utils.slo import SloTracker
+
+    entries, reqs, hold = ctx6["entries"], ctx6["reqs"], ctx6["hold"]
+    # the wall clock against the monotonic one: a step of the machine's
+    # clock during the phase shows here (the SLO windows bucket by it)
+    wall_off0 = time.time() - time.monotonic()
+    flight = Path("smoke_out") / "flight-13"
+    shutil.rmtree(flight, ignore_errors=True)
+    RECORDER.configure(dump_dir=str(flight), keep=FLIGHT_KEEP,
+                       min_dump_interval_s=0.0, enabled=True)
+    dumps0 = RECORDER.dumps[-1] if RECORDER.dumps else None
+    lane = {"lane": "engine"}
+
+    fk.reset_counts()
+    reset_host_counts()
+    led0 = kc.LEDGER.snapshot("engine")
+    engine = PolicyEngine(max_batch=256, **WIDE_ADMISSION)
+    bind(entries, engine)
+    engine.apply_snapshot(entries)
+    cpn = engine.debug_vars()["control_plane"]
+    # every batch's per-request SLO latency (queue wait + the batch's
+    # device stage), as the engine hands it to its tracker
+    slo_lat = []
+    fold = engine._observe_batch
+
+    def spy(item, dur):
+        slo_lat.append(np.asarray(item.waits) + dur)
+        return fold(item, dur)
+
+    engine._observe_batch = spy
+
+    async def one_at_a_time(rs):
+        return [(await timed_checks(engine, [r]))[0][1] for r in rs]
+
+    lone = np.sort(asyncio.run(one_at_a_time(reqs[:200]))) * 1e3
+    lone_p50 = float(np.percentile(lone, 50))
+
+    def burst(label):
+        engine.batch_latency_s.clear()
+        t = time.perf_counter()
+        out = asyncio.run(timed_checks(engine, reqs))
+        wall = time.perf_counter() - t
+        wait_idle(engine)
+        hold(out, label)
+        lat = sorted(engine.batch_latency_s)
+        return {"checks_per_s": len(reqs) / wall,
+                "batch_p50_ms": lat[len(lat) // 2] * 1e3 if lat else 0.0}
+
+    # ---- (c) the SLO at four targets ----------------------------------------
+    # the host's spread can move a whole burst's latencies past the median
+    # of the burst before, so the p50 target is retried, each time at the
+    # p50 of the run before, until one run lands strictly inside
+    slo_runs = []
+    target = lone_p50
+    names = ["lone p50", "1 ns", "10 s"] + ["p50 of the burst before"] * \
+        SLO_P50_TRIES
+    for name in names:
+        if name == "1 ns":
+            target = 1e-6
+        elif name == "10 s":
+            target = 10_000.0
+        elif name.startswith("p50"):
+            target = float(np.percentile(np.concatenate(slo_lat), 50)) * 1e3
+        engine.slo = SloTracker("engine", target)
+        slo_lat.clear()
+        h0 = stage_histograms()
+        c0 = (prom_sample("slo_observed_total",
+                          "auth_server_slo_observed_total", lane),
+              prom_sample("slo_bad_total", "auth_server_slo_bad_total", lane))
+        fig = burst(f"phase 13 (c) SLO {name}")
+        fig["stages"] = stage_split(h0, stage_histograms())
+        lat = np.concatenate(slo_lat)
+        js = engine.debug_vars()["slo"]
+        want_bad = int(np.count_nonzero(lat > engine.slo.slo_s))
+        run = {"target": name, "slo_ms": target, "total": js[
+            "observed_total"], "bad": js["bad_total"], "window_1m": js[
+            "windows"]["1m"], **fig}
+        slo_runs.append(run)
+        prom = (prom_sample("slo_observed_total",
+                            "auth_server_slo_observed_total", lane) - c0[0],
+                prom_sample("slo_bad_total", "auth_server_slo_bad_total",
+                            lane) - c0[1])
+        # the windows bucket by the wall clock, as the reference's do: a
+        # step of the machine's clock moves requests out of them, so they
+        # are printed, not held
+        ok = (js["observed_total"] == lat.size == len(reqs)
+              and js["bad_total"] == want_bad
+              and prom == (js["observed_total"], js["bad_total"]))
+        ok &= {"1 ns": want_bad == len(reqs), "10 s": want_bad == 0}.get(
+            name, True)
+        if not ok:
+            raise AssertionError(f"(c) SLO {name}: {run}, {want_bad} bad by "
+                                 f"the script's count, metrics {prom}")
+        if name.startswith("p50") and 0 < want_bad < len(reqs):
+            break
+    else:
+        raise AssertionError(f"(c) no run at the p50 of the run before "
+                             f"landed strictly inside: {slo_runs}")
+
+    # ---- (f) planes on / off, alternating -------------------------------------
+    pairs = {"on": [], "off": []}
+    for k in range(PLANE_PAIRS):
+        for side in (("on", "off") if k % 2 == 0 else ("off", "on")):
+            engine.slo = (SloTracker("engine", lone_p50) if side == "on"
+                          else None)
+            RECORDER.configure(enabled=side == "on")
+            pairs[side].append(burst(f"phase 13 (f) planes {side}"))
+    RECORDER.configure(enabled=True)
+
+    # ---- (d) the flight recorder: admission into OVERLOADED ------------------
+    def overloaded_events() -> float:
+        return prom_sample("flight_events",
+                           "auth_server_flight_recorder_events_total",
+                           {"kind": "admission-overloaded"})
+
+    ev0 = overloaded_events()
+    adm = engine.admission
+    adm.target_s, adm.interval_s = 1e-6, 0.1
+    bursts = 0
+    while bursts < OVERLOAD_BURSTS and \
+            overloaded_events() - ev0 < OVERLOAD_ENTRIES:
+        # past 2 intervals with no cut the state resets to admit at the
+        # next decision, so each burst can enter OVERLOADED anew; a bundle
+        # is named by its second, so bursts stay a second apart
+        time.sleep(1.05)
+        burst(f"phase 13 (d) burst {bursts + 1}")
+        bursts += 1
+    entries_ov = int(overloaded_events() - ev0)
+    deadline = time.monotonic() + 30
+    new_dumps = []
+    while time.monotonic() < deadline:
+        k = RECORDER.dumps.index(dumps0) + 1 if dumps0 in RECORDER.dumps \
+            else 0
+        new_dumps = RECORDER.dumps[k:]
+        if len(new_dumps) >= entries_ov:
+            break
+        time.sleep(0.02)
+    on_disk = sorted(flight.glob("flight-*.json"))
+    bundle = json.loads(on_disk[-1].read_text()) if on_disk else {}
+    dv = bundle.get("vars", {}).get("engine", {})
+    b_led = dv.get("kernel_cost", {}).get("ledger", {}).get("engine", {})
+    line = [ln for ln in bundle.get("metrics", "").splitlines()
+            if ln.startswith('auth_server_kernel_launches_total{lane="engine"}')]
+    flight_fig = {"bursts": bursts, "entries": entries_ov,
+                  "dumps": len(new_dumps), "on_disk": len(on_disk),
+                  "keep": FLIGHT_KEEP,
+                  "bundle_schema": bundle.get("schema"),
+                  "bundle_trigger": bundle.get("trigger"),
+                  "bundle_ledger_launches": b_led.get("launches"),
+                  "bundle_exposition_launches": (float(line[0].split()[-1])
+                                                 if line else None),
+                  "overloaded_rejections": dict(adm.rejected)}
+    if (entries_ov < 1 or len(new_dumps) != entries_ov
+            or not all("admission-overloaded" in p for p in new_dumps)
+            or [p.name for p in on_disk] != sorted(
+                Path(p).name for p in new_dumps[-FLIGHT_KEEP:])
+            or bundle.get("schema") != 1
+            or dv.get("generation") != engine.generation
+            or not dv.get("kernel_cost", {}).get("modeled", {}).get("current")
+            or flight_fig["bundle_exposition_launches"] != b_led.get(
+                "launches")):
+        raise AssertionError(f"(d) flight recorder: {flight_fig}; dumps "
+                             f"{new_dumps}; on disk {on_disk}")
+    adm.target_s, adm.interval_s = WIDE_ADMISSION["admission_target_s"], 0.5
+
+    # ---- (a) the ledger over the phase ----------------------------------------
+    wait_idle(engine)
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    led1 = kc.LEDGER.snapshot("engine")
+    d = {k: led1[k] - led0[k] for k in led1 if isinstance(led1[k], int)
+         and k in led0}
+    recs = checked_records(engine)
+    with_rows = [r for r in recs if r["device_rows"]]
+    sums = {k: sum(r[rk] for r in recs) for k, rk in LEDGER_OF_RECORD.items()}
+    ledger_fig = dict(d, records=len(recs), batches_with_device_rows=len(
+        with_rows), wrapper_launches=launches["fused_megakernel"])
+    if (d["batches"] != len(recs)
+            or d["launches"] != sum(r["launches"] for r in recs)
+            or d["launches"] != launches["fused_megakernel"]
+            or d["launches"] != len(with_rows)
+            or any(r["launches"] != 1 for r in with_rows)
+            or d["zero_launch_batches"] != len(recs) - len(with_rows)
+            or any(d[k] != v for k, v in sums.items())
+            or launches["probe_add_one"] < 1):
+        raise AssertionError(f"(a) ledger {d} vs records {sums}, "
+                             f"{len(recs)} batches, {len(with_rows)} with "
+                             f"device rows; wrapper {launches}")
+
+    # ---- (b) the model against the script's own count -------------------------
+    snap = engine._snapshot
+    params, policy = snap.params, snap.policy
+    jwt = northstar.JWT_FILTER
+    docs = [build_authorization_json(q, {"identity": q.metadata_context[
+        "filter_metadata"][jwt]["verified_jwt"]}) for q in reqs[:256]]
+    rows = [policy.config_ids[engine.lookup(q.http.host).rules.name]
+            for q in reqs[:256]]
+    db = pack_batch(policy, encode_batch(policy, docs, rows))
+    K, LB = db.members_c.shape[2], db.attr_bytes.shape[2]
+    t = time.perf_counter()
+    mine = own_config_ops(params, K, LB)
+    walk_ms = (time.perf_counter() - t) * 1e3
+    model = kc.config_ops(params, K, LB)
+    moved, ops = kernel_work(params, db)
+    if not np.array_equal(mine, model) or (moved, ops) != kc.batch_work(
+            params, db):
+        raise AssertionError(f"(b) the model {kc.batch_work(params, db)} "
+                             f"!= kernel_work {(moved, ops)}, or per-config "
+                             f"ops differ on {np.nonzero(mine != model)[0][:8]}")
+    max_err = kernel_vs_plain(params, db, dev)
+    buf, layout = fuse_batch(db)
+    buf_dev = torch.from_numpy(buf).to(dev)
+    kout = torch.empty((256, policy.fused_pack_w), dtype=torch.uint8,
+                       device=dev)
+    launch = (lambda: fk.launch_kernel(params, buf_dev, layout, kout))
+    k_ms, _ = device_times_ms(launch, 100)
+    k_b2b, _ = back_to_back_ms(launch, cycles_per_ms)
+    b_ms, b_by = bound_ms(moved, ops)
+    rec = cpn["kernel_cost"]["entries"]["fused_kernel"]
+    model_fig = {"configs": policy.n_configs, "ops_per_row": ops / 256,
+                 "bytes_per_row": moved / 256,
+                 "bound_ms_per_row": b_ms / 256, "bound_by": b_by,
+                 "bound_ms": b_ms, "kernel_ms_median": statistics.median(k_ms),
+                 "kernel_back_to_back_ms": k_b2b,
+                 "model_at_swap_ms": cpn["kernel_cost_ms"],
+                 "phases_ms": cpn["phases_ms"],
+                 "own_config_ops_walk_ms": walk_ms, "record": rec,
+                 "LB": LB, "K": K}
+
+    clock_step_s = time.time() - time.monotonic() - wall_off0
+    numbers = {"card": card, "lone_p50_ms": lone_p50, "slo": slo_runs,
+               "wall_clock_step_s": clock_step_s,
+               "pairs": pairs, "flight": flight_fig, "ledger": ledger_fig,
+               "model": model_fig, "launches": launches}
+    report["observability_planes"] = numbers
+    med = {s: {k: statistics.median(r[k] for r in pairs[s])
+               for k in ("checks_per_s", "batch_p50_ms")} for s in pairs}
+    log(f"observability planes (a): over the phase the engine lane moved "
+        f"{d['batches']} batches, {d['launches']} launches "
+        f"({d['zero_launch_batches']} batches the cache answered whole), "
+        f"{d['rows']} rows, {d['device_rows']} device rows, "
+        f"{d['pad_rows']} pad rows, {d['dedup_avoided_rows']} saved by "
+        f"dedup, {d['cache_avoided_rows']} by the cache, H2D {d['h2d_bytes']}"
+        f" B, D2H {d['d2h_bytes']} B: equal to the batch records' sums and "
+        f"to the wrapper's {launches['fused_megakernel']} launches, one per "
+        f"batch with a device row")
+    log(f"[{card}] observability planes (b): the model equals "
+        f"own_config_ops on all {policy.n_configs} configs and kernel_work "
+        f"on a 256-row batch (LB {LB}): {model_fig['ops_per_row']:.1f} int "
+        f"ops and {model_fig['bytes_per_row']:.1f} B per row, bound "
+        f"{model_fig['bound_ms_per_row'] * 1e6:.4f} ns per row "
+        f"({b_ms:.7f} ms per batch, by {b_by}; 3.35 TB/s, 33.5 TOPS) beside "
+        f"the kernel's {model_fig['kernel_ms_median']:.4f} ms one call, "
+        f"{k_b2b:.4f} ms back to back on this batch; the model at the swap "
+        f"{cpn['kernel_cost_ms']:.3f} ms beside the upload phase "
+        f"{cpn['phases_ms']['upload']:.3f} ms (compile "
+        f"{cpn['phases_ms']['compile']:.3f} ms; the script's own walk "
+        f"{walk_ms:.1f} ms); record {rec}")
+    log(f"[{card}] observability planes: stage split per batch of the cold "
+        f"burst (mean ms; the median batch's bucket) " + "; ".join(
+            f"{st} {v['mean_ms']:.3f} ({v['median_bucket_ms'][0]:g}-"
+            f"{v['median_bucket_ms'][1]:g}) over {v['batches']}"
+            for st, v in slo_runs[0]["stages"].items()) + "; a warm burst: "
+        + "; ".join(f"{st} {v['mean_ms']:.3f} ({v['median_bucket_ms'][0]:g}-"
+                    f"{v['median_bucket_ms'][1]:g})"
+                    for st, v in slo_runs[2]["stages"].items()))
+    log(f"[{card}] observability planes (c): a lone Check() p50 "
+        f"{lone_p50:.3f} ms; " + "; ".join(
+            f"target {r['target']} ({r['slo_ms']:.6g} ms): {r['bad']} bad "
+            f"of {r['total']} (1m window {r['window_1m']['bad']} of "
+            f"{r['window_1m']['total']}), {r['checks_per_s']:.0f} checks/s"
+            for r in slo_runs) + f"; /debug/vars and auth_server_slo_* "
+        f"agree; the wall clock moved {clock_step_s:+.3f} s against the "
+        f"monotonic one over the phase")
+    log(f"[{card}] observability planes (d): {bursts} warm bursts with the "
+        f"admission target at 1 us and its interval at 0.1 s entered "
+        f"OVERLOADED {entries_ov} times: {len(new_dumps)} bundles, "
+        f"{len(on_disk)} kept on disk (--flight-keep {FLIGHT_KEEP}), schema "
+        f"{bundle.get('schema')}, the exposition's engine launches "
+        f"{flight_fig['bundle_exposition_launches']:.0f} = the ledger's "
+        f"{b_led.get('launches')}")
+    log(f"[{card}] observability planes (f), {PLANE_PAIRS} pairs: planes on "
+        f"{med['on']['checks_per_s']:.0f} checks/s, batch p50 "
+        f"{med['on']['batch_p50_ms']:.2f} ms; off "
+        f"{med['off']['checks_per_s']:.0f} checks/s, batch p50 "
+        f"{med['off']['batch_p50_ms']:.2f} ms (runs on "
+        f"{[round(r['checks_per_s']) for r in pairs['on']]}, off "
+        f"{[round(r['checks_per_s']) for r in pairs['off']]})")
+    return launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -3245,6 +3730,11 @@ def main() -> int:
     from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
 
     report = {}
+    # the flight recorder is on by default, as the reference's: an anomaly
+    # of any phase writes its bundle here, inside the checkout
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+
+    RECORDER.configure(dump_dir=str(Path("smoke_out") / "flight"))
     # ---- 1. the card ------------------------------------------------------
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -3718,18 +4208,32 @@ def main() -> int:
         f"/debug/profile during a fresh burst: {sn['debug_profile']}; "
         f"{fmt_encoder(sv['encoder'])}")
 
+    sp = sv["surfaces"]["planes"]
+    log(f"observability planes (e), phase 12's server with --slo-ms "
+        f"{SERVE_SLO_MS:g} and --flight-dir: /metrics carries all "
+        f"{sp['families']} families of the planes; /debug/vars has the slo "
+        f"({sp['slo_observed']} requests observed), flight_recorder "
+        f"({sp['flight_events']} events), kernel_cost ({sp['ledger_launches']}"
+        f" engine launches in the process) and control_plane "
+        f"({sp['phases_ms']}) sections")
+
+    # ---- 13. the observability planes -------------------------------------
+    plane_launches, plane_err = observability_planes(report, card, dev, ctx6,
+                                                     cycles_per_ms)
+    max_err = max(max_err, plane_err)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": serve_launches["fused_megakernel"],
+         "launches": plane_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": serve_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": plane_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -3739,13 +4243,13 @@ def main() -> int:
         if min(main_launches[name], path_launches[name],
                opa_launches[name], jwt_launches[name],
                core_launches[name], cp_launches[name],
-               serve_launches[name]) < 1:
+               serve_launches[name], plane_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
                 f"request path {path_launches}, OPA path {opa_launches}, "
                 f"JWT path {jwt_launches}, serving core {core_launches}, "
                 f"control plane {cp_launches}, serving surfaces "
-                f"{serve_launches}")
+                f"{serve_launches}, observability planes {plane_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

@@ -616,3 +616,132 @@ def test_package_data_ships_every_kernel_and_encoder_source():
         assert any(fnmatch.fnmatch(src, pat) for pat in patterns), src
     assert conf["project"]["scripts"]["authorino-tpu-torch"] == \
         "authorino_tpu_torch.cli:main"
+
+
+# the observability planes: the cost ledger and model, the SLO tracker, the
+# flight recorder with its atomic writer, the metric families, the engine
+OBSERVABILITY_MODULES = ("utils.atomicio", "utils.metrics", "utils.slo",
+                         "runtime.flight_recorder", "runtime.kernel_cost",
+                         "runtime.engine")
+
+
+def test_observability_planes_run_without_prometheus_or_the_reference():
+    """The planes import and serve with ``jax``, the JAX package, ``grpc``,
+    ``aiohttp`` and ``prometheus_client`` blocked: every metric is a
+    no-op, the SLO, the ledger and the recorder still count, and a bundle
+    carries an empty exposition, as the reference's does."""
+    mods = [f"authorino_tpu_torch.{m}" for m in OBSERVABILITY_MODULES]
+    code = (
+        "import asyncio, importlib, json, os, sys, tempfile\n"
+        "BLOCKED = ('jax', 'authorino_tpu', 'grpc', 'aiohttp', "
+        "'prometheus_client')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from authorino_tpu_torch.utils import metrics\n"
+        "from authorino_tpu_torch.models import northstar\n"
+        "from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine\n"
+        "from authorino_tpu_torch.runtime.flight_recorder import RECORDER\n"
+        "from authorino_tpu_torch.runtime.kernel_cost import LEDGER\n"
+        "assert not metrics._PROM\n"
+        "assert type(metrics.kernel_launches).__name__ == '_NoopMetric'\n"
+        "d = tempfile.mkdtemp()\n"
+        "RECORDER.configure(dump_dir=d, min_dump_interval_s=0)\n"
+        "e = PolicyEngine(max_batch=32, device='cpu', slo_ms=10000)\n"
+        "cfgs = northstar.build_corpus(8, 4)\n"
+        "e.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)"
+        " for c in cfgs])\n"
+        "docs = northstar.build_docs(24)\n"
+        "async def go():\n"
+        "    return await asyncio.gather(*(e.submit(x, f'cfg-{i % 8}') "
+        "for i, x in enumerate(docs)))\n"
+        "assert len(asyncio.run(go())) == 24\n"
+        "path = RECORDER.dump('manual')\n"
+        "b = json.load(open(path))\n"
+        "dv = e.debug_vars()\n"
+        "print('PLANES', LEDGER.snapshot('engine')['rows'], "
+        "dv['slo']['observed_total'], b['metrics'] == '', b['schema'], "
+        "sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PLANES 24 24 True 1 []" in proc.stdout
+
+
+def _fault(*a, **k):
+    raise RuntimeError("plane fault")
+
+
+class _FaultyRing:
+    """A flight-recorder ring whose appends raise."""
+
+    append = staticmethod(_fault)
+
+    def __len__(self):
+        return 0
+
+    def __iter__(self):
+        return iter(())
+
+
+def _plane_targets():
+    from authorino_tpu_torch.runtime import flight_recorder, kernel_cost
+    from authorino_tpu_torch.utils import metrics, slo
+
+    return {
+        "ledger": (kernel_cost.CostLedger, "observe", _fault),
+        "batch families": (metrics, "observe_batch", _fault),
+        "pipeline stages": (metrics, "observe_pipeline_stage", _fault),
+        "slo": (slo.SloTracker, "observe", _fault),
+        "cost model": (kernel_cost, "modeled_fused_cost", _fault),
+        "recorder ring": (flight_recorder.RECORDER, "_ring", _FaultyRing()),
+    }
+
+
+PLANES = ("ledger", "batch families", "pipeline stages", "slo",
+          "cost model", "recorder ring")
+
+
+@pytest.mark.parametrize("plane", PLANES)
+def test_a_plane_fault_never_changes_a_verdict(monkeypatch, plane):
+    """With one plane raising on every call, every batch still answers the
+    verdicts of an engine whose planes work, with no retry and no failed
+    batch: the planes are advisory."""
+    import asyncio
+
+    from authorino_tpu_torch.runtime import EngineEntry, kernel_cost
+
+    def serve(engine, docs, names):
+        async def go():
+            return await asyncio.gather(*(engine.submit(d, n)
+                                          for d, n in zip(docs, names)))
+        loop = asyncio.new_event_loop()
+        try:
+            return loop.run_until_complete(go())
+        finally:
+            loop.close()
+
+    cfgs = northstar.build_corpus(12, 4)
+    docs = northstar.build_docs(40, seed=2)
+    names = [f"cfg-{i % 12}" for i in range(40)]
+    entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c) for c in cfgs]
+    healthy = PolicyEngine(max_batch=16, device="cpu", slo_ms=1.0)
+    healthy.apply_snapshot(entries)
+    want = serve(healthy, docs, names)
+
+    target, attr, value = _plane_targets()[plane]
+    monkeypatch.setattr(target, attr, value)
+    monkeypatch.setattr(kernel_cost, "_ANALYSIS_MEMO", {})
+    faulty = PolicyEngine(max_batch=16, device="cpu", slo_ms=1.0)
+    faulty.apply_snapshot(entries)
+    got = serve(faulty, docs, names)
+    for (wr, ws), (gr, gs) in zip(want, got):
+        assert wr.tolist() == gr.tolist() and ws.tolist() == gs.tolist()
+    st = faulty.stats
+    assert (st["batches"], st["retries"], st["failed_batches"]) == (3, 0, 0)

@@ -6,7 +6,9 @@
   environment variables and given on the command line (``--jax-platform``
   is the one exception: the port has ``--device``);
 * a flag of a plane the port does not hold yet stops the start, naming
-  it; ``--native-frontend on`` raises;
+  it; ``--native-frontend on`` raises; the SLO and flight-recorder flags
+  reach the engine and the recorder, and /debug/vars and /metrics carry
+  the observability planes;
 * ``run_server --device cpu --watch-dir`` gets ready on free ports and
   answers gRPC and HTTP Check()s equal to the reference's, then drains on
   cancellation;
@@ -155,6 +157,88 @@ def test_an_unported_planes_flag_stops_the_start(dest):
     with pytest.raises(SystemExit, match=re.escape(flag)) as e:
         run(port_cli.run_server(args))
     assert "ROADMAP.md queue 1 item" in str(e.value)
+
+
+@pytest.mark.parametrize("flag,value", [("--slo-ms", "250"),
+                                        ("--flight-dir", "/x"),
+                                        ("--flight-keep", "3")])
+def test_an_observability_flag_is_accepted(flag, value):
+    """The SLO tracker and the flight recorder are in the port: their
+    flags no longer stop the start."""
+    port_cli.refuse_unported(server_args(flag, value))
+
+
+# every family the observability planes export (the reference's names)
+PLANE_FAMILIES = (
+    "auth_server_batch_size", "auth_server_batch_pad_occupancy",
+    "auth_server_batch_queue_wait_seconds",
+    "auth_server_device_dispatch_seconds", "auth_server_batch_host_fallback",
+    "auth_server_pipeline_stage_seconds",
+    "auth_server_reconcile_phase_seconds", "auth_server_snapshot_generation",
+    "auth_server_kernel_launches_total", "auth_server_kernel_h2d_bytes_total",
+    "auth_server_kernel_d2h_bytes_total",
+    "auth_server_kernel_pad_waste_rows_total",
+    "auth_server_kernel_modeled_flops_per_row", "auth_server_slo_burn_rate",
+    "auth_server_slo_bad_total", "auth_server_slo_observed_total",
+    "auth_server_flight_recorder_events_total",
+    "auth_server_flight_recorder_dumps_total",
+    "auth_server_state_write_failures_total")
+
+
+def test_run_server_serves_the_observability_planes(tmp_path):
+    """``--slo-ms``, ``--flight-dir`` and ``--flight-keep`` reach the
+    engine and the recorder: /debug/vars carries the slo, flight_recorder,
+    kernel_cost and control_plane sections, and /metrics every family of
+    the planes."""
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+
+    manifests = tmp_path / "manifests"
+    manifests.mkdir()
+    write_manifests(manifests)
+    flight = tmp_path / "flight"
+    args = server_args("--slo-ms", "250", "--flight-dir", str(flight),
+                       "--flight-keep", "3", watch_dir=manifests)
+    reqs, _, _ = cp.build_check_requests(12, 4)
+    saved = (RECORDER.dump_dir, RECORDER.keep)
+
+    async def body():
+        task = asyncio.ensure_future(port_cli.run_server(args))
+        t0 = time.monotonic()
+        while (await asyncio.to_thread(http_get_or_none,
+                                       args.ext_auth_http_port,
+                                       "/readyz"))[0] != 200:
+            assert not task.done(), task
+            assert time.monotonic() - t0 < 60
+            await asyncio.sleep(0.05)
+        for q in reqs:
+            await asyncio.to_thread(http_get, args.ext_auth_http_port,
+                                    q.http.path,
+                                    dict(q.http.headers, Host=q.http.host))
+        out = [await asyncio.to_thread(http_get, args.ext_auth_http_port, p)
+               for p in ("/debug/vars", "/metrics")]
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        return out
+
+    try:
+        (s_vars, dv), (s_metrics, text) = run(body())
+    finally:
+        RECORDER.configure(dump_dir=saved[0], keep=saved[1])
+    assert (s_vars, s_metrics) == (200, 200)
+    eng = json.loads(dv)["engine"]
+    assert eng["slo"]["slo_ms"] == 250.0
+    assert eng["slo"]["observed_total"] == len(reqs)
+    fr = eng["flight_recorder"]
+    assert (fr["dump_dir"], fr["keep"]) == (str(flight), 3)
+    assert {e["kind"] for e in fr["tail"]} >= {"snapshot-swap", "reconcile"}
+    assert eng["kernel_cost"]["ledger"]["engine"]["rows"] >= len(reqs)
+    assert eng["kernel_cost"]["entry_points"][0]["entry"] == "fused_kernel"
+    assert set(eng["control_plane"]["phases_ms"]) == {"compile", "upload"}
+    typed = {ln.split()[2] for ln in text.splitlines()
+             if ln.startswith("# TYPE ")}
+    for fam in PLANE_FAMILIES:
+        assert {fam, fam.removesuffix("_total")} & typed, fam
 
 
 def test_other_refusals_and_off_switches():

@@ -518,3 +518,88 @@ def test_grpc_server_on_the_card_answers_as_the_cpu(card):
     st = on_card.stats
     assert st["launches"] == st["batches"] - st["cached_batches"] > 0
     assert st["failed_batches"] == st["plain_calls"] == 0
+
+
+def test_ledger_equals_batch_records_and_wrapper_launches(card):
+    """Phase 13 (a) at a small size: over a burst with repeats (dedup and
+    the cache on), the cost ledger's engine lane moves by the sums of the
+    engine's batch records and by the wrapper's own launch count, one
+    launch per batch with a device row."""
+    from authorino_tpu_torch.runtime.kernel_cost import LEDGER
+
+    cfgs = northstar.build_corpus(20, 10)
+    engine = PolicyEngine(max_batch=32)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    docs = northstar.build_docs(40, seed=8)
+    docs = docs + docs[:30]
+    names = [f"cfg-{i % 20}" for i in range(70)]
+
+    async def go():
+        return await asyncio.gather(*(engine.submit(d, n)
+                                      for d, n in zip(docs, names)))
+
+    n0, l0, f0 = len(engine.batch_records), LEDGER.snapshot("engine"), \
+        fk.launches
+    asyncio.run(go())
+    asyncio.run(go())
+    deadline = time.monotonic() + 30
+    while engine._inflight and time.monotonic() < deadline:
+        time.sleep(0.01)
+    recs = list(engine.batch_records)[n0:]
+    l1 = LEDGER.snapshot("engine")
+    d = {k: l1[k] - l0[k] for k in l1 if isinstance(l1[k], int)}
+    assert d["batches"] == len(recs)
+    assert d["launches"] == sum(r["launches"] for r in recs) \
+        == fk.launches - f0 == sum(r["device_rows"] > 0 for r in recs)
+    for k, rk in (("rows", "rows"), ("device_rows", "device_rows"),
+                  ("pad_rows", "pad_rows"), ("dedup_avoided_rows",
+                                             "dedup_rows"),
+                  ("cache_avoided_rows", "cache_rows"),
+                  ("h2d_bytes", "h2d_bytes"), ("d2h_bytes", "d2h_bytes")):
+        assert d[k] == sum(r[rk] for r in recs), k
+    assert d["cache_avoided_rows"] > 0 and d["zero_launch_batches"] >= 1
+
+
+def test_overloaded_admission_bundle_on_the_card(card, tmp_path):
+    """Phase 13 (d) at a small size: admission entering OVERLOADED on a
+    card engine writes one bundle whose exposition's engine launch count
+    equals the ledger's (only the port counts into this process's
+    registry)."""
+    import json
+    import os
+
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+
+    saved = (RECORDER.dump_dir, RECORDER.min_dump_interval_s)
+    RECORDER.configure(dump_dir=str(tmp_path), min_dump_interval_s=0.0)
+    try:
+        cfgs = northstar.build_corpus(8, 4)
+        engine = PolicyEngine(max_batch=16)
+        engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name],
+                                           rules=c) for c in cfgs])
+        docs = northstar.build_docs(16, seed=2)
+
+        async def go():
+            return await asyncio.gather(*(engine.submit(
+                d, f"cfg-{i % 8}") for i, d in enumerate(docs)))
+
+        asyncio.run(go())
+        with engine.admission._lock:
+            engine.admission._set_state("overloaded")
+        deadline = time.monotonic() + 30
+        while not any(n.endswith(".json") for n in os.listdir(tmp_path)) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)   # the atomic writer's .tmp comes first
+        with engine.admission._lock:
+            engine.admission._set_state("admit")
+        names = [n for n in os.listdir(tmp_path) if n.endswith(".json")]
+        assert len(names) == 1 and "admission-overloaded" in names[0]
+        bundle = json.loads((tmp_path / names[0]).read_text())
+        assert bundle["schema"] == 1
+        led = bundle["vars"]["engine"]["kernel_cost"]["ledger"]["engine"]
+        line = [ln for ln in bundle["metrics"].splitlines() if ln.startswith(
+            'auth_server_kernel_launches_total{lane="engine"}')]
+        assert float(line[0].split()[-1]) == led["launches"] > 0
+    finally:
+        RECORDER.configure(dump_dir=saved[0], min_dump_interval_s=saved[1])

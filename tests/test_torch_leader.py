@@ -263,6 +263,7 @@ def rest_lease_life(cluster_cls, url, name):
 def test_rest_leases_equal_reference():
     with FakeApiServer() as api:
         got = run(rest_lease_life(RestCluster, api.url, "port")())
+        n_port = len(api.requests)
         want = run_ref(rest_lease_life(RefRest, api.url, "ref"))
         lease_reqs = [(m, p.rsplit("/", 1)[0], r.get("Authorization"),
                        (b or {}).get("spec", {}).get("holderIdentity"))
@@ -270,8 +271,57 @@ def test_rest_leases_equal_reference():
     assert got == want
     assert got == [True, True, False, True, "replica-a", 30.0, 0, False,
                    False, True, 1, True]
-    half = len(lease_reqs) // 2
-    assert lease_reqs[:half] == lease_reqs[half:]
+    # the one request that differs, by design: creating a lease, the
+    # reference first sends a PUT without a resourceVersion (answered 404)
+    # and then the POST; the port sends only the POST
+    port_reqs, ref_reqs = lease_reqs[:n_port], lease_reqs[n_port:]
+    first_puts = [k for k, r in enumerate(ref_reqs[:-1])
+                  if r[0] == "PUT" and ref_reqs[k + 1][0] == "POST"]
+    assert len(first_puts) == 2   # the lease and the other one
+    assert port_reqs == [r for k, r in enumerate(ref_reqs)
+                         if k not in first_puts]
+
+
+def test_two_replicas_racing_the_first_acquire_one_leads():
+    """Both replicas read the lease before either writes it (no lease
+    yet), then both write: exactly one leads, the other's create is
+    refused.  The reference's PUT without a resourceVersion would make
+    the second writer take the lease the first had just created."""
+    class BothReadFirst:
+        """Leases whose get_lease returns only once both replicas have
+        read."""
+
+        def __init__(self, cluster, gate):
+            self.cluster, self.gate = cluster, gate
+
+        async def get_lease(self, namespace, name):
+            lease = await self.cluster.get_lease(namespace, name)
+            self.gate.append(lease)
+            while len(self.gate) < 2:
+                await asyncio.sleep(0.005)
+            return lease
+
+        async def put_lease(self, namespace, name, lease):
+            return await self.cluster.put_lease(namespace, name, lease)
+
+    async def body(api):
+        gate = []
+        electors = [LeaderElector(BothReadFirst(RestCluster(api.url, token=k),
+                                                gate),
+                                  f"replica-{k}", namespace="ns1",
+                                  name="race", duration_s=30.0)
+                    for k in "ab"]
+        won = await asyncio.gather(*(e.try_acquire_or_renew()
+                                     for e in electors))
+        holder = (await RestCluster(api.url, token="r").get_lease(
+            "ns1", "race")).holder
+        return gate, won, [e.is_leader() for e in electors], holder
+
+    with FakeApiServer() as api:
+        gate, won, leading, holder = run(body(api))
+    assert gate == [None, None]
+    assert sorted(won) == [False, True] and leading == won
+    assert holder == f"replica-{'ab'[won.index(True)]}"
 
 
 # ---- the status updater ----------------------------------------------------

@@ -377,6 +377,44 @@ def test_health_and_spicedb_bytes_equal_the_references():
                 ref_authzed._decode_check_response(resp) == perm
 
 
+def _decoded(fn, data):
+    try:
+        return fn(data)
+    except IndexError:
+        return "truncated"
+
+
+# (bytes, what the reference decodes): a SpiceDB writing each field once,
+# in number order, then four answers a strict protobuf parser would read
+# as HAS_PERMISSION (2) but the reference does not
+SPICEDB_ANSWERS = [
+    (ld(1, ld(1, b"tok")) + b"\x10\x02", 2),
+    (b"\x35\x00\x00\x00\x00\x10\x02", 0),           # fixed32 field 6 first
+    (b"\x10\x01\x10\x02", 1),                       # field 2 twice
+    (varint(16 << 3) + b"\x01\x10\x02", 0),         # two-byte key first
+    (b"\x10" + varint((1 << 32) + 2), (1 << 32) + 2),
+]
+
+
+@pytest.mark.parametrize("data,want", SPICEDB_ANSWERS, ids=[
+    "canonical", "fixed32-first", "field2-twice", "two-byte-key",
+    "past-int32"])
+def test_spicedb_answer_decodes_as_the_reference(data, want):
+    assert wire.decode_check_permission(data) == \
+        ref_authzed._decode_check_response(data) == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.binary(max_size=24) | st.lists(
+    st.sampled_from([b"\x10\x02", b"\x10\x01", b"\x08\x05", b"\x0a\x00",
+                     b"\x35\x00\x00\x00\x00", b"\x80\x01\x01", b"\x12\x01x",
+                     b"\x10\xff", b"\x10\x82\x80\x80\x80\x10"]),
+    max_size=6).map(b"".join))
+def test_spicedb_answer_decodes_as_the_reference_on_drawn_bytes(data):
+    assert _decoded(wire.decode_check_permission, data) == \
+        _decoded(ref_authzed._decode_check_response, data)
+
+
 def test_timestamps_print_as_to_json_string():
     ts_pb = timestamp_pb2.Timestamp
     for secs in (0, 1, 1_700_000_000, -1, -62135596800, 253402300799):
