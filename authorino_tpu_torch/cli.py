@@ -76,9 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--device-timeout", type=int, default=env_var("DEVICE_TIMEOUT_MS", 30000),
       help="Completer watchdog in ms (0 disables)")
     a("--breaker-threshold", type=int, default=env_var("BREAKER_THRESHOLD", 5),
-      help="Device circuit breaker trip count (not in the port yet)")
+      help="Device circuit breaker trip count (consecutive batch failures)")
     a("--breaker-reset", type=float, default=env_var("BREAKER_RESET_S", 5.0),
-      help="Device circuit breaker half-open delay (not in the port yet)")
+      help="Device circuit breaker half-open delay in seconds")
     a("--admission-target-ms", type=float, default=env_var("ADMISSION_TARGET_MS", 50.0),
       help="CoDel-style admission wait target in ms")
     a("--admission-queue-cap", type=int, default=env_var("ADMISSION_QUEUE_CAP", 0),
@@ -140,7 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--drain-timeout", type=float, default=env_var("DRAIN_TIMEOUT_S", 10.0),
       help="Graceful-shutdown bound in seconds: SIGTERM stops admission, "
            "then in-flight requests/batches get this long to complete")
-    a("--fault-profile", default=env_var("AUTHORINO_TPU_FAULTS", ""))
+    a("--fault-profile", default=env_var("AUTHORINO_TPU_FAULTS", ""),
+      help="ARM THE FAULT-INJECTION PLANE (testing/chaos only): a named "
+           "profile (device-down, flaky, flap, slow-device, wedge) or a "
+           "rule spec — see runtime/faults.py")
     a("--ovf-assist", action="store_true", default=env_var("AUTHORINO_TPU_OVF_ASSIST", False),
       help="Answer membership-overflow rows in the kernel from exact "
            "assist columns")
@@ -198,11 +201,11 @@ def build_parser() -> argparse.ArgumentParser:
 # the reference's planes the port does not hold yet, with the ROADMAP.md
 # item (queue 1) that brings each
 UNPORTED_PLANES = {
-    "breaker": 3, "brownout": 3, "lane selection": 3,
+    "brownout": 3, "lane selection": 3,
     "speculative dispatch": 3, "tenancy": 3, "canary": 3,
     "snapshot history": 3, "metadata prefetch": 5,
     "state plane": 7, "snapshot distribution": 7,
-    "faults": 7, "kernel lanes": 9, "native frontend": 11,
+    "kernel lanes": 9, "native frontend": 11,
     "strict verify": 12, "capture": 12, "replay pregate": 12,
     "corpus pregate": 12, "fleet": 13,
 }
@@ -211,8 +214,6 @@ UNPORTED_PLANES = {
 # only turns a plane off (--no-brownout, --no-lane-select, ...) is absent:
 # it is accepted with either value
 UNPORTED_FLAGS = {
-    "breaker_threshold": (5, "breaker"),
-    "breaker_reset": (5.0, "breaker"),
     "brownout_max_batch": (32, "brownout"),
     "lane_host_max_rows": (64, "lane selection"),
     "tenant_weight": ([], "tenancy"),
@@ -231,7 +232,6 @@ UNPORTED_FLAGS = {
     "corpus_pregate": ("", "corpus pregate"),
     "corpus_pregate_budget_ms": (2000.0, "corpus pregate"),
     "snapshot_history": (4, "snapshot history"),
-    "fault_profile": ("", "faults"),
     "metadata_max_age": (300.0, "metadata prefetch"),
     "metadata_refresh": (60.0, "metadata prefetch"),
     "strict_verify": (False, "strict verify"),
@@ -387,6 +387,14 @@ async def run_server(args, on_engine=None) -> None:
                        enabled=not args.no_flight_recorder,
                        keep=int(args.flight_keep))
 
+    fault_profile = str(args.fault_profile or "")
+    if fault_profile:
+        from .runtime import faults
+
+        faults.FAULTS.arm(fault_profile)
+        log.warning("fault injection ARMED via --fault-profile (%s): this "
+                    "is a chaos/testing mode", fault_profile)
+
     device_timeout_ms = int(args.device_timeout or 0)
     # the engine resolves its device first: without a card (and without
     # --device cpu) the start raises here, before any port binds
@@ -404,6 +412,8 @@ async def run_server(args, on_engine=None) -> None:
         device_timeout_s=(device_timeout_ms / 1000.0) or None,
         ovf_assist=bool(args.ovf_assist) or None,
         slo_ms=float(args.slo_ms),
+        breaker_threshold=int(args.breaker_threshold),
+        breaker_reset_s=float(args.breaker_reset),
     )
     if engine.device.type == "cuda":
         import torch

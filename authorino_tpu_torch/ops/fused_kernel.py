@@ -609,6 +609,13 @@ class MegakernelHandle:
         a = self.wait()
         return a.astype(dtype) if dtype is not None else a
 
+    def release(self) -> None:
+        """Drop the readback buffer, the event and the stream (the engine's
+        watchdog abandoned this batch); a later ``wait()`` raises.  The
+        pinned block is not reused before its copy ends: the host
+        allocator recorded the copy's stream on it."""
+        self._host = self._event = self.stream = None
+
 
 def dispatch_megakernel(params, db) -> MegakernelHandle:
     """Non-blocking launch of one batch; the D2H copy starts at once.  The

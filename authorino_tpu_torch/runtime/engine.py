@@ -42,11 +42,33 @@ own loop through ``call_soon_threadsafe``):
      finalizes.)
 
 A batch that fails (encode, launch, readback, or a readback wedged past
-``device_timeout_s``) is retried once on a fresh dispatch on the same card;
-if that fails too, its requests answer a typed ``CheckAbort(UNAVAILABLE)``,
-which the pipeline passes through as the Check()'s code: never the raw
-exception, whose text would otherwise become a deny reason, and never a
-switch to the host oracle or the plain version.
+``device_timeout_s``) counts against the device circuit breaker
+(runtime/breaker.py) and is retried once on a fresh dispatch on the same
+card.  ``breaker_threshold`` consecutive failures trip the breaker OPEN:
+whole batches then stay off the card until, ``breaker_reset_s`` later, one
+half-open probe batch launches the kernel again and closes it.  What a
+batch the card did not decide answers (its retry failed, or the open
+breaker kept it off the card) depends on the engine's device:
+
+  * on a card, a typed ``CheckAbort(UNAVAILABLE)``: the port serves no
+    verdict its kernel did not compute, so a failing card fails loudly
+    and the caller (Envoy's failure mode, a peer replica) decides;
+  * on the CPU, every request is re-decided exactly, row by row, by the
+    host expression oracle (``host_results``, the kernel's
+    differential-test reference), as the reference's ``_degrade_batch``
+    does.  The degrade is loud: every degraded row counts in
+    ``auth_server_degraded_decisions_total``, ``stats["degraded_rows"]``,
+    the cost ledger's ``host`` lane (no launch) and a batch record with no
+    launch; only a row whose oracle run itself fails answers UNAVAILABLE.
+
+Either end runs on the encode pool, never on the completer, so one sick
+batch does not stall the other completions.  Every transition logs a
+WARNING and records a flight event, and entering OPEN writes a bundle.  A
+request with no compiled snapshot to decide it answers UNAVAILABLE too;
+the pipeline passes the typed code through as the Check()'s, never the raw
+exception, whose text would otherwise become a deny reason.  The fault
+plane (runtime/faults.py) hooks encode, H2D staging, the launch
+(``wrap_handle``) and the readback.
 
 The verdict cache is keyed by (the config's cache token, the encoded row's
 bytes): the token (snapshots/fingerprint.py) is the encoding epoch and the
@@ -58,13 +80,16 @@ enter the cache.
 ``stats`` counts batches (one per dispatch attempt), kernel launches, plain
 calls, rows, device rows, rows saved by dedup and by the cache, batches the
 cache answered whole, pad rows and H2D/D2H bytes of what went to the
-device, host-fallback rows, retries, failed batches, deadline sheds and
-watchdog timeouts; ``batch_records`` keeps the same per batch with the
-generation of the snapshot the batch was cut against, and
-``batch_latency_s`` each batch's time from its encode to its verdicts.
-The structural contract: one launch per batch with at least one unique
-uncached row and none for a batch the cache answers whole; D2H = Σ pad_u
-× W; rows = device rows + rows saved by dedup + rows saved by the cache.
+device, host-fallback rows, retries, failed batches, deadline sheds,
+watchdog timeouts, degraded rows and batches (CPU only), and the batches
+the open breaker kept off the card; ``batch_records`` keeps the
+same per batch with the generation of the snapshot the batch was cut
+against (a degraded batch's record has no launch and names its reason),
+and ``batch_latency_s`` each device batch's time from its encode to its
+verdicts.  The structural contract: one launch per batch with at least one
+unique uncached row and none for a batch the cache answers whole; D2H = Σ
+pad_u × W; rows = device rows + rows saved by dedup + rows saved by the
+cache + degraded rows.
 
 The observability planes ride the reference's sites: the encode and launch
 stages are timed in the encode stage and the device and resolve stages
@@ -120,9 +145,11 @@ from ..utils import tracing as tracing_mod
 from ..utils.rpc import DEADLINE_EXCEEDED, NOT_FOUND, UNAVAILABLE, CheckAbort
 from ..utils.slo import SloTracker
 from ..utils.verdict_cache import VerdictCache
+from . import faults
 from . import kernel_cost as kernel_cost_mod
 from . import provenance as prov_mod
 from .admission import AdaptiveWindow, AdmissionController
+from .breaker import CircuitBreaker
 from .flight_recorder import RECORDER
 from .kernel_cost import LEDGER, CostModel
 
@@ -136,7 +163,8 @@ BATCH_RECORDS = 65536
 _STAT_KEYS = ("batches", "launches", "plain_calls", "rows", "device_rows",
               "dedup_rows", "cache_rows", "cached_batches", "pad_rows",
               "h2d_bytes", "d2h_bytes", "host_fallback", "retries",
-              "failed_batches", "deadline_shed", "watchdog_timeouts")
+              "failed_batches", "deadline_shed", "watchdog_timeouts",
+              "degraded_rows", "degraded_batches", "breaker_open_batches")
 
 
 @dataclass
@@ -279,7 +307,9 @@ class PolicyEngine:
                  admission_min_cap: Optional[int] = None,
                  adaptive_window: bool = True,
                  device_timeout_s: Optional[float] = None,
-                 slo_ms: float = 0.0):
+                 slo_ms: float = 0.0,
+                 breaker_threshold: int = 5,
+                 breaker_reset_s: float = 5.0):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -290,7 +320,12 @@ class PolicyEngine:
         hard cap) and ``admission_min_cap`` (None = one full window of
         batches) parameterize the admission gate.  ``device_timeout_s``
         (None = off) abandons a batch whose readback has not arrived by
-        then and retries it once.  ``timeout_s`` bounds one Check()'s
+        then, as a breaker-counted failure.  ``breaker_threshold``
+        consecutive batch failures trip the device circuit breaker OPEN
+        (whole batches kept off the card: UNAVAILABLE on a card, the host
+        oracle on the CPU); ``breaker_reset_s`` later one half-open probe
+        batch tests the card again.
+        ``timeout_s`` bounds one Check()'s
         pipeline.  ``slo_ms`` (0 = off) arms the SLO burn-rate tracker:
         a request is bad when its queue wait plus its batch's device
         stage exceeds it, or when it fails with a serving error."""
@@ -327,6 +362,8 @@ class PolicyEngine:
         self.controller = AdaptiveWindow(
             "engine", cap=self.max_inflight_batches, batch_cap=max_batch,
             enabled=adaptive_window)
+        self.breaker = CircuitBreaker("engine", threshold=breaker_threshold,
+                                      reset_s=breaker_reset_s)
         self._g_inflight = metrics_mod.inflight_batches.labels("engine")
         self._g_depth = metrics_mod.dispatch_queue_depth.labels("engine")
         self._swap_listeners: List[Any] = []
@@ -550,7 +587,9 @@ class PolicyEngine:
             raise CheckAbort(UNAVAILABLE, "server draining")
         snap = self._snapshot
         if snap is None or snap.policy is None:
-            raise RuntimeError("no compiled snapshot is installed")
+            # typed, as the reference answers a batch cut with no compiled
+            # snapshot: nothing (device or oracle) can decide it
+            raise CheckAbort(UNAVAILABLE, "no compiled policy snapshot")
         if config_name not in snap.policy.config_ids:
             raise KeyError(f"unknown AuthConfig {config_name!r}")
         rej = self.admission.admit(len(self._queue), deadline=deadline,
@@ -603,7 +642,9 @@ class PolicyEngine:
                            batch: List[_Pending], attempt: int = 0) -> None:
         """Encode stage (pool thread): shed the expired, encode + launch
         without waiting on the device, hand the batch to the completer.
-        A failure takes the retry path (``_batch_failed``)."""
+        An open circuit breaker keeps the whole batch off the card
+        (``_end_undecided``); a failure takes the retry path
+        (``_batch_failed``)."""
         batch = self._shed_expired(batch)
         if not batch:
             self._launch_done()
@@ -613,7 +654,12 @@ class PolicyEngine:
                 UNAVAILABLE, "no compiled policy snapshot"))
             self._launch_done()
             return
+        if not self.breaker.admit_device():
+            self._end_undecided(snap, batch, reason="breaker-open")
+            return
         try:
+            if faults.ACTIVE:
+                faults.FAULTS.check("encode", "engine")
             item = self._encode_and_launch(snap, batch)
             item.snap = snap
             item.attempt = attempt
@@ -641,9 +687,12 @@ class PolicyEngine:
 
     def _batch_failed(self, snap: _Snapshot, batch: List[_Pending],
                       attempt: int, exc: Exception) -> None:
-        """A launched (or launching) batch failed: retry it once on a fresh
-        dispatch, then answer its requests UNAVAILABLE.  The window slot
-        stays held until the batch resolves (the retry owns it)."""
+        """A launched (or launching) batch failed: count it against the
+        circuit breaker and retry it once on a fresh dispatch; a failed
+        retry ends the batch (``_end_undecided``) on the encode pool, as
+        the retry runs: this may be the completer's thread.  The window
+        slot stays held until the batch resolves."""
+        self.breaker.record_failure()
         if attempt == 0:
             metrics_mod.batch_retries.labels("engine").inc()
             self._add_stats(retries=1)
@@ -652,12 +701,51 @@ class PolicyEngine:
             _encode_pool(self.dispatch_workers).submit(
                 self._encode_launch_job, snap, batch, 1)
             return
-        self._resolve_error(batch, exc)
-        self._launch_done()
+        _encode_pool(self.dispatch_workers).submit(
+            self._end_undecided, snap, batch, exc)
+
+    @property
+    def host_degrade(self) -> bool:
+        """Whether a batch the device did not decide is re-decided by the
+        host oracle: only on a CPU engine.  A card engine answers it
+        UNAVAILABLE."""
+        return self.device.type == "cpu"
+
+    def _end_undecided(self, snap: _Snapshot, batch: List[_Pending],
+                       exc: Optional[Exception] = None,
+                       reason: str = "device-failure") -> None:
+        """End a batch the device did not decide (pool thread): its retry
+        failed (``exc``), or the open breaker kept it off the card.  The
+        host oracle's degrade on a CPU engine, a typed UNAVAILABLE on a
+        card.  Whatever raises here, every future resolves and the window
+        slot is freed."""
+        try:
+            if reason == "breaker-open":
+                self._add_stats(breaker_open_batches=1)
+            if self.host_degrade:
+                self._degrade_batch(snap, batch, exc=exc, reason=reason)
+            else:
+                self._resolve_error(batch, exc if exc is not None else
+                                    CheckAbort(UNAVAILABLE,
+                                               "engine device circuit open"))
+        except Exception:
+            log.exception("ending an undecided batch failed")
+            self._fail_all(batch, CheckAbort(
+                UNAVAILABLE, "policy evaluation unavailable"))
+        finally:
+            self._launch_done()
 
     def _watchdog_fire(self, item: _Inflight) -> None:
         """An in-flight batch wedged past ``device_timeout_s``: abandon its
-        handle (a late readback is dropped) and take the retry path."""
+        handle (its readback buffer and stream go; a late readback lands
+        nowhere) and take the retry path as a breaker-counted failure."""
+        release = getattr(item.handle, "release", None)
+        item.handle = None
+        if release is not None:
+            try:
+                release()
+            except Exception:
+                log.exception("abandoned handle release failed")
         metrics_mod.watchdog_timeouts.labels("engine").inc()
         self._add_stats(watchdog_timeouts=1)
         RECORDER.record("watchdog-timeout", lane="engine", detail={
@@ -795,18 +883,25 @@ class PolicyEngine:
         t1 = time.monotonic()
         start_ns = time.time_ns()
         if db_u is not None:
-            handle = fk.dispatch_megakernel(snap.params, db_u)
-            if handle.nbytes != pad_u * W:
+            if faults.ACTIVE:
+                faults.FAULTS.check("h2d", "engine")
+                faults.FAULTS.check("kernel", "engine")
+            launched = fk.dispatch_megakernel(snap.params, db_u)
+            if launched.nbytes != pad_u * W:
                 raise RuntimeError("readback is not [pad, W] uint8")
+            # a hang or delay rule wraps the real launch's handle
+            handle = (faults.FAULTS.wrap_handle(launched, "engine")
+                      if faults.ACTIVE else launched)
         else:
-            handle = _Resolved()
+            launched = handle = _Resolved()
         _observe_stage("launch", time.monotonic() - t1)
         record = {"rows": n, "device_rows": u, "pad_rows": pad_u,
                   "dedup_rows": len(miss_rows) - u, "cache_rows": len(cached),
-                  "launches": handle.launches,
-                  "plain_calls": handle.plain_calls,
+                  "degraded_rows": 0,
+                  "launches": launched.launches,
+                  "plain_calls": launched.plain_calls,
                   "h2d_bytes": staged_h2d_bytes(db_u) if u else 0,
-                  "d2h_bytes": handle.nbytes}
+                  "d2h_bytes": launched.nbytes}
         self.batch_records.append(dict(record, generation=snap.generation))
         self._add_stats(batches=1, cached_batches=int(u == 0), **record)
         # the structural cost fold: one device computation per cut with a
@@ -894,9 +989,91 @@ class PolicyEngine:
             return None
         return firing
 
+    # ---- the host-oracle degrade ------------------------------------------
+
+    def _host_decide_batch(self, snap: _Snapshot, batch: List[_Pending]):
+        """Row-by-row exact host decisions for one batch through the
+        expression oracle (``host_results``, membership overflow
+        included).  Returns (resolutions-by-loop, failed-futures-by-loop,
+        rows decided); a row whose oracle run itself failed lands in
+        ``failed`` (typed UNAVAILABLE, fail closed).  The batch folds into
+        the cost ledger's ``host`` lane (no launch, no bytes) and its
+        columns into the same heat map and decision log as the device
+        lane's, through the same per-batch fold."""
+        by_loop: Dict[Any, list] = {}
+        failed: Dict[Any, list] = {}
+        decided = []   # (pending, config row, rule [E], skipped [E])
+        for p in batch:
+            try:
+                row = snap.policy.config_ids[p.config_name]
+                _, rule, skipped = host_results(snap.policy, p.doc, row)
+            except Exception:
+                log.exception("host oracle failed for config %r "
+                              "(fail-closed UNAVAILABLE)", p.config_name)
+                failed.setdefault(p.loop, []).append(p.future)
+                continue
+            decided.append((p, row, rule, skipped))
+            by_loop.setdefault(p.loop, []).append(
+                (p.future, rule, skipped, snap))
+        if batch:
+            try:
+                LEDGER.observe("host", rows=len(batch))
+            except Exception:
+                log.exception("kernel cost fold failed (batch unaffected)")
+        if decided:
+            pendings, rows, rules, skips = zip(*decided)
+            self._observe_provenance(snap, list(pendings), np.asarray(rows),
+                                     np.stack(rules), np.stack(skips))
+        return by_loop, failed, len(decided)
+
+    @staticmethod
+    def _resolve_host_decisions(by_loop, failed) -> None:
+        for loop, resolutions in by_loop.items():
+            try:
+                loop.call_soon_threadsafe(_resolve_many, resolutions)
+            except RuntimeError:
+                pass  # the loop closed since submit: its futures are moot
+        for loop, futs in failed.items():
+            try:
+                loop.call_soon_threadsafe(_fail_many, futs, CheckAbort(
+                    UNAVAILABLE, "policy evaluation unavailable"))
+            except RuntimeError:
+                pass
+
+    def _degrade_batch(self, snap: _Snapshot, batch: List[_Pending],
+                       exc: Optional[Exception] = None,
+                       reason: str = "device-failure") -> None:
+        """The CPU engine's last lane: every request re-decided row by row
+        through the host oracle, counted as degraded (the metric, ``stats``, the
+        ledger's ``host`` lane, a batch record with no launch) and fed to
+        admission and the SLO once.  Typed UNAVAILABLE only for rows whose
+        oracle run itself fails."""
+        by_loop, failed, n_ok = self._host_decide_batch(snap, batch)
+        n_failed = len(batch) - n_ok
+        if n_ok:
+            metrics_mod.degraded_decisions.labels("engine").inc(n_ok)
+            self.admission.observe_service(n_ok)
+            if self.slo is not None:
+                now = time.monotonic()
+                n_bad = sum(1 for p in batch if p.t_enq
+                            and now - p.t_enq > self.slo.slo_s)
+                self.slo.observe(n_ok, min(n_bad, n_ok))
+            if exc is not None:
+                log.warning("micro-batch of %d re-decided host-side after "
+                            "device failure (%r)", len(batch), exc)
+        self.batch_records.append({
+            "rows": len(batch), "device_rows": 0, "pad_rows": 0,
+            "dedup_rows": 0, "cache_rows": 0, "degraded_rows": n_ok,
+            "launches": 0, "plain_calls": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+            "generation": snap.generation, "degraded": reason})
+        self._add_stats(degraded_rows=n_ok, degraded_batches=1,
+                        failed_batches=int(n_failed > 0))
+        self._resolve_host_decisions(by_loop, failed)
+
     def debug_vars(self) -> Dict[str, Any]:
         """JSON-safe live state: the config generation, the dispatcher's
         backlog and in-flight window, admission and the adaptive window,
+        the circuit breaker and the fault plane,
         the last reconcile's phases and modeled kernel cost, the SLO
         burn-rate windows, the flight recorder's tail, the kernel cost
         ledger, and decision provenance (heat-map shape and fold evidence,
@@ -915,6 +1092,8 @@ class PolicyEngine:
             "batch_dedup": self.batch_dedup,
             "verdict_cache": (self._verdict_cache.counts()
                               if self._verdict_cache is not None else None),
+            "breaker": self.breaker.to_json(),
+            "host_degrade": self.host_degrade,
             "draining": self._draining,
             "device_timeout_s": self.device_timeout_s,
             "device_rtt_ewma_s": self._device_ewma,
@@ -922,6 +1101,8 @@ class PolicyEngine:
             "adaptive": self.controller.to_json(),
             "control_plane": self._control_plane,
             "slo": self.slo.to_json() if self.slo is not None else None,
+            "faults": (faults.FAULTS.describe() if faults.ACTIVE else
+                       {"armed": False}),
             "flight_recorder": RECORDER.to_json(),
             # the process-wide structural ledger (launches, bytes, pad
             # waste per lane), the modeled per-row cost lineage, and the
@@ -952,11 +1133,13 @@ class PolicyEngine:
         """Completion stage (the completer thread, once the readback
         arrived): finalize, resolve the futures on their own loops, free
         the window slot.  A readback or finalize failure is a device
-        failure and takes the retry path; a failure after the verdicts
-        exist is a host bug and answers the unresolved requests
-        UNAVAILABLE without a retry."""
+        failure and takes the retry path; a failure after the
+        verdicts exist is a host bug: it never feeds the breaker and
+        answers the unresolved requests UNAVAILABLE without a retry."""
         try:
             t_done = time.monotonic()
+            if faults.ACTIVE:
+                faults.FAULTS.check("readback", "engine")
             packed = item.handle.wait()
             own_rule, own_skipped = item.finalize(packed)
         except Exception as e:
@@ -964,6 +1147,14 @@ class PolicyEngine:
             return
         slo_counted = False
         try:
+            # the device answered: clear the breaker's consecutive-failure
+            # count (and close a half-open probe) before the resolution
+            # work.  A batch the cache answered whole proves nothing about
+            # the device: it only frees a claimed probe slot
+            if item.binfo.get("device_rows", 1) == 0:
+                self.breaker.release_probe()
+            else:
+                self.breaker.record_success()
             dur = t_done - item.t_launch
             self._device_ewma = (dur if not self._device_ewma
                                  else 0.8 * self._device_ewma + 0.2 * dur)
@@ -1045,6 +1236,12 @@ class PolicyEngine:
                     self.slo.observe_errors(len(batch))
                 except Exception:
                     log.exception("SLO error fold failed")
+        self._fail_all(batch, exc)
+
+    @staticmethod
+    def _fail_all(batch: List[_Pending], exc: CheckAbort) -> None:
+        """Fail every unresolved future of ``batch`` with ``exc`` on its
+        own loop; nothing counted."""
         by_loop: Dict[Any, list] = {}
         for p in batch:
             by_loop.setdefault(p.loop, []).append(p.future)

@@ -13,9 +13,9 @@ full Prometheus exposition, to ``--flight-dir``.  Incident forensics then
 start from the bundle (one JSON document, schema ``BUNDLE_SCHEMA``), not
 from whatever the process happened to log.
 
-Recording hooks live in runtime/admission.py and runtime/engine.py (the
-reference's breaker and native frontend record here too; the port has
-neither yet).  The anomaly set is the reference's whole set, so a kind
+Recording hooks live in runtime/admission.py, runtime/breaker.py and
+runtime/engine.py (the reference's native frontend records here too; the
+port has none yet).  The anomaly set is the reference's whole set, so a kind
 recorded by a plane ported later triggers as it does there.  Everything
 here is fail-safe — a recorder bug must never take down the serving path,
 so every public entry point swallows its own exceptions after logging.
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import tempfile
 import threading
@@ -101,7 +102,11 @@ class FlightRecorder:
             "AUTHORINO_TPU_FLIGHT_DIR",
             os.path.join(tempfile.gettempdir(), "authorino-tpu-flight"))
         self.min_dump_interval_s = float(min_dump_interval_s)
-        self._last_dump = 0.0
+        # no dump yet: the first anomaly always dumps.  (0.0 here would
+        # rate-limit it against the monotonic clock's origin, which is
+        # the host's boot: on a host up for less than the interval the
+        # first incident would lose its bundle.)
+        self._last_dump = -math.inf
         self._dump_lock = threading.Lock()
         # registered context providers: name -> weakref'd zero-arg callable
         # returning a JSON-safe dict (engine.debug_vars, fe.debug_vars).

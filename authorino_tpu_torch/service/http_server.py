@@ -186,15 +186,26 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
     async def readyz(request: web.Request):
         # readiness aggregates reconciler state (ref pkg/health/health.go:48-71):
         # a draining server answers 503 so the LB stops routing here while
-        # in-flight work completes; overload is surfaced but STAYS ready —
-        # admission is shedding typed rejections precisely so accepted
-        # work still meets its SLO
+        # in-flight work completes; a tripped device circuit is surfaced
+        # but STAYS ready, as the reference's — the half-open probe that
+        # closes it rides live traffic, so removing the endpoint would keep
+        # it open (a card engine answers UNAVAILABLE meanwhile, a CPU
+        # engine the host oracle's exact verdicts); overload is surfaced
+        # but stays ready too — admission is
+        # shedding typed rejections precisely so accepted work still meets
+        # its SLO
         if engine.draining:
             return web.Response(status=503, text="draining")
         if readiness is None or readiness():
+            degraded = []
+            breaker = getattr(engine, "breaker", None)
+            if breaker is not None and breaker.state != "closed":
+                degraded.append(f"engine device circuit {breaker.state}")
             if engine.admission.overloaded:
+                degraded.append("engine admission overloaded")
+            if degraded:
                 return web.Response(
-                    text="ok (degraded: engine admission overloaded)")
+                    text=f"ok (degraded: {'; '.join(degraded)})")
             return web.Response(text="ok")
         return web.Response(status=503, text="not ready")
 

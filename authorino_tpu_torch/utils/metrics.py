@@ -2,7 +2,8 @@
 buckets (ref: pkg/service/auth_pipeline.go:26-36, pkg/metrics/metrics.go):
 the auth pipeline's families, and those of the planes the port holds (the
 serving core, provenance, the per-batch and stage telemetry, the reconcile
-phases, the SLO tracker, the flight recorder, the kernel cost ledger).
+phases, the SLO tracker, the flight recorder, the kernel cost ledger, the
+circuit breaker, the degrade and the fault plane).
 The families of planes not in the port yet come with them.
 
 Per-evaluator (deep) metrics are gated by the evaluator's ``metrics: true``
@@ -201,9 +202,37 @@ deadline_shed = _register(
 watchdog_timeouts = _register(
     "counter", "auth_server_device_watchdog_timeouts_total",
     "In-flight micro-batches abandoned by the completer watchdog because "
-    "their readback never arrived within device_timeout_s (the batch "
-    "retries once, then answers UNAVAILABLE).",
+    "their readback never arrived within device_timeout_s (counted as "
+    "circuit-breaker failures; the batch retries once, then answers "
+    "UNAVAILABLE on a card or degrades to the host oracle on the CPU).",
     _LANE_LABELS,
+)
+# the device circuit breaker, the host-oracle degrade and the fault plane's
+# own evidence counter (runtime/breaker.py, runtime/faults.py)
+circuit_state = _register(
+    "gauge", "auth_server_circuit_state",
+    "Device circuit-breaker state per lane: 0 = closed (device serving), "
+    "1 = half-open (one probe batch in flight), 2 = open (batches kept "
+    "off the device until the cooldown probe succeeds).",
+    _LANE_LABELS,
+)
+circuit_transitions = _register(
+    "counter", "auth_server_circuit_transitions_total",
+    "Circuit-breaker state transitions per lane (state = the state entered).",
+    _LANE_LABELS + ("state",),
+)
+degraded_decisions = _register(
+    "counter", "auth_server_degraded_decisions_total",
+    "Requests decided host-side because the device path failed (retry "
+    "exhausted) or the circuit breaker was open: an exact re-decision "
+    "through the expression oracle (a CPU engine only).",
+    _LANE_LABELS,
+)
+injected_faults = _register(
+    "counter", "auth_server_injected_faults_total",
+    "Faults fired by the injection plane (runtime/faults.py) — non-zero "
+    "only under --fault-profile, chip_smoke.py's failure phase or tests.",
+    ("stage", "mode", "lane"),
 )
 admission_state = _register(
     "gauge", "auth_server_admission_state",

@@ -171,14 +171,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the package's kernel-cost model equal to ``own_config_ops`` on every
      config and to ``kernel_work`` on a 256-row batch, printed beside the
      bound and the kernel's time on that batch, and the model's time at
-     the swap beside the upload phase.
+     the swap beside the upload phase;
+ 14. the failure handling, on phase 6's translated corpus at full width
+     through an engine with dedup and the cache off, ``breaker_threshold``
+     3, ``breaker_reset_s`` 0.5, ``device_timeout_s`` 0.25, every anomaly
+     dumped (``smoke_out/flight-14``), the fault plane armed part by part:
+     (a) ``device-down`` — lone Check()s trip the breaker after 3
+     failures, then a 4,096-Check() burst the host oracle answers exactly
+     with no launch, its degraded rows equal to the ledger's host rows and
+     the metric's delta, a ``breaker-open`` bundle, the oracle's checks/s
+     and µs per row beside phase 13's cold burst; (b)
+     ``kernel:raise:for=1`` — closed → open → half-open → closed, the time
+     from the fault's end to ``closed``, each half-open probe batch a real
+     launch whose readback is byte-equal to plain; (c) ``kernel:hang`` —
+     wedged 256-row batches, each 2 watchdog timeouts then the exact
+     oracle answer, device memory back to its value before them; (d)
+     ``slow-device`` — lone batches' readbacks at least the delay late,
+     nothing degraded, the breaker closed; (e) ``flaky`` under a seed — a
+     burst, exact, retries + failure-degraded batches equal to the
+     plane's firings; (f) ``python3 -m authorino_tpu_torch server
+     --fault-profile device-down --breaker-threshold 1`` on 16 API-key
+     configs: gRPC Check()s exact, /readyz reports the open circuit.
+     Every other phase ends with the fault plane off, no breaker
+     transition and no degraded row.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
 phase 13's; each kernel must have launched on the paths of phases 4, 6,
-7, 8, 9, 10, 12 and 13, with the counts zeroed just before each.
+7, 8, 9, 10, 12, 13 and 14, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -527,7 +549,8 @@ def checked_records(engine, start: int = 0):
     structural contract: one launch for a batch with a device row and none
     for one the cache answered whole, the device rows padded to a power of
     two >= 16, D2H = pad x W, rows = device rows + rows saved by dedup +
-    rows saved by the cache.  Raises on the first batch that breaks it."""
+    rows saved by the cache + degraded rows (a batch the host oracle
+    decided has no launch).  Raises on the first batch that breaks it."""
     from authorino_tpu_torch.utils import bucket_pow2
 
     W = engine._snapshot.policy.fused_pack_w
@@ -539,13 +562,14 @@ def checked_records(engine, start: int = 0):
                 "plain_calls": int(u > 0 and not on_card),
                 "pad_rows": bucket_pow2(u) if u else 0,
                 "d2h_bytes": (bucket_pow2(u) if u else 0) * W,
-                "rows": u + r["dedup_rows"] + r["cache_rows"]}
+                "rows": (u + r["dedup_rows"] + r["cache_rows"]
+                         + r["degraded_rows"])}
         got = {k: r[k] for k in want}
         if got != want:
             raise AssertionError(f"batch breaks the structural contract: "
                                  f"{r} (expected {want})")
         if not engine.batch_dedup and engine._verdict_cache is None \
-                and u != r["rows"]:
+                and "degraded" not in r and u != r["rows"]:
             raise AssertionError(f"a row skipped the kernel with dedup and "
                                  f"the cache off: {r}")
     return recs
@@ -818,11 +842,15 @@ def request_path(report: dict, card: str, ctx: dict) -> dict:
 
     jwt = northstar.JWT_FILTER
 
-    def hold(out, label="request path") -> int:
+    def hold(out, label="request path", idx=None) -> int:
         """Every north-star result against the expression oracle with its
-        deny provenance; returns how many were allowed."""
+        deny provenance; returns how many were allowed.  ``idx`` is each
+        result's request index (by default 0, 1, ...; results past the
+        north-star requests are not held here)."""
         allowed = 0
-        for k, (req, (res, _)) in enumerate(zip(ns_reqs, out)):
+        for k, (res, _) in zip(range(len(ns_reqs)) if idx is None else idx,
+                               out):
+            req = ns_reqs[k]
             if res.code == rpc.UNAVAILABLE:
                 raise AssertionError(f"{label}: check {k} answered "
                                      f"UNAVAILABLE: {res}")
@@ -3709,6 +3737,576 @@ def observability_planes(report: dict, card: str, dev, ctx6: dict,
     return launches, max_err
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the failure handling
+# ---------------------------------------------------------------------------
+
+FAIL_THRESHOLD = 3        # phase 14's breaker_threshold
+FAIL_RESET_S = 0.5        # its breaker_reset_s
+FAIL_TIMEOUT_S = 0.25     # its device_timeout_s
+FAULT_SEED = 7            # the fault plane's seed in every part
+FLAP_S = 1.0              # (b): the device is down this long
+WEDGE_CYCLES = 3          # (c): wedged batches, one healthy check apart
+WEDGE_ROWS = 256          # (c): rows of a wedged batch (one cut)
+SLOW_LONE = 24            # (d): lone Check()s, healthy and slow each
+SLOW_DELAY_S = 0.05       # (d): the slow-device profile's delay
+
+
+def failure_marks() -> dict:
+    """Process-wide evidence of the failure handling: the cost ledger's
+    host-lane rows (every degraded row folds there), the degraded-decision
+    metric and every circuit transition of the engine lane."""
+    from authorino_tpu_torch.runtime.kernel_cost import LEDGER
+
+    lane = {"lane": "engine"}
+    return {"host_rows": LEDGER.snapshot("host")["rows"],
+            "degraded": prom_sample("degraded_decisions",
+                                    "auth_server_degraded_decisions_total",
+                                    lane),
+            "transitions": sum(prom_sample(
+                "circuit_transitions",
+                "auth_server_circuit_transitions_total",
+                dict(lane, state=s)) for s in ("open", "half-open",
+                                               "closed"))}
+
+
+def require_no_failure_handling(label: str, marks0: dict) -> None:
+    """A phase but 14 ends with the fault plane off, no breaker transition
+    and no degraded row in it."""
+    from authorino_tpu_torch.runtime import faults
+
+    moved = {k: v - marks0[k] for k, v in failure_marks().items()}
+    if faults.ACTIVE or any(moved.values()):
+        raise AssertionError(f"{label}: the failure handling ran (faults "
+                             f"armed {faults.ACTIVE}, {moved})")
+
+
+def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
+    """Phase 14: phase 6's translated north-star corpus (1,001 configs)
+    rebound to an engine with dedup and the cache off (every row reaches
+    the kernel), ``breaker_threshold`` 3, ``breaker_reset_s`` 0.5,
+    ``device_timeout_s`` 0.25, the recorder dumping every anomaly into
+    ``smoke_out/flight-14``; counts zeroed just before the engine.  A card
+    engine answers a batch it could not decide (its retry failed, or the
+    open breaker kept it off the card) with the typed UNAVAILABLE; every
+    other answer is held to the oracle.
+    (a) ``device-down``: lone Check()s trip the breaker after 3 failures,
+    each UNAVAILABLE; then a 4,096-Check() burst, every one UNAVAILABLE
+    with no launch and no degraded row; a ``breaker-open`` bundle; the
+    host oracle's checks/s and µs per row on its own (no lane of a card
+    engine: the rate a host lane would start from).
+    (b) ``kernel:raise:for=1``: lone Check()s through the flap until the
+    breaker closes again (closed → open → half-open → closed), each exact
+    or UNAVAILABLE and the last, the probe, exact; the time from the
+    fault's end to ``closed``; every half-open probe batch that launched,
+    its readback byte-equal to plain.  (c) ``kernel:hang``: wedged 256-row
+    batches, each 2 watchdog timeouts and then UNAVAILABLE; every
+    abandoned handle released (its readback buffer, event and stream);
+    device memory back to its value before the wedges.  (d)
+    ``slow-device``: lone Check()s healthy and slow, the slow ones'
+    readbacks at least the delay late, nothing failed.  (e) ``flaky``
+    under a seed: a burst, every answer exact or UNAVAILABLE; retries +
+    batches failed after their retry = the plane's firings.  (f) the
+    port's CLI as a subprocess with ``--fault-profile device-down
+    --breaker-threshold 1`` on 16 API-key configs: every gRPC Check() the
+    engine decides UNAVAILABLE, the others the oracle's code; /readyz
+    reports the open circuit.
+    Returns (the kernels' launches in (a)-(e); the max abs byte error of
+    the probe batches' readbacks against plain)."""
+    import gc
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.models.policy_model import host_results
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import defuse, fuse_batch
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.runtime import PolicyEngine, faults
+    from authorino_tpu_torch.runtime import kernel_cost as kc
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+    from authorino_tpu_torch.service.grpc_server import \
+        request_proto_from_model
+    from authorino_tpu_torch.utils import rpc
+
+    entries, reqs, hold = ctx6["entries"], ctx6["reqs"], ctx6["hold"]
+    flight = Path("smoke_out") / "flight-14"
+    shutil.rmtree(flight, ignore_errors=True)
+    RECORDER.configure(dump_dir=str(flight), min_dump_interval_s=0.0,
+                       enabled=True)
+    lane = {"lane": "engine"}
+    numbers = {"card": card}
+
+    def degraded_metric() -> float:
+        return prom_sample("degraded_decisions",
+                           "auth_server_degraded_decisions_total", lane)
+
+    on_card = dev.type == "cuda"
+
+    def device_calls() -> int:
+        """The kernel's launches (on the CPU: its plain version's calls)."""
+        return fk.launches if on_card else fk.plain_calls
+
+    def device_memory() -> int:
+        if not on_card:
+            return 0
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        return torch.cuda.memory_allocated(dev)
+
+    fk.reset_counts()
+    reset_host_counts()
+    engine = PolicyEngine(max_batch=256, device=dev,
+                          breaker_threshold=FAIL_THRESHOLD,
+                          breaker_reset_s=FAIL_RESET_S,
+                          device_timeout_s=FAIL_TIMEOUT_S, **NO_REUSE,
+                          **WIDE_ADMISSION)
+    bind(entries, engine)
+    engine.apply_snapshot(entries)
+    if engine.host_degrade:
+        raise AssertionError("a card engine would degrade to the host")
+    br, st = engine.breaker, engine.stats
+    # each batch's device stage
+    device_s = []
+    fold = engine._observe_batch
+
+    def observed(item, dur):
+        device_s.append(dur)
+        return fold(item, dur)
+
+    engine._observe_batch = observed
+    # every launch the breaker admitted as its half-open probe, with its
+    # inputs and handle (the readback is held to plain after the window),
+    # and in (c) every launch, whose handle the watchdog must release
+    real_dispatch = fk.dispatch_megakernel
+    probes = []
+    wedged = {"handles": None}
+
+    def dispatch(params, db):
+        handle = real_dispatch(params, db)
+        if br.state == "half-open":
+            probes.append((params, db, handle))
+        if wedged["handles"] is not None:
+            wedged["handles"].append(handle)
+        return handle
+
+    def lone(k: int):
+        return asyncio.run(timed_checks(engine, [reqs[k]]))[0]
+
+    def unavailable(res) -> bool:
+        return res.code == rpc.UNAVAILABLE
+
+    def held(out, label: str, idx=None) -> int:
+        """Every answer but the typed UNAVAILABLEs against the oracle;
+        returns how many answered UNAVAILABLE."""
+        idx = range(len(out)) if idx is None else idx
+        ok = [(k, o) for k, o in zip(idx, out) if not unavailable(o[0])]
+        hold([o for _, o in ok], label, idx=[k for k, _ in ok])
+        return len(out) - len(ok)
+
+    def recover() -> None:
+        """Past the cooldown, one lone Check() is the probe that closes
+        the circuit."""
+        if br.state != "closed":
+            time.sleep(FAIL_RESET_S + 0.05)
+            hold([lone(0)], "phase 14 recovery probe")
+        if br.state != "closed":
+            raise AssertionError(f"the breaker did not close: {br.to_json()}")
+
+    jwt = northstar.JWT_FILTER
+    policy = engine._snapshot.policy
+    docs = [build_authorization_json(q, {"identity": q.metadata_context[
+        "filter_metadata"][jwt]["verified_jwt"]}) for q in reqs]
+    names = [engine.lookup(q.http.host).rules.name for q in reqs]
+    rows = [policy.config_ids[n] for n in names]
+
+    fk.dispatch_megakernel = dispatch
+    try:
+        # ---- (a) device-down ---------------------------------------------
+        faults.FAULTS.arm("device-down", seed=FAULT_SEED)
+        seq = []
+        while br.state == "closed" and len(seq) < FAIL_THRESHOLD:
+            seq.append(lone(len(seq)))
+        if held(seq, "phase 14 (a) sequential") != len(seq):
+            raise AssertionError(f"(a) a lone Check() under device-down was "
+                                 f"answered: {seq}")
+        fired = dict(faults.FAULTS.fired)
+        if (br.state != "open" or fired != {
+                "kernel:raise:engine": FAIL_THRESHOLD}
+                or [(t["state"], t["reason"]) for t in br.transitions] != [
+                    ("open", f"{FAIL_THRESHOLD} consecutive batch "
+                             f"failures")]):
+            raise AssertionError(f"(a) the breaker after {len(seq)} lone "
+                                 f"Check()s: {br.to_json()}, fired {fired}")
+        l0, d0, h0, m0, f0, o0 = (device_calls(), st["degraded_rows"],
+                                  kc.LEDGER.snapshot("host")["rows"],
+                                  degraded_metric(), st["failed_batches"],
+                                  st["breaker_open_batches"])
+        t = time.perf_counter()
+        out = asyncio.run(timed_checks(engine, reqs))
+        wall = time.perf_counter() - t
+        wait_idle(engine)
+        messages = {res.message for res, _ in out}
+        moved = {"launches": device_calls() - l0,
+                 "unavailable": sum(unavailable(res) for res, _ in out),
+                 "degraded_rows": st["degraded_rows"] - d0,
+                 "ledger_host_rows": kc.LEDGER.snapshot("host")["rows"] - h0,
+                 "metric": degraded_metric() - m0,
+                 "failed_batches": st["failed_batches"] - f0,
+                 "breaker_open_batches": st["breaker_open_batches"] - o0}
+        if (moved["failed_batches"] < 1
+                or moved["breaker_open_batches"] != moved["failed_batches"]
+                or dict(moved, failed_batches=0, breaker_open_batches=0) != {
+                    "launches": 0, "unavailable": len(reqs),
+                    "degraded_rows": 0, "ledger_host_rows": 0, "metric": 0,
+                    "failed_batches": 0, "breaker_open_batches": 0}
+                or messages != {"engine device circuit open"}):
+            raise AssertionError(f"(a) the burst under an open breaker: "
+                                 f"{moved}, messages {messages}")
+        deadline = time.monotonic() + 30
+        while not list(flight.glob("flight-*breaker-open*.json")):
+            if time.monotonic() > deadline:
+                raise AssertionError("(a) no breaker-open bundle")
+            time.sleep(0.02)
+        # the same rows through the host oracle on this thread alone: what
+        # a host lane would start from (a card engine never answers there)
+        t = time.perf_counter()
+        for d, r in zip(docs, rows):
+            host_results(policy, d, r)
+        alone_s = time.perf_counter() - t
+        cold = report.get("observability_planes", {}).get("slo", [{}])[0]
+        numbers["device_down"] = dict(
+            moved, refused_checks_per_s=len(reqs) / wall,
+            oracle_checks_per_s_alone=len(docs) / alone_s,
+            oracle_us_per_row_alone=alone_s / len(docs) * 1e6,
+            sequential=len(seq), fired=fired,
+            phase13_cold_checks_per_s=cold.get("checks_per_s"),
+            bundle=sorted(p.name for p in flight.glob(
+                "flight-*breaker-open*.json"))[0])
+        faults.FAULTS.disarm()
+        recover()
+
+        # ---- (b) flap ------------------------------------------------------
+        n_tr = len(br.transitions)
+        faults.FAULTS.arm(f"kernel:raise:for={FLAP_S}", seed=FAULT_SEED)
+        fault_end = time.time() + FLAP_S   # the trail's stamps are wall time
+        flap = []
+        deadline = time.monotonic() + 30
+        while not (br.state == "closed" and len(br.transitions) > n_tr):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"(b) no recovery: {br.to_json()}")
+            flap.append(lone(len(flap)))
+            time.sleep(0.01)
+        faults.FAULTS.disarm()
+        refused = held(flap, "phase 14 (b)")
+        states = [t["state"] for t in br.transitions[n_tr:]]
+        closed_at = br.transitions[-1]["t"]
+        if not (states[0] == "open" and states[-2:] == ["half-open",
+                                                        "closed"]
+                and all(a != b for a, b in zip(states, states[1:]))
+                and set(states[1:-2]) <= {"half-open", "open"}
+                and refused >= 1 and not unavailable(flap[-1][0])):
+            raise AssertionError(f"(b) transitions {states}, {refused} of "
+                                 f"{len(flap)} UNAVAILABLE")
+        numbers["flap"] = {"checks": len(flap), "unavailable": refused,
+                           "transitions": states,
+                           "fault_end_to_closed_s": closed_at - fault_end,
+                           "probes_launched": len(probes)}
+
+        # ---- (c) wedged batches --------------------------------------------
+        w_docs, w_names = docs[:WEDGE_ROWS], names[:WEDGE_ROWS]
+
+        async def wedge_burst():
+            return await asyncio.gather(*(engine.submit(d, n) for d, n in
+                                          zip(w_docs, w_names)),
+                                        return_exceptions=True)
+
+        mem0 = device_memory()
+        cycles = []
+        for cycle in range(WEDGE_CYCLES):
+            wd0, r0, f0, n_rec = (st["watchdog_timeouts"], st["retries"],
+                                  st["failed_batches"],
+                                  len(engine.batch_records))
+            wedged["handles"] = []
+            faults.FAULTS.arm("kernel:hang:for=30", seed=FAULT_SEED)
+            t = time.perf_counter()
+            out = asyncio.run(wedge_burst())
+            dt = time.perf_counter() - t
+            faults.FAULTS.disarm()
+            wait_idle(engine)
+            handles, wedged["handles"] = wedged["handles"], None
+            recs = list(engine.batch_records)[n_rec:]
+            fig = {"watchdog_timeouts": st["watchdog_timeouts"] - wd0,
+                   "retries": st["retries"] - r0,
+                   "failed_batches": st["failed_batches"] - f0,
+                   "launches": sum(r["launches"] + r["plain_calls"]
+                                   for r in recs),
+                   "handles": len(handles),
+                   "released": sum(h._host is None and h._event is None
+                                   and h.stream is None for h in handles),
+                   "degraded": sum("degraded" in r for r in recs),
+                   "unavailable": sum(
+                       isinstance(e, rpc.CheckAbort)
+                       and e.code == rpc.UNAVAILABLE for e in out),
+                   "wall_s": dt}
+            del handles
+            if (fig["watchdog_timeouts"], fig["retries"],
+                    fig["failed_batches"], fig["launches"], fig["handles"],
+                    fig["released"], fig["degraded"],
+                    fig["unavailable"]) != (2, 1, 1, 2, 2, 2, 0, WEDGE_ROWS):
+                raise AssertionError(f"(c) wedge {cycle}: {fig}")
+            cycles.append(fig)
+            hold([lone(0)], "phase 14 (c) healthy")   # clears the count
+        mem1 = device_memory()
+        if mem1 != mem0 or br.state != "closed":
+            raise AssertionError(f"(c) device memory {mem0} -> {mem1} B "
+                                 f"across the wedges; breaker {br.state}")
+        numbers["wedge"] = {"cycles": cycles, "memory_before": mem0,
+                            "memory_after": mem1}
+
+        # ---- (d) slow device -----------------------------------------------
+        def lone_batches(label: str) -> dict:
+            n_rec, l0, n_tr, f0 = (len(engine.batch_records), device_calls(),
+                                   len(br.transitions), st["failed_batches"])
+            engine.batch_latency_s.clear()
+            device_s.clear()
+            outs = [lone(k) for k in range(SLOW_LONE)]
+            wait_idle(engine)
+            hold(outs, label)
+            recs = list(engine.batch_records)[n_rec:]
+            return {"batch_p50_ms": statistics.median(
+                        engine.batch_latency_s) * 1e3,
+                    "batch_min_ms": min(engine.batch_latency_s) * 1e3,
+                    "device_p50_ms": statistics.median(device_s) * 1e3,
+                    "launches": device_calls() - l0,
+                    "degraded": sum("degraded" in r for r in recs),
+                    "failed_batches": st["failed_batches"] - f0,
+                    "transitions": len(br.transitions) - n_tr}
+
+        healthy = lone_batches("phase 14 (d) healthy")
+        faults.FAULTS.arm("slow-device", seed=FAULT_SEED)
+        try:
+            slow = lone_batches("phase 14 (d) slow")
+        finally:
+            faults.FAULTS.disarm()
+        rise = slow["batch_p50_ms"] - healthy["batch_p50_ms"]
+        # every slow readback lands at least the delay after its launch, so
+        # every slow batch takes at least the delay; the delay runs over the
+        # healthy device stage, so the batch p50 rises by the delay less
+        # what that stage took
+        if not (slow["launches"] == healthy["launches"] == SLOW_LONE
+                and slow["degraded"] == healthy["degraded"] == 0
+                and slow["failed_batches"] == healthy["failed_batches"] == 0
+                and slow["transitions"] == healthy["transitions"] == 0
+                and slow["batch_min_ms"] >= SLOW_DELAY_S * 1e3
+                and rise >= SLOW_DELAY_S * 1e3 - healthy["device_p50_ms"]):
+            raise AssertionError(f"(d) healthy {healthy}, slow {slow}")
+        numbers["slow_device"] = {"healthy": healthy, "slow": slow,
+                                  "batch_p50_rise_ms": rise}
+
+        # ---- (e) a flaky device, seeded -------------------------------------
+        n_rec, r0, f0, o0 = (len(engine.batch_records), st["retries"],
+                             st["failed_batches"],
+                             st["breaker_open_batches"])
+        faults.FAULTS.arm("flaky", seed=FAULT_SEED)
+        try:
+            out = asyncio.run(timed_checks(engine, reqs))
+            wait_idle(engine)
+            fired = faults.FAULTS.fired.get("kernel:raise:engine", 0)
+        finally:
+            faults.FAULTS.disarm()
+        refused = held(out, "phase 14 (e)")
+        recs = list(engine.batch_records)[n_rec:]
+        open_batches = st["breaker_open_batches"] - o0
+        failed = st["failed_batches"] - f0 - open_batches
+        flaky = {"fired": fired, "retries": st["retries"] - r0,
+                 "failed_after_retry_batches": failed,
+                 "breaker_open_batches": open_batches,
+                 "unavailable": refused,
+                 "device_batches": sum(r["launches"] + r["plain_calls"]
+                                       for r in recs),
+                 "degraded": sum("degraded" in r for r in recs)}
+        if (fired < 1 or flaky["retries"] + failed != fired
+                or flaky["degraded"]):
+            raise AssertionError(f"(e) {flaky}")
+        numbers["flaky"] = flaky
+        recover()
+        # what one anomaly's bundle costs the host at this point of the
+        # run (the exposition holds every series of the process)
+        t = time.perf_counter()
+        path = RECORDER.dump("failure-handling-probe")
+        numbers["bundle"] = {"dump_s": time.perf_counter() - t,
+                             "bytes": Path(path).stat().st_size,
+                             "dumps_in_phase": len(list(flight.glob(
+                                 "flight-*.json")))}
+        wait_idle(engine)
+        launches = {"fused_megakernel": fk.launches,
+                    "probe_add_one": fk.probe_launches}
+        checked_records(engine)
+    finally:
+        fk.dispatch_megakernel = real_dispatch
+        faults.FAULTS.disarm()
+    numbers["stats"] = dict(st)
+    numbers["transitions"] = [t["state"] for t in br.transitions]
+    if st["degraded_rows"] or st["degraded_batches"]:
+        raise AssertionError(f"a card engine degraded to the host: {st}")
+
+    # the probe batches' readbacks against plain (after the counted window)
+    max_err = 0
+    if not probes:
+        raise AssertionError("no half-open probe batch launched")
+    for params, db, handle in probes if on_card else ():
+        buf, layout = fuse_batch(db)
+        want = fk.fused_packed_plain(params, defuse(
+            torch.from_numpy(buf).to(dev), layout))
+        got = torch.from_numpy(np.asarray(handle.wait()).copy()).to(dev)
+        max_err = max(max_err, max_byte_err(got, want),
+                      kernel_vs_plain(params, db, dev))
+
+    # ---- (f) the CLI with a fault profile, as a process -------------------
+    f = {}
+    ports = [free_port() for _ in range(3)]
+    n_e = ENTRY_CONFIGS
+    e_rules = cp.config_rules(n_e, CP_RULES)
+    e_reqs, e_cfgs, e_known = cp.build_check_requests(32, n_e, seed=9)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        docs = cp.build_auth_configs(n_e, CP_RULES) + [
+            cp.api_key_secret(i) for i in range(n_e)]
+        for k, doc in enumerate(docs):
+            (d / f"{k:03d}.json").write_text(json.dumps(doc))
+        log_path = Path("smoke_out") / "fault_profile.log"
+        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
+                "--watch-dir", str(d), "--ext-auth-grpc-port", str(ports[0]),
+                "--ext-auth-http-port", str(ports[1]), "--oidc-http-port",
+                str(ports[2]), "--fault-profile", "device-down",
+                "--breaker-threshold", "1", "--drain-timeout", "5",
+                "--flight-dir", str(flight / "cli")]
+        if not on_card:
+            argv += ["--device", "cpu"]
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(argv, cwd=str(root), env=env,
+                                    stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            ready0 = None
+            while ready0 is None or ready0[0] != 200:
+                if proc.poll() is not None:
+                    raise AssertionError(f"(f) the server exited "
+                                         f"{proc.returncode}: "
+                                         f"{log_path.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("(f) the server never got ready")
+                time.sleep(0.1)
+                ready0 = http_call(ports[1], "/readyz", timeout=2)
+            f["ready_s"] = time.perf_counter() - t0
+            payloads = [wire.encode_check_request(request_proto_from_model(q))
+                        for q in e_reqs]
+
+            async def drive():
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{ports[0]}") as ch:
+                    call = ch.unary_unary(CHECK_METHOD)
+                    return [wire.decode_check_response(r).status.code
+                            for r in await asyncio.gather(
+                                *(call(p) for p in payloads))]
+
+            got = asyncio.run(drive())
+            ready = http_call(ports[1], "/readyz")
+            dv = json.loads(http_call(ports[1], "/debug/vars")[2])["engine"]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    want = [cp.expected_code(q, i, e_rules, good)
+            for q, i, good in zip(e_reqs, e_cfgs, e_known)]
+    # the engine decides a request that got past its identity: on a card it
+    # answers those UNAVAILABLE (a CPU engine's host oracle, the verdict)
+    decided_by_engine = [c in (rpc.OK, rpc.PERMISSION_DENIED) for c in want]
+    if on_card:
+        want = [rpc.UNAVAILABLE if e else c
+                for c, e in zip(want, decided_by_engine)]
+    text = log_path.read_text()
+    f.update({"grpc_codes": got, "readyz_before": ready0[2],
+              "readyz": [ready[0], ready[2]], "exit_code": rc,
+              "breaker": dv["breaker"]["state"], "faults": dv["faults"],
+              "host_degrade": dv["host_degrade"],
+              "engine_decided": sum(decided_by_engine),
+              "degraded_rows": dv["kernel_cost"]["ledger"].get(
+                  "host", {}).get("rows", 0)})
+    if (got != want or ready0[2] != "ok" or f["readyz"] != [
+            200, "ok (degraded: engine device circuit open)"]
+            or f["breaker"] != "open" or not dv["faults"]["armed"]
+            or dv["faults"]["rules"] != ["kernel:raise"]
+            or not f["engine_decided"] or f["host_degrade"] == on_card
+            or f["degraded_rows"] != (0 if on_card else f["engine_decided"])
+            or rc != 0
+            or "fault injection ARMED via --fault-profile" not in text):
+        raise AssertionError(f"(f) {f}, oracle {want}; log {text[-2000:]}")
+    numbers["cli"] = f
+    numbers["launches"] = launches
+    report["failure_handling"] = numbers
+
+    a, b, c, s, e = (numbers["device_down"], numbers["flap"],
+                     numbers["wedge"], numbers["slow_device"],
+                     numbers["flaky"])
+    log(f"[{card}] failure handling (a) device-down: {a['sequential']} lone "
+        f"Check()s, each UNAVAILABLE, tripped the breaker after "
+        f"{FAIL_THRESHOLD} failures; {len(reqs):,} Check()s under the open "
+        f"breaker, every one UNAVAILABLE ({a['refused_checks_per_s']:.0f} "
+        f"checks/s) in {a['failed_batches']} batches, {a['launches']} "
+        f"launches, {a['degraded_rows']} degraded rows; bundle "
+        f"{a['bundle']}; the host oracle alone on one thread "
+        f"{a['oracle_checks_per_s_alone']:.0f} checks/s, "
+        f"{a['oracle_us_per_row_alone']:.1f} us per row (phase 13's cold "
+        f"burst on the card: {a['phase13_cold_checks_per_s'] or 0:.0f} "
+        f"checks/s); one bundle dump {numbers['bundle']['dump_s']:.3f} s, "
+        f"{numbers['bundle']['bytes']} B")
+    log(f"[{card}] failure handling (b) kernel:raise:for={FLAP_S:g}: "
+        f"{b['checks']} lone Check()s through the flap, {b['unavailable']} "
+        f"UNAVAILABLE and the rest exact, transitions "
+        f"{' -> '.join(['closed'] + b['transitions'])}; closed "
+        f"{b['fault_end_to_closed_s']:.3f} s after the fault's end "
+        f"(breaker_reset_s {FAIL_RESET_S:g}); {len(probes)} probe batches "
+        f"launched in the phase, readbacks byte-equal to plain")
+    log(f"[{card}] failure handling (c) kernel:hang: {WEDGE_CYCLES} wedged "
+        f"{WEDGE_ROWS}-row batches, each 2 watchdog timeouts "
+        f"({FAIL_TIMEOUT_S:g} s) then UNAVAILABLE, both abandoned handles "
+        f"released (walls {[round(x['wall_s'], 3) for x in c['cycles']]} "
+        f"s); device memory {c['memory_before']} -> {c['memory_after']} B")
+    log(f"[{card}] failure handling (d) slow-device: batch p50 "
+        f"{s['healthy']['batch_p50_ms']:.3f} -> "
+        f"{s['slow']['batch_p50_ms']:.3f} ms (+{s['batch_p50_rise_ms']:.3f};"
+        f" device stage p50 {s['healthy']['device_p50_ms']:.3f} -> "
+        f"{s['slow']['device_p50_ms']:.3f} ms; slowest batch at least "
+        f"{s['slow']['batch_min_ms']:.3f} ms); {s['slow']['launches']} "
+        f"launches, nothing failed, breaker closed")
+    log(f"[{card}] failure handling (e) flaky (seed {FAULT_SEED}): "
+        f"{len(reqs):,} Check()s, {e['unavailable']} UNAVAILABLE and the "
+        f"rest exact; fired {e['fired']} = retries {e['retries']} + batches "
+        f"failed after their retry {e['failed_after_retry_batches']}; "
+        f"{e['breaker_open_batches']} batches kept off the card by the open "
+        f"breaker, {e['device_batches']} launched")
+    log(f"failure handling (f): python3 -m authorino_tpu_torch server "
+        f"--fault-profile device-down --breaker-threshold 1 ready in "
+        f"{f['ready_s']:.1f}s; of 32 gRPC Check()s the {f['engine_decided']} "
+        f"the engine decides answered UNAVAILABLE, the rest the oracle's "
+        f"code; /readyz {f['readyz']}, exit {rc}")
+    return launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -3847,6 +4445,7 @@ def main() -> int:
         "global-tables instance forced")
 
     # ---- 4. the main path -------------------------------------------------
+    marks = failure_marks()
     engine_entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c)
                       for c in ns_cfgs]
     fk.reset_counts()
@@ -3890,6 +4489,8 @@ def main() -> int:
         f"D2H {st['d2h_bytes']} B = pad {st['pad_rows']} x W {W}; "
         f"all verdicts equal the oracle ({allowed} allowed); "
         f"{fmt_encoder(main_enc)}")
+
+    require_no_failure_handling("phase 4", marks)
 
     # ---- 5. numbers -------------------------------------------------------
     cycles_per_ms = sleep_cycles_per_ms()
@@ -4032,7 +4633,9 @@ def main() -> int:
 
     # ---- 6. the Check() request path --------------------------------------
     ctx6 = {}
+    marks = failure_marks()
     path_launches = request_path(report, card, ctx6)
+    require_no_failure_handling("phase 6", marks)
     rp = report["request_path"]
     log(f"[{card}] request path: {rp['checks_per_s_median']:.0f} checks/s "
         f"median of 3 runs ({[round(r) for r in rp['checks_per_s']]}), "
@@ -4045,7 +4648,9 @@ def main() -> int:
         f"{numbers['engine_decisions_per_s_median']:.0f} decisions/s")
 
     # ---- 7. the OPA request path ------------------------------------------
+    marks = failure_marks()
     opa_launches, opa_err = opa_path(report, card, dev, cycles_per_ms)
+    require_no_failure_handling("phase 7", marks)
     max_err = max(max_err, opa_err)
     op = report["opa_path"]
     log(f"[{card}] OPA path: {op['checks_per_s_median']:.0f} checks/s "
@@ -4067,9 +4672,12 @@ def main() -> int:
     # ---- 8. the JWT request path, 9. the serving core ---------------------
     ctx = {}
     try:
+        marks = failure_marks()
         jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms,
                                          ctx)
+        require_no_failure_handling("phase 8", marks)
         core_launches, core_err = serving_core(report, card, dev, ctx)
+        require_no_failure_handling("phase 9", marks)
     finally:
         if "idp" in ctx:
             ctx["idp"].stop()
@@ -4119,7 +4727,9 @@ def main() -> int:
 
     # ---- 10. the control plane --------------------------------------------
     cp_ctx = {}
+    marks = failure_marks()
     cp_launches, cp_err = control_plane(report, card, dev, ctx=cp_ctx)
+    require_no_failure_handling("phase 10", marks)
     max_err = max(max_err, cp_err)
     cpn = report["control_plane"]
     a, kb, sw = cpn["manifests"], cpn["kubernetes"], cpn["swaps"]
@@ -4166,14 +4776,18 @@ def main() -> int:
         f"{cp_launches['probe_add_one']} probe")
 
     # ---- 11. the per-batch host work on either side of the launch ---------
+    marks = failure_marks()
     host_work(report, card, ctx6,
               {"engine": engine, "entries": engine_entries, "docs": ns_docs,
                "names": ns_names},
               ns_policy, ns_docs, ns_rows, numbers["batch_latency_ms_p50"])
+    require_no_failure_handling("phase 11", marks)
 
     # ---- 12. the serving surfaces -----------------------------------------
+    marks = failure_marks()
     serve_launches, serve_err = serving_surfaces(report, card, dev,
                                                  cp_ctx["material"])
+    require_no_failure_handling("phase 12", marks)
     max_err = max(max_err, serve_err)
     sv = report["serving_surfaces"]
     sn, sb = sv["numbers"], sv["burst"]
@@ -4218,9 +4832,19 @@ def main() -> int:
         f"({sp['phases_ms']}) sections")
 
     # ---- 13. the observability planes -------------------------------------
+    marks = failure_marks()
     plane_launches, plane_err = observability_planes(report, card, dev, ctx6,
                                                      cycles_per_ms)
+    require_no_failure_handling("phase 13", marks)
     max_err = max(max_err, plane_err)
+
+    # ---- 14. the failure handling -----------------------------------------
+    fail_launches, fail_err = failure_handling(report, card, dev, ctx6)
+    max_err = max(max_err, fail_err)
+    from authorino_tpu_torch.runtime import faults
+
+    if faults.ACTIVE:
+        raise AssertionError("phase 14 left the fault plane armed")
 
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
@@ -4243,13 +4867,15 @@ def main() -> int:
         if min(main_launches[name], path_launches[name],
                opa_launches[name], jwt_launches[name],
                core_launches[name], cp_launches[name],
-               serve_launches[name], plane_launches[name]) < 1:
+               serve_launches[name], plane_launches[name],
+               fail_launches[name]) < 1:
             raise AssertionError(
                 f"{name} never launched on a path: engine {main_launches}, "
                 f"request path {path_launches}, OPA path {opa_launches}, "
                 f"JWT path {jwt_launches}, serving core {core_launches}, "
                 f"control plane {cp_launches}, serving surfaces "
-                f"{serve_launches}, observability planes {plane_launches}")
+                f"{serve_launches}, observability planes {plane_launches}, "
+                f"failure handling {fail_launches}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

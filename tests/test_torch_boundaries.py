@@ -71,6 +71,10 @@ CONTROL_PLANE_MODULES = (
     "models.control_plane")
 
 
+# the failure handling: the fault plane, the breaker, the fs-fault hook
+FAILURE_MODULES = ("runtime.faults", "runtime.breaker", "utils.atomicio")
+
+
 # the serving modules: the only ones that import ``grpc`` and ``aiohttp``
 # (``Authzed.call`` imports ``grpc`` at its first call)
 SERVING_MODULES = ("service", "service.grpc_server", "service.http_server",
@@ -89,7 +93,8 @@ def test_port_imports_with_service_libraries_blocked():
     mods = port_modules()
     for m in ("evaluators.authorization.opa", "evaluators.identity.kubernetes",
               "evaluators.authorization.authzed", "protos.wire",
-              *JWT_AND_HTTP_MODULES, *CONTROL_PLANE_MODULES, *SERVING_MODULES):
+              *JWT_AND_HTTP_MODULES, *CONTROL_PLANE_MODULES, *SERVING_MODULES,
+              *FAILURE_MODULES):
         assert f"authorino_tpu_torch.{m}" in mods, m
     mods = below_serving(mods)
     assert "authorino_tpu_torch.protos.wire" in mods
@@ -111,6 +116,72 @@ def test_port_imports_with_service_libraries_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED" in proc.stdout
+
+
+@pytest.mark.parametrize("mod", FAILURE_MODULES)
+def test_failure_modules_import_alone_without_services_or_the_reference(mod):
+    """The fault plane, the breaker and the atomic writer each import on
+    their own with ``grpc``, ``aiohttp``, ``jax`` and the JAX package
+    blocked, and arm, trip and write there: none of them reaches for the
+    reference's modules, not even the reference's fault plane."""
+    code = (
+        "import importlib, os, sys, tempfile\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "from authorino_tpu_torch.runtime.faults import FAULTS\n"
+        "from authorino_tpu_torch.runtime.breaker import CircuitBreaker\n"
+        "from authorino_tpu_torch.utils.atomicio import atomic_write_bytes\n"
+        "FAULTS.arm('fs:eio')\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'x')\n"
+        "try:\n"
+        "    atomic_write_bytes(p, b'new')\n"
+        "except OSError as e:\n"
+        "    print('FS', e.errno, os.path.exists(p))\n"
+        "FAULTS.disarm()\n"
+        "br = CircuitBreaker('alone', threshold=1)\n"
+        "br.record_failure()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('STATE', br.state, 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "FS 5 False" in proc.stdout, proc.stdout
+    assert "STATE open BAD []" in proc.stdout, proc.stdout
+
+
+def test_atomic_writer_ignores_the_reference_plane(tmp_path):
+    """With both packages loaded, the reference's armed fs rule does not
+    reach the port's writer (nor the port's the reference's): each writer
+    consults its own package's plane."""
+    from authorino_tpu.runtime import faults as ref_faults
+    from authorino_tpu.utils import atomicio as ref_atomicio
+    from authorino_tpu_torch.runtime import faults as port_faults
+    from authorino_tpu_torch.utils import atomicio as port_atomicio
+
+    path = str(tmp_path / "bundle.json")
+    try:
+        ref_faults.FAULTS.arm("fs:eio")
+        port_atomicio.atomic_write_bytes(path, b"port")
+        assert open(path, "rb").read() == b"port"
+        with pytest.raises(OSError):
+            ref_atomicio.atomic_write_bytes(path, b"ref")
+        ref_faults.FAULTS.disarm()
+        port_faults.FAULTS.arm("fs:eio")
+        ref_atomicio.atomic_write_bytes(path, b"ref")
+        with pytest.raises(OSError):
+            port_atomicio.atomic_write_bytes(path, b"port")
+        assert open(path, "rb").read() == b"ref"
+    finally:
+        ref_faults.FAULTS.disarm()
+        port_faults.FAULTS.disarm()
 
 
 def test_serving_modules_import_without_the_reference_or_its_libraries():
@@ -324,7 +395,8 @@ def _failing_launch(monkeypatch, where):
         raise RuntimeError("kernel launch failed: secret detail")
 
     class BrokenReadback:
-        nbytes = 0
+        nbytes = launches = 0
+        plain_calls = 1
 
         def is_ready(self):
             return True
@@ -346,27 +418,36 @@ def _failing_launch(monkeypatch, where):
 
 @pytest.mark.parametrize("where", ["launch", "readback"])
 def test_batch_failure_answers_unavailable_not_a_denial(monkeypatch, where):
-    """A batch that fails resolves every Check() in it as the typed
-    UNAVAILABLE the reference engine's ``_resolve_error`` gives, counts the
-    batch in ``failed_batches``, and neither denies with the exception's
-    text nor falls back to another lane."""
+    """A batch that fails twice resolves every Check() in it through the
+    host oracle, as the reference engine's ``_degrade_batch`` does: the
+    exact verdict (OK for a GET), counted as degraded, never a denial with
+    the exception's text, never the plain version's answer, never a
+    failed batch."""
     import asyncio
 
     from authorino_tpu_torch.authjson import (CheckRequestModel,
                                               HttpRequestAttributes)
     from authorino_tpu_torch.controllers import translate_auth_config
-    from authorino_tpu_torch.utils.rpc import UNAVAILABLE
+    from authorino_tpu_torch.utils.rpc import OK
 
     spec = {"hosts": ["f.test"], "authentication": {"a": {"anonymous": {}}},
             "authorization": {"r": {"patternMatching": {"patterns": [
                 {"selector": "request.method", "operator": "eq",
                  "value": "GET"}]}}}}
-    engine = PolicyEngine(max_batch=4, device="cpu")
+    engine = PolicyEngine(max_batch=4, device="cpu", breaker_threshold=100)
+    real_plain = p_fk.fused_packed_plain
+
+    def plain_spy(params, ops):
+        plain_spy.calls += 1
+        return real_plain(params, ops)
+
+    plain_spy.calls = 0
 
     async def body():
         engine.apply_snapshot([await translate_auth_config(
             "f", "ns", spec, engine=engine)])
         _failing_launch(monkeypatch, where)
+        monkeypatch.setattr(p_fk, "fused_packed_plain", plain_spy)
         req = CheckRequestModel(http=HttpRequestAttributes(
             method="GET", path="/", host="f.test"))
         return await asyncio.gather(*(engine.check(req) for _ in range(6)))
@@ -377,12 +458,14 @@ def test_batch_failure_answers_unavailable_not_a_denial(monkeypatch, where):
     finally:
         loop.close()
     for r in results:
-        assert (r.code, r.message) == (UNAVAILABLE,
-                                       "policy evaluation unavailable")
+        assert r.code == OK
         assert "secret detail" not in repr(r)
     st = engine.stats
-    assert st["failed_batches"] == 2  # 6 checks, max_batch 4
-    assert st["host_fallback"] == 0
+    assert (st["degraded_batches"], st["degraded_rows"]) == (2, 6)
+    assert (st["failed_batches"], st["host_fallback"]) == (0, 0)
+    # the readback case ran the plain version once per device attempt (2
+    # batches, each twice); the degrade never did
+    assert plain_spy.calls == (0 if where == "launch" else 4)
 
 
 def test_jwt_request_path_runs_without_the_reference_or_its_services():

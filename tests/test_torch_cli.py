@@ -8,7 +8,9 @@
 * a flag of a plane the port does not hold yet stops the start, naming
   it; ``--native-frontend on`` raises; the SLO and flight-recorder flags
   reach the engine and the recorder, and /debug/vars and /metrics carry
-  the observability planes;
+  the observability planes; ``--breaker-threshold``, ``--breaker-reset``
+  and ``--fault-profile`` reach the breaker and arm the port's fault
+  plane;
 * ``run_server --device cpu --watch-dir`` gets ready on free ports and
   answers gRPC and HTTP Check()s equal to the reference's, then drains on
   cancellation;
@@ -166,6 +168,77 @@ def test_an_observability_flag_is_accepted(flag, value):
     """The SLO tracker and the flight recorder are in the port: their
     flags no longer stop the start."""
     port_cli.refuse_unported(server_args(flag, value))
+
+
+@pytest.mark.parametrize("flag,value", [("--breaker-threshold", "3"),
+                                        ("--breaker-reset", "0.5"),
+                                        ("--fault-profile", "device-down")])
+def test_a_failure_handling_flag_is_accepted(flag, value):
+    """The breaker and the fault plane are in the port: their flags no
+    longer stop the start."""
+    port_cli.refuse_unported(server_args(flag, value))
+
+
+def test_fault_profile_arms_the_ports_plane_and_the_breaker_opens(tmp_path):
+    """``--fault-profile device-down --breaker-threshold 1``: the port's
+    plane is armed (the reference's is not), every gRPC Check() still
+    answers the oracle's code through the host-oracle degrade, /readyz
+    reports the open circuit and stays 200, and /debug/vars carries the
+    breaker and the armed plane."""
+    from authorino_tpu.runtime import faults as ref_faults
+    from authorino_tpu_torch.runtime import faults as port_faults
+
+    n = 4
+    write_manifests(tmp_path, n)
+    args = server_args("--fault-profile", "device-down",
+                       "--breaker-threshold", "1", "--breaker-reset", "60",
+                       watch_dir=tmp_path)
+    reqs, cfgs, known = cp.build_check_requests(24, n)
+    rules = cp.config_rules(n, 3)
+
+    async def body():
+        task = asyncio.ensure_future(port_cli.run_server(args))
+        t0 = time.monotonic()
+        while (await asyncio.to_thread(http_get_or_none,
+                                       args.ext_auth_http_port,
+                                       "/readyz"))[0] != 200:
+            assert not task.done(), task
+            assert time.monotonic() - t0 < 60
+            await asyncio.sleep(0.05)
+        armed = (port_faults.ACTIVE, ref_faults.ACTIVE)
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{args.ext_auth_grpc_port}") as ch:
+            call = ch.unary_unary(CHECK, request_serializer=lambda b: b,
+                                  response_deserializer=lambda b: b)
+            got = [pb.CheckResponse.FromString(r) for r in
+                   await asyncio.gather(*(call(wire_request(q))
+                                          for q in reqs))]
+        out = [await asyncio.to_thread(http_get, args.ext_auth_http_port, p)
+               for p in ("/readyz", "/debug/vars")]
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        return armed, got, out
+
+    try:
+        armed, got, ((s_ready, ready), (s_vars, dv)) = run(body())
+    finally:
+        port_faults.FAULTS.disarm()
+    assert armed == (True, False)
+    assert [g.status.code for g in got] == [
+        cp.expected_code(q, i, rules, good)
+        for q, i, good in zip(reqs, cfgs, known)]
+    assert (s_ready, ready) == (200,
+                                "ok (degraded: engine device circuit open)")
+    eng = json.loads(dv)["engine"]
+    assert eng["breaker"]["state"] == "open"
+    assert eng["breaker"]["threshold"] == 1
+    assert eng["breaker"]["reset_s"] == 60.0
+    assert eng["faults"]["armed"] and eng["faults"]["rules"] == ["kernel:raise"]
+    # batches admitted before the first failure opened the breaker each
+    # met the fault; none after it did
+    assert set(eng["faults"]["fired"]) == {"kernel:raise:engine"}
+    assert eng["faults"]["fired"]["kernel:raise:engine"] >= 1
 
 
 # every family the observability planes export (the reference's names)

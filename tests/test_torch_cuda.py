@@ -603,3 +603,102 @@ def test_overloaded_admission_bundle_on_the_card(card, tmp_path):
         assert float(line[0].split()[-1]) == led["launches"] > 0
     finally:
         RECORDER.configure(dump_dir=saved[0], min_dump_interval_s=saved[1])
+
+
+def test_hung_launch_abandoned_by_the_watchdog_is_released(card):
+    """``kernel:hang`` wraps two real launches (the batch and its retry);
+    the watchdog abandons each and releases its handle (readback buffer,
+    event and stream), every row answers the typed UNAVAILABLE, and device
+    memory returns to its value before the wedge."""
+    import gc
+
+    from authorino_tpu_torch.runtime import faults
+    from authorino_tpu_torch.utils.rpc import UNAVAILABLE, CheckAbort
+
+    cfgs = northstar.build_corpus(20, 10)
+    engine = PolicyEngine(max_batch=32, verdict_cache_size=0,
+                          batch_dedup=False, device_timeout_s=0.2,
+                          breaker_threshold=100)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    docs = northstar.build_docs(24, seed=6)
+    names = [f"cfg-{i % 20}" for i in range(24)]
+
+    async def go():
+        return await asyncio.gather(*(engine.submit(d, n)
+                                      for d, n in zip(docs, names)),
+                                    return_exceptions=True)
+
+    asyncio.run(go())                      # warm: the card serves
+    torch.cuda.synchronize()
+    gc.collect()
+    m0, l0 = torch.cuda.memory_allocated(card), fk.launches
+    real = fk.dispatch_megakernel
+    handles = []
+
+    def dispatch(params, db):
+        handles.append(real(params, db))
+        return handles[-1]
+
+    fk.dispatch_megakernel = dispatch
+    faults.FAULTS.arm("kernel:hang")
+    try:
+        out = asyncio.run(go())
+    finally:
+        faults.FAULTS.disarm()
+        fk.dispatch_megakernel = real
+    deadline = time.monotonic() + 30
+    while engine._inflight and time.monotonic() < deadline:
+        time.sleep(0.01)
+    st = engine.stats
+    assert fk.launches - l0 == len(handles) == 2
+    assert all(h._host is None and h._event is None and h.stream is None
+               for h in handles)
+    assert (st["watchdog_timeouts"], st["retries"]) == (2, 1)
+    assert (st["degraded_rows"], st["failed_batches"]) == (0, 1)
+    assert all(isinstance(e, CheckAbort) and e.code == UNAVAILABLE
+               for e in out)
+    del handles[:]
+    torch.cuda.synchronize()
+    gc.collect()
+    assert torch.cuda.memory_allocated(card) == m0
+
+
+def test_half_open_probe_is_a_real_launch(card):
+    """A flap (``kernel:raise:for=0.3``) trips the breaker; past the fault
+    and the cooldown, the half-open probe batch launches the kernel and
+    closes the circuit, with the verdicts of the card.  The batch that
+    tripped it answered UNAVAILABLE."""
+    from authorino_tpu_torch.runtime import faults
+    from authorino_tpu_torch.utils.rpc import UNAVAILABLE, CheckAbort
+
+    cfgs = northstar.build_corpus(20, 10)
+    engine = PolicyEngine(max_batch=32, verdict_cache_size=0,
+                          batch_dedup=False, breaker_threshold=1,
+                          breaker_reset_s=0.4)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    docs = northstar.build_docs(8, seed=9)
+
+    async def one(i):
+        return await engine.submit(docs[i], f"cfg-{i}")
+
+    faults.FAULTS.arm("kernel:raise:for=0.3")
+    try:
+        with pytest.raises(CheckAbort) as info:
+            asyncio.run(one(0))
+        assert info.value.code == UNAVAILABLE
+        assert engine.breaker.state == "open"
+        time.sleep(0.5)
+        l0 = fk.launches
+        rule, skipped = asyncio.run(one(1))
+    finally:
+        faults.FAULTS.disarm()
+    assert fk.launches - l0 == 1
+    assert engine.breaker.state == "closed"
+    assert [t["state"] for t in engine.breaker.transitions] == [
+        "open", "half-open", "closed"]
+    policy = engine._snapshot.policy
+    own, _, w_skip = host_results(policy, docs[1], policy.config_ids["cfg-1"])
+    assert bool(np.all(rule | skipped)) == own
+    assert skipped.tolist() == w_skip.tolist()

@@ -4,8 +4,9 @@
 resolve in arrival order rather than launch order, a lone request is cut at
 once, the dispatch path never waits on a readback, in-flight batches keep
 their snapshot across a swap, a loop closed under a batch is survivable, a
-failed batch is retried once and then answers a typed UNAVAILABLE, and the
-watchdog abandons a wedged readback.
+failed batch is retried once and then re-decided exactly by the host oracle
+(the reference's degrade) on a CPU engine and answered a typed UNAVAILABLE
+on a card, and the watchdog abandons a wedged readback.
 
 No test bounds wall-clock time: each waits on a condition with a generous
 timeout of its own."""
@@ -17,6 +18,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from authorino_tpu_torch.compiler import ConfigRules
 from authorino_tpu_torch.compiler.encode import encode_batch
@@ -317,10 +319,11 @@ def test_no_per_loop_state_accumulates():
 
 @pytest.mark.parametrize("where", ["launch", "readback"])
 def test_batch_error_reaches_every_future_typed_after_one_retry(where):
-    """Every future of a failing batch answers CheckAbort(UNAVAILABLE)
-    after exactly one retry per batch; the raw error never reaches a
-    caller."""
-    engine = build_engine(max_batch=4)
+    """Every future of a failing batch answers the host oracle's exact
+    verdict after exactly one retry per batch (the reference's degrade);
+    the raw error never reaches a caller.  The breaker's threshold is out
+    of reach, so every batch takes its retry."""
+    engine = build_engine(max_batch=4, breaker_threshold=100)
     err = RuntimeError("device lost: secret detail")
     dev = StubDevice(engine, **{f"{'launch' if where == 'launch' else 'read'}"
                                 f"_error": err})
@@ -340,32 +343,129 @@ def test_batch_error_reaches_every_future_typed_after_one_retry(where):
         return [t.result() for t in tasks]
 
     outs = run(body())
+    assert outs == [None] * 10     # every request answered, none aborted
+    st = engine.stats
+    assert dev.attempts == 6                     # 3 batches, each twice
+    assert (st["retries"], st["failed_batches"]) == (3, 0)
+    assert (st["degraded_batches"], st["degraded_rows"]) == (3, 10)
+    assert [r["degraded"] for r in engine.batch_records] == \
+        ["device-failure"] * 3
+    assert wait_until_sync(lambda: engine._inflight == 0)
+
+
+def test_watchdog_abandons_a_wedged_readback():
+    """A readback that never arrives is abandoned after device_timeout_s,
+    retried once, then re-decided exactly by the host oracle; both
+    attempts are counted, and the watchdog drops each abandoned handle."""
+    engine = build_engine(max_batch=4, device_timeout_s=0.05)
+    dev = StubDevice(engine, allow=False)   # never released; never read
+    released = []
+    FakeHandle.release = lambda self: released.append(self)
+    try:
+        rule, _ = run(asyncio.wait_for(engine.submit(doc(), "c"), WAIT_S))
+    finally:
+        del FakeHandle.release
+    assert bool(rule[0])                  # the oracle's verdict for "acme"
+    assert dev.attempts == 2
+    assert [h for h, _ in dev.launches] == released
+    st = engine.stats
+    assert (st["watchdog_timeouts"], st["retries"], st["failed_batches"]) \
+        == (2, 1, 0)
+    assert st["degraded_rows"] == 1
+    assert wait_until_sync(lambda: engine._inflight == 0)
+
+
+@pytest.mark.parametrize("where", ["launch", "readback"])
+def test_card_engine_answers_a_failed_batch_unavailable(where):
+    """On a card engine (the device type is all it reads) every future of
+    a batch that fails twice answers the typed CheckAbort(UNAVAILABLE),
+    never the host oracle's verdict; the raw error never reaches a
+    caller."""
+    engine = build_engine(max_batch=4, breaker_threshold=100)
+    engine.device = torch.device("cuda")
+    err = RuntimeError("device lost: secret detail")
+    dev = StubDevice(engine, **{f"{'launch' if where == 'launch' else 'read'}"
+                                f"_error": err})
+
+    async def body():
+        tasks = [asyncio.ensure_future(engine.submit(doc(), "c"))
+                 for _ in range(10)]
+        while not all(t.done() for t in tasks):
+            dev.release_all()
+            await asyncio.sleep(0.005)
+        return [t.exception() for t in tasks]
+
+    outs = run(body())
     assert all(isinstance(e, CheckAbort) and e.code == UNAVAILABLE
                and e.message == "policy evaluation unavailable"
                and "secret" not in repr(e) for e in outs)
     st = engine.stats
     assert dev.attempts == 6                     # 3 batches, each twice
     assert (st["retries"], st["failed_batches"]) == (3, 3)
+    assert (st["degraded_batches"], st["degraded_rows"]) == (0, 0)
     assert wait_until_sync(lambda: engine._inflight == 0)
 
 
-def test_watchdog_abandons_a_wedged_readback():
-    """A readback that never arrives is abandoned after device_timeout_s,
-    retried once, then answered UNAVAILABLE; both attempts are counted."""
+def test_card_engine_watchdog_answers_unavailable():
+    """On a card engine a readback wedged past device_timeout_s twice is
+    abandoned (each handle released) and answered UNAVAILABLE."""
     engine = build_engine(max_batch=4, device_timeout_s=0.05)
-    dev = StubDevice(engine)   # its handles are never released
-
-    async def body():
+    engine.device = torch.device("cuda")
+    dev = StubDevice(engine)   # never released
+    released = []
+    FakeHandle.release = lambda self: released.append(self)
+    try:
         with pytest.raises(CheckAbort) as info:
-            await asyncio.wait_for(engine.submit(doc(), "c"), WAIT_S)
-        return info.value
-
-    e = run(body())
-    assert e.code == UNAVAILABLE
+            run(asyncio.wait_for(engine.submit(doc(), "c"), WAIT_S))
+    finally:
+        del FakeHandle.release
+    assert info.value.code == UNAVAILABLE
     assert dev.attempts == 2
+    assert [h for h, _ in dev.launches] == released
     st = engine.stats
-    assert (st["watchdog_timeouts"], st["retries"], st["failed_batches"]) \
-        == (2, 1, 1)
+    assert (st["watchdog_timeouts"], st["retries"], st["failed_batches"],
+            st["degraded_rows"]) == (2, 1, 1, 0)
+    assert wait_until_sync(lambda: engine._inflight == 0)
+
+
+def test_card_engine_open_breaker_keeps_batches_off_the_card():
+    """On a card engine an open breaker answers whole batches UNAVAILABLE
+    without an attempt on the device, until its cooldown lets one probe
+    batch through; the probe's success closes it."""
+    engine = build_engine(max_batch=4, breaker_threshold=1,
+                          breaker_reset_s=60.0)
+    engine.device = torch.device("cuda")
+    dev = StubDevice(engine, launch_error=RuntimeError("launch failed"))
+
+    async def one():
+        try:
+            return await engine.submit(doc(), "c")
+        except CheckAbort as e:
+            return e
+
+    outs = [run(one()) for _ in range(4)]
+    assert [e.message for e in outs] == ["engine device circuit open"] * 4
+    # the first batch's one attempt tripped the breaker; its retry and the
+    # other batches never reached the device
+    assert dev.attempts == 1
+    st = engine.stats
+    assert (st["failed_batches"], st["breaker_open_batches"]) == (4, 4)
+    dev.launch_error = None
+    engine.breaker.reset_s = 0.0
+    dev.allow = True
+    task = None
+
+    async def probe():
+        nonlocal task
+        task = asyncio.ensure_future(engine.submit(doc(), "c"))
+        while not task.done():
+            dev.release_all()
+            await asyncio.sleep(0.005)
+        return task.result()
+
+    rule, _ = run(probe())
+    assert bool(rule[0]) and dev.attempts == 2
+    assert engine.breaker.state == "closed"
     assert wait_until_sync(lambda: engine._inflight == 0)
 
 

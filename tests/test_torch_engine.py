@@ -14,6 +14,7 @@ from authorino_tpu_torch.models import northstar
 from authorino_tpu_torch.models.policy_model import host_results
 from authorino_tpu_torch.ops import fused_kernel as p_fk
 from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+from authorino_tpu_torch.utils.rpc import UNAVAILABLE, CheckAbort
 
 from test_torch_compiler import REF, all_lanes_corpus, all_lanes_docs, \
     convert_config
@@ -98,9 +99,12 @@ def test_burst_costs_one_batch_and_one_plain_call():
 
 
 def test_unknown_config_and_missing_snapshot_raise():
+    """No snapshot: the typed UNAVAILABLE the reference answers (nothing
+    can decide the request); an unknown config: KeyError."""
     engine = PolicyEngine(device="cpu")
-    with pytest.raises(RuntimeError, match="snapshot"):
+    with pytest.raises(CheckAbort, match="snapshot") as info:
         run(engine.submit({}, "nope"))
+    assert info.value.code == UNAVAILABLE
     engine.apply_snapshot([EngineEntry(
         id=c.name, hosts=[c.name], rules=c)
         for c in northstar.build_corpus(2, 4)])
