@@ -15,7 +15,8 @@ from typing import Any, List
 
 from . import selector
 
-__all__ = ["JSONValue", "JSONProperty", "replace_placeholders", "stringify_json", "is_template"]
+__all__ = ["JSONValue", "JSONProperty", "replace_placeholders", "stringify_json", "is_template",
+           "template_selectors"]
 
 _ALL_BRACES = re.compile(r"{")
 _MODIFIER_BRACES = re.compile(r"[^@]+@\w+:{")
@@ -25,6 +26,49 @@ def is_template(pattern: str) -> bool:
     """True when at least one ``{`` opens a variable placeholder rather than
     a modifier argument (ref: pkg/json/json.go:59-61)."""
     return len(_MODIFIER_BRACES.findall(pattern)) != len(_ALL_BRACES.findall(pattern))
+
+
+def template_selectors(source: str) -> List[str]:
+    """Every ``{selector}`` placeholder of a template, extracted with the
+    SAME state machine as replace_placeholders (escapes and nested braces
+    included) — used to classify a template's data dependencies without
+    resolving it."""
+    out: List[str] = []
+    buffer: List[str] = []
+    escaping = False
+    inside = False
+    nested = 0
+    for ch in source:
+        if ch == "{":
+            if escaping:
+                pass
+            elif inside:
+                buffer.append(ch)
+                nested += 1
+            else:
+                inside = True
+            escaping = False
+        elif ch == "}":
+            if inside:
+                if nested > 0:
+                    buffer.append(ch)
+                    nested -= 1
+                else:
+                    if buffer:
+                        out.append("".join(buffer))
+                        buffer = []
+                    inside = False
+            escaping = False
+        elif ch == "\\":
+            if inside:
+                buffer.append(ch)
+            else:
+                escaping = not escaping
+        else:
+            if inside:
+                buffer.append(ch)
+            escaping = False
+    return out
 
 
 def replace_placeholders(source: str, doc: Any) -> str:

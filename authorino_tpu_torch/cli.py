@@ -165,8 +165,11 @@ def build_parser() -> argparse.ArgumentParser:
     a("--state-dir", default=env_var("STATE_DIR", ""))
     a("--max-snapshot-age", type=float, default=env_var("MAX_SNAPSHOT_AGE_S", 0.0))
     a("--native-frontend", choices=["auto", "on", "off"], default=env_var("NATIVE_FRONTEND", "auto"),
-      help="Serve gRPC from the native frontend: not in the port yet, so "
-           "'auto' serves grpc.aio and 'on' raises")
+      help="Serve gRPC ext_authz from the native C++ frontend (fast-lane "
+           "configs decided by one kernel launch per gathered batch, the "
+           "rest through the pipeline): 'auto' falls back to grpc.aio "
+           "with a WARNING when it cannot start (or with TLS flags), 'on' "
+           "raises then, 'off' serves grpc.aio")
     a("--evaluator-cache-size", type=int, default=env_var("EVALUATOR_CACHE_SIZE", 4096))
     a("--deep-metrics-enabled", action="store_true", default=env_var("DEEP_METRICS_ENABLED", False))
     a("--debug-profile", action="store_true", default=env_var("DEBUG_PROFILE", False),
@@ -205,7 +208,7 @@ UNPORTED_PLANES = {
     "speculative dispatch": 3, "tenancy": 3, "canary": 3,
     "snapshot history": 3, "metadata prefetch": 5,
     "state plane": 7, "snapshot distribution": 7,
-    "kernel lanes": 9, "native frontend": 11,
+    "kernel lanes": 9,
     "strict verify": 12, "capture": 12, "replay pregate": 12,
     "corpus pregate": 12, "fleet": 13,
 }
@@ -351,10 +354,11 @@ async def run_server(args, on_engine=None) -> None:
         # a NATIVE_FRONTEND typo must not silently serve another path
         raise RuntimeError(f"invalid --native-frontend/NATIVE_FRONTEND value "
                            f"{native_mode!r} (want auto|on|off)")
-    if native_mode == "on":
-        raise RuntimeError(
-            "--native-frontend=on: the native frontend is not in this server "
-            f"yet (ROADMAP.md queue 1 item {UNPORTED_PLANES['native frontend']})")
+    if native_mode == "on" and (args.tls_cert or args.tls_cert_key):
+        # the frontend has no TLS termination (as the reference's)
+        raise RuntimeError("--native-frontend=on is incompatible with "
+                           "--tls-cert (terminate TLS in front of the "
+                           "native listener)")
 
     cache_mod.EVALUATOR_CACHE_MAX_ENTRIES = args.evaluator_cache_size
     metrics_mod.DEEP_METRICS_ENABLED = args.deep_metrics_enabled
@@ -473,10 +477,67 @@ async def run_server(args, on_engine=None) -> None:
     else:
         log.warning("no --watch-dir and not --in-cluster: serving an empty index")
 
-    # HTTP /check (+ /metrics, /debug/vars, /debug/profile)
+    # gRPC ext_authz: the native C++ frontend where it can start (fast-
+    # lane configs never touch Python per request; everything else rides
+    # the pipeline over its slow queue), else grpc.aio — the reference's
+    # course (ref cli.py:851-903).  The frontend has no TLS termination:
+    # TLS flags serve grpc.aio ('on' refused them above).  It starts
+    # before the HTTP listeners, so /readyz answers 200 only once the gRPC
+    # listener serves the installed snapshot
+    native_holder: dict = {"fe": None}
+    grpc_server = None
+    native_fe = None
+    if native_mode == "off":
+        native_holder["fe"] = {"enabled": False,
+                               "reason": "--native-frontend off"}
+    elif tls_credentials is not None:
+        native_holder["fe"] = {"enabled": False,
+                               "reason": "TLS flags: the native frontend "
+                                         "does not terminate TLS"}
+        log.warning("native frontend not started (%s); using grpc.aio",
+                    native_holder["fe"]["reason"])
+    else:
+        from .runtime.native_frontend import NativeFrontend
+
+        native_fe = NativeFrontend(
+            engine, port=args.ext_auth_grpc_port,
+            max_batch=max(args.batch_size, 64),
+            window_us=args.batch_window_us, bind_all=True,
+            verdict_cache_size=args.verdict_cache_size,
+            batch_dedup=not args.no_batch_dedup,
+            device_timeout_s=(device_timeout_ms / 1000.0) or None,
+            breaker_threshold=int(args.breaker_threshold),
+            breaker_reset_s=float(args.breaker_reset),
+            admission_target_s=float(args.admission_target_ms) / 1e3,
+            slo_ms=float(args.slo_ms),
+        )
+        try:
+            await asyncio.get_running_loop().run_in_executor(
+                None, native_fe.start)
+        except Exception as e:
+            native_fe = None
+            if native_mode == "on":
+                raise
+            native_holder["fe"] = {"enabled": False, "reason": str(e)}
+            log.warning("native frontend unavailable (%s); using grpc.aio", e)
+        else:
+            native_holder["fe"] = native_fe
+            log.info("native grpc ext_authz listening on :%d (libnghttp2: "
+                     "%s)", native_fe.bound_port, native_fe.nghttp2_path)
+    if native_fe is None:
+        grpc_server = build_server(
+            engine, address=f"0.0.0.0:{args.ext_auth_grpc_port}",
+            tls_credentials=tls_credentials,
+        )
+        await grpc_server.start()
+        log.info("grpc ext_authz listening on :%d (tls=%s)", args.ext_auth_grpc_port, bool(tls_credentials))
+
+    # HTTP /check (+ /metrics, /debug/vars, /debug/profile); /debug/vars
+    # shows the native frontend, or why it does not serve
     app = build_app(engine, readiness=reconciler.ready,
                     max_body=args.max_http_request_body_size,
-                    enable_profile=bool(args.debug_profile))
+                    enable_profile=bool(args.debug_profile),
+                    frontend=lambda: native_holder["fe"])
     runner = web.AppRunner(app)
     await runner.setup()
     await web.TCPSite(runner, "0.0.0.0", args.ext_auth_http_port, ssl_context=ext_ssl).start()
@@ -487,19 +548,6 @@ async def run_server(args, on_engine=None) -> None:
     await oidc_runner.setup()
     await web.TCPSite(oidc_runner, "0.0.0.0", args.oidc_http_port, ssl_context=oidc_ssl).start()
     log.info("oidc discovery listening on :%d (tls=%s)", args.oidc_http_port, bool(oidc_ssl))
-
-    # gRPC ext_authz on grpc.aio: the reference's course when its native
-    # frontend does not load (ref cli.py:892-903)
-    if native_mode == "auto":
-        log.warning("native frontend unavailable (not in this server yet, "
-                    "ROADMAP.md queue 1 item %d); using grpc.aio",
-                    UNPORTED_PLANES["native frontend"])
-    grpc_server = build_server(
-        engine, address=f"0.0.0.0:{args.ext_auth_grpc_port}",
-        tls_credentials=tls_credentials,
-    )
-    await grpc_server.start()
-    log.info("grpc ext_authz listening on :%d (tls=%s)", args.ext_auth_grpc_port, bool(tls_credentials))
 
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -539,8 +587,14 @@ async def run_server(args, on_engine=None) -> None:
             await best_effort(status_updater.stop())
         if source is not None:
             await best_effort(source.stop())
-        # the gRPC server stops ACCEPTING and waits out in-flight Checks
-        await best_effort(grpc_server.stop(drain_left()))
+        # the gRPC server stops ACCEPTING and waits out in-flight Checks;
+        # the native frontend drains its slow lane and in-flight batches
+        # (two bounded loops: half the remaining budget each) before fe_stop
+        if grpc_server is not None:
+            await best_effort(grpc_server.stop(drain_left()))
+        if native_fe is not None:
+            await best_effort(loop.run_in_executor(
+                None, lambda: native_fe.stop(drain_left() / 2)))
         # the engine dispatcher: every queued request and in-flight batch
         # resolves before exit
         drained = True

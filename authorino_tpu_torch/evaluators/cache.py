@@ -30,6 +30,12 @@ class EvaluatorCache:
     def ttl(self) -> int:
         return self._ttl
 
+    @property
+    def key_pattern(self) -> str:
+        """The key's selector pattern ("" for static keys) — the native
+        frontend checks it for credential equivalence."""
+        return getattr(self._key_value, "pattern", "") or ""
+
     def resolve_key_for(self, auth_json: Any) -> Optional[str]:
         key = self._key_value.resolve_for(auth_json)
         if key is None:
@@ -50,6 +56,19 @@ class EvaluatorCache:
                 return None
             self._store.move_to_end(key)
             return obj
+
+    def remaining(self, key: Optional[str]) -> Optional[float]:
+        """Seconds until this key's entry expires, or None when absent or
+        expired — a fast-lane entry bounded by it never extends the
+        opted-in window."""
+        if key is None:
+            return None
+        now = time.monotonic()
+        with self._lock:
+            hit = self._store.get(key)
+            if hit is None or now >= hit[0]:
+                return None
+            return hit[0] - now
 
     def set(self, key: Optional[str], obj: Any) -> None:
         if key is None:

@@ -54,6 +54,14 @@ class APIKey:
             raise EvaluationError(INVALID_API_KEY_MSG)
         return secret.to_identity_object()
 
+    def snapshot_secrets(self) -> Dict[str, Secret]:
+        """Point-in-time copy of the key→Secret map — the native frontend
+        resolves each key's ``auth.identity.*`` pattern operands to
+        constants at refresh time (the fast-lane analog of the per-request
+        map lookup, ref :72-93)."""
+        with self._lock:
+            return dict(self._secrets)
+
     # --- K8sSecretBasedIdentity (ref :95-140) ---
 
     def get_k8s_secret_label_selectors(self) -> LabelSelector:

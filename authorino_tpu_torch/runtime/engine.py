@@ -180,8 +180,9 @@ class EngineEntry:
 class _Snapshot:
     """Compiled corpus + its device params + the host index of every entry
     (those without compilable rules too), swapped whole on reconcile.
-    ``generation`` is set at the swap; ``cache_tokens`` key the verdict
-    cache per config row.  The corpus's native encoder is built here (None
+    ``generation`` is set at the swap; ``entries`` are the installed
+    entries (the native frontend reads them); ``cache_tokens`` key the
+    verdict cache per config row.  The corpus's native encoder is built here (None
     for a corpus outside its domain): a failed build fails the install,
     never a batch.  ``heat`` is the corpus's rule heat map."""
 
@@ -189,6 +190,7 @@ class _Snapshot:
                  ovf_assist: Optional[bool], device,
                  interner: StringInterner, override: bool = True):
         self.index: HostIndex[EngineEntry] = HostIndex()
+        self.entries: List[EngineEntry] = list(entries)
         for e in entries:
             for host in e.hosts:
                 self.index.set(e.id, host, e, override=override)

@@ -11,9 +11,10 @@ Two planes:
    (the bitpacked ``[pad, W]`` readback), pad waste (padded − real rows),
    and the dedup/cache-avoided rows that never shipped.  The ledger is
    PROCESS-WIDE like /metrics: every engine in the process folds into the
-   same lanes.  The port folds the ``engine`` lane; the ``host``, ``mesh``
-   and ``native`` lanes keep the reference's names for the planes that
-   will fold into them (ROADMAP queue 1 items 3, 13 and 11).
+   same lanes.  The port folds the ``engine`` lane, the ``native`` lane
+   (the native gRPC frontend's slots: launches, rows, device, dedup and
+   cache rows, H2D/D2H bytes) and, on a CPU engine's degrade, the
+   ``host`` lane; ``mesh`` keeps the reference's name for item 13.
 
 2. **CostModel** — per generation, at the snapshot swap, the modeled cost
    of the one entry point the port dispatches, the CUDA mega-kernel

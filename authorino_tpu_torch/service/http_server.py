@@ -174,10 +174,13 @@ def make_check_handler(engine: PolicyEngine, max_body: int = DEFAULT_MAX_BODY):
 
 
 def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_BODY,
-              enable_profile: bool = False) -> web.Application:
+              enable_profile: bool = False, frontend=None) -> web.Application:
     """``readiness`` is a zero-arg callable (the reconciler's ``ready``).
     ``enable_profile`` arms the /debug/profile ``torch.profiler`` hook
-    (opt-in: a trace capture costs device time and writes to disk)."""
+    (opt-in: a trace capture costs device time and writes to disk).
+    ``frontend`` is the NativeFrontend, or a zero-arg callable resolving to
+    it or to a ``{"enabled": False, "reason": ...}`` dict (the CLI builds
+    this app before the frontend starts)."""
     app = web.Application(client_max_size=max_body + 1024)
 
     async def healthz(_):
@@ -198,11 +201,14 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
             return web.Response(status=503, text="draining")
         if readiness is None or readiness():
             degraded = []
-            breaker = getattr(engine, "breaker", None)
-            if breaker is not None and breaker.state != "closed":
-                degraded.append(f"engine device circuit {breaker.state}")
-            if engine.admission.overloaded:
-                degraded.append("engine admission overloaded")
+            fe = _frontend()
+            for lane, owner in (("engine", engine), ("native", fe)):
+                breaker = getattr(owner, "breaker", None) if owner else None
+                if breaker is not None and breaker.state != "closed":
+                    degraded.append(f"{lane} device circuit {breaker.state}")
+                adm = getattr(owner, "admission", None) if owner else None
+                if adm is not None and adm.overloaded:
+                    degraded.append(f"{lane} admission overloaded")
             if degraded:
                 return web.Response(
                     text=f"ok (degraded: {'; '.join(degraded)})")
@@ -221,15 +227,26 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
         except Exception:
             return web.Response(status=501, text="prometheus_client unavailable")
 
+    def _frontend():
+        return frontend() if callable(frontend) else frontend
+
     async def debug_vars(_):
         """Live introspection snapshot (the expvar analog): engine queue
-        depths, config generation, admission, the window and provenance.
+        depths, config generation, admission, the window and provenance,
+        and the native frontend's state (or why it does not serve).
         Everything here is a read under the GIL; safe to scrape under
         load."""
-        return web.json_response({
+        data = {
             "engine": engine.debug_vars(),
             "process": {"pid": os.getpid(), "time": time.time()},
-        })
+        }
+        fe = _frontend()
+        if isinstance(fe, dict):
+            data["native_frontend"] = fe
+        elif fe is not None:
+            fe.drain_native_stats()  # /metrics reflects this scrape too
+            data["native_frontend"] = fe.debug_vars()
+        return web.json_response(data)
 
     async def debug_decisions(request: web.Request):
         """Head-sampled decision log: the bounded ring of structured

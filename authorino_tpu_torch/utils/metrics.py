@@ -396,6 +396,83 @@ reconcile_phase = _register(
     buckets=(.0005, .002, .01, .05, .1, .25, .5, 1.0, 2.5, 5.0, 10.0),
 )
 
+# ---------------------------------------------------------------------------
+# The native gRPC frontend (runtime/native_frontend.py): its on-box stage
+# histogram and the C++ fe_stats() counters, drained as deltas into one
+# labelled counter family (no per-request Python work).
+# ---------------------------------------------------------------------------
+
+frontend_stage_duration = _register(
+    "histogram", "auth_server_frontend_stage_duration_seconds",
+    "On-box per-request stage latency of the native frontend (queue-wait: "
+    "encode to batch flush; execute: flush to verdict; respond: verdict to "
+    "HTTP/2 submit).",
+    ("stage",), buckets=STAGE_BUCKETS,
+)
+
+# fe_stats() keys that are live backlog gauges, not monotonic counters
+NATIVE_QUEUE_KEYS = ("slow_pending", "slow_queued")
+# the port's further backlog (the work its stop() drain waits out): flushed
+# batches not completed, the filling batch's rows, answers not yet handed
+# to the epoll thread.  Read by the drain, not exported.
+NATIVE_BACKLOG_KEYS = ("batches_pending", "filling", "done_queued")
+
+# event keys whose labelled series exist on /metrics before they first move:
+# the verdict-cache traffic the frontend folds into the same drain (the
+# reference also pre-registers the C++ credential cache's dyn_* counters;
+# that cache is not in the port yet)
+NATIVE_ENSURE_KEYS = ("vdict_hit", "vdict_miss", "vdict_add", "vdict_evict")
+
+native_frontend_events = _register(
+    "counter", "auth_server_native_frontend_events_total",
+    "Native (C++) frontend event counters drained from fe_stats(): "
+    "fast/slow lane decisions, shed work, credential-cache traffic, "
+    "trace sampling, parse errors.",
+    ("event",),
+)
+native_frontend_queue_depth = _register(
+    "gauge", "auth_server_native_frontend_queue_depth",
+    "Live backlog of the native frontend's slow lane (queued = awaiting "
+    "Python pickup, pending = in the pipeline).",
+    ("queue",),
+)
+
+
+class NativeStatsDrain:
+    """Folds successive fe_stats() snapshots into Prometheus as deltas.
+    Single-owner: one thread folds a given instance at a time (the
+    frontend serializes its callers under a lock)."""
+
+    def __init__(self):
+        self._last: dict = {}
+        self._children: dict = {}
+
+    def fold(self, stats) -> None:
+        if not stats:
+            return
+        for key in NATIVE_ENSURE_KEYS:
+            if key not in self._children:
+                self._children[key] = native_frontend_events.labels(key)
+        for key, value in stats.items():
+            if key in NATIVE_BACKLOG_KEYS:
+                continue
+            if key in NATIVE_QUEUE_KEYS:
+                child = self._children.get(key)
+                if child is None:
+                    child = self._children[key] = (
+                        native_frontend_queue_depth.labels(key))
+                child.set(value)
+                continue
+            delta = value - self._last.get(key, 0)
+            if delta > 0:
+                child = self._children.get(key)
+                if child is None:
+                    child = self._children[key] = (
+                        native_frontend_events.labels(key))
+                child.inc(delta)
+            self._last[key] = value
+
+
 _bucketed_fallback_warned = False
 
 

@@ -130,7 +130,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 
  12. the serving surfaces, at phase 10's full width: the port's CLI
-     (``cli.run_server``) as a task on this loop over phase 10's manifests
+     (``cli.run_server``, at its defaults: gRPC through the native
+     frontend where it starts, each line naming the server that answered)
+     as a task on this loop over phase 10's manifests
      plus a wristband and a SpiceDB config (a fake CheckPermission server
      on loopback): (a) the bootstrap — an in-process Check() meets the
      deny-all, a gRPC one finds no listener yet (the listeners bind after
@@ -193,14 +195,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
      --fault-profile device-down --breaker-threshold 1`` on 16 API-key
      configs: gRPC Check()s exact, /readyz reports the open circuit.
      Every other phase ends with the fault plane off, no breaker
-     transition and no degraded row.
+     transition and no degraded row;
+ 15. the native gRPC frontend (``runtime/native_frontend.py`` over
+     ``native/csrc/frontend.cpp``), its start failing loudly: (a) the
+     extension with frontend.cpp and the load generator built by g++, the
+     libnghttp2 it opened; (b) the reference's wire corpus (1,000
+     anonymous AuthConfigs x 10 leaves, 4,096 payloads of
+     random.Random(5)) at the serving defaults and with dedup and the
+     cache off, and 1,000 API-key configs of the three fast kinds
+     (``models/wire_corpus.py::build_key_entries``: the key alone, a rule
+     over the key's role, that rule with an identity-templated denial)
+     with 4,096 requests carrying their own key, another config's or
+     none: every native answer byte-equal to the port's grpc.aio
+     server's on the same engine and its code the oracle's, every request
+     on the fast lane, one launch per slot with a device row, the first
+     frontend batch of each pad of 256 rows or more (max_batch, the
+     saturation passes', among them) byte-equal to plain; phase 12's
+     mixed corpus (1,019 configs, all on the slow lane) byte-equal to
+     grpc.aio on its engine; (c) the C++ load generator
+     (``native/csrc/loadgen.cpp``) at run_native_mode's shape (max_batch
+     4,096, window 2,000 µs, 24 slots, 10 dispatch threads): 3 native
+     saturation passes (depth 8,000 x 5 connections, after a warm-up
+     pass; grpc.aio answers nothing at that depth within a pass), then
+     native and grpc.aio (one server process) in alternating pairs, 3
+     each, at run_native_mode's light shape (1,024 in flight, 5 s after 2
+     s of warm-up), at both settings: checks/s, p50/p99, rows per batch
+     and per launched batch, launches, device rows; (d) a shallow pass of
+     each side (16 in flight over 1,024 requests); (e) stop() under load
+     answers every request it received and refuses later ones
+     UNAVAILABLE, then ``python3 -m authorino_tpu_torch server
+     --native-frontend on`` as a process drained by SIGTERM with 64
+     Check()s in flight; (f) ``device-down``: every fast-lane request
+     UNAVAILABLE, 0 degraded.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 13's; each kernel must have launched on the paths of phases 4, 6,
-7, 8, 9, 10, 12, 13 and 14, with the counts zeroed just before each.
+phase 13's, with every phase's under ``launches_by_phase``; each kernel
+must have launched on the paths of phases 4, 6, 7, 8, 9, 10, 12, 13, 14
+and 15, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -2484,6 +2518,146 @@ def latency_ms(xs) -> tuple:
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
 
 
+def entry_point_drain(extra_argv, on_card: bool, log_path: Path) -> dict:
+    """Phase 12 (e) and 15 (e): ``python3 -m authorino_tpu_torch server``
+    (plus ``extra_argv``) as a subprocess over 16 API-key configs and a
+    config whose callback keeps each Check() in flight after its verdict:
+    32 gRPC and 8 HTTP Check()s equal to the oracle, its log naming the
+    device, SIGTERM with 64 Check()s in flight — all 64 answered, exit 0
+    within --drain-timeout + 5 s.  Returns its figures (``log_head`` and
+    ``log_tail``: its log)."""
+    import os
+    import signal
+    import tempfile
+
+    import grpc
+
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.service.grpc_server import \
+        request_proto_from_model
+    from authorino_tpu_torch.utils import rpc
+
+    e = {}
+    eports = [free_port() for _ in range(3)]
+    n_e = ENTRY_CONFIGS
+    e_rules = cp.config_rules(n_e, CP_RULES)
+    e_reqs, e_cfgs, e_known = cp.build_check_requests(32, n_e, seed=9)
+    with tempfile.TemporaryDirectory() as tmp, \
+            cp.SlowEndpoint(0.3) as slow:
+        d2 = Path(tmp)
+        docs = cp.build_auth_configs(n_e, CP_RULES) + [
+            cp.api_key_secret(i) for i in range(n_e)] + [
+            cp.callback_auth_config(slow.url + "/done")]
+        for k, doc in enumerate(docs):
+            (d2 / f"{k:03d}.json").write_text(json.dumps(doc))
+        log_path.parent.mkdir(exist_ok=True)
+        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
+                "--watch-dir", str(d2), "--ext-auth-grpc-port",
+                str(eports[0]), "--ext-auth-http-port", str(eports[1]),
+                "--oidc-http-port", str(eports[2]), "--drain-timeout",
+                str(ENTRY_DRAIN_S)] + list(extra_argv)
+        if not on_card:
+            argv += ["--device", "cpu"]
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(argv, cwd=str(root), env=env,
+                                    stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            while http_call(eports[1], "/readyz", timeout=2)[0] != 200:
+                if proc.poll() is not None:
+                    raise AssertionError(f"(e) the server exited "
+                                         f"{proc.returncode}: "
+                                         f"{log_path.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("(e) the server never got ready")
+                time.sleep(0.1)
+            e["ready_s"] = time.perf_counter() - t0
+            e_payloads = [wire.encode_check_request(
+                request_proto_from_model(q)) for q in e_reqs]
+            cb_payload = wire.encode_check_request(wire.CheckRequest(
+                attributes=wire.AttributeContext(request=wire.Request(
+                    http=wire.HttpRequest(method="GET", path="/",
+                                          host=cp.CALLBACK_HOST)))))
+
+            async def drive_entry():
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{eports[0]}") as ch:
+                    call = ch.unary_unary(CHECK_METHOD)
+                    got = [wire.decode_check_response(r).status.code
+                           for r in await asyncio.gather(
+                               *(call(p) for p in e_payloads))]
+                    http = [await asyncio.to_thread(
+                        http_call, eports[1], q.http.path,
+                        dict(q.http.headers, Host=q.http.host), None,
+                        q.http.method) for q in e_reqs[:8]]
+                    async def rows() -> int:
+                        body = (await asyncio.to_thread(
+                            http_call, eports[1], "/debug/vars"))[2]
+                        return json.loads(body)["engine"]["kernel_cost"][
+                            "ledger"]["engine"]["rows"]
+
+                    rows0 = await rows()
+                    futs = [asyncio.ensure_future(call(cb_payload))
+                            for _ in range(64)]
+                    # SIGTERM once every one of the 64 has its verdict (the
+                    # server's cost ledger counted its row): each is then
+                    # in its callback or queued for it, certainly in flight
+                    while await rows() < rows0 + 64:
+                        await asyncio.sleep(0.01)
+                    e["hits_at_sigterm"] = slow.hits
+                    proc.send_signal(signal.SIGTERM)
+                    t_term = time.perf_counter()
+                    answers = await asyncio.gather(*futs,
+                                                   return_exceptions=True)
+                    return got, http, answers, t_term
+
+            got, http, answers, t_term = asyncio.run(drive_entry())
+            rc = proc.wait(timeout=ENTRY_DRAIN_S + 30)
+            e["sigterm_to_exit_s"] = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        e["callback_hits"] = slow.hits
+    text = log_path.read_text()
+    want = [cp.expected_code(q, i, e_rules, good)
+            for q, i, good in zip(e_reqs, e_cfgs, e_known)]
+    if got != want:
+        raise AssertionError(f"(e) gRPC {got} != oracle {want}")
+    http_want = [rpc.http_status_for(cp.expected_code(
+        CheckRequestModel(http=HttpRequestAttributes(
+            method=q.http.method, path=q.http.path, host=q.http.host,
+            headers=dict(q.http.headers))), i, e_rules, good))
+        for q, i, good in zip(e_reqs[:8], e_cfgs, e_known)]
+    if [s for s, _, _ in http] != http_want:
+        raise AssertionError(f"(e) HTTP {[s for s, _, _ in http]} != "
+                             f"{http_want}")
+    codes = [wire.decode_check_response(r).status.code
+             if isinstance(r, bytes) else repr(r) for r in answers]
+    device_named = (f"policy engine on cuda" in text) if on_card else \
+        ("policy engine on cpu" in text)
+    if (rc != 0 or codes != [rpc.OK] * 64 or e["callback_hits"] != 64
+            or e["hits_at_sigterm"] >= 64
+            or e["sigterm_to_exit_s"] > ENTRY_DRAIN_S + 5
+            or "drain complete" not in text or not device_named):
+        raise AssertionError(f"(e) exit {rc} after "
+                             f"{e['sigterm_to_exit_s']:.2f}s, in-flight "
+                             f"answers {codes}, {e['callback_hits']} "
+                             f"callbacks; log: {text[-3000:]}")
+    e.update({"exit_code": rc, "grpc_codes": got,
+              "http_statuses": [s for s, _, _ in http],
+              "device_line": next((ln for ln in text.splitlines()
+                                   if "policy engine on" in ln), ""),
+              "native": "native grpc ext_authz listening" in text,
+              "log_head": text[:20000], "log_tail": text[-3000:]})
+    return e
+
+
 def serving_surfaces(report: dict, card: str, dev, material: tuple,
                      n: int = CP_CONFIGS, n_checks: int = 4096) -> tuple:
     """Phase 12, the serving surfaces on the card: ``run_server`` (the
@@ -2512,6 +2686,7 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
     from authorino_tpu_torch.compiler.pack import pack_batch
     from authorino_tpu_torch.models import control_plane as cp
     from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.pipeline.pipeline import AuthResult
     from authorino_tpu_torch.protos import wire
     from authorino_tpu_torch.service.grpc_server import (
         check_response_from_result, request_model_from_proto,
@@ -2654,9 +2829,19 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
             b["first_burst"]["batches"] = len(recs)
             in_process = await asyncio.gather(*(engine.check(q)
                                                 for q in models))
+            # the native frontend's slow lane sheds by CoDel admission (a
+            # standing queue over --admission-target-ms for an interval):
+            # a typed RESOURCE_EXHAUSTED, counted apart from the verdicts
+            # and held to the frontend's own count below
+            shed_raw = wire.encode_check_response(
+                check_response_from_result(AuthResult(
+                    code=rpc.RESOURCE_EXHAUSTED, message=SLOW_LANE_SHED)))
+            shed = {k for k, (raw, _) in enumerate(out) if raw == shed_raw}
             for k, ((raw, _), want, res) in enumerate(zip(out, oracle,
                                                          in_process)):
-                hold_wire(k, raw, want, res)
+                if k not in shed:
+                    hold_wire(k, raw, want, res)
+            b["native_sheds"] = len(shed)
             b["allowed"] = sum(c == rpc.OK for c in oracle)
             # HTTP /check: API-key requests as Envoy's HTTP filter sends
             # them (no metadata: the claims overrides resolve to nothing)
@@ -2692,12 +2877,55 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                 http_codes[status] = http_codes.get(status, 0) + 1
             b["http_statuses"] = http_codes
             recs = checked_records(engine, rec0)
-            log(f"serving surfaces (b): {len(payloads)} concurrent gRPC "
+            # which server answered: at the CLI's defaults the native
+            # frontend where it starts (phase 15 (b) reads the comparison
+            # of its answers with a grpc.aio server's on this engine)
+            _, _, dv0 = await asyncio.to_thread(http_call, ports["http"],
+                                                "/debug/vars")
+            fe_vars = json.loads(dv0)["native_frontend"]
+            b["server"] = ("native frontend" if fe_vars["enabled"]
+                           else f"grpc.aio ({fe_vars['reason']})")
+            overload = (fe_vars["admission"]["rejected"].get("overload", 0)
+                        if fe_vars["enabled"] else 0)
+            if overload != len(shed):
+                raise AssertionError(f"(b) {len(shed)} shed answers, the "
+                                     f"frontend counted {overload}")
+            if fe_vars["enabled"]:
+                from authorino_tpu_torch.service.grpc_server import \
+                    build_server
+
+                aio = build_server(engine, address="127.0.0.1:0")
+                await aio.start()
+                try:
+                    async with grpc.aio.insecure_channel(
+                            f"127.0.0.1:{aio.bound_port}") as ch2:
+                        aio_out = await grpc_burst(
+                            ch2.unary_unary(CHECK_METHOD), payloads)
+                finally:
+                    await aio.stop(None)
+                diff = [k for k, ((n_raw, _), (a_raw, _)) in enumerate(
+                    zip(out, aio_out)) if n_raw != a_raw and k not in shed]
+                if diff:
+                    raise AssertionError(f"(b) native answers differ from "
+                                         f"grpc.aio's at {diff[:8]}")
+                st = fe_vars["stats"]
+                numbers["native_vs_grpc_aio"] = {
+                    "requests": len(payloads), "byte_differences": 0,
+                    "shed": len(shed),
+                    "fast": st["fast"], "slow": st["slow"],
+                    "configs": n + CP_MTLS + 3,
+                    "fast_configs": fe_vars["snapshot"]["fast_configs"]}
+            log(f"serving surfaces (b), served by the {b['server']}: "
+                f"{len(payloads)} concurrent gRPC "
                 f"Check()s over one channel equal the oracle and the "
-                f"in-process answer byte for byte ({b['allowed']} allowed); "
+                f"in-process answer byte for byte ({b['allowed']} allowed; "
+                f"{len(shed)} shed by the slow lane's admission, typed "
+                f"RESOURCE_EXHAUSTED and counted); "
                 f"{len(picks)} over HTTP /check equal the oracle "
                 f"{http_codes}; {len(recs)} batches keep the structural "
-                f"contract; first burst {b['first_burst']}")
+                f"contract; first burst {b['first_burst']}; native vs a "
+                f"grpc.aio server on this engine: "
+                f"{numbers.get('native_vs_grpc_aio')}")
 
             # ---- (c) the surfaces ------------------------------------------
             c = {}
@@ -2794,7 +3022,7 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                     "batches", "rows", "device_rows", "cache_rows",
                     "launches")}
 
-            rates, lat, cuts = [], [], []
+            rates, lat, cuts, adm = [], [], [], []
             for _ in range(SERVE_BURSTS):
                 st0 = dict(engine.stats)
                 t = time.perf_counter()
@@ -2802,6 +3030,14 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                 rates.append(len(payloads) / (time.perf_counter() - t))
                 lat += [s for _, s in out_t]
                 cuts.append(counts(st0))
+                # the native slow lane's CoDel state after the burst
+                _, _, dvb = await asyncio.to_thread(http_call, ports["http"],
+                                                    "/debug/vars")
+                fe_b = json.loads(dvb)["native_frontend"]
+                if fe_b["enabled"]:
+                    adm.append({k: fe_b["admission"][k] for k in (
+                        "state", "queue_wait_ewma_s", "service_rate_rps",
+                        "rejected")})
             # the same requests as CheckRequestModels straight into
             # engine.check() on this engine, beside the wire's bursts
             st0 = dict(engine.stats)
@@ -2868,6 +3104,7 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
             d_[key] = (time.perf_counter() - t) / (3 * len(items)) * 1e6
         d_["codec_us_per_check"] = d_["decode_us"] + d_["encode_us"]
         d_["launches"] = dict(launches)
+        d_["native_admission"] = adm
         d_["debug_profile"] = profile
 
         # the server drains on cancellation and lets every port go
@@ -2913,126 +3150,16 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                       kernel_vs_plain(params, db, dev, global_tables=True))
 
     # ---- (e) the process entry point -----------------------------------------
-    e = {}
-    eports = [free_port() for _ in range(3)]
-    n_e = ENTRY_CONFIGS
-    e_rules = cp.config_rules(n_e, CP_RULES)
-    e_reqs, e_cfgs, e_known = cp.build_check_requests(32, n_e, seed=9)
-    with tempfile.TemporaryDirectory() as tmp, \
-            cp.SlowEndpoint(0.3) as slow:
-        d2 = Path(tmp)
-        docs = cp.build_auth_configs(n_e, CP_RULES) + [
-            cp.api_key_secret(i) for i in range(n_e)] + [
-            cp.callback_auth_config(slow.url + "/done")]
-        for k, doc in enumerate(docs):
-            (d2 / f"{k:03d}.json").write_text(json.dumps(doc))
-        log_path = Path("smoke_out") / "entry_point.log"
-        log_path.parent.mkdir(exist_ok=True)
-        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
-                "--watch-dir", str(d2), "--ext-auth-grpc-port",
-                str(eports[0]), "--ext-auth-http-port", str(eports[1]),
-                "--oidc-http-port", str(eports[2]), "--drain-timeout",
-                str(ENTRY_DRAIN_S)]
-        if not on_card:
-            argv += ["--device", "cpu"]
-        root = Path(__file__).resolve().parent
-        env = dict(os.environ, PYTHONPATH=str(root))
-        t0 = time.perf_counter()
-        with open(log_path, "w") as logf:
-            proc = subprocess.Popen(argv, cwd=str(root), env=env,
-                                    stdout=logf, stderr=subprocess.STDOUT)
-        try:
-            while http_call(eports[1], "/readyz", timeout=2)[0] != 200:
-                if proc.poll() is not None:
-                    raise AssertionError(f"(e) the server exited "
-                                         f"{proc.returncode}: "
-                                         f"{log_path.read_text()[-2000:]}")
-                if time.perf_counter() - t0 > 180:
-                    raise AssertionError("(e) the server never got ready")
-                time.sleep(0.1)
-            e["ready_s"] = time.perf_counter() - t0
-            e_payloads = [wire.encode_check_request(
-                request_proto_from_model(q)) for q in e_reqs]
-            cb_payload = wire.encode_check_request(wire.CheckRequest(
-                attributes=wire.AttributeContext(request=wire.Request(
-                    http=wire.HttpRequest(method="GET", path="/",
-                                          host=cp.CALLBACK_HOST)))))
-
-            async def drive_entry():
-                async with grpc.aio.insecure_channel(
-                        f"127.0.0.1:{eports[0]}") as ch:
-                    call = ch.unary_unary(CHECK_METHOD)
-                    got = [wire.decode_check_response(r).status.code
-                           for r in await asyncio.gather(
-                               *(call(p) for p in e_payloads))]
-                    http = [await asyncio.to_thread(
-                        http_call, eports[1], q.http.path,
-                        dict(q.http.headers, Host=q.http.host), None,
-                        q.http.method) for q in e_reqs[:8]]
-                    async def rows() -> int:
-                        body = (await asyncio.to_thread(
-                            http_call, eports[1], "/debug/vars"))[2]
-                        return json.loads(body)["engine"]["kernel_cost"][
-                            "ledger"]["engine"]["rows"]
-
-                    rows0 = await rows()
-                    futs = [asyncio.ensure_future(call(cb_payload))
-                            for _ in range(64)]
-                    # SIGTERM once every one of the 64 has its verdict (the
-                    # server's cost ledger counted its row): each is then
-                    # in its callback or queued for it, certainly in flight
-                    while await rows() < rows0 + 64:
-                        await asyncio.sleep(0.01)
-                    e["hits_at_sigterm"] = slow.hits
-                    proc.send_signal(signal.SIGTERM)
-                    t_term = time.perf_counter()
-                    answers = await asyncio.gather(*futs,
-                                                   return_exceptions=True)
-                    return got, http, answers, t_term
-
-            got, http, answers, t_term = asyncio.run(drive_entry())
-            rc = proc.wait(timeout=ENTRY_DRAIN_S + 30)
-            e["sigterm_to_exit_s"] = time.perf_counter() - t_term
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        e["callback_hits"] = slow.hits
-    text = log_path.read_text()
-    want = [cp.expected_code(q, i, e_rules, good)
-            for q, i, good in zip(e_reqs, e_cfgs, e_known)]
-    if got != want:
-        raise AssertionError(f"(e) gRPC {got} != oracle {want}")
-    http_want = [rpc.http_status_for(cp.expected_code(
-        CheckRequestModel(http=HttpRequestAttributes(
-            method=q.http.method, path=q.http.path, host=q.http.host,
-            headers=dict(q.http.headers))), i, e_rules, good))
-        for q, i, good in zip(e_reqs[:8], e_cfgs, e_known)]
-    if [s for s, _, _ in http] != http_want:
-        raise AssertionError(f"(e) HTTP {[s for s, _, _ in http]} != "
-                             f"{http_want}")
-    codes = [wire.decode_check_response(r).status.code
-             if isinstance(r, bytes) else repr(r) for r in answers]
-    device_named = (f"policy engine on cuda" in text) if on_card else \
-        ("policy engine on cpu" in text)
-    if (rc != 0 or codes != [rpc.OK] * 64 or e["callback_hits"] != 64
-            or e["hits_at_sigterm"] >= 64
-            or e["sigterm_to_exit_s"] > ENTRY_DRAIN_S + 5
-            or "drain complete" not in text or not device_named):
-        raise AssertionError(f"(e) exit {rc} after "
-                             f"{e['sigterm_to_exit_s']:.2f}s, in-flight "
-                             f"answers {codes}, {e['callback_hits']} "
-                             f"callbacks; log: {text[-3000:]}")
-    e.update({"exit_code": rc, "grpc_codes": got,
-              "http_statuses": [s for s, _, _ in http],
-              "device_line": next((ln for ln in text.splitlines()
-                                   if "policy engine on" in ln), "")})
+    e = entry_point_drain([], on_card, Path("smoke_out") / "entry_point.log")
+    e = {k: v for k, v in e.items() if not k.startswith("log_")}
     numbers["entry_point"] = e
-    log(f"serving surfaces (e): python3 -m authorino_tpu_torch server ready "
+    log(f"serving surfaces (e), served by the "
+        f"{'native frontend' if e['native'] else 'grpc.aio'}: python3 -m "
+        f"authorino_tpu_torch server ready "
         f"in {e['ready_s']:.1f}s ({e['device_line'].split(' INFO ')[-1]}); "
         f"32 gRPC and 8 HTTP Check()s equal the oracle; SIGTERM once 64 "
         f"Check()s had their verdicts ({e['hits_at_sigterm']} callbacks "
-        f"begun): all 64 answered OK, exit {rc} after "
+        f"begun): all 64 answered OK, exit {e['exit_code']} after "
         f"{e['sigterm_to_exit_s']:.2f}s (--drain-timeout {ENTRY_DRAIN_S:g})")
     numbers["launches"] = launches
     report["serving_surfaces"] = numbers
@@ -3818,6 +3945,7 @@ def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
     import shutil
     import signal
     import tempfile
+    import threading
 
     import grpc
     import numpy as np
@@ -4091,6 +4219,17 @@ def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
                     "failed_batches": st["failed_batches"] - f0,
                     "transitions": len(br.transitions) - n_tr}
 
+        # (c)'s watchdog timeouts each started a bundle dump on a thread of
+        # its own (about a second of host work apiece); both passes are
+        # timed only after the last has been written, or the healthy pass
+        # shares the host with them and its batch p50 is not the baseline
+        deadline = time.monotonic() + 60
+        for t in threading.enumerate():
+            if t.name == "atpu-flight-dump":
+                t.join(max(0.0, deadline - time.monotonic()))
+                if t.is_alive():
+                    raise AssertionError("(d) a flight-recorder dump still "
+                                         "running after 60 s")
         healthy = lone_batches("phase 14 (d) healthy")
         faults.FAULTS.arm("slow-device", seed=FAULT_SEED)
         try:
@@ -4304,6 +4443,688 @@ def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
         f"{f['ready_s']:.1f}s; of 32 gRPC Check()s the {f['engine_decided']} "
         f"the engine decides answered UNAVAILABLE, the rest the oracle's "
         f"code; /readyz {f['readyz']}, exit {rc}")
+    return launches, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the native gRPC frontend
+# ---------------------------------------------------------------------------
+
+# the native frontend slow lane's CoDel shed (runtime/native_frontend.py)
+SLOW_LANE_SHED = "server overloaded: slow lane shedding"
+WIRE_CONFIGS = 1000       # the reference's wire bench corpus: AuthConfigs
+WIRE_RULES = 10           # leaves per config
+WIRE_PAYLOADS = 4096      # distinct payloads, random.Random(5)
+FE_SHAPE = {"max_batch": 4096, "window_us": 2000, "slots": 24,
+            "dispatch_threads": 10}   # run_native_mode's frontend
+SAT_DEPTH, SAT_CONNS = 8000, 5        # its saturation pass (8 x B in flight)
+LIGHT_DEPTH, LIGHT_CONNS = 512, 2     # its light pass (1,024 in flight)
+SHALLOW_DEPTH, SHALLOW_CONNS = 16, 1  # a shallow pass: no client queueing
+LIGHT_PAYLOADS = 1024     # distinct requests the light passes cycle
+# (seconds measured, seconds of warm-up) per pass.  The native frontend
+# alone takes the saturation passes: at 40,000 in flight grpc.aio (~450
+# checks/s on this corpus) answers its first request only after ~90 s.
+# The native / grpc.aio pairs run at the light shape, where grpc.aio's
+# ~2.3 s standing wait fits the warm-up and ~2,000 answers the window.
+SAT_S, LIGHT_S, SHALLOW_S = (2.0, 0.5), (5.0, 2.0), (1.5, 0.5)
+FE_TRIALS = 3             # native saturation passes; native / grpc.aio pairs
+KEY_CONFIGS = 1000        # (b): API-key AuthConfigs of the three fast kinds
+STOP_SLOW = 64            # (e): slow-lane requests in flight at stop()
+FAIL_ROWS = 256           # (f): fast-lane requests under device-down
+
+
+class AioLoop:
+    """One event loop on a thread of its own for every grpc.aio object of
+    phase 15 (the port's grpc.aio servers and the Python gRPC clients):
+    grpc's asyncio layer wants one loop, not one per ``asyncio.run``."""
+
+    def __init__(self):
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True, name="phase15-aio")
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 300.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+
+
+def serve_grpc_aio(aio: AioLoop, engine):
+    """The port's grpc.aio server over ``engine`` on ``aio``'s loop;
+    returns (port, stop())."""
+    from authorino_tpu_torch.service.grpc_server import build_server
+
+    async def start():
+        server = build_server(engine, address="127.0.0.1:0")
+        await server.start()
+        return server
+
+    server = aio.run(start())
+    return server.bound_port, lambda: aio.run(server.stop(1.0))
+
+
+def grpc_many(aio: AioLoop, port: int, payloads, timeout: float = 120.0):
+    """Every payload at once over one gRPC channel: raw response bytes, or
+    the exception of a failed call."""
+    import grpc
+
+    async def body():
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            call = ch.unary_unary(CHECK_METHOD)
+            return await asyncio.gather(*(call(p, timeout=timeout)
+                                          for p in payloads),
+                                        return_exceptions=True)
+
+    return aio.run(body(), timeout + 60)
+
+
+def grpc_aio_server_main(port_file: str, no_reuse: bool,
+                         device: str = "cuda") -> None:
+    """The port's grpc.aio server over the wire corpus in a process of its
+    own (phase 15 (c)/(d)): grpc.aio's backlog of streams after a pass
+    would hold the measuring process's interpreter lock while the native
+    frontend is measured.  Writes its port to ``port_file``; writes the
+    engine's counts to ``port_file + ".stats"`` on SIGUSR1, and on SIGTERM
+    before it exits at once."""
+    import os
+    import signal
+
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.service.grpc_server import build_server
+
+    engine = PolicyEngine(max_batch=FE_SHAPE["max_batch"], device=device,
+                          **dict(WIDE_ADMISSION,
+                                 **(NO_REUSE if no_reuse else {})))
+    engine.apply_snapshot(wc.build_wire_entries(WIRE_CONFIGS, WIRE_RULES,
+                                                engine))
+
+    def dump_stats():
+        with open(port_file + ".stats.tmp", "w") as f:
+            json.dump(dict(engine.stats), f)
+        os.replace(port_file + ".stats.tmp", port_file + ".stats")
+
+    def on_term():
+        dump_stats()
+        os._exit(0)
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        loop.add_signal_handler(signal.SIGTERM, on_term)
+        loop.add_signal_handler(signal.SIGUSR1, dump_stats)
+        server = build_server(engine, address="127.0.0.1:0")
+        await server.start()
+        with open(port_file + ".tmp", "w") as f:
+            f.write(str(server.bound_port))
+        os.replace(port_file + ".tmp", port_file)
+        await asyncio.Event().wait()
+
+    asyncio.run(main())
+
+
+class AioServerProcess:
+    """One ``grpc_aio_server_main`` process: started, ready (its port
+    file), then stopped by SIGTERM (its counts back) or killed."""
+
+    def __init__(self, tmpdir: str, no_reuse: bool, device: str, tag: str):
+        import os
+
+        self.port_file = os.path.join(tmpdir, f"aio-{tag}.port")
+        root = Path(__file__).resolve().parent
+        code = ("import chip_smoke as cs; cs.grpc_aio_server_main("
+                f"{self.port_file!r}, {no_reuse!r}, {device!r})")
+        self.log = open(os.path.join(tmpdir, f"aio-{tag}.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=str(root),
+            env=dict(os.environ, PYTHONPATH=str(root)),
+            stdout=self.log, stderr=subprocess.STDOUT)
+        t0 = time.monotonic()
+        while not os.path.exists(self.port_file):
+            if self.proc.poll() is not None or time.monotonic() - t0 > 180:
+                self.stop()
+                raise AssertionError(f"the grpc.aio server process did not "
+                                     f"start (exit {self.proc.returncode})")
+            time.sleep(0.05)
+        self.port = int(Path(self.port_file).read_text())
+
+    def counts(self) -> dict:
+        """SIGUSR1: the engine's counts now."""
+        import signal
+
+        path = Path(self.port_file + ".stats")
+        path.unlink(missing_ok=True)
+        self.proc.send_signal(signal.SIGUSR1)
+        t0 = time.monotonic()
+        while not path.exists():
+            if self.proc.poll() is not None or time.monotonic() - t0 > 30:
+                raise AssertionError("the grpc.aio server process did not "
+                                     "report its counts")
+            time.sleep(0.02)
+        return json.loads(path.read_text())
+
+    def wait_idle(self, timeout: float = 60.0) -> None:
+        """Until the engine's row count holds still for 0.5 s: the
+        streams a pass left behind are done or cancelled."""
+        t0, last = time.monotonic(), None
+        while time.monotonic() - t0 < timeout:
+            rows = self.counts()["rows"]
+            if rows == last:
+                return
+            last = rows
+            time.sleep(0.5)
+        raise AssertionError("the grpc.aio server process never idled")
+
+    def stop(self):
+        """SIGTERM: the engine's counts (None if it did not answer)."""
+        import signal
+
+        stats = None
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        path = Path(self.port_file + ".stats")
+        if path.exists():
+            stats = json.loads(path.read_text())
+            path.unlink()
+        self.log.close()
+        return stats
+
+
+def loadgen(lg: str, port: int, path: str, window: tuple, depth: int,
+            conns: int) -> dict:
+    """One pass of the C++ load generator; ``window`` is (seconds measured,
+    seconds of warm-up)."""
+    seconds, warm = window
+    out = subprocess.run([lg, "127.0.0.1", str(port), path, str(seconds),
+                          str(warm), str(depth), str(conns)],
+                         capture_output=True, text=True,
+                         timeout=seconds + warm + 120)
+    if out.returncode != 0:
+        raise AssertionError(f"loadgen failed: {out.stderr[-500:]}")
+    return json.loads(out.stdout)
+
+
+def native_frontend(report: dict, card: str, dev) -> tuple:
+    """Phase 15: the native gRPC frontend on the card, under
+    ``--native-frontend on`` semantics (its start fails loudly).  (a) the
+    extension with frontend.cpp and the load generator built by g++, the
+    libnghttp2 it opened; on the reference's wire corpus (1,000 anonymous
+    AuthConfigs x 10 leaves, 4,096 payloads of random.Random(5)) at the
+    serving defaults and with dedup and the cache off, and on 1,000
+    API-key configs at the defaults: (b) every native answer byte-equal
+    to the port's grpc.aio server's over the same engine and its code the
+    oracle's, every request on the fast lane, the first frontend batch of
+    each pad byte-equal to its plain version; (c) native saturation
+    passes of the C++ load generator (depth 8,000 over 5 connections),
+    then native and grpc.aio in alternating pairs at 1,024 in flight:
+    checks/s, p50/p99, rows per launched batch, launches, device rows;
+    (d) a shallow pass of each side; (e) stop() under load answers every
+    started stream, then the CLI as a process with --native-frontend on
+    drains on SIGTERM; (f) ``device-down``: every fast-lane row
+    UNAVAILABLE, none degraded.
+    Returns (the kernels' launches, counts zeroed just before (b); the max
+    abs byte error against plain)."""
+    import dataclasses
+    import os
+    import shutil
+    import struct
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from authorino_tpu_torch import native
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.runtime import PolicyEngine, faults
+    from authorino_tpu_torch.runtime.native_frontend import NativeFrontend
+    from authorino_tpu_torch.utils import rpc
+
+    on_card = dev.type == "cuda"
+    numbers = {"card": card}
+    # ---- (a) build ----------------------------------------------------------
+    t = time.monotonic()
+    mod = native.load_library()
+    lg = str(native.build_loadgen())
+    numbers["build"] = {"library_s": native.build_seconds(),
+                        "loadgen_and_load_s": time.monotonic() - t,
+                        "nghttp2": mod.fe_nghttp2_path(), "loadgen": lg}
+    if not numbers["build"]["nghttp2"]:
+        raise AssertionError("(a) libnghttp2 not found: the native frontend "
+                             "cannot start")
+    log(f"native frontend (a): extension (encoder + frontend.cpp) and load "
+        f"generator built by g++ from authorino_tpu_torch/native/csrc; "
+        f"libnghttp2 {numbers['build']['nghttp2']}")
+
+    payloads = wc.wire_payloads(WIRE_PAYLOADS, WIRE_CONFIGS)
+    oracle = [rpc.OK if wc.expected_allow(p, WIRE_RULES)
+              else rpc.PERMISSION_DENIED for p in payloads]
+    tmpdir = tempfile.mkdtemp(prefix="phase15-")
+    payload_path = os.path.join(tmpdir, "wire.payloads")
+    with open(payload_path, "wb") as f:
+        for b in payloads:
+            f.write(struct.pack(">I", len(b)) + b)
+    light_path = os.path.join(tmpdir, "light.payloads")
+    with open(light_path, "wb") as f:
+        for b in payloads[:LIGHT_PAYLOADS]:
+            f.write(struct.pack(">I", len(b)) + b)
+
+    # frontend batches captured for the comparison with plain, after the
+    # counted window (the capture only records what the frontend launched):
+    # the first batch of each pad of 256 rows or more, so the saturation
+    # passes' pad (max_batch) is held to plain as well as the bursts'
+    captured, fe_pads = {}, set()
+    cap_lock = threading.Lock()
+    real_dispatch = fk.dispatch_megakernel
+
+    def capturing(params, db):
+        pad = int(db.attrs_val.shape[0])
+        take = False
+        if threading.current_thread().name.startswith("atpu-fe-dispatch"):
+            with cap_lock:
+                fe_pads.add(pad)
+                if pad >= 256 and pad not in captured:
+                    captured[pad] = take = True
+        if not take:
+            return real_dispatch(params, db)
+        # a copy: the batch's arrays view the frontend's slot, which the
+        # C++ encoder refills once the batch completes
+        snap = dataclasses.replace(db, **{
+            f.name: np.array(getattr(db, f.name), copy=True)
+            for f in dataclasses.fields(db)
+            if getattr(db, f.name) is not None})
+        try:
+            h = real_dispatch(params, db)
+        except BaseException:
+            with cap_lock:
+                del captured[pad]
+            raise
+        captured[pad] = (params, snap, h)
+        return h
+
+    fk.reset_counts()
+    reset_host_counts()
+    totals = {"fe_launches": 0, "fe_warm": 0, "engine_launches": 0}
+
+    def start_stack(label, engine_kw, fe_kw, build=None, kernel_configs=None):
+        """An engine over the wire corpus (or ``build(engine)``'s entries),
+        its frontend and an in-process grpc.aio server; ``kernel_configs``
+        is how many configs the frontend must give a kernel row."""
+        t0 = time.perf_counter()
+        # wide admission bounds (as phase 10's): the grpc.aio side under
+        # the saturating load generator measures serving, not shedding
+        engine = PolicyEngine(max_batch=FE_SHAPE["max_batch"], device=dev,
+                              **dict(WIDE_ADMISSION, **engine_kw))
+        engine.apply_snapshot(build(engine) if build else
+                              wc.build_wire_entries(WIRE_CONFIGS, WIRE_RULES,
+                                                    engine))
+        fe = NativeFrontend(engine, port=0, **dict(FE_SHAPE, **fe_kw))
+        port = fe.start()
+        if not fe.wait_warm(60):
+            raise AssertionError(f"({label}) the warm launch never ran")
+        dv = fe.debug_vars()
+        want = WIRE_CONFIGS if kernel_configs is None else kernel_configs
+        if dv["snapshot"]["fast_configs"] != want:
+            raise AssertionError(f"({label}) {dv['snapshot']} fast configs")
+        py_port, stop_py = serve_grpc_aio(aio, engine)
+        return engine, fe, port, py_port, stop_py, time.perf_counter() - t0
+
+    def end_stack(engine, fe, stop_py):
+        stop_py()
+        if fe._running:
+            fe.stop(drain_s=10)
+        wait_idle(engine)
+        totals["fe_launches"] += fe.counts["launches"]
+        totals["fe_warm"] += fe.counts["warm_launches"]
+        totals["engine_launches"] += engine.stats["launches"]
+
+    def exactness(label, fe, port, py_port, reqs=None, codes=None):
+        """``reqs`` (the wire payloads by default) through the frontend
+        and the grpc.aio server: bytes equal, codes the oracle's, every
+        request on the fast lane."""
+        reqs, codes = (payloads, oracle) if reqs is None else (reqs, codes)
+        c0, s0 = dict(fe.counts), fe.stats()
+        native_out = grpc_many(aio, port, reqs)
+        c1, s1 = dict(fe.counts), fe.stats()
+        aio_out = grpc_many(aio, py_port, reqs)
+        for k, (n_raw, a_raw, want) in enumerate(zip(native_out, aio_out,
+                                                     codes)):
+            if not isinstance(n_raw, bytes) or n_raw != a_raw:
+                raise AssertionError(f"({label}) request {k}: native "
+                                     f"{n_raw!r} != grpc.aio {a_raw!r}")
+            code = wire.decode_check_response(n_raw).status.code
+            if code != want:
+                raise AssertionError(f"({label}) request {k}: {code} != "
+                                     f"oracle {want}")
+        d = {k: c1[k] - c0[k] for k in c1}
+        lanes = {k: s1[k] - s0[k] for k in ("fast", "slow", "notfound")}
+        if lanes["fast"] != len(reqs) or (
+                on_card and d["launches"] != d["batches"]
+                - d["cached_batches"]):
+            raise AssertionError(f"({label}) frontend counts {d}, lanes "
+                                 f"{lanes}")
+        return {"requests": len(reqs),
+                "codes": {c: codes.count(c) for c in sorted(set(codes))},
+                "allowed": codes.count(rpc.OK), "lanes": lanes,
+                "fast_share": lanes["fast"] / len(reqs), "frontend": d}
+
+    def trials(label, fe, port, engine, no_reuse):
+        """The native frontend's saturation passes; then the native /
+        grpc.aio pairs at the light shape, alternating, and the shallow
+        pass of each side, all of grpc.aio's in one server process."""
+        shapes = {"sat": (payload_path, SAT_S, SAT_DEPTH, SAT_CONNS),
+                  "light": (light_path, LIGHT_S, LIGHT_DEPTH, LIGHT_CONNS),
+                  "shallow": (light_path, SHALLOW_S, SHALLOW_DEPTH,
+                              SHALLOW_CONNS)}
+        keys = ("batches", "rows", "device_rows", "launches", "plain_calls",
+                "cached_batches")
+
+        def figures(r, d):
+            launched = d.get("batches", 0) - d.get("cached_batches", 0)
+            r["rows_per_batch"] = d.get("rows", 0) / max(1, d.get("batches",
+                                                                   0))
+            r["rows_per_launched_batch"] = (d.get("device_rows", 0) / launched
+                                            if launched else 0.0)
+            r["counts"] = d
+            return r
+
+        def native_pass(shape):
+            c0 = dict(fe.counts)
+            r = loadgen(lg, port, *shapes[shape])
+            wait_idle(engine, timeout=120)
+            return figures(r, {k: fe.counts[k] - c0[k] for k in keys})
+
+        def aio_pass(srv, shape):
+            srv.wait_idle()
+            c0 = srv.counts()
+            r = loadgen(lg, srv.port, *shapes[shape])
+            c1 = srv.counts()
+            return figures(r, {k: c1[k] - c0[k] for k in keys})
+
+        def median(rs):
+            return {k: statistics.median(r[k] for r in rs)
+                    for k in ("rps", "p50_ms", "p99_ms", "rows_per_batch",
+                              "rows_per_launched_batch")}
+
+        loadgen(lg, port, *shapes["sat"])  # warm-up
+        wait_idle(engine)
+        out = {"sat": [native_pass("sat") for _ in range(FE_TRIALS)],
+               "native": [], "grpc_aio": [], "shallow": {}}
+        srv = AioServerProcess(tmpdir, no_reuse, dev.type,
+                               label[3:].replace(" ", "-"))
+        try:
+            order = ["native", "grpc_aio", "grpc_aio", "native", "native",
+                     "grpc_aio"][:2 * FE_TRIALS]
+            for side in order:
+                out[side].append(native_pass("light") if side == "native"
+                                 else aio_pass(srv, "light"))
+            out["shallow"]["native"] = native_pass("shallow")
+            out["shallow"]["grpc_aio"] = aio_pass(srv, "shallow")
+        finally:
+            srv.stop()
+        if min(r["rps"] for r in out["native"] + out["grpc_aio"]) <= 0:
+            raise AssertionError(f"({label}) a pair's side answered nothing: "
+                                 f"{out}")
+        for side in ("sat", "native", "grpc_aio"):
+            out[f"{side}_median"] = median(out[side])
+        return out
+
+    def fmt_trials(tr):
+        s, n, g = tr["sat_median"], tr["native_median"], \
+            tr["grpc_aio_median"]
+        sh = tr["shallow"]
+        return (f"saturation ({SAT_DEPTH} x {SAT_CONNS} in flight, native "
+                f"only): {[round(r['rps']) for r in tr['sat']]} checks/s "
+                f"(median {s['rps']:.0f}; p50 {s['p50_ms']:.2f} ms p99 "
+                f"{s['p99_ms']:.2f} ms; rows per batch "
+                f"{[round(r['rows_per_batch'], 1) for r in tr['sat']]}, "
+                f"per launched batch "
+                f"{[round(r['rows_per_launched_batch'], 1) for r in tr['sat']]}"
+                f"; launches {[r['counts']['launches'] for r in tr['sat']]}"
+                f"; device rows "
+                f"{[r['counts']['device_rows'] for r in tr['sat']]}); "
+                f"pairs ({LIGHT_DEPTH} x {LIGHT_CONNS} in flight, "
+                f"{LIGHT_S[0]:g} s after {LIGHT_S[1]:g} s of warm-up): "
+                f"native {[round(r['rps']) for r in tr['native']]} (median "
+                f"{n['rps']:.0f}; p50 {n['p50_ms']:.2f} ms p99 "
+                f"{n['p99_ms']:.2f} ms; rows per launched batch "
+                f"{[round(r['rows_per_launched_batch'], 1) for r in tr['native']]}"
+                f") vs grpc.aio {[round(r['rps']) for r in tr['grpc_aio']]} "
+                f"(median {g['rps']:.0f}; p50 {g['p50_ms']:.2f} ms p99 "
+                f"{g['p99_ms']:.2f} ms; rows per launched batch "
+                f"{[round(r['rows_per_launched_batch'], 1) for r in tr['grpc_aio']]}"
+                f"; launches "
+                f"{[r['counts']['launches'] for r in tr['grpc_aio']]}); "
+                f"shallow pass ({SHALLOW_DEPTH} x {SHALLOW_CONNS} in flight): "
+                f"native p50 {sh['native']['p50_ms']:.3f} ms p99 "
+                f"{sh['native']['p99_ms']:.3f} ms "
+                f"({sh['native']['rps']:.0f}/s), grpc.aio p50 "
+                f"{sh['grpc_aio']['p50_ms']:.3f} ms p99 "
+                f"{sh['grpc_aio']['p99_ms']:.3f} ms "
+                f"({sh['grpc_aio']['rps']:.0f}/s)")
+
+    fk.dispatch_megakernel = capturing
+    aio = AioLoop()
+    try:
+        # ---- the serving defaults (dedup and the verdict cache on) --------
+        engine, fe, port, py_port, stop_py, up_s = start_stack(
+            "defaults", {}, {})
+        try:
+            numbers["defaults"] = {"start_s": up_s}
+            numbers["defaults"]["exactness"] = exactness("b, defaults", fe,
+                                                         port, py_port)
+            numbers["defaults"]["trials"] = tr = trials(
+                "c, defaults", fe, port, engine, False)
+            log(f"[{card}] native frontend (c, d) at the serving defaults: "
+                f"{fmt_trials(tr)}")
+        finally:
+            end_stack(engine, fe, stop_py)
+        # ---- API-key configs on the fast lane (serving defaults) ----------
+        keyed = wc.key_payloads(WIRE_PAYLOADS, KEY_CONFIGS)
+        engine, fe, port, py_port, stop_py, up_s = start_stack(
+            "api keys", {}, {},
+            build=lambda e: wc.build_key_entries(KEY_CONFIGS, e),
+            kernel_configs=sum(i % 3 != 0 for i in range(KEY_CONFIGS)))
+        try:
+            ex = numbers["api_keys"] = exactness(
+                "b, api keys", fe, port, py_port, [p for p, _ in keyed],
+                [c for _, c in keyed])
+            ex["start_s"] = up_s
+            ex["kinds"] = list(wc.KEY_KINDS)
+            if ex["frontend"]["device_rows"] == 0:
+                raise AssertionError(f"(b) no API-key row rode the kernel: "
+                                     f"{ex}")
+        finally:
+            end_stack(engine, fe, stop_py)
+        # ---- dedup and the cache off: every row rides the kernel ----------
+        engine, fe, port, py_port, stop_py, up_s = start_stack(
+            "no reuse", NO_REUSE, NO_REUSE)
+        try:
+            numbers["no_reuse"] = {"start_s": up_s}
+            ex = numbers["no_reuse"]["exactness"] = exactness(
+                "b, no reuse", fe, port, py_port)
+            if ex["frontend"]["device_rows"] != len(payloads):
+                raise AssertionError(f"(b) a row skipped the kernel: {ex}")
+            numbers["no_reuse"]["trials"] = tr = trials(
+                "c, no reuse", fe, port, engine, True)
+            if min(r["rows_per_launched_batch"] for r in tr["sat"]) <= 1:
+                raise AssertionError(f"(c) one-row cuts through the native "
+                                     f"frontend: {tr['sat']}")
+            log(f"[{card}] native frontend (c, d) with dedup and the cache "
+                f"off: {fmt_trials(tr)}")
+            # ---- (e) stop() under load ------------------------------------
+            s0 = fe.stats()
+            base = s0["fast"] + s0["slow"] + s0["notfound"]
+            box = {}
+
+            def stop_when_received():
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline:
+                    s = fe.stats()
+                    got = s["fast"] + s["slow"] + s["notfound"] - base
+                    if got >= len(payloads) // 2:
+                        box["started"] = got
+                        t = time.perf_counter()
+                        fe.stop(drain_s=10)
+                        box["stop_s"] = time.perf_counter() - t
+                        box["stats"] = s
+                        return
+                    time.sleep(0.0005)
+
+            th = threading.Thread(target=stop_when_received)
+            th.start()
+            out = grpc_many(aio, port, payloads, timeout=30)
+            th.join(timeout=120)
+            answered = sum(isinstance(r, bytes) for r in out)
+            refused = [r for r in out if not isinstance(r, bytes)]
+            if "started" not in box or answered < box["started"] or any(
+                    r.code().name != "UNAVAILABLE" for r in refused):
+                raise AssertionError(
+                    f"(e) {answered} answered of {box.get('started')} "
+                    f"started; refusals {set(str(r.code()) for r in refused)}")
+            for raw, want in zip(out, oracle):
+                if isinstance(raw, bytes) and \
+                        wire.decode_check_response(raw).status.code != want:
+                    raise AssertionError("(e) a drained answer differs from "
+                                         "the oracle")
+            numbers["stop_under_load"] = {
+                "started_at_stop": box["started"], "answered": answered,
+                "refused_unavailable": len(refused),
+                "sent": len(payloads), "stop_s": box["stop_s"]}
+        finally:
+            end_stack(engine, fe, stop_py)
+        # ---- (f) device-down ----------------------------------------------
+        engine = PolicyEngine(max_batch=FE_SHAPE["max_batch"], device=dev, **NO_REUSE)
+        engine.apply_snapshot(wc.build_wire_entries(WIRE_CONFIGS, WIRE_RULES,
+                                                    engine))
+        fe = NativeFrontend(engine, port=0, breaker_threshold=1,
+                            breaker_reset_s=60.0,
+                            **dict(FE_SHAPE, **NO_REUSE))
+        port = fe.start()
+        p0 = fk.plain_calls
+        try:
+            faults.FAULTS.arm("device-down", seed=7)
+            out = grpc_many(aio, port, payloads[:FAIL_ROWS])
+        finally:
+            faults.FAULTS.disarm()
+            fe.stop(drain_s=10)
+            totals["fe_launches"] += fe.counts["launches"]
+            totals["fe_warm"] += fe.counts["warm_launches"]
+        codes = [wire.decode_check_response(r).status.code
+                 if isinstance(r, bytes) else repr(r) for r in out]
+        c = fe.counts
+        # a card answers UNAVAILABLE; only a CPU engine (a dry run of this
+        # script) re-decides on the host
+        want = ([rpc.UNAVAILABLE] * FAIL_ROWS if on_card
+                else oracle[:FAIL_ROWS])
+        if (codes != want
+                or c["degraded_rows"] != (0 if on_card else FAIL_ROWS)
+                or c["unavailable_rows"] != (FAIL_ROWS if on_card else 0)
+                or (on_card and fk.plain_calls != p0) or c["launches"]
+                or fe.breaker.state != "open"):
+            raise AssertionError(f"(f) device-down: {set(map(str, codes))} "
+                                 f"{c} breaker {fe.breaker.state}")
+        numbers["device_down"] = {"rows": FAIL_ROWS, "unavailable":
+                                  c["unavailable_rows"], "degraded":
+                                  c["degraded_rows"], "retries":
+                                  c["retries"], "breaker_open_batches":
+                                  c["breaker_open_batches"]}
+    finally:
+        fk.dispatch_megakernel = real_dispatch
+        faults.FAULTS.disarm()
+        aio.close()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    if on_card and launches["fused_megakernel"] != (
+            totals["fe_launches"] + totals["fe_warm"]
+            + totals["engine_launches"]):
+        raise AssertionError(f"wrapper launches {launches} != the frontends' "
+                             f"and the engines' {totals}")
+    numbers["launches"] = dict(launches, **totals)
+
+    # the frontend's own batches against plain (after the counted window):
+    # one of each pad it launched, max_batch (the saturation passes') among
+    # them
+    max_err = 0
+    captured = {pad: c for pad, c in captured.items() if c is not True}
+    if on_card:
+        big = {pad for pad in fe_pads if pad >= 256}
+        if set(captured) != big or FE_SHAPE["max_batch"] not in captured:
+            raise AssertionError(f"(b) frontend pads {sorted(fe_pads)}, "
+                                 f"captured {sorted(captured)}")
+        import torch
+
+        from authorino_tpu_torch.ops.operands import defuse, fuse_batch
+
+        for pad in sorted(captured):
+            params, db, handle = captured[pad]
+            buf, layout = fuse_batch(db)
+            want = fk.fused_packed_plain(params, defuse(
+                torch.from_numpy(buf).to(dev), layout))
+            got = torch.from_numpy(np.asarray(handle.wait()).copy()).to(dev)
+            max_err = max(max_err, max_byte_err(got, want),
+                          kernel_vs_plain(params, db, dev))
+    numbers["readbacks_vs_plain"] = {"pads": sorted(captured),
+                                     "frontend_pads": sorted(fe_pads),
+                                     "max_abs_err": max_err}
+    ex_d, ex_n = numbers["defaults"]["exactness"], \
+        numbers["no_reuse"]["exactness"]
+    ex_k = numbers["api_keys"]
+    mixed = report.get("serving_surfaces", {}).get("native_vs_grpc_aio")
+    if mixed is None:
+        raise AssertionError("(b) phase 12's server did not serve through "
+                             "the native frontend")
+    log(f"native frontend (b): {WIRE_PAYLOADS} wire requests byte-equal to "
+        f"the port's grpc.aio server and equal to the oracle "
+        f"({ex_d['allowed']} allowed) at the serving defaults "
+        f"(frontend {ex_d['frontend']}) and with dedup and the cache off "
+        f"({ex_n['frontend']}); {KEY_CONFIGS} API-key configs "
+        f"({', '.join(wc.KEY_KINDS)}): {ex_k['requests']} requests "
+        f"byte-equal to grpc.aio and equal to the oracle {ex_k['codes']}, "
+        f"fast-lane share {ex_k['fast_share']:.3f} (lanes {ex_k['lanes']}; "
+        f"frontend {ex_k['frontend']}); phase 12's mixed corpus: {mixed}; "
+        f"the first frontend batch of each pad "
+        f"{numbers['readbacks_vs_plain']['pads']} (of pads launched "
+        f"{numbers['readbacks_vs_plain']['frontend_pads']}) byte-equal to "
+        f"plain (tolerance 0)")
+    su = numbers["stop_under_load"]
+    log(f"native frontend (e): stop(drain_s=10) with {su['started_at_stop']} "
+        f"of {su['sent']} requests received: {su['answered']} answered, "
+        f"each equal to the oracle, {su['refused_unavailable']} later ones "
+        f"refused UNAVAILABLE, in {su['stop_s']:.2f}s; (f) "
+        f"device-down: {FAIL_ROWS} fast-lane requests all "
+        f"{'UNAVAILABLE' if on_card else 'decided by the CPU degrade'}, "
+        f"{numbers['device_down']['degraded']} degraded, "
+        f"{numbers['device_down']['retries']} retry, "
+        f"{numbers['device_down']['breaker_open_batches']} slots kept off "
+        f"the card by the open breaker")
+
+    # ---- (e) the CLI as a process with --native-frontend on ---------------
+    e = entry_point_drain(["--native-frontend", "on"], on_card,
+                          Path("smoke_out") / "native_frontend.log")
+    if "native grpc ext_authz listening" not in e["log_tail"] + e["log_head"]:
+        raise AssertionError(f"(e) the process did not serve through the "
+                             f"native frontend: {e['log_head'][-2000:]}")
+    numbers["entry_point"] = {k: v for k, v in e.items()
+                              if not k.startswith("log_")}
+    log(f"native frontend (e): python3 -m authorino_tpu_torch server "
+        f"--native-frontend on ready in {e['ready_s']:.1f}s, 32 gRPC and 8 "
+        f"HTTP Check()s equal the oracle, SIGTERM with 64 Check()s in "
+        f"flight: all answered, exit {e['exit_code']} after "
+        f"{e['sigterm_to_exit_s']:.2f}s")
+    report["native_frontend"] = numbers
     return launches, max_err
 
 
@@ -4820,7 +5641,8 @@ def main() -> int:
         f"phase 12 launches: {serve_launches['fused_megakernel']} "
         f"mega-kernel, {serve_launches['probe_add_one']} probe; "
         f"/debug/profile during a fresh burst: {sn['debug_profile']}; "
-        f"{fmt_encoder(sv['encoder'])}")
+        f"the native slow lane's admission after each burst "
+        f"{sn['native_admission']}; {fmt_encoder(sv['encoder'])}")
 
     sp = sv["surfaces"]["planes"]
     log(f"observability planes (e), phase 12's server with --slo-ms "
@@ -4846,6 +5668,12 @@ def main() -> int:
     if faults.ACTIVE:
         raise AssertionError("phase 14 left the fault plane armed")
 
+    # ---- 15. the native gRPC frontend -------------------------------------
+    fe_launches, fe_err = native_frontend(report, card, dev)
+    max_err = max(max_err, fe_err)
+    if faults.ACTIVE:
+        raise AssertionError("phase 15 left the fault plane armed")
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
@@ -4863,19 +5691,17 @@ def main() -> int:
          "bound_by": pr_by,
          "library_ms": numbers["probe_library_ms_median"]},
     ]
+    by_phase = {"4": main_launches, "6": path_launches, "7": opa_launches,
+                "8": jwt_launches, "9": core_launches, "10": cp_launches,
+                "12": serve_launches, "13": plane_launches,
+                "14": fail_launches, "15": fe_launches}
+    for k in kernels:
+        k["launches_by_phase"] = {ph: c[k["name"]]
+                                  for ph, c in by_phase.items()}
     for name in main_launches:
-        if min(main_launches[name], path_launches[name],
-               opa_launches[name], jwt_launches[name],
-               core_launches[name], cp_launches[name],
-               serve_launches[name], plane_launches[name],
-               fail_launches[name]) < 1:
+        if min(c[name] for c in by_phase.values()) < 1:
             raise AssertionError(
-                f"{name} never launched on a path: engine {main_launches}, "
-                f"request path {path_launches}, OPA path {opa_launches}, "
-                f"JWT path {jwt_launches}, serving core {core_launches}, "
-                f"control plane {cp_launches}, serving surfaces "
-                f"{serve_launches}, observability planes {plane_launches}, "
-                f"failure handling {fail_launches}")
+                f"{name} never launched on a path: {by_phase}")
     report["kernels"] = kernels
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(

@@ -87,12 +87,14 @@ def below_serving(mods):
 
 def test_port_imports_with_service_libraries_blocked():
     """Every module of the port below the serving modules (OPA, the
-    Kubernetes reviews, SpiceDB and the protobuf codec among them) imports
+    Kubernetes reviews, SpiceDB, the protobuf codec and the native gRPC
+    frontend's Python half among them) imports
     with ``aiohttp``, ``grpc`` and ``cryptography`` blocked, and with
     ``jax`` blocked too."""
     mods = port_modules()
     for m in ("evaluators.authorization.opa", "evaluators.identity.kubernetes",
               "evaluators.authorization.authzed", "protos.wire",
+              "protos.ext_authz", "runtime.native_frontend",
               *JWT_AND_HTTP_MODULES, *CONTROL_PLANE_MODULES, *SERVING_MODULES,
               *FAILURE_MODULES):
         assert f"authorino_tpu_torch.{m}" in mods, m
@@ -606,13 +608,15 @@ def test_native_build_reads_only_its_csrc_and_writes_only_build(monkeypatch,
     """The port's native loader compiles only the sources under
     ``authorino_tpu_torch/native/csrc/`` (never the JAX package's root
     ``native/``), whose includes stay inside that directory, and writes
-    only under ``authorino_tpu_torch/_build/``."""
+    only under ``authorino_tpu_torch/_build/``: the extension and the load
+    generator, a program of its own."""
     from authorino_tpu_torch import native
 
     csrc = ROOT / "authorino_tpu_torch" / "native" / "csrc"
     assert native.CSRC_DIR == csrc
-    assert sorted(p.name for p in csrc.iterdir()) == sorted(native.SOURCES)
-    for name in native.SOURCES:
+    assert sorted(p.name for p in csrc.iterdir()) == sorted(
+        native.SOURCES + (native.LOADGEN_SOURCE,))
+    for name in native.SOURCES + (native.LOADGEN_SOURCE,):
         for inc in re.findall(r'#include\s+"([^"]+)"',
                               (csrc / name).read_text()):
             assert (csrc / inc).resolve().parent == csrc, (name, inc)
@@ -642,6 +646,7 @@ def test_native_build_reads_only_its_csrc_and_writes_only_build(monkeypatch,
     root_native = ROOT / "native"
     assert not any(str(root_native) + os.sep in a or a == str(root_native)
                    for a in map(str, cmd))
+    assert cmd[-3:-2] == ["-ldl"]   # frontend.cpp dlopens libnghttp2
 
 
 def test_native_encoder_runs_without_the_reference_or_its_services():

@@ -6,7 +6,9 @@
   environment variables and given on the command line (``--jax-platform``
   is the one exception: the port has ``--device``);
 * a flag of a plane the port does not hold yet stops the start, naming
-  it; ``--native-frontend on`` raises; the SLO and flight-recorder flags
+  it; ``--native-frontend on`` serves through the native frontend and
+  raises with TLS flags or without its library, where ``auto`` falls back
+  to grpc.aio with one WARNING naming why; the SLO and flight-recorder flags
   reach the engine and the recorder, and /debug/vars and /metrics carry
   the observability planes; ``--breaker-threshold``, ``--breaker-reset``
   and ``--fault-profile`` reach the breaker and arm the port's fault
@@ -317,8 +319,14 @@ def test_run_server_serves_the_observability_planes(tmp_path):
 def test_other_refusals_and_off_switches():
     with pytest.raises(SystemExit, match="--kernel-lane"):
         run(port_cli.run_server(server_args("--kernel-lane", "matmul")))
-    with pytest.raises(RuntimeError, match="native frontend"):
-        run(port_cli.run_server(server_args("--native-frontend", "on")))
+    # the native frontend does not terminate TLS: 'on' refuses TLS flags
+    # before anything binds
+    args = server_args("--native-frontend", "on", "--tls-cert", "/x.crt",
+                       "--tls-cert-key", "/x.key")
+    with pytest.raises(RuntimeError, match="native-frontend=on is "
+                                           "incompatible with --tls-cert"):
+        run(port_cli.run_server(args))
+    assert not listening(args.ext_auth_http_port)
     # flags that only turn a plane off are accepted
     port_cli.refuse_unported(server_args(
         "--no-brownout", "--no-lane-select", "--no-speculative-dispatch",
@@ -586,3 +594,144 @@ def test_run_server_serves_tls_from_its_flags(tmp_path):
 
     assert run(body()) == [cp.expected_code(q, i, rules, good)
                            for q, i, good in zip(reqs, cfgs, known)]
+
+
+def serve_and_scrape(args, reqs, in_process=()):
+    """Run ``run_server(args)`` until ready, send ``reqs`` over gRPC, read
+    /debug/vars, cancel; returns (CheckResponses, debug vars, the codes of
+    the server's own engine.check() for the models ``in_process``)."""
+    engines = []
+
+    async def body():
+        task = asyncio.ensure_future(port_cli.run_server(
+            args, on_engine=engines.append))
+        t0 = time.monotonic()
+        while (await asyncio.to_thread(http_get_or_none,
+                                       args.ext_auth_http_port,
+                                       "/readyz"))[0] != 200:
+            assert not task.done(), task
+            assert time.monotonic() - t0 < 60
+            await asyncio.sleep(0.05)
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{args.ext_auth_grpc_port}") as ch:
+            call = ch.unary_unary(CHECK, request_serializer=lambda b: b,
+                                  response_deserializer=lambda b: b)
+            got = [pb.CheckResponse.FromString(r) for r in
+                   await asyncio.gather(*(call(wire_request(q))
+                                          for q in reqs))]
+        _, dv = await asyncio.to_thread(http_get, args.ext_auth_http_port,
+                                        "/debug/vars")
+        own = [(await engines[0].check(m)).code for m in in_process]
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        return got, json.loads(dv), own
+
+    return run(body())
+
+
+def test_native_frontend_on_serves_through_the_frontend(tmp_path):
+    """``--native-frontend on``: gRPC Check()s are answered by the native
+    frontend (its counters move: the control-plane corpus's API-key
+    configs take request-dependent identity overrides and ride the slow
+    lane, anonymous pattern configs the fast lane), every code equals the
+    oracle's or the server's own ``engine.check()``'s, /debug/vars carries
+    the frontend, and the listeners close on cancellation."""
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+
+    n = 4
+    write_manifests(tmp_path, n)
+    for i in range(6):
+        (tmp_path / f"anon-{i}.json").write_text(json.dumps({
+            "apiVersion": "authorino.kuadrant.io/v1beta2",
+            "kind": "AuthConfig",
+            "metadata": {"name": f"anon-{i}", "namespace": "wire"},
+            "spec": {"hosts": [f"svc-{i}.wire"],
+                     "authentication": {"anon": {"anonymous": {}}},
+                     "authorization": {"r": {"patternMatching": {
+                         "patterns": [{"selector": "request.headers.x-tier",
+                                       "operator": "eq",
+                                       "value": f"tier-{i}"}]}}}}}))
+    args = server_args("--native-frontend", "on", watch_dir=tmp_path)
+    reqs, cfgs, known = cp.build_check_requests(24, n)
+    ns_reqs = [CheckRequestModel(http=HttpRequestAttributes(
+        method="GET", path="/", host=f"svc-{k % 6}.wire",
+        headers={"x-tier": f"tier-{k % 6}" if k % 3 else "none"}))
+        for k in range(32)]
+    rules = cp.config_rules(n, 3)
+    got, dv, own = serve_and_scrape(args, reqs + ns_reqs, ns_reqs)
+    assert [g.status.code for g in got[:len(reqs)]] == [
+        cp.expected_code(q, i, rules, good)
+        for q, i, good in zip(reqs, cfgs, known)]
+    assert [g.status.code for g in got[len(reqs):]] == own
+    assert set(own) == {0, 7}
+    fe = dv["native_frontend"]
+    assert fe["enabled"] and fe["port"] == args.ext_auth_grpc_port
+    assert fe["nghttp2"] and fe["device"] == "cpu"
+    st = fe["stats"]
+    assert (st["fast"], st["slow"]) == (len(ns_reqs), len(reqs))
+    for port in (args.ext_auth_http_port, args.ext_auth_grpc_port):
+        assert not listening(port)
+
+
+@pytest.mark.parametrize("mode", ["on", "auto"])
+def test_native_frontend_without_its_library(tmp_path, monkeypatch, caplog,
+                                             mode):
+    """Without libnghttp2 (the loader finds none: monkeypatched), 'on'
+    raises naming the library and 'auto' serves grpc.aio with one WARNING
+    naming why, /debug/vars reporting the frontend disabled with that
+    reason."""
+    import logging
+
+    from authorino_tpu_torch import native
+
+    real = native.load_library
+
+    class NoNghttp2:
+        def __init__(self, mod):
+            self._mod = mod
+
+        def __getattr__(self, name):
+            return getattr(self._mod, name)
+
+        def fe_nghttp2_path(self):
+            return ""
+
+    monkeypatch.setattr(native, "load_library", lambda: NoNghttp2(real()))
+    write_manifests(tmp_path, 2)
+    args = server_args("--native-frontend", mode, watch_dir=tmp_path)
+    if mode == "on":
+        with pytest.raises(RuntimeError, match="libnghttp2"):
+            run(port_cli.run_server(args))
+        assert not listening(args.ext_auth_grpc_port)
+        return
+    reqs, cfgs, known = cp.build_check_requests(4, 2)
+    rules = cp.config_rules(2, 3)
+    with caplog.at_level(logging.WARNING, logger="authorino_tpu"):
+        got, dv, _ = serve_and_scrape(args, reqs)
+    assert [g.status.code for g in got] == [
+        cp.expected_code(q, i, rules, good)
+        for q, i, good in zip(reqs, cfgs, known)]
+    fe = dv["native_frontend"]
+    assert fe["enabled"] is False and "libnghttp2" in fe["reason"]
+    warned = [r.getMessage() for r in caplog.records
+              if r.levelno == logging.WARNING and "native frontend" in
+              r.getMessage()]
+    assert len(warned) == 1 and "using grpc.aio" in warned[0]
+    assert "libnghttp2" in warned[0]
+
+
+def test_native_frontend_off_serves_grpc_aio(tmp_path):
+    """``--native-frontend off`` serves grpc.aio with no warning and
+    /debug/vars names the switch."""
+    write_manifests(tmp_path, 2)
+    args = server_args("--native-frontend", "off", watch_dir=tmp_path)
+    reqs, cfgs, known = cp.build_check_requests(4, 2)
+    rules = cp.config_rules(2, 3)
+    got, dv, _ = serve_and_scrape(args, reqs)
+    assert [g.status.code for g in got] == [
+        cp.expected_code(q, i, rules, good)
+        for q, i, good in zip(reqs, cfgs, known)]
+    assert dv["native_frontend"] == {"enabled": False,
+                                     "reason": "--native-frontend off"}

@@ -702,3 +702,115 @@ def test_half_open_probe_is_a_real_launch(card):
     own, _, w_skip = host_results(policy, docs[1], policy.config_ids["cfg-1"])
     assert bool(np.all(rule | skipped)) == own
     assert skipped.tolist() == w_skip.tolist()
+
+
+def _frontend_on_the_card(n_cfg, **fe_kw):
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.runtime.native_frontend import NativeFrontend
+
+    engine = PolicyEngine(max_batch=256, verdict_cache_size=0,
+                          batch_dedup=False)
+    engine.apply_snapshot(wc.build_wire_entries(n_cfg, 10, engine))
+    fe = NativeFrontend(engine, port=0, max_batch=256, window_us=2000,
+                        verdict_cache_size=0, batch_dedup=False, **fe_kw)
+    fe.start()
+    return engine, fe
+
+
+def _grpc_burst(port, payloads):
+    import grpc
+
+    async def body():
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            call = ch.unary_unary("/envoy.service.auth.v3.Authorization/Check")
+            return await asyncio.gather(*(call(p, timeout=60)
+                                          for p in payloads))
+
+    return asyncio.run(body())
+
+
+def test_native_frontend_one_launch_per_fast_batch(card):
+    """The native frontend on the card: every fast-lane slot is one launch
+    of the mega-kernel (the wrapper's count equals the frontend's), no
+    plain call, every answer the oracle's."""
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.protos import wire
+
+    engine, fe = _frontend_on_the_card(50)
+    try:
+        assert fe.wait_warm(60)
+        payloads = wc.wire_payloads(600, 50, seed=11)
+        c0, l0, p0 = dict(fe.counts), fk.launches, fk.plain_calls
+        out = _grpc_burst(fe.bound_port, payloads)
+        c1 = dict(fe.counts)
+    finally:
+        fe.stop()
+    d = {k: c1[k] - c0[k] for k in c1}
+    assert d["rows"] == d["device_rows"] == 600
+    assert d["launches"] == d["batches"] == fk.launches - l0 >= 3
+    assert d["plain_calls"] == 0 and fk.plain_calls == p0
+    assert [wire.decode_check_response(r).status.code for r in out] == [
+        0 if wc.expected_allow(p, 10) else 7 for p in payloads]
+
+
+def test_native_frontend_readback_equals_plain(card, monkeypatch):
+    """A frontend slot's readback from the card is byte-equal to the
+    kernel's plain version on the same staged operands."""
+    import dataclasses
+
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.ops.operands import defuse
+
+    captured = []
+    real = fk.dispatch_megakernel
+
+    def capturing(params, db):
+        # a copy: the batch's arrays view the frontend's slot, which the
+        # C++ encoder refills once the batch completes
+        copy = dataclasses.replace(db, **{
+            f.name: np.array(getattr(db, f.name), copy=True)
+            for f in dataclasses.fields(db)
+            if getattr(db, f.name) is not None})
+        h = real(params, db)
+        captured.append((params, copy, h))
+        return h
+
+    engine, fe = _frontend_on_the_card(50)
+    try:
+        assert fe.wait_warm(60)
+        monkeypatch.setattr(fk, "dispatch_megakernel", capturing)
+        _grpc_burst(fe.bound_port, wc.wire_payloads(256, 50, seed=12))
+    finally:
+        fe.stop()
+    assert captured
+    for params, db, h in captured:
+        buf, layout = fuse_batch(db)
+        want = fk.fused_packed_plain(params, defuse(
+            torch.from_numpy(buf).to(card), layout)).cpu().numpy()
+        got = np.asarray(h.wait())
+        assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_native_frontend_device_down_answers_unavailable(card):
+    """``device-down`` on the card: every fast-lane request answers
+    UNAVAILABLE — never a host verdict — and nothing counts as
+    degraded; the breaker opens after its threshold."""
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.runtime import faults
+    from authorino_tpu_torch.utils.rpc import UNAVAILABLE
+
+    engine, fe = _frontend_on_the_card(50, breaker_threshold=1,
+                                       breaker_reset_s=60.0)
+    p0 = fk.plain_calls
+    try:
+        faults.FAULTS.arm("device-down", seed=7)
+        out = _grpc_burst(fe.bound_port, wc.wire_payloads(64, 50, seed=13))
+    finally:
+        faults.FAULTS.disarm()
+        fe.stop()
+    assert [wire.decode_check_response(r).status.code for r in out] == \
+        [UNAVAILABLE] * 64
+    c = fe.counts
+    assert c["degraded_rows"] == 0 and c["unavailable_rows"] == 64
+    assert fk.plain_calls == p0 and fe.breaker.state == "open"
