@@ -66,12 +66,15 @@ __all__ = ["OID", "make_certificate", "pem", "CertAuthority",
            "PolicyRegistry", "FakeApiServer", "MTLS_HOST", "OPA_HOST",
            "CA_LABEL", "CLAIMS", "config_rules", "expected_code",
            "GenerationLog", "SlowEndpoint", "callback_auth_config",
-           "CALLBACK_HOST"]
+           "CALLBACK_HOST", "TOKENREVIEW_HOST", "TOKENREVIEW_AUDIENCE",
+           "tokenreview_auth_config"]
 
 NAMESPACE = "keys"
 MTLS_HOST = "mtls-{k}.keys"
 OPA_HOST = "opa-external.keys"
 CA_LABEL = {"authorino.kuadrant.io/ca": "clients"}
+TOKENREVIEW_HOST = "tokenreview.keys"
+TOKENREVIEW_AUDIENCE = "talker-api"
 # the jwt_authn claims an API-key identity takes as overrides
 CLAIMS = JWT_CLAIMS_SELECTOR
 
@@ -296,6 +299,24 @@ def mtls_auth_config(k: int) -> dict:
             "authorization": {"org": {"patternMatching": {"patterns": [
                 {"selector": "auth.identity.Organization", "operator": "eq",
                  "value": f"org-{k}"}]}}}}}
+
+
+def tokenreview_auth_config(cache_ttl: int, user: str) -> dict:
+    """``tokenreview``: a Kubernetes TokenReview identity with an explicit
+    audience, each review kept ``cache_ttl`` seconds keyed by the
+    Authorization header (the user's own opt-in); ``user`` passes."""
+    return {
+        "apiVersion": "authorino.kuadrant.io/v1beta2", "kind": "AuthConfig",
+        "metadata": {"name": "tokenreview", "namespace": NAMESPACE},
+        "spec": {
+            "hosts": [TOKENREVIEW_HOST],
+            "authentication": {"sa": {
+                "kubernetesTokenReview": {"audiences": [TOKENREVIEW_AUDIENCE]},
+                "cache": {"key": {"selector": "request.headers.authorization"},
+                          "ttl": cache_ttl}}},
+            "authorization": {"user": {"patternMatching": {"patterns": [
+                {"selector": "auth.identity.username", "operator": "eq",
+                 "value": user}]}}}}}
 
 
 def opa_external_auth_config(url: str, ttl: int) -> dict:

@@ -20,8 +20,9 @@ policies"), and a fake Keycloak to serve it on loopback.
 - ``full_auth_config`` and ``introspection_auth_config``: one AuthConfig
   that uses every other kind of this family (userInfo, http and uma
   metadata, a pattern on ``auth.metadata.*``, a wristband header, an http
-  callback) and one OAuth2-introspection AuthConfig; ``cluster_secrets``
-  the Secrets they read.
+  callback) and one OAuth2-introspection AuthConfig (with a ``cache``
+  opt-in keyed by the bearer header, if asked); ``cluster_secrets`` the
+  Secrets they read.
 - ``build_check_requests``: Check() requests carrying ``build_docs``'
   claims as RS256 bearer tokens, one request in 32 with a bad token.
 """
@@ -48,7 +49,7 @@ __all__ = ["NAMESPACE", "RSA_KID", "EC_KID", "ROGUE_KID", "CLIENT_ID",
            "FakeKeycloak", "host_of", "build_auth_configs",
            "full_auth_config", "introspection_auth_config",
            "cluster_secrets", "build_check_requests", "WRISTBAND_ISSUER",
-           "FULL_HOST", "INTROSPECTION_HOST"]
+           "FULL_HOST", "INTROSPECTION_HOST", "INTROSPECTION_CACHED_HOST"]
 
 NAMESPACE = "oidc"
 RSA_KID, EC_KID, ROGUE_KID = "rsa-1", "ec-1", "rogue-1"
@@ -326,6 +327,7 @@ def build_auth_configs(n: int, rules: int, issuer: str,
 
 FULL_HOST = f"full.{NAMESPACE}"
 INTROSPECTION_HOST = f"introspect.{NAMESPACE}"
+INTROSPECTION_CACHED_HOST = f"introspect-cached.{NAMESPACE}"
 
 
 def full_auth_config(issuer: str) -> dict:
@@ -376,18 +378,28 @@ def full_auth_config(issuer: str) -> dict:
     }
 
 
-def introspection_auth_config(issuer: str) -> dict:
+def introspection_auth_config(issuer: str,
+                              cache_ttl: Optional[int] = None) -> dict:
     """One AuthConfig on host ``introspect.oidc`` that authenticates
-    opaque tokens by RFC 7662 introspection and allows GETs."""
+    opaque tokens by RFC 7662 introspection and allows GETs.  With
+    ``cache_ttl``, ``introspect-cached`` on host ``introspect-cached.oidc``
+    keeps each introspection that long, keyed by the Authorization header
+    (the user's own opt-in: a revoked token passes until it lapses)."""
+    opaque: Dict[str, Any] = {"oauth2Introspection": {
+        "endpoint": issuer + _OIDC + "/token/introspect",
+        "credentialsRef": {"name": "introspection-credentials"}}}
+    name, host = "introspect", INTROSPECTION_HOST
+    if cache_ttl is not None:
+        opaque["cache"] = {"key": {"selector": "request.headers.authorization"},
+                           "ttl": cache_ttl}
+        name, host = "introspect-cached", INTROSPECTION_CACHED_HOST
     return {
         "apiVersion": "authorino.kuadrant.io/v1beta2",
         "kind": "AuthConfig",
-        "metadata": {"name": "introspect", "namespace": NAMESPACE},
+        "metadata": {"name": name, "namespace": NAMESPACE},
         "spec": {
-            "hosts": [INTROSPECTION_HOST],
-            "authentication": {"opaque": {"oauth2Introspection": {
-                "endpoint": issuer + _OIDC + "/token/introspect",
-                "credentialsRef": {"name": "introspection-credentials"}}}},
+            "hosts": [host],
+            "authentication": {"opaque": opaque},
             "authorization": {"rules": {"patternMatching": {"patterns": [
                 {"selector": "request.method", "operator": "eq",
                  "value": "GET"}]}}},

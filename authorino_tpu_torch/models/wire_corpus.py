@@ -5,6 +5,11 @@ anonymous identity, one host each, and Envoy ``CheckRequest`` payloads for
 them drawn from a seeded ``random.Random``.  Every config's evaluator is
 kernel-covered, so every request rides the native frontend's fast lane.
 
+``hybrid_auth_configs`` pairs each config's pattern with a procedural
+Rego that does not lower (``opa_corpus._procedural``) in a later
+priority bucket: the mixed-evaluator AuthConfig of the native frontend's
+hybrid lane, whose requests are ``wire_payloads`` to its hosts.
+
 ``build_key_entries``/``key_payloads`` add API-key AuthConfigs of the
 three kinds the fast lane decides for API keys (the credential alone, a
 pattern over the key's identity, that pattern with an identity-templated
@@ -22,7 +27,10 @@ import random
 from typing import List
 
 __all__ = ["build_wire_entries", "make_wire_payload", "wire_payloads",
-           "expected_allow", "build_key_entries", "key_payloads", "KEY_KINDS"]
+           "expected_allow", "build_key_entries", "key_payloads", "KEY_KINDS",
+           "HYBRID_NAMESPACE", "HYBRID_HOST", "hybrid_auth_configs"]
+
+WIRE_HOST = "svc-{}.bench"
 
 
 def _rule(i: int, n_rules: int):
@@ -66,12 +74,14 @@ def build_wire_entries(n_cfg: int, n_rules: int, engine) -> list:
     return entries
 
 
-def make_wire_payload(i: int, n_cfg: int, rng: random.Random) -> bytes:
-    """Request ``i``: a GET to ``svc-(i mod n).bench`` whose tier header
-    matches its config with probability one half (one ``rng`` draw)."""
+def make_wire_payload(i: int, n_cfg: int, rng: random.Random,
+                      host_fmt: str = WIRE_HOST) -> bytes:
+    """Request ``i``: a GET to ``svc-(i mod n).bench`` (or ``host_fmt``'s
+    host of config i mod n) whose tier header matches its config with
+    probability one half (one ``rng`` draw)."""
     from ..protos import wire
 
-    host = f"svc-{i % n_cfg}.bench"
+    host = host_fmt.format(i % n_cfg)
     tier = f"tier-{i % n_cfg}" if rng.random() < 0.5 else "none"
     return wire.encode_check_request(wire.CheckRequest(
         attributes=wire.AttributeContext(request=wire.Request(
@@ -80,10 +90,11 @@ def make_wire_payload(i: int, n_cfg: int, rng: random.Random) -> bytes:
                                            "x-api-tier": tier})))))
 
 
-def wire_payloads(n: int, n_cfg: int, seed: int = 5) -> List[bytes]:
+def wire_payloads(n: int, n_cfg: int, seed: int = 5,
+                  host_fmt: str = WIRE_HOST) -> List[bytes]:
     """The first ``n`` payloads of ``random.Random(seed)``."""
     rng = random.Random(seed)
-    return [make_wire_payload(i, n_cfg, rng) for i in range(n)]
+    return [make_wire_payload(i, n_cfg, rng, host_fmt) for i in range(n)]
 
 
 def expected_allow(payload: bytes, n_rules: int) -> bool:
@@ -96,6 +107,51 @@ def expected_allow(payload: bytes, n_rules: int) -> bool:
     model = request_model_from_proto(wire.decode_check_request(payload))
     i = int(model.http.host.split(".")[0].split("-")[1])
     return bool(_rule(i, n_rules).matches(build_authorization_json(model, {})))
+
+
+HYBRID_NAMESPACE = "hybrid"
+HYBRID_HOST = "hyb-{}.bench"
+
+
+def _rule_patterns(i: int, n_rules: int) -> list:
+    """``_rule(i, n_rules)`` as AuthConfig ``patternMatching`` patterns."""
+    return [
+        {"selector": "request.method", "operator": "neq", "value": "DELETE"},
+        {"any": [{"selector": "request.headers.x-api-tier", "operator": "eq",
+                  "value": f"tier-{i}"}]
+         + [{"selector": f"request.headers.x-attr-{k}", "operator": "eq",
+             "value": f"v-{i}-{k}"} for k in range(max(1, n_rules - 2))]},
+    ]
+
+
+def hybrid_auth_configs(n_cfg: int, n_rules: int, seed: int = 11) -> list:
+    """v1beta2 AuthConfigs ``hyb-{i}`` in namespace ``hybrid`` on host
+    ``hyb-{i}.bench``: an anonymous identity, config i's wire rule as a
+    ``patternMatching`` evaluator (the kernel's part) and, at priority 1,
+    an inline Rego policy that does not lower (``opa_corpus._procedural``:
+    ``count(...)`` or a ``data.*`` reference), which the pipeline runs."""
+    from .opa_corpus import _procedural
+
+    rng = random.Random(seed)
+    out = []
+    for i in range(n_cfg):
+        src, data = _procedural(rng)
+        opa = {"rego": src} if data is None else {"rego": src, "data": data}
+        out.append({
+            "apiVersion": "authorino.kuadrant.io/v1beta2",
+            "kind": "AuthConfig",
+            "metadata": {"name": f"hyb-{i}", "namespace": HYBRID_NAMESPACE},
+            "spec": {
+                "hosts": [HYBRID_HOST.format(i)],
+                "authentication": {"anon": {"anonymous": {}}},
+                "authorization": {
+                    "rules": {"patternMatching": {
+                        "patterns": _rule_patterns(i, n_rules)}},
+                    "policy": {"opa": opa, "priority": 1},
+                },
+            },
+        })
+    return out
 
 
 # API-key configs, by ``i % 3``: the key alone decides (Authorization:

@@ -492,17 +492,25 @@ class PolicyEngine:
         return entry
 
     async def check(self, request: CheckRequestModel, span=None,
-                    deadline: Optional[float] = None) -> AuthResult:
+                    deadline: Optional[float] = None,
+                    after=None) -> AuthResult:
         """Full request-time flow (ref: pkg/service/auth.go:239-310).
         ``deadline`` is the propagated Envoy Check() deadline (monotonic
         seconds): it bounds the pipeline below ``timeout_s`` and arms
-        admission and deadline shedding in the dispatcher."""
+        admission and deadline shedding in the dispatcher.  ``after(entry,
+        pipeline)``, where given, runs once the pipeline has decided and
+        before the result is returned: the native frontend's slow lane
+        registers a verified credential there, so a repeat of it is
+        servable fast by the time the client has its answer."""
         entry = self.lookup(request.host())
         if entry is None:
             return AuthResult(code=NOT_FOUND, message="Service not found")
         pipeline = AuthPipeline(request, entry.runtime, timeout=self.timeout_s,
                                 span=span, deadline=deadline)
-        return await pipeline.evaluate()
+        result = await pipeline.evaluate()
+        if after is not None:
+            after(entry, pipeline)
+        return result
 
     def admission_precheck(self, deadline: Optional[float] = None):
         """Front-door overload check at the actual queue depth: a request

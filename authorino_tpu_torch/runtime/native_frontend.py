@@ -16,15 +16,21 @@ reduce to the kernel's verdict (``fast_lane_eligible``):
     pipeline's decision;
   - identity as an ordered OR of anonymous (``Noop``) or API-key sources
     (each known key's ``auth.identity.*`` operands resolved to constants at
-    refresh);
+    refresh), or of *dyn* sources: OIDC/JWT, mTLS, and OAuth2
+    introspection or Kubernetes TokenReview under the user's own ``cache``
+    opt-in.  A dyn source's variant map is a verified-credential cache:
+    the slow lane verifies a credential's first sight through the full
+    pipeline and registers it (``_register_dyn``), bounded by the token's
+    ``exp``, the certificate's notAfter, the opt-in's TTL and
+    ``_DYN_TTL_S``; a JWKS rotation drops the cache (a fresh snapshot);
   - ``auth.*``-only identity extensions and DynamicJSON/Plain responses,
     precomputed per identity outcome (OK bytes per variant);
   - denyWith constant per identity outcome.
 
-Deferred to a later slice, so the config rides the slow lane with full
-semantics (``fast_lane_eligible`` returns None): the verified-credential
-cache for OIDC/JWT, mTLS, OAuth2 introspection and Kubernetes TokenReview
-sources, and the *hybrid* lane (authorization only partly kernel-covered).
+A config whose authorization the kernel covers only in part rides the
+*hybrid* lane: a kernel DENY is final, a kernel PASS hands the raw request
+to the slow lane, whose pipeline runs every evaluator (the covered ones
+through ``engine.submit``, launching the kernel again).
 
 Response bytes are built with the port's codec (``protos/ext_authz.py``,
 the functions the grpc.aio server answers through), so a fast-lane answer
@@ -35,13 +41,16 @@ precomputed denial (verdict byte ``2 + c``).
 
 Threads: dispatchers (one launch per slot; the readback rides the
 readback thread), a readback loop, the slow lane (an asyncio loop of its
-own running ``engine.check``), a completer landing slow answers in C++ in
-batches, and a metrics drain.
+own running ``engine.check`` and, from its ``after`` hook, the dyn
+registration), a completer landing slow answers in C++ in batches, a
+metrics drain, and a refresh thread per JWKS rotation (joined by
+``stop()``).
 
 Failures: a slot whose launch or readback fails counts against the
 frontend's circuit breaker and is retried once.  A slot the card did not
 decide (the retry failed, or the open breaker keeps it off the card)
-answers UNAVAILABLE on a card engine (verdict byte 255); only a CPU engine
+answers UNAVAILABLE on a card engine (verdict byte 255), a hybrid row
+included: it is never handed to the pipeline.  Only a CPU engine
 re-decides it with the kernel's plain version on the slot's operands (the
 reference's CPU-backend degrade), counted as degraded.
 
@@ -64,6 +73,7 @@ import logging
 import os
 import threading
 import time
+import urllib.parse
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -85,7 +95,8 @@ from ..evaluators import credentials as cred_mod
 from ..evaluators.authorization import OPA as OPAEval
 from ..evaluators.authorization import PatternMatching
 from ..evaluators.base import DenyWithValues, RuntimeAuthConfig
-from ..evaluators.identity import APIKey, Noop
+from ..evaluators.identity import MTLS, OIDC, APIKey, KubernetesAuth, \
+    Noop, OAuth2
 from ..evaluators.identity.api_key import INVALID_API_KEY_MSG
 from ..ops import fused_kernel as fk
 from ..ops.operands import firing_columns, packed_width, unpack_verdicts
@@ -96,6 +107,7 @@ from ..protos.ext_authz import check_response_from_result, \
 from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
 from ..utils import tracing as tracing_mod
+from ..utils import x509
 from ..utils.rpc import (
     INVALID_ARGUMENT,
     NOT_FOUND,
@@ -339,24 +351,30 @@ _CRED_KINDS = {
     cred_mod.LOCATION_COOKIE: 3,
     cred_mod.LOCATION_QUERY: 4,
 }
+# mTLS: the forwarded client certificate is the credential
+_CRED_KIND_CERT = 5
+MISSING_CERT_MSG = "client certificate is missing"
 
 
 @dataclass
 class SourceSpec:
     """One identity source of a fast-lane config, in the pipeline's
     priority-then-declaration order (identity is an OR,
-    ref pkg/service/auth_pipeline.go:203-258).  This slice carries static
-    (API-key) sources only: the C++ side's dyn sources (a verified-
-    credential cache) stay unused until the next slice."""
+    ref pkg/service/auth_pipeline.go:203-258)."""
 
     name: str                     # IdentityConfig name (all-fail error keys)
     cred_kind: int = 0
     cred_key: str = ""
-    # per-key plan variants resolved at refresh time
+    dyn: bool = False             # verified-credential cache (registered
+    #                               at runtime by the slow lane)
+    # static (API key): per-key plan variants resolved at refresh time
     variants: List[Tuple[bytes, List[tuple], Any]] = field(default_factory=list)
     idc: Any = None               # the IdentityConfig
     missing_msg: str = ""         # failure when the credential is absent
-    invalid_msg: str = ""         # failure when the key is unknown
+    invalid_msg: str = ""         # static: failure when the key is unknown
+    # dyn: extra TTL bound from the user's own cache opt-in (OAuth2
+    # introspection / Kubernetes TokenReview)
+    ttl_cap: Optional[float] = None
 
 
 def _kernel_slot(conf) -> Optional[int]:
@@ -387,13 +405,17 @@ class FastLaneSpec:
     ``sources`` lists the config's identity sources (empty = anonymous):
     API-key sources (ref pkg/evaluators/identity/api_key.go:72-93) carry
     per-key plan variants — each known key's ``auth.identity.*`` operands
-    resolved to constants at refresh time.  ``auth_attrs`` carries the
-    attr rows each variant resolves.  Multi-identity configs are an OR: the
+    resolved to constants at refresh time; dyn sources (OIDC/JWT,
+    ref oidc.go:41-103; mTLS, ref mtls.go:23-189; OAuth2 and Kubernetes
+    under a cache opt-in) use the variant map as a verified-credential
+    cache registered at runtime by the slow lane.  ``auth_attrs`` carries
+    the attr rows each variant resolves.  Multi-identity configs are an OR: the
     first source (priority order) whose credential resolves a variant wins;
     all-fail answers come from static templates indexed by which static
     credentials were present.  ``col_order`` lists the config's kernel
     columns in the pipeline's priority-then-declaration order (the first
-    one that fails names the denial)."""
+    one that fails names the denial); for a ``hybrid`` config, its covered
+    columns only."""
 
     plans: List[tuple] = field(default_factory=list)
     has_batch: bool = False
@@ -406,6 +428,11 @@ class FastLaneSpec:
     # DENY bytes must be built (else the config-default deny serves)
     deny_templated: bool = False
     col_order: List[int] = field(default_factory=list)
+    # hybrid lane: the kernel covers only part of the authorization phase —
+    # a kernel DENY answers natively, a kernel PASS hands the raw request
+    # to the slow lane for the full pipeline (procedural Rego/SAR/SpiceDB
+    # evaluators, arbitrary responses)
+    hybrid: bool = False
 
 
 # bounds on the identity-source fan-out the C++ lane carries: the all-fail
@@ -413,16 +440,18 @@ class FastLaneSpec:
 # request extraction attempt
 _MAX_SOURCES = 4
 _MAX_STATIC_SOURCES = 3
+# a verified-credential cache entry lives at most this long (and never past
+# the token's exp, the certificate's notAfter or the opt-in's cache.ttl)
+_DYN_TTL_S = 600.0
 
 
 def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[FastLaneSpec]:
     """Returns a FastLaneSpec when `entry`'s pipeline reduces to a native
-    decision (kernel verdict and/or API-key map lookup), else None.
-    Mirrors pipeline.evaluate() phase by phase
+    decision (kernel verdict and/or credential map lookup), or to a
+    native pre-filter of the kernel's denials (the hybrid lane), else
+    None.  Mirrors pipeline.evaluate() phase by phase
     (ref pkg/service/auth_pipeline.go:451-502): every feature that would
-    need per-request Python work disqualifies, and so do the kinds this
-    slice defers (a dyn identity source, a partly kernel-covered
-    authorization phase)."""
+    need per-request Python work disqualifies."""
     rt: Optional[RuntimeAuthConfig] = entry.runtime
     if rt is None:
         return None
@@ -431,17 +460,25 @@ def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[Fast
     if rt.metadata or rt.callbacks:
         return None
     covered = [c for c in rt.authorization if _kernel_slot(c) is not None]
-    if len(covered) != len(rt.authorization):
-        return None  # the hybrid lane: a later slice
-    if rt.response and not _response_templates_eligible(rt):
+    uncovered = [c for c in rt.authorization if _kernel_slot(c) is None]
+    # hybrid: the kernel pre-filters denials, the pipeline finishes the
+    # allows — so responses (which only run on OK) need no template
+    # eligibility
+    hybrid = bool(covered) and bool(uncovered)
+    if rt.response and not hybrid and not _response_templates_eligible(rt):
         return None
     if not rt.identity or len(rt.identity) > _MAX_SOURCES:
         return None
     for idc in rt.identity:
         if idc.conditions is not None:
             return None
-        if idc.cache is not None:
-            return None  # per-evaluator TTL caches run in the pipeline
+        # per-evaluator TTL caches run in the pipeline — except for the
+        # revocable-credential identities (OAuth2 introspection, Kubernetes
+        # TokenReview), whose opt-in caches the dyn lane honors itself
+        # (checked in the source builder)
+        if idc.cache is not None and not isinstance(
+                idc.evaluator, (OAuth2, KubernetesAuth)):
+            return None
         if idc.metrics or metrics_mod.DEEP_METRICS_ENABLED:
             return None  # deep per-evaluator series need the pipeline
         # identity extensions are constant per identity outcome when their
@@ -459,21 +496,11 @@ def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[Fast
         # any single winner is within its semantics)
         ordered = sorted(enumerate(rt.identity), key=lambda p: (p[1].priority, p[0]))
         for _, idc in ordered:
-            ident = idc.evaluator
-            if not isinstance(ident, APIKey):
-                # OIDC/JWT, mTLS, OAuth2, Kubernetes: the verified-
-                # credential cache of a later slice; Noop mixed into an OR
-                return None
-            kind = _CRED_KINDS.get(ident.credentials.location, 0)
-            if kind == 0:
-                return None
-            key_sel = ident.credentials.key_selector
-            sources.append(SourceSpec(
-                name=idc.name, cred_kind=kind,
-                cred_key=key_sel.lower() if kind == 2 else key_sel,
-                idc=idc, missing_msg="credential not found",
-                invalid_msg=INVALID_API_KEY_MSG))
-        if len(sources) > _MAX_STATIC_SOURCES:
+            src = _source_spec(idc)
+            if src is None:
+                return None  # incl. Noop mixed into a multi-identity OR
+            sources.append(src)
+        if sum(1 for s in sources if not s.dyn) > _MAX_STATIC_SOURCES:
             return None
         # all-fail answers come from constant templates — the identity-
         # failure denyWith must resolve without a request doc (auth-only
@@ -491,15 +518,24 @@ def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[Fast
         row = policy.config_ids.get(entry.rules.name)
         if row is None:
             return None
-        if len(covered) != len(entry.rules.evaluators):
+        if not covered or len(covered) != len(entry.rules.evaluators):
             return None
+        if uncovered:
+            # a kernel pre-deny must not preempt an uncovered evaluator the
+            # pipeline would have FAILED in an earlier priority bucket
+            # (its denial could differ); same-bucket outcomes race in the
+            # reference (ref pkg/service/auth_pipeline.go:160-199), so any
+            # single winner there is within its semantics
+            if max(c.priority for c in covered) > min(
+                    u.priority for u in uncovered):
+                return None
         if not _deny_with_const(rt.deny_with.unauthorized):
             return None
         # per-request regex/tree oracles cannot run in C++
         for leaf in policy.config_cpu_leaves[row]:
             if int(policy.leaf_op[leaf]) in (OP_CPU, OP_TREE_CPU):
                 return None
-        ordered_c = sorted(enumerate(rt.authorization),
+        ordered_c = sorted(enumerate(covered),
                            key=lambda p: (p[1].priority, p[0]))
         col_order = [_kernel_slot(c) for _, c in ordered_c]
         if (sorted(col_order) != list(range(len(covered)))
@@ -525,6 +561,7 @@ def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[Fast
 
     spec = FastLaneSpec(plans=plans, has_batch=has_batch, sources=sources,
                         auth_attrs=auth_attrs, col_order=col_order,
+                        hybrid=hybrid,
                         deny_templated=has_batch and not _deny_with_static(
                             rt.deny_with.unauthorized))
     if is_noop:
@@ -542,8 +579,11 @@ def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[Fast
         return spec
     # API-key sources: resolve each known key's auth.* operands to
     # constants (the fast-lane analog of precompile-at-reconcile,
-    # ref pkg/evaluators/authorization/opa.go:141)
+    # ref pkg/evaluators/authorization/opa.go:141); dyn sources register
+    # their variants at runtime (NativeFrontend._register_dyn)
     for src in sources:
+        if src.dyn:
+            continue
         for key, secret in src.idc.evaluator.snapshot_secrets().items():
             try:
                 ident_obj = _extend_identity(src.idc,
@@ -560,10 +600,62 @@ def fast_lane_eligible(entry, policy: Optional[CompiledPolicy]) -> Optional[Fast
                     vplans.append(p)
             # the identity object rides along so refresh can precompute the
             # per-key OK/DENY bytes for response/denyWith-template configs
+            # (hybrid OKs are answered by the pipeline, which runs the
+            # response phase itself — no per-key OK bytes there)
             src.variants.append((
                 key.encode("utf-8"), vplans,
-                ident_obj if (rt.response or spec.deny_templated) else None))
+                ident_obj if ((rt.response and not hybrid)
+                              or spec.deny_templated) else None))
     return spec
+
+
+def _source_spec(idc) -> Optional[SourceSpec]:
+    """The SourceSpec of one identity config of a multi-source OR, or None
+    when the fast lane cannot carry it."""
+    ident = idc.evaluator
+    if isinstance(ident, (APIKey, OIDC)):
+        kind = _CRED_KINDS.get(ident.credentials.location, 0)
+        if kind == 0:
+            return None
+        key_sel = ident.credentials.key_selector
+        if isinstance(ident, APIKey):
+            return SourceSpec(
+                name=idc.name, cred_kind=kind,
+                cred_key=key_sel.lower() if kind == 2 else key_sel,
+                idc=idc, missing_msg="credential not found",
+                invalid_msg=INVALID_API_KEY_MSG)
+        return SourceSpec(
+            name=idc.name, cred_kind=kind,
+            cred_key=key_sel.lower() if kind == 2 else key_sel,
+            dyn=True, idc=idc, missing_msg="credential not found")
+    if isinstance(ident, MTLS):
+        return SourceSpec(name=idc.name, cred_kind=_CRED_KIND_CERT, dyn=True,
+                          idc=idc, missing_msg=MISSING_CERT_MSG)
+    if isinstance(ident, (OAuth2, KubernetesAuth)):
+        # revocable credentials: the AS/apiserver check IS the revocation
+        # check — cacheable ONLY when the user explicitly opted in via a
+        # `cache` spec keyed by the credential header (the reference's own
+        # TTL-cache semantics, ref pkg/evaluators/cache.go:16-89); the dyn
+        # entry is then bounded by that TTL (and a response exp)
+        if idc.cache is None:
+            return None
+        if isinstance(ident, KubernetesAuth) and not ident.audiences:
+            return None  # the default audience is the REQUEST host
+        kind = _CRED_KINDS.get(ident.credentials.location, 0)
+        if kind not in (1, 2):
+            return None  # header credentials map 1:1 to cache keys
+        key_sel = ident.credentials.key_selector
+        hdr = "authorization" if kind == 1 else key_sel.lower()
+        if idc.cache.key_pattern not in (
+                f"request.headers.{hdr}",
+                f"context.request.http.headers.{hdr}"):
+            return None
+        return SourceSpec(
+            name=idc.name, cred_kind=kind,
+            cred_key=key_sel.lower() if kind == 2 else key_sel,
+            dyn=True, idc=idc, missing_msg="credential not found",
+            ttl_cap=float(idc.cache.ttl))
+    return None
 
 
 @dataclass
@@ -587,6 +679,19 @@ class _SnapRec:
     # the rule heat map of the engine snapshot (one label-children cache
     # for both lanes)
     heat: Any = None
+    # the engine snapshot this record was built from (deny provenance of
+    # per-credential denials names its rules)
+    engine_snap: Any = None
+    # configs with dyn sources: entry.id → (fc_idx, FastLaneSpec,
+    # {id(IdentityConfig): (source idx, ttl cap)}) — the slow lane
+    # registers verified-credential plan variants against this snapshot
+    dyn_regs: Dict[str, Tuple[int, FastLaneSpec,
+                              Dict[int, Tuple[int, Optional[float]]]]] = \
+        field(default_factory=dict)
+    # kernel rows of HYBRID configs: dispatch attribution counts only their
+    # native denials — kernel-allowed requests continue into the pipeline,
+    # which observes them itself
+    hybrid_rows: set = field(default_factory=set)
 
 
 class NativeFrontend:
@@ -639,7 +744,17 @@ class NativeFrontend:
         self._running = False
         self._threads: List[threading.Thread] = []
         self._lock = threading.Lock()
+        # newest snapshot record — the slow lane registers verified
+        # credentials against it (GIL-atomic pointer read)
         self._cur_rec: Optional[_SnapRec] = None
+        # live JWKS-rotation refresh threads (joined on stop); own lock —
+        # they are tracked from the OIDC notifier, outside _lock
+        self._refresh_threads: List[threading.Thread] = []
+        self._thread_lock = threading.Lock()
+        # evaluators this instance registered _on_oidc_change on —
+        # unregistered in stop() so a replaced frontend is not kept alive
+        # (and re-fired) by long-lived evaluators
+        self._change_wired: set = set()
         # duration/stage histogram drain cadence + accumulated stage counts
         self.hist_drain_s = 2.0
         self._last_hist_drain = 0.0
@@ -683,7 +798,7 @@ class NativeFrontend:
              "dedup_rows", "cache_rows", "cached_batches", "pad_rows",
              "h2d_bytes", "d2h_bytes", "warm_launches", "retries",
              "degraded_rows", "unavailable_rows", "breaker_open_batches",
-             "watchdog_timeouts"), 0)
+             "watchdog_timeouts", "dyn_registered", "dyn_register_ns"), 0)
         RECORDER.register_provider("native_frontend", self, "debug_vars")
 
     def _count(self, **kw) -> None:
@@ -769,6 +884,20 @@ class NativeFrontend:
         self._running = False
         self._rb_evt.set()
         self.engine.remove_swap_listener(self.refresh)
+        # unwire AFTER the swap listener is gone and under _lock, so a
+        # concurrent refresh() cannot re-register listeners mid-unwire
+        with self._lock:
+            for ev in self._change_wired:
+                remove = getattr(ev, "remove_change_listener", None)
+                if remove is not None:
+                    remove(self._on_oidc_change)
+            self._change_wired.clear()
+        # a rotation refresh still running must end before teardown (it
+        # returns at once now that _running is False, or finishes its swap)
+        with self._thread_lock:
+            pending, self._refresh_threads = self._refresh_threads, []
+        for t in pending:
+            t.join(timeout=30)
         if self._mod is not None:
             try:
                 self._fold_fc_counts()
@@ -882,6 +1011,8 @@ class NativeFrontend:
                 "snap_id": rec.snap_id,
                 "warm_done": rec.warm_done.is_set(),
                 "fast_configs": len(rec.row_labels),
+                "hybrid_configs": len(rec.hybrid_rows),
+                "dyn_registrations": len(rec.dyn_regs),
                 "slots": len(rec.arrays),
             }
         return out
@@ -998,22 +1129,31 @@ class NativeFrontend:
     def _unauth_templates(self, rt: RuntimeAuthConfig,
                           sources: List[SourceSpec]) -> List[bytes]:
         """All-sources-failed CheckResponse templates, indexed by the
-        bitmask of which sources' credentials were present (present ⇒ key
-        unknown; absent ⇒ missing).  Byte-exact with the pipeline: one
-        source returns its bare error, several return the sorted JSON
-        error dict (ref auth_pipeline.go:203-258)."""
+        bitmask of which STATIC sources' credentials were present (present
+        ⇒ key unknown; absent ⇒ missing; dyn sources reaching this path are
+        always missing — an extractable dyn credential goes to the slow
+        lane).  Byte-exact with the pipeline: one source returns its bare
+        error, several return the sorted JSON error dict
+        (ref auth_pipeline.go:203-258)."""
         if not sources:
             return []
+        n_static = sum(1 for s in sources if not s.dyn)
         out: List[bytes] = []
-        for mask in range(1 << len(sources)):
+        for mask in range(1 << n_static):
+            errors: Dict[str, str] = {}
+            si = 0
+            for s in sources:
+                if s.dyn:
+                    errors[s.name] = s.missing_msg
+                else:
+                    errors[s.name] = (s.invalid_msg if (mask >> si) & 1
+                                      else s.missing_msg)
+                    si += 1
             if len(sources) == 1:
-                s = sources[0]
-                msg = s.invalid_msg if mask & 1 else s.missing_msg
+                msg = errors[sources[0].name]
             else:
-                errors = {s.name: (s.invalid_msg if (mask >> i) & 1
-                                   else s.missing_msg)
-                          for i, s in enumerate(sources)}
-                msg = json.dumps(errors, separators=(",", ":"), sort_keys=True)
+                msg = json.dumps(errors, separators=(",", ":"),
+                                 sort_keys=True)
             out.append(self._result_bytes(self._unauth_result(rt, msg)))
         return out
 
@@ -1079,6 +1219,7 @@ class NativeFrontend:
         rec = _SnapRec(snap_id=snap_id, policy=policy, params=None,
                        encoder=None)
         rec.heat = snap.heat if snap is not None else None
+        rec.engine_snap = snap
         entries = list(snap.entries) if snap is not None else []
         fcs: List[dict] = []
         # exact hosts AND "*.suffix" wildcard keys — the C++ side replicates
@@ -1169,10 +1310,12 @@ class NativeFrontend:
             ns_l, nm_l = lbl.get("namespace", ""), lbl.get("name", "")
             rt_e = entry.runtime
             # response/denyWith-template configs: OK and DENY bytes are per
-            # identity outcome (anonymous at swap; per-key at swap) — empty
-            # bytes in a variant = the config default
+            # identity outcome (anonymous at swap; per-key at swap; per-
+            # credential at dyn registration) — empty bytes in a variant =
+            # the config default.  A hybrid config's OK is the pipeline's
             fc_ok = (self._ok_bytes_for(rt_e, spec_fl.const_identity)
-                     if rt_e.response and not spec_fl.sources else ok_bytes)
+                     if rt_e.response and not spec_fl.sources
+                     and not spec_fl.hybrid else ok_bytes)
             fc_deny = self._deny_set(
                 rt_e, spec_fl,
                 spec_fl.const_identity
@@ -1181,7 +1324,7 @@ class NativeFrontend:
             fc = {
                 "row": 0,
                 "has_batch": 1 if spec_fl.has_batch else 0,
-                "hybrid": 0,
+                "hybrid": 1 if spec_fl.hybrid else 0,
                 "ok": fc_ok,
                 "deny": fc_deny,
                 "plans": spec_fl.plans,
@@ -1189,11 +1332,12 @@ class NativeFrontend:
                     {
                         "cred_kind": s.cred_kind,
                         "cred_key": s.cred_key,
-                        "dyn": 0,
+                        "dyn": 1 if s.dyn else 0,
                         "variants": [
                             (key, vplans,
                              self._ok_bytes_for(rt_e, ident_obj)
                              if ident_obj is not None and rt_e.response
+                             and not spec_fl.hybrid
                              else b"",
                              self._deny_set(rt_e, spec_fl, ident_obj,
                                             snap=snap)
@@ -1208,10 +1352,27 @@ class NativeFrontend:
                 "ns": ns_l,
                 "name": nm_l,
             }
+            dyn_map = {id(s.idc): (i, s.ttl_cap)
+                       for i, s in enumerate(spec_fl.sources) if s.dyn}
+            if dyn_map:
+                rec.dyn_regs[entry.id] = (fc_idx, spec_fl, dyn_map)
+                # a JWKS rotation invalidates every cached token: swap in a
+                # fresh snapshot (empty variant map) when the provider's key
+                # set actually changes (add_change_listener dedups, so
+                # re-wiring on every refresh is safe — and a reconcile-
+                # minted evaluator gets wired the first time)
+                for s in spec_fl.sources:
+                    add_listener = getattr(s.idc.evaluator,
+                                           "add_change_listener", None)
+                    if s.dyn and add_listener is not None:
+                        add_listener(self._on_oidc_change)
+                        self._change_wired.add(s.idc.evaluator)
             if spec_fl.has_batch:
                 row = int(policy.config_ids[entry.rules.name])
                 fc["row"] = row
                 rec.row_labels[row] = (ns_l, nm_l)
+                if spec_fl.hybrid:
+                    rec.hybrid_rows.add(row)
                 for rank, c in enumerate(spec_fl.col_order):
                     rec.col_rank[row, c] = rank
             fcs.append(fc)
@@ -1244,6 +1405,123 @@ class NativeFrontend:
             "hosts": len(hosts)})
         log.info("native frontend snapshot %d: %d fast configs, %d host keys",
                  snap_id, len(fcs), len(hosts))
+
+    def _on_oidc_change(self) -> None:
+        """JWKS rotation: rebuild the C++ snapshot (fresh, empty variant
+        map) so tokens verified under retired keys stop being served fast.
+        Runs on a thread of its own: the notifier is an asyncio task and
+        refresh() launches the kernel once (the warm launch)."""
+        if not self._running:
+            return
+        self._track_thread(threading.Thread(target=self._refresh_if_running,
+                                            name="atpu-fe-oidc-refresh",
+                                            daemon=True))
+
+    def _refresh_if_running(self) -> None:
+        if self._running:
+            self.refresh()
+
+    def _track_thread(self, t: threading.Thread) -> None:
+        """Register-then-start a refresh thread under its own lock: an
+        entry dropped here would escape stop()'s join and race teardown."""
+        with self._thread_lock:
+            self._refresh_threads = [
+                p for p in self._refresh_threads if p.is_alive()] + [t]
+        t.start()
+
+    def _register_dyn(self, rec: Optional[_SnapRec], entry, pipeline,
+                      model) -> None:
+        """After a slow-lane pipeline run: if the config has dyn sources
+        and a dyn source resolved the identity, cache this credential's
+        plan variant in C++ so the next request with it never touches
+        Python (the fast-lane analog of the reference's per-evaluator TTL
+        cache keyed by access token).
+
+        ``rec`` is the snapshot record captured BEFORE the pipeline ran: a
+        JWKS rotation that rebuilds the snapshot mid-verification makes the
+        registration land nowhere instead of re-caching a retired-key token
+        into the fresh snapshot."""
+        if rec is None or rec is not self._cur_rec:
+            return
+        reg = rec.dyn_regs.get(entry.id)
+        if reg is None:
+            return
+        t0 = time.perf_counter_ns()
+        fc_idx, spec, src_map = reg
+        idc, obj = pipeline.resolved_identity()
+        if obj is None:
+            return
+        reg_src = src_map.get(id(idc))
+        if reg_src is None:
+            return  # the winning identity is not a dyn source
+        src_idx, ttl_cap = reg_src
+        now = time.time()
+        ttl = _DYN_TTL_S
+        if ttl_cap is not None:
+            # the opted-in window is anchored at the LAST REAL check: a
+            # registration off a pipeline-cache hit must not restart the
+            # clock (revocation would slip past cache.ttl otherwise)
+            ttl = min(ttl, ttl_cap)
+            if idc.cache is not None:
+                try:
+                    rem = idc.cache.remaining(idc.cache.resolve_key_for(
+                        pipeline.authorization_json()))
+                except Exception:
+                    rem = None
+                if rem is not None:
+                    ttl = min(ttl, rem)
+        deadline = now + ttl
+        if isinstance(idc.evaluator, MTLS):
+            # the raw forwarded PEM is the cache key (exactly the bytes the
+            # C++ side extracts); the certificate's own notAfter bounds it
+            token = model.source.certificate or ""
+            if not token:
+                return
+            try:
+                cert = x509.load_pem_x509_certificate(
+                    urllib.parse.unquote(token).encode())
+                deadline = min(deadline,
+                               cert.not_valid_after_utc.timestamp())
+            except Exception:
+                return
+        else:
+            try:
+                token = idc.evaluator.credentials.extract(model.http)
+            except Exception:
+                return
+        exp = obj.get("exp") if isinstance(obj, dict) else None
+        if isinstance(exp, (int, float)) and not isinstance(exp, bool):
+            deadline = min(deadline, float(exp))
+        if deadline <= now:
+            return
+        vplans: List[tuple] = []
+        if spec.auth_attrs:
+            if rec.policy is None:
+                return
+            doc = _const_doc(obj)
+            for attr in spec.auth_attrs:
+                p = _const_plan(rec.policy, attr, doc)
+                if p is None:
+                    return  # this token's values do not fit the payload
+                vplans.append(p)
+        rt_e = entry.runtime
+        ok_bytes = b""
+        deny_set: List[bytes] = []
+        try:
+            if rt_e.response and not spec.hybrid:
+                # hybrid OKs are answered by the pipeline (its response
+                # phase runs there) — no per-credential OK bytes
+                ok_bytes = self._ok_bytes_for(rt_e, obj)
+            if spec.deny_templated:
+                deny_set = self._deny_set(rt_e, spec, obj,
+                                          snap=rec.engine_snap)
+        except Exception:
+            return  # this credential's templates do not resolve: stay slow
+        if self._mod.fe_add_variant(rec.snap_id, fc_idx, src_idx,
+                                    token.encode("utf-8"), vplans, ok_bytes,
+                                    deny_set, int(deadline * 1e9)):
+            self._count(dyn_registered=1,
+                        dyn_register_ns=time.perf_counter_ns() - t0)
 
     def _warm_launch(self, rec: _SnapRec) -> None:
         """One launch of the mega-kernel on 16 zero rows of config 0 with
@@ -1752,6 +2030,13 @@ class NativeFrontend:
         for f in np.nonzero(n_per)[0]:
             n, n_ok = int(n_per[f]), int(ok_per[f])
             ns, name = rec.row_labels.get(int(f), ("", ""))
+            if int(f) in rec.hybrid_rows:
+                # kernel-allowed hybrid requests continue into the
+                # pipeline, which observes them itself — only the native
+                # denials are final here
+                n, n_ok = n - n_ok, 0
+                if not n:
+                    continue
             metrics_mod.authconfig_total.labels(ns, name).inc(n)
             if n_ok:
                 metrics_mod.authconfig_response_status.labels(
@@ -1790,8 +2075,10 @@ class NativeFrontend:
     # ------------------------------------------------------------------
     def _slow_loop(self) -> None:
         """The slow lane: an asyncio loop of its own takes raw requests
-        from the C++ queue and answers each with ``engine.check`` (host
-        lookup + the full pipeline), the grpc.aio server's flow."""
+        from the C++ queue and answers each through ``engine.check`` (the
+        grpc.aio server's flow), whose ``after`` hook makes the
+        verified-credential registration, which lands before the answer
+        does."""
         from ..utils.tracing import RequestSpan
 
         mod = self._mod
@@ -1824,8 +2111,19 @@ class NativeFrontend:
                 else:
                     span = RequestSpan.from_headers(model.http.headers,
                                                     model.http.id)
+                    # the snapshot BEFORE verification: a JWKS rotation
+                    # swapping it mid-run drops the registration
+                    rec = self._cur_rec
+
+                    def register(entry, pipeline) -> None:
+                        try:
+                            self._register_dyn(rec, entry, pipeline, model)
+                        except Exception:
+                            log.exception("dyn registration failed")
+
                     try:
-                        result = await engine.check(model, span=span)
+                        result = await engine.check(model, span=span,
+                                                    after=register)
                     finally:
                         span.end()
                 complete(req_id, self._result_bytes(result), 0)

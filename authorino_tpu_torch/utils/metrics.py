@@ -418,10 +418,10 @@ NATIVE_QUEUE_KEYS = ("slow_pending", "slow_queued")
 NATIVE_BACKLOG_KEYS = ("batches_pending", "filling", "done_queued")
 
 # event keys whose labelled series exist on /metrics before they first move:
-# the verdict-cache traffic the frontend folds into the same drain (the
-# reference also pre-registers the C++ credential cache's dyn_* counters;
-# that cache is not in the port yet)
-NATIVE_ENSURE_KEYS = ("vdict_hit", "vdict_miss", "vdict_add", "vdict_evict")
+# the C++ verified-credential cache's dyn_* counters and the verdict-cache
+# traffic the frontend folds into the same drain
+NATIVE_ENSURE_KEYS = ("dyn_hit", "dyn_miss", "dyn_add",
+                      "vdict_hit", "vdict_miss", "vdict_add", "vdict_evict")
 
 native_frontend_events = _register(
     "counter", "auth_server_native_frontend_events_total",

@@ -226,15 +226,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
      UNAVAILABLE, then ``python3 -m authorino_tpu_torch server
      --native-frontend on`` as a process drained by SIGTERM with 64
      Check()s in flight; (f) ``device-down``: every fast-lane request
-     UNAVAILABLE, 0 degraded.
+     UNAVAILABLE, 0 degraded;
+ 16. the native frontend's verified-credential cache and hybrid lane
+     (``dyn_frontend``) over one card engine holding phase 8's 1,000
+     ``jwt-{i}`` configs (entries and minted tokens reused), phase 10's 16
+     x509 configs, an OAuth2-introspection and a Kubernetes TokenReview
+     config under a 2 s cache opt-in and 1,000 hybrid configs (the wire
+     rule beside a procedural Rego at priority 1,
+     ``models/wire_corpus.py::hybrid_auth_configs``): (a) with the
+     verdict cache and dedup off, then at the defaults, a first pass of
+     phase 8's distinct (host, token) pairs verifies and registers on the
+     slow lane (checks/s, host µs per registration), the cycled 4,096
+     requests ride the fast lane (share of good tokens >= 0.95, bad
+     tokens never fast, one launch per slot with a device row), every
+     code phase 8's oracle's and every answer byte-equal to the grpc.aio
+     server's; the C++ load generator at 1,024 in flight over the
+     registered tokens (checks/s, p50/p99); (c) a token of exp 4 s ahead
+     answers UNAUTHENTICATED on the slow lane past exp and the verifier's
+     leeway, with the verdict cache warm; (d) phase 10's certificates
+     slow at first sight, fast on repeat; (e) the introspection and
+     TokenReview calls per check across the opt-in's TTL: 1, 0, 1, 0;
+     (f) 4,096 hybrid requests: kernel denials native, PASSes decided by
+     the pipeline, ``authconfig_total`` once per request; (b) a JWKS
+     rotation under traffic: no answer OK to a token of the retired key
+     after the swap; byte-equal to plain: the first frontend batch of
+     each pad of 256 rows or more in (a), (b) and (c), and of each pad in
+     (d), (e) and (f), at least one in each of (a), (d), (e) and (f).
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 13's, with every phase's under ``launches_by_phase``; each kernel
-must have launched on the paths of phases 4, 6, 7, 8, 9, 10, 12, 13, 14
-and 15, with the counts zeroed just before each.
+phase 16's, with every phase's under ``launches_by_phase``; each kernel
+must have launched on the paths of phases 4, 6, 7, 8, 9, 10, 12, 13, 14,
+15 and 16, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -1449,7 +1474,7 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
                                   "ES256", kid=wb_key.kid), 50),
     }
     ctx.update(engine=engine, entries=entries, reqs=reqs, oracle=oracle,
-               docs=docs, rows=rows)
+               docs=docs, rows=rows, keys=keys)
     n_batches = sum(r["batches"] for r in runs)
     numbers = {
         "card": card, "configs": len(entries), "checks": len(out),
@@ -4654,6 +4679,88 @@ def loadgen(lg: str, port: int, path: str, window: tuple, depth: int,
     return json.loads(out.stdout)
 
 
+class PadCapture:
+    """Wraps ``fk.dispatch_megakernel`` while installed: keeps a copy of
+    the first batch of each pad of ``min_pad`` rows or more that a
+    frontend dispatch thread launches in each part of a phase (``part()``;
+    keys are ``(part, pad)``), beside its params and handle (the batch's
+    arrays view the frontend's slot, which the C++ encoder refills once
+    the slot completes)."""
+
+    def __init__(self, fk, min_pad: int = 256):
+        import threading
+
+        self.fk, self.min_pad, self.key = fk, min_pad, ""
+        self.real = fk.dispatch_megakernel
+        self.captured, self.pads = {}, set()
+        self.lock = threading.Lock()
+
+    def install(self) -> "PadCapture":
+        self.fk.dispatch_megakernel = self.dispatch
+        return self
+
+    def restore(self) -> None:
+        self.fk.dispatch_megakernel = self.real
+
+    def part(self, key: str, min_pad: int) -> None:
+        """Launches from here on belong to ``key``: its first batch of
+        each pad of ``min_pad`` rows or more is captured anew."""
+        with self.lock:
+            self.key, self.min_pad = key, min_pad
+
+    def done(self) -> dict:
+        """{(part, pad): (params, batch, handle)} of the captures that
+        launched."""
+        return {k: c for k, c in self.captured.items() if c is not True}
+
+    def dispatch(self, params, db):
+        import dataclasses
+        import threading
+
+        import numpy as np
+
+        pad = int(db.attrs_val.shape[0])
+        take = False
+        if threading.current_thread().name.startswith("atpu-fe-dispatch"):
+            with self.lock:
+                key = (self.key, pad)
+                self.pads.add(key)
+                if pad >= self.min_pad and key not in self.captured:
+                    self.captured[key] = take = True
+        if not take:
+            return self.real(params, db)
+        copy = dataclasses.replace(db, **{
+            f.name: np.array(getattr(db, f.name), copy=True)
+            for f in dataclasses.fields(db)
+            if getattr(db, f.name) is not None})
+        try:
+            h = self.real(params, db)
+        except BaseException:
+            with self.lock:
+                del self.captured[key]
+            raise
+        self.captured[key] = (params, copy, h)
+        return h
+
+    def max_err(self, dev) -> int:
+        """Each captured readback against the kernel's plain version on
+        the card (tolerance 0)."""
+        import numpy as np
+        import torch
+
+        from authorino_tpu_torch.ops.operands import defuse, fuse_batch
+
+        err = 0
+        for _, (params, db, handle) in sorted(self.done().items()):
+            buf, layout = fuse_batch(db)
+            want = self.fk.fused_packed_plain(params, defuse(
+                torch.from_numpy(buf).to(dev), layout))
+            out = torch.from_numpy(np.asarray(handle.wait()).copy()).to(dev)
+            err = max(err, max_byte_err(out, want),
+                      kernel_vs_plain(params, db, dev))
+        return err
+
+
 def native_frontend(report: dict, card: str, dev) -> tuple:
     """Phase 15: the native gRPC frontend on the card, under
     ``--native-frontend on`` semantics (its start fails loudly).  (a) the
@@ -4674,14 +4781,12 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
     UNAVAILABLE, none degraded.
     Returns (the kernels' launches, counts zeroed just before (b); the max
     abs byte error against plain)."""
-    import dataclasses
     import os
     import shutil
     import struct
     import tempfile
     import threading
 
-    import numpy as np
 
     from authorino_tpu_torch import native
     from authorino_tpu_torch.models import wire_corpus as wc
@@ -4720,39 +4825,10 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
         for b in payloads[:LIGHT_PAYLOADS]:
             f.write(struct.pack(">I", len(b)) + b)
 
-    # frontend batches captured for the comparison with plain, after the
-    # counted window (the capture only records what the frontend launched):
-    # the first batch of each pad of 256 rows or more, so the saturation
-    # passes' pad (max_batch) is held to plain as well as the bursts'
-    captured, fe_pads = {}, set()
-    cap_lock = threading.Lock()
-    real_dispatch = fk.dispatch_megakernel
-
-    def capturing(params, db):
-        pad = int(db.attrs_val.shape[0])
-        take = False
-        if threading.current_thread().name.startswith("atpu-fe-dispatch"):
-            with cap_lock:
-                fe_pads.add(pad)
-                if pad >= 256 and pad not in captured:
-                    captured[pad] = take = True
-        if not take:
-            return real_dispatch(params, db)
-        # a copy: the batch's arrays view the frontend's slot, which the
-        # C++ encoder refills once the batch completes
-        snap = dataclasses.replace(db, **{
-            f.name: np.array(getattr(db, f.name), copy=True)
-            for f in dataclasses.fields(db)
-            if getattr(db, f.name) is not None})
-        try:
-            h = real_dispatch(params, db)
-        except BaseException:
-            with cap_lock:
-                del captured[pad]
-            raise
-        captured[pad] = (params, snap, h)
-        return h
-
+    # the first frontend batch of each pad of 256 rows or more, held to
+    # plain after the counted window, so the saturation passes' pad
+    # (max_batch) is held to plain as well as the bursts'
+    cap = PadCapture(fk)
     fk.reset_counts()
     reset_host_counts()
     totals = {"fe_launches": 0, "fe_warm": 0, "engine_launches": 0}
@@ -4914,7 +4990,7 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
                 f"{sh['grpc_aio']['p99_ms']:.3f} ms "
                 f"({sh['grpc_aio']['rps']:.0f}/s)")
 
-    fk.dispatch_megakernel = capturing
+    cap.install()
     aio = AioLoop()
     try:
         # ---- the serving defaults (dedup and the verdict cache on) --------
@@ -5041,7 +5117,7 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
                                   c["retries"], "breaker_open_batches":
                                   c["breaker_open_batches"]}
     finally:
-        fk.dispatch_megakernel = real_dispatch
+        cap.restore()
         faults.FAULTS.disarm()
         aio.close()
         shutil.rmtree(tmpdir, ignore_errors=True)
@@ -5058,27 +5134,18 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
     # one of each pad it launched, max_batch (the saturation passes') among
     # them
     max_err = 0
-    captured = {pad: c for pad, c in captured.items() if c is not True}
+    captured = cap.done()
     if on_card:
-        big = {pad for pad in fe_pads if pad >= 256}
-        if set(captured) != big or FE_SHAPE["max_batch"] not in captured:
-            raise AssertionError(f"(b) frontend pads {sorted(fe_pads)}, "
+        big = {k for k in cap.pads if k[1] >= 256}
+        if set(captured) != big or ("", FE_SHAPE["max_batch"]) \
+                not in captured:
+            raise AssertionError(f"(b) frontend pads {sorted(cap.pads)}, "
                                  f"captured {sorted(captured)}")
-        import torch
-
-        from authorino_tpu_torch.ops.operands import defuse, fuse_batch
-
-        for pad in sorted(captured):
-            params, db, handle = captured[pad]
-            buf, layout = fuse_batch(db)
-            want = fk.fused_packed_plain(params, defuse(
-                torch.from_numpy(buf).to(dev), layout))
-            got = torch.from_numpy(np.asarray(handle.wait()).copy()).to(dev)
-            max_err = max(max_err, max_byte_err(got, want),
-                          kernel_vs_plain(params, db, dev))
-    numbers["readbacks_vs_plain"] = {"pads": sorted(captured),
-                                     "frontend_pads": sorted(fe_pads),
-                                     "max_abs_err": max_err}
+        max_err = cap.max_err(dev)
+    numbers["readbacks_vs_plain"] = {
+        "pads": [pad for _, pad in sorted(captured)],
+        "frontend_pads": [pad for _, pad in sorted(cap.pads)],
+        "max_abs_err": max_err}
     ex_d, ex_n = numbers["defaults"]["exactness"], \
         numbers["no_reuse"]["exactness"]
     ex_k = numbers["api_keys"]
@@ -5126,6 +5193,582 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
         f"{e['sigterm_to_exit_s']:.2f}s")
     report["native_frontend"] = numbers
     return launches, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the verified-credential cache and the hybrid lane
+# ---------------------------------------------------------------------------
+
+DYN_TRIALS = 2            # load-generator passes per frontend setting
+DYN_PASS_S = (3.0, 1.0)   # (seconds measured, seconds of warm-up) per pass
+EXP_AHEAD_S = 4           # (c): the short token's exp, seconds ahead
+JOSE_LEEWAY_S = 30        # the verifier's clock-skew leeway (utils/jose.py)
+HYB_CONFIGS, HYB_RULES = 1000, 10   # (f): the wire corpus's shape
+HYB_PAYLOADS = 4096
+OPT_IN_TTL_S = 2          # (e): the cache opt-ins' ttl
+SA_TOKEN = "sa-token-16"  # (e): the token the fake API server reviews
+SA_USER = "system:serviceaccount:keys:app"
+OPAQUE_TOKEN = "opaque-cached"   # (e): the token the fake Keycloak knows
+INTROSPECT = "POST /protocol/openid-connect/token/introspect"
+# the frontend's slow lane takes a first pass of ~4,000 verifications at
+# once: its admission target is wide, as the engine's, so the pass is
+# served, not shed
+DYN_FE = dict(FE_SHAPE, admission_target_s=60.0)
+
+
+def to_payload(model) -> bytes:
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.protos.ext_authz import request_proto_from_model
+
+    return wire.encode_check_request(request_proto_from_model(model))
+
+
+def dyn_frontend(report: dict, card: str, dev, ctx8: dict,
+                 material: tuple) -> tuple:
+    """Phase 16: the native frontend's verified-credential cache and its
+    hybrid lane on the card, over one engine holding phase 8's 1,000
+    ``jwt-{i}`` configs (entries and minted tokens reused, rebound to it),
+    phase 10's 16 x509 configs, an OAuth2-introspection and a Kubernetes
+    TokenReview config under a cache opt-in, and 1,000 hybrid configs (the
+    wire rule beside a procedural Rego at priority 1).  (a) Keycloak RBAC
+    with the verdict cache off, then at the defaults: a first pass of the
+    distinct (host, token) pairs verifies and registers in the slow lane;
+    the cycled 4,096 ride the fast lane; codes equal phase 8's oracle,
+    bytes the grpc.aio server's; the C++ load generator at 1,024 in
+    flight over the registered tokens; (c) a token of exp a few seconds
+    ahead goes slow and UNAUTHENTICATED once past it (and the verifier's
+    leeway), with the verdict cache warm; (d) mTLS certificates slow at
+    first sight, fast on repeat; (e) introspection and TokenReview calls
+    counted across the opt-in's TTL; (f) hybrid: kernel denials native,
+    PASSes decided by the pipeline, ``authconfig_total`` once per request;
+    (b) a JWKS rotation under traffic: no token of the retired key is
+    answered OK after the swap.  Each part's first frontend batch of each
+    pad (of 256 rows or more in (a), (b), (c)) is held to plain.  Returns (the kernels' launches, counts
+    zeroed just before the phase; the max abs byte error against plain)."""
+    import copy
+    import os
+    import shutil
+    import struct
+    import tempfile
+    import threading
+
+    import grpc
+
+    from authorino_tpu_torch import native
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.k8s import InMemoryCluster, Secret
+    from authorino_tpu_torch.k8s.client import RestCluster
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.models import oidc_corpus as oc
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.runtime.native_frontend import NativeFrontend
+    from authorino_tpu_torch.utils import jose, rpc
+    from authorino_tpu_torch.utils import metrics as metrics_mod
+
+    on_card = dev.type == "cuda"
+    t_phase = time.monotonic()
+    numbers = {"card": card}
+    idp, keys = ctx8["idp"], ctx8["keys"]
+    jwt_entries = [e for e in ctx8["entries"]
+                   if e.id.startswith(f"{oc.NAMESPACE}/jwt-")]
+    reqs, oracle = ctx8["reqs"], ctx8["oracle"]
+    lg = str(native.build_loadgen())
+    tmpdir = tempfile.mkdtemp(prefix="phase16-")
+
+    def code_of(raw) -> int:
+        return wire.decode_check_response(raw).status.code
+
+    def want_code(o) -> int:
+        return rpc.UNAUTHENTICATED if isinstance(o, str) else o[0]
+
+    # ---- the corpus -------------------------------------------------------
+    fk.reset_counts()
+    reset_host_counts()
+    engine = PolicyEngine(max_batch=DYN_FE["max_batch"], device=dev,
+                          **WIDE_ADMISSION)
+    bind(jwt_entries, engine)
+    cluster = InMemoryCluster()
+    for sec in oc.cluster_secrets(keys):
+        cluster.put_secret(Secret(**sec))
+    rsa_ca, ec_ca, certs = material
+    for name, ca in (("ca-rsa", rsa_ca), ("ca-ec", ec_ca)):
+        cluster.put_secret(Secret(name=name, namespace=cp.NAMESPACE,
+                                  labels=dict(cp.CA_LABEL),
+                                  data={"ca.crt": ca.pem}))
+    idp.active_tokens[OPAQUE_TOKEN] = {"active": True, "username": "svc-16"}
+    api = cp.FakeApiServer().start()
+    api.token_reviews[SA_TOKEN] = {"status": {
+        "authenticated": True,
+        "user": {"username": SA_USER, "groups": ["system:authenticated"]}}}
+    rest = RestCluster(api.url, token="authorino")
+    specs = ([(oc.introspection_auth_config(idp.issuer, OPT_IN_TTL_S),
+               cluster),
+              (cp.tokenreview_auth_config(OPT_IN_TTL_S, SA_USER), rest)]
+             + [(cp.mtls_auth_config(k), cluster) for k in range(CP_MTLS)]
+             + [(h, cluster) for h in wc.hybrid_auth_configs(HYB_CONFIGS,
+                                                             HYB_RULES)])
+
+    async def translate_all():
+        return [await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            cluster=c, engine=engine) for o, c in specs]
+
+    t = time.perf_counter()
+    extra = asyncio.run(translate_all())
+    numbers["translate_s"] = time.perf_counter() - t
+    entries = jwt_entries + extra
+    t = time.perf_counter()
+    engine.apply_snapshot(entries)
+    numbers["install_s"] = time.perf_counter() - t
+    n_fast = len(entries)   # every config has a kernel row
+
+    # (a)'s traffic: phase 8's requests; the first pass holds each
+    # distinct (host, token) pair once
+    payloads = [to_payload(r) for r in reqs]
+    seen, first = set(), []
+    for k, r in enumerate(reqs):
+        key = (r.http.host, r.http.headers["authorization"])
+        if key not in seen:
+            seen.add(key)
+            first.append(k)
+    good = [k for k, o in enumerate(oracle) if not isinstance(o, str)]
+    n_good_pairs = sum(not isinstance(oracle[k], str) for k in first)
+    good_path = os.path.join(tmpdir, "good.payloads")
+    with open(good_path, "wb") as f:
+        for k in good:
+            f.write(struct.pack(">I", len(payloads[k])) + payloads[k])
+
+    aio = AioLoop()
+    stop_py = None
+    fes = []
+    try:
+        py_port, stop_py = serve_grpc_aio(aio, engine)
+        t = time.perf_counter()
+        aio_out = grpc_many(aio, py_port, payloads)
+        numbers["grpc_aio_first_s"] = time.perf_counter() - t
+        for k, (raw, o) in enumerate(zip(aio_out, oracle)):
+            if not isinstance(raw, bytes) or code_of(raw) != want_code(o):
+                raise AssertionError(f"(a) grpc.aio request {k}: {raw!r} "
+                                     f"!= oracle {o!r}")
+
+        def start(label, **kw):
+            fe = NativeFrontend(engine, port=0, **dict(DYN_FE, **kw))
+            fes.append(fe)
+            port = fe.start()
+            if not fe.wait_warm(60):
+                raise AssertionError(f"({label}) the warm launch never ran")
+            dv = fe.debug_vars()["snapshot"]
+            if dv["fast_configs"] != n_fast or dv["hybrid_configs"] != \
+                    HYB_CONFIGS or dv["dyn_registrations"] != \
+                    len(jwt_entries) + 2 + CP_MTLS:
+                raise AssertionError(f"({label}) snapshot {dv}")
+            return fe, port
+
+        def lanes(fe):
+            s = fe.stats()
+            out = {k: s[k] for k in ("fast", "slow", "hybrid", "dyn_hit",
+                                     "dyn_miss")}
+            # the C++ credential cache's own adds and hits (stats() folds
+            # the verdict cache's into dyn_*)
+            out["dyn_add"] = s["dyn_add"] - s.get("vdict_add", 0)
+            out["dyn_hit"] -= s.get("vdict_hit", 0)
+            out["dyn_miss"] -= s.get("vdict_miss", 0)
+            out["vdict_hit"] = s.get("vdict_hit", 0)
+            out.update({k: fe.counts[k] for k in (
+                "batches", "cached_batches", "launches", "device_rows",
+                "dyn_registered", "dyn_register_ns", "degraded_rows",
+                "unavailable_rows")})
+            return out
+
+        def diff(a, b):
+            return {k: b[k] - a[k] for k in a}
+
+        def keycloak(label, fe, port):
+            """(a) at one frontend setting."""
+            out = {}
+            c0 = lanes(fe)
+            t = time.perf_counter()
+            first_out = grpc_many(aio, port, [payloads[k] for k in first])
+            wall = time.perf_counter() - t
+            c1 = lanes(fe)
+            d = diff(c0, c1)
+            for k, raw in zip(first, first_out):
+                if raw != aio_out[k]:
+                    raise AssertionError(f"({label}) first pass {k}: native "
+                                         f"{raw!r} != grpc.aio")
+            if (d["slow"] != len(first) or d["fast"] != 0
+                    or d["dyn_add"] != n_good_pairs
+                    or d["dyn_registered"] != n_good_pairs):
+                raise AssertionError(f"({label}) first pass: {d}, "
+                                     f"{n_good_pairs} good pairs")
+            out["first_pass"] = {
+                "requests": len(first), "good_pairs": n_good_pairs,
+                "wall_s": wall, "checks_per_s": len(first) / wall,
+                "register_us": d["dyn_register_ns"] / 1e3
+                / max(1, d["dyn_registered"]), "counts": d}
+            # the cycled pass: every registered token rides the fast lane
+            c0 = lanes(fe)
+            cyc = grpc_many(aio, port, payloads)
+            d = diff(c0, lanes(fe))
+            for k, raw in enumerate(cyc):
+                if raw != aio_out[k]:
+                    raise AssertionError(f"({label}) cycled {k}: native "
+                                         f"{raw!r} != grpc.aio")
+            n_bad = len(payloads) - len(good)
+            share = d["fast"] / len(good)
+            if (share < 0.95 or d["slow"] != n_bad or d["dyn_miss"] != n_bad
+                    or d["dyn_hit"] != len(good) or d["dyn_add"] != 0):
+                raise AssertionError(f"({label}) cycled pass: {d}, "
+                                     f"{len(good)} good {n_bad} bad")
+            if on_card and (d["launches"] != d["batches"]
+                            - d["cached_batches"] or d["launches"] < 1):
+                raise AssertionError(f"({label}) launches per slot: {d}")
+            out["cycled"] = {"requests": len(payloads), "good": len(good),
+                             "bad": n_bad, "fast_share_good": share,
+                             "counts": d}
+            # the C++ load generator over the registered tokens
+            runs = []
+            for _ in range(DYN_TRIALS):
+                c0 = lanes(fe)
+                r = loadgen(lg, port, good_path, DYN_PASS_S, LIGHT_DEPTH,
+                            LIGHT_CONNS)
+                wait_idle(engine, timeout=120)
+                r["counts"] = diff(c0, lanes(fe))
+                if r["counts"]["slow"]:
+                    raise AssertionError(f"({label}) a registered token "
+                                         f"rode the slow lane: {r}")
+                runs.append(r)
+            out["loadgen"] = runs
+            out["loadgen_median"] = {k: statistics.median(r[k] for r in runs)
+                                     for k in ("rps", "p50_ms", "p99_ms")}
+            m = out["loadgen_median"]
+            fp = out["first_pass"]
+            log(f"[{card}] dyn frontend (a, {label}): first pass "
+                f"{fp['requests']} distinct (host, token) pairs on the slow "
+                f"lane {fp['checks_per_s']:.0f} checks/s, {fp['good_pairs']} "
+                f"registered, {fp['register_us']:.1f} us of host work per "
+                f"registration; cycled {len(payloads)}: fast share of good "
+                f"tokens {share:.4f}, {n_bad} bad tokens all slow, "
+                f"{d['launches']} launches for {d['batches']} slots "
+                f"({d['cached_batches']} cache-only), {d['device_rows']} "
+                f"device rows; load generator ({LIGHT_DEPTH} x "
+                f"{LIGHT_CONNS} in flight, {DYN_PASS_S[0]:g} s after "
+                f"{DYN_PASS_S[1]:g} s): "
+                f"{[round(r['rps']) for r in runs]} checks/s (median "
+                f"{m['rps']:.0f}, p50 {m['p50_ms']:.2f} ms p99 "
+                f"{m['p99_ms']:.2f} ms)")
+            return out
+
+        cap = PadCapture(fk).install()
+        cap.part("a", 256)
+        try:
+            # ---- (a) with the verdict cache and dedup off ---------------
+            fe, port = start("a, cache off", **NO_REUSE)
+            numbers["cache_off"] = keycloak("cache off", fe, port)
+            fe.stop(drain_s=10)
+            # ---- the serving defaults: (c) armed first, then (a), (d),
+            # (e), (f), (c) read, (b) ------------------------------------
+            fe, port = start("defaults")
+            k_c = next(k for k in good if oracle[k][0] == rpc.OK)
+            claims = jose.decode_unverified(
+                reqs[k_c].http.headers["authorization"][7:])[1]
+            exp = int(time.time()) + EXP_AHEAD_S
+            short_req = copy.deepcopy(reqs[k_c])
+            short_req.http.headers["authorization"] = \
+                "Bearer " + idp.token(dict(claims, exp=exp))
+            short = to_payload(short_req)
+            c0 = lanes(fe)
+            got = [grpc_many(aio, port, [short])[0] for _ in range(2)]
+            d = diff(c0, lanes(fe))
+            if [code_of(g) for g in got] != [rpc.OK] * 2 or (
+                    d["slow"], d["fast"], d["dyn_registered"]) != (1, 1, 1):
+                raise AssertionError(f"(c) a token of exp +{EXP_AHEAD_S}s: "
+                                     f"{[code_of(g) for g in got]} {d}")
+            numbers["defaults"] = keycloak("defaults", fe, port)
+
+            # ---- (d) mTLS -----------------------------------------------
+            # (d)-(f) launch few rows: every pad's first batch is held
+            cap.part("d", 1)
+            m_pay = [to_payload(mtls_request(k, pem)) for k, pem, _, _
+                     in certs]
+            m_want = [mtls_expected(kind, rsa, True) for _, _, kind, rsa
+                      in certs]
+            m_valid = sum(kind in ("good", "other-org") for _, _, kind, _
+                          in certs)
+            m_aio = grpc_many(aio, py_port, m_pay)
+            passes = []
+            for _ in range(2):
+                c0 = lanes(fe)
+                out = grpc_many(aio, port, m_pay)
+                passes.append(diff(c0, lanes(fe)))
+                for k, (raw, a, w) in enumerate(zip(out, m_aio, m_want)):
+                    if raw != a or code_of(raw) != w:
+                        raise AssertionError(f"(d) certificate {k}: {raw!r} "
+                                             f"vs grpc.aio {a!r}, want {w}")
+            d1, d2 = passes
+            if (d1["slow"], d1["dyn_add"], d2["fast"], d2["slow"],
+                    d2["dyn_add"]) != (len(m_pay), m_valid, m_valid,
+                                       len(m_pay) - m_valid, 0):
+                raise AssertionError(f"(d) mTLS lanes {passes}")
+            numbers["mtls"] = {
+                "certificates": len(m_pay), "registered": m_valid,
+                "register_us": d1["dyn_register_ns"] / 1e3 / m_valid,
+                "first": d1, "repeat": d2}
+
+            # ---- (e) introspection and TokenReview under a cache opt-in --
+            cap.part("e", 1)
+            def reviews():
+                return sum(1 for r in api.requests
+                           if r[1].endswith("/tokenreviews"))
+
+            def introspections():
+                return idp.counts[INTROSPECT]
+
+            kinds = {
+                "oauth2": (to_payload(_bearer_req(
+                    oc.INTROSPECTION_CACHED_HOST, OPAQUE_TOKEN)),
+                    introspections),
+                "kubernetes": (to_payload(_bearer_req(
+                    cp.TOKENREVIEW_HOST, SA_TOKEN)), reviews)}
+            e_out = {name: {"calls": [], "fast": [], "answers": []}
+                     for name in kinds}
+            t_reg = time.monotonic()
+            for step in range(4):
+                if step == 2:
+                    time.sleep(max(0.0, OPT_IN_TTL_S + 0.5
+                                   - (time.monotonic() - t_reg)))
+                for name, (pay, calls) in kinds.items():
+                    n0, f0 = calls(), fe.stats()["fast"]
+                    e_out[name]["answers"].append(
+                        grpc_many(aio, port, [pay])[0])
+                    e_out[name]["calls"].append(calls() - n0)
+                    e_out[name]["fast"].append(fe.stats()["fast"] - f0)
+            for name, (pay, calls) in kinds.items():
+                eo = e_out[name]
+                ref = grpc_many(aio, py_port, [pay])[0]
+                if (eo["calls"] != [1, 0, 1, 0] or eo["fast"] != [0, 1, 0, 1]
+                        or any(a != ref for a in eo["answers"])
+                        or code_of(ref) != rpc.OK):
+                    raise AssertionError(f"(e) {name}: calls {eo['calls']}, "
+                                         f"fast {eo['fast']}")
+                numbers[name] = {"calls_per_check": eo["calls"],
+                                 "fast_per_check": eo["fast"],
+                                 "ttl_s": OPT_IN_TTL_S}
+
+            # ---- (f) hybrid ---------------------------------------------
+            cap.part("f", 1)
+            h_pay = wc.wire_payloads(HYB_PAYLOADS, HYB_CONFIGS,
+                                     host_fmt=wc.HYBRID_HOST)
+            h_pass = [wc.expected_allow(p, HYB_RULES) for p in h_pay]
+
+            def hyb_total():
+                return sum(s.value for fam in
+                           metrics_mod.authconfig_total.collect()
+                           for s in fam.samples
+                           if s.name.endswith("_total")
+                           and s.labels.get("namespace")
+                           == wc.HYBRID_NAMESPACE)
+
+            tot0 = hyb_total()
+            c0 = lanes(fe)
+            t = time.perf_counter()
+            h_out = grpc_many(aio, port, h_pay)
+            h_wall = time.perf_counter() - t
+            d = diff(c0, lanes(fe))
+            deadline = time.monotonic() + 30
+            while hyb_total() - tot0 < len(h_pay) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(0.5)
+            counted = hyb_total() - tot0
+            h_aio = grpc_many(aio, py_port, h_pay)
+            n_pass = sum(h_pass)
+            for k, (raw, a, kp) in enumerate(zip(h_out, h_aio, h_pass)):
+                if raw != a or (not kp and code_of(raw)
+                                != rpc.PERMISSION_DENIED):
+                    raise AssertionError(f"(f) request {k}: native {raw!r} "
+                                         f"vs grpc.aio {a!r}")
+            allowed = sum(code_of(r) == rpc.OK for r in h_out)
+            if (d["hybrid"] != n_pass or d["slow"] != n_pass
+                    or d["fast"] != len(h_pay) or counted != len(h_pay)
+                    or not 0 < allowed < n_pass):
+                raise AssertionError(f"(f) hybrid: {d}, {n_pass} kernel "
+                                     f"passes, authconfig_total +{counted}, "
+                                     f"{allowed} allowed")
+            numbers["hybrid"] = {
+                "requests": len(h_pay), "kernel_denials": len(h_pay) - n_pass,
+                "handed_off": d["hybrid"], "allowed": allowed,
+                "authconfig_total": counted, "wall_s": h_wall,
+                "checks_per_s": len(h_pay) / h_wall, "counts": d}
+
+            # ---- (c) read: past exp and the verifier's leeway -----------
+            cap.part("c, b", 256)
+            wait_s = exp + JOSE_LEEWAY_S + 1 - time.time()
+            numbers["expiry_wait_s"] = max(0.0, wait_s)
+            if wait_s > 0:
+                time.sleep(wait_s)
+            c0 = lanes(fe)
+            raw = grpc_many(aio, port, [short])[0]
+            d = diff(c0, lanes(fe))
+            if (code_of(raw) != rpc.UNAUTHENTICATED
+                    or raw != grpc_many(aio, py_port, [short])[0]
+                    or (d["slow"], d["fast"], d["vdict_hit"],
+                        d["dyn_registered"]) != (1, 0, 0, 0)):
+                raise AssertionError(f"(c) past exp: {code_of(raw)} {d}")
+            numbers["expiry"] = {"exp_ahead_s": EXP_AHEAD_S,
+                                 "leeway_s": JOSE_LEEWAY_S,
+                                 "vdict_hits_before": c0["vdict_hit"],
+                                 "counts": d}
+
+            # ---- (b) a JWKS rotation under traffic ----------------------
+            k_b = next(k for k in good if oracle[k][0] == rpc.OK)
+            i_b = int(reqs[k_b].http.host.split(".")[0][len("jwt-"):])
+            oidc_b = next(e for e in jwt_entries if e.id ==
+                          f"{oc.NAMESPACE}/jwt-{i_b}"
+                          ).runtime.identity[0].evaluator
+            old = payloads[k_b]
+            if grpc_many(aio, port, [old])[0] != aio_out[k_b]:
+                raise AssertionError("(b) the registered token's answer")
+            answers, stop = [], threading.Event()
+
+            def traffic():
+                with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+                    call = ch.unary_unary(CHECK_METHOD)
+                    while not stop.is_set():
+                        t_sent = time.monotonic()
+                        answers.append((t_sent, code_of(call(old,
+                                                             timeout=30))))
+
+            def background():
+                while not stop.is_set():
+                    grpc_many(aio, port, payloads[:512])
+
+            threads = [threading.Thread(target=traffic),
+                       threading.Thread(target=background)]
+            for th in threads:
+                th.start()
+            before = list(idp.jwks)
+            snap0 = fe._cur_rec.snap_id
+            try:
+                time.sleep(0.5)
+                idp.jwks = [jose.jwk_from_public_key(
+                    keys.rogue.public_key(), kid=oc.ROGUE_KID), before[1]]
+                t_rot = time.monotonic()
+                aio.run(oidc_b.refresh())
+                while fe._cur_rec.snap_id == snap0:
+                    if time.monotonic() - t_rot > 60:
+                        raise AssertionError("(b) no refresh after rotation")
+                    time.sleep(0.005)
+                t_swap = time.monotonic()
+                time.sleep(1.0)
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join(timeout=120)
+            after = [c for ts, c in answers if ts > t_swap]
+            if not after or any(c != rpc.UNAUTHENTICATED for c in after):
+                raise AssertionError(f"(b) after the swap: {after[:20]}")
+            c0 = lanes(fe)
+            raw = grpc_many(aio, port, [old])[0]
+            d = diff(c0, lanes(fe))
+            new_req = copy.deepcopy(reqs[k_b])
+            tok = reqs[k_b].http.headers["authorization"][7:]
+            new_req.http.headers["authorization"] = "Bearer " + idp.token(
+                jose.decode_unverified(tok)[1], key=keys.rogue,
+                kid=oc.ROGUE_KID)
+            new = to_payload(new_req)
+            c1 = lanes(fe)
+            new_out = [grpc_many(aio, port, [new])[0] for _ in range(2)]
+            d_new = diff(c1, lanes(fe))
+            if (code_of(raw) != rpc.UNAUTHENTICATED or (d["slow"], d["fast"])
+                    != (1, 0) or [code_of(x) for x in new_out]
+                    != [rpc.OK] * 2 or (d_new["slow"], d_new["fast"])
+                    != (1, 1)):
+                raise AssertionError(f"(b) old {code_of(raw)} {d}, new "
+                                     f"{[code_of(x) for x in new_out]} "
+                                     f"{d_new}")
+            numbers["rotation"] = {
+                "config": f"jwt-{i_b}", "refresh_ms": (t_swap - t_rot) * 1e3,
+                "old_token_answers_after_swap": len(after),
+                "answers_during": len(answers), "old_after": d,
+                "new_key_token": d_new}
+            idp.jwks = before
+            aio.run(oidc_b.refresh())
+            fe.stop(drain_s=10)
+            if fe._refresh_threads or fe._change_wired:
+                raise AssertionError("(b) stop() left a refresh thread or a "
+                                     "wired listener")
+        finally:
+            cap.restore()
+        for fe_i in fes:
+            if fe_i.counts["degraded_rows"] or fe_i.counts["unavailable_rows"]:
+                raise AssertionError(f"a frontend row was not decided by the "
+                                     f"kernel: {fe_i.counts}")
+        wait_idle(engine, timeout=60)
+    finally:
+        for fe_i in fes:
+            if fe_i._running:
+                fe_i.stop(drain_s=5)
+        if stop_py is not None:
+            stop_py()
+        aio.close()
+        api.stop()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    fe_l = sum(f.counts["launches"] + f.counts["warm_launches"] for f in fes)
+    if on_card and launches["fused_megakernel"] != (
+            fe_l + engine.stats["launches"]):
+        raise AssertionError(f"wrapper launches {launches} != the frontends' "
+                             f"{fe_l} and the engine's "
+                             f"{engine.stats['launches']}")
+    numbers["launches"] = dict(launches, frontends=fe_l,
+                               engine=engine.stats["launches"])
+    max_err = cap.max_err(dev) if on_card else 0
+    held = {part for part, _ in cap.done()}
+    if on_card and not {"a", "d", "e", "f"} <= held:
+        raise AssertionError(f"a part with no frontend batch held to plain: "
+                             f"pads {sorted(cap.pads)}, held "
+                             f"{sorted(cap.done())}")
+    numbers["readbacks_vs_plain"] = {
+        "pads": sorted(cap.done()), "frontend_pads": sorted(cap.pads),
+        "max_abs_err": max_err}
+    numbers["phase_s"] = time.monotonic() - t_phase
+    mt, hy = numbers["mtls"], numbers["hybrid"]
+    log(f"[{card}] dyn frontend (d): {mt['certificates']} client "
+        f"certificates of phase 10, {mt['registered']} registered at first "
+        f"sight ({mt['register_us']:.1f} us of host work each), the same "
+        f"{mt['registered']} fast on repeat, every answer byte-equal to "
+        f"grpc.aio; (e) introspection calls per check "
+        f"{numbers['oauth2']['calls_per_check']}, TokenReviews "
+        f"{numbers['kubernetes']['calls_per_check']} across a {OPT_IN_TTL_S}"
+        f" s opt-in; (f) {hy['requests']} hybrid requests: "
+        f"{hy['kernel_denials']} kernel denials native, {hy['handed_off']} "
+        f"PASSes decided by the pipeline ({hy['allowed']} allowed), "
+        f"{hy['checks_per_s']:.0f} checks/s, authconfig_total "
+        f"+{hy['authconfig_total']:.0f}; (c) past exp + leeway: "
+        f"UNAUTHENTICATED on the slow lane with the verdict cache warm; (b) "
+        f"rotation on {numbers['rotation']['config']}: refresh "
+        f"{numbers['rotation']['refresh_ms']:.1f} ms, "
+        f"{numbers['rotation']['old_token_answers_after_swap']} answers to "
+        f"the retired key's token after the swap, all UNAUTHENTICATED; "
+        f"launches {numbers['launches']}; frontend pads "
+        f"{numbers['readbacks_vs_plain']['pads']} byte-equal to plain; "
+        f"phase {numbers['phase_s']:.1f} s")
+    report["dyn_frontend"] = numbers
+    return launches, max_err
+
+
+def _bearer_req(host: str, token: str):
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+
+    return CheckRequestModel(http=HttpRequestAttributes(
+        method="GET", path="/", host=host,
+        headers={"authorization": f"Bearer {token}"}))
 
 
 def main() -> int:
@@ -5491,17 +6134,14 @@ def main() -> int:
         f"({op['kernel_bytes_moved']} B, {op['kernel_int_ops']} int ops)")
 
     # ---- 8. the JWT request path, 9. the serving core ---------------------
+    # phase 8's fake Keycloak serves until phase 16 is done (its tokens and
+    # entries are reused there); its serving thread is a daemon
     ctx = {}
-    try:
-        marks = failure_marks()
-        jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms,
-                                         ctx)
-        require_no_failure_handling("phase 8", marks)
-        core_launches, core_err = serving_core(report, card, dev, ctx)
-        require_no_failure_handling("phase 9", marks)
-    finally:
-        if "idp" in ctx:
-            ctx["idp"].stop()
+    marks = failure_marks()
+    jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms, ctx)
+    require_no_failure_handling("phase 8", marks)
+    core_launches, core_err = serving_core(report, card, dev, ctx)
+    require_no_failure_handling("phase 9", marks)
     max_err = max(max_err, jwt_err, core_err)
     jp = report["jwt_path"]
     log(f"[{card}] JWT path: {jp['checks_per_s_median']:.0f} checks/s "
@@ -5674,18 +6314,28 @@ def main() -> int:
     if faults.ACTIVE:
         raise AssertionError("phase 15 left the fault plane armed")
 
+    # ---- 16. the verified-credential cache and the hybrid lane ------------
+    marks = failure_marks()
+    try:
+        dyn_launches, dyn_err = dyn_frontend(report, card, dev, ctx,
+                                             cp_ctx["material"])
+    finally:
+        ctx["idp"].stop()
+    require_no_failure_handling("phase 16", marks)
+    max_err = max(max_err, dyn_err)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": plane_launches["fused_megakernel"],
+         "launches": dyn_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": plane_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": dyn_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -5694,7 +6344,7 @@ def main() -> int:
     by_phase = {"4": main_launches, "6": path_launches, "7": opa_launches,
                 "8": jwt_launches, "9": core_launches, "10": cp_launches,
                 "12": serve_launches, "13": plane_launches,
-                "14": fail_launches, "15": fe_launches}
+                "14": fail_launches, "15": fe_launches, "16": dyn_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

@@ -814,3 +814,73 @@ def test_native_frontend_device_down_answers_unavailable(card):
     c = fe.counts
     assert c["degraded_rows"] == 0 and c["unavailable_rows"] == 64
     assert fk.plain_calls == p0 and fe.breaker.state == "open"
+
+
+def test_native_frontend_registered_jwt_repeat_rides_the_kernel(
+        card, monkeypatch):
+    """A JWT's first sight verifies on the slow lane and registers in the
+    verified-credential cache; its repeats ride the fast lane, each slot
+    one launch of ``fused_megakernel`` on the card, and that batch's
+    readback is byte-equal to ``fused_packed_plain`` on the same staged
+    operands."""
+    import dataclasses
+
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.models import oidc_corpus as oc
+    from authorino_tpu_torch.ops.operands import defuse
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.protos.ext_authz import request_proto_from_model
+    from authorino_tpu_torch.runtime.native_frontend import NativeFrontend
+
+    keys = oc.make_keys(5, rsa_bits=1024)
+    with oc.FakeKeycloak(keys) as idp:
+        engine = PolicyEngine(max_batch=256, verdict_cache_size=0,
+                              batch_dedup=False)
+        specs = oc.build_auth_configs(8, 10, idp.issuer)
+
+        async def translate_all():
+            return [await translate_auth_config(
+                o["metadata"]["name"], o["metadata"]["namespace"],
+                o["spec"], engine=engine) for o in specs]
+
+        engine.apply_snapshot(asyncio.run(translate_all()))
+        reqs, kinds, _ = oc.build_check_requests(idp, 32, 8, n_tokens=8)
+        good = [wire.encode_check_request(request_proto_from_model(r))
+                for r, k in zip(reqs, kinds) if k is None][:8]
+        fe = NativeFrontend(engine, port=0, max_batch=256, window_us=2000,
+                            verdict_cache_size=0, batch_dedup=False)
+        fe.start()
+        captured = []
+        real = fk.dispatch_megakernel
+
+        def capturing(params, db):
+            copy = dataclasses.replace(db, **{
+                f.name: np.array(getattr(db, f.name), copy=True)
+                for f in dataclasses.fields(db)
+                if getattr(db, f.name) is not None})
+            h = real(params, db)
+            captured.append((params, copy, h))
+            return h
+
+        try:
+            assert fe.wait_warm(60)
+            first = [_grpc_burst(fe.bound_port, [p])[0] for p in good]
+            s0, c0, l0 = fe.stats(), dict(fe.counts), fk.launches
+            monkeypatch.setattr(fk, "dispatch_megakernel", capturing)
+            again = _grpc_burst(fe.bound_port, good)
+            s1, c1 = fe.stats(), dict(fe.counts)
+        finally:
+            fe.stop()
+    assert again == first
+    assert (s1["fast"] - s0["fast"], s1["slow"] - s0["slow"]) == (8, 0)
+    assert s1["dyn_hit"] - s0["dyn_hit"] == 8
+    d = {k: c1[k] - c0[k] for k in c1}
+    assert d["launches"] == d["batches"] == fk.launches - l0 >= 1
+    assert d["plain_calls"] == 0 and d["device_rows"] == 8
+    assert captured
+    for params, db, h in captured:
+        buf, layout = fuse_batch(db)
+        want = fk.fused_packed_plain(params, defuse(
+            torch.from_numpy(buf).to(card), layout)).cpu().numpy()
+        got = np.asarray(h.wait())
+        assert got.shape == want.shape and np.array_equal(got, want)

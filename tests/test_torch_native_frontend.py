@@ -13,10 +13,11 @@ What differs by design, named where the tests compare:
   port's frontend attaches the denying rule's provenance as its grpc.aio
   server (and the reference's Python server) do; the reference's native
   frontend leaves it out (ROADMAP.md queue 3).
-* the kinds this slice defers ride the slow lane in the port, where the
-  reference has a fast lane for them (``DEFERRED``): the hybrid lane (a
-  config whose authorization is only partly kernel-covered) and the
-  verified-credential cache (OIDC/JWT, mTLS, OAuth2, Kubernetes).
+* none of the reference's fast-lane kinds is deferred any more
+  (``DEFERRED`` is empty): the hybrid lane (a config whose authorization
+  is only partly kernel-covered) and the verified-credential cache
+  (OIDC/JWT, mTLS, OAuth2, Kubernetes) are held to the reference here and
+  in ``tests/test_torch_native_frontend_dyn.py``.
 
 Each test stops the frontends it starts in ``finally`` and runs under a
 time bound of its own (``bounded``), so a hang fails the test instead of
@@ -93,9 +94,9 @@ REF = _ns(r_compiler, r_ev, r_authz, r_cred, r_ident, r_expr, r_k8s,
 PORT = _ns(p_compiler, p_ev, p_authz, p_cred, p_ident, p_expr, p_k8s,
            p_runtime, p_value)
 
-# the config ids whose kind this slice defers: fast in the reference, slow
-# in the port (the hybrid lane)
-DEFERRED = {"ns/hybrid": "hybrid lane (authorization partly kernel-covered)"}
+# the config ids whose kind the port defers: fast in the reference, slow in
+# the port (none: every kind of the reference's fast lane is ported)
+DEFERRED: dict = {}
 
 
 def bounded(seconds: float):
@@ -275,7 +276,7 @@ def build_corpus(ns, engine):
                            ns.AuthorizationConfig("rego", opa, priority=1)]),
         rules=ns.ConfigRules(name="ns/fast-rego",
                              evaluators=[(None, tier), (None, lowered)])))
-    # the hybrid lane (deferred): a pattern + procedural Rego
+    # the hybrid lane: a pattern + procedural Rego
     proc = ns.OPA("ns/hybrid/rego", inline_rego=(
         'allow { count(input.request.headers) > 1 }'))
     entries.append(ns.EngineEntry(
@@ -546,6 +547,10 @@ def test_identity_templated_deny_carries_provenance(reference):
 
 @bounded(240)
 def test_eligibility_equals_reference_but_the_deferred_kinds(reference):
+    """``fast_lane_eligible`` of the port equals the reference's on every
+    config of the corpus, the hybrid one included (``DEFERRED`` is empty:
+    no kind is left out)."""
+    assert DEFERRED == {}
     stack = PortStack()
     try:
         r_snap, p_snap = reference.engine._snapshot, stack.engine._snapshot
@@ -562,17 +567,20 @@ def test_eligibility_equals_reference_but_the_deferred_kinds(reference):
             if p_spec is None:
                 continue
             assert p_spec.has_batch == r_spec.has_batch, cfg_id
+            assert p_spec.hybrid == r_spec.hybrid, cfg_id
             assert p_spec.plans == r_spec.plans, cfg_id
             assert p_spec.auth_attrs == r_spec.auth_attrs, cfg_id
             assert p_spec.deny_templated == r_spec.deny_templated, cfg_id
-            assert [(s.cred_kind, s.cred_key, [(k, v) for k, v, _ in
-                                               s.variants])
+            assert [(s.cred_kind, s.cred_key, s.dyn, s.ttl_cap,
+                     [(k, v) for k, v, _ in s.variants])
                     for s in p_spec.sources] == \
-                [(s.cred_kind, s.cred_key, [(k, v) for k, v, _ in
-                                            s.variants])
+                [(s.cred_kind, s.cred_key, s.dyn, s.ttl_cap,
+                  [(k, v) for k, v, _ in s.variants])
                  for s in r_spec.sources], cfg_id
         assert port_nf.fast_lane_eligible(
             p_by_id["ns/slow-tmpl"], p_snap.policy) is None
+        assert port_nf.fast_lane_eligible(
+            p_by_id["ns/hybrid"], p_snap.policy).hybrid
         # the plan kinds and event codes the C++ side pins
         for name in ("K_CONST", "K_METHOD", "K_PATH", "K_URL_PATH",
                      "K_QUERY", "K_HOST", "K_SCHEME", "K_PROTOCOL",
@@ -622,6 +630,14 @@ def test_stats_and_debug_vars_keys(reference):
             1 for e in stack.engine._snapshot.entries
             if port_nf.fast_lane_eligible(e, stack.engine._snapshot.policy)
             is not None and e.rules is not None)
+        # the corpus's one hybrid config; no dyn source in it
+        assert (dv["snapshot"]["hybrid_configs"],
+                dv["snapshot"]["dyn_registrations"]) == (1, 0)
+        ref_snap = reference.fe.debug_vars()["snapshot"]
+        assert {k: dv["snapshot"][k] for k in (
+            "fast_configs", "hybrid_configs", "dyn_registrations")} == \
+            {k: ref_snap[k] for k in (
+                "fast_configs", "hybrid_configs", "dyn_registrations")}
         json.dumps(dv)
         assert dv["kernel_cost"]["ledger"]["native"]["rows"] >= 1
     finally:
@@ -951,9 +967,9 @@ def test_snapshot_secrets_equal_reference():
 
 def test_native_frontend_metric_families_equal_reference():
     """The frontend's metric families carry the reference's names, types,
-    labels and buckets (each package's module in a process of its own).
-    The series made before they first move are the reference's but the C++
-    credential cache's ``dyn_*``, a cache the port does not have yet."""
+    labels and buckets (each package's module in a process of its own),
+    and the series made before they first move are the reference's, the
+    C++ credential cache's ``dyn_*`` included."""
     import os
     import sys
     from pathlib import Path
@@ -981,10 +997,8 @@ def test_native_frontend_metric_families_equal_reference():
         assert proc.returncode == 0, proc.stderr
         got.append(json.loads(proc.stdout))
     port, ref = got
-    queue, ensure = ref.pop("keys")
-    assert port.pop("keys") == [queue, [k for k in ensure
-                                        if not k.startswith("dyn_")]]
     assert port == ref
+    assert {"dyn_hit", "dyn_miss", "dyn_add"} <= set(port["keys"][1])
 
 
 def test_verdict_codes_name_the_first_failing_column_by_priority():
