@@ -18,7 +18,7 @@ AuthConfig takes them as its identity through a ``plain`` identity.
 from __future__ import annotations
 
 import random
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..authjson.wellknown import CheckRequestModel, HttpRequestAttributes
 from ..compiler.compile import ConfigRules
@@ -26,7 +26,7 @@ from ..expressions import All, Any_, Operator, Pattern
 
 __all__ = ["build_corpus", "build_docs", "build_auth_configs",
            "build_check_requests", "NAMESPACE", "JWT_FILTER",
-           "JWT_CLAIMS_SELECTOR", "host_of"]
+           "JWT_CLAIMS_SELECTOR", "host_of", "CHANGES"]
 
 NAMESPACE = "northstar"
 # where Envoy's jwt_authn filter puts the verified claims
@@ -64,26 +64,68 @@ def _draw_rules(n_configs: int, rules_per_config: int, seed: int
     return configs
 
 
-def build_corpus(n_configs: int, rules_per_config: int,
-                 seed: int = 42) -> List[ConfigRules]:
+# the kinds of one-config change a reconcile meets: a constant (every
+# operand keeps its shape), one more leaf beside the method (the config's
+# program grows, so every later config's offsets shift) and one more regex
+# leaf there (a new DFA table).  ``_changed`` also takes "method": the
+# method constant flipped (GET <-> POST), which flips the verdict of every
+# request that reached the Any_ branch
+CHANGES = ("const", "leaf", "regex")
+
+
+def _changed(pats: List[Tuple[str, Operator, str]], i: int,
+             change: Optional[str]):
+    """(the Any_ branch's triples, the extra top-level triple or None) of
+    config i after ``change`` (None: unchanged)."""
+    if change is None:
+        return pats, None
+    if change == "const":
+        return [pats[0], ("auth.identity.org", Operator.EQ, f"org-{i}-v2")] \
+            + pats[2:], None
+    if change == "method":
+        flipped = "POST" if pats[0][2] == "GET" else "GET"
+        return [("request.method", Operator.EQ, flipped)] + pats[1:], None
+    if change == "leaf":
+        return pats, ("request.method", Operator.NEQ, "DELETE")
+    if change == "regex":
+        return pats, ("request.url_path", Operator.MATCHES,
+                      r"^/(api|v)/x[0-9]+/")
+    raise ValueError(f"unknown change {change!r}")
+
+
+def build_corpus(n_configs: int, rules_per_config: int, seed: int = 42,
+                 changed: Optional[Dict[int, str]] = None
+                 ) -> List[ConfigRules]:
+    """``changed`` maps a config index to one of ``CHANGES``."""
     configs = []
     for i, pats in enumerate(_draw_rules(n_configs, rules_per_config, seed)):
+        pats, extra = _changed(pats, i, (changed or {}).get(i))
         leaves = [Pattern(*p) for p in pats]
-        rule = All(leaves[0], Any_(*leaves[1:]))
-        configs.append(ConfigRules(name=f"cfg-{i}", evaluators=[(None, rule)]))
+        kids = [leaves[0], Any_(*leaves[1:])]
+        if extra is not None:
+            kids.append(Pattern(*extra))
+        configs.append(ConfigRules(name=f"cfg-{i}",
+                                   evaluators=[(None, All(*kids))]))
     return configs
 
 
-def build_auth_configs(n: int, rules: int, seed: int = 42) -> List[dict]:
+def build_auth_configs(n: int, rules: int, seed: int = 42,
+                       changed: Optional[Dict[int, str]] = None
+                       ) -> List[dict]:
     """v1beta2 AuthConfig resources ``cfg-{i}`` in namespace ``northstar``,
     host ``svc-{i}.northstar``: a ``plain`` identity reading the claims
     Envoy's jwt_authn filter verified, and one ``patternMatching``
     evaluator whose patterns are ``build_corpus``'s rule for config i
-    (same seed, same draws)."""
+    (same seed, same draws, same ``changed``)."""
     out = []
     for i, pats in enumerate(_draw_rules(n, rules, seed)):
+        pats, extra = _changed(pats, i, (changed or {}).get(i))
         items = [{"selector": sel, "operator": op.value, "value": val}
                  for sel, op, val in pats]
+        top = [items[0], {"any": items[1:]}]
+        if extra is not None:
+            top.append({"selector": extra[0], "operator": extra[1].value,
+                        "value": extra[2]})
         out.append({
             "apiVersion": "authorino.kuadrant.io/v1beta2",
             "kind": "AuthConfig",
@@ -93,8 +135,7 @@ def build_auth_configs(n: int, rules: int, seed: int = 42) -> List[dict]:
                 "authentication": {
                     "envoy-jwt": {"plain": {"selector": JWT_CLAIMS_SELECTOR}}},
                 "authorization": {
-                    "rules": {"patternMatching": {"patterns": [
-                        items[0], {"any": items[1:]}]}}},
+                    "rules": {"patternMatching": {"patterns": top}}},
             },
         })
     return out

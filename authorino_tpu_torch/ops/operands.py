@@ -4,11 +4,13 @@ Everything that surrounds the mega-kernel and runs on the host lives here:
 
   - ``host_operands`` builds the fused-lane operand tree of one compiled
     corpus as numpy arrays, with ``None`` kept structural for absent lanes;
-  - ``params_from_numpy`` turns such a tree into torch tensors on a device,
-    checks on the host that every index operand lies in range (so the kernel
-    needs no bounds checks), and adds the ``"kernel"`` subtree: the
-    per-config program, each config's own leaves, nodes and DFA rows with
-    indices local to one row's circuit buffer;
+  - ``params_from_numpy`` turns such a tree into torch tensors on a device
+    in two steps: ``host_view`` checks on the host that every index operand
+    lies in range (so the kernel needs no bounds checks) and adds the
+    ``"kernel"`` subtree: the per-config program, each config's own leaves,
+    nodes and DFA rows with indices local to one row's circuit buffer;
+    then the tree goes to the device (a reconcile diffs two host views
+    first and ships only what changed, snapshots/delta.py);
   - ``fuse_batch`` concatenates one batch's operands into one uint8 staging
     buffer (one H2D copy per batch) and ``defuse`` decodes it in torch;
   - ``unpack_verdicts`` / ``firing_columns`` / ``unpack_attribution`` decode
@@ -33,10 +35,10 @@ from ..compiler.compile import (
     CompiledPolicy)
 
 __all__ = [
-    "resolve_device", "host_operands", "fused_operands", "params_from_numpy",
-    "to_device", "check_batch", "packed_width", "unpack_verdicts",
-    "firing_columns", "unpack_attribution", "FUSED_FIELDS", "fuse_batch",
-    "staged_h2d_bytes", "defuse",
+    "resolve_device", "host_operands", "fused_operands", "host_view",
+    "params_from_numpy", "to_device", "check_batch", "packed_width",
+    "unpack_verdicts", "firing_columns", "unpack_attribution", "FUSED_FIELDS",
+    "fuse_batch", "staged_h2d_bytes", "defuse",
 ]
 
 if sys.byteorder != "little":
@@ -422,15 +424,24 @@ def _put(x, device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def host_view(tree: dict) -> dict:
+    """The host step of an upload: a fused-lane numpy operand tree,
+    validated, with the ``"kernel"`` subtree (the per-config program) added
+    — the whole tree the kernel reads, as numpy arrays and python ints.
+    The range checks run on every call: the kernel reads without bounds
+    checks, so no tree reaches the device without them."""
+    host = {k: v for k, v in tree.items() if k != "kernel"}
+    host["kernel"] = _kernel_layout(host)
+    return host
+
+
 def params_from_numpy(tree: dict, device=None) -> dict:
     """The weight carry-over: a fused-lane numpy operand tree (the port's
     ``host_operands`` or the JAX package's ``to_device(policy, host=True,
     lane="fused")``) → the port's tensor tree on ``device``, validated, with
     the ``"kernel"`` subtree (the per-config program) added."""
     dev = resolve_device(device)
-    host = {k: v for k, v in tree.items() if k != "kernel"}
-    host["kernel"] = _kernel_layout(host)
-    return _put(host, dev)
+    return _put(host_view(tree), dev)
 
 
 def to_device(policy: CompiledPolicy, device=None, host: bool = False) -> dict:

@@ -98,9 +98,9 @@ once into the process-wide cost ledger (``runtime/kernel_cost.py``: one
 device computation per cut with a device row, none for one the cache
 answered whole) and each completed batch into the batch families with
 its true per-request queue waits and, behind ``slo_ms``, into the SLO
-tracker; a swap, a reconcile (its compile and upload phases), a watchdog
-fire and a drain are flight-recorder events, and each generation gets a
-modeled kernel cost.  Every plane is advisory: its fault is logged and
+tracker; a swap, a reconcile (its compile, diff and upload phases), a
+watchdog fire and a drain are flight-recorder events, and each generation
+gets a modeled kernel cost.  Every plane is advisory: its fault is logged and
 never changes a verdict or re-dispatches a batch.
 
 ``apply_snapshot`` may run on a worker thread (the reconciler calls it
@@ -108,6 +108,12 @@ through ``asyncio.to_thread``) while batches are in flight: the new corpus
 compiles, uploads and passes the probe kernel before it is published under
 the swap lock, every batch keeps the snapshot it was cut against, and the
 old snapshot's device memory goes when its last in-flight batch resolves.
+The install is incremental where the compile cache allows: only the
+configs whose source changed build their artifacts (canonical trees,
+interned constants, determinized regexes), though the corpus is still
+lowered whole, and only the operand rows that moved are shipped, into
+fresh tensors (the old snapshot's are never written); the same corpus
+again reuses the installed params outright.
 Swap listeners fire after each swap, and ``notify_swap_listeners`` fires
 them without one (the Secret reconciler after an in-place rotation).
 """
@@ -126,19 +132,22 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..authjson.wellknown import CheckRequestModel
-from ..compiler.compile import CompiledPolicy, ConfigRules, compile_corpus
+from ..compiler.compile import CompiledPolicy, ConfigRules
 from ..compiler.encode import encode_batch
-from ..compiler.intern import StringInterner
 from ..compiler.pack import batch_row_keys, dedup_rows, pack_batch, select_rows
 from ..evaluators.authorization import PatternMatching
 from ..index import HostIndex
 from ..models.policy_model import apply_host_fallback, host_results
 from ..native import get_native_encoder
 from ..ops import fused_kernel as fk
-from ..ops.operands import (firing_columns, packed_width, resolve_device,
-                            staged_h2d_bytes, to_device, unpack_verdicts)
+from ..ops.operands import (firing_columns, host_view, packed_width,
+                            resolve_device, staged_h2d_bytes, to_device,
+                            unpack_verdicts)
 from ..pipeline import AuthPipeline, AuthResult
-from ..snapshots.fingerprint import cache_tokens, rules_fingerprint
+from ..snapshots.compile_cache import CompileCache, CompileReport
+from ..snapshots.delta import apply_delta
+from ..snapshots.diff import plan_delta
+from ..snapshots.fingerprint import cache_tokens
 from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
 from ..utils import tracing as tracing_mod
@@ -184,11 +193,21 @@ class _Snapshot:
     entries (the native frontend reads them); ``cache_tokens`` key the
     verdict cache per config row.  The corpus's native encoder is built here (None
     for a corpus outside its domain): a failed build fails the install,
-    never a batch.  ``heat`` is the corpus's rule heat map."""
+    never a batch.  ``heat`` is the corpus's rule heat map.
+
+    The install is incremental against ``prev`` (the serving snapshot):
+    compile goes through the engine's compile cache, so only configs whose
+    source fingerprint is new build their artifacts (the corpus is still
+    lowered whole); a fingerprint-identical corpus
+    reuses ``prev``'s policy, params, host view, cache tokens, native
+    encoder and heat map outright (upload mode ``reuse``, nothing shipped);
+    otherwise the new host view is diffed against ``prev``'s and only the
+    changed rows are shipped, into fresh tensors (snapshots/delta.py)."""
 
     def __init__(self, entries: Sequence[EngineEntry], members_k: int,
                  ovf_assist: Optional[bool], device,
-                 interner: StringInterner, override: bool = True):
+                 compile_cache: CompileCache,
+                 prev: "Optional[_Snapshot]" = None, override: bool = True):
         self.index: HostIndex[EngineEntry] = HostIndex()
         self.entries: List[EngineEntry] = list(entries)
         for e in entries:
@@ -198,41 +217,73 @@ class _Snapshot:
         self.generation = 0
         self.policy: Optional[CompiledPolicy] = None
         self.params = None
+        self.host_view = None
         self.fingerprints: Dict[str, str] = {}
         self.cache_tokens = None
         self.encoder = None
         self.encoder_build_s = 0.0
         self.heat: Optional[prov_mod.HeatMap] = None
-        # reconcile phases, seconds: compile (the corpus, its fingerprints
-        # and cache tokens), upload (operands and the per-config program to
-        # the device, the probe launch)
+        self.compile_report: Optional[CompileReport] = None
+        self.upload: Optional[Dict[str, Any]] = None
+        # reconcile phases, seconds: compile (the incremental corpus
+        # compile, its fingerprints and cache tokens), diff (the new host
+        # view with the per-config program, and its delta plan), upload
+        # (the planned rows or whole tensors to the device, the probe
+        # launch)
         self.phase_s: Dict[str, float] = {}
         if not rules:
             # no compiled config (the bootstrap deny-all): nothing to
             # upload, but the card still proves it launches at install
             if device.type == "cuda":
                 fk.fused_kernel_supported(device, recheck=True)
-        else:
-            t0 = time.perf_counter()
-            self.policy = compile_corpus(rules, members_k=members_k,
-                                         ovf_assist=ovf_assist,
-                                         interner=interner)
-            memo: Dict[int, str] = {}
-            self.fingerprints = {c.name: rules_fingerprint(c, memo)
-                                 for c in rules}
-            self.cache_tokens = cache_tokens(self.policy, self.fingerprints)
+            return
+        prev_ok = prev is not None and prev.policy is not None
+        t0 = time.perf_counter()
+        self.policy, report = compile_cache.compile(
+            rules, members_k=members_k,
+            prev_fps=prev.fingerprints if prev_ok else None,
+            prev_policy=prev.policy if prev_ok else None,
+            ovf_assist=ovf_assist)
+        self.compile_report = report
+        self.fingerprints = dict(report.fingerprints)
+        if report.reused_policy:
+            # fingerprint-identical corpus: the previous snapshot's device
+            # state serves as-is
+            self.params = prev.params
+            self.host_view = prev.host_view
+            self.cache_tokens = prev.cache_tokens
+            self.encoder = prev.encoder
+            self.heat = prev.heat
+            self.upload = {"mode": "reuse", "upload_bytes": 0,
+                           "full_bytes": 0, "arrays_reused": None,
+                           "arrays_touched": []}
             self.phase_s["compile"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.encoder = get_native_encoder(self.policy)
-            self.encoder_build_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.params = to_device(self.policy, device=device)
-            fk.prewarm_fused(self.policy, self.params)
-            self.phase_s["upload"] = time.perf_counter() - t0
-            try:
-                self.heat = prov_mod.HeatMap.for_snapshot(self.policy)
-            except Exception:
-                log.exception("rule heat map build failed (swap unaffected)")
+            return
+        self.cache_tokens = cache_tokens(self.policy, self.fingerprints)
+        self.phase_s["compile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.encoder = get_native_encoder(self.policy)
+        self.encoder_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.host_view = host_view(to_device(self.policy, host=True))
+        plan = (plan_delta(prev.host_view, self.host_view)
+                if prev_ok and prev.params is not None else None)
+        self.phase_s["diff"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # no plan: apply_delta stages every operand
+        self.params, uploaded = apply_delta(
+            prev.params if plan is not None else None, self.host_view, plan,
+            device)
+        self.upload = (plan.to_json() if plan is not None else
+                       {"mode": "full", "full_bytes": uploaded,
+                        "arrays_reused": 0, "arrays_touched": []})
+        self.upload["upload_bytes"] = uploaded
+        fk.prewarm_fused(self.policy, self.params)
+        self.phase_s["upload"] = time.perf_counter() - t0
+        try:
+            self.heat = prov_mod.HeatMap.for_snapshot(self.policy)
+        except Exception:
+            log.exception("rule heat map build failed (swap unaffected)")
 
 
 @dataclass
@@ -343,9 +394,11 @@ class PolicyEngine:
                                  if device_timeout_s else None)
         self._verdict_cache = (VerdictCache(verdict_cache_size)
                                if verdict_cache_size else None)
-        # one string table for every snapshot: ids stay stable across
-        # reconciles, so an unchanged config keeps its encoding epoch
-        self._interner = StringInterner()
+        # the persistent per-config compile cache (fingerprint → artifact),
+        # always on: it owns the one string table of every snapshot, so ids
+        # stay stable across reconciles and an unchanged config keeps its
+        # encoding epoch (and its cached verdicts)
+        self.compile_cache = CompileCache()
         self.generation = 0
         self._snapshot: Optional[_Snapshot] = None
         self._swap_lock = threading.Lock()
@@ -404,7 +457,8 @@ class PolicyEngine:
 
     def apply_snapshot(self, entries: Sequence[EngineEntry],
                        override: bool = True) -> None:
-        """Index, compile, upload and swap in a new corpus.  The host index
+        """Index, compile, upload and swap in a new corpus, incrementally
+        against the serving snapshot (``_Snapshot``).  The host index
         rides on the snapshot, so one store swaps both: a lookup never
         finds an entry whose config the installed snapshot lacks.
         In-flight batches finish on the snapshot they were cut against,
@@ -414,7 +468,8 @@ class PolicyEngine:
         for e in entries:
             self._check_bound(e)
         snap = _Snapshot(entries, self.members_k, self.ovf_assist,
-                         self.device, self._interner, override=override)
+                         self.device, self.compile_cache,
+                         prev=self._snapshot, override=override)
         with self._swap_lock:
             self.generation += 1
             snap.generation = self.generation
@@ -427,19 +482,40 @@ class PolicyEngine:
         self.notify_swap_listeners()
 
     def _record_control_plane(self, snap: _Snapshot) -> None:
-        """Reconcile telemetry after a swap: the phase histograms, a
-        ``reconcile`` flight-recorder event, the /debug/vars control_plane
-        block, and the modeled kernel cost of the new generation (a >=2x
+        """Reconcile telemetry after a swap: the phase histograms, the
+        compile-cache hit/miss and upload byte counters, a ``reconcile``
+        flight-recorder event, the /debug/vars control_plane block (the
+        phases, the compile report, the upload plan, the compile cache's
+        stats), and the modeled kernel cost of the new generation (a >=2x
         per-row regression raises the cost-regression anomaly).  Advisory:
         never fails a swap."""
         phases_ms = {k: round(v * 1e3, 3) for k, v in snap.phase_s.items()}
         try:
             for phase, dt in snap.phase_s.items():
                 metrics_mod.reconcile_phase.labels(phase).observe(dt)
+            rep = snap.compile_report
+            if rep is not None:
+                if rep.cached:
+                    metrics_mod.compile_cache_events.labels("hit").inc(
+                        rep.cached)
+                if rep.compiled:
+                    metrics_mod.compile_cache_events.labels("miss").inc(
+                        rep.compiled)
+            if snap.upload is not None:
+                metrics_mod.delta_upload_bytes.labels("engine").inc(
+                    int(snap.upload.get("upload_bytes", 0)))
+                metrics_mod.full_upload_bytes.labels("engine").inc(
+                    int(snap.upload.get("full_bytes", 0)))
             RECORDER.record("reconcile", lane="engine", detail={
                 "generation": snap.generation, "phases_ms": phases_ms})
-            self._control_plane = {"generation": snap.generation,
-                                   "phases_ms": phases_ms}
+            self._control_plane = {
+                "generation": snap.generation,
+                "phases_ms": phases_ms,
+                "compile": rep.to_json() if rep is not None else None,
+                "upload": snap.upload,
+                "compile_cache": self.compile_cache.stats(),
+                "per_config_cache_keying": snap.cache_tokens is not None,
+            }
         except Exception:
             log.exception("control-plane telemetry failed (swap unaffected)")
         try:

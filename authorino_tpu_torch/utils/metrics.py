@@ -2,8 +2,9 @@
 buckets (ref: pkg/service/auth_pipeline.go:26-36, pkg/metrics/metrics.go):
 the auth pipeline's families, and those of the planes the port holds (the
 serving core, provenance, the per-batch and stage telemetry, the reconcile
-phases, the SLO tracker, the flight recorder, the kernel cost ledger, the
-circuit breaker, the degrade and the fault plane).
+phases, the compile cache and the delta upload, the SLO tracker, the
+flight recorder, the kernel cost ledger, the circuit breaker, the degrade
+and the fault plane).
 The families of planes not in the port yet come with them.
 
 Per-evaluator (deep) metrics are gated by the evaluator's ``metrics: true``
@@ -388,12 +389,37 @@ pipeline_stage_duration = _register(
 )
 reconcile_phase = _register(
     "histogram", "auth_server_reconcile_phase_seconds",
-    "Per-phase reconcile timing on the engine lane: compile (corpus "
-    "compile), upload (the operand tree to the device, the per-config "
-    "kernel program and the probe launch).  The sum is what a reconcile "
-    "costs the control plane.",
+    "Per-phase reconcile timing on the engine lane: compile (incremental "
+    "corpus compile through the per-config artifact cache), diff (the new "
+    "host operand view with the per-config kernel program, and the delta "
+    "plan against the old one), upload (H2D staging — delta rows or full "
+    "re-stage — and the probe launch).  The sum is what a reconcile costs "
+    "the control plane.",
     ("phase",),
     buckets=(.0005, .002, .01, .05, .1, .25, .5, 1.0, 2.5, 5.0, 10.0),
+)
+compile_cache_events = _register(
+    "counter", "auth_server_compile_cache_events_total",
+    "Per-config compile-cache outcomes per reconcile: hit = the config's "
+    "source fingerprint matched a cached artifact (no re-lowering, no "
+    "re-determinization), miss = the config was actually compiled.  An "
+    "unchanged corpus is all hits; changing one config is exactly one "
+    "miss.",
+    ("outcome",),
+)
+delta_upload_bytes = _register(
+    "counter", "auth_server_delta_upload_bytes_total",
+    "Operand bytes actually shipped to the device per reconcile upload "
+    "(changed rows + their indices on the delta path; whole tensors on a "
+    "full re-stage).  Compare against auth_server_full_upload_bytes_total "
+    "for the avoided traffic.",
+    ("lane",),
+)
+full_upload_bytes = _register(
+    "counter", "auth_server_full_upload_bytes_total",
+    "Operand bytes a FULL re-stage of each reconciled snapshot would have "
+    "shipped (the delta baseline).",
+    ("lane",),
 )
 
 # ---------------------------------------------------------------------------

@@ -252,14 +252,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
      after the swap; byte-equal to plain: the first frontend batch of
      each pad of 256 rows or more in (a), (b) and (c), and of each pad in
      (d), (e) and (f), at least one in each of (a), (d), (e) and (f).
+ 17. the incremental reconcile (the per-config compile cache, the
+     snapshot diff, the delta upload of the mega-kernel's params) and the
+     snapshot container, at full width: (a) the north-star corpus through
+     a card engine, installed cold, again unchanged, then with one config
+     changed at a time (a constant: every operand keeps its shape and the
+     plan ships rows; a leaf more: ``cfg_off`` shifts; a regex more: the
+     DFA image changes): each compile report (1,000, 0, then the one config
+     by name), each plan's mode and bytes (the constant's under half a full
+     upload), the previous params' tensors untouched (pointers and bytes),
+     the new params equal to a full upload of the same policy, and the
+     [256, W] readback of all 4,096 docs byte-equal to the full upload's,
+     to plain and to a cold compile and upload of the same corpus; (d)
+     the installed policy serialized, deserialized, uploaded and launched
+     on: its params equal and its readbacks byte-equal to the installed
+     snapshot's, with the blob's size and the serialize / deserialize ms;
+     (b) phase 6's 1,000 translated configs at the serving defaults: a
+     warm burst, one config's method flipped (at least 95% of the warm
+     cache's rows still served, the changed config's 64 probes all on the
+     new rule), then ten one-config swaps under 4,096 Check()s, every
+     verdict the oracle's of its generation, one launch per batch with a
+     device row, device memory +0 B over the swaps; (c) phase 10's 1,000
+     API-key manifests and their Secrets through ``YamlDirSource``: one
+     file changed, from the write to the first Check() on the new rule,
+     split into manifest parse, translate and the install (compile, native
+     encoder, diff, upload), beside the same state through a cold engine.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 16's, with every phase's under ``launches_by_phase``; each kernel
-must have launched on the paths of phases 4, 6, 7, 8, 9, 10, 12, 13, 14,
-15 and 16, with the counts zeroed just before each.
+phase 17's ((b), the engine under load), with every phase's under
+``launches_by_phase``; each kernel must have launched on the paths of
+phases 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16 and 17, with the counts
+zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -3473,6 +3499,14 @@ LEDGER_OF_RECORD = {"rows": "rows", "device_rows": "device_rows",
                     "h2d_bytes": "h2d_bytes", "d2h_bytes": "d2h_bytes"}
 
 
+def reconcile_phases(cp: dict) -> set:
+    """The phases a reconcile records: compile alone where the compile
+    cache reused the installed policy and params (the same corpus again),
+    else compile, diff and upload."""
+    reused = (cp.get("compile") or {}).get("reused_policy")
+    return {"compile"} if reused else {"compile", "diff", "upload"}
+
+
 def plane_surfaces(metrics: str, dv: dict, flight_dir: Path) -> dict:
     """Phase 13 (e): a server's /metrics carries every family of the
     planes and its /debug/vars engine block the slo, flight_recorder,
@@ -3489,7 +3523,7 @@ def plane_surfaces(metrics: str, dv: dict, flight_dir: Path) -> dict:
             or "engine" not in kc["ledger"]
             or kc["entry_points"][0]["entry"] != "fused_kernel"
             or not kc["modeled"]["current"]["entries"] or not cp
-            or set(cp["phases_ms"]) != {"compile", "upload"}):
+            or set(cp["phases_ms"]) != reconcile_phases(cp)):
         raise AssertionError(f"(e) the planes through the wire: missing "
                              f"families {missing}; slo {slo}; flight "
                              f"recorder {fr and fr['dump_dir']}; control "
@@ -3618,6 +3652,9 @@ def observability_planes(report: dict, card: str, dev, ctx6: dict,
     bind(entries, engine)
     engine.apply_snapshot(entries)
     cpn = engine.debug_vars()["control_plane"]
+    if set(cpn["phases_ms"]) != {"compile", "diff", "upload"} or \
+            cpn["upload"]["mode"] != "full":
+        raise AssertionError(f"(b) a fresh engine's install: {cpn}")
     # every batch's per-request SLO latency (queue wait + the batch's
     # device stage), as the engine hands it to its tracker
     slo_lat = []
@@ -5771,6 +5808,588 @@ def _bearer_req(host: str, token: str):
         headers={"authorization": f"Bearer {token}"}))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the incremental reconcile and the snapshot container
+# ---------------------------------------------------------------------------
+
+# (a)'s steps on the north-star corpus: (label, config changed, its change);
+# each step's corpus holds every change before it
+DELTA_STEPS = (("cold", None, None), ("unchanged", None, None),
+               ("const", 7, "const"), ("leaf", 311, "leaf"),
+               ("regex", 977, "regex"))
+# (b): the config whose change measures the cache's survival, then the ten
+# configs changed one swap at a time under the burst (method flipped)
+SURVIVAL_CONFIG = 11
+SWAP_CONFIGS = (97, 203, 305, 419, 523, 631, 733, 859, 967, 42)
+SURVIVAL_MIN = 0.95
+PROBES = 64               # (b): requests on the survival config, all flipped
+CONTAINER_RUNS = 3        # (d): serialize / deserialize timings
+
+
+def param_leaves(tree, prefix: str = "") -> dict:
+    """{path: tensor or int} of a params tree, the wrapper's cached launch
+    words left out."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k != "launch_words":
+                out.update(param_leaves(v, f"{prefix}.{k}"))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            out.update(param_leaves(v, f"{prefix}.{i}"))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def same_params(got, want, label: str) -> None:
+    """Every leaf of two params trees equal: tensors by device, dtype,
+    shape and bytes, ints as ints."""
+    import torch
+
+    g, w = param_leaves(got), param_leaves(want)
+    if g.keys() != w.keys():
+        raise AssertionError(f"{label}: params trees differ in "
+                             f"{sorted(set(g) ^ set(w))}")
+    for k, v in w.items():
+        if isinstance(v, torch.Tensor):
+            ok = (isinstance(g[k], torch.Tensor) and g[k].device == v.device
+                  and g[k].dtype == v.dtype and torch.equal(g[k], v))
+        else:
+            ok = type(g[k]) is type(v) and g[k] == v
+        if not ok:
+            raise AssertionError(f"{label}: param {k} differs from a full "
+                                 f"upload")
+
+
+def frozen_params(params) -> dict:
+    """(data pointer, a copy) of every tensor of a params tree."""
+    import torch
+
+    return {k: (v.data_ptr(), v.clone()) for k, v in
+            param_leaves(params).items() if isinstance(v, torch.Tensor)}
+
+
+def require_untouched(params, before: dict, label: str) -> None:
+    import torch
+
+    for k, v in param_leaves(params).items():
+        if isinstance(v, torch.Tensor):
+            ptr, copy = before[k]
+            if v.data_ptr() != ptr or not torch.equal(v, copy):
+                raise AssertionError(f"{label}: the previous snapshot's "
+                                     f"tensor {k} was written")
+
+
+def device_allocated(dev) -> int:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def delta_readbacks(snap, cfgs, docs, names, dev) -> dict:
+    """(a)'s readback check for one snapshot: for every 256-row batch of
+    ``docs``, the kernel on the snapshot's (delta-built) params against a
+    full upload of the same policy, the plain version, and a cold compile
+    and upload of the same corpus (a fresh string table: its own encode),
+    byte for byte.  Comparison launches, uncounted by the caller."""
+    import torch
+
+    from authorino_tpu_torch.compiler import compile_corpus
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import defuse, fuse_batch, to_device
+
+    policy = snap.policy
+    full = to_device(policy, device=dev)
+    same_params(snap.params, full, "delta-built params")
+    cold_policy = compile_corpus(cfgs, members_k=16)
+    cold = to_device(cold_policy, device=dev)
+    batches = err = 0
+    for lo in range(0, len(docs), 256):
+        d, n = docs[lo:lo + 256], names[lo:lo + 256]
+        db = pack_batch(policy, encode_batch(
+            policy, d, [policy.config_ids[x] for x in n]))
+        got = fk.eval_fused_kernel(snap.params, db)
+        buf, layout = fuse_batch(db)
+        plain = fk.fused_packed_plain(snap.params, defuse(
+            torch.from_numpy(buf).to(dev), layout))
+        cdb = pack_batch(cold_policy, encode_batch(
+            cold_policy, d, [cold_policy.config_ids[x] for x in n]))
+        err = max(err, max_byte_err(got, fk.eval_fused_kernel(full, db)),
+                  max_byte_err(got, plain),
+                  max_byte_err(got, fk.eval_fused_kernel(cold, cdb)))
+        batches += 1
+    return {"batches": batches, "rows": len(docs), "max_abs_err": err}
+
+
+def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
+                          ns: dict) -> tuple:
+    """Phase 17: the incremental reconcile and the snapshot container, at
+    full width.  (a) the mega-kernel on delta-built params, (b) the engine
+    under load across ten one-config swaps, (c) a manifest change end to
+    end beside a cold engine, (d) the snapshot container.  Returns (the
+    kernels' launches on (b)'s path, counts zeroed just before it; the max
+    abs byte error of the comparisons)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.controllers import (AuthConfigReconciler,
+                                                 SecretReconciler,
+                                                 translate_auth_config)
+    from authorino_tpu_torch.controllers import reconciler as reconciler_mod
+    from authorino_tpu_torch.controllers import sources as sources_mod
+    from authorino_tpu_torch.controllers.sources import YamlDirSource
+    from authorino_tpu_torch.k8s import InMemoryCluster
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import to_device
+    from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+    from authorino_tpu_torch.snapshots import (deserialize_policy,
+                                               serialize_policy)
+    from authorino_tpu_torch.utils import rpc
+
+    t_phase = time.perf_counter()
+    numbers = {"card": card}
+    max_err = 0
+
+    # ---- (a) the kernel on delta-built params ------------------------------
+    engine = PolicyEngine(max_batch=256, device=dev, **NO_REUSE)
+    docs, names = ns["docs"], ns["names"]
+    changed, steps = {}, []
+    for label, idx, change in DELTA_STEPS:
+        if idx is not None:
+            changed[idx] = change
+        cfgs = northstar.build_corpus(1000, 10, changed=dict(changed))
+        prev = engine._snapshot
+        before = frozen_params(prev.params) if prev is not None else None
+        t = time.perf_counter()
+        engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name],
+                                           rules=c) for c in cfgs])
+        wall = time.perf_counter() - t
+        snap = engine._snapshot
+        rep, up = snap.compile_report, snap.upload
+        want_names = ([] if label == "unchanged" else [f"cfg-{idx}"]
+                      if idx is not None else None)
+        if want_names is not None and rep.compiled_names != want_names:
+            raise AssertionError(f"(a) {label}: compiled "
+                                 f"{rep.compiled_names}, expected {want_names}")
+        if label == "cold" and rep.compiled != 1000:
+            raise AssertionError(f"(a) cold: compiled {rep.compiled}")
+        touched = {t_["name"]: t_ for t_ in up["arrays_touched"]}
+        want_mode = {"cold": "full", "unchanged": "reuse"}.get(label, "delta")
+        ok = up["mode"] == want_mode
+        if label == "unchanged":
+            ok = ok and (up["upload_bytes"] == 0 and rep.reused_policy
+                         and snap.params is prev.params)
+        if label == "const":
+            ok = ok and 0 < up["upload_bytes"] < up["full_bytes"] / 2 and {
+                t_["mode"] for t_ in touched.values()} == {"rows"}
+        if label == "leaf":
+            ok = ok and touched.get("kernel.cfg_off", {}).get("mode") == "full"
+        if label == "regex":
+            ok = ok and touched.get("kernel.dfa_image", {}).get("mode") \
+                == "full"
+        if not ok:
+            raise AssertionError(f"(a) {label}: upload {up}")
+        if before is not None:
+            require_untouched(prev.params, before, f"(a) {label}")
+        rb = delta_readbacks(snap, cfgs, docs, names, dev)
+        max_err = max(max_err, rb["max_abs_err"])
+        steps.append({
+            "step": label, "changed": want_names, "compiled": rep.compiled,
+            "cached": rep.cached, "mode": up["mode"],
+            "upload_bytes": up["upload_bytes"],
+            "full_bytes": up["full_bytes"],
+            "touched": {k: [v["mode"], v["rows"], v["upload_bytes"]]
+                        for k, v in touched.items()},
+            "phases_ms": {k: v * 1e3 for k, v in snap.phase_s.items()},
+            "encoder_build_ms": snap.encoder_build_s * 1e3,
+            "apply_snapshot_ms": wall * 1e3, "readback": rb})
+    numbers["delta_steps"] = steps
+    for s in steps:
+        log(f"[{card}] incremental reconcile (a) {s['step']}: compiled "
+            f"{s['compiled']} ({s['changed']}), cached {s['cached']}; "
+            f"upload {s['mode']} {s['upload_bytes']} of {s['full_bytes']} B"
+            f" ({len(s['touched'])} operands touched: "
+            f"{s['touched']}); phases "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in s["phases_ms"].items())
+            + f", native encoder {s['encoder_build_ms']:.3f} ms, "
+            f"apply_snapshot {s['apply_snapshot_ms']:.3f} ms; the previous "
+            f"params untouched; {s['readback']['rows']} docs in "
+            f"{s['readback']['batches']} [256, W] readbacks byte-equal to a "
+            f"full upload, to plain and to a cold compile")
+
+    # ---- (d) the snapshot container ----------------------------------------
+    snap = engine._snapshot
+    meta = {"generation": snap.generation,
+            "fingerprints": dict(snap.fingerprints)}
+    ser_ms, de_ms = [], []
+    for _ in range(CONTAINER_RUNS):
+        t = time.perf_counter()
+        blob = serialize_policy(snap.policy, meta=meta)
+        ser_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        loaded, got_meta = deserialize_policy(blob)
+        de_ms.append((time.perf_counter() - t) * 1e3)
+    if got_meta != meta or serialize_policy(loaded, meta=meta) != blob:
+        raise AssertionError("(d) the container does not round-trip")
+    t = time.perf_counter()
+    loaded_params = to_device(loaded, device=dev)
+    upload_ms = (time.perf_counter() - t) * 1e3
+    same_params(loaded_params, to_device(snap.policy, device=dev),
+                "(d) loaded params")
+    for lo in range(0, len(docs), 256):
+        d, n = docs[lo:lo + 256], names[lo:lo + 256]
+        db = pack_batch(loaded, encode_batch(
+            loaded, d, [loaded.config_ids[x] for x in n]))
+        sdb = pack_batch(snap.policy, encode_batch(
+            snap.policy, d, [snap.policy.config_ids[x] for x in n]))
+        max_err = max(max_err, max_byte_err(
+            fk.eval_fused_kernel(loaded_params, db),
+            fk.eval_fused_kernel(snap.params, sdb)))
+    numbers["container"] = {
+        "blob_bytes": len(blob), "serialize_ms": ser_ms,
+        "deserialize_ms": de_ms, "upload_ms": upload_ms,
+        "readback_rows": len(docs)}
+    log(f"[{card}] incremental reconcile (d): the installed north-star "
+        f"policy as a {len(blob)} B blob, serialize "
+        f"{statistics.median(ser_ms):.1f} ms, deserialize "
+        f"{statistics.median(de_ms):.1f} ms (median of {CONTAINER_RUNS}), "
+        f"upload {upload_ms:.1f} ms; the loaded params equal the installed "
+        f"snapshot's and its {len(docs)} docs' readbacks are byte-equal")
+    del engine, snap, loaded_params
+
+    # ---- (b) the engine under load -------------------------------------------
+    acs = northstar.build_auth_configs(1000, 10)
+    reqs = ctx6["reqs"]
+    jwt = northstar.JWT_FILTER
+    probe = northstar.build_check_requests(PROBES, 1000, seed=11)
+    for j, q in enumerate(probe):
+        q.http.host = northstar.host_of(SURVIVAL_CONFIG)
+        q.http.method = ("GET", "POST")[j % 2]
+        q.metadata_context["filter_metadata"][jwt]["verified_jwt"]["org"] = \
+            f"org-{SURVIVAL_CONFIG}"
+    engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
+    gens = cp.GenerationLog(engine)
+    state = {"current": {}}
+    corpus_of = {}
+    engine.add_swap_listener(lambda: state.__setitem__(
+        engine.generation, dict(state["current"])))
+
+    def rules_at(gen: int):
+        key = tuple(sorted(state[gen].items()))
+        if key not in corpus_of:
+            corpus_of[key] = [c.evaluators[0][1] for c in
+                              northstar.build_corpus(1000, 10,
+                                                     changed=state[gen])]
+        return corpus_of[key]
+
+    def hold(results, issued, label) -> dict:
+        """Every result against the oracle of its generation, with the
+        deny provenance; returns the checks per generation."""
+        seen, flipped = {}, 0
+        for k, (res, req) in enumerate(zip(results, issued)):
+            gen = gens.by_request.get(id(req))
+            if gen is None or gen not in state:
+                raise AssertionError(f"(b) {label}: check {k} has no "
+                                     f"generation ({gen}): {res}")
+            i = int(req.http.host.split(".")[0][len("svc-"):])
+            claims = req.metadata_context["filter_metadata"][jwt][
+                "verified_jwt"]
+            doc = build_authorization_json(req, {"identity": claims})
+            rule = rules_at(gen)[i]
+            if rule.matches(doc):
+                want = (rpc.OK, 0, "", {})
+            else:
+                want = (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
+                    "ext_authz_provenance": {
+                        "authconfig": f"{northstar.NAMESPACE}/cfg-{i}",
+                        "rule_index": 0, "rule": str(rule),
+                        "lane": "engine"}})
+            got = (res.code, res.status, res.message, res.metadata)
+            if got != want:
+                raise AssertionError(f"(b) {label}: check {k} on cfg-{i} at "
+                                     f"generation {gen}: {got} != {want}")
+            if state[gen] and rules_at(1)[i].matches(doc) != \
+                    rule.matches(doc):
+                flipped += 1
+            seen[gen] = seen.get(gen, 0) + 1
+        return {"by_generation": seen, "flipped_vs_first": flipped}
+
+    async def translate(specs):
+        return [await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in specs]
+
+    async def changed_entries(entries, i, change):
+        state["current"] = {**state["current"], i: change}
+        spec = northstar.build_auth_configs(1000, 10,
+                                            changed=state["current"])[i]
+        out = list(entries)
+        out[i] = (await translate([spec]))[0]
+        return out
+
+    async def burst(label, extra=()):
+        """One burst of every request at once, held to the oracle of its
+        generation before a later burst reuses the request objects."""
+        issued = list(reqs) + list(extra)
+        r0 = len(engine.batch_records)
+        c0 = engine.stats["cache_rows"]
+        out = await timed_checks(engine, issued)
+        return {"held": hold([r for r, _ in out], issued, label),
+                "cache_rows": engine.stats["cache_rows"] - c0,
+                "records": checked_records(engine, r0), "label": label}
+
+    async def under_load():
+        entries = await translate(acs)
+        await asyncio.to_thread(engine.apply_snapshot, entries)
+        b1 = await burst("cold", probe)
+        b2 = await burst("warm", probe)
+        entries = await changed_entries(entries, SURVIVAL_CONFIG, "method")
+        await asyncio.to_thread(engine.apply_snapshot, entries)
+        b3 = await burst("after one change", probe)
+        await asyncio.to_thread(wait_idle, engine)
+        mem0 = await asyncio.to_thread(device_allocated, dev)
+        # ten one-config swaps, each beside a wave of the burst
+        size = -(-len(reqs) // (len(SWAP_CONFIGS) + 1))
+        waves = [reqs[lo:lo + size] for lo in range(0, len(reqs), size)]
+        issued, results, swap_ms = [], [], []
+        r0 = len(engine.batch_records)
+        for w, wave in enumerate(waves):
+            task = None
+            if w < len(SWAP_CONFIGS):
+                entries = await changed_entries(entries, SWAP_CONFIGS[w],
+                                                "method")
+                t = time.perf_counter()
+                task = asyncio.ensure_future(
+                    asyncio.to_thread(engine.apply_snapshot, entries))
+            issued += wave
+            results += [r for r, _ in await timed_checks(engine, wave)]
+            if task is not None:
+                await task
+                swap_ms.append((time.perf_counter() - t) * 1e3)
+        records = checked_records(engine, r0)
+        held = hold(results, issued, "ten swaps")
+        await asyncio.to_thread(wait_idle, engine)
+        mem1 = await asyncio.to_thread(device_allocated, dev)
+        return b1, b2, b3, held, records, swap_ms, mem0, mem1
+
+    fk.reset_counts()
+    reset_host_counts()
+    b1, b2, b3, swaps_held, records, swap_ms, mem0, mem1 = \
+        asyncio.run(under_load())
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    held = {b["label"]: b["held"] for b in (b1, b2, b3)}
+    held["swaps"] = swaps_held
+    all_records = b1["records"] + b2["records"] + b3["records"] + records
+    device_batches = sum(1 for r in all_records if r["device_rows"])
+    # (a CPU dry run calls the plain version where the card launches)
+    kernel_calls = fk.launches if dev.type == "cuda" else fk.plain_calls
+    if kernel_calls != device_batches:
+        raise AssertionError(f"(b) {launches} launches for {device_batches} "
+                             f"batches with a device row")
+    enc = encoder_used(engine, engine.stats["batches"])
+    require_encoder("incremental reconcile (b)", enc, "native")
+    survival = b3["cache_rows"] / max(1, b2["cache_rows"])
+    if survival < SURVIVAL_MIN:
+        raise AssertionError(f"(b) {survival:.4f} of the warm cache's rows "
+                             f"served after one change ({b3['cache_rows']} "
+                             f"of {b2['cache_rows']})")
+    if held["after one change"]["flipped_vs_first"] < PROBES:
+        raise AssertionError(f"(b) the changed config's probes: "
+                             f"{held['after one change']}")
+    if engine.generation != 2 + len(SWAP_CONFIGS) or \
+            len(held["swaps"]["by_generation"]) < 2:
+        raise AssertionError(f"(b) generations: {engine.generation}, "
+                             f"{held['swaps']}")
+    if mem1 != mem0:
+        raise AssertionError(f"(b) device memory grew {mem1 - mem0:+d} B "
+                             f"over ten swaps")
+    numbers["under_load"] = {
+        "checks": {k: sum(v["by_generation"].values())
+                   for k, v in held.items()},
+        "by_generation": {k: v["by_generation"] for k, v in held.items()},
+        "flipped_vs_first": {k: v["flipped_vs_first"]
+                             for k, v in held.items()},
+        "cache_rows": [b1["cache_rows"], b2["cache_rows"], b3["cache_rows"]],
+        "survival": survival, "batches": len(all_records),
+        "device_batches": device_batches, "swap_ms": swap_ms,
+        "memory_before_swaps": mem0, "memory_after_swaps": mem1,
+        "last_upload": engine.debug_vars()["control_plane"]["upload"],
+        "encoder": enc, "launches": launches}
+    ul = numbers["under_load"]
+    log(f"[{card}] incremental reconcile (b): 1,000 translated north-star "
+        f"configs at the serving defaults; warm burst {b2['cache_rows']} "
+        f"rows from the cache, after cfg-{SURVIVAL_CONFIG}'s method flipped "
+        f"{b3['cache_rows']} ({survival:.4f} survive; its {PROBES} probes "
+        f"all answered the new rule); ten one-config swaps under "
+        f"{ul['checks']['swaps']} Check()s: verdicts by generation "
+        f"{ul['by_generation']['swaps']}, every one the oracle's of its "
+        f"generation ({ul['flipped_vs_first']['swaps']} differ from "
+        f"generation 1's); {device_batches} of {len(all_records)} batches "
+        f"with a device row, one launch each ({launches}); swaps "
+        f"{[round(x, 1) for x in swap_ms]} ms; device memory "
+        f"{mem1 - mem0:+d} B over the ten swaps; {fmt_encoder(enc)}")
+
+    # ---- (c) the reconcile end to end -----------------------------------------
+    n = CP_CONFIGS
+    base = cp.build_auth_configs(n, CP_RULES)
+    c_reqs, c_cfgs, c_known = cp.build_check_requests(256, n)
+    rules = cp.config_rules(n, CP_RULES)
+    flip_j = next(j for j, (q, i, good) in enumerate(zip(c_reqs, c_cfgs,
+                                                          c_known))
+                  if good and cp.expected_code(q, i, rules, True)
+                  != cp.expected_code(q, i, cp.config_rules(
+                      n, CP_RULES, flip=[i]), True))
+    flip_i = c_cfgs[flip_j]
+    flipped = cp.config_rules(n, CP_RULES, flip=[flip_i])
+    want_old = cp.expected_code(c_reqs[flip_j], flip_i, rules, True)
+    want_new = cp.expected_code(c_reqs[flip_j], flip_i, flipped, True)
+    d = Path(tempfile.mkdtemp(prefix="reconcile-"))
+
+    def write(i: int, ac: dict, rv: str) -> None:
+        ac = json.loads(json.dumps(ac))
+        ac["metadata"]["resourceVersion"] = rv
+        (d / f"ac-{i:04d}.json").write_text(json.dumps(ac))
+
+    timing = {"parse": 0.0, "translate": 0.0, "apply": 0.0}
+    real_load, real_translate = (sources_mod.load_manifests,
+                                 reconciler_mod.translate_auth_config)
+
+    def timed_load(path):
+        t = time.perf_counter()
+        try:
+            return real_load(path)
+        finally:
+            timing["parse"] += time.perf_counter() - t
+
+    async def timed_translate(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return await real_translate(*a, **kw)
+        finally:
+            timing["translate"] += time.perf_counter() - t
+
+    def instrumented(eng):
+        inner = eng.apply_snapshot
+
+        def apply_snapshot(entries, override=True):
+            t = time.perf_counter()
+            try:
+                return inner(entries, override)
+            finally:
+                timing["apply"] += time.perf_counter() - t
+
+        eng.apply_snapshot = apply_snapshot
+        return eng
+
+    def split(eng, total: float) -> dict:
+        snap = eng._snapshot
+        ph = {k: v * 1e3 for k, v in snap.phase_s.items()}
+        out = {"total_ms": total * 1e3, "parse_ms": timing["parse"] * 1e3,
+               "translate_ms": timing["translate"] * 1e3,
+               "apply_snapshot_ms": timing["apply"] * 1e3,
+               "native_encoder_ms": snap.encoder_build_s * 1e3,
+               "compiled": snap.compile_report.compiled,
+               "upload": {k: snap.upload[k] for k in
+                          ("mode", "upload_bytes", "full_bytes")}}
+        out.update({f"{k}_ms": v for k, v in ph.items()})
+        out["rest_ms"] = out["total_ms"] - out["parse_ms"] - \
+            out["translate_ms"] - out["apply_snapshot_ms"]
+        return out
+
+    async def change_one_file():
+        eng = instrumented(PolicyEngine(max_batch=256, device=dev,
+                                        **WIDE_ADMISSION))
+        cluster = InMemoryCluster()
+        src = YamlDirSource(str(d), AuthConfigReconciler(eng, cluster=cluster),
+                            cluster, SecretReconciler(eng))
+        await src.sync()
+        r = await eng.check(c_reqs[flip_j])
+        if r.code != want_old:
+            raise AssertionError(f"(c) before the change: {r.code}")
+        for k in timing:
+            timing[k] = 0.0
+        t = time.perf_counter()
+        write(flip_i, cp.build_auth_configs(n, CP_RULES, flip=[flip_i])[
+            flip_i], "2")
+        await src.sync()
+        r = await eng.check(c_reqs[flip_j])
+        total = time.perf_counter() - t
+        if r.code != want_new:
+            raise AssertionError(f"(c) after the change: {r.code}")
+        warm = split(eng, total)
+        if warm["compiled"] != 1 or warm["upload"]["mode"] != "delta":
+            raise AssertionError(f"(c) the changed file: {warm}")
+        # the same state through a cold engine: an empty compile cache,
+        # the bootstrap deny-all, every config compiled and uploaded
+        for k in timing:
+            timing[k] = 0.0
+        t = time.perf_counter()
+        eng2 = instrumented(PolicyEngine(max_batch=256, device=dev,
+                                         **WIDE_ADMISSION))
+        cluster2 = InMemoryCluster()
+        src2 = YamlDirSource(str(d), AuthConfigReconciler(eng2,
+                                                          cluster=cluster2),
+                             cluster2, SecretReconciler(eng2))
+        await src2.sync()
+        r = await eng2.check(c_reqs[flip_j])
+        total = time.perf_counter() - t
+        if r.code != want_new:
+            raise AssertionError(f"(c) a cold engine: {r.code}")
+        return warm, split(eng2, total)
+
+    sources_mod.load_manifests = timed_load
+    reconciler_mod.translate_auth_config = timed_translate
+    try:
+        for i, ac in enumerate(base):
+            write(i, ac, "1")
+            (d / f"key-{i:04d}.json").write_text(
+                json.dumps(cp.api_key_secret(i)))
+        warm, cold = asyncio.run(change_one_file())
+    finally:
+        sources_mod.load_manifests = real_load
+        reconciler_mod.translate_auth_config = real_translate
+        shutil.rmtree(d, ignore_errors=True)
+    numbers["one_file"] = {"configs": n, "secrets": n, "warm": warm,
+                           "cold": cold}
+
+    def fmt(s):
+        return (f"{s['total_ms']:.1f} ms = parse {s['parse_ms']:.1f} + "
+                f"translate {s['translate_ms']:.1f} + apply_snapshot "
+                f"{s['apply_snapshot_ms']:.1f} (compile "
+                f"{s.get('compile_ms', 0):.1f}, native encoder "
+                f"{s['native_encoder_ms']:.1f}, diff {s.get('diff_ms', 0):.1f}"
+                f", upload {s.get('upload_ms', 0):.1f}) + the rest "
+                f"{s['rest_ms']:.1f}; {s['compiled']} compiled, upload "
+                f"{s['upload']['mode']} {s['upload']['upload_bytes']} of "
+                f"{s['upload']['full_bytes']} B")
+
+    log(f"[{card}] incremental reconcile (c): one of {n} API-key manifest "
+        f"files changed (cfg {flip_i}'s rule flipped), from the write to the "
+        f"first Check() answering the new rule: {fmt(warm)}; the same state "
+        f"through a cold engine: {fmt(cold)}")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    numbers["launches"] = launches
+    report["incremental_reconcile"] = numbers
+    return launches, max_err
+
+
 def main() -> int:
     import torch
 
@@ -6324,18 +6943,25 @@ def main() -> int:
     require_no_failure_handling("phase 16", marks)
     max_err = max(max_err, dyn_err)
 
+    # ---- 17. the incremental reconcile and the snapshot container --------
+    marks = failure_marks()
+    inc_launches, inc_err = incremental_reconcile(
+        report, card, dev, ctx6, {"docs": ns_docs, "names": ns_names})
+    require_no_failure_handling("phase 17", marks)
+    max_err = max(max_err, inc_err)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": dyn_launches["fused_megakernel"],
+         "launches": inc_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": dyn_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": inc_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -6344,7 +6970,8 @@ def main() -> int:
     by_phase = {"4": main_launches, "6": path_launches, "7": opa_launches,
                 "8": jwt_launches, "9": core_launches, "10": cp_launches,
                 "12": serve_launches, "13": plane_launches,
-                "14": fail_launches, "15": fe_launches, "16": dyn_launches}
+                "14": fail_launches, "15": fe_launches, "16": dyn_launches,
+                "17": inc_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

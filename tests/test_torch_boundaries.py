@@ -159,6 +159,54 @@ def test_failure_modules_import_alone_without_services_or_the_reference(mod):
     assert "STATE open BAD []" in proc.stdout, proc.stdout
 
 
+SNAPSHOT_MODULES = ("snapshots.compile_cache", "snapshots.diff",
+                    "snapshots.delta", "snapshots.serialize")
+
+
+@pytest.mark.parametrize("mod", SNAPSHOT_MODULES)
+def test_snapshot_modules_import_alone_without_services_or_the_reference(mod):
+    """The compile cache, the diff, the delta upload and the container
+    each import on their own with ``grpc``, ``aiohttp``, ``jax`` and the
+    JAX package blocked, and there compile a corpus incrementally, diff
+    and delta-upload it on the CPU and round-trip it through a blob."""
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "from authorino_tpu_torch.models import northstar\n"
+        "from authorino_tpu_torch.ops.operands import host_operands, host_view\n"
+        "from authorino_tpu_torch.snapshots import CompileCache, plan_delta\n"
+        "from authorino_tpu_torch.snapshots.delta import apply_delta, full_upload\n"
+        "from authorino_tpu_torch.snapshots.serialize import deserialize_policy, "
+        "serialize_policy\n"
+        "cache = CompileCache()\n"
+        "cfgs = northstar.build_corpus(8, 4)\n"
+        "p0, _ = cache.compile(cfgs, members_k=4)\n"
+        "p1, rep = cache.compile(cfgs[:7] + northstar.build_corpus(9, 4)[8:], "
+        "members_k=4)\n"
+        "v0, v1 = host_view(host_operands(p0)), host_view(host_operands(p1))\n"
+        "prev, _ = full_upload(v0, 'cpu')\n"
+        "plan = plan_delta(v0, v1)\n"
+        "params, n = apply_delta(prev, v1, plan, 'cpu')\n"
+        "loaded, meta = deserialize_policy(serialize_policy(p1, {'g': 2}))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('COMPILED', rep.compiled, 'SAME', n == plan.upload_bytes, "
+        "'META', meta, 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "COMPILED 1 SAME True META {'g': 2} BAD []" in proc.stdout, \
+        proc.stdout
+
+
 def test_atomic_writer_ignores_the_reference_plane(tmp_path):
     """With both packages loaded, the reference's armed fs rule does not
     reach the port's writer (nor the port's the reference's): each writer

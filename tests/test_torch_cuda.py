@@ -884,3 +884,112 @@ def test_native_frontend_registered_jwt_repeat_rides_the_kernel(
             torch.from_numpy(buf).to(card), layout)).cpu().numpy()
         got = np.asarray(h.wait())
         assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def _card_tensors(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k != "launch_words":
+                out.update(_card_tensors(v, f"{prefix}.{k}"))
+        return out
+    if isinstance(tree, tuple):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_card_tensors(v, f"{prefix}.{i}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("change", northstar.CHANGES)
+def test_delta_on_the_card_equals_a_full_upload(card, change):
+    """A one-config change (a constant, an added leaf, an added regex)
+    shipped as a delta onto the card: every param equals a full upload of
+    the new corpus, the previous params' tensors keep their pointers and
+    bytes (and their cached launch words stay theirs), and the kernel's
+    readback on the delta-built params is byte-equal to the one on the
+    full upload and to plain."""
+    from authorino_tpu_torch.ops.operands import (defuse, host_operands,
+                                                  host_view, params_from_numpy)
+    from authorino_tpu_torch.snapshots import CompileCache, plan_delta
+    from authorino_tpu_torch.snapshots.delta import apply_delta, full_upload
+
+    cache = CompileCache()
+    p0, _ = cache.compile(northstar.build_corpus(200, 10), members_k=16)
+    p1, rep = cache.compile(
+        northstar.build_corpus(200, 10, changed={7: change}), members_k=16)
+    assert rep.compiled_names == ["cfg-7"]
+    v0, v1 = host_view(host_operands(p0)), host_view(host_operands(p1))
+    prev, _ = full_upload(v0, card)
+    docs = northstar.build_docs(256, seed=5)
+    rows = [random.Random(k).randrange(200) for k in range(256)]
+    db0 = pack_batch(p0, encode_batch(p0, docs, rows))
+    fk.eval_fused_kernel(prev, db0)          # caches prev's launch words
+    words = prev["kernel"]["launch_words"]
+    before = {k: (t.data_ptr(), t.clone())
+              for k, t in _card_tensors(prev).items()
+              if isinstance(t, torch.Tensor)}
+    plan = plan_delta(v0, v1)
+    params, shipped = apply_delta(prev, v1, plan, card)
+    torch.cuda.synchronize()
+    assert plan.mode == "delta" and shipped == plan.upload_bytes
+    if change == "const":
+        assert 0 < shipped < plan.full_bytes / 2
+    assert "launch_words" not in params["kernel"]
+    cold = params_from_numpy(host_operands(p1), device=card)
+    got, want = _card_tensors(params), _card_tensors(cold)
+    assert got.keys() == want.keys()
+    for k, t in want.items():
+        if isinstance(t, torch.Tensor):
+            assert got[k].device == t.device and torch.equal(got[k], t), k
+        else:
+            assert type(got[k]) is type(t) and got[k] == t, k
+    for k, (ptr, copy) in before.items():
+        t = _card_tensors(prev)[k]
+        assert t.data_ptr() == ptr and torch.equal(t, copy), k
+    assert prev["kernel"]["launch_words"] is words
+    db = pack_batch(p1, encode_batch(p1, docs, rows))
+    out = fk.eval_fused_kernel(params, db)
+    assert torch.equal(out, fk.eval_fused_kernel(cold, db))
+    buf, layout = fuse_batch(db)
+    plain = fk.fused_packed_plain(params, defuse(
+        torch.from_numpy(buf).to(card), layout))
+    assert torch.equal(out, plain)
+
+
+def test_engine_reconciles_incrementally_on_the_card(card):
+    """The engine on the card: an unchanged corpus reuses the installed
+    params (no upload, no probe), a one-config change ships a delta, and
+    every verdict after it equals the oracle, one launch per batch."""
+    cfgs = northstar.build_corpus(100, 10)
+    engine = PolicyEngine(device=card, max_batch=64, verdict_cache_size=0,
+                          batch_dedup=False)
+    entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c) for c in cfgs]
+    engine.apply_snapshot(entries)
+    first = engine._snapshot
+    p0 = fk.probe_launches
+    engine.apply_snapshot(entries)
+    assert engine._snapshot.params is first.params
+    assert engine._snapshot.upload["mode"] == "reuse"
+    assert fk.probe_launches == p0
+    new = northstar.build_corpus(100, 10, changed={3: "const"})
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in new])
+    snap = engine._snapshot
+    assert snap.upload["mode"] == "delta"
+    assert snap.compile_report.compiled_names == ["cfg-3"]
+    docs = northstar.build_docs(128, seed=9)
+    names = [f"cfg-{k % 100}" for k in range(128)]
+    l0 = fk.launches
+    out = asyncio.run(_gather(engine, docs, names))
+    assert fk.launches - l0 == 2
+    for (rule, skipped), d, n in zip(out, docs, names):
+        own, w_rule, w_skip = host_results(snap.policy, d,
+                                           snap.policy.config_ids[n])
+        assert bool(np.all(skipped | rule)) == own
+        assert skipped.tolist() == w_skip.tolist()
+
+
+async def _gather(engine, docs, names):
+    return await asyncio.gather(*(engine.submit(d, n)
+                                  for d, n in zip(docs, names)))

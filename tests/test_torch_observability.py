@@ -449,7 +449,9 @@ def test_engine_records_lifecycle_events(tmp_path):
         swap = [e for e in tail if e["kind"] == "snapshot-swap"][-1]
         assert swap["detail"] == {"generation": 2, "configs": 4}
         rec = [e for e in tail if e["kind"] == "reconcile"][-1]
-        assert set(rec["detail"]["phases_ms"]) == {"compile", "upload"}
+        # the same corpus again: the compile cache reuses the installed
+        # policy and params, so the reconcile has no diff or upload phase
+        assert set(rec["detail"]["phases_ms"]) == {"compile"}
         cp = engine.debug_vars()["control_plane"]
         assert cp["generation"] == 2
         assert cp["kernel_cost"]["entries"]["fused_kernel"]["pad"] == 16
@@ -518,7 +520,8 @@ FAMILIES = ("batch_size", "batch_pad_occupancy", "batch_queue_wait",
             "kernel_modeled_flops_per_row", "slo_burn_rate", "slo_bad_total",
             "slo_observed_total", "flight_events", "flight_dumps",
             "state_write_failures", "circuit_state", "circuit_transitions",
-            "degraded_decisions", "injected_faults")
+            "degraded_decisions", "injected_faults", "compile_cache_events",
+            "delta_upload_bytes", "full_upload_bytes")
 
 DESCRIBE = """
 import importlib, json, sys
