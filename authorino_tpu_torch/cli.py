@@ -205,8 +205,7 @@ def build_parser() -> argparse.ArgumentParser:
 # item (queue 1) that brings each
 UNPORTED_PLANES = {
     "brownout": 3, "lane selection": 3,
-    "speculative dispatch": 3, "tenancy": 3, "canary": 3,
-    "snapshot history": 3, "metadata prefetch": 5,
+    "speculative dispatch": 3, "tenancy": 3, "metadata prefetch": 5,
     "state plane": 7, "snapshot distribution": 7,
     "kernel lanes": 9,
     "strict verify": 12, "capture": 12, "replay pregate": 12,
@@ -224,8 +223,6 @@ UNPORTED_FLAGS = {
     "tenant_quota_rps": (0.0, "tenancy"),
     "tenant_contain_threshold": (3.0, "tenancy"),
     "tenant_top_k": (16, "tenancy"),
-    "canary_fraction": (0.0, "canary"),
-    "canary_window": (30.0, "canary"),
     "capture": (False, "capture"),
     "capture_log_dir": ("", "capture"),
     "capture_log_size_mb": (64.0, "capture"),
@@ -234,7 +231,6 @@ UNPORTED_FLAGS = {
     "replay_pregate_budget_ms": (2000.0, "replay pregate"),
     "corpus_pregate": ("", "corpus pregate"),
     "corpus_pregate_budget_ms": (2000.0, "corpus pregate"),
-    "snapshot_history": (4, "snapshot history"),
     "metadata_max_age": (300.0, "metadata prefetch"),
     "metadata_refresh": (60.0, "metadata prefetch"),
     "strict_verify": (False, "strict verify"),
@@ -418,6 +414,9 @@ async def run_server(args, on_engine=None) -> None:
         slo_ms=float(args.slo_ms),
         breaker_threshold=int(args.breaker_threshold),
         breaker_reset_s=float(args.breaker_reset),
+        canary_fraction=float(args.canary_fraction),
+        canary_window_s=float(args.canary_window),
+        snapshot_history=int(args.snapshot_history),
     )
     if engine.device.type == "cuda":
         import torch

@@ -279,8 +279,7 @@ class AuthConfigReconciler:
                 self.status.set(entry.id, STATUS_CACHING_ERROR,
                                 f"corpus swap failed: {e}")
             raise
-        # change safety (a no-op until the engine has a canary: the
-        # attribute is absent): a config quarantined after
+        # change safety: a config the engine quarantined after
         # a canary guard breach SERVES (its prior vetted artifact), so it
         # stays Ready — but the status message must tell the operator the
         # new spec was rolled back and is being held out

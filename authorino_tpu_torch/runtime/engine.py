@@ -89,7 +89,8 @@ and ``batch_latency_s`` each device batch's time from its encode to its
 verdicts.  The structural contract: one launch per batch with at least one
 unique uncached row and none for a batch the cache answers whole; D2H = Σ
 pad_u × W; rows = device rows + rows saved by dedup + rows saved by the
-cache + degraded rows.
+cache + degraded rows.  During a canary a batch is one (cut, cohort) part:
+a cut that holds both cohorts makes two, each on its own generation.
 
 The observability planes ride the reference's sites: the encode and launch
 stages are timed in the encode stage and the device and resolve stages
@@ -116,6 +117,19 @@ fresh tensors (the old snapshot's are never written); the same corpus
 again reuses the installed params outright.
 Swap listeners fire after each swap, and ``notify_swap_listeners`` fires
 them without one (the Secret reconciler after an in-place rotation).
+
+Change safety (runtime/change_safety.py) rides the swap: with
+``canary_fraction`` > 0 a corpus-changing reconcile serves a hash cohort
+of requests (over host|path|method) from the new generation while the
+rest stays on the old one, both generations' params on the device at
+once; the host index is the reconcile's from the start.  The guards fold
+per part (deny, per-config deny, typed-error and SLO rates by cohort); a
+breach rolls back to a clone of the retained baseline and quarantines
+the poison configs (the rest of the reconcile re-applied without them), a
+clean window promotes.  The swap listeners fire only at promotion or
+rollback.  A bounded history of earlier generations (params included)
+backs ``rollback_last``, a pointer swap: nothing compiled, nothing
+uploaded.
 """
 
 from __future__ import annotations
@@ -146,14 +160,15 @@ from ..ops.operands import (firing_columns, host_view, packed_width,
 from ..pipeline import AuthPipeline, AuthResult
 from ..snapshots.compile_cache import CompileCache, CompileReport
 from ..snapshots.delta import apply_delta
-from ..snapshots.diff import plan_delta
-from ..snapshots.fingerprint import cache_tokens
+from ..snapshots.diff import plan_delta, snapshot_diff
+from ..snapshots.fingerprint import cache_tokens, rules_fingerprint
 from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
 from ..utils import tracing as tracing_mod
 from ..utils.rpc import DEADLINE_EXCEEDED, NOT_FOUND, UNAVAILABLE, CheckAbort
 from ..utils.slo import SloTracker
 from ..utils.verdict_cache import VerdictCache
+from . import change_safety as safety_mod
 from . import faults
 from . import kernel_cost as kernel_cost_mod
 from . import provenance as prov_mod
@@ -210,6 +225,10 @@ class _Snapshot:
                  prev: "Optional[_Snapshot]" = None, override: bool = True):
         self.index: HostIndex[EngineEntry] = HostIndex()
         self.entries: List[EngineEntry] = list(entries)
+        self.by_id: Dict[str, EngineEntry] = {e.id: e for e in entries}
+        # the rollback or quarantine record of a snapshot that is one (set
+        # on rollback clones and quarantine re-applies)
+        self.change_safety: Optional[Dict[str, Any]] = None
         for e in entries:
             for host in e.hosts:
                 self.index.set(e.id, host, e, override=override)
@@ -285,6 +304,17 @@ class _Snapshot:
         except Exception:
             log.exception("rule heat map build failed (swap unaffected)")
 
+    def clone(self) -> "_Snapshot":
+        """Shallow re-serve copy (a rollback is a pointer swap): shares the
+        compiled policy, the device params, the host index, the heat map
+        and the cache tokens; only the generation and the change-safety
+        record are its own, so batches pinned to the original keep
+        resolving and inserting verdicts under their own generation."""
+        c = _Snapshot.__new__(_Snapshot)
+        c.__dict__.update(self.__dict__)
+        c.change_safety = None
+        return c
+
 
 @dataclass
 class _Pending:
@@ -295,6 +325,9 @@ class _Pending:
     span: Any = None                  # the Check()'s RequestSpan
     t_enq: float = 0.0                # monotonic enqueue time
     deadline: Optional[float] = None  # monotonic Check() deadline
+    # the canary cohort, stamped at submit while a canary is in progress:
+    # a cut partitions by it, so every launch rides one generation
+    canary: bool = False
 
 
 class _Resolved:
@@ -362,7 +395,11 @@ class PolicyEngine:
                  device_timeout_s: Optional[float] = None,
                  slo_ms: float = 0.0,
                  breaker_threshold: int = 5,
-                 breaker_reset_s: float = 5.0):
+                 breaker_reset_s: float = 5.0,
+                 canary_fraction: float = 0.0,
+                 canary_window_s: float = 30.0,
+                 canary_thresholds=None,
+                 snapshot_history: int = 4):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -381,7 +418,19 @@ class PolicyEngine:
         ``timeout_s`` bounds one Check()'s
         pipeline.  ``slo_ms`` (0 = off) arms the SLO burn-rate tracker:
         a request is bad when its queue wait plus its batch's device
-        stage exceeds it, or when it fails with a serving error."""
+        stage exceeds it, or when it fails with a serving error.
+
+        Change safety: with ``canary_fraction`` > 0, a reconcile that
+        changes the compiled corpus does not swap at 100%: a deterministic
+        hash-fraction of requests (runtime/change_safety.py
+        ``in_canary_cohort``) rides the new generation for
+        ``canary_window_s`` while the rest keeps the previous one, both
+        generations' params resident on the device.  Guards
+        (``canary_thresholds``: ``GuardThresholds``) compare the cohorts'
+        deny, error and SLO rates; a breach rolls back (a pointer swap to
+        the retained baseline) and quarantines the poison configs, a clean
+        window promotes.  ``snapshot_history`` bounds the previous
+        generations retained for ``rollback_last``."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
@@ -431,6 +480,20 @@ class PolicyEngine:
         # phases (the /debug/vars control_plane block)
         self._cost_model = CostModel("engine")
         self._control_plane: Optional[Dict[str, Any]] = None
+        # change safety: the canary in progress, the quarantine record
+        # (poison config id -> fingerprints) with the prior entry each
+        # resync substitutes back in, the bounded history of earlier
+        # snapshots for manual rollback, and the last rollback's evidence
+        self.canary_fraction = min(max(float(canary_fraction), 0.0), 1.0)
+        self.canary_window_s = float(canary_window_s)
+        self.canary_thresholds = canary_thresholds
+        self._canary: Optional[safety_mod.CanaryPhase] = None
+        self._quarantine: Optional[Dict[str, Any]] = None
+        self._quarantine_prior: Dict[str, EngineEntry] = {}
+        self._history: deque = deque(maxlen=max(1, int(snapshot_history)))
+        self._last_rollback: Optional[Dict[str, Any]] = None
+        self._g_canary = metrics_mod.canary_state.labels("engine")
+        self._g_quarantine = metrics_mod.quarantined_configs.labels("engine")
         RECORDER.register_provider("engine", self, "debug_vars")
 
     def _add_stats(self, **counts) -> None:
@@ -464,20 +527,57 @@ class PolicyEngine:
         In-flight batches finish on the snapshot they were cut against,
         and insert and serve verdicts under its cache tokens.  An entry
         whose pattern evaluators are not bound to this engine is refused
-        (ValueError) before anything is swapped."""
+        (ValueError) before anything is swapped.
+
+        Change safety: still-poisoned quarantined configs are substituted
+        with their prior artifacts before the compile, and a
+        corpus-changing swap enters the canary phase instead of serving
+        100% at once (``canary_fraction`` > 0)."""
+        self._apply_entries(entries, override=override, allow_canary=True)
+
+    def _apply_entries(self, entries: Sequence[EngineEntry],
+                       override: bool = True,
+                       allow_canary: bool = True) -> None:
         for e in entries:
             self._check_bound(e)
+        phase = self._canary
+        if phase is not None:
+            # a newer reconcile supersedes an undecided canary: the
+            # baseline re-serves first and the new corpus gets its own
+            # canary (never two candidate generations)
+            self._canary_rollback(phase, reason="superseded",
+                                  quarantine=False)
+        entries = self._substitute_quarantined(entries)
         snap = _Snapshot(entries, self.members_k, self.ovf_assist,
                          self.device, self.compile_cache,
                          prev=self._snapshot, override=override)
+        q = self._quarantine
+        if q is not None:
+            # the active quarantine rides the snapshot it shaped
+            snap.change_safety = {"quarantine": {
+                "configs": sorted(q["configs"]),
+                "from_generation": q["from_generation"]}}
+        if allow_canary and self._should_canary(snap):
+            self._enter_canary(snap, entries)
+        else:
+            self._install_snapshot(snap)
+
+    def _install_snapshot(self, snap: _Snapshot) -> None:
+        """The swap at 100%: publish under the swap lock, retain the
+        outgoing snapshot in the bounded history (a later rollback
+        re-serves it as it stands: its device buffers are never written),
+        telemetry, swap listeners."""
         with self._swap_lock:
             self.generation += 1
             snap.generation = self.generation
+            prev = self._snapshot
             self._snapshot = snap
             metrics_mod.snapshot_generation.labels("engine").set(
                 self.generation)
+            if prev is not None and prev.policy is not None:
+                self._history.append(prev)
         RECORDER.record("snapshot-swap", lane="engine", detail={
-            "generation": snap.generation, "configs": len(entries)})
+            "generation": snap.generation, "configs": len(snap.by_id)})
         self._record_control_plane(snap)
         self.notify_swap_listeners()
 
@@ -527,6 +627,9 @@ class PolicyEngine:
                 self._control_plane["kernel_cost"] = cost_rec
                 self._control_plane["kernel_cost_ms"] = round(
                     (time.perf_counter() - t0) * 1e3, 3)
+            phase = self._canary
+            if phase is not None and phase.snap is snap:
+                phase.kernel_cost = cost_rec
         except Exception:
             log.exception("kernel cost analysis failed (swap unaffected)")
 
@@ -551,8 +654,393 @@ class PolicyEngine:
                     f"{conf.name!r} is not bound to this engine's compiled "
                     "config (translate it with engine= this engine)")
 
+    # ---- change safety: canary, rollback, quarantine -----------------------
+
+    def _should_canary(self, snap: _Snapshot) -> bool:
+        """A swap canaries when change safety is on, the engine is not
+        draining and the compiled corpus actually changed (an
+        identical-fingerprint resync has nothing to prove)."""
+        if not (self.canary_fraction > 0.0 and self.canary_window_s > 0.0):
+            return False
+        if self._draining:
+            return False
+        prev = self._snapshot
+        if prev is None or prev.policy is None or snap.policy is None:
+            return False
+        return snap.fingerprints != prev.fingerprints
+
+    def _enter_canary(self, snap: _Snapshot,
+                      entries: Sequence[EngineEntry]) -> None:
+        """Start the canary phase: the reconcile's host index lands at
+        once (``index`` reads the phase's), but the verdict lane splits —
+        the hash-fraction cohort rides the new generation, everyone else
+        the baseline, each on its own params.  The swap listeners do not
+        fire: the native fast lane keeps the baseline until promotion, so
+        a breach never has to claw anything back from it."""
+        baseline = self._snapshot
+        # the per-config guards watch only what this reconcile changed:
+        # an unchanged config shares the baseline's artifact and can only
+        # differ by cohort selection bias
+        changed = set(snapshot_diff(baseline.fingerprints or {},
+                                    snap.fingerprints or {})["recompile"])
+        phase = safety_mod.CanaryPhase(
+            snap=snap, baseline=baseline, entries=entries,
+            index=snap.index, baseline_index=baseline.index,
+            fraction=self.canary_fraction, window_s=self.canary_window_s,
+            guard=safety_mod.CanaryGuard(self.canary_thresholds,
+                                         changed=changed))
+        with self._swap_lock:
+            self.generation += 1
+            snap.generation = self.generation
+            self._canary = phase
+        self._g_canary.set(1)
+        RECORDER.record("canary-start", lane="engine", detail={
+            "generation": snap.generation,
+            "baseline_generation": baseline.generation,
+            "fraction": self.canary_fraction,
+            "window_s": self.canary_window_s,
+            "configs": len(snap.by_id)})
+        self._record_control_plane(snap)
+        log.info("canary started: generation %d serving %.1f%% of traffic "
+                 "for %.1fs (baseline %d serves the rest)",
+                 snap.generation, self.canary_fraction * 100,
+                 self.canary_window_s, baseline.generation)
+        phase.start_timer(lambda: self._canary_conclude(phase))
+
+    def _canary_conclude(self, phase) -> None:
+        """Window expiry (the phase timer's thread, or a worker): one final
+        guard evaluation, forced past the rate limit, then promote or roll
+        back."""
+        if self._draining:
+            return
+        try:
+            b = phase.guard.breach(force=True)
+            if b is not None:
+                self._canary_rollback(phase, reason="guard-breach",
+                                      detail=b)
+            else:
+                self._canary_promote(phase)
+        except Exception:
+            log.exception("canary conclude failed")
+
+    def _canary_guard_check(self, phase) -> None:
+        """Breach/expiry check (worker threads only: promotion and
+        rollback fan out to the swap listeners and a rollback recompiles,
+        never on a serving loop or the completer)."""
+        if self._canary is not phase or self._draining:
+            return
+        b = phase.guard.breach()
+        if b is not None:
+            self._canary_rollback(phase, reason="guard-breach", detail=b)
+        elif phase.expired():
+            self._canary_conclude(phase)
+
+    def _canary_poke(self, phase) -> None:
+        """After a guard feed: when the guard has breached or the window
+        has run out, hand the decision to the encode pool (the feeder may
+        be the completer thread or a readback thread)."""
+        if phase.guard.breach() is not None or phase.expired():
+            _encode_pool(self.dispatch_workers).submit(
+                self._canary_guard_check, phase)
+
+    def _canary_promote(self, phase, manual: bool = False) -> bool:
+        """Clean window (or the operator's override): the candidate
+        serves 100% — a pointer swap; the baseline joins the history and
+        the swap listeners finally fire."""
+        with self._swap_lock:
+            if self._canary is not phase:
+                return False
+            # the serving snapshot first: a cut that reads no phase finds
+            # the candidate already in place (never a torn read)
+            self._snapshot = phase.snap
+            self._canary = None
+            if phase.baseline is not None and \
+                    phase.baseline.policy is not None:
+                self._history.append(phase.baseline)
+            metrics_mod.snapshot_generation.labels("engine").set(
+                phase.snap.generation)
+        phase.cancel_timer()
+        phase.guard.close()
+        self._g_canary.set(0)
+        RECORDER.record("canary-promote", lane="engine", detail={
+            "generation": phase.snap.generation, "manual": manual,
+            "age_s": round(time.monotonic() - phase.t_start, 3)})
+        log.info("canary promoted to 100%%: generation %d now serves all "
+                 "traffic%s", phase.snap.generation,
+                 " (manual override)" if manual else "")
+        self.notify_swap_listeners()
+        return True
+
+    def _canary_rollback(self, phase, reason: str,
+                         detail: Optional[Dict[str, Any]] = None,
+                         quarantine: bool = True,
+                         manual: bool = False) -> bool:
+        """Guard breach (or supersede, or the operator): the baseline
+        re-serves 100% at once — a pointer swap to a clone of the retained
+        baseline under a fresh generation (batches pinned to the candidate
+        keep resolving under its tokens) — then the poison configs are
+        quarantined and the rest of the reconcile re-applied."""
+        t_detect = time.monotonic()
+        clone = phase.baseline.clone()
+        clone.change_safety = {"rollback": {
+            "from_generation": phase.snap.generation, "reason": reason}}
+        with self._swap_lock:
+            if self._canary is not phase:
+                return False
+            self.generation += 1
+            clone.generation = self.generation
+            self._snapshot = clone
+            self._canary = None
+            metrics_mod.snapshot_generation.labels("engine").set(
+                clone.generation)
+        phase.cancel_timer()
+        phase.guard.close()
+        self._g_canary.set(0)
+        metrics_mod.snapshot_rollbacks.labels(reason).inc()
+        self._last_rollback = {
+            "t": time.time(), "reason": reason, "manual": manual,
+            "from_generation": phase.snap.generation,
+            "to_generation": clone.generation,
+            "detect_ms": round((t_detect - phase.t_start) * 1e3, 3),
+            "detail": detail, "quarantined": [],
+        }
+        RECORDER.record("snapshot-rollback", lane="engine", detail={
+            "reason": reason,
+            "from_generation": phase.snap.generation,
+            "to_generation": clone.generation,
+            "guard": detail})
+        log.error("canary ROLLED BACK (%s): generation %d abandoned, "
+                  "baseline re-serving as generation %d%s", reason,
+                  phase.snap.generation, clone.generation,
+                  f" — guard: {detail}" if detail else "")
+        self.notify_swap_listeners()
+        if quarantine and reason == "guard-breach":
+            try:
+                self._quarantine_poison(phase, detail, t_detect)
+            except Exception:
+                log.exception("quarantine re-apply failed (rolled-back "
+                              "baseline keeps serving)")
+        return True
+
+    def _quarantine_poison(self, phase, detail: Optional[Dict[str, Any]],
+                           t_detect: float) -> None:
+        """After a guard-breach rollback: the fingerprint diff names what
+        the reconcile changed, the guard's per-config deltas pin the spike
+        — their intersection is the poison set (every changed config when
+        the breach had no per-config attribution).  The reconcile is then
+        re-applied with only the poison configs reverted to their prior
+        artifacts (the compile cache makes that nearly free).  The
+        quarantine persists across resyncs until the operator ships a
+        fixed config or clears it."""
+        changed = set(snapshot_diff(phase.baseline.fingerprints or {},
+                                    phase.snap.fingerprints or {})
+                      ["recompile"])
+        suspects = [s for s in (detail or {}).get("suspects", [])
+                    if s in changed]
+        poison = suspects or sorted(changed)
+        if not poison:
+            return
+        base_by_id = phase.baseline.by_id
+        configs: Dict[str, Dict[str, Any]] = {}
+        prior: Dict[str, EngineEntry] = {}
+        for e in phase.entries:
+            if e.id not in poison:
+                continue
+            configs[e.id] = {
+                "poison": (phase.snap.fingerprints or {}).get(e.id),
+                "prior": (phase.baseline.fingerprints or {}).get(e.id),
+            }
+            pe = base_by_id.get(e.id)
+            if pe is not None:
+                prior[e.id] = pe
+            # no prior entry: the poison config is new this reconcile and
+            # quarantines out entirely
+        if not configs:
+            return
+        self._quarantine = {
+            "since": time.time(), "reason": "guard-breach",
+            "from_generation": phase.snap.generation,
+            "configs": configs,
+        }
+        self._quarantine_prior = prior
+        self._g_quarantine.set(len(configs))
+        RECORDER.record("quarantine", lane="engine", detail={
+            "configs": sorted(configs),
+            "from_generation": phase.snap.generation})
+        log.warning("quarantined %d poison config(s) %s: re-applying the "
+                    "reconcile with their prior artifacts", len(configs),
+                    sorted(configs))
+        # the original entries again: the armed quarantine substitutes
+        # each poison entry (or drops one with no prior), as a control
+        # plane resync would — one substitution path
+        self._apply_entries(phase.entries, override=True,
+                            allow_canary=False)
+        if self._last_rollback is not None:
+            self._last_rollback["quarantined"] = sorted(configs)
+            self._last_rollback["recover_ms"] = round(
+                (time.monotonic() - t_detect) * 1e3, 3)
+
+    def _substitute_quarantined(
+            self, entries: Sequence[EngineEntry]) -> Sequence[EngineEntry]:
+        """Resync guard: while a quarantine is active, an incoming entry
+        that still carries the poison fingerprint is replaced by its prior
+        entry (the control plane keeps resyncing the same bad spec — it
+        must not re-serve it); an entry whose fingerprint changed (neither
+        poison nor prior) was fixed by the operator and takes the normal
+        (canaried) path."""
+        q = self._quarantine
+        if not q:
+            return entries
+        qc: Dict[str, Dict[str, Any]] = q["configs"]
+        out: List[EngineEntry] = []
+        still: Dict[str, Dict[str, Any]] = {}
+        for e in entries:
+            rec = qc.get(e.id)
+            if rec is None:
+                out.append(e)
+                continue
+            fp = rules_fingerprint(e.rules) if e.rules is not None else None
+            if fp == rec["poison"]:
+                still[e.id] = rec
+                pe = self._quarantine_prior.get(e.id)
+                if pe is not None:
+                    out.append(EngineEntry(id=e.id, hosts=list(e.hosts),
+                                           runtime=pe.runtime,
+                                           rules=pe.rules))
+                # no prior entry: stays quarantined out
+            elif fp == rec["prior"]:
+                # already the prior artifact (the quarantine's own
+                # re-apply, or the operator reverting by hand): serve it,
+                # and keep the quarantine armed against the poison spec
+                still[e.id] = rec
+                out.append(e)
+            else:
+                log.info("quarantine released for %s: fingerprint changed "
+                         "(operator fix) — the new spec takes the normal "
+                         "path", e.id)
+                out.append(e)
+        if still != qc:
+            if still:
+                self._quarantine = dict(q, configs=still)
+            else:
+                self.clear_quarantine(note="all poison configs changed")
+            self._g_quarantine.set(len(still))
+        return out
+
+    def clear_quarantine(self, note: str = "") -> bool:
+        q = self._quarantine
+        if q is None:
+            return False
+        RECORDER.record("quarantine-clear", lane="engine", detail={
+            "note": note, "configs": sorted(q["configs"])})
+        log.info("quarantine cleared (%s): %s", note or "operator",
+                 sorted(q["configs"]))
+        self._quarantine = None
+        self._quarantine_prior = {}
+        self._g_quarantine.set(0)
+        return True
+
+    @property
+    def quarantine_active(self) -> bool:
+        return self._quarantine is not None
+
+    def canary_promote(self) -> bool:
+        """The operator's override (/debug/canary): promote the canary in
+        progress at once, guard unconsulted."""
+        phase = self._canary
+        return self._canary_promote(phase, manual=True) \
+            if phase is not None else False
+
+    def canary_rollback(self, reason: str = "manual") -> bool:
+        """The operator's override: roll back the canary in progress (no
+        quarantine — the operator is driving), or, with none in progress,
+        re-serve the newest retained generation."""
+        phase = self._canary
+        if phase is not None:
+            return self._canary_rollback(phase, reason=reason,
+                                         quarantine=False, manual=True)
+        return self.rollback_last(reason=reason)
+
+    def rollback_last(self, reason: str = "manual") -> bool:
+        """Manual rollback outside a canary: re-serve the newest retained
+        snapshot (its host index rides on it) of the bounded history as a
+        fresh generation — nothing compiled, nothing uploaded, no probe."""
+        with self._swap_lock:
+            if not self._history:
+                return False
+            prev_snap = self._history.pop()
+            clone = prev_snap.clone()
+            from_gen = (self._snapshot.generation
+                        if self._snapshot is not None else 0)
+            self.generation += 1
+            clone.generation = self.generation
+            clone.change_safety = {"rollback": {
+                "from_generation": from_gen, "reason": reason}}
+            self._snapshot = clone
+            metrics_mod.snapshot_generation.labels("engine").set(
+                clone.generation)
+        metrics_mod.snapshot_rollbacks.labels(reason).inc()
+        self._last_rollback = {
+            "t": time.time(), "reason": reason, "manual": True,
+            "from_generation": from_gen,
+            "to_generation": clone.generation,
+            "detect_ms": None, "detail": None, "quarantined": [],
+        }
+        RECORDER.record("snapshot-rollback", lane="engine", detail={
+            "reason": reason, "from_generation": from_gen,
+            "to_generation": clone.generation})
+        log.warning("manual rollback: generation %d re-serving as %d",
+                    from_gen, clone.generation)
+        self.notify_swap_listeners()
+        return True
+
+    def canary_observe_external(self, rows, firing, heat,
+                                shards=None) -> None:
+        """Baseline-cohort guard evidence from outside the engine's own
+        dispatch: the native fast lane serves the baseline during a
+        canary (its C++ snapshot rebuilds only at promotion or rollback),
+        so its per-batch attribution strengthens the comparison.  A
+        decision hops to the encode pool: the caller may be a readback
+        thread."""
+        phase = self._canary
+        if phase is None or heat is None or firing is None:
+            return
+        try:
+            phase.guard.observe_batch(False, rows, firing, heat,
+                                      shards=shards)
+            self._canary_poke(phase)
+        except Exception:
+            log.exception("external canary guard feed failed")
+
+    def change_safety_vars(self) -> Dict[str, Any]:
+        """JSON-safe change-safety state (a pure read: /debug/canary,
+        /debug/vars, the native frontend's vars)."""
+        phase = self._canary
+        q = self._quarantine
+        with self._swap_lock:
+            # a reconcile appends to the history under this lock
+            history = [s.generation for s in self._history]
+        return {
+            "canary_fraction": self.canary_fraction,
+            "canary_window_s": self.canary_window_s,
+            "canary": phase.to_json() if phase is not None else None,
+            "quarantine": ({
+                "since": q["since"], "reason": q["reason"],
+                "from_generation": q["from_generation"],
+                "configs": sorted(q["configs"]),
+            } if q is not None else None),
+            "history_generations": history,
+            "last_rollback": self._last_rollback,
+        }
+
     @property
     def index(self) -> HostIndex:
+        """The host index the pipeline looks hosts up in: the canary's
+        (the reconcile's) while one is in progress, else the serving
+        snapshot's."""
+        phase = self._canary
+        if phase is not None:
+            return phase.index
         snap = self._snapshot
         return snap.index if snap is not None else HostIndex()
 
@@ -671,7 +1159,14 @@ class PolicyEngine:
         iteration."""
         if self._draining:
             raise CheckAbort(UNAVAILABLE, "server draining")
-        snap = self._snapshot
+        # the canary cohort, stamped here: deterministic over the
+        # request's identity, so a retry keeps its cohort.  A config the
+        # canaried reconcile added has no baseline artifact: its traffic
+        # rides the candidate whatever its cohort
+        phase = self._canary
+        in_canary = phase is not None and (
+            phase.in_cohort(doc) or config_name not in phase.baseline.by_id)
+        snap = phase.snap if in_canary else self._snapshot
         if snap is None or snap.policy is None:
             # typed, as the reference answers a batch cut with no compiled
             # snapshot: nothing (device or oracle) can decide it
@@ -694,7 +1189,8 @@ class PolicyEngine:
         with self._queue_lock:
             self._queue.append(_Pending(doc, config_name, fut, loop,
                                         span=span, t_enq=time.monotonic(),
-                                        deadline=deadline))
+                                        deadline=deadline,
+                                        canary=in_canary))
             self.controller.observe_arrivals()
         loop.call_soon(self._maybe_dispatch)
         rule, skipped, used = await fut
@@ -707,7 +1203,9 @@ class PolicyEngine:
         the queue is not empty.  Runs on event loops (after a submit) and
         on the completer and pool threads (after a batch resolves); a call
         with nothing to do is a cheap no-op, so no timer is needed: a full
-        window means a completion will come, and it cuts the next batch."""
+        window means a completion will come, and it cuts the next batch.
+        During a canary a cut splits by cohort into at most two parts,
+        each its own job (and window slot) on its own generation."""
         while True:
             with self._queue_lock:
                 if not self._queue or \
@@ -715,14 +1213,25 @@ class PolicyEngine:
                     break
                 n = min(len(self._queue), self.max_batch)
                 batch = [self._queue.popleft() for _ in range(n)]
-                self._inflight += 1
+                phase = self._canary
+                parts = _split_cohorts(batch, phase)
+                self._inflight += len(parts)
                 self.inflight_peak = max(self.inflight_peak, self._inflight)
                 inflight = self._inflight
             self._g_inflight.set(inflight)
-            # pinned per batch: a swap admitted later never relabels it
-            _encode_pool(self.dispatch_workers).submit(
-                self._encode_launch_job, self._snapshot, batch)
+            for is_canary, part in parts:
+                # pinned per part: a swap admitted later never relabels
+                # it.  A phase that concluded since the stamp collapses
+                # to the serving snapshot: still one generation
+                _encode_pool(self.dispatch_workers).submit(
+                    self._encode_launch_job,
+                    self._snap_for(phase, is_canary), part)
         self._g_depth.set(len(self._queue))
+
+    def _snap_for(self, phase, is_canary: bool) -> Optional[_Snapshot]:
+        if phase is None:
+            return self._snapshot
+        return phase.snap if is_canary else phase.baseline
 
     def _encode_launch_job(self, snap: Optional[_Snapshot],
                            batch: List[_Pending], attempt: int = 0) -> None:
@@ -851,9 +1360,17 @@ class PolicyEngine:
 
     def begin_drain(self) -> None:
         """Stop admitting (submit answers a typed UNAVAILABLE); queued and
-        in-flight work keeps flowing to completion."""
+        in-flight work keeps flowing to completion.  A canary in progress
+        stays undecided: its window timer is cancelled."""
         if not self._draining:
             self._draining = True
+            phase = self._canary
+            if phase is not None:
+                # a window expiry mid-drain must not promote or roll back
+                # into a tearing-down process (the swap listeners would
+                # rebuild a stopped frontend): the canary stays undecided
+                # and cohort routing serves until exit
+                phase.cancel_timer()
             RECORDER.record("drain", lane="engine", detail={
                 "queue": len(self._queue), "inflight": self._inflight})
             log.info("engine draining: admission stopped "
@@ -1070,6 +1587,15 @@ class PolicyEngine:
                 host_of=lambda i: _doc_host(pendings[i].doc),
                 latency_of=lambda i: ((now_m - pendings[i].t_enq) * 1e3
                                       if pendings[i].t_enq else 0.0))
+            # the canary guards read the same attribution columns: a part
+            # rides one generation, so the evaluating snapshot names the
+            # cohort
+            phase = self._canary
+            if phase is not None and \
+                    (snap is phase.snap or snap is phase.baseline):
+                phase.guard.observe_batch(snap is phase.snap, rows, firing,
+                                          heat)
+                self._canary_poke(phase)
         except Exception:
             log.exception("provenance fold failed (decision unaffected)")
             return None
@@ -1154,6 +1680,10 @@ class PolicyEngine:
             "generation": snap.generation, "degraded": reason})
         self._add_stats(degraded_rows=n_ok, degraded_batches=1,
                         failed_batches=int(n_failed > 0))
+        if n_failed and batch:
+            # rows the oracle itself fails are serving errors: a canary
+            # artifact broken on both lanes still feeds the guard
+            self._canary_errors(batch, n_failed)
         self._resolve_host_decisions(by_loop, failed)
 
     def debug_vars(self) -> Dict[str, Any]:
@@ -1186,6 +1716,7 @@ class PolicyEngine:
             "admission": self.admission.to_json(),
             "adaptive": self.controller.to_json(),
             "control_plane": self._control_plane,
+            "change_safety": self.change_safety_vars(),
             "slo": self.slo.to_json() if self.slo is not None else None,
             "faults": (faults.FAULTS.describe() if faults.ACTIVE else
                        {"armed": False}),
@@ -1290,9 +1821,16 @@ class PolicyEngine:
         try:
             if self.slo is not None:
                 lat = np.asarray(item.waits) + dur
-                self.slo.observe(len(item.batch), int(np.count_nonzero(
-                    lat > self.slo.slo_s)))
+                n_bad = int(np.count_nonzero(lat > self.slo.slo_s))
+                self.slo.observe(len(item.batch), n_bad)
                 counted = True
+                # the SLO guard: per-cohort bad fractions from the same
+                # per-batch counts
+                phase = self._canary
+                if phase is not None and \
+                        item.snap in (phase.snap, phase.baseline):
+                    phase.guard.observe_slo(item.snap is phase.snap,
+                                            len(item.batch), n_bad)
             binfo = item.binfo
             metrics_mod.observe_pipeline_stage("engine", "device", dur)
             metrics_mod.observe_batch(
@@ -1322,7 +1860,22 @@ class PolicyEngine:
                     self.slo.observe_errors(len(batch))
                 except Exception:
                     log.exception("SLO error fold failed")
+            # a canary generation whose batches keep failing must breach
+            # even when it never produces a deny column
+            self._canary_errors(batch, len(batch))
         self._fail_all(batch, exc)
+
+    def _canary_errors(self, batch: List[_Pending], n: int) -> None:
+        """The typed-error guard feed: ``n`` serving errors of one part
+        (parts are cohort-homogeneous)."""
+        phase = self._canary
+        if phase is None or not batch:
+            return
+        try:
+            phase.guard.observe_errors(bool(batch[0].canary), n)
+            self._canary_poke(phase)
+        except Exception:
+            log.exception("canary error feed failed")
 
     @staticmethod
     def _fail_all(batch: List[_Pending], exc: CheckAbort) -> None:
@@ -1360,6 +1913,21 @@ def _doc_host(doc) -> str:
         return str((doc.get("request") or {}).get("host", ""))
     except Exception:
         return ""
+
+
+def _split_cohorts(batch, phase):
+    """Partition one cut by canary cohort: [(is_canary, items), ...] with
+    empties dropped.  With no canary in progress the cut ships whole."""
+    if phase is None:
+        return [(False, batch)]
+    base = [p for p in batch if not p.canary]
+    can = [p for p in batch if p.canary]
+    parts = []
+    if base:
+        parts.append((False, base))
+    if can:
+        parts.append((True, can))
+    return parts or [(False, batch)]
 
 
 def _resolve_many(resolutions) -> None:

@@ -1004,6 +1004,9 @@ class NativeFrontend:
                          else None),
             },
             "kernel_cost": {"ledger": LEDGER.to_json()},
+            # the engine's canary and quarantine state: this lane holds
+            # the baseline through a canary window
+            "change_safety": self.engine.change_safety_vars(),
             "snapshot": None,
         }
         if rec is not None:
@@ -1172,7 +1175,13 @@ class NativeFrontend:
         """Rebuild the C++ snapshot from the engine's current one (after
         every engine.apply_snapshot — the reconcile-time swap).  Serialized
         under _lock: concurrent reconciles must not mint duplicate ids or
-        install their C++ snapshots out of order."""
+        install their C++ snapshots out of order.
+
+        During an engine canary the swap listeners do not fire and
+        ``engine._snapshot`` is the baseline, so this lane holds the
+        previous generation until promotion or rollback (a gathered C++
+        batch is never split across two corpora); its evidence feeds the
+        guard's baseline cohort through ``canary_observe_external``."""
         with self._lock:
             self._refresh_locked()
 
@@ -2013,6 +2022,11 @@ class NativeFrontend:
                                      lane="native",
                                      latency_ms=dispatch_s * 1e3,
                                      generation=rec.snap_id)
+            # during an engine canary this lane serves the baseline (its
+            # C++ snapshot rebuilds only at promotion or rollback), so its
+            # attribution feeds the guard's baseline cohort
+            if self.engine._canary is not None:
+                self.engine.canary_observe_external(rows, firing, heat)
         if self.slo is not None and count:
             # the native SLI is the slot's on-box round trip (per-request
             # waits are C++-clocked): every member shares it

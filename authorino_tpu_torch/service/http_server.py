@@ -9,8 +9,10 @@ source.certificate) and runs through the identical engine/pipeline.
 The debug routes of planes the port does not hold yet stay registered, so
 that a request to them never becomes a Check(): ``/debug/tenants`` answers
 ``{"enabled": false}`` as the reference does without its tenancy plane,
-``/debug/canary`` and ``/debug/replay`` answer 501 naming their ROADMAP
-item."""
+``/debug/replay`` answers 501 naming its ROADMAP item.  ``/debug/canary``
+is the change-safety plane's: GET reads the canary, quarantine and
+rollback-history state, POST ``?action=promote|rollback|clear-quarantine``
+drives it."""
 
 from __future__ import annotations
 
@@ -44,8 +46,6 @@ DEFAULT_MAX_BODY = 1024 * 1024  # --max-http-request-body-size analog
 # the planes whose debug routes answer 501 here, and where ROADMAP.md
 # queues them
 NOT_YET_PORTED = {
-    "/debug/canary": "change safety (canary, rollback, quarantine): "
-                     "ROADMAP queue 1 item 3",
     "/debug/replay": "traffic capture and replay: ROADMAP queue 1 item 12",
 }
 
@@ -209,6 +209,11 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
                 adm = getattr(owner, "admission", None) if owner else None
                 if adm is not None and adm.overloaded:
                     degraded.append(f"{lane} admission overloaded")
+            # an active quarantine is surfaced but stays ready: the
+            # quarantined configs serve their prior artifacts, and a 503
+            # would take every healthy config down with them
+            if getattr(engine, "quarantine_active", False):
+                degraded.append("quarantine active")
             if degraded:
                 return web.Response(
                     text=f"ok (degraded: {'; '.join(degraded)})")
@@ -269,6 +274,41 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
         which the reference answers as a disabled one."""
         return web.json_response({"enabled": False})
 
+    async def debug_canary(request: web.Request):
+        """Change-safety state and the operator's override: GET returns
+        the canary, quarantine and rollback-history state;
+        ``?action=promote`` promotes an in-progress canary at once,
+        ``?action=rollback`` rolls it back (or, with none in progress,
+        re-serves the newest retained generation),
+        ``?action=clear-quarantine`` releases the quarantine."""
+        action = request.query.get("action", "")
+        if not action:
+            return web.json_response(engine.change_safety_vars())
+        if request.method != "POST":
+            # the actions change the serving snapshot: never off a GET,
+            # idempotent by contract (link prefetchers, dashboards)
+            return web.json_response(
+                {"error": "state-changing actions require POST"},
+                status=405)
+        ops = {
+            "promote": engine.canary_promote,
+            "rollback": engine.canary_rollback,
+            "clear-quarantine": engine.clear_quarantine,
+        }
+        op = ops.get(action)
+        if op is None:
+            return web.Response(
+                status=400,
+                text=f"unknown action {action!r} "
+                     f"(want promote|rollback|clear-quarantine)")
+        # promote and rollback fan out to the swap listeners (the native
+        # frontend's C++ snapshot rebuild): never on the serving loop
+        applied = await asyncio.get_running_loop().run_in_executor(None, op)
+        return web.json_response({
+            "action": action, "applied": bool(applied),
+            "change_safety": engine.change_safety_vars(),
+        })
+
     def not_yet_ported(route: str):
         async def handler(_):
             return web.Response(
@@ -327,6 +367,8 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
     app.router.add_get("/debug/vars", debug_vars)
     app.router.add_get("/debug/decisions", debug_decisions)
     app.router.add_get("/debug/tenants", debug_tenants)
+    app.router.add_get("/debug/canary", debug_canary)
+    app.router.add_post("/debug/canary", debug_canary)
     for route in NOT_YET_PORTED:
         app.router.add_get(route, not_yet_ported(route))
         app.router.add_post(route, not_yet_ported(route))

@@ -685,6 +685,48 @@ flight_dumps = _register(
     "the anomaly kind that triggered the dump.",
     ("trigger",),
 )
+# ---------------------------------------------------------------------------
+# change safety (runtime/change_safety.py): canary snapshot swaps,
+# guard-breach rollback and poison-config quarantine.  Reference names.
+# ---------------------------------------------------------------------------
+
+canary_state = _register(
+    "gauge", "auth_server_canary_state",
+    "Canary swap state per lane: 0 = no canary in progress, 1 = a newly "
+    "reconciled snapshot is serving only its deterministic hash-fraction "
+    "cohort (--canary-fraction) while the previous generation serves the "
+    "rest; a clean --canary-window promotes to 100%, a guard breach "
+    "rolls back.",
+    _LANE_LABELS,
+)
+snapshot_rollbacks = _register(
+    "counter", "auth_server_snapshot_rollbacks_total",
+    "Snapshot generations rolled back, by reason: guard-breach (a canary "
+    "guard tripped inside the window: deny-rate/error-rate/SLO delta, "
+    "canary vs baseline), superseded (a newer reconcile landed before the "
+    "canary concluded), manual (operator override through /debug/canary).  "
+    "A rollback is a pointer swap to the retained previous generation: "
+    "its device buffers were never written.",
+    ("reason",),
+)
+quarantined_configs = _register(
+    "gauge", "auth_server_quarantined_configs",
+    "AuthConfigs currently quarantined per lane: after a guard-breach "
+    "rollback, the reconcile is re-applied with these configs reverted to "
+    "their prior compiled artifacts (the rest of the change still lands). "
+    "Quarantine clears when the operator ships a FIXED config (changed "
+    "fingerprint) or overrides via clear-quarantine.",
+    _LANE_LABELS,
+)
+canary_guard_delta = _register(
+    "gauge", "auth_server_canary_guard_delta",
+    "Live canary-vs-baseline guard deltas during a canary window: "
+    "deny-rate (overall), config-deny-rate (worst per-authconfig delta), "
+    "error-rate (typed serving errors), slo-bad-rate (SLO bad fraction). "
+    "A delta past its threshold breaches the guard and rolls the canary "
+    "back.",
+    ("guard",),
+)
 state_write_failures = _register(
     "counter", "auth_server_state_write_failures_total",
     "Durable-artifact writes that failed inside the shared atomic writer "

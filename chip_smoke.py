@@ -111,11 +111,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      status writers, exactly one of which writes, every AuthConfig
      Ready); (c) waves of Check()s while three reconciles alternate
      between two corpora that differ in 100 rules, every verdict equal to
-     the oracle of its batch's generation, and device memory after ten
-     swaps within one snapshot's upload of its value after the first;
-     the [256, W] readback on this corpus byte-equal to plain; host RSS,
-     each snapshot's native-encoder build inside its reconcile, and every
-     swapped-out snapshot's encoder gone after the ten swaps;
+     the oracle of its batch's generation, and device memory over ten
+     swaps within one snapshot's upload of its value at the swap that
+     fills the engine's bounded snapshot history; the [256, W] readback
+     on this corpus byte-equal to plain; host RSS, each snapshot's
+     native-encoder build inside its reconcile, and the encoder of every
+     snapshot swapped out of the history gone after the ten swaps;
  11. the per-batch host work on either side of the launch, on the
      north-star corpus at full width: (a) host time per batch of the
      native encoder (dict walk, JSON, JSON from bytes) and the Python
@@ -214,10 +215,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      mixed corpus (1,019 configs, all on the slow lane) byte-equal to
      grpc.aio on its engine; (c) the C++ load generator
      (``native/csrc/loadgen.cpp``) at run_native_mode's shape (max_batch
-     4,096, window 2,000 µs, 24 slots, 10 dispatch threads): 3 native
+     4,096, window 2,000 µs, 24 slots, 10 dispatch threads): 2 native
      saturation passes (depth 8,000 x 5 connections, after a warm-up
      pass; grpc.aio answers nothing at that depth within a pass), then
-     native and grpc.aio (one server process) in alternating pairs, 3
+     native and grpc.aio (one server process) in alternating pairs, 2
      each, at run_native_mode's light shape (1,024 in flight, 5 s after 2
      s of warm-up), at both settings: checks/s, p50/p99, rows per batch
      and per launched batch, launches, device rows; (d) a shallow pass of
@@ -272,19 +273,45 @@ Phases, each of which raises on failure (the script then exits non-zero):
      cache's rows still served, the changed config's 64 probes all on the
      new rule), then ten one-config swaps under 4,096 Check()s, every
      verdict the oracle's of its generation, one launch per batch with a
-     device row, device memory +0 B over the swaps; (c) phase 10's 1,000
-     API-key manifests and their Secrets through ``YamlDirSource``: one
-     file changed, from the write to the first Check() on the new rule,
-     split into manifest parse, translate and the install (compile, native
-     encoder, diff, upload), beside the same state through a cold engine.
+     device row, device memory beside what the serving snapshot and the
+     engine's bounded snapshot history hold +0 B over the swaps; (c)
+     phase 10's 1,000 API-key manifests and their Secrets through
+     ``YamlDirSource``: one file changed, from the write to the first
+     Check() on the new rule, split into manifest parse, translate and
+     the install (compile, native encoder, diff, upload), beside the same
+     state through a cold engine.
+ 18. change safety (canary swaps split by cohort, guard-breach rollback,
+     poison-config quarantine, the bounded snapshot history,
+     ``/debug/canary``): phase 6's 1,000 translated configs in one card
+     engine at the serving defaults with the canary at fraction 0.25 and
+     a 3 s window and a native frontend attached, phase 6's 4,096
+     Check()s plus 1,024 to one hot host over 64 paths: (a) one config's
+     constant changes: every verdict the oracle's of its cohort's
+     generation and every request's cohort the port's
+     ``in_canary_cohort`` of its document, launches = the (cut, cohort)
+     parts with a device row, both generations' params on the card,
+     promotion at the window's end with one frontend refresh; checks/s
+     and p50/p99 beside a burst with no canary (each on as many requests
+     the cache has not seen, after an untimed warm-up burst); (b) the hot
+     config flipped to deny beside a benign change: the guard breaches
+     in the window, the engine rolls back and quarantines exactly the hot
+     config, the benign change lands, ``detect_ms``/``recover_ms`` and the
+     flight bundle's time apart, every verdict after it the quarantined
+     corpus's oracle, ``/debug/canary`` and ``/readyz`` through the
+     port's aiohttp app, ``clear-quarantine``; (d) a drain mid-canary
+     leaves it undecided; (c) a second engine with ``snapshot_history``
+     4: eight one-config swaps (device memory +0 B over the four past a
+     full history), then ``rollback_last`` until it returns False: four
+     rollbacks, each compiling 0 configs, uploading 0 B, launching no
+     probe and re-serving readbacks byte-equal to that generation's.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 17's ((b), the engine under load), with every phase's under
+phase 18's ((a) and (b), the canaried engine), with every phase's under
 ``launches_by_phase``; each kernel must have launched on the paths of
-phases 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16 and 17, with the counts
+phases 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16, 17 and 18, with the counts
 zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
@@ -2348,7 +2375,9 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
     numbers["encoder"] = enc
 
     # device memory over ten more swaps, alternating the two corpora's
-    # entries (compile, upload, probe and swap each time)
+    # entries (compile, upload, probe and swap each time); the engine
+    # retains its bounded history's generations (params and encoders) for
+    # a rollback, so memory is held from the swap that fills it
     entries = {}
     for name in ("A", "B"):
         asyncio.run(s_rec.reconcile_all(corpora[name]))
@@ -2373,22 +2402,28 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
         mem.append(allocated())
         host.append(rss())
     alive = sum(r() is not None for r in encoder_refs)
+    full = s_engine._history.maxlen
     c.update({"snapshot_upload_bytes": snap_bytes,
+              "snapshot_history": full,
               "memory_allocated_after_swap": mem,
-              "memory_growth_bytes": mem[-1] - mem[0],
+              "memory_growth_bytes": mem[-1] - mem[full],
               "host_rss_after_swap": host,
               "host_rss_growth_bytes": host[-1] - host[0],
               "native_encoders_built": len(encoder_refs),
               "native_encoders_alive": alive,
               "encoder_build_s": encoder_builds})
-    if abs(mem[-1] - mem[0]) > snap_bytes:
-        raise AssertionError(f"device memory grew by {mem[-1] - mem[0]} B "
-                             f"over ten swaps (one snapshot: {snap_bytes} B)")
-    # every swapped-out snapshot's native encoder is gone (its capsule
-    # freed the C tables): only the serving one lives
-    if len(encoder_refs) != n_refs + 10 or alive != 1:
+    if len(s_engine._history) != full or \
+            abs(mem[-1] - mem[full]) > snap_bytes:
+        raise AssertionError(f"device memory grew by {mem[-1] - mem[full]} "
+                             f"B over the swaps past a full history of "
+                             f"{full} (one snapshot: {snap_bytes} B)")
+    # every snapshot swapped out of the history has lost its native
+    # encoder (its capsule freed the C tables): only the serving one and
+    # the history's live
+    if len(encoder_refs) != n_refs + 10 or alive != 1 + full:
         raise AssertionError(f"{alive} of {len(encoder_refs)} native "
-                             f"encoders alive after ten swaps")
+                             f"encoders alive after ten swaps (history "
+                             f"{full})")
     if host[-1] - host[1] > 256 << 20:
         raise AssertionError(f"host RSS grew {host[-1] - host[1]} B over "
                              f"swaps 2-10")
@@ -4529,7 +4564,7 @@ LIGHT_PAYLOADS = 1024     # distinct requests the light passes cycle
 # The native / grpc.aio pairs run at the light shape, where grpc.aio's
 # ~2.3 s standing wait fits the warm-up and ~2,000 answers the window.
 SAT_S, LIGHT_S, SHALLOW_S = (2.0, 0.5), (5.0, 2.0), (1.5, 0.5)
-FE_TRIALS = 3             # native saturation passes; native / grpc.aio pairs
+FE_TRIALS = 2             # native saturation passes; native / grpc.aio pairs
 KEY_CONFIGS = 1000        # (b): API-key AuthConfigs of the three fast kinds
 STOP_SLOW = 64            # (e): slow-lane requests in flight at stop()
 FAIL_ROWS = 256           # (f): fast-lane requests under device-down
@@ -5893,6 +5928,32 @@ def device_allocated(dev) -> int:
     return torch.cuda.memory_allocated(dev)
 
 
+def retained_bytes(engine) -> int:
+    """Device bytes the engine's serving snapshot and its bounded history
+    hold: every CUDA storage reachable from their params, once, at the
+    caching allocator's 512 B granule (``memory_allocated`` counts
+    blocks)."""
+    import torch
+
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            if node.is_cuda:
+                st = node.untyped_storage()
+                seen[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    for snap in [engine._snapshot, *engine._history]:
+        walk(snap.params)
+    return sum(seen.values())
+
+
 def delta_readbacks(snap, cfgs, docs, names, dev) -> dict:
     """(a)'s readback check for one snapshot: for every 256-row batch of
     ``docs``, the kernel on the snapshot's (delta-built) params against a
@@ -6163,7 +6224,12 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
         await asyncio.to_thread(engine.apply_snapshot, entries)
         b3 = await burst("after one change", probe)
         await asyncio.to_thread(wait_idle, engine)
+        # device memory beside what the serving snapshot and the bounded
+        # history hold: a retained generation keeps the arrays it owns (a
+        # cold install's whole set, a delta's cloned operands) until it
+        # is evicted, so the raw figure moves with the history's mix
         mem0 = await asyncio.to_thread(device_allocated, dev)
+        held0 = retained_bytes(engine)
         # ten one-config swaps, each beside a wave of the burst
         size = -(-len(reqs) // (len(SWAP_CONFIGS) + 1))
         waves = [reqs[lo:lo + size] for lo in range(0, len(reqs), size)]
@@ -6186,12 +6252,13 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
         held = hold(results, issued, "ten swaps")
         await asyncio.to_thread(wait_idle, engine)
         mem1 = await asyncio.to_thread(device_allocated, dev)
-        return b1, b2, b3, held, records, swap_ms, mem0, mem1
+        return (b1, b2, b3, held, records, swap_ms, (mem0, held0),
+                (mem1, retained_bytes(engine)))
 
     fk.reset_counts()
     reset_host_counts()
-    b1, b2, b3, swaps_held, records, swap_ms, mem0, mem1 = \
-        asyncio.run(under_load())
+    b1, b2, b3, swaps_held, records, swap_ms, (mem0, held0), \
+        (mem1, held1) = asyncio.run(under_load())
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
     held = {b["label"]: b["held"] for b in (b1, b2, b3)}
@@ -6217,9 +6284,11 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
             len(held["swaps"]["by_generation"]) < 2:
         raise AssertionError(f"(b) generations: {engine.generation}, "
                              f"{held['swaps']}")
-    if mem1 != mem0:
-        raise AssertionError(f"(b) device memory grew {mem1 - mem0:+d} B "
-                             f"over ten swaps")
+    if mem1 - held1 != mem0 - held0:
+        raise AssertionError(f"(b) device memory beside the retained "
+                             f"generations grew {(mem1 - held1) - (mem0 - held0):+d} B "
+                             f"over ten swaps (memory {mem0} -> {mem1}, "
+                             f"retained {held0} -> {held1})")
     numbers["under_load"] = {
         "checks": {k: sum(v["by_generation"].values())
                    for k, v in held.items()},
@@ -6230,6 +6299,7 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
         "survival": survival, "batches": len(all_records),
         "device_batches": device_batches, "swap_ms": swap_ms,
         "memory_before_swaps": mem0, "memory_after_swaps": mem1,
+        "retained_before_swaps": held0, "retained_after_swaps": held1,
         "last_upload": engine.debug_vars()["control_plane"]["upload"],
         "encoder": enc, "launches": launches}
     ul = numbers["under_load"]
@@ -6244,7 +6314,10 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
         f"generation 1's); {device_batches} of {len(all_records)} batches "
         f"with a device row, one launch each ({launches}); swaps "
         f"{[round(x, 1) for x in swap_ms]} ms; device memory "
-        f"{mem1 - mem0:+d} B over the ten swaps; {fmt_encoder(enc)}")
+        f"{mem0} -> {mem1} B over the ten swaps, the serving snapshot and "
+        f"the history holding {held0} -> {held1} B of it: "
+        f"{(mem1 - held1) - (mem0 - held0):+d} B beside them; "
+        f"{fmt_encoder(enc)}")
 
     # ---- (c) the reconcile end to end -----------------------------------------
     n = CP_CONFIGS
@@ -6387,6 +6460,605 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
     numbers["phase_s"] = time.perf_counter() - t_phase
     numbers["launches"] = launches
     report["incremental_reconcile"] = numbers
+    return launches, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 18: change safety (canary swaps by cohort, guard-breach rollback,
+# poison-config quarantine, the bounded snapshot history, /debug/canary)
+# ---------------------------------------------------------------------------
+
+CANARY_FRACTION = 0.25
+CANARY_WINDOW_S = 3.0
+HOT_CONFIG = 7            # the hot host's config: (b) flips it to deny
+HOT_REQUESTS = 1024       # requests to the hot host
+HOT_PATHS = 64            # distinct paths among them (the cohort hash input)
+CLEAN_CONFIG = 97         # (a): its constant changes
+BENIGN_CONFIG = 203       # (b): its constant changes beside the poison
+HISTORY = 4               # (c)'s snapshot_history
+HISTORY_SWAPS = (305, 419, 523, 631, 733, 859, 967, 42)  # (c): method flips
+HISTORY_DOCS = 256        # (c): the docs each generation's readback covers
+FRESH_SEED = 13           # (a): the canary burst's requests, unseen before
+WARM_SEED = 17            # (a): an untimed first burst's requests
+
+
+def hot_requests(n: int = HOT_REQUESTS, paths: int = HOT_PATHS):
+    """``n`` Check()s to the hot config's host over ``paths`` distinct
+    paths, each with the config's method and org claim (so every one
+    reaches the Any_ branch and allows at the base corpus)."""
+    from authorino_tpu_torch.authjson import (CheckRequestModel,
+                                              HttpRequestAttributes)
+    from authorino_tpu_torch.models import northstar
+
+    spec = northstar.build_auth_configs(HOT_CONFIG + 1, 10)[HOT_CONFIG]
+    method = spec["spec"]["authorization"]["rules"]["patternMatching"][
+        "patterns"][0]["value"]
+    out = []
+    for k in range(n):
+        out.append(CheckRequestModel(
+            http=HttpRequestAttributes(
+                method=method, path=f"/hot/p{k % paths}",
+                host=northstar.host_of(HOT_CONFIG), headers={}),
+            metadata_context={"filter_metadata": {northstar.JWT_FILTER: {
+                "verified_jwt": {"org": f"org-{HOT_CONFIG}", "roles": [],
+                                 "groups": []}}}}))
+    return out
+
+
+def change_safety(report: dict, card: str, dev, ctx6: dict,
+                  ns: dict) -> tuple:
+    """Phase 18: change safety at full width.  Phase 6's 1,000 translated
+    north-star configs in one card engine at the serving defaults with the
+    canary at fraction 0.25 and a 3 s window, a native frontend attached,
+    phase 6's 4,096 Check()s plus 1,024 to one hot host over 64 paths:
+    (a) a clean change canaries (every verdict the oracle's of its
+    cohort's generation, each request's cohort the port's
+    ``in_canary_cohort`` of its document, launches = the (cut, cohort)
+    parts with a device row, both generations' params resident) and
+    promotes at the window's end, the frontend refreshing once, then;
+    (b) a poison change (the hot config flipped to deny beside a benign
+    change) breaches, rolls back and quarantines exactly the hot config
+    while the benign change lands (every verdict after it the quarantined
+    corpus's oracle; /debug/canary and /readyz through the port's aiohttp
+    app; clear-quarantine); (d) a drain mid-canary leaves it undecided.
+    (c) the bounded history on a second engine: rollbacks compile
+    nothing, upload nothing, launch no probe, re-serve byte-equal
+    readbacks; device memory +0 B past a full history.  Returns (the
+    kernels' launches on (a)+(b)'s path, counts zeroed just before it;
+    the max abs byte error of the comparisons)."""
+    import numpy as np
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+    from authorino_tpu_torch.runtime import engine as engine_mod
+    from authorino_tpu_torch.runtime.change_safety import in_canary_cohort
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+    from authorino_tpu_torch.runtime.native_frontend import NativeFrontend
+    from authorino_tpu_torch.service.http_server import build_app
+    from authorino_tpu_torch.utils import metrics as metrics_mod
+    from authorino_tpu_torch.utils import rpc
+
+    t_phase = time.perf_counter()
+    numbers = {"card": card, "fraction": CANARY_FRACTION,
+               "window_s": CANARY_WINDOW_S}
+    max_err = 0
+    on_card = dev.type == "cuda"
+    jwt = northstar.JWT_FILTER
+    hot = hot_requests()
+
+    def interleave(regular):
+        """The hot host's requests spread evenly through ``regular``: every
+        cut, and so both cohorts, then carry the same mix (the overall
+        deny-rate guard compares the cohorts' mixes as they fold)."""
+        step = max(1, len(regular) // len(hot))
+        out = []
+        for k, q in enumerate(hot):
+            out += regular[k * step:(k + 1) * step] + [q]
+        return out + regular[len(hot) * step:]
+
+    reqs = interleave(list(ctx6["reqs"]))
+    # the canary burst's: as many requests the cache has not seen
+    fresh = interleave(northstar.build_check_requests(
+        len(ctx6["reqs"]), 1000, seed=FRESH_SEED))
+    # an untimed first burst: a fresh engine's first one pays its warm-up
+    warmup = interleave(northstar.build_check_requests(
+        len(ctx6["reqs"]), 1000, seed=WARM_SEED))
+    # (b)'s: the hot host first, so the poison's per-config evidence is in
+    # the guard before the overall deny rate's (which names no suspect)
+    hot_first = hot + list(ctx6["reqs"])
+    hot_id = f"{northstar.NAMESPACE}/cfg-{HOT_CONFIG}"
+    benign_id = f"{northstar.NAMESPACE}/cfg-{BENIGN_CONFIG}"
+
+    engine = PolicyEngine(max_batch=256, device=dev,
+                          canary_fraction=CANARY_FRACTION,
+                          canary_window_s=CANARY_WINDOW_S, **WIDE_ADMISSION)
+    gens = cp.GenerationLog(engine)
+    state = {"current": {}}
+    corpus_of = {}
+
+    def rules_at(gen: int):
+        key = tuple(sorted(state[gen].items()))
+        if key not in corpus_of:
+            corpus_of[key] = [c.evaluators[0][1] for c in
+                              northstar.build_corpus(1000, 10,
+                                                     changed=state[gen])]
+        return corpus_of[key]
+
+    def mark_generation() -> None:
+        """The corpus state of the generation the last apply made: the
+        candidate's while a canary is up, else the serving one's."""
+        phase = engine._canary
+        gen = (phase.snap.generation if phase is not None
+               else engine._snapshot.generation)
+        state[gen] = dict(state["current"])
+
+    # the cut's cohort split, tallied: cuts, parts, cuts holding both
+    split = {"cuts": 0, "parts": 0, "mixed": 0}
+    real_split = engine_mod._split_cohorts
+
+    def counting_split(batch, phase):
+        parts = real_split(batch, phase)
+        split["cuts"] += 1
+        split["parts"] += len(parts)
+        split["mixed"] += int(len(parts) == 2)
+        return parts
+
+    engine_mod._split_cohorts = counting_split
+
+    # the rollback's flight bundle, timed apart from the recovery
+    dumps = []
+    real_dump = RECORDER.dump
+
+    def timed_dump(trigger):
+        t0 = time.monotonic()
+        try:
+            return real_dump(trigger)
+        finally:
+            dumps.append((trigger, t0, time.monotonic()))
+
+    RECORDER.dump = timed_dump
+    flight0 = (RECORDER.dump_dir, RECORDER.min_dump_interval_s)
+    RECORDER.configure(dump_dir=str(Path("smoke_out") / "flight-18"),
+                       min_dump_interval_s=0.0)
+
+    def promoted_at():
+        """The wall time of the newest promotion in the recorder's tail."""
+        return next((e["t"] for e in RECORDER.to_json()["tail"][::-1]
+                     if e["kind"] == "canary-promote"), None)
+
+    def hold(results, issued, label, phase_gens=None) -> dict:
+        """Every result against the oracle of the generation that decided
+        it, with the deny provenance.  ``phase_gens`` = (baseline,
+        candidate, the phase): the baseline decides only its cohort, the
+        candidate only the canary cohort until it was promoted.  Returns
+        the checks per generation and per cohort."""
+        seen, by_cohort, late = {}, {"canary": 0, "baseline": 0}, 0
+        if phase_gens is not None:
+            base_gen, cand_gen, ph = phase_gens
+            t_promo = promoted_at() if engine._canary is not ph and \
+                engine._snapshot is ph.snap else None
+        for k, ((res, t_end), req) in enumerate(zip(results, issued)):
+            gen = gens.by_request.get(id(req))
+            if gen is None or gen not in state:
+                raise AssertionError(f"(18) {label}: check {k} has no "
+                                     f"generation ({gen}): {res}")
+            i = int(req.http.host.split(".")[0][len("svc-"):])
+            claims = req.metadata_context["filter_metadata"][jwt][
+                "verified_jwt"]
+            doc = build_authorization_json(req, {"identity": claims})
+            if phase_gens is not None:
+                canary = in_canary_cohort(doc, CANARY_FRACTION)
+                by_cohort["canary" if canary else "baseline"] += 1
+                if gen == base_gen and canary:
+                    raise AssertionError(f"(18) {label}: check {k} of the "
+                                         f"canary cohort decided by the "
+                                         f"baseline {gen}")
+                if gen == cand_gen and not canary:
+                    if t_promo is None or t_end < t_promo:
+                        raise AssertionError(
+                            f"(18) {label}: check {k} of the baseline "
+                            f"cohort decided by the candidate {gen}")
+                    late += 1
+            rule = rules_at(gen)[i]
+            if rule.matches(doc):
+                want = (rpc.OK, 0, "", {})
+            else:
+                want = (rpc.PERMISSION_DENIED, 0, "Unauthorized", {
+                    "ext_authz_provenance": {
+                        "authconfig": f"{northstar.NAMESPACE}/cfg-{i}",
+                        "rule_index": 0, "rule": str(rule),
+                        "lane": "engine"}})
+            got = (res.code, res.status, res.message, res.metadata)
+            if got != want:
+                raise AssertionError(f"(18) {label}: check {k} on cfg-{i} "
+                                     f"at generation {gen}: {got} != {want}")
+            seen[gen] = seen.get(gen, 0) + 1
+        return {"by_generation": seen, "by_cohort": by_cohort,
+                "after_promotion": late}
+
+    async def stamped_checks(issued):
+        """Every Check() at once: ((result, end wall time), seconds)."""
+        async def one(req):
+            t = time.perf_counter()
+            res = await engine.check(req)
+            return (res, time.time()), time.perf_counter() - t
+
+        return await asyncio.gather(*(one(r) for r in issued))
+
+    async def burst(label, phase_gens=None, issued=None):
+        issued = reqs if issued is None else issued
+        r0 = len(engine.batch_records)
+        t = time.perf_counter()
+        out = await stamped_checks(issued)
+        wall = time.perf_counter() - t
+        p50, p99 = latency_ms([s for _, s in out])
+        held = hold([r for r, _ in out], issued, label, phase_gens)
+        return {"label": label, "checks_per_s": len(issued) / wall,
+                "p50_ms": p50, "p99_ms": p99, "held": held,
+                "records": checked_records(engine, r0)}
+
+    async def translate(specs):
+        return [await translate_auth_config(
+            o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+            engine=engine) for o in specs]
+
+    async def change(entries, changes: dict):
+        state["current"] = {**state["current"], **changes}
+        specs = northstar.build_auth_configs(1000, 10,
+                                             changed=state["current"])
+        out = list(entries)
+        for i in changes:
+            out[i] = (await translate([specs[i]]))[0]
+        return out
+
+    async def wait_for(pred, timeout: float, what: str):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"(18) {what} after {timeout}s")
+            await asyncio.sleep(0.01)
+
+    def snap_id(fe) -> int:
+        return fe.debug_vars()["snapshot"]["snap_id"]
+
+    def resident(phase) -> dict:
+        """The candidate's and the baseline's params on the device: every
+        tensor on the card, and the bytes the candidate holds apart."""
+        base, cand = ({k: t for k, t in param_leaves(p).items()
+                       if isinstance(t, torch.Tensor)}
+                      for p in (phase.baseline.params, phase.snap.params))
+        devices = {str(t.device) for t in list(base.values())
+                   + list(cand.values())}
+        if devices != {str(dev)}:
+            raise AssertionError(f"(a) params off the device: {devices}")
+        own = sum(int(t.numel() * t.element_size())
+                  for k, t in cand.items()
+                  if k not in base or t.data_ptr() != base[k].data_ptr())
+        return {"candidate_own_bytes": own,
+                "baseline_bytes": sum(int(t.numel() * t.element_size())
+                                      for t in base.values())}
+
+    async def path():
+        entries = await translate(northstar.build_auth_configs(1000, 10))
+        await asyncio.to_thread(engine.apply_snapshot, entries)
+        mark_generation()
+        fe = NativeFrontend(engine, port=0, max_batch=256, window_us=500)
+        fe.start()
+        try:
+            return await drive(entries, fe)
+        finally:
+            fe.stop()
+
+    async def drive(entries, fe):
+        out = {}
+        await burst("warm-up", issued=warmup)
+        # both timed bursts meet a cold cache: phase 6's requests with no
+        # canary, then as many unseen ones during the canary
+        plain = await burst("no canary")
+        mem0 = await asyncio.to_thread(device_allocated, dev)
+        ids = [snap_id(fe)]
+        warm0 = fe.counts["warm_launches"]
+        # ---- (a) a clean change ---------------------------------------------
+        entries = await change(entries, {CLEAN_CONFIG: "const"})
+        split.update(cuts=0, parts=0, mixed=0)
+        l0 = fk.launches if on_card else fk.plain_calls
+        await asyncio.to_thread(engine.apply_snapshot, entries)
+        phase = engine._canary
+        if phase is None:
+            raise AssertionError("(a) a corpus-changing swap did not canary")
+        mark_generation()
+        base_gen, cand_gen = phase.baseline.generation, phase.snap.generation
+        mem_canary = await asyncio.to_thread(device_allocated, dev)
+        res = resident(phase) if on_card else {}
+        r0 = len(engine.batch_records)
+        canary = await burst("(a) canary", (base_gen, cand_gen, phase),
+                             fresh)
+        ids.append(snap_id(fe))
+        in_window = engine._canary is phase
+        await wait_for(lambda: engine._canary is None,
+                       CANARY_WINDOW_S + 30, "(a) the window never closed")
+        await wait_for(lambda: snap_id(fe) != ids[0], 30,
+                       "(a) the frontend never refreshed")
+        await asyncio.to_thread(wait_idle, engine)
+        ids.append(snap_id(fe))
+        if engine._last_rollback is not None or \
+                engine._snapshot is not phase.snap:
+            raise AssertionError(f"(a) the clean canary did not promote: "
+                                 f"{engine.change_safety_vars()}")
+        records = checked_records(engine, r0)
+        device_parts = sum(1 for r in records if r["device_rows"])
+        warm_launches = fe.counts["warm_launches"] - warm0
+        launched = (fk.launches if on_card else fk.plain_calls) - l0
+        if launched != device_parts + warm_launches:
+            raise AssertionError(f"(a) {launched} launches for "
+                                 f"{device_parts} parts with a device row "
+                                 f"(+{warm_launches} frontend warm)")
+        if split["parts"] != len(records) or split["mixed"] < 1:
+            raise AssertionError(f"(a) cohort split {split} against "
+                                 f"{len(records)} batch records")
+        if ids != [ids[0], ids[0], ids[0] + 1]:
+            raise AssertionError(f"(a) frontend snapshots {ids}: one "
+                                 f"refresh, at promotion, expected")
+        held_gens = canary["held"]
+        out["a"] = {
+            "generations": [base_gen, cand_gen],
+            "no_canary": {k: plain[k] for k in ("checks_per_s", "p50_ms",
+                                                "p99_ms")},
+            "canary": {k: canary[k] for k in ("checks_per_s", "p50_ms",
+                                              "p99_ms")},
+            "held": held_gens, "burst_in_window": in_window,
+            "split": dict(split), "records": len(records),
+            "device_parts": device_parts, "launches": launched,
+            "frontend_warm_launches": warm_launches,
+            "frontend_snap_ids": ids, "resident": res,
+            "memory_before": mem0, "memory_canary": mem_canary,
+            "cache_rows": sum(r["cache_rows"] for r in records)}
+        log(f"[{card}] change safety (a): cfg-{CLEAN_CONFIG}'s constant "
+            f"changed, canary generation {cand_gen} at "
+            f"{CANARY_FRACTION:g} for {CANARY_WINDOW_S:g}s beside baseline "
+            f"{base_gen}; {len(reqs)} Check()s ({HOT_REQUESTS} to the hot "
+            f"host over {HOT_PATHS} paths) every verdict its cohort's "
+            f"generation's oracle {held_gens}; {split['cuts']} cuts -> "
+            f"{split['parts']} parts ({split['mixed']} holding both "
+            f"cohorts), {device_parts} with a device row = {launched} "
+            f"launches less {warm_launches} frontend warm; both "
+            f"generations resident {res} (memory {mem0} -> {mem_canary} "
+            f"B); promoted at the window's end, the frontend refreshed "
+            f"once {ids}; checks/s {canary['checks_per_s']:.0f} during the "
+            f"canary (p50 {canary['p50_ms']:.2f} p99 {canary['p99_ms']:.2f} "
+            f"ms) vs {plain['checks_per_s']:.0f} with none (p50 "
+            f"{plain['p50_ms']:.2f} p99 {plain['p99_ms']:.2f} ms), each "
+            f"burst on requests the cache had not seen, after an untimed "
+            f"warm-up burst")
+
+        # ---- (b) a poison change --------------------------------------------
+        entries = await change(entries, {HOT_CONFIG: "method",
+                                         BENIGN_CONFIG: "const"})
+        ids = [snap_id(fe)]
+        dumps.clear()
+        await asyncio.to_thread(engine.apply_snapshot, entries)
+        phase = engine._canary
+        if phase is None:
+            raise AssertionError("(b) the poison change did not canary")
+        mark_generation()
+        base_gen, cand_gen = phase.baseline.generation, phase.snap.generation
+        # the rollback re-serves the baseline as the next generation, and
+        # the quarantine's re-apply installs the one after it
+        state[cand_gen + 1] = dict(state[base_gen])
+        quarantined = {**state["current"]}
+        quarantined.pop(HOT_CONFIG)
+        state[cand_gen + 2] = quarantined
+        t0 = time.monotonic()
+        poisoned = await burst("(b) poison", (base_gen, cand_gen, phase),
+                               hot_first)
+        await wait_for(lambda: engine._canary is None
+                       and (engine._last_rollback or {}).get("recover_ms")
+                       is not None, CANARY_WINDOW_S + 60,
+                       "(b) no rollback and quarantine")
+        lr = dict(engine._last_rollback)
+        if lr["reason"] != "guard-breach" or lr["detect_ms"] > \
+                CANARY_WINDOW_S * 1e3 or lr["to_generation"] != cand_gen + 1 \
+                or engine._snapshot.generation != cand_gen + 2:
+            raise AssertionError(f"(b) rollback {lr}, serving generation "
+                                 f"{engine._snapshot.generation}")
+        q = engine._quarantine
+        if lr["quarantined"] != [hot_id] or sorted(q["configs"]) != [hot_id]:
+            raise AssertionError(f"(b) quarantined {lr['quarantined']}, "
+                                 f"{sorted(q['configs'])}: {lr['detail']}")
+        fps = engine._snapshot.fingerprints
+        if fps[benign_id] != phase.snap.fingerprints[benign_id] or \
+                fps[hot_id] != phase.baseline.fingerprints[hot_id]:
+            raise AssertionError("(b) the benign change did not land or "
+                                 "the poison still serves")
+        await asyncio.to_thread(wait_idle, engine)
+        recovered = await burst("(b) quarantined", issued=hot_first)
+        if set(recovered["held"]["by_generation"]) != {
+                engine._snapshot.generation}:
+            raise AssertionError(f"(b) after recovery: "
+                                 f"{recovered['held']}")
+        ids.append(snap_id(fe))
+        app = build_app(engine, readiness=lambda: True)
+        async with TestClient(TestServer(app)) as client:
+            r = await client.get("/debug/canary")
+            cs_get = await r.json()
+            rz = await client.get("/readyz")
+            rz_text = await rz.text()
+            rc = await client.post("/debug/canary?action=clear-quarantine")
+            cleared = await rc.json()
+            rz2 = await client.get("/readyz")
+            rz2_text = await rz2.text()
+        if (cs_get["quarantine"] or {}).get("configs") != [hot_id] or \
+                rz.status != 200 or "quarantine active" not in rz_text:
+            raise AssertionError(f"(b) /debug/canary {cs_get}, /readyz "
+                                 f"{rz.status} {rz_text!r}")
+        if not cleared["applied"] or cleared["change_safety"]["quarantine"] \
+                is not None or engine.quarantine_active or rz2_text != "ok":
+            raise AssertionError(f"(b) clear-quarantine {cleared}, "
+                                 f"{rz2_text!r}")
+        t_detect = t0 + lr["detect_ms"] / 1e3
+        t_recover = t_detect + lr["recover_ms"] / 1e3
+        out["b"] = {
+            "generations": [base_gen, cand_gen],
+            "rollback": {k: v for k, v in lr.items() if k != "detail"},
+            "guards": lr["detail"]["guards"],
+            "suspects": lr["detail"]["suspects"],
+            "deltas": lr["detail"]["deltas"],
+            "poison_burst": {k: poisoned[k] for k in (
+                "checks_per_s", "p50_ms", "p99_ms", "held")},
+            "recovered_burst": {k: recovered[k] for k in (
+                "checks_per_s", "p50_ms", "p99_ms", "held")},
+            "frontend_snap_ids": ids,
+            "flight_dumps": [{"trigger": d[0],
+                              "ms": round((d[2] - d[1]) * 1e3, 3),
+                              "overlaps_recovery": d[1] < t_recover}
+                             for d in dumps],
+            "debug_canary_quarantine": cs_get["quarantine"]["configs"],
+            "readyz": rz_text}
+        log(f"[{card}] change safety (b): cfg-{HOT_CONFIG} (the hot host) "
+            f"flipped to deny beside cfg-{BENIGN_CONFIG}'s benign change: "
+            f"guard {lr['detail']['guards']} breached (suspects "
+            f"{lr['detail']['suspects']}), detect_ms {lr['detect_ms']} "
+            f"recover_ms {lr['recover_ms']}, generation {cand_gen} rolled "
+            f"back to {lr['to_generation']}, quarantined {lr['quarantined']}"
+            f", the benign change landed; every verdict the oracle's of its "
+            f"generation during the window {poisoned['held']} and the "
+            f"quarantined corpus's after it {recovered['held']}; "
+            f"/debug/canary shows the quarantine, /readyz {rz.status} "
+            f"{rz_text!r}, clear-quarantine -> {rz2_text!r}; frontend "
+            f"snapshots {ids}; flight bundles {out['b']['flight_dumps']}")
+
+        # ---- (d) a drain mid-canary -----------------------------------------
+        entries = await change(entries, {CLEAN_CONFIG: "method"})
+        await asyncio.to_thread(engine.apply_snapshot, entries)
+        phase = engine._canary
+        if phase is None:
+            raise AssertionError("(d) no canary to drain")
+        fired = []
+        engine.add_swap_listener(lambda: fired.append(1))
+        gen = engine.generation
+        engine.begin_drain()
+        await asyncio.sleep(CANARY_WINDOW_S + 0.5)
+        if engine._canary is not phase or fired or engine.generation != gen:
+            raise AssertionError(f"(d) the canary concluded during a drain: "
+                                 f"{engine.change_safety_vars()}")
+        out["d"] = {"undecided_after_s": CANARY_WINDOW_S + 0.5,
+                    "generation": gen}
+        log(f"[{card}] change safety (d): a drain mid-canary cancelled the "
+            f"window timer; {CANARY_WINDOW_S + 0.5:g}s later generation "
+            f"{gen} is still undecided and no swap listener fired")
+        return out
+
+    marks = failure_marks()
+    fk.reset_counts()
+    reset_host_counts()
+    try:
+        numbers.update(asyncio.run(path()))
+    finally:
+        engine_mod._split_cohorts = real_split
+        RECORDER.dump = real_dump
+        RECORDER.configure(dump_dir=flight0[0],
+                           min_dump_interval_s=flight0[1])
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    require_no_failure_handling("phase 18 (a)-(b)", marks)
+    enc = encoder_used(engine, engine.stats["batches"])
+    require_encoder("change safety", enc, "native")
+    numbers["launches"] = launches
+    numbers["encoder"] = enc
+    del engine
+
+    # ---- (c) the bounded history ---------------------------------------------
+    docs = [json.loads(json.dumps(d)) for d in ns["docs"][:HISTORY_DOCS]]
+    names = list(ns["names"][:HISTORY_DOCS])
+    for k, d in enumerate(docs[:len(HISTORY_SWAPS) * 16]):
+        i = HISTORY_SWAPS[k % len(HISTORY_SWAPS)]
+        names[k] = f"cfg-{i}"
+        d["auth"]["identity"]["org"] = f"org-{i}"
+    hist = PolicyEngine(max_batch=256, device=dev, snapshot_history=HISTORY,
+                        **NO_REUSE)
+
+    def readback(snap_of) -> bytes:
+        out = asyncio.run(serve(hist, docs, names))
+        return b"".join(np.asarray(r, dtype=np.uint8).tobytes()
+                        + np.asarray(s, dtype=np.uint8).tobytes()
+                        for r, s in out)
+
+    served = {}
+    changed = {}
+    mem = []
+    for step in range(len(HISTORY_SWAPS) + 1):
+        if step:
+            changed[HISTORY_SWAPS[step - 1]] = "method"
+        hist.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                             for c in northstar.build_corpus(
+                                 1000, 10, changed=dict(changed))])
+        served[id(hist._snapshot)] = readback(hist._snapshot)
+        if step >= HISTORY:
+            wait_idle(hist)
+            mem.append(device_allocated(dev))
+    history_gens = [s.generation for s in hist._history]
+    if len(history_gens) != HISTORY:
+        raise AssertionError(f"(c) history {history_gens}")
+    rollbacks = []
+    while True:
+        cc0 = hist.compile_cache.stats()
+        up0 = (metrics_mod.delta_upload_bytes.labels("engine")._value.get(),
+               metrics_mod.full_upload_bytes.labels("engine")._value.get())
+        p0 = fk.probe_launches
+        target = hist._history[-1] if hist._history else None
+        t = time.perf_counter()
+        ok = hist.rollback_last()
+        swap_ms = (time.perf_counter() - t) * 1e3
+        if not ok:
+            break
+        cc1 = hist.compile_cache.stats()
+        up1 = (metrics_mod.delta_upload_bytes.labels("engine")._value.get(),
+               metrics_mod.full_upload_bytes.labels("engine")._value.get())
+        if cc1 != cc0 or up1 != up0 or fk.probe_launches != p0:
+            raise AssertionError(f"(c) a rollback compiled, uploaded or "
+                                 f"probed: {cc0} -> {cc1}, {up0} -> {up1}, "
+                                 f"probe {p0} -> {fk.probe_launches}")
+        if hist._snapshot.params is not target.params:
+            raise AssertionError("(c) a rollback did not re-serve the "
+                                 "retained params")
+        got = readback(hist._snapshot)
+        if got != served[id(target)]:
+            raise AssertionError(f"(c) rollback to generation "
+                                 f"{target.generation}: readbacks differ "
+                                 f"from when it served")
+        rollbacks.append({"to": target.generation,
+                          "as": hist._snapshot.generation,
+                          "swap_ms": swap_ms})
+    if len(rollbacks) != HISTORY:
+        raise AssertionError(f"(c) {len(rollbacks)} rollbacks")
+    if len(set(mem)) != 1:
+        raise AssertionError(f"(c) device memory past a full history: "
+                             f"{mem}")
+    numbers["c"] = {"history_generations": history_gens,
+                    "rollbacks": rollbacks, "memory_full": mem[0],
+                    "memory_after": mem[1:],
+                    "memory_growth": mem[-1] - mem[0],
+                    "readback_docs": HISTORY_DOCS}
+    log(f"[{card}] change safety (c): snapshot_history {HISTORY}, "
+        f"{len(HISTORY_SWAPS)} one-config swaps; history "
+        f"{history_gens}; {len(rollbacks)} rollbacks "
+        f"{[(r['to'], r['as']) for r in rollbacks]} in "
+        f"{[round(r['swap_ms'], 3) for r in rollbacks]} ms, each compiling "
+        f"0 configs, uploading 0 B, launching no probe, its "
+        f"{HISTORY_DOCS} readbacks byte-equal to that generation's; "
+        f"device memory {mem[0]} B with the history full, "
+        f"{mem[-1] - mem[0]:+d} B over {len(mem) - 1} further swaps")
+    del hist
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    report["change_safety"] = numbers
+    log(f"[{card}] change safety: phase 18 in {numbers['phase_s']:.1f}s; "
+        f"launches {launches}")
     return launches, max_err
 
 
@@ -6831,7 +7503,8 @@ def main() -> int:
         f"all by {kb['status_writer']}, every AuthConfig Ready")
     log(f"control plane (c): {sw['burst_checks']} Check()s across three "
         f"reconciles, every verdict equal to its batch's generation "
-        f"{sw['verdicts_by_generation']}; device memory after ten swaps "
+        f"{sw['verdicts_by_generation']}; device memory over the swaps "
+        f"past a full history of {sw['snapshot_history']} "
         f"{sw['memory_growth_bytes']:+d} B (one snapshot: "
         f"{sw['snapshot_upload_bytes']} B); host RSS after ten swaps "
         f"{sw['host_rss_growth_bytes']:+d} B; {sw['native_encoders_built']} "
@@ -6950,18 +7623,23 @@ def main() -> int:
     require_no_failure_handling("phase 17", marks)
     max_err = max(max_err, inc_err)
 
+    # ---- 18. change safety ------------------------------------------------
+    cs_launches, cs_err = change_safety(
+        report, card, dev, ctx6, {"docs": ns_docs, "names": ns_names})
+    max_err = max(max_err, cs_err)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": inc_launches["fused_megakernel"],
+         "launches": cs_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": inc_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": cs_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -6971,7 +7649,7 @@ def main() -> int:
                 "8": jwt_launches, "9": core_launches, "10": cp_launches,
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
-                "17": inc_launches}
+                "17": inc_launches, "18": cs_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

@@ -207,6 +207,36 @@ def test_snapshot_modules_import_alone_without_services_or_the_reference(mod):
         proc.stdout
 
 
+def test_change_safety_imports_alone_without_services_or_the_reference():
+    """The change-safety module imports on its own with ``grpc``,
+    ``aiohttp``, ``jax`` and the JAX package blocked, and there its guard
+    sees a planted poison and stays quiet on a clean churn."""
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "cs = importlib.import_module("
+        "'authorino_tpu_torch.runtime.change_safety')\n"
+        "doc = {'request': {'host': 'h', 'path': '/a', 'method': 'GET'}}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('SELF', cs.guard_self_test(), 'BUCKET', cs.cohort_bucket(doc), "
+        "'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    import zlib
+
+    bucket = zlib.crc32(b"h|/a|GET") % 10000
+    assert f"SELF [] BUCKET {bucket} BAD []" in proc.stdout, proc.stdout
+
+
 def test_atomic_writer_ignores_the_reference_plane(tmp_path):
     """With both packages loaded, the reference's armed fs rule does not
     reach the port's writer (nor the port's the reference's): each writer

@@ -163,6 +163,57 @@ def test_an_unported_planes_flag_stops_the_start(dest):
     assert "ROADMAP.md queue 1 item" in str(e.value)
 
 
+class _Built(Exception):
+    """Raised by an engine-construction hook to stop a start right there."""
+
+
+# each change-safety flag, a value other than its default, and the engine
+# attribute that holds it
+CHANGE_SAFETY_FLAGS = {
+    "--canary-fraction": ("1.7", lambda e: e.canary_fraction),
+    "--canary-window": ("4.5", lambda e: e.canary_window_s),
+    "--snapshot-history": ("2", lambda e: e._history.maxlen),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(CHANGE_SAFETY_FLAGS))
+def test_a_change_safety_flag_reaches_the_engine(flag, monkeypatch):
+    """``--canary-fraction``, ``--canary-window`` and
+    ``--snapshot-history`` are in the port: each reaches the engine with
+    the value the reference's CLI gives the reference's engine (the
+    fraction clamped to 1.0 by both)."""
+    import authorino_tpu.runtime.engine as ref_engine_mod
+
+    value, read = CHANGE_SAFETY_FLAGS[flag]
+    port_cli.refuse_unported(server_args(flag, value))
+
+    def stop(engine):
+        raise _Built(engine)
+
+    with pytest.raises(_Built) as got:
+        run(port_cli.run_server(server_args(flag, value), on_engine=stop))
+
+    ref_kwargs = {}
+    real = ref_engine_mod.PolicyEngine
+
+    def capture(**kw):
+        ref_kwargs.update(kw)
+        raise _Built()
+
+    monkeypatch.setattr(ref_engine_mod, "PolicyEngine", capture)
+    ref_args = ref_cli.build_parser().parse_args(
+        ["server", "--jax-platform", "cpu", flag, value])
+    with pytest.raises(_Built):
+        run(ref_cli.run_server(ref_args))
+    monkeypatch.setattr(ref_engine_mod, "PolicyEngine", real)
+    want = {k: ref_kwargs[k] for k in ("canary_fraction", "canary_window_s",
+                                       "snapshot_history")}
+    ref_engine = real(mesh=None, lane_select=False, **want)
+    assert read(got.value.args[0]) == read(ref_engine)
+    assert read(got.value.args[0]) != read(real(mesh=None,
+                                                lane_select=False))
+
+
 @pytest.mark.parametrize("flag,value", [("--slo-ms", "250"),
                                         ("--flight-dir", "/x"),
                                         ("--flight-keep", "3")])

@@ -343,8 +343,10 @@ def test_swaps_under_load_on_the_card(card):
     """Waves of Check()s while three reconciles alternate between two
     corpora that differ in some configs' rules: every verdict equals the
     oracle of the generation its batch was cut against, batches were cut
-    against several generations, and device memory after ten more swaps
-    is within one snapshot's upload of its value after the first."""
+    against several generations, and device memory over ten more swaps,
+    from the one that fills the bounded snapshot history to the last,
+    stays within one snapshot's upload (the history retains its earlier
+    generations' params for a rollback)."""
     import dataclasses
     import gc
 
@@ -417,7 +419,9 @@ def test_swaps_under_load_on_the_card(card):
         mem.append(torch.cuda.memory_allocated(card))
     params = engine._snapshot.params
     upload = sum(t.numel() * t.element_size() for t in _tensors(params))
-    assert abs(mem[-1] - mem[0]) <= upload
+    full = engine._history.maxlen
+    assert len(engine._history) == full
+    assert abs(mem[-1] - mem[full]) <= upload
 
 
 def _tensors(tree):
@@ -993,3 +997,96 @@ def test_engine_reconciles_incrementally_on_the_card(card):
 async def _gather(engine, docs, names):
     return await asyncio.gather(*(engine.submit(d, n)
                                   for d, n in zip(docs, names)))
+
+
+def _param_ptrs(params) -> dict:
+    """Every device tensor of a params tree by path: its data pointer."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, torch.Tensor):
+            out[path] = node.data_ptr()
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+
+    walk(params, "")
+    return out
+
+
+def test_canary_parts_launch_on_their_generations_and_rollback_reserves(
+        card, monkeypatch):
+    """A canary cut holding both cohorts makes two launches, one on each
+    generation's params, each readback byte-equal to the plain version on
+    the same operands; a rollback re-serves the retained baseline params
+    (the same data pointers) with nothing uploaded and no probe."""
+    from authorino_tpu_torch.ops.operands import defuse
+    from authorino_tpu_torch.runtime.change_safety import in_canary_cohort
+    from authorino_tpu_torch.utils import metrics as metrics_mod
+
+    def entries(cfgs):
+        return [EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                for c in cfgs]
+
+    engine = PolicyEngine(device=card, max_batch=256, verdict_cache_size=0,
+                          batch_dedup=False, canary_fraction=0.5,
+                          canary_window_s=600.0)
+    engine.apply_snapshot(entries(northstar.build_corpus(100, 10)))
+    base = engine._snapshot
+    base_ptrs = _param_ptrs(base.params)
+    engine.apply_snapshot(entries(northstar.build_corpus(
+        100, 10, changed={3: "const"})))
+    phase = engine._canary
+    assert phase is not None and phase.baseline is base
+    assert _param_ptrs(phase.snap.params) != base_ptrs
+    docs = northstar.build_docs(128, seed=9, cohort_entropy=True)
+    names = [f"cfg-{k % 100}" for k in range(128)]
+    cohorts = [in_canary_cohort(d, 0.5) for d in docs]
+    assert 0 < sum(cohorts) < len(docs)
+    captured = []
+    real = fk.dispatch_megakernel
+
+    def capturing(params, db):
+        h = real(params, db)
+        captured.append((params, db, h))
+        return h
+
+    monkeypatch.setattr(fk, "dispatch_megakernel", capturing)
+    l0 = fk.launches
+    out = asyncio.run(_gather(engine, docs, names))
+    monkeypatch.setattr(fk, "dispatch_megakernel", real)
+    assert fk.launches - l0 == 2 == len(captured)
+    assert {id(p) for p, _, _ in captured} == {id(phase.snap.params),
+                                               id(base.params)}
+    for params, db, h in captured:
+        buf, layout = fuse_batch(db)
+        want = fk.fused_packed_plain(params, defuse(
+            torch.from_numpy(buf).to(card), layout)).cpu().numpy()
+        got = np.asarray(h.wait())
+        assert got.shape == want.shape and np.array_equal(got, want)
+    for (rule, skipped), d, n, c in zip(out, docs, names, cohorts):
+        snap = phase.snap if c else base
+        own, _, w_skip = host_results(snap.policy, d,
+                                      snap.policy.config_ids[n])
+        assert bool(np.all(skipped | rule)) == own
+        assert skipped.tolist() == w_skip.tolist()
+    up0 = metrics_mod.delta_upload_bytes.labels("engine")._value.get()
+    full0 = metrics_mod.full_upload_bytes.labels("engine")._value.get()
+    p0 = fk.probe_launches
+    assert engine.canary_rollback()
+    assert engine._snapshot.params is base.params
+    assert _param_ptrs(engine._snapshot.params) == base_ptrs
+    assert fk.probe_launches == p0
+    assert metrics_mod.delta_upload_bytes.labels(
+        "engine")._value.get() == up0
+    assert metrics_mod.full_upload_bytes.labels("engine")._value.get() == \
+        full0
+    l0 = fk.launches
+    again = asyncio.run(_gather(engine, docs, names))
+    assert fk.launches - l0 == 1
+    for (rule, skipped), d, n in zip(again, docs, names):
+        own, _, _ = host_results(base.policy, d, base.policy.config_ids[n])
+        assert bool(np.all(skipped | rule)) == own

@@ -605,8 +605,8 @@ def test_stats_and_debug_vars_keys(reference):
     """The port's fe_stats keys are the reference's plus ``unavailable``,
     ``drain_refused`` and the backlog its drain waits out;
     stats() adds the verdict cache's and the frontend's own counts;
-    debug_vars() carries the knobs, the breaker, admission, the ledger
-    and the serving snapshot."""
+    debug_vars() carries the knobs, the breaker, admission, the ledger,
+    the serving snapshot and the engine's change-safety state."""
     stack = PortStack()
     try:
         call(stack.port, REQUESTS[0])
@@ -624,7 +624,8 @@ def test_stats_and_debug_vars_keys(reference):
             "dispatch_threads", "inflight_batches", "inflight_peak",
             "trace_sample_n", "batch_dedup", "verdict_cache", "breaker",
             "device_timeout_s", "admission", "slo", "provenance",
-            "kernel_cost", "snapshot"}
+            "kernel_cost", "change_safety", "snapshot"}
+        assert dv["change_safety"] == stack.engine.change_safety_vars()
         assert dv["snapshot"]["warm_done"] and dv["host_degrade"] is True
         assert dv["snapshot"]["fast_configs"] == sum(
             1 for e in stack.engine._snapshot.entries

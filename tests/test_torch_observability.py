@@ -521,7 +521,9 @@ FAMILIES = ("batch_size", "batch_pad_occupancy", "batch_queue_wait",
             "slo_observed_total", "flight_events", "flight_dumps",
             "state_write_failures", "circuit_state", "circuit_transitions",
             "degraded_decisions", "injected_faults", "compile_cache_events",
-            "delta_upload_bytes", "full_upload_bytes")
+            "delta_upload_bytes", "full_upload_bytes", "canary_state",
+            "snapshot_rollbacks", "quarantined_configs",
+            "canary_guard_delta")
 
 DESCRIBE = """
 import importlib, json, sys

@@ -369,8 +369,27 @@ def test_http_cases_of_the_reference(service_engines):
 
 def test_http_concurrent_checks_and_surfaces(service_engines):
     """16 concurrent /check requests coalesce and answer as the reference
-    does; /healthz, /readyz, /metrics and /debug/vars answer; the routes
-    of unported planes are never a Check()."""
+    does; /healthz, /readyz, /metrics and /debug/vars answer; /debug/canary
+    answers GET and POST with the reference's JSON; the routes of unported
+    planes are never a Check()."""
+
+    async def canary_answers(app):
+        out = []
+        async with TestClient(TestServer(app)) as client:
+            for method, path in (("GET", "/debug/canary"),
+                                 ("POST", "/debug/canary?action=promote"),
+                                 ("POST", "/debug/canary?action=rollback"),
+                                 ("POST", "/debug/canary?action=clear-"
+                                          "quarantine"),
+                                 ("GET", "/debug/canary?action=promote"),
+                                 ("POST", "/debug/canary?action=bogus")):
+                r = await client.request(method, path)
+                out.append((method, path, r.status, await r.text()))
+        return out
+
+    ref_canary = run(canary_answers(ref_http.build_app(service_engines[0])))
+    port_canary = run(canary_answers(port_http.build_app(
+        service_engines[1])))
 
     async def body():
         out = []
@@ -401,9 +420,20 @@ def test_http_concurrent_checks_and_surfaces(service_engines):
     assert json.loads(by["/debug/vars"][1])["engine"]["generation"] == 1
     assert json.loads(by["/debug/decisions?n=0"][1])["records"] == []
     assert json.loads(by["/debug/tenants"][1]) == {"enabled": False}
-    for path in ("/debug/canary", "/debug/replay", "POST /debug/canary"):
-        assert by[path][0] == 501 and "ROADMAP" in by[path][1]
+    assert by["/debug/replay"][0] == 501 and "ROADMAP" in by["/debug/replay"][1]
+    assert by["/debug/canary"][0] == 200
+    assert json.loads(by["/debug/canary"][1])["canary"] is None
+    assert by["POST /debug/canary"][0] == 200
+    assert json.loads(by["POST /debug/canary"][1])["applied"] is False
     assert by["/debug/profile"][0] == 403
+    # the reference's answers, code and JSON, on its engine
+    assert [r[:3] for r in port_canary] == [r[:3] for r in ref_canary]
+    assert [r[2] for r in port_canary] == [200, 200, 200, 200, 405, 400]
+    for got, want in zip(port_canary, ref_canary):
+        if got[2] == 400:
+            assert got[3] == want[3]
+        else:
+            assert json.loads(got[3]) == json.loads(want[3])
 
 
 def test_http_debug_profile_captures_a_torch_trace(service_engines):
