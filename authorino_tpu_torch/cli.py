@@ -96,13 +96,28 @@ def build_parser() -> argparse.ArgumentParser:
     a("--no-speculative-dispatch", action="store_true", default=not env_var("SPECULATIVE_DISPATCH", True),
       help="Disable speculative dual-dispatch (the port has none)")
     a("--no-tenant-qos", action="store_true", default=not env_var("TENANT_QOS", True),
-      help="Disable the tenant QoS plane (the port has none)")
+      help="Disable the tenant QoS plane: weighted-fair batch cuts over "
+           "per-tenant virtual queues, per-tenant quotas and tenant-aware "
+           "doomed shedding at admission, per-tenant folds and "
+           "noisy-neighbor containment.  Off returns the FIFO cut")
     a("--tenant-weight", action="append", default=[], metavar="TENANT=WEIGHT",
-      help="Tenant weight override (not in the port yet)")
-    a("--tenant-default-weight", type=float, default=env_var("TENANT_DEFAULT_WEIGHT", 1.0))
-    a("--tenant-quota-rps", type=float, default=env_var("TENANT_QUOTA_RPS", 0.0))
-    a("--tenant-contain-threshold", type=float, default=env_var("TENANT_CONTAIN_THRESHOLD", 3.0))
-    a("--tenant-top-k", type=int, default=env_var("TENANT_TOP_K", 16))
+      help="Operator weight override for one tenant (AuthConfig id, e.g. "
+           "ns/name=4).  Repeatable; overrides the authorino.tpu/qos-weight "
+           "and qos-class annotations")
+    a("--tenant-default-weight", type=float, default=env_var("TENANT_DEFAULT_WEIGHT", 1.0),
+      help="Fair-share weight of un-annotated tenants")
+    a("--tenant-quota-rps", type=float, default=env_var("TENANT_QUOTA_RPS", 0.0),
+      help="Default per-tenant admission token-bucket rate (requests/s; 0 = "
+           "no quota); per tenant from the authorino.tpu/qos-quota-rps "
+           "annotation.  Over quota: RESOURCE_EXHAUSTED naming the tenant")
+    a("--tenant-contain-threshold", type=float, default=env_var("TENANT_CONTAIN_THRESHOLD", 3.0),
+      help="Contain a tenant whose served share exceeds its weighted share "
+           "times this while the queue wait is over the admission target: "
+           "its rows ride a part of their own at each cut, past a paced "
+           "allowance typed rejections; released on decay")
+    a("--tenant-top-k", type=int, default=env_var("TENANT_TOP_K", 16),
+      help="Tenant-labelled metrics: only the top-K tenants by volume get "
+           "their own label value, the rest fold into `other`")
     a("--expose-deny-reason", action="store_true", default=env_var("EXPOSE_DENY_REASON", False),
       help="PRIVACY KNOB: name the attributed firing rule in the "
            "client-visible X-Ext-Auth-Reason header on denials")
@@ -205,7 +220,7 @@ def build_parser() -> argparse.ArgumentParser:
 # item (queue 1) that brings each
 UNPORTED_PLANES = {
     "brownout": 3, "lane selection": 3,
-    "speculative dispatch": 3, "tenancy": 3, "metadata prefetch": 5,
+    "speculative dispatch": 3, "metadata prefetch": 5,
     "state plane": 7, "snapshot distribution": 7,
     "kernel lanes": 9,
     "strict verify": 12, "capture": 12, "replay pregate": 12,
@@ -218,11 +233,6 @@ UNPORTED_PLANES = {
 UNPORTED_FLAGS = {
     "brownout_max_batch": (32, "brownout"),
     "lane_host_max_rows": (64, "lane selection"),
-    "tenant_weight": ([], "tenancy"),
-    "tenant_default_weight": (1.0, "tenancy"),
-    "tenant_quota_rps": (0.0, "tenancy"),
-    "tenant_contain_threshold": (3.0, "tenancy"),
-    "tenant_top_k": (16, "tenancy"),
     "capture": (False, "capture"),
     "capture_log_dir": ("", "capture"),
     "capture_log_size_mb": (64.0, "capture"),
@@ -259,6 +269,24 @@ def refuse_unported(args) -> None:
             f"--kernel-lane={args.kernel_lane!r}: this server runs the fused "
             "mega-kernel only; the other kernel lanes are not in it yet "
             f"(ROADMAP.md queue 1 item {UNPORTED_PLANES['kernel lanes']})")
+
+
+def _parse_tenant_weights(pairs) -> dict:
+    """--tenant-weight ns/name=4 (repeatable) -> {tenant: weight}.  A
+    malformed entry is skipped with a warning: a typo must not stop
+    serving."""
+    out = {}
+    for raw in pairs or []:
+        tenant, sep, w = str(raw).rpartition("=")
+        try:
+            if not sep or not tenant:
+                raise ValueError(raw)
+            out[tenant] = float(w)
+        except ValueError:
+            logging.getLogger("authorino_tpu_torch").warning(
+                "ignoring malformed --tenant-weight %r "
+                "(want TENANT=WEIGHT)", raw)
+    return out
 
 
 def _ssl_ctx(cert: str, key: str, what: str = "--tls-cert"):
@@ -417,6 +445,12 @@ async def run_server(args, on_engine=None) -> None:
         canary_fraction=float(args.canary_fraction),
         canary_window_s=float(args.canary_window),
         snapshot_history=int(args.snapshot_history),
+        tenant_qos=not args.no_tenant_qos,
+        tenant_default_weight=float(args.tenant_default_weight),
+        tenant_weights=_parse_tenant_weights(args.tenant_weight),
+        tenant_quota_rps=float(args.tenant_quota_rps),
+        tenant_contain_threshold=float(args.tenant_contain_threshold),
+        tenant_top_k=int(args.tenant_top_k),
     )
     if engine.device.type == "cuda":
         import torch

@@ -7,10 +7,10 @@ controllers/status_report.go, controllers/auth_config_status_updater.go).
 The accelerator-era difference: a successful reconcile triggers
 whole-corpus tensor recompilation and an atomic device-buffer swap — the
 analog of the reference's per-policy OPA precompile, amortized across the
-corpus.  The port recompiles and re-uploads the whole corpus on every
-reconcile (no delta upload yet), on a worker thread while the engine keeps
-serving the previous snapshot.  The port's translate reads no AuthConfig
-annotations yet (tenancy), so none are passed."""
+corpus.  The engine compiles the corpus incrementally and uploads only the
+changed rows, on a worker thread while it keeps serving the previous
+snapshot.  Each AuthConfig's ``metadata.annotations`` go to translate, so
+the tenant QoS intent they carry reaches the engine's weight book."""
 
 from __future__ import annotations
 
@@ -234,6 +234,7 @@ class AuthConfigReconciler:
                     labels=meta.get("labels"),
                     cluster=self.cluster,
                     engine=self.engine,
+                    annotations=meta.get("annotations"),
                 )
             except TranslationError as e:
                 self.status.set(id_, STATUS_CACHING_ERROR, str(e))

@@ -20,8 +20,8 @@ keeps the interpreter for the evaluator's verdict, as the reference does.
 The port translates every kind the reference does (``NOT_IN_PORT`` is
 empty).  An ``opa.externalPolicy`` is downloaded here
 (and refreshed on its TTL by the evaluator) and never lowered: a refresh
-swaps the policy without a reconcile.  AuthConfig annotations (tenancy)
-are not read yet."""
+swaps the policy without a reconcile.  The AuthConfig's annotations ride
+the entry into the engine's tenant weight book (``tenancy/weights.py``)."""
 
 from __future__ import annotations
 
@@ -283,6 +283,7 @@ async def translate_auth_config(
     cluster: Optional[ClusterReader] = None,
     *,
     engine: PolicyEngine,
+    annotations: Optional[Dict[str, str]] = None,
 ) -> EngineEntry:
     """Returns the EngineEntry (runtime graph + compilable rules) whose
     pattern evaluators ``engine`` evaluates."""
@@ -632,4 +633,7 @@ async def translate_auth_config(
         hosts=hosts,
         runtime=runtime,
         rules=ConfigRules(name=cfg_id, evaluators=pattern_slots) if pattern_slots else None,
+        # the qos-class/weight/quota annotations ride the entry into the
+        # engine's weight book
+        annotations=dict(annotations) if annotations else None,
     )

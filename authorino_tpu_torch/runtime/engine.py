@@ -130,6 +130,15 @@ clean window promotes.  The swap listeners fire only at promotion or
 rollback.  A bounded history of earlier generations (params included)
 backs ``rollback_last``, a pointer swap: nothing compiled, nothing
 uploaded.
+
+The tenant QoS plane (``tenancy/``) rides admission, the cut and the
+per-batch fold: the tenant is the AuthConfig, weighted by its annotations.
+Admission rejects a tenant past its quota, its queue share or its
+containment allowance, typed and tenant-scoped, before the global gate; a
+contended cut is a weighted deficit round robin; a contained tenant's rows
+ride parts of their own behind each cut's others, on the device (the
+reference sends them to its host-oracle lane); every lane's fold counts
+each tenant's requests, denies, waits and SLO burn.
 """
 
 from __future__ import annotations
@@ -162,6 +171,7 @@ from ..snapshots.compile_cache import CompileCache, CompileReport
 from ..snapshots.delta import apply_delta
 from ..snapshots.diff import plan_delta, snapshot_diff
 from ..snapshots.fingerprint import cache_tokens, rules_fingerprint
+from ..tenancy import TenantPlane
 from ..utils import bucket_pow2
 from ..utils import metrics as metrics_mod
 from ..utils import tracing as tracing_mod
@@ -188,7 +198,8 @@ _STAT_KEYS = ("batches", "launches", "plain_calls", "rows", "device_rows",
               "dedup_rows", "cache_rows", "cached_batches", "pad_rows",
               "h2d_bytes", "d2h_bytes", "host_fallback", "retries",
               "failed_batches", "deadline_shed", "watchdog_timeouts",
-              "degraded_rows", "degraded_batches", "breaker_open_batches")
+              "degraded_rows", "degraded_batches", "breaker_open_batches",
+              "contained_parts", "contained_rows")
 
 
 @dataclass
@@ -199,6 +210,9 @@ class EngineEntry:
     hosts: List[str]
     runtime: Any = None
     rules: Optional[ConfigRules] = None  # compilable pattern surface
+    # AuthConfig metadata.annotations: the tenant QoS plane resolves each
+    # tenant's weight and quota from these at every install
+    annotations: Optional[Dict[str, str]] = None
 
 
 class _Snapshot:
@@ -328,6 +342,9 @@ class _Pending:
     # the canary cohort, stamped at submit while a canary is in progress:
     # a cut partitions by it, so every launch rides one generation
     canary: bool = False
+    # set at the cut when the tenant was contained: the row rides a part
+    # of its own (its batch record says so)
+    contained: bool = False
 
 
 class _Resolved:
@@ -399,7 +416,14 @@ class PolicyEngine:
                  canary_fraction: float = 0.0,
                  canary_window_s: float = 30.0,
                  canary_thresholds=None,
-                 snapshot_history: int = 4):
+                 snapshot_history: int = 4,
+                 tenant_qos: bool = True,
+                 tenant_default_weight: float = 1.0,
+                 tenant_weights: Optional[Dict[str, float]] = None,
+                 tenant_quota_rps: float = 0.0,
+                 tenant_contain_threshold: float = 3.0,
+                 tenant_contain_allowance_rps: float = 100.0,
+                 tenant_top_k: int = 16):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -430,7 +454,22 @@ class PolicyEngine:
         deny, error and SLO rates; a breach rolls back (a pointer swap to
         the retained baseline) and quarantines the poison configs, a clean
         window promotes.  ``snapshot_history`` bounds the previous
-        generations retained for ``rollback_last``."""
+        generations retained for ``rollback_last``.
+
+        The tenant QoS plane (``tenancy/``; off with ``tenant_qos=False``):
+        the tenant is the AuthConfig.  Its weight and quota come from the
+        entry's annotations (``authorino.tpu/qos-class``, ``qos-weight``,
+        ``qos-quota-rps``), ``tenant_weights`` overrides weights by name,
+        ``tenant_default_weight`` and ``tenant_quota_rps`` are the defaults.
+        A contended cut is a weighted deficit round robin over per-tenant
+        virtual queues; a tenant over its quota, or past its queue share, or
+        a contained tenant past ``tenant_contain_allowance_rps``, is
+        rejected typed and tenant-scoped before the global gate.  A tenant
+        whose served share stays over ``tenant_contain_threshold`` times its
+        weighted share while the queue wait is over target is contained:
+        its rows ride a part of their own at each cut, launched behind the
+        cut's other parts.  ``tenant_top_k`` bounds the tenant labels of
+        the metrics."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
@@ -494,6 +533,26 @@ class PolicyEngine:
         self._last_rollback: Optional[Dict[str, Any]] = None
         self._g_canary = metrics_mod.canary_state.labels("engine")
         self._g_quarantine = metrics_mod.quarantined_configs.labels("engine")
+        self.tenancy = TenantPlane(
+            "engine", enabled=bool(tenant_qos),
+            default_weight=tenant_default_weight,
+            weight_overrides=tenant_weights,
+            default_quota_rps=tenant_quota_rps,
+            admission_target_s=self.admission.target_s,
+            contain_threshold=tenant_contain_threshold,
+            contain_allowance_rps=tenant_contain_allowance_rps,
+            top_k=tenant_top_k,
+            wait_ewma=lambda: self.admission.wait_ewma,
+            wait_target_s=lambda: self.admission.target_s,
+            # the second pressure signal: rising global rejections (the
+            # wait-targeted cap holds the queue at the target, so the wait
+            # alone can read healthy while cold tenants are turned away)
+            # and queue-share rejections (a tenant holding more of the
+            # shared queue than its share)
+            reject_count=lambda: (
+                self.admission.rejected.get("overload", 0)
+                + self.admission.rejected.get("queue-full", 0)
+                + self.admission.rejected.get("tenant-queue-share", 0)))
         RECORDER.register_provider("engine", self, "debug_vars")
 
     def _add_stats(self, **counts) -> None:
@@ -566,7 +625,10 @@ class PolicyEngine:
         """The swap at 100%: publish under the swap lock, retain the
         outgoing snapshot in the bounded history (a later rollback
         re-serves it as it stands: its device buffers are never written),
-        telemetry, swap listeners."""
+        the tenant weights of its entries, telemetry, swap listeners."""
+        # a reuse install (the same compiled corpus) rebinds too: an
+        # annotation changes no fingerprint
+        self._bind_tenants(snap)
         with self._swap_lock:
             self.generation += 1
             snap.generation = self.generation
@@ -580,6 +642,16 @@ class PolicyEngine:
             "generation": snap.generation, "configs": len(snap.by_id)})
         self._record_control_plane(snap)
         self.notify_swap_listeners()
+
+    def _bind_tenants(self, snap: Optional[_Snapshot]) -> None:
+        """Rebuild the tenant weight book from the entries ``snap`` serves
+        (their annotations).  Advisory: never fails a swap."""
+        if snap is None:
+            return
+        try:
+            self.tenancy.bind_entries(snap.entries)
+        except Exception:
+            log.exception("tenant weight rebuild failed (swap unaffected)")
 
     def _record_control_plane(self, snap: _Snapshot) -> None:
         """Reconcile telemetry after a swap: the phase histograms, the
@@ -689,6 +761,9 @@ class PolicyEngine:
             fraction=self.canary_fraction, window_s=self.canary_window_s,
             guard=safety_mod.CanaryGuard(self.canary_thresholds,
                                          changed=changed))
+        # the reconcile's annotations hold from the canary's start, as its
+        # host index does
+        self._bind_tenants(snap)
         with self._swap_lock:
             self.generation += 1
             snap.generation = self.generation
@@ -762,6 +837,7 @@ class PolicyEngine:
         phase.cancel_timer()
         phase.guard.close()
         self._g_canary.set(0)
+        self._bind_tenants(phase.snap)
         RECORDER.record("canary-promote", lane="engine", detail={
             "generation": phase.snap.generation, "manual": manual,
             "age_s": round(time.monotonic() - phase.t_start, 3)})
@@ -796,6 +872,7 @@ class PolicyEngine:
         phase.cancel_timer()
         phase.guard.close()
         self._g_canary.set(0)
+        self._bind_tenants(clone)
         metrics_mod.snapshot_rollbacks.labels(reason).inc()
         self._last_rollback = {
             "t": time.time(), "reason": reason, "manual": manual,
@@ -979,6 +1056,7 @@ class PolicyEngine:
             self._snapshot = clone
             metrics_mod.snapshot_generation.labels("engine").set(
                 clone.generation)
+        self._bind_tenants(clone)
         metrics_mod.snapshot_rollbacks.labels(reason).inc()
         self._last_rollback = {
             "t": time.time(), "reason": reason, "manual": True,
@@ -1173,13 +1251,44 @@ class PolicyEngine:
             raise CheckAbort(UNAVAILABLE, "no compiled policy snapshot")
         if config_name not in snap.policy.config_ids:
             raise KeyError(f"unknown AuthConfig {config_name!r}")
+        # tenant-scoped admission runs before the global gate: the quota's
+        # token bucket, the queue-share bound, then containment's pacing.
+        # A typed RESOURCE_EXHAUSTED names the tenant; the global
+        # OVERLOADED latch and its CoDel state are untouched, so every
+        # other tenant keeps its whole budget (a contained tenant's flood
+        # paced here cannot fill the shared queue to the global cap)
+        ten = self.tenancy
+        if ten.enabled:
+            trej = ten.admit(config_name, depth=len(self._queue),
+                             effective_cap=self.admission.effective_cap())
+            if trej is not None:
+                code, reason = trej
+                self.admission.count_reject(reason)
+                ten.count_reject(config_name, reason)
+                self._canary_tenant_rejection(phase, in_canary, config_name)
+                raise CheckAbort(
+                    code, f"tenant {config_name} over its QoS budget "
+                          f"({reason}): admission rejected")
+        # the doomed-deadline predictor sees this tenant's fair-share
+        # depth, not the global queue: one tenant's standing backlog
+        # cannot doom another's deadlines.  Without a deadline nothing is
+        # doomed, so the depth (O(backlogged tenants)) is not taken
+        doom_depth = ten.doom_depth(config_name, len(self._queue)) \
+            if ten.enabled and deadline is not None else None
         rej = self.admission.admit(len(self._queue), deadline=deadline,
-                                   rtt_s=self._device_ewma)
+                                   rtt_s=self._device_ewma,
+                                   doom_depth=doom_depth)
         if rej is not None:
             code, reason = rej
             self.admission.count_reject(reason)
             if code == DEADLINE_EXCEEDED:
                 self._count_shed(1)
+                if doom_depth is not None:
+                    # the shed is scoped to this tenant's own standing
+                    # queue: a tenant-scoped rejection like the others
+                    ten.count_reject(config_name, "doomed-deadline")
+                    self._canary_tenant_rejection(phase, in_canary,
+                                                  config_name)
                 raise CheckAbort(code, "rejected at admission: deadline "
                                        "cannot be met")
             raise CheckAbort(code, f"server overloaded ({reason}): "
@@ -1192,9 +1301,24 @@ class PolicyEngine:
                                         deadline=deadline,
                                         canary=in_canary))
             self.controller.observe_arrivals()
+            ten.on_enqueue(config_name)
         loop.call_soon(self._maybe_dispatch)
         rule, skipped, used = await fut
         return (rule, skipped, used) if return_snapshot else (rule, skipped)
+
+    def _canary_tenant_rejection(self, phase, in_canary: bool,
+                                 tenant: str) -> None:
+        """The per-tenant canary guard's feed: a canaried change that
+        pushes its own tenant into tenant-scoped rejections must gather
+        breach evidence.  A decision hops to the encode pool (this runs on
+        a serving loop)."""
+        if phase is None:
+            return
+        try:
+            phase.guard.observe_tenant_rejection(in_canary, tenant)
+            self._canary_poke(phase)
+        except Exception:
+            log.exception("tenant canary feed failed")
 
     # ---- pipelined dispatch -----------------------------------------------
 
@@ -1205,19 +1329,43 @@ class PolicyEngine:
         with nothing to do is a cheap no-op, so no timer is needed: a full
         window means a completion will come, and it cuts the next batch.
         During a canary a cut splits by cohort into at most two parts,
-        each its own job (and window slot) on its own generation."""
+        each its own job (and window slot) on its own generation.
+
+        With the tenant plane on, a contended cut (more queued than it
+        takes) is the weighted-fair cut; an uncontended one takes
+        everything in arrival order.  A contained tenant's rows then leave
+        the cut for parts of their own (one per cohort), launched on the
+        device behind the cut's other parts, each its own window slot:
+        the other tenants' rows never wait behind them."""
+        ten = self.tenancy
         while True:
             with self._queue_lock:
-                if not self._queue or \
-                        self._inflight >= self.controller.window:
+                depth = len(self._queue)
+                if not depth or self._inflight >= self.controller.window:
                     break
-                n = min(len(self._queue), self.max_batch)
-                batch = [self._queue.popleft() for _ in range(n)]
+                n = min(depth, self.max_batch)
+                if ten.enabled and depth > n:
+                    batch = ten.cut(self._queue, n)
+                else:
+                    batch = [self._queue.popleft() for _ in range(n)]
+                ten.on_dequeue(batch)
                 phase = self._canary
-                parts = _split_cohorts(batch, phase)
+                contained = []
+                if ten.has_contained():
+                    batch, div = ten.split_contained(batch)
+                    if div:
+                        for p in div:
+                            p.contained = True
+                        contained = _split_cohorts(div, phase)
+                parts = (_split_cohorts(batch, phase) if batch else []) \
+                    + contained
                 self._inflight += len(parts)
                 self.inflight_peak = max(self.inflight_peak, self._inflight)
                 inflight = self._inflight
+            if contained:
+                self._add_stats(
+                    contained_parts=len(contained),
+                    contained_rows=sum(len(part) for _, part in contained))
             self._g_inflight.set(inflight)
             for is_canary, part in parts:
                 # pinned per part: a swap admitted later never relabels
@@ -1505,7 +1653,9 @@ class PolicyEngine:
                   "plain_calls": launched.plain_calls,
                   "h2d_bytes": staged_h2d_bytes(db_u) if u else 0,
                   "d2h_bytes": launched.nbytes}
-        self.batch_records.append(dict(record, generation=snap.generation))
+        self.batch_records.append(dict(
+            record, generation=snap.generation,
+            **({"contained": True} if batch[0].contained else {})))
         self._add_stats(batches=1, cached_batches=int(u == 0), **record)
         # the structural cost fold: one device computation per cut with a
         # device row (the kernel's launch on a card, its plain version's
@@ -1554,8 +1704,10 @@ class PolicyEngine:
             # attribution: one per-batch fold over the FINAL columns —
             # cache hits, dedup fan-out and fallback rows are already
             # folded back in, so every path attributes identically
+            # (``waits``, the queue waits at the encode, feed the tenant
+            # plane's wait signal: they must not absorb the device trip)
             self._observe_provenance(snap, batch, rows, own_rule,
-                                     own_skipped)
+                                     own_skipped, waits=waits)
             return own_rule, own_skipped
 
         return _Inflight(self, batch, handle, finalize, binfo, waits)
@@ -1563,12 +1715,13 @@ class PolicyEngine:
     # ---- decision observability -------------------------------------------
 
     def _observe_provenance(self, snap: _Snapshot, pendings: List[_Pending],
-                            rows, own_rule, own_skipped):
+                            rows, own_rule, own_skipped, waits=None):
         """Per-batch decision-observability fold: which-rule-fired columns →
         the snapshot's heat map (one vectorized composite-key add), plus at
-        most one head-sampled decision record per authconfig.  Never
-        raises — a telemetry fault must not re-dispatch a decided batch.
-        Returns the firing columns (None when nothing was folded)."""
+        most one head-sampled decision record per authconfig, and the
+        tenant plane's per-tenant counters.  Never raises — a telemetry
+        fault must not re-dispatch a decided batch.  Returns the firing
+        columns (None when nothing was folded)."""
         try:
             heat = snap.heat
             if heat is None:
@@ -1587,6 +1740,20 @@ class PolicyEngine:
                 host_of=lambda i: _doc_host(pendings[i].doc),
                 latency_of=lambda i: ((now_m - pendings[i].t_enq) * 1e3
                                       if pendings[i].t_enq else 0.0))
+            # the tenant axis rides the same per-batch seam, on every lane
+            # (the device's, the contained part's, the CPU degrade's), with
+            # two clocks: ``waits`` (queue waits at the encode; the sojourn
+            # where none were taken) feed the per-tenant CoDel signal, and
+            # the SLO mask reads the whole sojourn at completion
+            if self.tenancy.enabled:
+                sojourn = np.asarray([(now_m - q.t_enq) if q.t_enq else 0.0
+                                      for q in pendings])
+                self.tenancy.fold(
+                    heat, rows, firing=firing,
+                    waits=(waits if waits is not None else sojourn),
+                    bad_mask=(sojourn > self.slo.slo_s
+                              if self.slo is not None else None),
+                    lane="engine")
             # the canary guards read the same attribution columns: a part
             # rides one generation, so the evaluating snapshot names the
             # cohort
@@ -1717,6 +1884,9 @@ class PolicyEngine:
             "adaptive": self.controller.to_json(),
             "control_plane": self._control_plane,
             "change_safety": self.change_safety_vars(),
+            # the tenant plane: weights, the fair cut, per-tenant admission
+            # and waits, the top tenants and containment (/debug/tenants)
+            "tenancy": self.tenancy.to_json(),
             "slo": self.slo.to_json() if self.slo is not None else None,
             "faults": (faults.FAULTS.describe() if faults.ACTIVE else
                        {"armed": False}),

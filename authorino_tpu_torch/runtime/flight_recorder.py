@@ -116,6 +116,10 @@ class FlightRecorder:
         self._provider_lock = threading.Lock()
         self.events_total = 0
         self.dumps: List[str] = []  # bundle paths written this process
+        # the last bundle name and how often it has been taken: two
+        # anomalies of one trigger in one second get distinct names
+        self._name_lock = threading.Lock()
+        self._last_name = ("", 0)
 
     # -- configuration -----------------------------------------------------
 
@@ -231,8 +235,15 @@ class FlightRecorder:
         counted in auth_server_flight_recorder_dumps_total{trigger})."""
         bundle = self.bundle(trigger)
         os.makedirs(self.dump_dir, exist_ok=True)
-        fname = "flight-%d-%s-%d.json" % (
+        base = "flight-%d-%s-%d" % (
             int(bundle["t"]), trigger.replace("/", "_"), os.getpid())
+        # the reference's name; a second bundle of the same trigger in the
+        # same second takes a suffix (with one name, two concurrent writes
+        # would share their temporary file and one would be lost)
+        with self._name_lock:
+            taken = self._last_name[1] if self._last_name[0] == base else 0
+            self._last_name = (base, taken + 1)
+        fname = base + (".json" if not taken else "-%d.json" % taken)
         path = os.path.join(self.dump_dir, fname)
         # the shared atomic writer: fsynced, so a crash cannot surface a
         # zero-length bundle

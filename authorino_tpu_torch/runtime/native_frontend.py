@@ -799,6 +799,12 @@ class NativeFrontend:
              "h2d_bytes", "d2h_bytes", "warm_launches", "retries",
              "degraded_rows", "unavailable_rows", "breaker_open_batches",
              "watchdog_timeouts", "dyn_registered", "dyn_register_ns"), 0)
+        # the tenant plane is the engine's: the C++ gather cuts its own
+        # slots (no fair cut here), but every completed slot folds its
+        # tenant axis into the same per-tenant counters, so detection,
+        # weights and /debug/tenants see both lanes; enforcement stays at
+        # the engine's admission
+        self.tenancy = getattr(engine, "tenancy", None)
         RECORDER.register_provider("native_frontend", self, "debug_vars")
 
     def _count(self, **kw) -> None:
@@ -998,6 +1004,9 @@ class NativeFrontend:
             "device_timeout_s": self.device_timeout_s,
             "admission": self.admission.to_json(),
             "slo": self.slo.to_json() if self.slo is not None else None,
+            # the shared tenant plane's view (both lanes fold into it)
+            "tenancy": (self.tenancy.to_json()
+                        if self.tenancy is not None else None),
             "provenance": {
                 "heat": (rec.heat.to_json()
                          if rec is not None and rec.heat is not None
@@ -1993,6 +2002,10 @@ class NativeFrontend:
                 prov_mod.fold_and_sample(rec.heat, rows, firing, count,
                                          lane="native",
                                          generation=rec.snap_id)
+                # a degraded slot still counts against its tenants
+                ten = self.tenancy
+                if ten is not None and ten.enabled:
+                    ten.fold(rec.heat, rows, firing=firing, lane="native")
             except Exception:
                 log.exception("degrade provenance fold failed")
 
@@ -2014,8 +2027,9 @@ class NativeFrontend:
                                  t0_ns: int, device_rows: int,
                                  firing: Optional[np.ndarray] = None) -> None:
         """Per-slot telemetry after completion (responses are already on
-        their way): the rule heat map, the SLO, the batch series, the
-        DeviceBatch span and the per-authconfig counters."""
+        their way): the rule heat map, the tenant plane's counters, the
+        SLO, the batch series, the DeviceBatch span and the per-authconfig
+        counters."""
         heat = rec.heat
         if heat is not None and firing is not None and count:
             prov_mod.fold_and_sample(heat, rows, firing, count,
@@ -2027,6 +2041,21 @@ class NativeFrontend:
             # attribution feeds the guard's baseline cohort
             if self.engine._canary is not None:
                 self.engine.canary_observe_external(rows, firing, heat)
+        ten = self.tenancy
+        if ten is not None and ten.enabled and heat is not None and count:
+            try:
+                # waits=None: this lane's per-request queue waits are
+                # C++-clocked, and the slot's round trip read as a queue
+                # wait would latch every tenant overloaded on normal
+                # device latency.  The SLO mask is the lane's SLI, the
+                # slot's round trip, shared by every member
+                slo_s = self.slo.slo_s if self.slo is not None else 0.0
+                ten.fold(heat, rows, firing=firing,
+                         bad_mask=(np.full(count, dispatch_s > slo_s)
+                                   if slo_s else None),
+                         lane="native")
+            except Exception:
+                log.exception("tenant fold failed (telemetry only)")
         if self.slo is not None and count:
             # the native SLI is the slot's on-box round trip (per-request
             # waits are C++-clocked): every member shares it

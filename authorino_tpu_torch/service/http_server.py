@@ -6,10 +6,10 @@ An incoming HTTP request is synthesized into the same CheckRequestModel the
 gRPC path produces (headers lower-cased, body captured, TLS peer cert →
 source.certificate) and runs through the identical engine/pipeline.
 
-The debug routes of planes the port does not hold yet stay registered, so
-that a request to them never becomes a Check(): ``/debug/tenants`` answers
-``{"enabled": false}`` as the reference does without its tenancy plane,
-``/debug/replay`` answers 501 naming its ROADMAP item.  ``/debug/canary``
+``/debug/tenants`` serves the tenant QoS plane's state.  The debug route of
+a plane the port does not hold yet stays registered, so that a request to
+it never becomes a Check(): ``/debug/replay`` answers 501 naming its
+ROADMAP item.  ``/debug/canary``
 is the change-safety plane's: GET reads the canary, quarantine and
 rollback-history state, POST ``?action=promote|rollback|clear-quarantine``
 drives it."""
@@ -270,9 +270,13 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
             prov_mod.DECISIONS.to_json(n=n, tenant=tenant))
 
     async def debug_tenants(_):
-        """The tenant QoS plane's state: the port has no such plane yet,
-        which the reference answers as a disabled one."""
-        return web.json_response({"enabled": False})
+        """The tenant QoS plane's state: weights and quotas, fair-cut
+        evidence, per-tenant admission and wait state, the top tenants
+        with their SLO burn, and the containment set."""
+        plane = getattr(engine, "tenancy", None)
+        if plane is None:
+            return web.json_response({"enabled": False})
+        return web.json_response(plane.to_json())
 
     async def debug_canary(request: web.Request):
         """Change-safety state and the operator's override: GET returns

@@ -727,6 +727,75 @@ canary_guard_delta = _register(
     "back.",
     ("guard",),
 )
+# ---------------------------------------------------------------------------
+# The tenant QoS plane (tenancy/): per-tenant serving counters, tenant-scoped
+# admission rejections and containment state.  Reference names.
+#
+# Every family with a `tenant` label is bounded by construction: the
+# tenancy stats flush gives real tenant names only to the top-K tenants by
+# request volume (K at most the family's bound below) and folds everyone
+# else into the reserved `other` bucket.
+# ---------------------------------------------------------------------------
+
+# the reserved fold-over label value for tenants outside the top-K
+TENANT_OTHER = "other"
+
+# family (exposition name) -> the most distinct real-tenant label values the
+# flush may mint (the `other` bucket rides on top)
+TENANT_LABEL_BOUNDS = {
+    "auth_server_tenant_requests_total": 32,
+    "auth_server_tenant_denied_total": 32,
+    "auth_server_tenant_slo_bad_total": 32,
+    "auth_server_tenant_rejected_total": 32,
+    "auth_server_tenant_queue_wait_seconds": 32,
+    "auth_server_tenant_contained": 32,
+}
+
+tenant_requests = _register(
+    "counter", "auth_server_tenant_requests_total",
+    "Requests decided per tenant (AuthConfig identity) and lane, folded "
+    "once per micro-batch from the tenant axis of the provenance fold; "
+    "the device lane, the contained part and the CPU engine's degrade all "
+    "count.  Bounded cardinality: top-K tenants by volume + `other`.",
+    _LANE_LABELS + ("tenant",),
+)
+tenant_denied = _register(
+    "counter", "auth_server_tenant_denied_total",
+    "Denials per tenant and lane (the same per-batch fold as "
+    "auth_server_tenant_requests_total).  Top-K + `other` bounded.",
+    _LANE_LABELS + ("tenant",),
+)
+tenant_slo_bad = _register(
+    "counter", "auth_server_tenant_slo_bad_total",
+    "Requests counted against the SLO error budget per tenant (latency "
+    "over --slo-ms).  Top-K + `other` bounded.",
+    _LANE_LABELS + ("tenant",),
+)
+tenant_rejected = _register(
+    "counter", "auth_server_tenant_rejected_total",
+    "Tenant-scoped admission rejections by reason: tenant-quota (the "
+    "tenant's token bucket ran dry), tenant-queue-share (the tenant's "
+    "standing backlog exceeded its weighted share of the submit queue "
+    "while the queue was past half its cap), tenant-contained (containment "
+    "paced this tenant's traffic), doomed-deadline (the tenant's own "
+    "fair-share wait doomed the deadline).  The global OVERLOADED latch "
+    "is untouched by all of these.  Top-K + `other` bounded.",
+    ("tenant", "reason"),
+)
+tenant_queue_wait = _register(
+    "gauge", "auth_server_tenant_queue_wait_seconds",
+    "Per-tenant queue-wait EWMA, refreshed on the tenancy flush cadence "
+    "for the top-K tenants by volume.",
+    ("tenant",),
+)
+tenant_contained = _register(
+    "gauge", "auth_server_tenant_contained",
+    "1 while the noisy-neighbor detector has this tenant contained "
+    "(sustained share above weight x threshold with the global queue "
+    "wait over target): its rows ride a part of their own at each cut, "
+    "past a paced allowance typed rejections; 0 after auto-release.",
+    ("tenant",),
+)
 state_write_failures = _register(
     "counter", "auth_server_state_write_failures_total",
     "Durable-artifact writes that failed inside the shared atomic writer "

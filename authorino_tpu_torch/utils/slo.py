@@ -149,8 +149,7 @@ class SloTracker:
 
 class KeyedBurn:
     """Per-KEY SLO burn over one coarse sliding window (the tenant axis
-    of the burn-rate fold in the reference; no caller in the port until
-    its tenancy plane lands, ROADMAP queue 1 item 3).
+    of the burn-rate fold: ``tenancy/stats.py``).
 
     The per-lane :class:`SloTracker` keeps a per-second ring — affordable
     once per lane, not once per tenant.  Here each key holds exactly TWO

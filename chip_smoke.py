@@ -215,11 +215,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      mixed corpus (1,019 configs, all on the slow lane) byte-equal to
      grpc.aio on its engine; (c) the C++ load generator
      (``native/csrc/loadgen.cpp``) at run_native_mode's shape (max_batch
-     4,096, window 2,000 µs, 24 slots, 10 dispatch threads): 2 native
-     saturation passes (depth 8,000 x 5 connections, after a warm-up
+     4,096, window 2,000 µs, 24 slots, 10 dispatch threads): one native
+     saturation pass (depth 8,000 x 5 connections, after a warm-up
      pass; grpc.aio answers nothing at that depth within a pass), then
-     native and grpc.aio (one server process) in alternating pairs, 2
-     each, at run_native_mode's light shape (1,024 in flight, 5 s after 2
+     one native and one grpc.aio pass (one server process) at
+     run_native_mode's light shape (1,024 in flight, 5 s after 2
      s of warm-up), at both settings: checks/s, p50/p99, rows per batch
      and per launched batch, launches, device rows; (d) a shallow pass of
      each side (16 in flight over 1,024 requests); (e) stop() under load
@@ -304,15 +304,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
      full history), then ``rollback_last`` until it returns False: four
      rollbacks, each compiling 0 configs, uploading 0 B, launching no
      probe and re-serving readbacks byte-equal to that generation's.
+ 19. the tenant QoS plane (weighted-fair cuts, per-tenant quotas and
+     doomed shedding, containment with a contained tenant's rows as parts
+     of their own on the card, ``/debug/tenants``): (a) 96 wire-corpus
+     tenants weighted 4/2/1 by annotation, 4,096 requests at once through
+     ``submit``, ``check()`` and the native frontend on a card engine with
+     max_batch 64 and two batches in flight: every verdict and attribution
+     equal to a CPU engine's (the plain version) and the oracle's, the
+     fair cut's shares within the deficit round robin's bound, each
+     tenant's requests and denies in the plane equal to the sent, on both
+     lanes; (b) the reference's acceptance regime (``bench.py``
+     ``run_tenancy_mode``): the north-star corpus, the slow-device fault
+     profile, max_batch 16, dedup and the cache off, every 9th request on
+     tenant 0 at 0.6x the closed-loop rate, a pass with no burst, then
+     tenant 0 at x10 mid-window (x20, x40 while containment has not
+     fired): the cold tenants' goodput and p99 ratios beside the
+     reference's bounds (>= 0.9, <= 1.5), the rejections' types and scope,
+     containment's fire, release and flight bundle, the contained parts'
+     launches, sampled verdicts; (c) the same with no fault, reported with
+     the device stage's share of a batch; (d) a quota'd tenant answered
+     RESOURCE_EXHAUSTED naming it while the others' verdicts stand, and a
+     canaried change of it breaching ``tenant-rejection-rate`` and
+     rolling back; (e) phase 6's burst with the plane on and off, and
+     device memory across the phase.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 18's ((a) and (b), the canaried engine), with every phase's under
-``launches_by_phase``; each kernel must have launched on the paths of
-phases 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16, 17 and 18, with the counts
-zeroed just before each.
+phase 19's ((a), the fair-cut engine and its native frontend), with every
+phase's under ``launches_by_phase``; each kernel must have launched on
+the paths of phases 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16, 17, 18 and 19,
+with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -4564,7 +4587,7 @@ LIGHT_PAYLOADS = 1024     # distinct requests the light passes cycle
 # The native / grpc.aio pairs run at the light shape, where grpc.aio's
 # ~2.3 s standing wait fits the warm-up and ~2,000 answers the window.
 SAT_S, LIGHT_S, SHALLOW_S = (2.0, 0.5), (5.0, 2.0), (1.5, 0.5)
-FE_TRIALS = 2             # native saturation passes; native / grpc.aio pairs
+FE_TRIALS = 1             # native saturation passes; native / grpc.aio pairs
 KEY_CONFIGS = 1000        # (b): API-key AuthConfigs of the three fast kinds
 STOP_SLOW = 64            # (e): slow-lane requests in flight at stop()
 FAIL_ROWS = 256           # (f): fast-lane requests under device-down
@@ -6575,9 +6598,14 @@ def change_safety(report: dict, card: str, dev, ctx6: dict,
     hot_id = f"{northstar.NAMESPACE}/cfg-{HOT_CONFIG}"
     benign_id = f"{northstar.NAMESPACE}/cfg-{BENIGN_CONFIG}"
 
+    # the tenant plane off: (b) sends the hot host first so that its
+    # per-config evidence folds before the overall deny rate's, an order
+    # the FIFO cut keeps and the weighted-fair cut does not (it spreads
+    # the hot host's rows over every cut); phase 19 holds the plane
     engine = PolicyEngine(max_batch=256, device=dev,
                           canary_fraction=CANARY_FRACTION,
-                          canary_window_s=CANARY_WINDOW_S, **WIDE_ADMISSION)
+                          canary_window_s=CANARY_WINDOW_S, tenant_qos=False,
+                          **WIDE_ADMISSION)
     gens = cp.GenerationLog(engine)
     state = {"current": {}}
     corpus_of = {}
@@ -7059,6 +7087,763 @@ def change_safety(report: dict, card: str, dev, ctx6: dict,
     report["change_safety"] = numbers
     log(f"[{card}] change safety: phase 18 in {numbers['phase_s']:.1f}s; "
         f"launches {launches}")
+    return launches, max_err
+
+
+TEN_CONFIGS = 96          # (a): wire-corpus tenants
+TEN_CLASSES = ((8, "gold"), (8, "silver"), (16, "bronze"))  # the rest plain
+TEN_REQUESTS = 4096       # (a): requests per path
+TEN_BATCH, TEN_WINDOW = 64, 2   # (a): a queue deeper than max_batch stands
+TEN_SHARE_CUTS = 16       # (a): contended cuts held to the DRR bound
+TEN_HOT_EVERY = 9         # (b), (c): every 9th request on tenant 0
+TEN_PASS_S = 3.5          # (b), (c): seconds per open-loop pass (ref: 10)
+TEN_SLO_MS = 250.0        # the goodput SLO (the reference bench's)
+TEN_BASE_SHARE = 0.6      # base rate over the closed-loop sustainable rate
+TEN_RELEASE_WAIT_S = 8.0  # (b): the wait for containment's release
+TEN_QUOTA_RPS = 50.0      # (d): the quota'd tenant's qos-quota-rps
+TEN_PLANE_PAIRS = 3       # (e): plane on / off burst pairs
+TEN_DUMP_INTERVAL_S = 30.0  # the flight recorder's own bundle rate limit
+
+
+def _bundles_written(timeout_s: float = 30.0) -> None:
+    """Wait (bounded) for flight bundles still being written on their
+    threads: each is ~1-2 s of host work that would tax a timed pass."""
+    import threading
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and any(
+            t.name == "atpu-flight-dump" and t.is_alive()
+            for t in threading.enumerate()):
+        time.sleep(0.1)
+
+
+def _ten_annotations(i: int):
+    """Tenant i's annotations: the first 8 gold, then 8 silver, 16 bronze,
+    the rest none."""
+    lo = 0
+    for n, cls in TEN_CLASSES:
+        if lo <= i < lo + n:
+            return {"authorino.tpu/qos-class": cls}
+        lo += n
+    return None
+
+
+def _drr_deviation(cuts, weights, n: int) -> dict:
+    """Over the first contended cuts in which every tenant was backlogged
+    before and after the cut, each tenant's served rows against its
+    weighted share ``K n w_t / W``.  A deficit round robin over a stable
+    tenant ring serves tenant t ``w_t`` rows a round with a deficit carried
+    below one row, and a cut ends mid-round, so it keeps every tenant
+    within ``2 w_t + 2`` rows of that share: the bound held here.  Per
+    weight class: rows served and rows due."""
+    full = [c for c in cuts if c["all_backlogged"]][:TEN_SHARE_CUTS]
+    W = sum(weights.values())
+    served = {t: sum(c["taken"].get(t, 0) for c in full) for t in weights}
+    due = {t: len(full) * n * w / W for t, w in weights.items()}
+    dev = {t: served[t] - due[t] for t in weights}
+    worst = max(dev, key=lambda t: abs(dev[t]) / (2 * weights[t] + 2))
+    by_class = {}
+    for t, w in weights.items():
+        c = by_class.setdefault(w, {"tenants": 0, "served": 0, "due": 0.0})
+        c["tenants"] += 1
+        c["served"] += served[t]
+        c["due"] += due[t]
+    return {"cuts": len(full), "rows": sum(served.values()),
+            "by_weight": by_class, "worst_tenant": worst,
+            "worst_deviation_rows": dev[worst],
+            "worst_bound_rows": 2 * weights[worst] + 2,
+            "held": all(abs(dev[t]) <= 2 * w + 2
+                        for t, w in weights.items())}
+
+
+def _open_loop(engine, docs, names, rate: float, seconds: float,
+               hot: str, burst: float, policy, sample_every: int = 97):
+    # every 0.1 s: the hot tenant's served share and the queue wait the
+    # containment detector reads
+    """One open-loop pass against ``engine.submit`` at ``rate`` requests
+    per second for ``seconds`` (the reference's ``run_engine_open_loop``):
+    request j of the cycle goes to ``names[j]``; with ``burst`` > 1 the
+    hot tenant's arrivals in the middle third are multiplied by it.  Per
+    class (hot, cold): offered, done, rejected, in-SLO goodput on the
+    intended-arrival clock, submit-clock p50/p99; rejections by code and
+    scope; every ``sample_every``-th answer held to the host oracle."""
+    import numpy as np
+
+    from authorino_tpu_torch.models.policy_model import host_results
+    from authorino_tpu_torch.utils.rpc import CheckAbort
+
+    n_docs = len(docs)
+    offsets = [k / rate for k in range(int(rate * seconds))]
+    js = [k % n_docs for k in range(len(offsets))]
+    if burst > 1.0:
+        t_lo, t_hi = seconds / 3.0, 2.0 * seconds / 3.0
+        hot_js = [j for j in range(n_docs) if names[j] == hot]
+        base_mid = sum(1 for o, j in zip(offsets, js)
+                       if t_lo <= o < t_hi and names[j] == hot)
+        extra = int(base_mid * (burst - 1.0))
+        merged = sorted(list(zip(offsets, js)) + [
+            (t_lo + (t_hi - t_lo) * (k + 0.5) / extra,
+             hot_js[k % len(hot_js)]) for k in range(extra)])
+        offsets, js = [o for o, _ in merged], [j for _, j in merged]
+    split = {c: {"offered": 0, "done": 0, "rejected": 0, "lat": [],
+                 "lat_sub": []} for c in ("hot", "cold")}
+    codes, scope = {}, {"tenant-scoped": 0, "global-overload": 0,
+                        "other": 0}
+    exact = {"checked": 0, "mismatches": 0}
+    raw = [0]
+    slo_s = TEN_SLO_MS / 1e3
+
+    async def one(j, intended, seq):
+        cls = "hot" if names[j] == hot else "cold"
+        split[cls]["offered"] += 1
+        t_sub = time.perf_counter()
+        try:
+            rule, skipped = await engine.submit(docs[j], names[j])
+        except CheckAbort as e:
+            codes[e.code] = codes.get(e.code, 0) + 1
+            msg = str(e.message)
+            scope["tenant-scoped" if "tenant " in msg else
+                  "global-overload" if "overloaded" in msg
+                  else "other"] += 1
+            split[cls]["rejected"] += 1
+            return
+        except Exception:
+            raw[0] += 1
+            return
+        now = time.perf_counter()
+        split[cls]["done"] += 1
+        split[cls]["lat"].append(now - intended)
+        split[cls]["lat_sub"].append(now - t_sub)
+        if seq % sample_every == 0:
+            own, _, w_skip = host_results(policy, docs[j],
+                                          policy.config_ids[names[j]])
+            exact["checked"] += 1
+            exact["mismatches"] += int(
+                bool(np.all(skipped | rule)) != own
+                or skipped.tolist() != w_skip.tolist())
+
+    signals = {"hot_share_max": 0.0, "wait_ewma_max_s": 0.0,
+               "depth_max": 0}
+
+    async def sample(stop):
+        while not stop.is_set():
+            signals["hot_share_max"] = max(signals["hot_share_max"],
+                                           engine.tenancy.stats.share(hot))
+            signals["wait_ewma_max_s"] = max(signals["wait_ewma_max_s"],
+                                             engine.admission.wait_ewma)
+            signals["depth_max"] = max(signals["depth_max"],
+                                       len(engine._queue))
+            await asyncio.sleep(0.1)
+
+    async def run():
+        tasks = set()
+        stop = asyncio.Event()
+        sampler = asyncio.ensure_future(sample(stop))
+        t0 = time.perf_counter()
+        for seq, (off, j) in enumerate(zip(offsets, js)):
+            target = t0 + off
+            wait = target - time.perf_counter()
+            if wait > 0:
+                await asyncio.sleep(wait)
+            t = asyncio.ensure_future(one(j, target, seq))
+            tasks.add(t)
+            t.add_done_callback(tasks.discard)
+        if tasks:
+            await asyncio.gather(*tasks)
+        stop.set()
+        await sampler
+        return time.perf_counter() - t0
+
+    elapsed = asyncio.run(run())
+    out = {"offered_rps": len(offsets) / seconds, "signals": signals,
+           "achieved_rps": sum(s["done"] for s in split.values()) / elapsed,
+           "elapsed_s": elapsed, "rejected": codes, "scope": scope,
+           "raw_exceptions": raw[0], "exact": exact}
+    for cls, s in split.items():
+        lat, sub = sorted(s["lat"]), sorted(s["lat_sub"])
+        out[cls] = {
+            "offered": s["offered"], "done": s["done"],
+            "rejected": s["rejected"],
+            "goodput_rps_in_slo": sum(1 for v in lat if v <= slo_s) / elapsed,
+            "p50_ms": (float(np.percentile(sub, 50)) * 1e3 if sub else None),
+            "p99_ms": (float(np.percentile(sub, 99)) * 1e3 if sub else None)}
+    return out
+
+
+def _closed_loop_rps(engine, docs, names, n: int = 1024) -> float:
+    """Requests per second of ``n`` submits at once (the closed loop),
+    admission's queue floor lifted for it."""
+    async def go():
+        t = time.perf_counter()
+        await asyncio.gather(*(engine.submit(docs[j % len(docs)],
+                                             names[j % len(docs)])
+                               for j in range(n)))
+        return n / (time.perf_counter() - t)
+
+    floor = engine.admission.min_cap
+    engine.admission.min_cap = 1 << 20
+    try:
+        return asyncio.run(go())
+    finally:
+        engine.admission.min_cap = floor
+
+
+def tenancy(report: dict, card: str, dev, ctx6: dict, ns: dict) -> tuple:
+    """Phase 19: the tenant QoS plane on the card.  (a) exactness under a
+    contended cut: 96 wire-corpus tenants (8 gold, 8 silver, 16 bronze by
+    annotation, 64 plain), max_batch 64 with two batches in flight, 4,096
+    requests at once through ``submit``, then ``check()``, then the native
+    frontend; every verdict and attribution equal to a CPU engine's (the
+    plain version of the kernel) and the oracle's, the fair cut's shares
+    within the deficit round robin's bound, each tenant's requests and
+    denies in the plane equal to what was sent and denied, on both lanes.
+    (b) the reference's acceptance regime (``bench.py``
+    ``run_tenancy_mode``): the 1,000-config north-star corpus, the
+    slow-device fault profile, max_batch 16, dedup and the cache off,
+    every 9th request on tenant 0, a base at 0.6x the closed-loop rate;
+    a pass without a burst, then one with tenant 0 at x10 mid-window
+    (x20, x40 while containment has not fired); the cold tenants' goodput
+    and p99 ratios against the reference's bounds, the rejections' types
+    and scope, containment's fire and release and its flight bundle, the
+    contained parts' launches, sampled verdicts.  (c) the same with no
+    fault, at the card's own rate: reported only.  (d) a quota'd tenant
+    over its quota answers RESOURCE_EXHAUSTED naming it, the others
+    untouched; a canaried change whose canary-cohort requests meet the
+    emptied bucket breaches ``tenant-rejection-rate`` and rolls back.
+    (e) phase 6's burst with the plane on and off, and device memory
+    across the phase.  Returns (the kernels' launches on (a)'s path,
+    counts zeroed just before it; the max abs byte error of the
+    comparisons)."""
+    import numpy as np
+
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.models.policy_model import host_results
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.protos.ext_authz import request_model_from_proto
+    from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+    from authorino_tpu_torch.runtime import faults
+    from authorino_tpu_torch.runtime.admission import OVERLOADED
+    from authorino_tpu_torch.runtime.change_safety import (GuardThresholds,
+                                                           in_canary_cohort)
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+    from authorino_tpu_torch.runtime.native_frontend import NativeFrontend
+    from authorino_tpu_torch.utils import rpc
+
+    t_phase = time.perf_counter()
+    numbers = {"card": card}
+    max_err = 0
+    mem0 = device_allocated(dev)
+
+    # ---- (a) exactness under a contended cut ------------------------------
+    t_a = time.perf_counter()
+    payloads = wc.wire_payloads(TEN_REQUESTS, TEN_CONFIGS)
+    models = [request_model_from_proto(wire.decode_check_request(p))
+              for p in payloads]
+    docs = [build_authorization_json(m, {}) for m in models]
+    names = [f"ns/cfg-{int(m.http.host.split('.')[0].split('-')[1])}"
+             for m in models]
+    oracle = [wc.expected_allow(p, WIRE_RULES) for p in payloads]
+
+    def wire_engine(device, **kw):
+        eng = PolicyEngine(max_batch=TEN_BATCH, device=device,
+                           max_inflight_batches=TEN_WINDOW,
+                           adaptive_window=False, **NO_REUSE,
+                           **WIDE_ADMISSION, **kw)
+        entries = wc.build_wire_entries(TEN_CONFIGS, WIRE_RULES, eng)
+        for i, e in enumerate(entries):
+            e.annotations = _ten_annotations(i)
+        eng.apply_snapshot(entries)
+        return eng
+
+    fk.reset_counts()
+    reset_host_counts()
+    engine = wire_engine(dev)
+    plain = wire_engine("cpu")
+    weights = {f"ns/cfg-{i}": engine.tenancy.book.weight(f"ns/cfg-{i}")
+               for i in range(TEN_CONFIGS)}
+    if sorted(set(weights.values())) != [1.0, 2.0, 4.0]:
+        raise AssertionError(f"(19a) the weight book: {set(weights.values())}")
+    cuts = []
+    real_cut = engine.tenancy.cut
+
+    def spy(queue, n):
+        before = {}
+        for p in queue:
+            before[p.config_name] = before.get(p.config_name, 0) + 1
+        batch = real_cut(queue, n)
+        taken = {}
+        for p in batch:
+            taken[p.config_name] = taken.get(p.config_name, 0) + 1
+        cuts.append({"taken": taken, "all_backlogged": len(before) ==
+                     TEN_CONFIGS and all(before[t] > taken.get(t, 0)
+                                         for t in before)})
+        return batch
+
+    engine.tenancy.cut = spy
+
+    async def submits(eng):
+        return await asyncio.gather(*(eng.submit(d, n)
+                                      for d, n in zip(docs, names)))
+
+    got = asyncio.run(submits(engine))
+    engine.tenancy.cut = real_cut
+    want = asyncio.run(submits(plain))
+    diff = sum(1 for (r1, s1), (r2, s2) in zip(got, want)
+               if r1.tolist() != r2.tolist() or s1.tolist() != s2.tolist())
+    bad = sum(1 for (r, s), o in zip(got, oracle)
+              if bool(np.all(s | r)) != o)
+    share = _drr_deviation(cuts, weights, TEN_BATCH)
+    if diff or bad:
+        raise AssertionError(f"(19a) submit: {diff} columns differ from the "
+                             f"plain version, {bad} verdicts from the oracle")
+    if share["cuts"] < 4:
+        raise AssertionError(f"(19a) too few contended cuts: {share}")
+
+    def plane_counts(eng):
+        top = eng.tenancy.stats.to_json(top=TEN_CONFIGS + 8)["top"]
+        return {r["tenant"]: (r["requests"], r["denies"]) for r in top}
+
+    def sent_counts(allowed_list):
+        out = {}
+        for n, a in zip(names, allowed_list):
+            r, d = out.get(n, (0, 0))
+            out[n] = (r + 1, d + int(not a))
+        return out
+
+    def delta(after, before):
+        return {t: (after.get(t, (0, 0))[0] - before.get(t, (0, 0))[0],
+                    after.get(t, (0, 0))[1] - before.get(t, (0, 0))[1])
+                for t in set(after) | set(before)
+                if after.get(t) != before.get(t)}
+
+    want_counts = sent_counts(oracle)
+    c1 = plane_counts(engine)
+    if c1 != want_counts:
+        raise AssertionError(f"(19a) submit: the plane's counts "
+                             f"{len(c1)} tenants differ from the sent")
+
+    async def checks(eng):
+        return await asyncio.gather(*(eng.check(m) for m in models))
+
+    got_c = asyncio.run(checks(engine))
+    want_c = asyncio.run(checks(plain))
+    diff_c = sum(1 for a, b in zip(got_c, want_c)
+                 if (a.code, a.message, a.metadata) !=
+                 (b.code, b.message, b.metadata))
+    bad_c = sum(1 for a, o in zip(got_c, oracle)
+                if (a.code == rpc.OK) != o)
+    c2 = plane_counts(engine)
+    if diff_c or bad_c or delta(c2, c1) != want_counts:
+        raise AssertionError(f"(19a) check(): {diff_c} results differ from "
+                             f"the plain version's, {bad_c} from the "
+                             f"oracle, plane counts "
+                             f"{delta(c2, c1) == want_counts}")
+    fe = NativeFrontend(engine, port=0, max_batch=256, window_us=500,
+                        verdict_cache_size=0, batch_dedup=False)
+    aio = AioLoop()
+    try:
+        fe_port = fe.start()
+        if not fe.wait_warm(120):
+            raise AssertionError("(19a) the native frontend did not warm")
+        st0 = fe.stats()
+        raws = grpc_many(aio, fe_port, payloads)
+        st1 = fe.stats()
+        fast = st1.get("fast", 0) - st0.get("fast", 0)
+        slow = st1.get("slow", 0) - st0.get("slow", 0)
+        fe_vars = fe.debug_vars()
+    finally:
+        fe.stop()
+        aio.close()
+    fe_codes = [wire.decode_check_response(r).status.code
+                if isinstance(r, bytes) else repr(r) for r in raws]
+    bad_fe = sum(1 for c, o in zip(fe_codes, oracle)
+                 if c != (rpc.OK if o else rpc.PERMISSION_DENIED))
+    c3 = plane_counts(engine)
+    if bad_fe or delta(c3, c2) != want_counts or not fast:
+        raise AssertionError(f"(19a) native frontend: {bad_fe} codes differ "
+                             f"from the oracle, {fast} fast, plane counts "
+                             f"{delta(c3, c2) == want_counts}")
+    if fe_vars["tenancy"]["stats"]["requests_total"] != 3 * TEN_REQUESTS:
+        raise AssertionError("(19a) the frontend's tenancy view")
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    numbers["a"] = {
+        "tenants": TEN_CONFIGS, "requests_per_path": TEN_REQUESTS,
+        "contended_cuts": engine.tenancy.cutter.contended_cuts,
+        "share": share, "verdict_differences": diff + diff_c + bad_fe,
+        "allowed": sum(oracle), "fast_lane": fast, "slow_lane": slow,
+        "launches": launches, "seconds": time.perf_counter() - t_a}
+    log(f"[{card}] tenancy (a): {TEN_CONFIGS} tenants (weights 4/2/1 by "
+        f"annotation), {TEN_REQUESTS} requests through submit, check() and "
+        f"the native frontend ({fast} fast lane, {slow} slow): 0 verdict "
+        f"or attribution "
+        f"differences from the plain version and the oracle; "
+        f"{engine.tenancy.cutter.contended_cuts} contended cuts, over "
+        f"{share['cuts']} with every tenant backlogged rows served / due by "
+        f"weight { {w: (c['served'], round(c['due'], 1)) for w, c in share['by_weight'].items()} }, "
+        f"the worst deviation {share['worst_deviation_rows']:+.2f} rows "
+        f"({share['worst_tenant']}, DRR bound +-{share['worst_bound_rows']}:"
+        f" {'held' if share['held'] else 'NOT held'}); "
+        f"each tenant's requests and denies in the plane equal to the sent "
+        f"on both lanes; {launches['fused_megakernel']} launches, "
+        f"{launches['probe_add_one']} probe")
+    del plain
+
+    # ---- (b) the acceptance regime ----------------------------------------
+    t_b = time.perf_counter()
+    ns_cfgs = northstar.build_corpus(1000, 10)
+    ns_docs = ns["docs"]
+    rng = random.Random(3)
+    rows = [rng.randrange(1000) for _ in ns_docs]
+    # every 9th request on tenant 0: a deterministic ~11% share
+    for j in range(0, len(rows), TEN_HOT_EVERY):
+        rows[j] = 0
+    b_names = [f"cfg-{r}" for r in rows]
+    hot = "cfg-0"
+    eng_b = PolicyEngine(max_batch=16, device=dev, max_inflight_batches=8,
+                         verdict_cache_size=0, batch_dedup=False)
+    eng_b.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                          for c in ns_cfgs])
+    policy_b = eng_b._snapshot.policy
+    mem_b = device_allocated(dev)
+    flight0 = (RECORDER.dump_dir, RECORDER.min_dump_interval_s)
+    RECORDER.configure(dump_dir=str(Path("smoke_out") / "flight-19"),
+                       min_dump_interval_s=TEN_DUMP_INTERVAL_S)
+    overloads = [0]
+    real_state = eng_b.admission._set_state
+
+    def counting_state(state):
+        if state is OVERLOADED and eng_b.admission._state is not OVERLOADED:
+            overloads[0] += 1
+        real_state(state)
+
+    eng_b.admission._set_state = counting_state
+    det = eng_b.tenancy.detector
+
+    def regime(label: str, burst0: float, acceptance: bool) -> dict:
+        """One regime: the closed loop, a pass with no burst, then tenant
+        0's burst.  ``acceptance`` runs the reference's acceptance regime
+        around it: a bundle at every anomaly, the burst escalated while
+        containment has not fired, the idle decay, then the burst once
+        more with no bundle written."""
+        # from a known state: nobody contained, no pacing
+        det.reset()
+        closed = _closed_loop_rps(eng_b, ns_docs, b_names)
+        eng_b.admission.target_s = 0.05
+        eng_b.admission.min_cap = 64
+        base = TEN_BASE_SHARE * closed
+        det.reset()
+        n_rec = len(eng_b.batch_records)
+        st0 = dict(eng_b.stats)
+        baseline = _open_loop(eng_b, ns_docs, b_names, base, TEN_PASS_S,
+                              hot, 1.0, policy_b)
+        contain0 = det.contain_total
+        over0 = overloads[0]
+        dumps0 = len(RECORDER.dumps)
+        burst, measured, passes = burst0, None, []
+        if acceptance:
+            # the reference's bench writes a bundle at every anomaly of
+            # the measured pass
+            RECORDER.configure(min_dump_interval_s=0.0)
+        for _ in range(3):
+            det.reset()
+            measured = _open_loop(eng_b, ns_docs, b_names, base, TEN_PASS_S,
+                                  hot, burst, policy_b)
+            passes.append({"burst": burst, "contained": det.contain_total
+                           - contain0, "hot": measured["hot"],
+                           "cold_p99_ms": measured["cold"]["p99_ms"],
+                           "scope": measured["scope"],
+                           "signals": measured["signals"]})
+            log(f"tenancy ({label}) pass x{burst:g}: {passes[-1]}")
+            if not acceptance or det.contain_total > contain0 or \
+                    burst >= 40.0:
+                break
+            burst *= 2.0
+        fired = det.contain_total - contain0
+
+        def ratio(a, b):
+            return a / b if a is not None and b else None
+
+        # from here the recorder's own rate limit
+        RECORDER.configure(min_dump_interval_s=TEN_DUMP_INTERVAL_S)
+        # the decay, as the reference's bench drains it: the detector
+        # checked every 0.2 s with no new traffic, until it releases
+        release0 = det.release_total
+        t0_rel = time.monotonic()
+        t_release = None
+        while acceptance and time.monotonic() - t0_rel < \
+                TEN_RELEASE_WAIT_S and det.has_contained():
+            time.sleep(0.2)
+            det.check()
+        released = det.release_total - release0
+        if fired and not det.has_contained():
+            t_release = time.monotonic() - t0_rel
+        again = None
+        if acceptance:
+            # the same burst once more: its anomalies write no bundle (one
+            # was just written), so this pass shows the plane without a
+            # bundle's host work beside it
+            _bundles_written()
+            det.reset()
+            rp = _open_loop(eng_b, ns_docs, b_names, base, TEN_PASS_S, hot,
+                            burst, policy_b)
+            again = {"cold_goodput_ratio": ratio(
+                rp["cold"]["goodput_rps_in_slo"],
+                baseline["cold"]["goodput_rps_in_slo"]),
+                "cold_p99_ratio": ratio(rp["cold"]["p99_ms"],
+                                        baseline["cold"]["p99_ms"]),
+                "contained": det.contain_total - contain0 - fired,
+                "hot": rp["hot"], "scope": rp["scope"],
+                "signals": rp["signals"]}
+            log(f"tenancy ({label}) repeat x{burst:g}, no bundle: {again}")
+        wait_idle(eng_b)
+        recs = list(eng_b.batch_records)[n_rec:]
+        contained = [r for r in recs if r.get("contained")]
+        cm, cb = measured["cold"], baseline["cold"]
+
+        return {
+            "label": label, "closed_loop_rps": closed, "base_rps": base,
+            "burst": burst, "baseline": baseline, "measured": measured,
+            "passes": passes, "repeat": again,
+            "decay_s_to_release": t_release,
+            "cold_goodput_ratio": ratio(cm["goodput_rps_in_slo"],
+                                        cb["goodput_rps_in_slo"]),
+            "cold_p99_ratio": ratio(cm["p99_ms"], cb["p99_ms"]),
+            "contained_fired": fired,
+            "released": released,
+            "still_contained": sorted(det.contained()),
+            "global_overloaded_entries": overloads[0] - over0,
+            "contained_parts": eng_b.stats["contained_parts"]
+            - st0["contained_parts"],
+            "contained_rows": eng_b.stats["contained_rows"]
+            - st0["contained_rows"],
+            "contained_part_launches": sum(r["launches"] for r in contained),
+            "contained_bundles": [p for p in RECORDER.dumps[dumps0:]
+                                  if "tenant-contained" in p],
+            "rejections_typed": all(c == rpc.RESOURCE_EXHAUSTED for c in
+                                    measured["rejected"])
+            and measured["raw_exceptions"] == 0,
+            "rejections_tenant_scoped": measured["scope"]["global-overload"]
+            == 0 and measured["scope"]["other"] == 0,
+            "exact": [baseline["exact"], measured["exact"]],
+        }
+
+    def report_regime(part: str, r: dict) -> None:
+        m = r["measured"]
+        log(f"[{card}] tenancy ({part}, {r['label']}): "
+            f"closed loop {r['closed_loop_rps']:.0f} rps, base "
+            f"{r['base_rps']:.0f} rps, tenant 0 x{r['burst']:g} mid-window; "
+            f"cold goodput ratio {r['cold_goodput_ratio']} (bound >= 0.9), "
+            f"cold p99 ratio {r['cold_p99_ratio']} (bound <= 1.5; baseline "
+            f"{r['baseline']['cold']['p99_ms']} ms, burst "
+            f"{m['cold']['p99_ms']} ms); hot {m['hot']['done']} done "
+            f"{m['hot']['rejected']} rejected of {m['hot']['offered']}; "
+            f"rejections {m['rejected']} scope {m['scope']} (baseline "
+            f"{r['baseline']['rejected']}); containment fired "
+            f"{r['contained_fired']}, released {r['released']} ("
+            f"{r['decay_s_to_release']} s into the idle decay), global "
+            f"OVERLOADED entries {r['global_overloaded_entries']}, "
+            f"tenant-contained bundles {len(r['contained_bundles'])}; "
+            f"contained parts {r['contained_parts']} "
+            f"({r['contained_rows']} rows, {r['contained_part_launches']} "
+            f"launches); sampled verdicts "
+            f"{[e['checked'] for e in r['exact']]} exact")
+        if any(e["mismatches"] for e in r["exact"]):
+            raise AssertionError(f"(19{part}) sampled verdicts: "
+                                 f"{r['exact']}")
+        if not r["rejections_typed"]:
+            raise AssertionError(f"(19{part}) an untyped rejection "
+                                 f"{m['rejected']}")
+
+    # no earlier phase's bundle being written into the timed passes
+    _bundles_written()
+    try:
+        faults.FAULTS.arm("kernel:delay:delay=0.05")
+        try:
+            b = regime("slow-device", 10.0, acceptance=True)
+        finally:
+            faults.FAULTS.disarm()
+        report_regime("b", b)
+        c = regime("no fault", 10.0, acceptance=False)
+        report_regime("c", c)
+    finally:
+        RECORDER.configure(dump_dir=flight0[0],
+                           min_dump_interval_s=flight0[1])
+    b["held"] = {
+        "cold_goodput_ratio>=0.9": (b["cold_goodput_ratio"] or 0) >= 0.9,
+        "cold_p99_ratio<=1.5": (b["cold_p99_ratio"] or 1e9) <= 1.5,
+        "tenant_scoped_only": b["rejections_tenant_scoped"]
+        and b["global_overloaded_entries"] == 0,
+        "contained_and_released": b["contained_fired"] >= 1
+        and b["released"] >= 1,
+        "flight_bundle": bool(b["contained_bundles"]),
+    }
+    if b["repeat"] is not None:
+        b["held_repeat"] = {
+            "cold_goodput_ratio>=0.9":
+                (b["repeat"]["cold_goodput_ratio"] or 0) >= 0.9,
+            "cold_p99_ratio<=1.5":
+                (b["repeat"]["cold_p99_ratio"] or 1e9) <= 1.5,
+            "tenant_scoped_only":
+                b["repeat"]["scope"]["global-overload"] == 0}
+    numbers["b"], numbers["c"] = b, c
+    numbers["b"]["seconds_with_c"] = time.perf_counter() - t_b
+    log(f"tenancy (b) against the reference's bounds: {b['held']}; the "
+        f"repeat pass with no bundle written: {b.get('held_repeat')}")
+
+    # the device's share of a batch, (c)'s regime: the stage histograms
+    # over one more no-fault pass at the base rate
+    s0 = stage_histograms()
+    _open_loop(eng_b, ns_docs, b_names, c["base_rps"], 2.0, hot, 1.0,
+               policy_b)
+    wait_idle(eng_b)
+    c["engine_memory_growth_bytes"] = device_allocated(dev) - mem_b
+    split = stage_split(s0, stage_histograms())
+    tot = sum(v["mean_ms"] * v["batches"] for v in split.values())
+    c["device_share_of_batch"] = (split["device"]["mean_ms"]
+                                  * split["device"]["batches"] / tot
+                                  if tot else None)
+    c["stages"] = split
+    log(f"[{card}] tenancy (c): the device stage's share of a batch's "
+        f"stages {c['device_share_of_batch']} "
+        f"({ {k: round(v['mean_ms'], 4) for k, v in split.items()} } ms "
+        f"mean per batch)")
+    del eng_b
+
+    # ---- (d) quota and the per-tenant canary guard ------------------------
+    t_d = time.perf_counter()
+    quota_id = "cfg-1"
+    d_cfgs = northstar.build_corpus(64, 10)
+    eng_d = PolicyEngine(max_batch=64, device=dev, canary_fraction=0.5,
+                         canary_window_s=60.0,
+                         canary_thresholds=GuardThresholds(),
+                         **NO_REUSE)
+
+    def d_entries(cfgs):
+        return [EngineEntry(id=x.name, hosts=[x.name], rules=x,
+                            annotations=({"authorino.tpu/qos-quota-rps":
+                                          str(TEN_QUOTA_RPS)}
+                                         if x.name == quota_id else None))
+                for x in cfgs]
+
+    eng_d.apply_snapshot(d_entries(d_cfgs))
+    pol_d = eng_d._snapshot.policy
+    d_docs = northstar.build_docs(2048, seed=9, cohort_entropy=True)
+    d_names = [quota_id if k % 2 == 0 else f"cfg-{2 + k % 62}"
+               for k in range(len(d_docs))]
+
+    async def d_burst(pairs):
+        async def one(d, n):
+            try:
+                return n, await eng_d.submit(d, n)
+            except rpc.CheckAbort as e:
+                return n, (e.code, e.message)
+
+        return await asyncio.gather(*(one(d, n) for d, n in pairs))
+
+    out = asyncio.run(d_burst(list(zip(d_docs[:800], d_names[:800]))))
+    q_rej = [v for n, v in out if n == quota_id and isinstance(v[0], int)]
+    others_bad = 0
+    for (n, v), d in zip(out, d_docs[:800]):
+        if n == quota_id:
+            continue
+        if isinstance(v[0], int):
+            others_bad += 1
+            continue
+        own, _, w_skip = host_results(pol_d, d, pol_d.config_ids[n])
+        others_bad += int(bool(np.all(v[1] | v[0])) != own
+                          or v[1].tolist() != w_skip.tolist())
+    want_msg = (f"tenant {quota_id} over its QoS budget (tenant-quota): "
+                "admission rejected")
+    if not q_rej or any(r != (rpc.RESOURCE_EXHAUSTED, want_msg)
+                        for r in q_rej) or others_bad:
+        raise AssertionError(f"(19d) quota: {len(q_rej)} rejections "
+                             f"{set(q_rej)}, others {others_bad} wrong")
+    rej_by = dict(eng_d.tenancy.admission.rejected)
+    if set(rej_by) != {quota_id}:
+        raise AssertionError(f"(19d) rejections off the quota'd tenant: "
+                             f"{rej_by}")
+    # a canaried change of the quota'd tenant's rule; its baseline-cohort
+    # requests arrive first, then its canary-cohort requests meet the
+    # bucket they emptied
+    eng_d.apply_snapshot(d_entries(northstar.build_corpus(
+        64, 10, changed={1: "const"})))
+    phase = eng_d._canary
+    if phase is None:
+        raise AssertionError("(19d) the change did not canary")
+    phase.guard.check_interval_s = 0.0
+    cohort = [in_canary_cohort(d, 0.5) for d in d_docs]
+    base_docs = [d for d, c in zip(d_docs, cohort) if not c][:40]
+    can_docs = [d for d, c in zip(d_docs, cohort) if c][:120]
+    time.sleep(1.0)   # the bucket refills
+    outs = asyncio.run(d_burst([(d, quota_id) for d in base_docs]))
+    outs += asyncio.run(d_burst([(d, quota_id) for d in can_docs]))
+    t_end = time.monotonic() + 10
+    while eng_d._canary is not None and time.monotonic() < t_end:
+        time.sleep(0.01)
+    rb = eng_d._last_rollback or {}
+    guards = ((rb.get("detail") or {}).get("guards") or [])
+    numbers["d"] = {
+        "quota_rps": TEN_QUOTA_RPS, "quota_rejections": len(q_rej),
+        "quota_admitted": sum(1 for n, v in out if n == quota_id
+                              and not isinstance(v[0], int)),
+        "others_admitted_exact": sum(1 for n, _ in out if n != quota_id),
+        "canary_rejections": sum(1 for _, v in outs
+                                 if isinstance(v[0], int)),
+        "rollback": rb.get("reason"), "guards": guards,
+        "quarantined": rb.get("quarantined"),
+        "seconds": time.perf_counter() - t_d}
+    if rb.get("reason") != "guard-breach" or \
+            "tenant-rejection-rate" not in guards:
+        raise AssertionError(f"(19d) the tenant guard: {numbers['d']}")
+    log(f"[{card}] tenancy (d): {quota_id} at {TEN_QUOTA_RPS:g} rps: "
+        f"{numbers['d']['quota_admitted']} admitted, {len(q_rej)} answered "
+        f"RESOURCE_EXHAUSTED naming it; the other tenants' "
+        f"{numbers['d']['others_admitted_exact']} admitted, every verdict "
+        f"the oracle's; a canaried change of its rule with its canary "
+        f"cohort past the bucket: {numbers['d']['canary_rejections']} "
+        f"rejections, guards {guards}, rolled back ({rb.get('reason')}), "
+        f"quarantined {rb.get('quarantined')}")
+    del eng_d
+
+    # ---- (e) the plane's cost on phase 6's request path --------------------
+    eng6, reqs6 = ctx6["engine"], ctx6["reqs"]
+    wait_idle(eng6)
+    _bundles_written()
+    m6 = device_allocated(dev)
+    rates = {True: [], False: []}
+    asyncio.run(timed_checks(eng6, reqs6))   # untimed: a warm start
+    wait_idle(eng6)
+    # on, off, off, on, on, off: each side first in turn
+    for on in [k % 2 == (k // 2) % 2 for k in range(2 * TEN_PLANE_PAIRS)]:
+        eng6.tenancy.enabled = on
+        t = time.perf_counter()
+        asyncio.run(timed_checks(eng6, reqs6))
+        rates[on].append(len(reqs6) / (time.perf_counter() - t))
+        wait_idle(eng6)
+    eng6.tenancy.enabled = True
+    m6_growth = device_allocated(dev) - m6
+    numbers["e"] = {
+        "checks_per_s_on": rates[True], "checks_per_s_off": rates[False],
+        "on_median": statistics.median(rates[True]),
+        "off_median": statistics.median(rates[False]),
+        "phase6_engine_memory_growth_bytes": m6_growth}
+    del engine
+    mem_growth = device_allocated(dev) - mem0
+    numbers["memory_growth_bytes"] = mem_growth
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] tenancy (e): phase 6's burst {numbers['e']['on_median']:.0f}"
+        f" checks/s with the plane on ({[round(r) for r in rates[True]]}), "
+        f"{numbers['e']['off_median']:.0f} off "
+        f"({[round(r) for r in rates[False]]}); device memory over the "
+        f"bursts {m6_growth:+d} B, over (b)-(c)'s passes on their engine "
+        f"{c['engine_memory_growth_bytes']:+d} B, over the phase (its "
+        f"engines dropped) {mem_growth:+d} B; phase 19 took "
+        f"{numbers['phase_s']:.1f}s")
+    report["tenancy"] = numbers
     return launches, max_err
 
 
@@ -7628,18 +8413,25 @@ def main() -> int:
         report, card, dev, ctx6, {"docs": ns_docs, "names": ns_names})
     max_err = max(max_err, cs_err)
 
+    # ---- 19. the tenant QoS plane -----------------------------------------
+    marks = failure_marks()
+    ten_launches, ten_err = tenancy(report, card, dev, ctx6,
+                                    {"docs": ns_docs, "names": ns_names})
+    max_err = max(max_err, ten_err)
+    require_no_failure_handling("phase 19", marks)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": cs_launches["fused_megakernel"],
+         "launches": ten_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": cs_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": ten_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -7649,7 +8441,7 @@ def main() -> int:
                 "8": jwt_launches, "9": core_launches, "10": cp_launches,
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
-                "17": inc_launches, "18": cs_launches}
+                "17": inc_launches, "18": cs_launches, "19": ten_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

@@ -237,6 +237,51 @@ def test_change_safety_imports_alone_without_services_or_the_reference():
     assert f"SELF [] BUCKET {bucket} BAD []" in proc.stdout, proc.stdout
 
 
+TENANCY_MODULES = ("tenancy", "tenancy.weights", "tenancy.quota",
+                   "tenancy.fair_cut", "tenancy.stats", "tenancy.containment",
+                   "tenancy.plane")
+
+
+@pytest.mark.parametrize("mod", TENANCY_MODULES)
+def test_tenancy_modules_import_alone_without_services_or_the_reference(mod):
+    """Each module of the tenant QoS plane imports on its own with
+    ``grpc``, ``aiohttp``, ``jax`` and the JAX package blocked, and there
+    the plane resolves an annotated weight and cuts fairly."""
+    code = (
+        "import importlib, sys\n"
+        "from collections import deque\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "from authorino_tpu_torch.tenancy import TenantPlane\n"
+        "class E:\n"
+        "    def __init__(self, i, a):\n"
+        "        self.id, self.annotations = i, a\n"
+        "class P:\n"
+        "    def __init__(self, t):\n"
+        "        self.config_name = t\n"
+        "plane = TenantPlane()\n"
+        "plane.bind_entries([E('g', {'authorino.tpu/qos-class': 'gold'}), "
+        "E('b', None)])\n"
+        "q = deque([P('b') for _ in range(20)] + "
+        "[P('g') for _ in range(20)])\n"
+        "cut = [p.config_name for p in plane.cut(q, 10)]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('W', plane.book.weight('g'), 'G', cut.count('g'), "
+        "'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "W 4.0 G 8 BAD []" in proc.stdout, proc.stdout
+
+
 def test_atomic_writer_ignores_the_reference_plane(tmp_path):
     """With both packages loaded, the reference's armed fs rule does not
     reach the port's writer (nor the port's the reference's): each writer

@@ -358,7 +358,10 @@ def poison_scenario(pkg):
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline:
             await pump()
-            if engine._canary is None and engine.quarantine_active:
+            # the port re-applies the quarantine on its encode pool: wait
+            # for the re-apply to have swapped (its recovery time is set)
+            if engine._canary is None and engine.quarantine_active and \
+                    "recover_ms" in (engine._last_rollback or {}):
                 return True
         return False
 

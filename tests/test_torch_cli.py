@@ -214,6 +214,69 @@ def test_a_change_safety_flag_reaches_the_engine(flag, monkeypatch):
                                                 lane_select=False))
 
 
+# each tenant QoS flag, a value other than its default, and where the
+# engine's tenant plane holds it
+TENANT_FLAGS = {
+    "--no-tenant-qos": (None, lambda e: e.tenancy.enabled),
+    "--tenant-weight": ("ns/a=2", lambda e: e.tenancy.book.overrides),
+    "--tenant-default-weight": ("2.5",
+                                lambda e: e.tenancy.book.default_weight),
+    "--tenant-quota-rps": ("40", lambda e: e.tenancy.book.default_quota_rps),
+    "--tenant-contain-threshold": ("4.5",
+                                   lambda e: e.tenancy.detector.threshold),
+    "--tenant-top-k": ("8", lambda e: e.tenancy.stats.top_k),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(TENANT_FLAGS))
+def test_a_tenant_flag_reaches_the_engine(flag, monkeypatch):
+    """The tenant QoS plane is in the port: each of its flags is accepted
+    and reaches the engine's plane with the value the reference's CLI
+    gives the reference's engine (and one that differs from the
+    default)."""
+    import authorino_tpu.runtime.engine as ref_engine_mod
+
+    assert "tenancy" not in port_cli.UNPORTED_PLANES
+    value, read = TENANT_FLAGS[flag]
+    extra = [flag] if value is None else [flag, value]
+    port_cli.refuse_unported(server_args(*extra))
+
+    def stop(engine):
+        raise _Built(engine)
+
+    with pytest.raises(_Built) as got:
+        run(port_cli.run_server(server_args(*extra), on_engine=stop))
+
+    ref_kwargs = {}
+    real = ref_engine_mod.PolicyEngine
+
+    def capture(**kw):
+        ref_kwargs.update(kw)
+        raise _Built()
+
+    monkeypatch.setattr(ref_engine_mod, "PolicyEngine", capture)
+    ref_args = ref_cli.build_parser().parse_args(
+        ["server", "--jax-platform", "cpu", *extra])
+    with pytest.raises(_Built):
+        run(ref_cli.run_server(ref_args))
+    monkeypatch.setattr(ref_engine_mod, "PolicyEngine", real)
+    want = {k: v for k, v in ref_kwargs.items() if k.startswith("tenant_")}
+    assert set(want) == {"tenant_qos", "tenant_default_weight",
+                         "tenant_weights", "tenant_quota_rps",
+                         "tenant_contain_threshold", "tenant_top_k"}
+    ref_engine = real(mesh=None, lane_select=False, **want)
+    assert read(got.value.args[0]) == read(ref_engine)
+    assert read(got.value.args[0]) != read(real(mesh=None,
+                                                lane_select=False))
+
+
+def test_malformed_tenant_weights_are_skipped_as_the_reference_does():
+    pairs = ["ns/a=2", "junk", "=3", "ns/b=x", "ns/c=0.5", "ns/d==4"]
+    assert port_cli._parse_tenant_weights(pairs) == \
+        ref_cli._parse_tenant_weights(pairs) == \
+        {"ns/a": 2.0, "ns/c": 0.5, "ns/d=": 4.0}
+
+
 @pytest.mark.parametrize("flag,value", [("--slo-ms", "250"),
                                         ("--flight-dir", "/x"),
                                         ("--flight-keep", "3")])

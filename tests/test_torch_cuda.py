@@ -1090,3 +1090,62 @@ def test_canary_parts_launch_on_their_generations_and_rollback_reserves(
     for (rule, skipped), d, n in zip(again, docs, names):
         own, _, _ = host_results(base.policy, d, base.policy.config_ids[n])
         assert bool(np.all(skipped | rule)) == own
+
+
+def test_contained_tenant_rows_launch_as_their_own_part(card, monkeypatch):
+    """With one tenant contained, each cut of a burst launches the other
+    tenants' rows first and the contained tenant's rows as a part of their
+    own: every launch on the card, each readback byte-equal to the plain
+    version on the same operands, every verdict the oracle's."""
+    from authorino_tpu_torch.ops.operands import defuse
+    from authorino_tpu_torch.tenancy.quota import TokenBucket
+
+    engine = PolicyEngine(device=card, max_batch=64, verdict_cache_size=0,
+                          batch_dedup=False)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in northstar.build_corpus(8, 10)])
+    hot = "cfg-0"
+    det = engine.tenancy.detector
+    det._contained[hot] = {"since": time.monotonic()}
+    det._pacers[hot] = TokenBucket(1e9)
+    det.check_interval_s = 1e9   # no release mid-burst
+    docs = northstar.build_docs(192, seed=5)
+    names = [hot if k % 3 == 0 else f"cfg-{1 + k % 7}" for k in range(192)]
+    captured, parts = [], []
+    real = fk.dispatch_megakernel
+    real_job = engine._encode_launch_job
+
+    def capturing(params, db):
+        h = real(params, db)
+        captured.append((params, db, h))
+        return h
+
+    def job(snap, part, attempt=0):
+        parts.append([(p.config_name, p.contained) for p in part])
+        return real_job(snap, part, attempt)
+
+    monkeypatch.setattr(fk, "dispatch_megakernel", capturing)
+    engine._encode_launch_job = job
+    l0 = fk.launches
+    out = asyncio.run(_gather(engine, docs, names))
+    monkeypatch.setattr(fk, "dispatch_megakernel", real)
+    det._contained.clear()
+    det._pacers.clear()
+    contained = [p for p in parts if p[0][1]]
+    assert contained and engine.stats["contained_rows"] == 64
+    for part in parts:
+        assert len({c for _, c in part}) == 1
+        assert ({n for n, _ in part} == {hot}) == part[0][1]
+    assert fk.launches - l0 == len(parts) == len(captured)
+    for params, db, h in captured:
+        buf, layout = fuse_batch(db)
+        want = fk.fused_packed_plain(params, defuse(
+            torch.from_numpy(buf).to(card), layout)).cpu().numpy()
+        got = np.asarray(h.wait())
+        assert got.shape == want.shape and np.array_equal(got, want)
+    snap = engine._snapshot
+    for (rule, skipped), d, n in zip(out, docs, names):
+        own, _, w_skip = host_results(snap.policy, d,
+                                      snap.policy.config_ids[n])
+        assert bool(np.all(skipped | rule)) == own
+        assert skipped.tolist() == w_skip.tolist()

@@ -44,11 +44,19 @@ from authorino_tpu_torch.native.encoder import TOTALS, out_of_domain, reset_tota
 from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
 
 from test_torch_compiler import PORT, REF, convert_config
+from torch_ref_native import ref_native_library
 
 ROOT = Path(__file__).resolve().parent.parent
 FIELDS = ("attrs_val", "attrs_members", "overflow", "cpu_lane", "config_id",
           "attr_bytes", "byte_ovf")
 MODES = ("object", "json")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _ref_native():
+    """The reference's native library, loaded past a lost build race
+    (``tests/torch_ref_native.py``) before any test here reaches it."""
+    return ref_native_library()
 
 
 def run(coro):

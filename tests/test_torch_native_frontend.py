@@ -69,9 +69,17 @@ from authorino_tpu_torch.protos import wire
 from authorino_tpu_torch.runtime import faults as port_faults
 from authorino_tpu_torch.runtime import native_frontend as port_nf
 from authorino_tpu_torch.runtime.kernel_cost import LEDGER
+from torch_ref_native import ref_native_library
 
 pb = ref_protos.external_auth_pb2
 CHECK = "/envoy.service.auth.v3.Authorization/Check"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _ref_native():
+    """The reference's native library, loaded past a lost build race
+    (``tests/torch_ref_native.py``) before any test here reaches it."""
+    return ref_native_library()
 
 
 def _ns(compiler, ev, authz, cred, ident, expr, k8s, runtime, value):
@@ -606,7 +614,8 @@ def test_stats_and_debug_vars_keys(reference):
     ``drain_refused`` and the backlog its drain waits out;
     stats() adds the verdict cache's and the frontend's own counts;
     debug_vars() carries the knobs, the breaker, admission, the ledger,
-    the serving snapshot and the engine's change-safety state."""
+    the serving snapshot, the engine's change-safety state and its tenant
+    plane."""
     stack = PortStack()
     try:
         call(stack.port, REQUESTS[0])
@@ -624,8 +633,11 @@ def test_stats_and_debug_vars_keys(reference):
             "dispatch_threads", "inflight_batches", "inflight_peak",
             "trace_sample_n", "batch_dedup", "verdict_cache", "breaker",
             "device_timeout_s", "admission", "slo", "provenance",
-            "kernel_cost", "change_safety", "snapshot"}
+            "kernel_cost", "change_safety", "snapshot", "tenancy"}
         assert dv["change_safety"] == stack.engine.change_safety_vars()
+        # the engine's tenant plane, shared (the reference's key)
+        assert "tenancy" in reference.fe.debug_vars()
+        assert dv["tenancy"] == stack.engine.tenancy.to_json()
         assert dv["snapshot"]["warm_done"] and dv["host_degrade"] is True
         assert dv["snapshot"]["fast_configs"] == sum(
             1 for e in stack.engine._snapshot.entries

@@ -45,9 +45,17 @@ from authorino_tpu_torch.utils import jose, pki
 from authorino_tpu_torch.utils import metrics as p_metrics
 from test_torch_native_frontend import CHECK, as_dict, bounded, call, pb, \
     serve_grpc_aio
+from torch_ref_native import ref_native_library
 
 CLUSTER_USER = {"username": "system:serviceaccount:ns:app",
                 "groups": ["system:authenticated"]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _ref_native():
+    """The reference's native library, loaded past a lost build race
+    (``tests/torch_ref_native.py``) before any test here reaches it."""
+    return ref_native_library()
 OAUTH_TTL = 1          # the OAuth2 config's cache opt-in, seconds
 K8S_TTL = 60           # the Kubernetes config's
 PROC_REGO = "allow { count(input.request.path) > 5 }"   # does not lower

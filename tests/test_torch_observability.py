@@ -555,3 +555,32 @@ def families():
 def test_metric_family_equals_reference(families, attr):
     port, ref = families
     assert port[attr] == ref[attr]
+
+
+def test_two_bundles_of_one_trigger_in_one_second_keep_both(tmp_path):
+    """The reference names a bundle by its second, trigger and pid, so two
+    anomalies of one trigger in one second share a name (and, written at
+    once, a temporary file: one is lost).  The port's first bundle keeps
+    the reference's name; the second, in the same second, takes a suffix,
+    and both land whole."""
+    rec = port_fr.FlightRecorder(dump_dir=str(tmp_path),
+                                 min_dump_interval_s=0.0)
+    real = rec.bundle
+
+    def same_second(trigger):
+        b = real(trigger)
+        b["t"] = 1_700_000_000.25
+        return b
+
+    rec.bundle = same_second
+    paths = [rec.dump("watchdog-timeout") for _ in range(3)]
+    base = f"flight-1700000000-watchdog-timeout-{os.getpid()}"
+    assert [os.path.basename(p) for p in paths] == [
+        f"{base}.json", f"{base}-1.json", f"{base}-2.json"]
+    for p in paths:
+        assert json.loads(Path(p).read_text())["trigger"] == \
+            "watchdog-timeout"
+    # another second: the reference's name again
+    rec.bundle = real
+    assert "-watchdog-timeout-%d.json" % os.getpid() in \
+        os.path.basename(rec.dump("watchdog-timeout"))
