@@ -131,12 +131,29 @@ def build_parser() -> argparse.ArgumentParser:
       help="Head-sample 1-in-N decisions into the decision log")
     a("--canary-fraction", type=float, default=env_var("CANARY_FRACTION", 0.0))
     a("--canary-window", type=float, default=env_var("CANARY_WINDOW_S", 30.0))
-    a("--capture", action="store_true", default=env_var("CAPTURE", False))
-    a("--capture-log-dir", default=env_var("CAPTURE_LOG_DIR", ""))
-    a("--capture-log-size-mb", type=float, default=env_var("CAPTURE_LOG_SIZE_MB", 64.0))
-    a("--capture-sample", type=int, default=env_var("CAPTURE_SAMPLE", 1))
-    a("--replay-pregate", action="store_true", default=env_var("REPLAY_PREGATE", False))
-    a("--replay-pregate-budget-ms", type=float, default=env_var("REPLAY_PREGATE_BUDGET_MS", 2000.0))
+    a("--capture", action="store_true", default=env_var("CAPTURE", False),
+      help="Arm the opt-in capture log (docs/replay.md): sampled decisions "
+           "(authconfig, authorization JSON, verdict, attributed rule) land "
+           "in a byte-bounded in-memory ring, fed off the serving path by "
+           "the capture's own thread.  --replay-pregate replays the ring")
+    a("--capture-log-dir", default=env_var("CAPTURE_LOG_DIR", ""),
+      help="Persist captured records as rotated checksummed segments "
+           "(*.atpucap) in this directory, pruned to --capture-log-size-mb. "
+           "Implies --capture")
+    a("--capture-log-size-mb", type=float, default=env_var("CAPTURE_LOG_SIZE_MB", 64.0),
+      help="Capture budget in MB of encoded record bytes: bounds the ring "
+           "(oldest evicted) and the segment directory (oldest pruned)")
+    a("--capture-sample", type=int, default=env_var("CAPTURE_SAMPLE", 1),
+      help="Capture 1-in-N decisions (1 = every decision)")
+    a("--replay-pregate", action="store_true", default=env_var("REPLAY_PREGATE", False),
+      help="Before a corpus-changing reconcile starts its canary, replay "
+           "the candidate against the capture ring through the host "
+           "oracle; a verdict diff breaching the canary guard thresholds "
+           "rejects the swap before the candidate reaches the device, a "
+           "clean one tightens the canary's guards")
+    a("--replay-pregate-budget-ms", type=float, default=env_var("REPLAY_PREGATE_BUDGET_MS", 2000.0),
+      help="Wall-clock bound on the pregate's replay; records past it are "
+           "reported truncated")
     a("--corpus-pregate", default=env_var("CORPUS_PREGATE", ""))
     a("--corpus-pregate-budget-ms", type=float, default=env_var("CORPUS_PREGATE_BUDGET_MS", 2000.0))
     a("--snapshot-history", type=int, default=env_var("SNAPSHOT_HISTORY", 4))
@@ -168,10 +185,21 @@ def build_parser() -> argparse.ArgumentParser:
            "('auto' or 'fused')")
     a("--no-metadata-prefetch", action="store_true",
       default=not env_var("AUTHORINO_TPU_METADATA_PREFETCH", True),
-      help="Disable the metadata prefetch cache (the port has none)")
-    a("--metadata-max-age", type=float, default=env_var("METADATA_PREFETCH_MAX_AGE_S", 300.0))
-    a("--metadata-refresh", type=float, default=env_var("METADATA_PREFETCH_REFRESH_S", 60.0))
-    a("--strict-verify", action="store_true", default=env_var("STRICT_VERIFY", False))
+      help="Disable the metadata prefetch cache (relations/prefetch.py): "
+           "request-independent external-metadata documents are pinned at "
+           "reconcile cadence and served with no network I/O; stale pins "
+           "fall through to the live fetch")
+    a("--metadata-max-age", type=float, default=env_var("METADATA_PREFETCH_MAX_AGE_S", 300.0),
+      help="Staleness bound in seconds of a pinned metadata document: past "
+           "it the pipeline fetches live")
+    a("--metadata-refresh", type=float, default=env_var("METADATA_PREFETCH_REFRESH_S", 60.0),
+      help="Background re-pin cadence in seconds of pinned metadata "
+           "documents")
+    a("--strict-verify", action="store_true", default=env_var("STRICT_VERIFY", False),
+      help="Lint and certify every compiled snapshot before any byte of it "
+           "reaches the device (analysis/tensor_lint.py, analysis/"
+           "translation_validate.py): a snapshot with a finding is rejected "
+           "and the previous one keeps serving")
     a("--snapshot-publish-dir", default=env_var("SNAPSHOT_PUBLISH_DIR", ""))
     a("--snapshot-source", default=env_var("SNAPSHOT_SOURCE", ""))
     a("--snapshot-poll", type=float, default=env_var("SNAPSHOT_POLL_S", 5.0))
@@ -220,10 +248,9 @@ def build_parser() -> argparse.ArgumentParser:
 # item (queue 1) that brings each
 UNPORTED_PLANES = {
     "brownout": 3, "lane selection": 3,
-    "speculative dispatch": 3, "metadata prefetch": 5,
+    "speculative dispatch": 3,
     "state plane": 7, "snapshot distribution": 7,
     "kernel lanes": 9,
-    "strict verify": 12, "capture": 12, "replay pregate": 12,
     "corpus pregate": 12, "fleet": 13,
 }
 
@@ -233,17 +260,8 @@ UNPORTED_PLANES = {
 UNPORTED_FLAGS = {
     "brownout_max_batch": (32, "brownout"),
     "lane_host_max_rows": (64, "lane selection"),
-    "capture": (False, "capture"),
-    "capture_log_dir": ("", "capture"),
-    "capture_log_size_mb": (64.0, "capture"),
-    "capture_sample": (1, "capture"),
-    "replay_pregate": (False, "replay pregate"),
-    "replay_pregate_budget_ms": (2000.0, "replay pregate"),
     "corpus_pregate": ("", "corpus pregate"),
     "corpus_pregate_budget_ms": (2000.0, "corpus pregate"),
-    "metadata_max_age": (300.0, "metadata prefetch"),
-    "metadata_refresh": (60.0, "metadata prefetch"),
-    "strict_verify": (False, "strict verify"),
     "snapshot_publish_dir": ("", "snapshot distribution"),
     "snapshot_source": ("", "snapshot distribution"),
     "snapshot_poll": (5.0, "snapshot distribution"),
@@ -355,6 +373,7 @@ async def run_server(args, on_engine=None) -> None:
     from .controllers.reconciler import AuthConfigReconciler, SecretReconciler
     from .controllers.sources import YamlDirSource
     from .evaluators import cache as cache_mod
+    from .replay.capture import CAPTURE
     from .k8s.client import InMemoryCluster, LabelSelector, RestCluster
     from .runtime import provenance as prov_mod
     from .runtime.engine import PolicyEngine
@@ -415,6 +434,18 @@ async def run_server(args, on_engine=None) -> None:
                        enabled=not args.no_flight_recorder,
                        keep=int(args.flight_keep))
 
+    # traffic capture (docs/replay.md): opt-in; a persistence directory
+    # implies it (persisting an unarmed log captures nothing)
+    capture_dir = str(args.capture_log_dir or "")
+    if args.capture or capture_dir:
+        CAPTURE.configure(enabled=True, directory=capture_dir or None,
+                          size_mb=float(args.capture_log_size_mb),
+                          sample_n=int(args.capture_sample))
+        log.info("traffic capture ARMED: sample 1-in-%d, %.1f MB budget%s",
+                 CAPTURE.sample_n, CAPTURE.size_bytes / 1048576,
+                 f", persisting to {capture_dir}" if capture_dir else
+                 " (in-memory ring only)")
+
     fault_profile = str(args.fault_profile or "")
     if fault_profile:
         from .runtime import faults
@@ -451,6 +482,12 @@ async def run_server(args, on_engine=None) -> None:
         tenant_quota_rps=float(args.tenant_quota_rps),
         tenant_contain_threshold=float(args.tenant_contain_threshold),
         tenant_top_k=int(args.tenant_top_k),
+        strict_verify=bool(args.strict_verify),
+        metadata_prefetch=not args.no_metadata_prefetch,
+        metadata_prefetch_max_age_s=float(args.metadata_max_age),
+        metadata_prefetch_refresh_s=float(args.metadata_refresh),
+        replay_pregate=bool(args.replay_pregate),
+        replay_pregate_budget_s=float(args.replay_pregate_budget_ms) / 1e3,
     )
     if engine.device.type == "cuda":
         import torch
@@ -638,6 +675,11 @@ async def run_server(args, on_engine=None) -> None:
             log.warning("engine drain failed: %r", e)
         log.info("drain %s", "complete" if drained else
                  "TIMED OUT (undrained work abandoned)")
+        if CAPTURE.enabled:
+            # persist the capture's tail segment: a replayable log must not
+            # lose its newest window to an orderly shutdown
+            await best_effort(loop.run_in_executor(
+                None, lambda: CAPTURE.flush(min(2.0, drain_left()))))
         await best_effort(runner.cleanup())
         await best_effort(oidc_runner.cleanup())
         await best_effort(shutdown_tracing())  # flush the last spans

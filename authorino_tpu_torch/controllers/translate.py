@@ -51,6 +51,7 @@ from ..evaluators.response import Plain as PlainResponse
 from ..expressions.ast import All, Any_, Expression, InGroup, Operator, Pattern
 from ..k8s.client import ClusterReader, LabelSelector
 from ..relations.closure import RelationClosure
+from ..relations.prefetch import mark_prefetchable
 from ..runtime.engine import EngineEntry, PolicyEngine
 from ..utils.oauth2cc import ClientCredentials
 
@@ -583,6 +584,13 @@ async def translate_auth_config(
         runtime.callbacks.append(
             CallbackConfig(cb_name, ev, type="CALLBACK_HTTP", **_common(cbspec, named, relations))
         )
+
+    # metadata prefetchability: request-independent metadata evaluators are
+    # marked here so the engine's prefetcher can pin their documents at
+    # reconcile cadence and the lowerability classifier can lift the
+    # config out of the metadata-dependency exile
+    for md in runtime.metadata:
+        mark_prefetchable(md)
 
     hosts = list(spec.get("hosts") or [])
     if not hosts:

@@ -132,6 +132,21 @@ class IdentityConfig(PhaseConfig):
 class MetadataConfig(PhaseConfig):
     phase = "metadata"
 
+    # prefetch binding (relations/prefetch.py): set at reconcile by
+    # MetadataPrefetcher.reconcile for request-independent evaluators — a
+    # fresh pinned document serves with zero network I/O; stale/missing
+    # pins fall through to the live evaluator call (the exactness backstop)
+    prefetch = None
+
+    async def call(self, pipeline) -> Any:
+        pf = self.prefetch
+        if pf is not None:
+            prefetcher, key = pf
+            rec = prefetcher.lookup(key)
+            if rec is not None:
+                return rec.doc
+        return await super().call(pipeline)
+
 
 @dataclass(eq=False)
 class AuthorizationConfig(PhaseConfig):

@@ -139,11 +139,25 @@ contended cut is a weighted deficit round robin; a contained tenant's rows
 ride parts of their own behind each cut's others, on the device (the
 reference sends them to its host-oracle lane); every lane's fold counts
 each tenant's requests, denies, waits and SLO burn.
+
+The reconcile gates a candidate on the host before any byte of it is
+staged on the device: strict verify (``strict_verify``: the tensor lint of
+the fused operands and the per-config program, then translation
+validation against the host oracle with a process-wide certificate cache)
+and the replay pregate (``replay_pregate``: the capture ring replayed
+through both snapshots' host oracles, judged by the canary guard
+thresholds).  A rejected candidate raises ``SnapshotRejected`` and the
+serving snapshot stays.  Each reconcile then runs the advisory policy
+analysis and lowerability report (``analyze_policies``), and the metadata
+prefetcher (``metadata_prefetch``) pins the snapshot's request-independent
+metadata documents.  The per-batch fold offers each sampled decision to
+the capture log (``replay/capture.py``), whose own thread encodes it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import threading
 import time
@@ -167,6 +181,8 @@ from ..ops.operands import (firing_columns, host_view, packed_width,
                             resolve_device, staged_h2d_bytes, to_device,
                             unpack_verdicts)
 from ..pipeline import AuthPipeline, AuthResult
+from ..relations.prefetch import MetadataPrefetcher
+from ..replay.capture import CAPTURE
 from ..snapshots.compile_cache import CompileCache, CompileReport
 from ..snapshots.delta import apply_delta
 from ..snapshots.diff import plan_delta, snapshot_diff
@@ -187,7 +203,7 @@ from .breaker import CircuitBreaker
 from .flight_recorder import RECORDER
 from .kernel_cost import LEDGER, CostModel
 
-__all__ = ["EngineEntry", "PolicyEngine"]
+__all__ = ["EngineEntry", "PolicyEngine", "SnapshotRejected"]
 
 log = logging.getLogger(__name__)
 
@@ -200,6 +216,18 @@ _STAT_KEYS = ("batches", "launches", "plain_calls", "rows", "device_rows",
               "failed_batches", "deadline_shed", "watchdog_timeouts",
               "degraded_rows", "degraded_batches", "breaker_open_batches",
               "contained_parts", "contained_rows")
+
+
+class SnapshotRejected(RuntimeError):
+    """A compiled snapshot failed a reconcile gate (strict verify's tensor
+    lint or translation validation, or the replay pregate).  The snapshot
+    that was serving stays live; ``findings`` says why."""
+
+    def __init__(self, findings):
+        self.findings = findings
+        super().__init__(
+            f"snapshot rejected by tensor lint ({len(findings)} finding(s)): "
+            + "; ".join(str(f) for f in findings[:3]))
 
 
 @dataclass
@@ -231,12 +259,19 @@ class _Snapshot:
     reuses ``prev``'s policy, params, host view, cache tokens, native
     encoder and heat map outright (upload mode ``reuse``, nothing shipped);
     otherwise the new host view is diffed against ``prev``'s and only the
-    changed rows are shipped, into fresh tensors (snapshots/delta.py)."""
+    changed rows are shipped, into fresh tensors (snapshots/delta.py).
+
+    The install has two halves.  The constructor is the host half: the
+    index, the compile and, with ``strict_verify``, the tensor lint and
+    translation validation (``_verify``; a reuse skips it only when
+    ``prev`` was vetted).  ``stage`` is the device half (encoder, host
+    view, diff, upload, probe).  A gate between them (the replay pregate)
+    rejects a candidate before any byte of it reaches the device."""
 
     def __init__(self, entries: Sequence[EngineEntry], members_k: int,
-                 ovf_assist: Optional[bool], device,
-                 compile_cache: CompileCache,
-                 prev: "Optional[_Snapshot]" = None, override: bool = True):
+                 ovf_assist: Optional[bool], compile_cache: CompileCache,
+                 prev: "Optional[_Snapshot]" = None, override: bool = True,
+                 strict_verify: bool = False):
         self.index: HostIndex[EngineEntry] = HostIndex()
         self.entries: List[EngineEntry] = list(entries)
         self.by_id: Dict[str, EngineEntry] = {e.id: e for e in entries}
@@ -258,17 +293,18 @@ class _Snapshot:
         self.heat: Optional[prov_mod.HeatMap] = None
         self.compile_report: Optional[CompileReport] = None
         self.upload: Optional[Dict[str, Any]] = None
+        # strict verify: True once the tensor lint and translation
+        # validation passed (or the vetted predecessor's artifacts were
+        # reused); ``translation`` holds the certification's counts
+        self.lint_ok = False
+        self.translation: Optional[Dict[str, int]] = None
         # reconcile phases, seconds: compile (the incremental corpus
-        # compile, its fingerprints and cache tokens), diff (the new host
-        # view with the per-config program, and its delta plan), upload
-        # (the planned rows or whole tensors to the device, the probe
-        # launch)
+        # compile, its fingerprints and cache tokens), validate (strict
+        # verify), diff (the new host view with the per-config program,
+        # and its delta plan), upload (the planned rows or whole tensors
+        # to the device, the probe launch)
         self.phase_s: Dict[str, float] = {}
         if not rules:
-            # no compiled config (the bootstrap deny-all): nothing to
-            # upload, but the card still proves it launches at install
-            if device.type == "cuda":
-                fk.fused_kernel_supported(device, recheck=True)
             return
         prev_ok = prev is not None and prev.policy is not None
         t0 = time.perf_counter()
@@ -279,9 +315,15 @@ class _Snapshot:
             ovf_assist=ovf_assist)
         self.compile_report = report
         self.fingerprints = dict(report.fingerprints)
-        if report.reused_policy:
+        if report.reused_policy and (prev.lint_ok or not strict_verify):
             # fingerprint-identical corpus: the previous snapshot's device
-            # state serves as-is
+            # state serves as-is, and so does its vetting: every config's
+            # certificate is (trivially) a cache hit, nothing re-validated
+            self.lint_ok = prev.lint_ok
+            self.translation = (
+                {"validated": 0, "cache_hits": len(prev.policy.config_ids),
+                 "failed": 0, "sampled": 0, "dfa_witnesses": 0}
+                if strict_verify and prev.lint_ok else prev.translation)
             self.params = prev.params
             self.host_view = prev.host_view
             self.cache_tokens = prev.cache_tokens
@@ -294,6 +336,30 @@ class _Snapshot:
             return
         self.cache_tokens = cache_tokens(self.policy, self.fingerprints)
         self.phase_s["compile"] = time.perf_counter() - t0
+        if strict_verify:
+            # lint and certify BEFORE the host view is built and anything
+            # is staged: a miscompiled corpus is rejected on the host and
+            # never reaches the device (nor crashes mid-operand-build)
+            t0 = time.perf_counter()
+            self._verify()
+            self.phase_s["validate"] = time.perf_counter() - t0
+
+    def stage(self, device, prev: "Optional[_Snapshot]" = None) -> None:
+        """The device half of the install: the native encoder, the host
+        view and its delta plan against ``prev`` (the serving snapshot the
+        compile ran against), the upload and the probe.  The engine calls
+        it once the candidate passed every host-side gate (strict verify,
+        the replay pregate), so a rejected candidate stages no byte.  A
+        reused corpus has nothing to stage; a snapshot with no compiled
+        config (the bootstrap deny-all) has nothing to upload, but the card
+        still proves it launches."""
+        if self.policy is None:
+            if device.type == "cuda":
+                fk.fused_kernel_supported(device, recheck=True)
+            return
+        if self.upload is not None:
+            return
+        prev_ok = prev is not None and prev.policy is not None
         t0 = time.perf_counter()
         self.encoder = get_native_encoder(self.policy)
         self.encoder_build_s = time.perf_counter() - t0
@@ -317,6 +383,33 @@ class _Snapshot:
             self.heat = prov_mod.HeatMap.for_snapshot(self.policy)
         except Exception:
             log.exception("rule heat map build failed (swap unaffected)")
+
+    def _verify(self) -> None:
+        """Strict verify: the tensor lint (structural invariants the kernel
+        assumes), then translation validation (the compiled circuits and
+        DFA tables decide like the host expression oracle; per-config
+        fingerprints and the process-wide certificate cache make an
+        unchanged config a cache hit).  Raises SnapshotRejected with the
+        findings; sets ``lint_ok`` and the ``translation`` counts."""
+        from ..analysis.tensor_lint import lint_snapshot
+        from ..analysis.translation_validate import (certify_snapshot,
+                                                     snapshot_policies)
+
+        findings = lint_snapshot(self)
+        if findings:
+            raise SnapshotRejected(findings)
+        stats = {"validated": 0, "cache_hits": 0, "failed": 0,
+                 "sampled": 0, "dfa_witnesses": 0}
+        failures = []
+        for pol in snapshot_policies(self):
+            _, fails, st = certify_snapshot(pol)
+            failures += fails
+            for k in stats:
+                stats[k] += st.get(k, 0)
+        self.translation = stats
+        if failures:
+            raise SnapshotRejected(failures)
+        self.lint_ok = True
 
     def clone(self) -> "_Snapshot":
         """Shallow re-serve copy (a rollback is a pointer swap): shares the
@@ -423,7 +516,14 @@ class PolicyEngine:
                  tenant_quota_rps: float = 0.0,
                  tenant_contain_threshold: float = 3.0,
                  tenant_contain_allowance_rps: float = 100.0,
-                 tenant_top_k: int = 16):
+                 tenant_top_k: int = 16,
+                 strict_verify: bool = False,
+                 analyze_policies: bool = True,
+                 metadata_prefetch: bool = True,
+                 metadata_prefetch_max_age_s: float = 300.0,
+                 metadata_prefetch_refresh_s: float = 60.0,
+                 replay_pregate: bool = False,
+                 replay_pregate_budget_s: float = 2.0):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -469,7 +569,31 @@ class PolicyEngine:
         weighted share while the queue wait is over target is contained:
         its rows ride a part of their own at each cut, launched behind the
         cut's other parts.  ``tenant_top_k`` bounds the tenant labels of
-        the metrics."""
+        the metrics.
+
+        ``strict_verify`` lints (analysis/tensor_lint.py) and certifies
+        (analysis/translation_validate.py) every compiled snapshot before
+        any byte of it is staged on the device: a snapshot with a finding
+        raises SnapshotRejected (``auth_server_snapshot_rejected_total``)
+        and the previous one keeps serving.  ``analyze_policies`` runs the
+        Cedar-style semantic pass and the lowerability report once per
+        reconcile: advisory, on /debug/vars and the metrics, never a gate.
+
+        ``metadata_prefetch`` pins every request-independent metadata
+        document (relations/prefetch.py) at reconcile cadence: within
+        ``metadata_prefetch_max_age_s`` a pinned document serves with no
+        network I/O, a stale one falls through to the live fetch;
+        ``metadata_prefetch_refresh_s`` is the re-pin cadence.
+
+        ``replay_pregate``: a corpus-changing reconcile is first replayed
+        against the process's capture ring (replay/capture.py ``CAPTURE``,
+        armed by ``--capture``) through the host oracle on both the serving
+        and the candidate snapshot.  A verdict diff that breaches the canary
+        guard thresholds rejects the candidate (SnapshotRejected and a
+        ``replay-pregate-breach`` flight bundle) before it is staged on the
+        device or answers a request; a clean preflight halves the canary's
+        deny-delta thresholds.  ``replay_pregate_budget_s`` bounds the
+        replay; records past it are reported truncated."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
@@ -553,6 +677,21 @@ class PolicyEngine:
                 self.admission.rejected.get("overload", 0)
                 + self.admission.rejected.get("queue-full", 0)
                 + self.admission.rejected.get("tenant-queue-share", 0)))
+        # the reconcile's verification planes: strict verify gates, the
+        # policy analysis and lowerability report advise (/debug/vars)
+        self.strict_verify = bool(strict_verify)
+        self.analyze_policies = bool(analyze_policies)
+        self._analysis: Optional[Dict[str, Any]] = None
+        self._lowerability: Optional[Dict[str, Any]] = None
+        self.metadata_prefetcher: Optional[MetadataPrefetcher] = (
+            MetadataPrefetcher(max_age_s=metadata_prefetch_max_age_s,
+                               refresh_s=metadata_prefetch_refresh_s)
+            if metadata_prefetch else None)
+        # the replay pregate's state and its last verdict
+        self.replay_pregate = bool(replay_pregate)
+        self.replay_pregate_budget_s = float(replay_pregate_budget_s)
+        self._last_pregate: Optional[Dict[str, Any]] = None
+        self._g_replay_flips = metrics_mod.replay_diff_flips.labels("engine")
         RECORDER.register_provider("engine", self, "debug_vars")
 
     def _add_stats(self, **counts) -> None:
@@ -607,19 +746,44 @@ class PolicyEngine:
             self._canary_rollback(phase, reason="superseded",
                                   quarantine=False)
         entries = self._substitute_quarantined(entries)
-        snap = _Snapshot(entries, self.members_k, self.ovf_assist,
-                         self.device, self.compile_cache,
-                         prev=self._snapshot, override=override)
+        prev = self._snapshot
+        try:
+            snap = _Snapshot(entries, self.members_k, self.ovf_assist,
+                             self.compile_cache, prev=prev,
+                             override=override,
+                             strict_verify=self.strict_verify)
+        except SnapshotRejected as e:
+            metrics_mod.snapshot_rejected.labels("engine").inc()
+            RECORDER.record("snapshot-rejected", lane="engine", detail={
+                "generation": self.generation,
+                "findings": [str(f) for f in e.findings[:5]]})
+            log.error(
+                "snapshot REJECTED by strict verify (previous generation "
+                "%d keeps serving): %s", self.generation,
+                "; ".join(str(f) for f in e.findings[:5]))
+            raise
         q = self._quarantine
         if q is not None:
             # the active quarantine rides the snapshot it shaped
             snap.change_safety = {"quarantine": {
                 "configs": sorted(q["configs"]),
                 "from_generation": q["from_generation"]}}
+        # the replay pregate judges a corpus-changing swap on replayed
+        # captured traffic before the candidate is staged or serves: a
+        # breach raises SnapshotRejected here.  Quarantine and rollback
+        # re-applies (allow_canary=False) skip it: they must always land
+        preflight = None
+        if self.replay_pregate and allow_canary and not self._draining \
+                and self._comparable_change(snap):
+            preflight = self._run_replay_pregate(snap)
+        snap.stage(self.device, prev)
         if allow_canary and self._should_canary(snap):
-            self._enter_canary(snap, entries)
+            self._enter_canary(snap, entries, preflight=preflight)
         else:
             self._install_snapshot(snap)
+        if self.analyze_policies:
+            self._run_policy_analysis(entries, snap)
+            self._run_lowerability(entries, snap)
 
     def _install_snapshot(self, snap: _Snapshot) -> None:
         """The swap at 100%: publish under the swap lock, retain the
@@ -642,6 +806,20 @@ class PolicyEngine:
             "generation": snap.generation, "configs": len(snap.by_id)})
         self._record_control_plane(snap)
         self.notify_swap_listeners()
+        self._reconcile_prefetch(snap)
+
+    def _reconcile_prefetch(self, snap: _Snapshot) -> None:
+        """Register the served snapshot's request-independent metadata
+        evaluators with the prefetcher and wake it to re-pin their
+        documents: after the swap listeners, off the swap-speed path.
+        Never fails a reconcile."""
+        if self.metadata_prefetcher is None:
+            return
+        try:
+            self.metadata_prefetcher.reconcile(snap.entries)
+        except Exception:
+            log.exception("metadata prefetch registration failed "
+                          "(reconcile unaffected)")
 
     def _bind_tenants(self, snap: Optional[_Snapshot]) -> None:
         """Rebuild the tenant weight book from the entries ``snap`` serves
@@ -736,13 +914,20 @@ class PolicyEngine:
             return False
         if self._draining:
             return False
+        return self._comparable_change(snap)
+
+    def _comparable_change(self, snap: _Snapshot) -> bool:
+        """True when ``snap`` changes the compiled corpus of the serving
+        snapshot: the precondition the canary split and the replay pregate
+        share (an identical-fingerprint resync has nothing to prove)."""
         prev = self._snapshot
         if prev is None or prev.policy is None or snap.policy is None:
             return False
         return snap.fingerprints != prev.fingerprints
 
     def _enter_canary(self, snap: _Snapshot,
-                      entries: Sequence[EngineEntry]) -> None:
+                      entries: Sequence[EngineEntry],
+                      preflight: Optional[Dict[str, Any]] = None) -> None:
         """Start the canary phase: the reconcile's host index lands at
         once (``index`` reads the phase's), but the verdict lane splits —
         the hash-fraction cohort rides the new generation, everyone else
@@ -755,12 +940,25 @@ class PolicyEngine:
         # differ by cohort selection bias
         changed = set(snapshot_diff(baseline.fingerprints or {},
                                     snap.fingerprints or {})["recompile"])
+        # a candidate whose replay diff came back clean over a real traffic
+        # window canaries under halved deny-delta thresholds, so a
+        # live-only regression (a metadata dependency, traffic the capture
+        # window missed) trips earlier.  A skipped preflight, or one with
+        # flips under the thresholds, keeps the operator's thresholds
+        thresholds = self.canary_thresholds
+        if preflight is not None and preflight.get("result") == "pass" \
+                and not preflight.get("flips_total"):
+            base_th = thresholds or safety_mod.GuardThresholds()
+            thresholds = dataclasses.replace(
+                base_th, deny_delta=base_th.deny_delta / 2,
+                config_deny_delta=base_th.config_deny_delta / 2)
+            preflight = dict(preflight, guards_tightened=True)
         phase = safety_mod.CanaryPhase(
             snap=snap, baseline=baseline, entries=entries,
             index=snap.index, baseline_index=baseline.index,
             fraction=self.canary_fraction, window_s=self.canary_window_s,
-            guard=safety_mod.CanaryGuard(self.canary_thresholds,
-                                         changed=changed))
+            guard=safety_mod.CanaryGuard(thresholds, changed=changed),
+            preflight=preflight)
         # the reconcile's annotations hold from the canary's start, as its
         # host index does
         self._bind_tenants(snap)
@@ -1089,6 +1287,201 @@ class PolicyEngine:
             self._canary_poke(phase)
         except Exception:
             log.exception("external canary guard feed failed")
+
+    # ---- the reconcile's gates and advisory passes --------------------------
+
+    def _run_replay_pregate(self, snap: _Snapshot) -> Dict[str, Any]:
+        """Replay the candidate against the capture ring and judge the
+        verdict diff (docs/replay.md, "Preflight gate").  Returns the
+        preflight summary on a pass or a skip; raises SnapshotRejected on
+        a breach, before the candidate is staged: the serving snapshot
+        keeps serving and the candidate never sees a request.  Bounded by
+        ``replay_pregate_budget_s``: what the replay could not cover is
+        reported truncated (partial evidence, not full coverage)."""
+        from ..replay import pregate as pregate_mod
+
+        t0 = time.monotonic()
+        baseline = self._snapshot
+        thresholds = self.canary_thresholds or safety_mod.GuardThresholds()
+        records = CAPTURE.ring_records()
+        if len(records) < thresholds.min_requests:
+            return self._pregate_skipped(
+                f"capture ring holds {len(records)} record(s) < "
+                f"min_requests {thresholds.min_requests} — not enough "
+                f"replay evidence to judge"
+                + ("" if CAPTURE.enabled else
+                   " (capture is OFF: arm --capture)"))
+        changed = set(snapshot_diff(baseline.fingerprints or {},
+                                    snap.fingerprints or {})["recompile"])
+        try:
+            pf = pregate_mod.preflight(
+                baseline, snap, records, thresholds, changed=changed,
+                time_budget_s=self.replay_pregate_budget_s)
+        except Exception:
+            # a pregate fault must never block the control plane: the swap
+            # proceeds under its normal canary protection, loudly
+            log.exception("replay pregate errored (swap proceeds under "
+                          "canary protection only)")
+            self._last_pregate = {"result": "skipped",
+                                  "reason": "pregate error (see logs)",
+                                  "replayed": 0}
+            metrics_mod.replay_pregate.labels("skipped").inc()
+            return self._last_pregate
+        report, breach = pf["report"], pf["breach"]
+        self._g_replay_flips.set(report["flips"]["total"])
+        elapsed_ms = round((time.monotonic() - t0) * 1e3, 3)
+        if breach is None and report["replayed"] < thresholds.min_requests:
+            # the ring looked big enough, but the replay could not
+            # re-decide min_requests records (configs missing on one side,
+            # or the budget truncated them): absent evidence, not clean
+            # evidence, so the canary keeps its normal guards
+            return self._pregate_skipped(
+                f"only {report['replayed']} of {len(records)} record(s) "
+                f"re-decided (missing configs / time budget) < "
+                f"min_requests {thresholds.min_requests}",
+                replayed=report["replayed"],
+                skipped_detail=report["skipped"], elapsed_ms=elapsed_ms)
+        if breach is not None:
+            metrics_mod.replay_pregate.labels("breach").inc()
+            metrics_mod.snapshot_rejected.labels("engine").inc()
+            self._last_pregate = {
+                "result": "breach",
+                "replayed": report["replayed"],
+                "flips_total": report["flips"]["total"],
+                "flips": report["flips"],
+                "guards": breach["guards"],
+                "suspects": breach["suspects"],
+                "elapsed_ms": elapsed_ms,
+            }
+            # the anomaly kind dumps a flight bundle with the top-N
+            # attributed verdict-diff rows frozen as incident evidence
+            RECORDER.record(pregate_mod.PREGATE_ANOMALY, lane="engine",
+                            detail={
+                                "baseline_generation": baseline.generation,
+                                "breach": breach,
+                                "replayed": report["replayed"],
+                                "elapsed_ms": elapsed_ms,
+                            })
+            findings = [
+                f"replay pregate breach: {', '.join(breach['guards'])} over "
+                f"{report['replayed']} replayed request(s) "
+                f"({report['flips']['newly_denied']} newly denied, "
+                f"{report['flips']['newly_allowed']} newly allowed)"
+            ] + [
+                f"{g['authconfig']} rule[{g['rule_index']}] {g['rule']} "
+                f"{g['direction']} {g['count']} replayed request(s)"
+                for g in breach["top_flips"][:3]
+            ]
+            log.error("replay pregate REJECTED the candidate snapshot "
+                      "(generation %d keeps serving, zero live exposure): "
+                      "%s", baseline.generation, "; ".join(findings))
+            exc = SnapshotRejected(findings)
+            exc.replay_diff = breach  # the full attributed evidence
+            raise exc
+        self._last_pregate = {
+            "result": "pass",
+            "replayed": report["replayed"],
+            "flips_total": report["flips"]["total"],
+            "flips": report["flips"],
+            "truncated": report["skipped"]["truncated"],
+            "elapsed_ms": elapsed_ms,
+        }
+        metrics_mod.replay_pregate.labels("pass").inc()
+        RECORDER.record("replay-pregate", lane="engine",
+                        detail=self._last_pregate)
+        log.info("replay pregate PASS: %d record(s) replayed, %d flip(s), "
+                 "%.0fms", report["replayed"], report["flips"]["total"],
+                 elapsed_ms)
+        return self._last_pregate
+
+    def _pregate_skipped(self, reason: str, replayed: int = 0,
+                         **extra) -> Dict[str, Any]:
+        """Record a preflight that had too little evidence to judge."""
+        self._last_pregate = dict({"result": "skipped", "reason": reason,
+                                   "replayed": replayed}, **extra)
+        metrics_mod.replay_pregate.labels("skipped").inc()
+        RECORDER.record("replay-pregate", lane="engine",
+                        detail=self._last_pregate)
+        log.warning("replay pregate SKIPPED: %s", reason)
+        return self._last_pregate
+
+    def _run_policy_analysis(self, entries: Sequence[EngineEntry],
+                             snap: _Snapshot) -> None:
+        """Cedar-style semantic pass, once per reconcile (never per
+        request): constant-allow/deny rules, shadowed/duplicate rules,
+        duplicate-host routing.  Logged once here, counted in
+        auth_server_policy_analysis_findings_total{kind,authconfig}, kept
+        JSON-safe for /debug/vars.  Advisory: a fault inside the analyzer
+        never fails the reconcile."""
+        try:
+            from ..analysis.policy_analysis import analyze_snapshot
+
+            findings, summary = analyze_snapshot(entries, snap.policy)
+            for f in findings:
+                metrics_mod.policy_analysis_findings.labels(
+                    f.kind, str(f.detail.get("config", ""))).inc()
+            if findings:
+                by_kind: Dict[str, int] = {}
+                for f in findings:
+                    by_kind[f.kind] = by_kind.get(f.kind, 0) + 1
+                log.warning(
+                    "policy analysis (generation %d): %d finding(s) %s — "
+                    "first: %s (full list on /debug/vars)",
+                    snap.generation, len(findings), by_kind, findings[0])
+            skipped = summary.get("skipped", [])
+            for s in skipped:
+                metrics_mod.policy_analysis_skipped.labels(
+                    str(s.get("config", ""))).inc()
+            # the per-config list is bounded; the remainder still counts,
+            # under the catch-all label, so the total equals skipped_wide
+            extra = int(summary.get("skipped_wide", 0)) - len(skipped)
+            if extra > 0:
+                metrics_mod.policy_analysis_skipped.labels("").inc(extra)
+            self._analysis = {
+                "generation": snap.generation,
+                "findings": [f.to_json() for f in findings],
+                "summary": summary,
+            }
+        except Exception:
+            log.exception("policy analysis failed (reconcile unaffected)")
+
+    def _run_lowerability(self, entries: Sequence[EngineEntry],
+                          snap: _Snapshot) -> None:
+        """The lowerability report: every config classified fast-lane or
+        slow-lane with reason codes, once per reconcile.  Advisory: on
+        /debug/vars, counted per (lane, reason) in
+        auth_server_lowerability_configs_total, never a reconcile
+        failure."""
+        try:
+            from ..analysis.translation_validate import (lowerability_report,
+                                                         snapshot_policies)
+
+            report = lowerability_report(entries, snapshot_policies(snap))
+            for lane, reason, n in report["series"]:
+                metrics_mod.lowerability_configs.labels(lane, reason).inc(n)
+            # the would-be-fast-if-fixed rollup trends each reason's exile
+            # count across reconciles
+            for reason, b in (report.get("blocking_reasons") or {}).items():
+                metrics_mod.lowerability_blocking.labels(
+                    reason, "configs").set(b["configs"])
+                metrics_mod.lowerability_blocking.labels(
+                    reason, "sole_blocker").set(b["sole_blocker"])
+            report["generation"] = snap.generation
+            self._lowerability = report
+        except Exception:
+            log.exception("lowerability report failed (reconcile unaffected)")
+
+    def replay_vars(self) -> Dict[str, Any]:
+        """The capture log's state and the pregate's last verdict: the
+        ``replay`` block of /debug/vars, served whole on /debug/replay."""
+        return {
+            "capture": CAPTURE.to_json(),
+            "pregate": {
+                "enabled": self.replay_pregate,
+                "budget_s": self.replay_pregate_budget_s,
+                "last": self._last_pregate,
+            },
+        }
 
     def change_safety_vars(self) -> Dict[str, Any]:
         """JSON-safe change-safety state (a pure read: /debug/canary,
@@ -1519,6 +1912,11 @@ class PolicyEngine:
                 # rebuild a stopped frontend): the canary stays undecided
                 # and cohort routing serves until exit
                 phase.cancel_timer()
+            if self.metadata_prefetcher is not None:
+                # the refresher must not re-pin into a tearing-down
+                # process; a stale pin only falls through to the live
+                # fetch, so stopping early is always safe
+                self.metadata_prefetcher.stop(timeout_s=0.5)
             RECORDER.record("drain", lane="engine", detail={
                 "queue": len(self._queue), "inflight": self._inflight})
             log.info("engine draining: admission stopped "
@@ -1754,6 +2152,13 @@ class PolicyEngine:
                     bad_mask=(sojourn > self.slo.slo_s
                               if self.slo is not None else None),
                     lane="engine")
+            # traffic capture rides the same per-batch seam: one enabled
+            # check per batch when off; when on, each sampled decision's
+            # (authconfig, doc, firing column of the readback) is queued
+            # for the capture log's own drain thread, which encodes and
+            # persists it (never this thread)
+            if CAPTURE.enabled:
+                self._offer_capture(snap, pendings, firing)
             # the canary guards read the same attribution columns: a part
             # rides one generation, so the evaluating snapshot names the
             # cohort
@@ -1767,6 +2172,24 @@ class PolicyEngine:
             log.exception("provenance fold failed (decision unaffected)")
             return None
         return firing
+
+    def _offer_capture(self, snap: _Snapshot, pendings: List[_Pending],
+                       firing) -> None:
+        """Queue this batch's sampled decisions for capture, each stamped
+        with the digest of the pinned metadata documents its config was
+        decided under (None: nothing pinned)."""
+        pf = self.metadata_prefetcher
+        md_digests: Dict[str, Optional[str]] = {}
+        for i in CAPTURE.sample_indices(len(pendings)):
+            pi = pendings[i]
+            md = None
+            if pf is not None:
+                if pi.config_name not in md_digests:
+                    md_digests[pi.config_name] = pf.digest_for(
+                        pi.config_name)
+                md = md_digests[pi.config_name]
+            CAPTURE.offer(pi.config_name, pi.doc, int(firing[i]), "engine",
+                          snap.generation, metadata_doc_digest=md)
 
     # ---- the host-oracle degrade ------------------------------------------
 
@@ -1883,6 +2306,20 @@ class PolicyEngine:
             "admission": self.admission.to_json(),
             "adaptive": self.controller.to_json(),
             "control_plane": self._control_plane,
+            # the reconcile's verification planes: the gate's setting, the
+            # advisory passes' reports and the serving snapshot's
+            # translation-validation counts
+            "strict_verify": self.strict_verify,
+            "policy_analysis": self._analysis,
+            "lowerability": self._lowerability,
+            "translation_validation": (snap.translation
+                                       if snap is not None else None),
+            # pinned-document counts, staleness and refresh knobs, the
+            # hit/miss/stale counters
+            "metadata_prefetch": (self.metadata_prefetcher.to_json()
+                                  if self.metadata_prefetcher is not None
+                                  else None),
+            "replay": self.replay_vars(),
             "change_safety": self.change_safety_vars(),
             # the tenant plane: weights, the fair cut, per-tenant admission
             # and waits, the top tenants and containment (/debug/tenants)
@@ -1903,9 +2340,10 @@ class PolicyEngine:
             "provenance": {
                 "expose_deny_reason": prov_mod.EXPOSE_DENY_REASON,
                 "heat": heat.to_json() if heat is not None else None,
-                # no static policy analysis in the port yet: every
-                # never-fired rule is reported unexplained
-                "dead_rules": prov_mod.dead_rule_report(heat, None),
+                # cross-referenced against the static policy analysis: a
+                # rule it calls constant-allow cannot fire
+                "dead_rules": prov_mod.dead_rule_report(heat,
+                                                        self._analysis),
                 "decisions": {
                     "capacity": prov_mod.DECISIONS.capacity,
                     "sample_n": prov_mod.DECISIONS.sample_n,

@@ -6,10 +6,9 @@ An incoming HTTP request is synthesized into the same CheckRequestModel the
 gRPC path produces (headers lower-cased, body captured, TLS peer cert →
 source.certificate) and runs through the identical engine/pipeline.
 
-``/debug/tenants`` serves the tenant QoS plane's state.  The debug route of
-a plane the port does not hold yet stays registered, so that a request to
-it never becomes a Check(): ``/debug/replay`` answers 501 naming its
-ROADMAP item.  ``/debug/canary``
+``/debug/tenants`` serves the tenant QoS plane's state, ``/debug/replay``
+the capture log's accounting and the replay pregate's last verdict (POST
+``?flush=1`` forces the pending capture segment to disk).  ``/debug/canary``
 is the change-safety plane's: GET reads the canary, quarantine and
 rollback-history state, POST ``?action=promote|rollback|clear-quarantine``
 drives it."""
@@ -42,13 +41,6 @@ from ..utils.tracing import RequestSpan
 __all__ = ["build_app", "make_check_handler"]
 
 DEFAULT_MAX_BODY = 1024 * 1024  # --max-http-request-body-size analog
-
-# the planes whose debug routes answer 501 here, and where ROADMAP.md
-# queues them
-NOT_YET_PORTED = {
-    "/debug/replay": "traffic capture and replay: ROADMAP queue 1 item 12",
-}
-
 
 def synthesize_check_request(request: web.Request, body: bytes) -> CheckRequestModel:
     """(ref: pkg/service/auth.go:140-177)"""
@@ -313,12 +305,17 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
             "change_safety": engine.change_safety_vars(),
         })
 
-    def not_yet_ported(route: str):
-        async def handler(_):
-            return web.Response(
-                status=501, text=f"{route}: not yet in this server "
-                                 f"({NOT_YET_PORTED[route]})")
-        return handler
+    async def debug_replay(request: web.Request):
+        """Traffic replay's state (docs/replay.md): the capture log's
+        accounting (ring bytes and records, drops, segments) and the last
+        replay-preflight verdict.  POST ``?flush=1`` forces the pending
+        capture segment to disk first."""
+        from ..replay.capture import CAPTURE
+
+        if request.query.get("flush") and request.method == "POST":
+            await asyncio.get_running_loop().run_in_executor(
+                None, CAPTURE.flush)
+        return web.json_response(engine.replay_vars())
 
     profile_state = {"busy": False}
 
@@ -373,9 +370,8 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
     app.router.add_get("/debug/tenants", debug_tenants)
     app.router.add_get("/debug/canary", debug_canary)
     app.router.add_post("/debug/canary", debug_canary)
-    for route in NOT_YET_PORTED:
-        app.router.add_get(route, not_yet_ported(route))
-        app.router.add_post(route, not_yet_ported(route))
+    app.router.add_get("/debug/replay", debug_replay)
+    app.router.add_post("/debug/replay", debug_replay)
     app.router.add_get("/debug/profile", debug_profile)
     # catch-all LAST: Envoy's HTTP ext_authz filter forwards the ORIGINAL
     # request path (path_prefix + :path), so /check is just the conventional

@@ -4,7 +4,8 @@ the auth pipeline's families, and those of the planes the port holds (the
 serving core, provenance, the per-batch and stage telemetry, the reconcile
 phases, the compile cache and the delta upload, the SLO tracker, the
 flight recorder, the kernel cost ledger, the circuit breaker, the degrade
-and the fault plane).
+and the fault plane, the reconcile's verification planes, the metadata
+prefetch cache, traffic capture and the replay pregate).
 The families of planes not in the port yet come with them.
 
 Per-evaluator (deep) metrics are gated by the evaluator's ``metrics: true``
@@ -875,3 +876,105 @@ def observe_kernel_cost(lane, launches, h2d_bytes, d2h_bytes,
         ch[2].inc(d2h_bytes)
     if pad_waste_rows:
         ch[3].inc(pad_waste_rows)
+
+
+# the reconcile's verification planes (strict verify, translation
+# validation, policy analysis, lowerability), the metadata prefetch cache
+# and traffic capture with its replay pregate
+snapshot_rejected = _register(
+    "counter", "auth_server_snapshot_rejected_total",
+    "Compiled snapshots rejected by --strict-verify tensor lint at swap "
+    "time, per component (engine = apply_snapshot, native_frontend = C++ "
+    "fe_swap refresh).  The previously-serving snapshot stays live.",
+    ("component",),
+)
+policy_analysis_findings = _register(
+    "counter", "auth_server_policy_analysis_findings_total",
+    "Reconcile-time policy semantic-analysis findings (Cedar-style): "
+    "constant-allow/constant-deny rules, shadowed/duplicate rules, hosts "
+    "routed to more than one AuthConfig.  Recorded once per reconcile, "
+    "never per request.",
+    ("kind", "authconfig"),
+)
+policy_analysis_skipped = _register(
+    "counter", "auth_server_policy_analysis_skipped_total",
+    "Evaluators the semantic analyzer SKIPPED because their operand "
+    "support exceeds the bounded-evaluation limit (MAX_ATOMS).  Skipped "
+    "rules are listed on /debug/vars under policy_analysis.summary.skipped "
+    "— they still serve, they are just unanalyzed.",
+    ("authconfig",),
+)
+translation_validate = _register(
+    "counter", "auth_server_translation_validate_total",
+    "Per-config translation-validation outcomes at reconcile time "
+    "(analysis/translation_validate.py): validated = certified against "
+    "the host expression oracle this reconcile, cache_hit = unchanged "
+    "fingerprint served from the process-wide certificate cache, failed = "
+    "certification failure (under --strict-verify the snapshot is "
+    "rejected and the old one keeps serving).",
+    ("result",),
+)
+lowerability_configs = _register(
+    "counter", "auth_server_lowerability_configs_total",
+    "Per-reconcile lowerability classification: lane = fast (verdict "
+    "rides the kernel) or slow (interpreter path), reason = the reason "
+    "code ('' for configs with no reason; catalogue in "
+    "docs/static_analysis.md).  Incremented once per (config, reason) "
+    "pair per reconcile — a config with N reason codes lands in N series, "
+    "so sum by lane over-counts multi-reason configs; /debug/vars "
+    "engine.lowerability carries the exact per-lane config counts.",
+    ("lane", "reason"),
+)
+lowerability_blocking = _register(
+    "gauge", "auth_server_lowerability_blocking_configs",
+    "Would-be-fast-if-fixed rollup per slow-lane reason code: "
+    "kind = 'configs' (every slow config carrying the reason) or "
+    "'sole_blocker' (configs this reason ALONE exiles — fixing it moves "
+    "exactly that many to the fast lane).  Set once per reconcile from "
+    "the lowerability report's blocking_reasons block, so per-reason "
+    "progress trends across reconciles.",
+    ("reason", "kind"),
+)
+metadata_prefetch = _register(
+    "counter", "auth_server_metadata_prefetch_total",
+    "Metadata prefetch cache outcomes (relations/prefetch.py): "
+    "hit = pinned document served with zero network I/O, miss = no pin "
+    "yet (live fetch fall-through), stale = pin older than the staleness "
+    "bound (live fetch fall-through), refresh = background re-pin "
+    "completed, error = a re-pin fetch failed (the previous pin, if any, "
+    "keeps serving until stale).",
+    ("result",),
+)
+metadata_prefetch_docs = _register(
+    "gauge", "auth_server_metadata_prefetch_docs",
+    "Currently pinned (healthy) prefetched metadata documents.",
+    (),
+)
+capture_records = _register(
+    "counter", "auth_server_capture_records_total",
+    "Sampled full-fidelity capture-log records by result: stored (encoded "
+    "into the byte-bounded ring, and persisted when --capture-log-dir is "
+    "set) vs dropped (offer-queue overflow or an unencodable document — "
+    "capture loss is accounted, never backpressure on the serving path). "
+    "Ring evictions against --capture-log-size-mb are normal operation "
+    "and ride /debug/replay, not this counter.",
+    ("result",),
+)
+replay_pregate = _register(
+    "counter", "auth_server_replay_pregate_total",
+    "Reconcile replay preflights by result: pass (verdict diff under the "
+    "canary guard thresholds — the swap proceeds to its canary with "
+    "tightened guards), breach (the candidate snapshot was REJECTED "
+    "before serving any live request; a replay-pregate-breach flight "
+    "bundle carries the attributed diff), skipped (capture ring below "
+    "min_requests — not enough replay evidence to judge).",
+    ("result",),
+)
+replay_diff_flips = _register(
+    "gauge", "auth_server_replay_diff_flips",
+    "Verdict flips (allow<->deny, both directions) found by the most "
+    "recent replay preflight on this lane — 0 after a clean preflight; a "
+    "breach leaves the flip count that rejected the swap standing as "
+    "incident evidence until the next preflight.",
+    _LANE_LABELS,
+)

@@ -145,7 +145,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      oracle the same way, every batch to the structural contract; (c) gRPC
      health, /metrics, /debug/vars, the wristband's OIDC discovery and
      JWKS, the webhooks server converting and validating a review, SpiceDB
-     allow and deny; (d) gRPC checks/s (median of 3 bursts), burst and
+     allow and deny; (d) gRPC checks/s (median of 2 bursts), burst and
      lone p50/p99 beside phase 10 (a)'s ``engine.check()`` figures, the
      codec's host µs per Check(); then the server drained by cancelling
      its task; (e) ``python3 -m authorino_tpu_torch server`` as a
@@ -327,15 +327,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      canaried change of it breaching ``tenant-rejection-rate`` and
      rolling back; (e) phase 6's burst with the plane on and off, and
      device memory across the phase.
+ 20. the metadata prefetch cache, traffic capture with the replay
+     pregate, and strict verify: (a) phase 6's 1,000 configs, each with a
+     request-independent ``http`` metadata document of a local server
+     and a rule on one of its fields, 4,096 ``check()``s with prefetch on
+     and off: every code the oracle's, one GET per pinned document at
+     the pin and none per request with it on, one per request with it
+     off; (b) capture at 1-in-1 on phase 6's engine over a hot host's
+     requests and phase 6's: each captured firing column (the kernel's
+     readback) the host oracle's, a replay old against old with 0 flips,
+     the segments read back equal; (c) the replay pregate rejects a
+     poison on the hot config before its canary (+0 B, no launch, the old
+     generation exact) and passes a clean churn into a canary with
+     halved deny thresholds; (d) strict verify's validate phase and
+     certificate-cache counts, three planted mutants each rejected with
+     +0 B and no launch, the self-tests green; (e) the CLI with
+     ``--capture --replay-pregate --strict-verify``: ``/debug/replay``
+     and ``/debug/vars``.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 19's ((a), the fair-cut engine and its native frontend), with every
-phase's under ``launches_by_phase``; each kernel must have launched on
-the paths of phases 4, 6, 7, 8, 9, 10, 12, 13, 14, 15, 16, 17, 18 and 19,
-with the counts zeroed just before each.
+phase 20's ((a) and (b)), with every phase's under ``launches_by_phase``;
+each kernel must have launched on the paths of phases 4, 6, 7, 8, 9, 10,
+12-20, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -2477,7 +2493,7 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
 # phase 12: the serving surfaces
 # ---------------------------------------------------------------------------
 
-SERVE_BURSTS = 3          # timed gRPC bursts; checks/s is their median
+SERVE_BURSTS = 2          # timed gRPC bursts; checks/s is their median
 SERVE_HTTP = 256          # burst requests also sent over HTTP /check
 SERVE_LONE = 200          # gRPC Check()s sent one at a time
 SERVE_SLO_MS = 250.0      # the server's --slo-ms (phase 13 (e))
@@ -7847,6 +7863,567 @@ def tenancy(report: dict, card: str, dev, ctx6: dict, ns: dict) -> tuple:
     return launches, max_err
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the metadata prefetch cache, capture and the replay pregate,
+# strict verify
+# ---------------------------------------------------------------------------
+
+P20_CONFIGS = 1000        # phase 6's north-star AuthConfigs
+P20_BLOCKED_EVERY = 7     # (a): every 7th config's pinned document blocks
+P20_HOT = 512             # (b): requests to the hot host, sent first
+P20_BUDGET_MS = 2000.0    # (c): the pregate's replay budget
+P20_EXACT = 512           # (c), (d): records replayed through submit()
+
+
+def _flags_server():
+    """A local HTTP server of one request-independent metadata document
+    per config (``/flags/<i>``), counting GETs by path.  Returns (server,
+    thread, counts)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    counts: dict = {}
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            i = int(self.path.rsplit("/", 1)[-1])
+            with lock:
+                counts[i] = counts.get(i, 0) + 1
+            body = json.dumps({"tier": "blocked" if i % P20_BLOCKED_EVERY == 0
+                               else "gold", "config": i}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return srv, t, counts
+
+
+def _rules_only(entries):
+    """The entries' compiled rules with no runtime: an engine of its own
+    can install them (no evaluator bound to another engine)."""
+    from authorino_tpu_torch.runtime import EngineEntry
+
+    return [EngineEntry(id=e.id, hosts=list(e.hosts), runtime=None,
+                        rules=e.rules) for e in entries if e.rules is not None]
+
+
+def _settled(rec: dict) -> dict:
+    """A capture record without its doc's auth.authorization subtree (the
+    pipeline writes it after the verdict, racing the capture's encode)."""
+    doc = dict(rec.get("doc") or {})
+    doc["auth"] = {k: v for k, v in (doc.get("auth") or {}).items()
+                   if k != "authorization"}
+    return dict(rec, doc=doc)
+
+
+def _exact_submits(engine, records, label: str) -> int:
+    """Replay ``records`` through ``engine.submit`` at once; every verdict
+    and skipped column must equal the host oracle of the serving snapshot.
+    Returns how many were allowed."""
+    import numpy as np
+
+    from authorino_tpu_torch.models.policy_model import host_results
+
+    async def go():
+        return await asyncio.gather(*(engine.submit(r["doc"], r["authconfig"])
+                                      for r in records))
+
+    out = asyncio.run(go())
+    snap = engine._snapshot
+    allowed = 0
+    for (rule, skipped), r in zip(out, records):
+        own, _, w_skip = host_results(
+            snap.policy, r["doc"], snap.policy.config_ids[r["authconfig"]])
+        if bool(np.all(skipped | rule)) != own or \
+                skipped.tolist() != w_skip.tolist():
+            raise AssertionError(f"{label}: {r['authconfig']} answered "
+                                 f"{rule}/{skipped}, oracle {own}")
+        allowed += own
+    return allowed
+
+
+def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
+    """Phase 20: the metadata prefetch cache, traffic capture with the
+    replay pregate, and strict verify, on the card at phase 6's width.
+    (a) phase 6's 1,000 AuthConfigs, each with one request-independent
+    ``http`` metadata document from a local server (every 7th blocks) and
+    an authorization rule on a field of it: 4,096 ``check()``s with
+    prefetch on and with it off, every code the oracle's, the server's GETs
+    counted (one per pinned document per refresh, none per request, with
+    prefetch on; one per request with it off).  (b) capture at 1-in-1 on
+    phase 6's engine over a hot host's 512 requests and phase 6's 4,096:
+    each captured firing column (the kernel's readback) equal to the host
+    oracle's, a replay of the ring old against old with 0 flips, the
+    segments flushed and read back equal; checks/s with capture on and
+    off.  (c) an engine of the same rules with the replay pregate and a
+    canary: a poison on the hot config is rejected before its canary
+    (SnapshotRejected, a replay-pregate-breach event, generation and
+    device memory unchanged, no launch), a burst after it exact against
+    the old oracle, a clean churn canaried under halved deny thresholds.
+    (d) strict verify: the install's validate phase and counts (1,001
+    validated, then 1 and 1,000 cache hits after one change); three
+    planted mutants (a DFA transition, ``dfa_row_perm``, ``fused_pack_w``)
+    each rejected with +0 B on the card, no launch, the old snapshot still
+    exact; the mutation self-tests green.  (e) the CLI with
+    ``--capture --replay-pregate --strict-verify``: ``/debug/replay`` and
+    ``/debug/vars``.  Returns (the kernels' launches on (a) and (b), counts
+    zeroed just before (a); 0, the byte error of the comparisons here, all
+    on verdicts)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from authorino_tpu_torch.analysis import translation_validate as tv
+    from authorino_tpu_torch.authjson import build_authorization_json
+    from authorino_tpu_torch.compiler import ConfigRules
+    from authorino_tpu_torch.controllers import translate_auth_config
+    from authorino_tpu_torch.expressions import Operator, Pattern
+    from authorino_tpu_torch.models import control_plane as cp
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.models.policy_model import host_results
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import firing_columns
+    from authorino_tpu_torch.replay.capture import (CAPTURE, encode_record,
+                                                    read_capture)
+    from authorino_tpu_torch.replay.replay import replay_records
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.runtime.engine import SnapshotRejected
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+    from authorino_tpu_torch.snapshots import compile_cache as cc
+    from authorino_tpu_torch.utils import rpc
+
+    numbers = {"card": card}
+    reqs = ctx6["reqs"]
+    jwt = northstar.JWT_FILTER
+    rules = [c.evaluators[0][1]
+             for c in northstar.build_corpus(P20_CONFIGS, 10)]
+
+    # ---- (a) the metadata prefetch cache ----------------------------------
+    srv, srv_thread, counts = _flags_server()
+    port = srv.server_address[1]
+    acs = northstar.build_auth_configs(P20_CONFIGS, 10)
+    for i, o in enumerate(acs):
+        o["spec"]["metadata"] = {"flags": {"http": {
+            "url": f"http://127.0.0.1:{port}/flags/{i}"}}}
+        o["spec"]["authorization"]["tier"] = {"patternMatching": {
+            "patterns": [{"selector": "auth.metadata.flags.tier",
+                          "operator": "neq", "value": "blocked"}]}}
+
+    def want_code(k: int) -> int:
+        req = reqs[k]
+        i = int(req.http.host.split(".")[0][len("svc-"):])
+        claims = req.metadata_context["filter_metadata"][jwt]["verified_jwt"]
+        doc = build_authorization_json(req, {"identity": claims})
+        ok = rules[i].matches(doc) and i % P20_BLOCKED_EVERY != 0
+        return rpc.OK if ok else rpc.PERMISSION_DENIED
+
+    want = [want_code(k) for k in range(len(reqs))]
+    pf_runs = {}
+    codes = {}
+    fk.reset_counts()
+    reset_host_counts()
+    for mode in ("on", "off"):
+        # the tenant plane off (as phase 18's): a 4,096-request burst must
+        # not meet a tenant's queue share
+        engine = PolicyEngine(max_batch=256, metadata_prefetch=(mode == "on"),
+                              tenant_qos=False, **NO_REUSE)
+
+        async def translate_all(engine=engine):
+            return [await translate_auth_config(
+                o["metadata"]["name"], o["metadata"]["namespace"], o["spec"],
+                engine=engine) for o in acs]
+
+        entries = asyncio.run(translate_all())
+        t = time.perf_counter()
+        engine.apply_snapshot(entries)
+        install_s = time.perf_counter() - t
+        pf = engine.metadata_prefetcher
+        pin_s = None
+        if pf is not None:
+            t = time.perf_counter()
+            while pf.to_json()["counters"]["refresh"] < 1:
+                if time.perf_counter() - t > 120:
+                    raise AssertionError("(a) the first re-pin never landed")
+                time.sleep(0.01)
+            pin_s = time.perf_counter() - t
+        gets0 = dict(counts)
+        t = time.perf_counter()
+        out = asyncio.run(timed_checks(engine, reqs))
+        wall = time.perf_counter() - t
+        gets = {i: counts.get(i, 0) - gets0.get(i, 0) for i in counts}
+        codes[mode] = [res.code for res, _ in out]
+        bad = [k for k, c in enumerate(codes[mode]) if c != want[k]]
+        if bad:
+            k = bad[0]
+            raise AssertionError(f"(a) prefetch {mode}: {len(bad)} codes "
+                                 f"differ from the oracle, first check {k}: "
+                                 f"{out[k][0]} != {want[k]}")
+        run = {"checks_per_s": len(reqs) / wall, "install_s": install_s,
+               "gets_during_checks": sum(gets.values()),
+               "gets_at_pin": sum(gets0.values()) if mode == "on" else None,
+               "pin_s": pin_s,
+               "allowed": sum(c == rpc.OK for c in codes[mode])}
+        if pf is not None:
+            j = pf.to_json()
+            run.update(registered=j["registered"], pinned=j["pinned"],
+                       counters=dict(j["counters"]))
+            pf.stop()
+            if j["registered"] != P20_CONFIGS or j["pinned"] != P20_CONFIGS:
+                raise AssertionError(f"(a) {j['registered']} registered, "
+                                     f"{j['pinned']} pinned of "
+                                     f"{P20_CONFIGS}")
+            if run["gets_at_pin"] != P20_CONFIGS or \
+                    run["gets_during_checks"] != 0:
+                raise AssertionError(f"(a) prefetch on: {run}")
+            if j["counters"]["hit"] != len(reqs):
+                raise AssertionError(f"(a) {j['counters']} hits, want "
+                                     f"{len(reqs)}")
+        elif run["gets_during_checks"] != len(reqs):
+            raise AssertionError(f"(a) prefetch off fetched "
+                                 f"{run['gets_during_checks']} times for "
+                                 f"{len(reqs)} checks")
+        pf_runs[mode] = run
+        for e in entries:
+            asyncio.run(e.runtime.clean())
+        del engine, entries
+    if codes["on"] != codes["off"]:
+        raise AssertionError("(a) prefetch on and off answered differently")
+    srv.shutdown()
+    srv.server_close()
+    numbers["prefetch"] = pf_runs
+
+    # ---- (b) capture on phase 6's engine -----------------------------------
+    eng6 = ctx6["engine"]
+    eng6.tenancy.enabled = False     # the hot host is no noisy neighbour here
+    hot = hot_requests(P20_HOT)
+    t = time.perf_counter()
+    asyncio.run(timed_checks(eng6, reqs))
+    off_rate = len(reqs) / (time.perf_counter() - t)
+    cap_dir = Path("smoke_out") / "capture"
+    shutil.rmtree(cap_dir, ignore_errors=True)
+    CAPTURE.configure(enabled=True, size_mb=64.0, sample_n=1,
+                      directory=str(cap_dir))
+    CAPTURE.clear()
+    burst = hot + list(reqs)
+    t = time.perf_counter()
+    out = asyncio.run(timed_checks(eng6, burst))
+    on_rate = len(burst) / (time.perf_counter() - t)
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    if any(res.code not in (rpc.OK, rpc.PERMISSION_DENIED) for res, _ in out):
+        raise AssertionError("(b) a capture-on check did not get a verdict")
+    t = time.perf_counter()
+    if not CAPTURE.flush(30.0):
+        raise AssertionError("(b) the capture queue did not drain")
+    flush_s = time.perf_counter() - t
+    ring = CAPTURE.ring_records()
+    cap_json = CAPTURE.to_json()
+    CAPTURE.configure(enabled=False)
+    # off once more, after: the two off bursts bracket the on burst
+    t = time.perf_counter()
+    asyncio.run(timed_checks(eng6, reqs))
+    off_after = len(reqs) / (time.perf_counter() - t)
+    eng6.tenancy.enabled = True
+    if len(ring) != len(burst) or cap_json["dropped_total"]:
+        raise AssertionError(f"(b) captured {len(ring)} of {len(burst)}: "
+                             f"{cap_json}")
+    snap6 = eng6._snapshot
+    diffs = 0
+    for r in ring:
+        row = snap6.policy.config_ids[r["authconfig"]]
+        _, rule, skipped = host_results(snap6.policy, r["doc"], row)
+        if int(firing_columns(rule[None], skipped[None])[0]) != \
+                r["rule_index"]:
+            diffs += 1
+    if diffs:
+        raise AssertionError(f"(b) {diffs} captured firing columns differ "
+                             f"from the host oracle's")
+    t = time.perf_counter()
+    same = replay_records(snap6, snap6, ring)
+    replay_s = time.perf_counter() - t
+    if same["flips"]["total"] or same["replayed"] != len(ring):
+        raise AssertionError(f"(b) old against old: {same['flips']}, "
+                             f"{same['replayed']} replayed")
+    back = read_capture(str(cap_dir))
+    # a record's doc is the pipeline's live authorization JSON (as the
+    # reference's): its auth.authorization subtree fills in after the
+    # verdict, so the ring's copy may hold results the segment, encoded
+    # at ingest, does not; every other byte must match
+    lines = ([encode_record(_settled(r)) for r in back],
+             [encode_record(_settled(r)) for r in ring])
+    if lines[0] != lines[1]:
+        k = next((k for k, (x, y) in enumerate(zip(*lines)) if x != y), None)
+        raise AssertionError(
+            f"(b) {len(back)} records read back from {cap_dir}, not the "
+            f"ring's {len(ring)}; first difference at {k}: "
+            f"{lines[0][k][:300] if k is not None else ''} != "
+            f"{lines[1][k][:300] if k is not None else ''}")
+    numbers["capture"] = {
+        "records": len(ring), "firing_diffs": diffs,
+        "checks_per_s_on": on_rate,
+        "checks_per_s_off": [off_rate, off_after],
+        "ring_bytes": cap_json["ring_bytes"],
+        "dropped": cap_json["dropped_total"],
+        "segments": cap_json["segments_written"], "flush_s": flush_s,
+        "replay_same_s": replay_s, "read_back": len(back),
+        "allowed": sum(r["rule_index"] < 0 for r in ring)}
+
+    # ---- (c) the replay pregate ---------------------------------------------
+    base = _rules_only(ctx6["entries"])
+    hot_id = f"{northstar.NAMESPACE}/cfg-{HOT_CONFIG}"
+    seen = {r["authconfig"] for r in ring}
+    quiet = next(e.id for e in base if e.id not in seen and
+                 e.id.startswith(northstar.NAMESPACE))
+    CAPTURE.configure(enabled=True)      # the ring stays as (b) left it
+    engC = PolicyEngine(max_batch=256, replay_pregate=True,
+                        replay_pregate_budget_s=P20_BUDGET_MS / 1e3,
+                        canary_fraction=0.25, canary_window_s=60.0,
+                        tenant_qos=False, **NO_REUSE)
+    engC.apply_snapshot(base)
+    gen = engC.generation
+
+    def swapped(cid, rule):
+        return [type(e)(id=e.id, hosts=e.hosts, runtime=None, rules=(
+            ConfigRules(name=e.rules.name, evaluators=[(None, rule)])
+            if e.id == cid else e.rules)) for e in base]
+
+    poison = swapped(hot_id, Pattern("request.method", Operator.EQ, "NOPE"))
+    mem0 = device_allocated(dev)
+    l0, p0 = fk.launches, fk.probe_launches
+    ev0 = RECORDER.events_total
+    t = time.perf_counter()
+    try:
+        engC.apply_snapshot(poison)
+        raise AssertionError("(c) the poisoned change was not rejected")
+    except SnapshotRejected as e:
+        rejected = e
+    reject_s = time.perf_counter() - t
+    mem1 = device_allocated(dev)
+    with RECORDER._ring_lock:
+        kinds = [x["kind"] for x in list(RECORDER._ring)]
+    breach = dict(engC._last_pregate)
+    if (engC.generation != gen or engC._canary is not None
+            or mem1 != mem0 or (fk.launches, fk.probe_launches) != (l0, p0)
+            or "replay-pregate-breach" not in kinds
+            or breach["result"] != "breach"
+            or rejected.replay_diff["suspects"] != [hot_id]):
+        raise AssertionError(f"(c) breach: generation {engC.generation}/"
+                             f"{gen}, memory {mem0}->{mem1}, launches "
+                             f"{(fk.launches, fk.probe_launches)}/{(l0, p0)},"
+                             f" {breach}, events {kinds[-5:]}")
+    r0 = len(engC.batch_records)
+    allowed_after = _exact_submits(engC, ring[:P20_EXACT], "(c) after")
+    gens = {rec["generation"] for rec in list(engC.batch_records)[r0:]}
+    if gens != {gen}:
+        raise AssertionError(f"(c) batches after the breach rode {gens}")
+    clean_rule = Pattern("request.method", Operator.EQ, "TRACE")
+    t = time.perf_counter()
+    engC.apply_snapshot(swapped(quiet, clean_rule))
+    pass_s = time.perf_counter() - t
+    phase = engC._canary
+    passed = dict(engC._last_pregate)
+    if phase is None or not (phase.preflight or {}).get("guards_tightened"):
+        raise AssertionError(f"(c) the clean churn's canary: {passed}")
+    tightened = (phase.guard.thresholds.deny_delta,
+                 phase.guard.thresholds.config_deny_delta)
+    engC.canary_promote()
+    CAPTURE.configure(enabled=False)
+    numbers["pregate"] = {
+        "breach": breach, "reject_wall_s": reject_s,
+        "findings": [str(f) for f in rejected.findings[:4]],
+        "memory_before": mem0, "memory_after": mem1,
+        "events": RECORDER.events_total - ev0,
+        "exact_after": P20_EXACT, "allowed_after": allowed_after,
+        "pass": passed, "pass_wall_s": pass_s,
+        "tightened": list(tightened), "budget_ms": P20_BUDGET_MS}
+    del engC
+
+    # ---- (d) strict verify ----------------------------------------------------
+    tv.clear_certificate_cache()
+    engD = PolicyEngine(max_batch=256, strict_verify=True, tenant_qos=False,
+                        **NO_REUSE)
+    engD.apply_snapshot(base)
+    first = {"validate_s": engD._snapshot.phase_s.get("validate"),
+             "translation": dict(engD._snapshot.translation),
+             "lint_ok": engD._snapshot.lint_ok}
+    engD.apply_snapshot(swapped(quiet, clean_rule))
+    second = {"validate_s": engD._snapshot.phase_s.get("validate"),
+              "translation": dict(engD._snapshot.translation)}
+    n_cfg = len(base)
+    if first["translation"]["validated"] != n_cfg or \
+            second["translation"]["validated"] != 1 or \
+            second["translation"]["cache_hits"] != n_cfg - 1:
+        raise AssertionError(f"(d) translation counts {first} {second}")
+    served = engD._snapshot
+    real = cc.compile_corpus
+    plants = {
+        "dfa-transition": dict(tv._MUTANTS)["dfa-transition-corrupt"],
+        "dfa_row_perm": lambda p: setattr(
+            p, "dfa_row_perm", np.zeros_like(p.dfa_row_perm)),
+        "fused_pack_w": lambda p: setattr(p, "fused_pack_w",
+                                          int(p.fused_pack_w) + 1),
+    }
+    mutants = {}
+    changed = swapped(quiet, Pattern("request.method", Operator.EQ, "HEAD"))
+    for name, plant in plants.items():
+        def bad(*a, _plant=plant, **k):
+            p = real(*a, **k)
+            _plant(p)
+            return p
+
+        cc.compile_corpus = bad
+        mem0 = device_allocated(dev)
+        l0, p0 = fk.launches, fk.probe_launches
+        t = time.perf_counter()
+        try:
+            engD.apply_snapshot(changed)
+            raise AssertionError(f"(d) mutant {name} was not rejected")
+        except SnapshotRejected as e:
+            kinds = sorted({f.kind for f in e.findings})
+        finally:
+            cc.compile_corpus = real
+        wall = time.perf_counter() - t
+        mem1 = device_allocated(dev)
+        if mem1 != mem0 or (fk.launches, fk.probe_launches) != (l0, p0) \
+                or engD._snapshot is not served:
+            raise AssertionError(f"(d) mutant {name}: memory {mem0}->{mem1},"
+                                 f" launches {(fk.launches, fk.probe_launches)}"
+                                 f"/{(l0, p0)}")
+        allowed = _exact_submits(engD, ring[:P20_EXACT], f"(d) {name}")
+        mutants[name] = {"kinds": kinds, "reject_s": wall,
+                         "memory_delta": mem1 - mem0,
+                         "allowed_after": allowed}
+    t = time.perf_counter()
+    self_test = tv.mutation_self_test() + tv.relations_mutation_self_test()
+    self_test_s = time.perf_counter() - t
+    if self_test:
+        raise AssertionError(f"(d) the mutation self-test: {self_test}")
+    numbers["strict_verify"] = {"install": first, "one_change": second,
+                                "mutants": mutants,
+                                "self_test_s": self_test_s}
+    del engD
+    tv.clear_certificate_cache()
+
+    # ---- (e) the CLI ---------------------------------------------------------
+    e = {}
+    ports = [free_port() for _ in range(3)]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        docs = cp.build_auth_configs(ENTRY_CONFIGS, CP_RULES) + [
+            cp.api_key_secret(i) for i in range(ENTRY_CONFIGS)]
+        for k, doc in enumerate(docs):
+            (d / f"{k:03d}.json").write_text(json.dumps(doc))
+        log_path = Path("smoke_out") / "verify_replay_cli.log"
+        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
+                "--watch-dir", str(d), "--ext-auth-grpc-port", str(ports[0]),
+                "--ext-auth-http-port", str(ports[1]), "--oidc-http-port",
+                str(ports[2]), "--capture", "--replay-pregate",
+                "--strict-verify", "--drain-timeout", "5"]
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(argv, cwd=str(root), env=env,
+                                    stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            ready = None
+            while ready is None or ready[0] != 200:
+                if proc.poll() is not None:
+                    raise AssertionError(f"(e) the server exited "
+                                         f"{proc.returncode}: "
+                                         f"{log_path.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("(e) the server never got ready")
+                time.sleep(0.1)
+                ready = http_call(ports[1], "/readyz", timeout=2)
+            e["ready_s"] = time.perf_counter() - t0
+            rp = http_call(ports[1], "/debug/replay")
+            dv = json.loads(http_call(ports[1], "/debug/vars")[2])["engine"]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    replay = json.loads(rp[2]) if rp[0] == 200 else {}
+    e.update(replay_status=rp[0], replay_keys=sorted(replay), exit_code=rc,
+             strict_verify=dv.get("strict_verify"),
+             translation=dv.get("translation_validation"),
+             metadata_prefetch=dv.get("metadata_prefetch") is not None,
+             lowerability=(dv.get("lowerability") or {}).get("fast"),
+             policy_findings=len((dv.get("policy_analysis") or {}).get(
+                 "findings", [None])) if dv.get("policy_analysis") else None,
+             capture_enabled=replay.get("capture", {}).get("enabled"),
+             pregate_enabled=replay.get("pregate", {}).get("enabled"))
+    if (rp[0] != 200 or e["replay_keys"] != ["capture", "pregate"]
+            or not e["capture_enabled"] or not e["pregate_enabled"]
+            or e["strict_verify"] is not True or not e["metadata_prefetch"]
+            or e["lowerability"] is None or e["policy_findings"] is None
+            or sum((e["translation"] or {}).get(k, 0)
+                   for k in ("validated", "cache_hits")) != ENTRY_CONFIGS
+            or rc != 0):
+        raise AssertionError(f"(e) {e}; log "
+                             f"{log_path.read_text()[-2000:]}")
+    numbers["cli"] = e
+    numbers["launches"] = launches
+    report["verify_replay"] = numbers
+
+    a, b, c, sv = (numbers["prefetch"], numbers["capture"],
+                   numbers["pregate"], numbers["strict_verify"])
+    log(f"[{card}] verify/replay (a) metadata prefetch over {P20_CONFIGS} "
+        f"configs: "
+        f"on {a['on']['checks_per_s']:.0f} checks/s, {a['on']['gets_at_pin']}"
+        f" GETs to pin in {a['on']['pin_s']:.2f} s, "
+        f"{a['on']['gets_during_checks']} during {len(reqs)} checks "
+        f"({a['on']['counters']['hit']} hits); off "
+        f"{a['off']['checks_per_s']:.0f} checks/s, "
+        f"{a['off']['gets_during_checks']} GETs; every code the oracle's "
+        f"({a['on']['allowed']} allowed), on and off equal")
+    log(f"[{card}] verify/replay (b) capture 1-in-1 over {b['records']} "
+        f"check()s: {b['firing_diffs']} firing columns differ from the host "
+        f"oracle; replay old against old 0 flips in "
+        f"{b['replay_same_s']:.2f} s; {b['segments']} segments read back "
+        f"equal; ring {b['ring_bytes']} B, {b['dropped']} dropped; checks/s "
+        f"capture on {b['checks_per_s_on']:.0f}, off before and after "
+        f"{[round(x) for x in b['checks_per_s_off']]}")
+    log(f"[{card}] verify/replay (c) pregate: the poisoned {hot_id} "
+        f"rejected in {c['reject_wall_s']:.3f} s (replay "
+        f"{c['breach']['elapsed_ms']:.1f} ms of the {P20_BUDGET_MS:g} ms "
+        f"budget, {c['breach']['replayed']} replayed, "
+        f"{c['breach']['flips']}), memory {c['memory_before']} -> "
+        f"{c['memory_after']} B, no launch; {P20_EXACT} submits after it "
+        f"exact; the clean churn passed ({c['pass']['replayed']} replayed, "
+        f"{c['pass']['truncated']} truncated, {c['pass']['elapsed_ms']:.1f} "
+        f"ms) into a canary at deny deltas {c['tightened']}")
+    log(f"[{card}] verify/replay (d) strict verify: install validate "
+        f"{sv['install']['validate_s']:.3f} s, {sv['install']['translation']};"
+        f" one change validate {sv['one_change']['validate_s']:.3f} s, "
+        f"{sv['one_change']['translation']}; mutants "
+        + ", ".join(f"{k} {v['kinds']} +{v['memory_delta']} B"
+                    for k, v in sv["mutants"].items())
+        + f"; self-test green in {sv['self_test_s']:.2f} s")
+    log(f"verify/replay (e): python3 -m authorino_tpu_torch server --capture "
+        f"--replay-pregate --strict-verify ready in {e['ready_s']:.1f} s; "
+        f"/debug/replay {e['replay_status']} {e['replay_keys']}; /debug/vars "
+        f"translation {e['translation']}, lowerability fast "
+        f"{e['lowerability']}, {e['policy_findings']} policy findings; "
+        f"exit {rc}")
+    return launches, 0
+
+
 def main() -> int:
     import torch
 
@@ -8420,18 +8997,24 @@ def main() -> int:
     max_err = max(max_err, ten_err)
     require_no_failure_handling("phase 19", marks)
 
+    # ---- 20. metadata prefetch, capture and the pregate, strict verify ----
+    marks = failure_marks()
+    vr_launches, vr_err = verify_and_replay(report, card, dev, ctx6)
+    max_err = max(max_err, vr_err)
+    require_no_failure_handling("phase 20", marks)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": ten_launches["fused_megakernel"],
+         "launches": vr_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": ten_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": vr_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -8441,7 +9024,8 @@ def main() -> int:
                 "8": jwt_launches, "9": core_launches, "10": cp_launches,
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
-                "17": inc_launches, "18": cs_launches, "19": ten_launches}
+                "17": inc_launches, "18": cs_launches, "19": ten_launches,
+                "20": vr_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

@@ -282,6 +282,66 @@ def test_tenancy_modules_import_alone_without_services_or_the_reference(mod):
     assert "W 4.0 G 8 BAD []" in proc.stdout, proc.stdout
 
 
+VERIFY_REPLAY_MODULES = ("relations.prefetch", "replay", "replay.capture",
+                         "replay.replay", "replay.pregate",
+                         "replay.bench_load", "analysis", "analysis.fixtures",
+                         "analysis.policy_analysis", "analysis.tensor_lint",
+                         "analysis.translation_validate")
+
+
+@pytest.mark.parametrize("mod", VERIFY_REPLAY_MODULES)
+def test_verify_replay_modules_import_alone_without_services_or_the_reference(
+        mod):
+    """The metadata prefetcher, capture and replay, and the analysis core
+    each import on their own with ``grpc``, ``aiohttp``, ``jax``, the JAX
+    package, ``google.protobuf``, ``cryptography`` and ``opentelemetry``
+    blocked, and there the validator's self-test is green, the lint finds
+    a planted fault, a capture segment round-trips and a replay sees a
+    planted flip."""
+    code = (
+        "import importlib, os, sys, tempfile\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu', "
+        "'google.protobuf', 'cryptography', 'opentelemetry')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if any(name == b or name.startswith(b + '.') "
+        "for b in BLOCKED):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "from authorino_tpu_torch.analysis import fixtures, tensor_lint\n"
+        "from authorino_tpu_torch.analysis import translation_validate as tv\n"
+        "from authorino_tpu_torch.relations.prefetch import doc_digest\n"
+        "from authorino_tpu_torch.replay import capture, replay\n"
+        "from authorino_tpu_torch.compiler import ConfigRules, "
+        "compile_corpus\n"
+        "from authorino_tpu_torch.expressions import Operator, Pattern\n"
+        "p = fixtures.fixture_policy()\n"
+        "p.fused_pack_w += 1\n"
+        "kinds = [f.kind for f in tensor_lint.tensor_lint(p)]\n"
+        "path = os.path.join(tempfile.mkdtemp(), 's.atpucap')\n"
+        "recs = [{'authconfig': 'c', 'doc': {'auth': {'identity': "
+        "{'org': 'a'}}}, 'rule_index': -1}] * 8\n"
+        "capture.write_segment(path, recs)\n"
+        "same = capture.read_segment(path)[1] == recs\n"
+        "pol = lambda org: compile_corpus([ConfigRules('c', evaluators=["
+        "(None, Pattern('auth.identity.org', Operator.EQ, org))])])\n"
+        "rep = replay.replay_records(pol('a'), pol('b'), recs)\n"
+        "bad = sorted(m for m in sys.modules if any(m == b or "
+        "m.startswith(b + '.') for b in BLOCKED))\n"
+        "print('SELF', tv.mutation_self_test(), 'KINDS', kinds, 'SAME', "
+        "same, 'FLIPS', rep['flips']['newly_denied'], 'DIGEST', "
+        "len(doc_digest({})), 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("SELF [] KINDS ['fused-pack-width'] SAME True FLIPS 8 "
+            "DIGEST 64 BAD []") in proc.stdout, proc.stdout
+
+
 def test_atomic_writer_ignores_the_reference_plane(tmp_path):
     """With both packages loaded, the reference's armed fs rule does not
     reach the port's writer (nor the port's the reference's): each writer

@@ -270,6 +270,92 @@ def test_a_tenant_flag_reaches_the_engine(flag, monkeypatch):
                                                 lane_select=False))
 
 
+# each flag of the reconcile's verification, traffic capture, the replay
+# pregate and the metadata prefetch cache, a value other than its default,
+# and where the port holds it (the engine, or the process-wide capture log)
+def _capture_view(cap):
+    return (cap.enabled, cap.directory, cap.size_bytes, cap.sample_n)
+
+
+VERIFY_REPLAY_FLAGS = {
+    "--strict-verify": (None, lambda e, c: e.strict_verify),
+    "--replay-pregate": (None, lambda e, c: e.replay_pregate),
+    "--replay-pregate-budget-ms": ("350", lambda e, c:
+                                   e.replay_pregate_budget_s),
+    "--no-metadata-prefetch": (None, lambda e, c: e.metadata_prefetcher),
+    "--metadata-max-age": ("12", lambda e, c:
+                           e.metadata_prefetcher.max_age_s),
+    "--metadata-refresh": ("7", lambda e, c:
+                           e.metadata_prefetcher.refresh_s),
+    "--capture": (None, lambda e, c: _capture_view(c)),
+    "--capture-log-dir": ("DIR", lambda e, c: _capture_view(c)),
+    "--capture-log-size-mb": ("3", lambda e, c: _capture_view(c)),
+    "--capture-sample": ("5", lambda e, c: _capture_view(c)),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(VERIFY_REPLAY_FLAGS))
+def test_a_verify_capture_or_prefetch_flag_reaches_the_port(flag, tmp_path,
+                                                            monkeypatch):
+    """Strict verify, capture, the replay pregate and the metadata
+    prefetch cache are in the port: each flag is accepted and lands where
+    the reference's CLI puts it, with the reference's value (one that
+    differs from the default)."""
+    import authorino_tpu.runtime.engine as ref_engine_mod
+    from authorino_tpu.replay.capture import CAPTURE as REF_CAPTURE
+    from authorino_tpu_torch.replay.capture import CAPTURE as PORT_CAPTURE
+
+    value, read = VERIFY_REPLAY_FLAGS[flag]
+    if value == "DIR":
+        value = str(tmp_path / "cap")
+    extra = [flag] if value is None else [flag, value]
+    if flag.startswith("--capture-log-size") or flag == "--capture-sample":
+        extra = ["--capture"] + extra
+    port_cli.refuse_unported(server_args(*extra))
+
+    def stop(engine):
+        raise _Built(engine)
+
+    try:
+        with pytest.raises(_Built) as got:
+            run(port_cli.run_server(server_args(*extra), on_engine=stop))
+        ref_kwargs = {}
+        real = ref_engine_mod.PolicyEngine
+
+        def capture(**kw):
+            ref_kwargs.update(kw)
+            raise _Built()
+
+        monkeypatch.setattr(ref_engine_mod, "PolicyEngine", capture)
+        ref_args = ref_cli.build_parser().parse_args(
+            ["server", "--jax-platform", "cpu", *extra])
+        with pytest.raises(_Built):
+            run(ref_cli.run_server(ref_args))
+        monkeypatch.setattr(ref_engine_mod, "PolicyEngine", real)
+        keys = ("strict_verify", "replay_pregate", "replay_pregate_budget_s",
+                "metadata_prefetch", "metadata_prefetch_max_age_s",
+                "metadata_prefetch_refresh_s")
+        ref_engine = real(mesh=None, lane_select=False,
+                          **{k: ref_kwargs[k] for k in keys})
+        default = real(mesh=None, lane_select=False)
+        port_read = read(got.value.args[0], PORT_CAPTURE)
+        ref_read = read(ref_engine, REF_CAPTURE)
+        if flag == "--no-metadata-prefetch":
+            port_read, ref_read = port_read is None, ref_read is None
+            assert port_read is True
+        assert port_read == ref_read
+        if not flag.startswith("--capture"):
+            assert read(got.value.args[0], PORT_CAPTURE) != read(
+                default, REF_CAPTURE)
+        else:
+            assert PORT_CAPTURE.enabled is True
+    finally:
+        for cap in (PORT_CAPTURE, REF_CAPTURE):
+            cap.configure(enabled=False, size_mb=64.0, sample_n=1)
+            cap.directory = None
+            cap.clear()
+
+
 def test_malformed_tenant_weights_are_skipped_as_the_reference_does():
     pairs = ["ns/a=2", "junk", "=3", "ns/b=x", "ns/c=0.5", "ns/d==4"]
     assert port_cli._parse_tenant_weights(pairs) == \

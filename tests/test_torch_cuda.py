@@ -1149,3 +1149,97 @@ def test_contained_tenant_rows_launch_as_their_own_part(card, monkeypatch):
                                       snap.policy.config_ids[n])
         assert bool(np.all(skipped | rule)) == own
         assert skipped.tolist() == w_skip.tolist()
+
+
+def test_strict_verify_rejects_a_mutant_with_no_device_bytes(card,
+                                                             monkeypatch):
+    """Under strict verify a miscompiled corpus (a planted DFA transition
+    or row permutation, a wrong readback width) is rejected before any
+    byte of it reaches the card: device memory +0 B, no mega-kernel or
+    probe launch, and the serving snapshot still answers exactly."""
+    from authorino_tpu_torch.analysis.translation_validate import _MUTANTS
+    from authorino_tpu_torch.runtime.engine import SnapshotRejected
+    from authorino_tpu_torch.snapshots import compile_cache as cc
+
+    cfgs = northstar.build_corpus(16, 10)
+    engine = PolicyEngine(device=card, max_batch=64, strict_verify=True,
+                          verdict_cache_size=0, analyze_policies=False)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    snap = engine._snapshot
+    docs = northstar.build_docs(64, seed=3)
+    names = [f"cfg-{k % 16}" for k in range(64)]
+    real = cc.compile_corpus
+    plants = {
+        "dfa-transition": dict(_MUTANTS)["dfa-transition-corrupt"],
+        "dfa_row_perm": lambda p: setattr(
+            p, "dfa_row_perm", np.zeros_like(p.dfa_row_perm)),
+        "fused_pack_w": lambda p: setattr(p, "fused_pack_w",
+                                          int(p.fused_pack_w) + 1),
+    }
+    for name, plant in plants.items():
+        def bad(*a, _plant=plant, **k):
+            p = real(*a, **k)
+            _plant(p)
+            return p
+
+        monkeypatch.setattr(cc, "compile_corpus", bad)
+        changed = northstar.build_corpus(16, 10, changed={3: "const"})
+        torch.cuda.synchronize(card)
+        mem0 = torch.cuda.memory_allocated(card)
+        l0, p0 = fk.launches, fk.probe_launches
+        with pytest.raises(SnapshotRejected):
+            engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name],
+                                               rules=c) for c in changed])
+        torch.cuda.synchronize(card)
+        assert torch.cuda.memory_allocated(card) == mem0, name
+        assert (fk.launches, fk.probe_launches) == (l0, p0), name
+        assert engine._snapshot is snap
+        monkeypatch.setattr(cc, "compile_corpus", real)
+        out = asyncio.run(_gather(engine, docs, names))
+        for (rule, skipped), d, n in zip(out, docs, names):
+            own, _, _ = host_results(snap.policy, d,
+                                     snap.policy.config_ids[n])
+            assert bool(np.all(skipped | rule)) == own
+
+
+def test_captured_firing_columns_equal_the_plain_version(card):
+    """Capture at 1-in-1 over a burst on the card: each captured record's
+    firing column is the one the plain version computes on the same
+    operands, and the host oracle's."""
+    from authorino_tpu_torch.ops.operands import (defuse, firing_columns,
+                                                  unpack_attribution)
+    from authorino_tpu_torch.replay.capture import CAPTURE
+
+    cfgs = northstar.build_corpus(16, 10)
+    engine = PolicyEngine(device=card, max_batch=64, verdict_cache_size=0,
+                          batch_dedup=False)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    snap = engine._snapshot
+    docs = northstar.build_docs(128, seed=9)
+    names = [f"cfg-{k % 16}" for k in range(128)]
+    CAPTURE.configure(enabled=True, size_mb=16, sample_n=1)
+    CAPTURE.clear()
+    try:
+        l0 = fk.launches
+        asyncio.run(_gather(engine, docs, names))
+        assert fk.launches > l0
+        assert CAPTURE.flush()
+        recs = CAPTURE.ring_records()
+    finally:
+        CAPTURE.configure(enabled=False)
+        CAPTURE.clear()
+    assert len(recs) == 128
+    E = int(snap.policy.eval_rule.shape[1])
+    for r in recs:
+        row = snap.policy.config_ids[r["authconfig"]]
+        db = pack_batch(snap.policy, encode_batch(snap.policy, [r["doc"]],
+                                                  [row], batch_pad=16))
+        buf, layout = fuse_batch(db)
+        plain = fk.fused_packed_plain(snap.params, defuse(
+            torch.from_numpy(buf).to(card), layout)).cpu().numpy()
+        _, firing = unpack_attribution(plain[:1], E)
+        _, rule, skipped = host_results(snap.policy, r["doc"], row)
+        want = int(firing_columns(rule[None], skipped[None])[0])
+        assert r["rule_index"] == int(firing[0]) == want

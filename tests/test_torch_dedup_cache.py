@@ -112,8 +112,7 @@ def test_fingerprints_epoch_and_tokens_equal_reference(kind, seed,
 
 def ref_engine(**kw):
     return RefEngine(mesh=None, lane_select=False, brownout=False,
-                     tenant_qos=False, kernel_lane="fused",
-                     metadata_prefetch=False, **kw)
+                     tenant_qos=False, kernel_lane="fused", **kw)
 
 
 LEDGER_OF = {"rows": "rows", "device_rows": "device_rows",

@@ -59,17 +59,16 @@ def req(host, token=None, method="GET", path="/pets", headers=None):
     return {"method": method, "path": path, "host": host, "headers": h}
 
 
-def answer(ns, configs, requests, secrets, during=None):
+def answer(ns, configs, requests, secrets, during=None, prefetch=False):
     """Translate ``configs`` [(name, spec)] with one engine of ``ns``,
     install them, and answer ``requests`` one at a time;
     ``during(entries, check)`` runs (and is awaited) between install and
     the requests, with ``check(http dict)`` answering one request.
-    Returns (entries, results).  The reference engine's metadata
-    prefetcher (a cache the port does not have) stays off, so both
-    packages fetch each document when a request needs it, as Authorino
-    does."""
-    engine = (engine_of(ns, metadata_prefetch=False) if ns is REF
-              else engine_of(ns))
+    Returns (entries, results).  ``prefetch`` sets both engines' metadata
+    prefetch cache: off, each package fetches each document when a
+    request needs it, as Authorino does; on, the install's first re-pin
+    of every request-independent document lands before the requests."""
+    engine = engine_of(ns, metadata_prefetch=prefetch)
     cluster = cluster_of(ns, secrets)
 
     async def body():
@@ -79,6 +78,12 @@ def answer(ns, configs, requests, secrets, during=None):
                 entries.append(await ns.controllers.translate_auth_config(
                     name, NS, spec, cluster=cluster, engine=engine))
             engine.apply_snapshot(entries)
+            pf = engine.metadata_prefetcher
+            if pf is not None and pf.to_json()["registered"]:
+                deadline = time.monotonic() + 20
+                while pf.to_json()["counters"]["refresh"] < 1:
+                    assert time.monotonic() < deadline, "no re-pin landed"
+                    await asyncio.sleep(0.01)
 
             async def check(r):
                 return await engine.check(request_of(ns, dict(r)))
@@ -87,6 +92,8 @@ def answer(ns, configs, requests, secrets, during=None):
                 await during(entries, check)
             return entries, [await check(r) for r in requests]
         finally:
+            if engine.metadata_prefetcher is not None:
+                engine.metadata_prefetcher.stop()
             for e in entries:
                 await e.runtime.clean()
             await HTTP[id(ns)].close_sessions()
@@ -339,6 +346,40 @@ def test_generic_http_metadata_equals_reference(idp, keys, case):
     want, got = both([("md", spec)], requests, oc.cluster_secrets(keys))
     assert got == want
     assert all(g[0] == PORT.rpc.OK for g in got)
+
+
+@pytest.mark.parametrize("case", sorted(HTTP_CASES))
+def test_generic_http_metadata_prefetched_equals_reference(idp, keys, case):
+    """The same cases with both engines' metadata prefetch cache on (the
+    reference's default): equal results, equal prefetch counts, and the
+    same live fetches during the requests: none where the document is
+    request-independent and pinned, one per request otherwise."""
+    spec = md_spec(idp.issuer, {"echo": HTTP_CASES[case](idp.issuer)})
+    requests = [req("md.test", method="GET", path="/a b?x=1",
+                    headers={"x-in": "1"}),
+                req("md.test", method="POST", path="/p")]
+    runs = []
+    for ns in (REF, PORT):
+        seen = {}
+
+        async def during(entries, check, seen=seen):
+            seen["before"] = sum(idp.counts.values())
+            seen["entries"] = entries
+
+        _, res = answer(ns, [("md", spec)], requests,
+                        oc.cluster_secrets(keys), during, prefetch=True)
+        md = seen["entries"][0].runtime.metadata[0]
+        pf, _ = md.prefetch if md.prefetch is not None else (None, None)
+        runs.append(([result_fields(r) for r in res],
+                     sum(idp.counts.values()) - seen["before"],
+                     md.prefetchable, md.prefetch_pinned,
+                     {k: v for k, v in pf.to_json()["counters"].items()
+                      if k != "refresh"} if pf is not None else None))
+    assert runs[1] == runs[0]
+    _, live, prefetchable, pinned, counts = runs[1]
+    assert prefetchable == pinned
+    if pinned and case not in ("status_error", "bad_json", "text_response"):
+        assert counts["hit"] == 2 and live == 0
 
 
 def test_oauth2_token_is_cached_until_it_expires(idp, keys):

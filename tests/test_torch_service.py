@@ -423,7 +423,13 @@ def test_http_concurrent_checks_and_surfaces(service_engines):
     tenants = json.loads(by["/debug/tenants"][1])
     assert tenants["enabled"] is True
     assert tenants["stats"]["requests_total"] >= 16
-    assert by["/debug/replay"][0] == 501 and "ROADMAP" in by["/debug/replay"][1]
+    # traffic replay serves: the capture log's accounting and the
+    # pregate's (unarmed) state
+    replay = json.loads(by["/debug/replay"][1])
+    assert by["/debug/replay"][0] == 200
+    assert set(replay) == {"capture", "pregate"}
+    assert replay["pregate"] == {"enabled": False, "budget_s": 2.0,
+                                 "last": None}
     assert by["/debug/canary"][0] == 200
     assert json.loads(by["/debug/canary"][1])["canary"] is None
     assert by["POST /debug/canary"][0] == 200
