@@ -23,6 +23,7 @@ import logging
 import os
 import signal
 import sys
+import threading
 import time
 from typing import Any
 
@@ -249,9 +250,8 @@ def build_parser() -> argparse.ArgumentParser:
 UNPORTED_PLANES = {
     "brownout": 3, "lane selection": 3,
     "speculative dispatch": 3,
-    "state plane": 7, "snapshot distribution": 7,
     "kernel lanes": 9,
-    "corpus pregate": 12, "fleet": 13,
+    "fleet": 13,
 }
 
 # a flag of an unported plane → (its inert value, the plane).  A flag that
@@ -260,15 +260,6 @@ UNPORTED_PLANES = {
 UNPORTED_FLAGS = {
     "brownout_max_batch": (32, "brownout"),
     "lane_host_max_rows": (64, "lane selection"),
-    "corpus_pregate": ("", "corpus pregate"),
-    "corpus_pregate_budget_ms": (2000.0, "corpus pregate"),
-    "snapshot_publish_dir": ("", "snapshot distribution"),
-    "snapshot_source": ("", "snapshot distribution"),
-    "snapshot_poll": (5.0, "snapshot distribution"),
-    "fleet_hotset_k": (1024, "fleet"),
-    "fleet_hotset_s": (30.0, "fleet"),
-    "state_dir": ("", "state plane"),
-    "max_snapshot_age": (0.0, "state plane"),
 }
 
 
@@ -363,6 +354,123 @@ async def run_webhooks(args) -> None:
         await runner.cleanup()
 
 
+def _same_dir(a: str, b: str) -> bool:
+    return bool(a and b and not b.startswith(("http://", "https://"))
+                and os.path.realpath(a) == os.path.realpath(b))
+
+
+def start_state_planes(args, engine, log):
+    """Snapshot distribution and the durable state plane, wired before the
+    control plane's first sync.  A compile leader publishes every vetted
+    snapshot into --snapshot-publish-dir (and its verdict cache's hot set
+    beside it); the state plane warm-starts from --state-dir (the
+    replica's admission gate) and then writes behind; a serving replica
+    polls --snapshot-source and applies each new vetted snapshot without
+    compiling, its first poll (with the leader's hot set) before the
+    start returns: a reachable leader supersedes the local blob.  Returns
+    (replica, state plane, the hot-set thread's stop event), each None
+    when off."""
+    publish_dir = str(args.snapshot_publish_dir or "")
+    snapshot_source = str(args.snapshot_source or "")
+    state_dir = str(args.state_dir or "")
+    # the loop breakers: a node is a compile leader or a serving replica,
+    # never its own upstream, and its state dir (which persists LOADED
+    # snapshots) is never a distribution feed
+    if _same_dir(publish_dir, snapshot_source):
+        raise RuntimeError(
+            "--snapshot-publish-dir and --snapshot-source point at the "
+            "same directory: a node is either a compile leader or a "
+            "serving replica, not its own upstream")
+    for other, flag in ((snapshot_source, "--snapshot-source"),
+                        (publish_dir, "--snapshot-publish-dir")):
+        if state_dir and _same_dir(state_dir, other):
+            raise RuntimeError(
+                f"--state-dir and {flag} point at the same directory: "
+                "the state plane is this process's private "
+                "crash-recovery store, never a distribution feed")
+    hotset_k = int(args.fleet_hotset_k or 0)
+    hotset_s = max(1.0, float(args.fleet_hotset_s))
+    hotset_stop = None
+    if publish_dir:
+        from .snapshots.distribution import SnapshotPublisher
+
+        publisher = SnapshotPublisher(publish_dir)
+        publisher.attach(engine)
+        log.info("snapshot leader: publishing vetted snapshots to %s",
+                 publish_dir)
+        if hotset_k > 0:
+            # the warm-join cadence: the verdict cache's top-K into
+            # HOTSET.json beside the manifest.  Advisory: a failed publish
+            # only costs joiners a cold cache
+            from .fleet import warmjoin as warmjoin_mod
+
+            hotset_stop = threading.Event()
+
+            def _hotset_loop() -> None:
+                while not hotset_stop.wait(hotset_s):
+                    try:
+                        digest = warmjoin_mod.export_hotset(
+                            engine, k=hotset_k)
+                        if digest is not None:
+                            publisher.publish_hotset(digest)
+                    except Exception:
+                        log.exception("hot-set publish failed (warm-join "
+                                      "is advisory; serving unaffected)")
+
+            threading.Thread(target=_hotset_loop, daemon=True,
+                             name="atpu-fleet-hotset").start()
+            log.info("fleet hot-set: publishing top-%d verdicts every "
+                     "%.0fs", hotset_k, hotset_s)
+    state_plane = None
+    if state_dir:
+        from .runtime.state_plane import StatePlane
+
+        state_plane = StatePlane(
+            engine, state_dir,
+            max_snapshot_age_s=float(args.max_snapshot_age),
+            hotset_k=hotset_k or 1024, hotset_s=hotset_s)
+        engine.state_plane = state_plane
+        summary = state_plane.warm_start()
+        state_plane.start()
+        log.info("state plane: %s (snapshot=%s hotset=%s, "
+                 "max_snapshot_age=%.0fs)", state_dir,
+                 summary.get("snapshot"), summary.get("hotset"),
+                 state_plane.max_snapshot_age_s)
+    snapshot_replica = None
+    if snapshot_source:
+        from .snapshots.distribution import SnapshotReplica
+
+        if args.watch_dir or args.in_cluster:
+            log.warning("--snapshot-source with a local control plane: the "
+                        "replica feed and local reconciles will race for "
+                        "the serving snapshot; pick one")
+        snapshot_replica = SnapshotReplica(engine, snapshot_source,
+                                           poll_s=float(args.snapshot_poll))
+        try:
+            snapshot_replica.poll_once()
+            if hotset_k > 0:
+                # seed the verdict cache from the leader's hot set, so a
+                # replica joining mid-flood starts warm (a mismatch or no
+                # digest: it joins cold)
+                from .fleet import warmjoin as warmjoin_mod
+                from .snapshots.distribution import load_hotset
+
+                imported, _ = warmjoin_mod.import_hotset(
+                    engine, load_hotset(snapshot_source))
+                if imported:
+                    log.info("warm-join: inherited %d hot verdict(s) "
+                             "from the leader's published hot set",
+                             imported)
+        except Exception:
+            log.exception("snapshot warm start failed (the replica keeps "
+                          "polling; serving an empty index until a vetted "
+                          "snapshot loads)")
+        snapshot_replica.start()
+        log.info("snapshot replica: polling %s every %.1fs",
+                 snapshot_source, float(args.snapshot_poll))
+    return snapshot_replica, state_plane, hotset_stop
+
+
 async def run_server(args, on_engine=None) -> None:
     """Serve until SIGINT/SIGTERM or until the task is cancelled, then
     drain.  ``on_engine(engine)``, when given, is called as soon as the
@@ -454,6 +562,21 @@ async def run_server(args, on_engine=None) -> None:
         log.warning("fault injection ARMED via --fault-profile (%s): this "
                     "is a chaos/testing mode", fault_profile)
 
+    if str(args.snapshot_publish_dir or "") and not args.strict_verify:
+        # replicas admit only certified snapshots, and only strict verify
+        # certifies: publishing uncertified blobs would wedge every
+        # replica on its last vetted snapshot with nothing flagging it here
+        log.warning("--snapshot-publish-dir implies --strict-verify "
+                    "(replicas only admit certified snapshots): enabling it")
+        args.strict_verify = True
+    if str(args.state_dir or "") and not args.strict_verify:
+        # the warm-restart loader is the replica's admission gate: it
+        # admits only certified blobs, so persisting uncertified reconciles
+        # would make every warm restart a silent cold start
+        log.warning("--state-dir implies --strict-verify (the warm-restart "
+                    "loader only admits certified snapshots): enabling it")
+        args.strict_verify = True
+
     device_timeout_ms = int(args.device_timeout or 0)
     # the engine resolves its device first: without a card (and without
     # --device cpu) the start raises here, before any port binds
@@ -488,6 +611,8 @@ async def run_server(args, on_engine=None) -> None:
         metadata_prefetch_refresh_s=float(args.metadata_refresh),
         replay_pregate=bool(args.replay_pregate),
         replay_pregate_budget_s=float(args.replay_pregate_budget_ms) / 1e3,
+        corpus_pregate=str(args.corpus_pregate or ""),
+        corpus_pregate_budget_s=float(args.corpus_pregate_budget_ms) / 1e3,
     )
     if engine.device.type == "cuda":
         import torch
@@ -502,6 +627,8 @@ async def run_server(args, on_engine=None) -> None:
     log.info("this server runs without the reference's %s",
              ", ".join(f"{plane} (ROADMAP item {item})"
                        for plane, item in UNPORTED_PLANES.items()))
+    snapshot_replica, state_plane, hotset_stop = start_state_planes(
+        args, engine, log)
 
     selector = LabelSelector.parse(args.auth_config_label_selector) if args.auth_config_label_selector else None
     secret_selector = LabelSelector.parse(args.secret_label_selector) if args.secret_label_selector else None
@@ -653,6 +780,11 @@ async def run_server(args, on_engine=None) -> None:
                 log.warning("shutdown step failed: %r", e)
 
         # control plane first: no new snapshots compile mid-drain
+        if hotset_stop is not None:
+            hotset_stop.set()
+        if snapshot_replica is not None:
+            await best_effort(loop.run_in_executor(
+                None, lambda: snapshot_replica.stop(min(2.0, drain_left()))))
         if status_updater is not None:
             await best_effort(status_updater.stop())
         if source is not None:
@@ -680,6 +812,12 @@ async def run_server(args, on_engine=None) -> None:
             # lose its newest window to an orderly shutdown
             await best_effort(loop.run_in_executor(
                 None, lambda: CAPTURE.flush(min(2.0, drain_left()))))
+        if state_plane is not None:
+            # the final state flush: the last vetted snapshot rides the
+            # publisher's flush and the hot set exports once more, so the
+            # next boot warm-starts from the freshest state
+            await best_effort(loop.run_in_executor(
+                None, lambda: state_plane.shutdown(min(2.0, drain_left()))))
         await best_effort(runner.cleanup())
         await best_effort(oidc_runner.cleanup())
         await best_effort(shutdown_tracing())  # flush the last spans

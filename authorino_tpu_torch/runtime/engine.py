@@ -304,6 +304,10 @@ class _Snapshot:
         # and its delta plan), upload (the planned rows or whole tensors
         # to the device, the probe launch)
         self.phase_s: Dict[str, float] = {}
+        # the manifest digest of a snapshot loaded from a publisher
+        # (``from_published``), None for one compiled here: a publisher
+        # never republishes a loaded snapshot (the fleet's loop breaker)
+        self.published_origin: Optional[str] = None
         if not rules:
             return
         prev_ok = prev is not None and prev.policy is not None
@@ -411,6 +415,50 @@ class _Snapshot:
             raise SnapshotRejected(failures)
         self.lint_ok = True
 
+    @classmethod
+    def from_published(cls, loaded, strict_verify: bool = False,
+                       prev: "Optional[_Snapshot]" = None) -> "_Snapshot":
+        """The host half of a replica's install: wrap a leader-serialized
+        corpus (snapshots/distribution.py ``LoadedSnapshot``) without
+        compiling anything.  The admission gate: an uncertified snapshot
+        is rejected outright; with ``strict_verify`` the replica re-runs
+        the tensor lint and translation validation itself (the
+        fingerprint-keyed certificate cache makes repeats cheap), else the
+        leader's certificate vouches for it.  Entries carry hosts only
+        (``runtime=None``): a replica serves the compiled verdict lane.
+        The engine then stages it like a compiled candidate."""
+        if not loaded.certified:
+            raise SnapshotRejected([
+                "snapshot is not certified: the leader never marked it "
+                "strict-verified (lint + translation certification)"])
+        entries = [EngineEntry(id=cid, hosts=hosts, runtime=None, rules=None)
+                   for cid, hosts in loaded.entries]
+        snap = cls(entries, 0, None, None)
+        snap.policy = loaded.policy
+        snap.fingerprints = loaded.fingerprints
+        snap.translation = (loaded.meta or {}).get("translation")
+        snap.change_safety = (loaded.meta or {}).get("change_safety")
+        # this snapshot was LOADED, not compiled here: the publisher skips
+        # it, or a node whose source and publish directory meet (even
+        # through an HTTP relay) would republish and re-apply forever
+        snap.published_origin = loaded.digest or "<loaded>"
+        if strict_verify:
+            t0 = time.perf_counter()
+            snap._verify()
+            snap.phase_s["validate"] = time.perf_counter() - t0
+        else:
+            snap.lint_ok = True
+        if prev is not None and prev.policy is not None:
+            # interner continuity: every deserialize builds a fresh
+            # interner (a new identity serial, so a new encoding epoch,
+            # which would drop every cached verdict at each applied
+            # generation); the leader's interner is insert-only, so a
+            # loaded table that prefix-extends the previous one means the
+            # same ids: extend and adopt the previous interner
+            _adopt_interner(prev.policy.interner, loaded.policy)
+        snap.cache_tokens = cache_tokens(loaded.policy, snap.fingerprints)
+        return snap
+
     def clone(self) -> "_Snapshot":
         """Shallow re-serve copy (a rollback is a pointer swap): shares the
         compiled policy, the device params, the host index, the heat map
@@ -421,6 +469,28 @@ class _Snapshot:
         c.__dict__.update(self.__dict__)
         c.change_safety = None
         return c
+
+
+def _adopt_interner(prev_interner, new_policy) -> None:
+    """Replica-side interner continuity (``_Snapshot.from_published``):
+    when the freshly deserialized policy's id table prefix-extends the
+    previous snapshot's, graft the new entries onto the previous interner
+    and point the policy at it.  Ids are positional in the
+    insertion-ordered table, so a true prefix match proves every shared id
+    means the same string; any mismatch (a leader restarted with a fresh
+    interner) keeps the new interner, a structural epoch change."""
+    old_t = prev_interner._table
+    new_t = new_policy.interner._table
+    if len(new_t) < len(old_t):
+        return
+    it = iter(new_t.items())
+    for want in old_t.items():
+        if next(it) != want:
+            return
+    for s, i in new_t.items():
+        if s not in old_t:
+            old_t[s] = i
+    new_policy.interner = prev_interner
 
 
 @dataclass
@@ -523,7 +593,9 @@ class PolicyEngine:
                  metadata_prefetch_max_age_s: float = 300.0,
                  metadata_prefetch_refresh_s: float = 60.0,
                  replay_pregate: bool = False,
-                 replay_pregate_budget_s: float = 2.0):
+                 replay_pregate_budget_s: float = 2.0,
+                 corpus_pregate: str = "",
+                 corpus_pregate_budget_s: float = 2.0):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -593,7 +665,16 @@ class PolicyEngine:
         ``replay-pregate-breach`` flight bundle) before it is staged on the
         device or answers a request; a clean preflight halves the canary's
         deny-delta thresholds.  ``replay_pregate_budget_s`` bounds the
-        replay; records past it are reported truncated."""
+        replay; records past it are reported truncated.
+
+        ``corpus_pregate`` (a corpus file or a directory of
+        ``*.atpucorp`` containers; "" = off): the same judgment over the
+        long-retention decision corpus, frequency-weighted, plus synthetic
+        witness rows for the rules it never saw fire (corpus/), so an edit
+        to a zero-traffic rule is caught with zero live exposure; it runs
+        after the replay pregate, still before the candidate is staged.  A
+        missing or unreadable corpus skips, never blocks.
+        ``corpus_pregate_budget_s`` bounds its replay."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
@@ -692,6 +773,19 @@ class PolicyEngine:
         self.replay_pregate_budget_s = float(replay_pregate_budget_s)
         self._last_pregate: Optional[Dict[str, Any]] = None
         self._g_replay_flips = metrics_mod.replay_diff_flips.labels("engine")
+        # the corpus pregate: its source, the captured rows (loaded once),
+        # the synthetic witness rows built against the serving baseline
+        # (cached per baseline generation: (generation, rows, report)), and
+        # the last verdict
+        self.corpus_pregate = str(corpus_pregate or "")
+        self.corpus_pregate_budget_s = float(corpus_pregate_budget_s)
+        self._corpus_rows: Optional[list] = None
+        self._corpus_load_error: Optional[str] = None
+        self._corpus_synth: Tuple[int, list, Dict[str, Any]] = (-1, [], {})
+        self._last_corpus_pregate: Optional[Dict[str, Any]] = None
+        # the durable state plane (runtime/state_plane.py) the CLI attaches
+        # with --state-dir: /readyz and /debug/vars read it
+        self.state_plane = None
         RECORDER.register_provider("engine", self, "debug_vars")
 
     def _add_stats(self, **counts) -> None:
@@ -776,6 +870,12 @@ class PolicyEngine:
         if self.replay_pregate and allow_canary and not self._draining \
                 and self._comparable_change(snap):
             preflight = self._run_replay_pregate(snap)
+        # the corpus pregate: the same judgment over the long-retention
+        # corpus and synthetic witnesses, also ahead of the staging (the
+        # reference judges it after its upload)
+        if self.corpus_pregate and allow_canary and not self._draining \
+                and self._comparable_change(snap):
+            self._run_corpus_pregate(snap)
         snap.stage(self.device, prev)
         if allow_canary and self._should_canary(snap):
             self._enter_canary(snap, entries, preflight=preflight)
@@ -784,6 +884,32 @@ class PolicyEngine:
         if self.analyze_policies:
             self._run_policy_analysis(entries, snap)
             self._run_lowerability(entries, snap)
+
+    def apply_published(self, loaded) -> None:
+        """A replica's swap: install a leader-serialized vetted snapshot
+        (snapshots/distribution.py ``LoadedSnapshot``) without compiling
+        anything.  The admission gate is ``_Snapshot.from_published``: an
+        uncertified or locally failing snapshot raises SnapshotRejected
+        before any byte of it is staged, and the previous generation keeps
+        serving.  Then the device half (encoder, host view, the delta plan
+        against the serving snapshot, the upload, the probe) and the
+        shared swap tail."""
+        prev = self._snapshot
+        try:
+            snap = _Snapshot.from_published(
+                loaded, strict_verify=self.strict_verify, prev=prev)
+        except SnapshotRejected as e:
+            metrics_mod.snapshot_rejected.labels("engine").inc()
+            RECORDER.record("snapshot-rejected", lane="engine", detail={
+                "generation": self.generation, "published": True,
+                "findings": [str(f) for f in e.findings[:5]]})
+            log.error(
+                "published snapshot REJECTED at admission (previous "
+                "generation %d keeps serving): %s", self.generation,
+                "; ".join(str(f) for f in e.findings[:5]))
+            raise
+        snap.stage(self.device, prev)
+        self._install_snapshot(snap)
 
     def _install_snapshot(self, snap: _Snapshot) -> None:
         """The swap at 100%: publish under the swap lock, retain the
@@ -1015,6 +1141,26 @@ class PolicyEngine:
         if phase.guard.breach() is not None or phase.expired():
             _encode_pool(self.dispatch_workers).submit(
                 self._canary_guard_check, phase)
+
+    def _resolve_after_guard(self, phase, resolve) -> None:
+        """Run ``resolve`` (the batch's future resolutions) now, or, when
+        the batch's fold left the canary ``phase`` with a decision due, on
+        the encode pool right after that decision (never on the completer:
+        a rollback recompiles).  The batch that tipped the guard resolves
+        only once the rollback or the promotion is in place, as the
+        reference's synchronous check orders it: a caller that saw its
+        answer never submits into the phase that answer concluded."""
+        if phase is None:
+            resolve()
+            return
+
+        def decide_then_resolve():
+            try:
+                self._canary_guard_check(phase)
+            finally:
+                resolve()
+
+        _encode_pool(self.dispatch_workers).submit(decide_then_resolve)
 
     def _canary_promote(self, phase, manual: bool = False) -> bool:
         """Clean window (or the operator's override): the candidate
@@ -1394,6 +1540,178 @@ class PolicyEngine:
                  elapsed_ms)
         return self._last_pregate
 
+    def _corpus_pregate_rows(self, baseline: _Snapshot) -> Optional[list]:
+        """The captured corpus rows (loaded once from ``corpus_pregate``)
+        plus synthetic witness rows built against the BASELINE policy
+        (cached per baseline generation: synthesis costs a reconcile only
+        on the first swap of each generation).  None when the corpus is
+        unreadable (the pregate skips, loudly)."""
+        from ..corpus import read_corpus
+        from ..corpus.synthesize import augment_corpus
+
+        if self._corpus_rows is None and self._corpus_load_error is None:
+            try:
+                self._corpus_rows = read_corpus(self.corpus_pregate)
+            except Exception as e:
+                self._corpus_load_error = str(e)
+                log.error("corpus pregate: corpus unreadable at %s: %s",
+                          self.corpus_pregate, e)
+        if self._corpus_rows is None:
+            return None
+        gen, synth, _rep = self._corpus_synth
+        if gen != baseline.generation:
+            synth, rep = [], {}
+            if baseline.policy is not None:
+                try:
+                    aug = augment_corpus(baseline.policy, self._corpus_rows)
+                    synth, rep = aug["rows"], {
+                        "reasons": aug["synthesis"]["reasons"],
+                        "uncoverable": aug["synthesis"]["uncoverable"][:20],
+                        "coverage_before":
+                            aug["coverage_before"]["fraction"],
+                        "coverage_after": aug["coverage_after"]["fraction"],
+                    }
+                except Exception:
+                    # synthesis is additive evidence: a synthesis fault
+                    # must not disarm the captured rows' judgment
+                    log.exception("corpus pregate: synthesis errored "
+                                  "(captured rows only this generation)")
+            self._corpus_synth = (baseline.generation, synth, rep)
+            try:
+                metrics_mod.corpus_rows.labels("captured").set(
+                    len(self._corpus_rows))
+                metrics_mod.corpus_rows.labels("synthetic").set(len(synth))
+            except Exception:
+                pass
+        return self._corpus_rows + self._corpus_synth[1]
+
+    def _corpus_pregate_skipped(self, reason: str, replayed: int = 0,
+                                **extra) -> Dict[str, Any]:
+        self._last_corpus_pregate = dict(
+            {"result": "skipped", "reason": reason, "replayed": replayed},
+            **extra)
+        metrics_mod.corpus_pregate.labels("skipped").inc()
+        RECORDER.record("corpus-pregate", lane="engine",
+                        detail=self._last_corpus_pregate)
+        log.warning("corpus pregate SKIPPED: %s", reason)
+        return self._last_corpus_pregate
+
+    def _run_corpus_pregate(self, snap: _Snapshot) -> Dict[str, Any]:
+        """Judge the candidate on the frequency-weighted decision corpus
+        (corpus/pregate.py): the replay pregate's state machine, with the
+        long-retention corpus and synthetic truth-table witnesses as its
+        evidence, so a breaching edit to a rule no traffic exercised is
+        rejected with zero live exposure.  Raises SnapshotRejected on a
+        breach, before the candidate is staged."""
+        from ..corpus import pregate as corpus_pregate_mod
+        from ..snapshots.diff import snapshot_diff
+
+        t0 = time.monotonic()
+        baseline = self._snapshot
+        thresholds = self.canary_thresholds or safety_mod.GuardThresholds()
+        rows = self._corpus_pregate_rows(baseline)
+        if not rows:
+            return self._corpus_pregate_skipped(
+                f"corpus unreadable: {self._corpus_load_error}"
+                if self._corpus_load_error else
+                f"corpus at {self.corpus_pregate} holds no rows")
+        changed = set(snapshot_diff(baseline.fingerprints or {},
+                                    snap.fingerprints or {})["recompile"])
+        try:
+            pf = corpus_pregate_mod.corpus_preflight(
+                baseline, snap, rows, thresholds, changed=changed,
+                time_budget_s=self.corpus_pregate_budget_s)
+        except Exception:
+            log.exception("corpus pregate errored (swap proceeds under "
+                          "canary protection only)")
+            self._last_corpus_pregate = {
+                "result": "skipped", "reason": "pregate error (see logs)",
+                "replayed": 0}
+            metrics_mod.corpus_pregate.labels("skipped").inc()
+            return self._last_corpus_pregate
+        report, breach = pf["report"], pf["breach"]
+        elapsed_ms = round((time.monotonic() - t0) * 1e3, 3)
+        if breach is None and report["replayed"] < thresholds.min_requests:
+            # below the weighted evidence floor: absent evidence, recorded
+            # as skipped, never a false pass
+            return self._corpus_pregate_skipped(
+                f"weighted corpus evidence {report['replayed']} "
+                f"< min_requests {thresholds.min_requests}",
+                replayed=report["replayed"],
+                skipped_detail=report["skipped"], elapsed_ms=elapsed_ms)
+        if breach is not None:
+            metrics_mod.corpus_pregate.labels("breach").inc()
+            metrics_mod.snapshot_rejected.labels("engine").inc()
+            self._last_corpus_pregate = {
+                "result": "breach",
+                "replayed": report["replayed"],
+                "replayed_rows": report.get("replayed_rows", 0),
+                "flips": report["flips"],
+                "guards": breach["guards"],
+                "suspects": breach["suspects"],
+                "origins": report.get("origins", {}),
+                "elapsed_ms": elapsed_ms,
+            }
+            RECORDER.record(corpus_pregate_mod.CORPUS_PREGATE_ANOMALY,
+                            lane="engine", detail={
+                                "baseline_generation": baseline.generation,
+                                "breach": breach,
+                                "origins": report.get("origins", {}),
+                                "replayed": report["replayed"],
+                                "elapsed_ms": elapsed_ms,
+                            })
+            top = breach["top_flips"][:3]
+            findings = [
+                f"corpus pregate breach: {', '.join(breach['guards'])} over "
+                f"{report['replayed']} weighted corpus decision(s) "
+                f"({report['flips']['newly_denied']} newly denied, "
+                f"{report['flips']['newly_allowed']} newly allowed)"
+            ] + [
+                f"{g['authconfig']} rule[{g['rule_index']}] {g['rule']} "
+                f"{g['direction']} weight {g['count']} "
+                f"(origins: {', '.join(g.get('origins') or []) or 'n/a'})"
+                for g in top
+            ]
+            log.error("corpus pregate REJECTED the candidate snapshot "
+                      "(generation %d keeps serving, zero live exposure): "
+                      "%s", baseline.generation, "; ".join(findings))
+            exc = SnapshotRejected(findings)
+            exc.corpus_diff = breach  # the full attributed evidence
+            raise exc
+        self._last_corpus_pregate = {
+            "result": "pass",
+            "replayed": report["replayed"],
+            "replayed_rows": report.get("replayed_rows", 0),
+            "flips": report["flips"],
+            "origins": report.get("origins", {}),
+            "truncated": report["skipped"]["truncated"],
+            "elapsed_ms": elapsed_ms,
+        }
+        metrics_mod.corpus_pregate.labels("pass").inc()
+        RECORDER.record("corpus-pregate", lane="engine",
+                        detail=self._last_corpus_pregate)
+        log.info("corpus pregate PASS: %d weighted decision(s) "
+                 "(%d row(s)) replayed, %d flip(s), %.0fms",
+                 report["replayed"], report.get("replayed_rows", 0),
+                 report["flips"]["total"], elapsed_ms)
+        return self._last_corpus_pregate
+
+    def corpus_vars(self) -> Dict[str, Any]:
+        """The corpus pregate's source, its row counts by origin, the
+        synthesis summary for the serving baseline and the last verdict
+        (the ``corpus`` block of /debug/vars)."""
+        return {
+            "enabled": bool(self.corpus_pregate),
+            "source": self.corpus_pregate or None,
+            "budget_s": self.corpus_pregate_budget_s,
+            "rows_captured": (len(self._corpus_rows)
+                              if self._corpus_rows is not None else 0),
+            "rows_synthetic": len(self._corpus_synth[1]),
+            "synthesis": self._corpus_synth[2] or None,
+            "load_error": self._corpus_load_error,
+            "last": self._last_corpus_pregate,
+        }
+
     def _pregate_skipped(self, reason: str, replayed: int = 0,
                          **extra) -> Dict[str, Any]:
         """Record a preflight that had too little evidence to judge."""
@@ -1637,13 +1955,6 @@ class PolicyEngine:
         phase = self._canary
         in_canary = phase is not None and (
             phase.in_cohort(doc) or config_name not in phase.baseline.by_id)
-        snap = phase.snap if in_canary else self._snapshot
-        if snap is None or snap.policy is None:
-            # typed, as the reference answers a batch cut with no compiled
-            # snapshot: nothing (device or oracle) can decide it
-            raise CheckAbort(UNAVAILABLE, "no compiled policy snapshot")
-        if config_name not in snap.policy.config_ids:
-            raise KeyError(f"unknown AuthConfig {config_name!r}")
         # tenant-scoped admission runs before the global gate: the quota's
         # token bucket, the queue-share bound, then containment's pacing.
         # A typed RESOURCE_EXHAUSTED names the tenant; the global
@@ -1686,6 +1997,14 @@ class PolicyEngine:
                                        "cannot be met")
             raise CheckAbort(code, f"server overloaded ({reason}): "
                                    "admission rejected")
+        snap = phase.snap if in_canary else self._snapshot
+        if snap is None or snap.policy is None:
+            # typed, as the reference answers a batch cut with no compiled
+            # snapshot: nothing (device or oracle) can decide it.  A config
+            # the snapshot lacks (unknown, or quarantined out since the
+            # caller resolved it) queues as in the reference, and the
+            # encode stage answers that row (``_answer_unknown_configs``)
+            raise CheckAbort(UNAVAILABLE, "no compiled policy snapshot")
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
         with self._queue_lock:
@@ -1790,6 +2109,10 @@ class PolicyEngine:
                 UNAVAILABLE, "no compiled policy snapshot"))
             self._launch_done()
             return
+        batch = self._answer_unknown_configs(snap, batch)
+        if not batch:
+            self._launch_done()
+            return
         if not self.breaker.admit_device():
             self._end_undecided(snap, batch, reason="breaker-open")
             return
@@ -1803,6 +2126,24 @@ class PolicyEngine:
             self._batch_failed(snap, batch, attempt, e)
             return
         _completer_submit(item)
+
+    def _answer_unknown_configs(self, snap: _Snapshot,
+                                batch: List[_Pending]) -> List[_Pending]:
+        """Rows whose config the pinned snapshot lacks (a quarantine or a
+        loaded snapshot dropped it after the submit was queued) answer
+        UNAVAILABLE "policy evaluation unavailable" here, what the
+        reference's row-by-row host degrade gives them; the rest of the
+        part goes on to the launch.  Nothing reached the device, so the
+        breaker counts no failure."""
+        ids = snap.policy.config_ids
+        unknown = [p for p in batch if p.config_name not in ids]
+        if not unknown:
+            return batch
+        self._add_stats(failed_batches=1)
+        self._canary_errors(unknown, len(unknown))
+        self._fail_all(unknown, CheckAbort(
+            UNAVAILABLE, "policy evaluation unavailable"))
+        return [p for p in batch if p.config_name in ids]
 
     def _shed_expired(self, batch: List[_Pending]) -> List[_Pending]:
         """Requests whose propagated deadline lands inside one expected
@@ -2104,8 +2445,10 @@ class PolicyEngine:
             # folded back in, so every path attributes identically
             # (``waits``, the queue waits at the encode, feed the tenant
             # plane's wait signal: they must not absorb the device trip)
-            self._observe_provenance(snap, batch, rows, own_rule,
-                                     own_skipped, waits=waits)
+            # the canary phase this fold left a decision due on, if any:
+            # the completion resolves the batch after that decision
+            binfo["due"] = self._observe_provenance(
+                snap, batch, rows, own_rule, own_skipped, waits=waits)
             return own_rule, own_skipped
 
         return _Inflight(self, batch, handle, finalize, binfo, waits)
@@ -2118,12 +2461,15 @@ class PolicyEngine:
         the snapshot's heat map (one vectorized composite-key add), plus at
         most one head-sampled decision record per authconfig, and the
         tenant plane's per-tenant counters.  Never raises — a telemetry
-        fault must not re-dispatch a decided batch.  Returns the firing
-        columns (None when nothing was folded)."""
+        fault must not re-dispatch a decided batch.  Returns the canary
+        phase whose guard decision this fold left due (its breach or its
+        window's end), else None: the caller resolves the batch after that
+        decision (``_resolve_after_guard``)."""
         try:
             heat = snap.heat
             if heat is None:
                 return None
+            due = None
             firing = firing_columns(own_rule, own_skipped)
             p = pendings[0] if pendings else None
             now_m = time.monotonic()
@@ -2167,11 +2513,12 @@ class PolicyEngine:
                     (snap is phase.snap or snap is phase.baseline):
                 phase.guard.observe_batch(snap is phase.snap, rows, firing,
                                           heat)
-                self._canary_poke(phase)
+                if phase.guard.breach() is not None or phase.expired():
+                    due = phase
         except Exception:
             log.exception("provenance fold failed (decision unaffected)")
             return None
-        return firing
+        return due
 
     def _offer_capture(self, snap: _Snapshot, pendings: List[_Pending],
                        firing) -> None:
@@ -2197,7 +2544,7 @@ class PolicyEngine:
         """Row-by-row exact host decisions for one batch through the
         expression oracle (``host_results``, membership overflow
         included).  Returns (resolutions-by-loop, failed-futures-by-loop,
-        rows decided); a row whose oracle run itself failed lands in
+        rows decided, the canary phase the fold left due); a row whose oracle run itself failed lands in
         ``failed`` (typed UNAVAILABLE, fail closed).  The batch folds into
         the cost ledger's ``host`` lane (no launch, no bytes) and its
         columns into the same heat map and decision log as the device
@@ -2222,11 +2569,13 @@ class PolicyEngine:
                 LEDGER.observe("host", rows=len(batch))
             except Exception:
                 log.exception("kernel cost fold failed (batch unaffected)")
+        due = None
         if decided:
             pendings, rows, rules, skips = zip(*decided)
-            self._observe_provenance(snap, list(pendings), np.asarray(rows),
-                                     np.stack(rules), np.stack(skips))
-        return by_loop, failed, len(decided)
+            due = self._observe_provenance(
+                snap, list(pendings), np.asarray(rows), np.stack(rules),
+                np.stack(skips))
+        return by_loop, failed, len(decided), due
 
     @staticmethod
     def _resolve_host_decisions(by_loop, failed) -> None:
@@ -2250,7 +2599,7 @@ class PolicyEngine:
         ledger's ``host`` lane, a batch record with no launch) and fed to
         admission and the SLO once.  Typed UNAVAILABLE only for rows whose
         oracle run itself fails."""
-        by_loop, failed, n_ok = self._host_decide_batch(snap, batch)
+        by_loop, failed, n_ok, due = self._host_decide_batch(snap, batch)
         n_failed = len(batch) - n_ok
         if n_ok:
             metrics_mod.degraded_decisions.labels("engine").inc(n_ok)
@@ -2274,7 +2623,8 @@ class PolicyEngine:
             # rows the oracle itself fails are serving errors: a canary
             # artifact broken on both lanes still feeds the guard
             self._canary_errors(batch, n_failed)
-        self._resolve_host_decisions(by_loop, failed)
+        self._resolve_after_guard(
+            due, lambda: self._resolve_host_decisions(by_loop, failed))
 
     def debug_vars(self) -> Dict[str, Any]:
         """JSON-safe live state: the config generation, the dispatcher's
@@ -2320,6 +2670,12 @@ class PolicyEngine:
                                   if self.metadata_prefetcher is not None
                                   else None),
             "replay": self.replay_vars(),
+            # the decision corpus and its pregate's last verdict
+            "corpus": self.corpus_vars(),
+            # the durable state plane (--state-dir): the warm start's
+            # outcome per phase, live staleness, the write-behind cadence
+            "state_plane": (self.state_plane.to_json()
+                            if self.state_plane is not None else None),
             "change_safety": self.change_safety_vars(),
             # the tenant plane: weights, the fair cut, per-tenant admission
             # and waits, the top tenants and containment (/debug/tenants)
@@ -2371,6 +2727,7 @@ class PolicyEngine:
             self._batch_failed(item.snap, item.batch, item.attempt, e)
             return
         slo_counted = False
+        due = item.binfo.get("due")
         try:
             # the device answered: clear the breaker's consecutive-failure
             # count (and close a half-open probe) before the resolution
@@ -2404,17 +2761,15 @@ class PolicyEngine:
             for i, p in enumerate(item.batch):
                 by_loop.setdefault(p.loop, []).append(
                     (p.future, own_rule[i], own_skipped[i], item.snap))
-            for loop, resolutions in by_loop.items():
-                try:
-                    loop.call_soon_threadsafe(_resolve_many, resolutions)
-                except RuntimeError:
-                    pass  # the loop closed since submit: its futures are moot
+            self._resolve_after_guard(
+                due, lambda: self._resolve_host_decisions(by_loop, {}))
             self.batch_latency_s.append(time.monotonic() - item.binfo["t0"])
             _observe_stage("resolve", time.monotonic() - t_done)
         except Exception as e:
             log.exception("post-completion work failed (batch verdicts "
                           "already computed)")
-            self._resolve_error(item.batch, e, slo_counted=slo_counted)
+            self._resolve_after_guard(due, lambda: self._resolve_error(
+                item.batch, e, slo_counted=slo_counted))
         finally:
             self._launch_done()
 

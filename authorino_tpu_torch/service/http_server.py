@@ -206,6 +206,17 @@ def build_app(engine: PolicyEngine, readiness=None, max_body: int = DEFAULT_MAX_
             # would take every healthy config down with them
             if getattr(engine, "quarantine_active", False):
                 degraded.append("quarantine active")
+            # a state-dir snapshot older than --max-snapshot-age is
+            # surfaced but stays ready (fail-static old verdicts beat no
+            # verdicts); the first live swap clears it
+            plane = getattr(engine, "state_plane", None)
+            if plane is not None:
+                try:
+                    stale = plane.stale_reason()
+                except Exception:
+                    stale = None
+                if stale:
+                    degraded.append(stale)
             if degraded:
                 return web.Response(
                     text=f"ok (degraded: {'; '.join(degraded)})")

@@ -21,8 +21,12 @@ plane incremental:
   serialize.py     — pickle-free snapshot container (JSON header + raw
                      array payload + sha256 trailer), byte-equal to the
                      JAX package's
+  distribution.py  — compile-leader publish / serving-replica load over a
+                     directory (or an HTTP mirror of one): the atomic blob
+                     and MANIFEST.json, the replica's poll and admission
 
-``delta.py`` imports torch; it is not re-exported here."""
+``delta.py`` imports torch; it is not re-exported here, nor is
+``distribution.py``."""
 
 from .compile_cache import CompileCache, CompileReport, ConfigArtifact
 from .diff import format_snapshot_diff, plan_delta, snapshot_diff

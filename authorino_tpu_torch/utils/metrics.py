@@ -807,6 +807,82 @@ state_write_failures = _register(
 
 
 # ---------------------------------------------------------------------------
+# snapshot distribution, the durable state plane and the decision corpus:
+# leader/replica outcomes, warm-restart phases and the served blob's age,
+# the hot-set warm-join, corpus distillation, synthesis and the corpus
+# pregate's verdicts.  Reference names and labels.
+# ---------------------------------------------------------------------------
+
+snapshot_distribution = _register(
+    "counter", "auth_server_snapshot_distribution_total",
+    "Leader/replica snapshot distribution outcomes: role = leader | "
+    "replica; result = published | applied | rejected (admission gate: "
+    "uncertified or locally-failing snapshot, old snapshot keeps serving) "
+    "| error (unreadable/corrupt source) | retry (a poll retried after a "
+    "load failure under exponential backoff).",
+    ("role", "result"),
+)
+warm_restart = _register(
+    "counter", "auth_server_warm_restart_total",
+    "Warm-restart phase outcomes at boot when --state-dir is set, by phase "
+    "(snapshot = load + strict re-lint + apply of the local blob before "
+    "the control plane connects; hotset = verdict-cache import from the "
+    "local HOTSET.json) and result (ok; stale = served fail-static but "
+    "older than --max-snapshot-age; miss = no artifact on disk; error = "
+    "artifact present but rejected typed; a cold start, never a crash).",
+    ("phase", "result"),
+)
+snapshot_age = _register(
+    "gauge", "auth_server_snapshot_age_seconds",
+    "Age of the state-dir snapshot being served fail-statically (manifest "
+    "published_unix to now), set at warm start and zeroed once a live "
+    "control-plane snapshot replaces it.",
+    (),
+)
+fleet_warm_join = _register(
+    "counter", "auth_server_fleet_warm_join_total",
+    "Verdict-cache warm-join outcomes: imported (hot-set entries adopted "
+    "under the local snapshot's cache tokens), skipped (entries whose "
+    "config fingerprint the joining snapshot does not carry), mismatch "
+    "(the whole digest refused: interner content or version diverged).",
+    ("result",),
+)
+corpus_records = _register(
+    "counter", "auth_server_corpus_records_total",
+    "Corpus distillation accounting by result: distilled (distinct "
+    "decision rows emitted), deduped (captured records that collapsed "
+    "into an existing row), dropped-unparseable (records with no "
+    "authconfig or a non-JSON document, accounted, never silently "
+    "discarded).",
+    ("result",),
+)
+corpus_rows = _register(
+    "gauge", "auth_server_corpus_rows",
+    "Rows in the corpus the engine's --corpus-pregate loaded, by origin: "
+    "captured (distilled from real traffic, frequency-weighted) vs "
+    "synthetic (truth-table witnesses for never-fired rules).",
+    ("origin",),
+)
+corpus_pregate = _register(
+    "counter", "auth_server_corpus_pregate_total",
+    "Corpus preflights by result: pass (weighted verdict diff under the "
+    "canary guard thresholds), breach (the candidate snapshot was "
+    "REJECTED on corpus evidence before any byte of it reached the card), "
+    "skipped (no corpus loaded or below the evidence floor).",
+    ("result",),
+)
+corpus_synth = _register(
+    "counter", "auth_server_corpus_synth_total",
+    "Truth-table row synthesis outcomes by reason: ok (a verified "
+    "witness document was admitted) or a typed uncoverability code "
+    "(atom-budget-exceeded, statically-dead, unsatisfiable, "
+    "unsupported-selector, selector-conflict, opaque-cpu-tree, "
+    "materialization-failed).",
+    ("reason",),
+)
+
+
+# ---------------------------------------------------------------------------
 # the kernel cost observatory (runtime/kernel_cost.py): structural device
 # cost folded ONCE PER MICRO-BATCH by the CostLedger (launches, bytes,
 # rows — counts that do not swing with the host), and the modeled cost of

@@ -344,14 +344,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      +0 B and no launch, the self-tests green; (e) the CLI with
      ``--capture --replay-pregate --strict-verify``: ``/debug/replay``
      and ``/debug/vars``.
+ 21. snapshot distribution, the durable state plane and the corpus
+     pregate, at the north-star width (1,000 configs): (a) a
+     strict-verify leader publishes; a replica on the card installs the
+     blob without compiling and answers 4,096 submits with the leader's
+     verdicts, a one-config republish lands as a delta that keeps the
+     leader's verdict-cache share, an uncertified and a torn blob are
+     each rejected typed with +0 B and no launch, one [256, W] readback
+     byte-equal to the leader's and the plain version's; (b) the kill
+     harness (``runtime/restart_harness.py``, ``--device cuda``) SIGKILLed
+     mid-reconcile restarts bit-exact from its state dir, and the time to
+     the first verdict warm against cold; (c) the corpus pregate rejects
+     an edit that only synthetic witnesses catch before the upload (+0 B,
+     no launch) and passes a clean one.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 20's ((a) and (b)), with every phase's under ``launches_by_phase``;
-each kernel must have launched on the paths of phases 4, 6, 7, 8, 9, 10,
-12-20, with the counts zeroed just before each.
+phase 21's ((a)'s replica), with every phase's under
+``launches_by_phase``; each kernel must have launched on the paths of
+phases 4, 6, 7, 8, 9, 10, 12-21, with the counts zeroed just before each.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -5310,7 +5323,7 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
 # phase 16: the verified-credential cache and the hybrid lane
 # ---------------------------------------------------------------------------
 
-DYN_TRIALS = 2            # load-generator passes per frontend setting
+DYN_TRIALS = 1            # load-generator passes per frontend setting
 DYN_PASS_S = (3.0, 1.0)   # (seconds measured, seconds of warm-up) per pass
 EXP_AHEAD_S = 4           # (c): the short token's exp, seconds ahead
 JOSE_LEEWAY_S = 30        # the verifier's clock-skew leeway (utils/jose.py)
@@ -6508,7 +6521,11 @@ def incremental_reconcile(report: dict, card: str, dev, ctx6: dict,
 # ---------------------------------------------------------------------------
 
 CANARY_FRACTION = 0.25
-CANARY_WINDOW_S = 3.0
+# the window outlasts (a)'s burst of 5,120 checks (about 1.2 s on an idle
+# host, past 3 s on a loaded one); (b)'s guard must still detect within
+# CANARY_DETECT_MS
+CANARY_WINDOW_S = 6.0
+CANARY_DETECT_MS = 3000.0
 HOT_CONFIG = 7            # the hot host's config: (b) flips it to deny
 HOT_REQUESTS = 1024       # requests to the hot host
 HOT_PATHS = 64            # distinct paths among them (the cohort hash input)
@@ -6907,7 +6924,7 @@ def change_safety(report: dict, card: str, dev, ctx6: dict,
                        "(b) no rollback and quarantine")
         lr = dict(engine._last_rollback)
         if lr["reason"] != "guard-breach" or lr["detect_ms"] > \
-                CANARY_WINDOW_S * 1e3 or lr["to_generation"] != cand_gen + 1 \
+                CANARY_DETECT_MS or lr["to_generation"] != cand_gen + 1 \
                 or engine._snapshot.generation != cand_gen + 2:
             raise AssertionError(f"(b) rollback {lr}, serving generation "
                                  f"{engine._snapshot.generation}")
@@ -7871,6 +7888,7 @@ def tenancy(report: dict, card: str, dev, ctx6: dict, ns: dict) -> tuple:
 P20_CONFIGS = 1000        # phase 6's north-star AuthConfigs
 P20_BLOCKED_EVERY = 7     # (a): every 7th config's pinned document blocks
 P20_HOT = 512             # (b): requests to the hot host, sent first
+P20_OFF_CHECKS = 1024     # (a): the prefetch-off pass's checks (a live GET each)
 P20_BUDGET_MS = 2000.0    # (c): the pregate's replay budget
 P20_EXACT = 512           # (c), (d): records replayed through submit()
 
@@ -8060,8 +8078,9 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
                 time.sleep(0.01)
             pin_s = time.perf_counter() - t
         gets0 = dict(counts)
+        sent = reqs if mode == "on" else reqs[:P20_OFF_CHECKS]
         t = time.perf_counter()
-        out = asyncio.run(timed_checks(engine, reqs))
+        out = asyncio.run(timed_checks(engine, sent))
         wall = time.perf_counter() - t
         gets = {i: counts.get(i, 0) - gets0.get(i, 0) for i in counts}
         codes[mode] = [res.code for res, _ in out]
@@ -8071,7 +8090,8 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
             raise AssertionError(f"(a) prefetch {mode}: {len(bad)} codes "
                                  f"differ from the oracle, first check {k}: "
                                  f"{out[k][0]} != {want[k]}")
-        run = {"checks_per_s": len(reqs) / wall, "install_s": install_s,
+        run = {"checks": len(sent), "checks_per_s": len(sent) / wall,
+               "install_s": install_s,
                "gets_during_checks": sum(gets.values()),
                "gets_at_pin": sum(gets0.values()) if mode == "on" else None,
                "pin_s": pin_s,
@@ -8091,15 +8111,15 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
             if j["counters"]["hit"] != len(reqs):
                 raise AssertionError(f"(a) {j['counters']} hits, want "
                                      f"{len(reqs)}")
-        elif run["gets_during_checks"] != len(reqs):
+        elif run["gets_during_checks"] != len(sent):
             raise AssertionError(f"(a) prefetch off fetched "
                                  f"{run['gets_during_checks']} times for "
-                                 f"{len(reqs)} checks")
+                                 f"{len(sent)} checks")
         pf_runs[mode] = run
         for e in entries:
             asyncio.run(e.runtime.clean())
         del engine, entries
-    if codes["on"] != codes["off"]:
+    if codes["on"][:len(codes["off"])] != codes["off"]:
         raise AssertionError("(a) prefetch on and off answered differently")
     srv.shutdown()
     srv.server_close()
@@ -8390,8 +8410,9 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
         f"{a['on']['gets_during_checks']} during {len(reqs)} checks "
         f"({a['on']['counters']['hit']} hits); off "
         f"{a['off']['checks_per_s']:.0f} checks/s, "
-        f"{a['off']['gets_during_checks']} GETs; every code the oracle's "
-        f"({a['on']['allowed']} allowed), on and off equal")
+        f"{a['off']['gets_during_checks']} GETs during its "
+        f"{a['off']['checks']} checks (the first of the same); every code "
+        f"the oracle's ({a['on']['allowed']} allowed), on and off equal")
     log(f"[{card}] verify/replay (b) capture 1-in-1 over {b['records']} "
         f"check()s: {b['firing_diffs']} firing columns differ from the host "
         f"oracle; replay old against old 0 flips in "
@@ -8422,6 +8443,500 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
         f"{e['lowerability']}, {e['policy_findings']} policy findings; "
         f"exit {rc}")
     return launches, 0
+
+
+P21_CONFIGS = 1000        # the north-star corpus at full width
+P21_CHANGED = 11          # (a): the config whose constant the leader changes
+P21_HARNESS_CONFIGS = 1000  # (b): the kill harness's configs (--configs)
+P21_KILL_AFTER_S = 1.0    # (b): seconds into the churn loop of the SIGKILL
+P21_PLANTED = 7           # (c): the config no captured request reaches
+P21_CLEAN = 9             # (c): the config the clean edit extends
+P21_BUDGET_MS = 2000.0    # (c): the corpus pregate's replay budget
+# (c): the guard thresholds the pregate judges with (the reference's
+# low-volume test thresholds: one synthetic witness is evidence)
+P21_TH = {"min_requests": 8, "min_config_requests": 1,
+          "min_config_allows": 1}
+
+
+def _verdict_lists(out):
+    return [(rule.tolist(), skipped.tolist()) for rule, skipped in out]
+
+
+def _every_config_probes(n: int):
+    """Four probes for each config of the kill harness's corpus (its
+    probes reach only the first 24): the org of each variant with the
+    config's own method (allowed only under that variant), and the other
+    method (denied under every variant)."""
+    docs, names, want = [], [], []
+    for c in range(n):
+        method = ["GET", "POST"][c % 2]
+        for v, m in ((0, method), (1, method), (2, method),
+                     (0, ["POST", "GET"][c % 2])):
+            docs.append({"request": {"method": m, "url_path": "/other"},
+                         "auth": {"identity": {"org": f"org-{c}-v{v}",
+                                               "roles": []}}})
+            names.append(f"cfg-{c}")
+            want.append(None if m != method else v)
+    return docs, names, want
+
+
+def _submits(engine, docs, names):
+    async def go():
+        return await asyncio.gather(*(engine.submit(d, n)
+                                      for d, n in zip(docs, names)))
+
+    return asyncio.run(go())
+
+
+def state_planes(report: dict, card: str, dev, ns: dict) -> tuple:
+    """Phase 21: snapshot distribution, the durable state plane and the
+    decision corpus's pregate, on the card at the north-star width.
+    (a) a strict-verify leader (1,000 configs) publishes into a directory,
+    serves 4,096 submits, changes one config, republishes and serves them
+    again (each publish kept as its directory stood); then a replica on
+    the card takes the first blob through ``SnapshotReplica`` without
+    compiling (its ``phase_s``), serves the 4,096 with the leader's
+    verdicts, takes the second: its delta upload ships fewer bytes than a
+    full one and keeps at least the leader's share of its verdict cache
+    over the same burst; an uncertified blob and
+    a torn one are each rejected typed with +0 B, no launch and the old
+    generation still exact.  One batch's [256, W] readback on the replica
+    is byte-equal to the leader's and to the plain version's.  (b) the
+    kill harness: ``restart_harness serve --device cuda`` SIGKILLed
+    mid-reconcile, ``restart --device cuda`` recovers bit-exact with every
+    artifact old- or new-valid; the time to the first verdict warm (load,
+    verify, upload, hot-set import) against cold (compile).  (c) the
+    corpus pregate: a corpus distilled from the burst with no request on
+    one config; an edit that makes that config deny everything breaches on
+    synthetic witnesses alone and is rejected before the upload (+0 B, no
+    launch); a clean edit passes.  Returns (the kernels' launches on (a)'s
+    replica, counts zeroed just before its install; the byte error of the
+    readback comparisons)."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from authorino_tpu_torch.analysis import translation_validate as tv
+    from authorino_tpu_torch.compiler import ConfigRules, compile_corpus
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.corpus import distill_records, write_corpus
+    from authorino_tpu_torch.expressions import Any_, Operator, Pattern
+    from authorino_tpu_torch.fleet.warmjoin import import_hotset
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import to_device
+    from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+    from authorino_tpu_torch.runtime import restart_harness as harness
+    from authorino_tpu_torch.runtime.change_safety import GuardThresholds
+    from authorino_tpu_torch.runtime.engine import SnapshotRejected
+    from authorino_tpu_torch.snapshots import (rules_fingerprint,
+                                               serialize_policy)
+    from authorino_tpu_torch.snapshots.distribution import (
+        MANIFEST, SnapshotPublisher, SnapshotReplica, load_hotset,
+        load_latest)
+
+    numbers = {"card": card}
+    docs, names = ns["docs"], ns["names"]
+    cfgs = northstar.build_corpus(P21_CONFIGS, 10)
+
+    def entries(cs):
+        return [EngineEntry(id=c.name, hosts=[c.name], rules=c) for c in cs]
+
+    def records(k: int = 256):
+        return [{"doc": d, "authconfig": n}
+                for d, n in zip(docs[:k], names[:k])]
+
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_ctx.name)
+    try:
+        # ---- (a) leader to replica ---------------------------------------
+        # the leader runs its whole sequence first (install, a burst, one
+        # changed config, a burst), each publish kept as its directory
+        # stood; then the replica's run alone is the counted path
+        import shutil
+
+        tv.clear_certificate_cache()
+        pub_dir = str(tmp / "pub")
+        # wide admission bounds (as phase 10's): a 4,096-submit burst is
+        # held to verdicts here, not shed
+        leader = PolicyEngine(max_batch=256, strict_verify=True,
+                              tenant_qos=False, **WIDE_ADMISSION)
+        pub = SnapshotPublisher(pub_dir)
+        pub.attach(leader)
+        t = time.perf_counter()
+        leader.apply_snapshot(entries(cfgs))
+        leader_s = time.perf_counter() - t
+        leader_phases = dict(leader._snapshot.phase_s)
+        if not pub.flush(60.0):
+            raise AssertionError("(a) the leader's publish did not land")
+        man = json.loads((Path(pub_dir) / MANIFEST).read_text())
+        gen_dirs = [str(tmp / "gen1"), str(tmp / "gen2")]
+        shutil.copytree(pub_dir, gen_dirs[0])
+        out_l = _submits(leader, docs, names)
+        changed = northstar.build_corpus(P21_CONFIGS, 10,
+                                         changed={P21_CHANGED: "const"})
+        leader.apply_snapshot(entries(changed))
+        if not pub.flush(60.0):
+            raise AssertionError("(a) the republish did not land")
+        shutil.copytree(pub_dir, gen_dirs[1])
+        vc = leader._verdict_cache
+        h0 = vc.hits
+        out_l2 = _submits(leader, docs, names)
+        share = {"leader": (vc.hits - h0) / len(docs)}
+        replica = PolicyEngine(max_batch=256, strict_verify=True,
+                               tenant_qos=False, **WIDE_ADMISSION)
+        rep = SnapshotReplica(replica, gen_dirs[0])
+        fk.reset_counts()
+        reset_host_counts()
+        t = time.perf_counter()
+        if not rep.poll_once():
+            raise AssertionError(f"(a) the replica did not apply: "
+                                 f"{rep.to_json()}")
+        replica_s = time.perf_counter() - t
+        snap = replica._snapshot
+        replica_phases = dict(snap.phase_s)
+        if snap.compile_report is not None or "compile" in snap.phase_s \
+                or snap.upload["mode"] != "full" or not snap.lint_ok:
+            raise AssertionError(f"(a) the replica's install: "
+                                 f"{snap.phase_s} {snap.upload}")
+        t = time.perf_counter()
+        out_r = _submits(replica, docs, names)
+        rate_r = len(docs) / (time.perf_counter() - t)
+        rep.source = gen_dirs[1]
+        t = time.perf_counter()
+        if not rep.poll_once():
+            raise AssertionError("(a) the replica missed the republish")
+        delta_s = time.perf_counter() - t
+        snap = replica._snapshot
+        up = dict(snap.upload)
+        vc = replica._verdict_cache
+        h0 = vc.hits
+        out_r2 = _submits(replica, docs, names)
+        share["replica"] = (vc.hits - h0) / len(docs)
+        launches = {"fused_megakernel": fk.launches,
+                    "probe_add_one": fk.probe_launches}
+        if _verdict_lists(out_r) != _verdict_lists(out_l) or \
+                _verdict_lists(out_r2) != _verdict_lists(out_l2):
+            raise AssertionError("(a) the replica's verdicts differ from "
+                                 "the leader's")
+        if up["mode"] != "delta" or \
+                not up["upload_bytes"] < up["full_bytes"]:
+            raise AssertionError(f"(a) the replica's second install: {up}")
+        if share["replica"] < share["leader"]:
+            raise AssertionError(f"(a) verdict-cache share kept: {share}")
+        # one batch's readback, replica against leader and plain (these
+        # comparison launches are not the path's)
+        rows_r = [snap.policy.config_ids[n] for n in names[:256]]
+        db_r = pack_batch(snap.policy, encode_batch(snap.policy, docs[:256],
+                                                    rows_r))
+        lsnap = leader._snapshot
+        db_l = pack_batch(lsnap.policy, encode_batch(
+            lsnap.policy, docs[:256],
+            [lsnap.policy.config_ids[n] for n in names[:256]]))
+        got = fk.eval_fused_kernel(snap.params, db_r).cpu().numpy()
+        want_l = fk.eval_fused_kernel(lsnap.params, db_l).cpu().numpy()
+        plain = fk.eval_fused_kernel(to_device(snap.policy, device="cpu"),
+                                     db_r).numpy()
+        err = int(max(np.abs(got.astype(int) - want_l.astype(int)).max(),
+                      np.abs(got.astype(int) - plain.astype(int)).max()))
+        if err:
+            raise AssertionError(f"(a) the replica's [256, W] readback "
+                                 f"differs by {err}")
+        rejected = {}
+        served = replica._snapshot
+        changed2 = northstar.build_corpus(P21_CONFIGS, 10,
+                                          changed={P21_CHANGED + 1: "const"})
+        bad_pub = SnapshotPublisher(gen_dirs[1])
+        for bad in ("uncertified", "torn"):
+            if bad == "uncertified":
+                bad_pub.publish_blob(serialize_policy(
+                    compile_corpus(changed2, members_k=16), meta={
+                        "generation": 9999, "certified": False,
+                        "fingerprints": {c.name: rules_fingerprint(c)
+                                         for c in changed2},
+                        "entries": [{"id": c.name, "hosts": [c.name]}
+                                    for c in changed2]}), 9999)
+            else:
+                import hashlib
+
+                m = json.loads((Path(gen_dirs[1]) / MANIFEST).read_text())
+                p = Path(gen_dirs[1]) / m["current"]
+                raw = bytearray(p.read_bytes())
+                raw[len(raw) // 3] ^= 0xFF
+                p.write_bytes(bytes(raw))
+                m["sha256"] = hashlib.sha256(bytes(raw)).hexdigest()
+                (Path(gen_dirs[1]) / MANIFEST).write_text(json.dumps(m))
+            mem0 = device_allocated(dev)
+            l0, p0 = fk.launches, fk.probe_launches
+            r0, e0 = rep.rejected, rep.errors
+            t = time.perf_counter()
+            applied = rep.poll_once()
+            wall = time.perf_counter() - t
+            mem1 = device_allocated(dev)
+            typed = ("rejected" if rep.rejected > r0 else
+                     "load-error" if rep.errors > e0 else None)
+            if applied or mem1 != mem0 or typed is None or \
+                    (fk.launches, fk.probe_launches) != (l0, p0) or \
+                    replica._snapshot is not served:
+                raise AssertionError(f"(a) the {bad} blob: applied "
+                                     f"{applied}, memory {mem0}->{mem1}, "
+                                     f"{typed}, {rep.to_json()}")
+            allowed = _exact_submits(replica, records(), f"(a) {bad}")
+            rejected[bad] = {"typed": typed, "memory_delta": mem1 - mem0,
+                             "wall_s": wall, "error": rep.last_error,
+                             "allowed_after": allowed}
+        rep.stop()
+        numbers["replica"] = {
+            "configs": P21_CONFIGS, "blob_bytes": man["size"],
+            "leader_install_s": leader_s, "leader_phase_s": leader_phases,
+            "replica_install_s": replica_s, "replica_phase_s": replica_phases,
+            "submits_per_s": rate_r, "delta_install_s": delta_s,
+            "delta_phase_s": dict(snap.phase_s), "delta_upload": up,
+            "cache_share": share, "readback_err": err,
+            "rejected": rejected, "launches": dict(launches)}
+        del leader, replica, pub, rep
+
+        # ---- (b) the kill harness and the warm restart -------------------
+        sd = tmp / "state"
+        sd.mkdir()
+        table, ready = sd / "TABLE.json", sd / "READY"
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root))
+        mod = "authorino_tpu_torch.runtime.restart_harness"
+        serve_log = Path("smoke_out") / "restart_serve.log"
+        t0 = time.perf_counter()
+        with open(serve_log, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", mod, "serve", "--device", "cuda",
+                 "--state-dir", str(sd), "--table", str(table), "--ready",
+                 str(ready), "--stress", "reconcile", "--configs",
+                 str(P21_HARNESS_CONFIGS), "--variants", "3"],
+                cwd=str(root), env=env, stdout=logf,
+                stderr=subprocess.STDOUT)
+        try:
+            while not ready.exists():
+                if proc.poll() is not None:
+                    raise AssertionError(f"(b) the harness exited "
+                                         f"{proc.returncode}: "
+                                         f"{serve_log.read_text()[-2000:]}")
+                if time.perf_counter() - t0 > 240:
+                    raise AssertionError("(b) the harness never got ready")
+                time.sleep(0.05)
+            ready_s = time.perf_counter() - t0
+            time.sleep(P21_KILL_AFTER_S)
+            if proc.poll() is not None:
+                raise AssertionError("(b) the harness exited on its own")
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+        debris = sorted(p.name for p in sd.iterdir()
+                        if p.name.endswith(".tmp"))
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", mod, "restart", "--device", "cuda",
+             "--state-dir", str(sd), "--table", str(table), "--report",
+             str(tmp / "report.json")],
+            cwd=str(root), env=env, capture_output=True, text=True,
+            timeout=300)
+        restart_s = time.perf_counter() - t
+        if res.returncode != 0:
+            raise AssertionError(f"(b) restart exited {res.returncode}: "
+                                 f"{res.stdout[-2000:]} "
+                                 f"{res.stderr[-2000:]}")
+        rep_b = json.loads((tmp / "report.json").read_text())
+        if not (rep_b["recovered"] and rep_b["table_hit"]
+                and rep_b["verdicts_match"]
+                and not rep_b["artifacts"]["unhandled"]):
+            raise AssertionError(f"(b) the restart's report: {rep_b}")
+        # the time to the first verdict in this process, on the card: cold
+        # (compile the recovered variant) against warm (the state dir)
+        n = P21_HARNESS_CONFIGS
+        probes = harness._probe_docs(n)
+        cold_cfgs = harness._corpus(n, int(rep_b["variant"]))
+        tv.clear_certificate_cache()
+        t0 = time.perf_counter()
+        cold = harness._new_engine(n, "cuda")
+        cold.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name],
+                                         runtime=None, rules=c)
+                             for c in cold_cfgs])
+        t1 = time.perf_counter()
+        first_cold = _submits(cold, [probes[0][0]], [probes[0][1]])
+        cold_s = time.perf_counter() - t0
+        cold_split = {"install_s": t1 - t0,
+                      "phase_s": dict(cold._snapshot.phase_s),
+                      "first_verdict_s": time.perf_counter() - t1}
+        tv.clear_certificate_cache()
+        t0 = time.perf_counter()
+        warm = harness._new_engine(n, "cuda")
+        t1 = time.perf_counter()
+        loaded = load_latest(str(sd))
+        t2 = time.perf_counter()
+        warm.apply_published(loaded)
+        t3 = time.perf_counter()
+        imported, skipped = import_hotset(warm, load_hotset(str(sd)))
+        t4 = time.perf_counter()
+        first_warm = _submits(warm, [probes[0][0]], [probes[0][1]])
+        warm_s = time.perf_counter() - t0
+        warm_split = {"engine_s": t1 - t0, "load_s": t2 - t1,
+                      "install_s": t3 - t2,
+                      "phase_s": dict(warm._snapshot.phase_s),
+                      "hotset_s": t4 - t3, "hotset_imported": imported,
+                      "hotset_skipped": skipped,
+                      "first_verdict_s": time.perf_counter() - t4}
+        if harness.table_key(warm) != harness.table_key(cold) or \
+                _verdict_lists(first_warm) != _verdict_lists(first_cold):
+            raise AssertionError("(b) the warm and cold engines differ")
+        all_p = ([d for d, _ in probes], [c for _, c in probes])
+        if _verdict_lists(_submits(warm, *all_p)) != \
+                _verdict_lists(_submits(cold, *all_p)):
+            raise AssertionError("(b) warm and cold verdicts differ")
+        # every config the restarted process loaded, not only the
+        # harness's 24 probes: warm equal to cold, and each config's allow
+        # set the recovered variant's
+        e_docs, e_names, e_want = _every_config_probes(n)
+        warm_all = _verdict_lists(_submits(warm, e_docs, e_names))
+        if warm_all != _verdict_lists(_submits(cold, e_docs, e_names)):
+            raise AssertionError("(b) warm and cold verdicts differ on "
+                                 "the every-config probes")
+        variant = int(rep_b["variant"]) % 3
+        wrong = [k for k, ((rule, skipped), w) in enumerate(
+                     zip(warm_all, e_want))
+                 if all(r or sk for r, sk in zip(rule, skipped))
+                 != (w == variant)]
+        if wrong:
+            raise AssertionError(f"(b) {len(wrong)} every-config probes "
+                                 f"answer against variant {variant}: "
+                                 f"{[e_names[k] for k in wrong[:8]]}")
+        numbers["restart"] = {
+            "configs": n, "compared_configs": len(set(e_names)),
+            "compared_probes": len(e_docs), "ready_s": ready_s,
+            "kill_after_s":
+            P21_KILL_AFTER_S, "tmp_debris": debris,
+            "restart_process_s": restart_s,
+            "report": {k: rep_b[k] for k in (
+                "recovered", "table_hit", "verdicts_match", "variant",
+                "warm_start", "warm_start_wall_s")},
+            "artifacts": rep_b["artifacts"],
+            "first_verdict_cold_s": cold_s, "cold": cold_split,
+            "first_verdict_warm_s": warm_s, "warm": warm_split}
+        del cold, warm
+
+        # ---- (c) the corpus pregate -----------------------------------------
+        planted_id = f"cfg-{P21_PLANTED}"
+        recs = [{"authconfig": nm, "doc": d, "t": 1.0}
+                for nm, d in zip(names, docs) if nm != planted_id]
+        t = time.perf_counter()
+        dist = distill_records(recs, compile_corpus(cfgs, members_k=16))
+        distill_s = time.perf_counter() - t
+        corpus_path = str(tmp / "corpus.atpucorp")
+        write_corpus(corpus_path, dist["rows"])
+        eng_c = PolicyEngine(max_batch=256, tenant_qos=False,
+                             corpus_pregate=corpus_path,
+                             corpus_pregate_budget_s=P21_BUDGET_MS / 1e3,
+                             canary_thresholds=GuardThresholds(**P21_TH),
+                             **NO_REUSE)
+        eng_c.apply_snapshot(entries(cfgs))
+        gen = eng_c.generation
+        planted = [ConfigRules(name=c.name, evaluators=[
+            (None, Pattern("request.method", Operator.EQ, "NOPE"))])
+            if c.name == planted_id else c for c in cfgs]
+        mem0 = device_allocated(dev)
+        l0, p0 = fk.launches, fk.probe_launches
+        t = time.perf_counter()
+        try:
+            eng_c.apply_snapshot(entries(planted))
+            raise AssertionError("(c) the planted edit was not rejected")
+        except SnapshotRejected as e:
+            corpus_diff = e.corpus_diff
+        reject_s = time.perf_counter() - t
+        mem1 = device_allocated(dev)
+        breach = dict(eng_c._last_corpus_pregate)
+        origins = breach.get("origins", {})
+        if (eng_c.generation != gen or mem1 != mem0
+                or (fk.launches, fk.probe_launches) != (l0, p0)
+                or breach["result"] != "breach"
+                or corpus_diff["suspects"] != [planted_id]
+                or origins["captured"]["flips"] != 0
+                or origins["synthetic"]["flips"] < 1):
+            raise AssertionError(f"(c) the planted edit: generation "
+                                 f"{eng_c.generation}/{gen}, memory "
+                                 f"{mem0}->{mem1}, {breach}")
+        allowed = _exact_submits(eng_c, records(), "(c) after the breach")
+        clean = [ConfigRules(name=c.name, evaluators=[
+            (None, Any_(c.evaluators[0][1],
+                        Pattern("request.headers.x-clean", Operator.EQ,
+                                "yes")))])
+            if c.name == f"cfg-{P21_CLEAN}" else c for c in cfgs]
+        t = time.perf_counter()
+        eng_c.apply_snapshot(entries(clean))
+        pass_s = time.perf_counter() - t
+        passed = dict(eng_c._last_corpus_pregate)
+        if passed["result"] != "pass" or eng_c.generation != gen + 1 or \
+                passed["flips"]["total"] or passed["truncated"]:
+            raise AssertionError(f"(c) the clean edit: {passed}")
+        cv = eng_c.corpus_vars()
+        numbers["corpus"] = {
+            "records": len(recs), "distill_s": distill_s,
+            "distill": dist["counters"], "rows_captured": cv["rows_captured"],
+            "rows_synthetic": cv["rows_synthetic"],
+            "synthesis": cv["synthesis"], "breach": breach,
+            "reject_wall_s": reject_s, "memory_delta": mem1 - mem0,
+            "allowed_after": allowed, "pass": passed,
+            "pass_wall_s": pass_s, "budget_ms": P21_BUDGET_MS,
+            "thresholds": P21_TH}
+        del eng_c
+    finally:
+        tmp_ctx.cleanup()
+        tv.clear_certificate_cache()
+    report["state_planes"] = numbers
+
+    a, b, c = numbers["replica"], numbers["restart"], numbers["corpus"]
+    log(f"[{card}] state planes (a) {P21_CONFIGS} configs: the leader "
+        f"installed in {a['leader_install_s']:.3f} s "
+        f"({ {k: round(v, 4) for k, v in a['leader_phase_s'].items()} }), "
+        f"blob {a['blob_bytes']} B; the replica took it without compiling "
+        f"in {a['replica_install_s']:.3f} s "
+        f"({ {k: round(v, 4) for k, v in a['replica_phase_s'].items()} }), "
+        f"{a['submits_per_s']:.0f} submits/s, verdicts = the leader's; "
+        f"republish of {P21_CHANGED}: delta {a['delta_upload']['upload_bytes']}"
+        f" of {a['delta_upload']['full_bytes']} B in "
+        f"{a['delta_install_s']:.3f} s, cache share kept leader "
+        f"{a['cache_share']['leader']:.4f} replica "
+        f"{a['cache_share']['replica']:.4f}; [256, W] readback = leader = "
+        f"plain; rejected "
+        + ", ".join(f"{k} {v['typed']} +{v['memory_delta']} B"
+                    for k, v in a["rejected"].items())
+        + f"; launches {a['launches']}")
+    log(f"[{card}] state planes (b) kill harness --configs {b['configs']}: "
+        f"ready in {b['ready_s']:.1f} s, SIGKILL {b['kill_after_s']} s "
+        f"into the churn (tmp debris {b['tmp_debris']}); restart "
+        f"{b['restart_process_s']:.1f} s: recovered variant "
+        f"{b['report']['variant']} bit-exact, artifacts {b['artifacts']}; "
+        f"time to the first verdict warm {b['first_verdict_warm_s']:.3f} s "
+        f"(load {b['warm']['load_s']:.3f}, install "
+        f"{b['warm']['install_s']:.3f} "
+        f"{ {k: round(v, 4) for k, v in b['warm']['phase_s'].items()} }, "
+        f"hot set {b['warm']['hotset_s']:.4f} "
+        f"({b['warm']['hotset_imported']} imported), first verdict "
+        f"{b['warm']['first_verdict_s']:.4f}) against cold "
+        f"{b['first_verdict_cold_s']:.3f} s (install "
+        f"{b['cold']['install_s']:.3f} "
+        f"{ {k: round(v, 4) for k, v in b['cold']['phase_s'].items()} }, "
+        f"first verdict {b['cold']['first_verdict_s']:.4f})")
+    log(f"[{card}] state planes (c) corpus pregate: {c['records']} records "
+        f"distilled to {c['rows_captured']} rows in {c['distill_s']:.2f} s, "
+        f"{c['rows_synthetic']} synthetic; the planted cfg-{P21_PLANTED} "
+        f"rejected in {c['reject_wall_s']:.3f} s (pregate "
+        f"{c['breach']['elapsed_ms']:.1f} ms, synthesis included, of a "
+        f"{P21_BUDGET_MS:g} ms replay budget; origins {c['breach']['origins']}"
+        f"), +{c['memory_delta']} B, no launch; the clean edit passed in "
+        f"{c['pass']['elapsed_ms']:.1f} ms ({c['pass']['replayed']} "
+        f"weighted decisions, 0 flips)")
+    return launches, err
 
 
 def main() -> int:
@@ -9003,18 +9518,25 @@ def main() -> int:
     max_err = max(max_err, vr_err)
     require_no_failure_handling("phase 20", marks)
 
+    # ---- 21. snapshot distribution, the state plane, the corpus pregate ---
+    marks = failure_marks()
+    sp_launches, sp_err = state_planes(report, card, dev,
+                                       {"docs": ns_docs, "names": ns_names})
+    max_err = max(max_err, sp_err)
+    require_no_failure_handling("phase 21", marks)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": vr_launches["fused_megakernel"],
+         "launches": sp_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": vr_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": sp_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -9025,7 +9547,7 @@ def main() -> int:
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
                 "17": inc_launches, "18": cs_launches, "19": ten_launches,
-                "20": vr_launches}
+                "20": vr_launches, "21": sp_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

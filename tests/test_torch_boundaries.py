@@ -342,6 +342,93 @@ def test_verify_replay_modules_import_alone_without_services_or_the_reference(
             "DIGEST 64 BAD []") in proc.stdout, proc.stdout
 
 
+STATE_MODULES = ("snapshots.distribution", "fleet", "fleet.warmjoin",
+                 "runtime.state_plane", "runtime.restart_harness", "corpus",
+                 "corpus.store", "corpus.distill", "corpus.synthesize",
+                 "corpus.pregate", "corpus.bisect")
+
+
+@pytest.mark.parametrize("mod", STATE_MODULES)
+def test_state_modules_import_alone_without_services_or_the_reference(mod):
+    """Snapshot distribution, the warm-join, the state plane, the restart
+    harness and the decision corpus each import on their own with
+    ``grpc``, ``aiohttp``, ``jax``, the JAX package, ``google.protobuf``,
+    ``cryptography`` and ``opentelemetry`` blocked, and there a leader's
+    blob installs on a CPU replica, a warm start serves it, a corpus
+    round-trips, a synthesized witness catches a planted edit and the
+    bisect names its generation."""
+    code = (
+        "import importlib, os, sys, tempfile, asyncio\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu', "
+        "'google.protobuf', 'cryptography', 'opentelemetry')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if any(name == b or name.startswith(b + '.') "
+        "for b in BLOCKED):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "from authorino_tpu_torch.analysis import fixtures\n"
+        "from authorino_tpu_torch import corpus\n"
+        "from authorino_tpu_torch.corpus import synthesize, pregate, bisect\n"
+        "from authorino_tpu_torch.compiler import compile_corpus\n"
+        "from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine\n"
+        "from authorino_tpu_torch.runtime.state_plane import StatePlane\n"
+        "from authorino_tpu_torch.snapshots import distribution as dist\n"
+        "d = tempfile.mkdtemp()\n"
+        "cfgs = fixtures.fixture_configs()\n"
+        "lead = PolicyEngine(device='cpu', strict_verify=True)\n"
+        "plane = StatePlane(lead, d)\n"
+        "plane.start()\n"
+        "lead.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], "
+        "rules=c) for c in cfgs])\n"
+        "plane.shutdown()\n"
+        "rep = PolicyEngine(device='cpu')\n"
+        "warm = StatePlane(rep, d).warm_start()['snapshot']\n"
+        "doc = {'request': {'method': 'GET', 'url_path': '/api/v1/x'}, "
+        "'auth': {'identity': {'org': 'acme', 'roles': ['admin']}}}\n"
+        "same = [bool(asyncio.run(e.submit(dict(doc), 'api'))[0][0]) "
+        "for e in (lead, rep)]\n"
+        "pol = fixtures.fixture_policy()\n"
+        "rows = corpus.distill_records([{'authconfig': 'api', 'doc': doc, "
+        "'t': 1.0}] * 4, pol)['rows']\n"
+        "p = os.path.join(d, 'c.atpucorp')\n"
+        "corpus.write_corpus(p, rows)\n"
+        "back = corpus.read_corpus_file(p)[1] == rows\n"
+        "syn = synthesize.augment_corpus(pol, rows)['rows']\n"
+        "from authorino_tpu_torch.compiler import ConfigRules\n"
+        "from authorino_tpu_torch.expressions import Operator, Pattern\n"
+        "from authorino_tpu_torch.runtime.change_safety import "
+        "GuardThresholds\n"
+        "bad_cfgs = [c for c in cfgs if c.name != 'admin'] + "
+        "[ConfigRules(name='admin', evaluators=[(None, Pattern("
+        "'auth.identity.org', Operator.NEQ, 'acme'))])]\n"
+        "th = GuardThresholds(min_requests=8, min_config_requests=1, "
+        "min_config_allows=1)\n"
+        "pf = pregate.corpus_preflight(pol, compile_corpus(bad_cfgs), "
+        "rows + syn, th, changed={'admin'})\n"
+        "ch = os.path.join(d, 'chain')\n"
+        "pub = dist.SnapshotPublisher(ch)\n"
+        "for g, cs in ((1, cfgs), (2, bad_cfgs)):\n"
+        "    pub.publish_blob(dist.serialize_policy(compile_corpus(cs), "
+        "meta={'generation': g}), g, {})\n"
+        "diff = bisect.corpus_diff(bisect.load_generation_chain(ch), "
+        "rows + syn)\n"
+        "bad = sorted(m for m in sys.modules if any(m == b or "
+        "m.startswith(b + '.') for b in BLOCKED))\n"
+        "print('WARM', warm, 'SAME', same, 'BACK', back, 'SUSPECT', "
+        "'admin' in (pf['breach'] or {}).get('suspects', []), 'GEN', "
+        "sorted(diff['by_generation']), 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("WARM ok SAME [True, True] BACK True SUSPECT True GEN ['2'] "
+            "BAD []") in proc.stdout, proc.stdout
+
+
 def test_atomic_writer_ignores_the_reference_plane(tmp_path):
     """With both packages loaded, the reference's armed fs rule does not
     reach the port's writer (nor the port's the reference's): each writer

@@ -467,6 +467,48 @@ def test_new_poison_config_quarantines_out_and_persists():
     assert obs["fixed"][0] is False and obs["fixed"][-1] is True
 
 
+def quarantined_submit_scenario(pkg):
+    """A submit to a config the serving snapshot lacks: one a guard-breach
+    quarantine has just removed, and one never compiled, each in a cut
+    beside a known config's row.  The reference queues both and its encode
+    job answers them; no wall clock decides when the quarantine lands."""
+    engine = build(pkg, {"c-base": "org-a"}, canary_fraction=0.5,
+                   canary_window_s=30.0, canary_thresholds=thresholds(pkg),
+                   verdict_cache_size=0, batch_dedup=False)
+    apply(pkg, engine, {"c-base": "org-a", "c-new": "org-NEVER"})
+    engine._canary_rollback(engine._canary, reason="guard-breach",
+                            detail={"suspects": ["c-new"]})
+
+    def view(o):
+        if isinstance(o, BaseException):
+            return (type(o).__name__, getattr(o, "code", None), str(o))
+        return bool(o[0][0])
+
+    async def burst():
+        out = await asyncio.gather(
+            engine.submit(cdoc(0, "org-a"), "c-base"),
+            engine.submit(cdoc(1, "org-a"), "c-new"),
+            engine.submit(cdoc(2, "org-a"), "c-unknown"),
+            engine.submit(cdoc(3, "org-b"), "c-base"),
+            return_exceptions=True)
+        return [view(o) for o in out]
+
+    obs = {"quarantine": sorted(engine._quarantine["configs"]),
+           "first": run(burst()), "second": run(burst()),
+           "breaker": engine.breaker.state,
+           "generation": engine.generation}
+    return obs
+
+
+def test_submit_to_a_quarantined_out_config_answers_as_reference():
+    obs = both_equal(quarantined_submit_scenario)
+    assert obs["quarantine"] == ["c-new"]
+    unavailable = ("CheckAbort", grpc.StatusCode.UNAVAILABLE.value[0],
+                   "policy evaluation unavailable")
+    for burst in (obs["first"], obs["second"]):
+        assert burst == [True, unavailable, unavailable, False]
+
+
 def added_config_scenario(pkg):
     fraction = 0.5
     engine = build(pkg, {"c": "org-a"}, canary_fraction=fraction,

@@ -356,6 +356,143 @@ def test_a_verify_capture_or_prefetch_flag_reaches_the_port(flag, tmp_path,
             cap.clear()
 
 
+# the planes a start wires after its engine and before its control plane:
+# snapshot distribution, the durable state plane and the corpus pregate
+
+def _state_start(pkg_cli, pkg, argv, monkeypatch):
+    """Run ``pkg``'s ``run_server`` on ``argv`` until its control plane
+    would start (the reconciler's construction stops it), recording every
+    publisher, replica and state plane the start made.  Returns what the
+    start raised and the recorded view."""
+    import importlib
+
+    dist = importlib.import_module(f"{pkg}.snapshots.distribution")
+    plane_mod = importlib.import_module(f"{pkg}.runtime.state_plane")
+    rec_mod = importlib.import_module(f"{pkg}.controllers.reconciler")
+    made = {"publishers": [], "replicas": [], "planes": []}
+
+    def recording(cls, key):
+        class Recorded(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made[key].append(self)
+        return Recorded
+
+    monkeypatch.setattr(dist, "SnapshotPublisher",
+                        recording(dist.SnapshotPublisher, "publishers"))
+    monkeypatch.setattr(dist, "SnapshotReplica",
+                        recording(dist.SnapshotReplica, "replicas"))
+    monkeypatch.setattr(plane_mod, "StatePlane",
+                        recording(plane_mod.StatePlane, "planes"))
+
+    def stop(engine, *a, **kw):
+        raise _Built(engine)
+
+    monkeypatch.setattr(rec_mod, "AuthConfigReconciler", stop)
+    try:
+        run(pkg_cli.run_server(pkg_cli.build_parser().parse_args(argv)))
+    except _Built as b:
+        engine = b.args[0]
+        raised = None
+    except RuntimeError as e:
+        engine, raised = None, str(e)
+    finally:
+        for r in made["replicas"]:
+            r.stop(timeout_s=2.0)
+        for pl in made["planes"]:
+            pl._stop.set()
+        monkeypatch.undo()
+    if engine is None:
+        return raised, None
+    # the state plane's own publisher (include_loaded) is the plane's
+    return None, {
+        "strict_verify": engine.strict_verify,
+        "corpus_pregate": (engine.corpus_pregate,
+                           engine.corpus_pregate_budget_s),
+        "publishers": sorted((p.directory, p.keep, p.include_loaded)
+                             for p in made["publishers"]),
+        # the first poll ran before the start went on (the source holds
+        # no manifest: an error); the poll thread's own may have too
+        "replicas": [(r.source, r.poll_s, r.applied, r.errors >= 1)
+                     for r in made["replicas"]],
+        "planes": [(pl.state_dir, pl.max_snapshot_age_s, pl.hotset_k,
+                    pl.hotset_s, pl.warm_summary,
+                    engine.state_plane is pl) for pl in made["planes"]],
+    }
+
+
+STATE_FLAGS = {
+    "--corpus-pregate": ["--corpus-pregate", "{d}/c.atpucorp"],
+    "--corpus-pregate-budget-ms": ["--corpus-pregate", "{d}/c.atpucorp",
+                                   "--corpus-pregate-budget-ms", "350"],
+    "--snapshot-publish-dir": ["--snapshot-publish-dir", "{d}/pub"],
+    "--snapshot-source": ["--snapshot-source", "{d}/src"],
+    "--snapshot-poll": ["--snapshot-source", "{d}/src",
+                        "--snapshot-poll", "0.7"],
+    "--state-dir": ["--state-dir", "{d}/state"],
+    "--max-snapshot-age": ["--state-dir", "{d}/state",
+                           "--max-snapshot-age", "90"],
+    "--fleet-hotset-k": ["--state-dir", "{d}/state", "--fleet-hotset-k",
+                         "64"],
+    "--fleet-hotset-s": ["--state-dir", "{d}/state", "--fleet-hotset-s",
+                         "7"],
+    "--fleet-hotset-k=0": ["--snapshot-publish-dir", "{d}/pub",
+                           "--fleet-hotset-k", "0"],
+    "--strict-verify": ["--snapshot-publish-dir", "{d}/pub",
+                        "--strict-verify"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(STATE_FLAGS))
+def test_a_state_plane_flag_reaches_the_port(case, tmp_path, monkeypatch):
+    """Snapshot distribution, the state plane and the corpus pregate are
+    in the port: each flag lands where the reference's CLI puts it (the
+    engine, the publisher, the replica, the state plane), with the
+    reference's values, and the publish and state directories imply
+    ``--strict-verify`` as in the reference."""
+    assert not {"state plane", "snapshot distribution",
+                "corpus pregate"} & set(port_cli.UNPORTED_PLANES)
+    assert "fleet" in port_cli.UNPORTED_PLANES
+    extra = [a.format(d=tmp_path) for a in STATE_FLAGS[case]]
+    for sub in ("src",):
+        (tmp_path / sub).mkdir(exist_ok=True)
+    port_cli.refuse_unported(server_args(*extra))
+    got = _state_start(port_cli, "authorino_tpu_torch",
+                       ["server", "--device", "cpu", *extra], monkeypatch)
+    want = _state_start(ref_cli, "authorino_tpu",
+                        ["server", "--jax-platform", "cpu", *extra],
+                        monkeypatch)
+    assert got == want
+    view = got[1]
+    assert view is not None
+    if "--snapshot-publish-dir" in extra or "--state-dir" in extra:
+        assert view["strict_verify"] is True
+
+
+LOOP_BREAKERS = {
+    "publish-is-source": ("--snapshot-publish-dir", "--snapshot-source"),
+    "state-is-source": ("--state-dir", "--snapshot-source"),
+    "state-is-publish": ("--state-dir", "--snapshot-publish-dir"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOOP_BREAKERS))
+def test_a_loop_breaker_refuses_the_start(case, tmp_path, monkeypatch):
+    """A node is a compile leader or a serving replica, never its own
+    upstream, and its state dir is never a distribution feed: the port
+    refuses each such start with the reference's message."""
+    a, b = LOOP_BREAKERS[case]
+    d = str(tmp_path / "same")
+    got = _state_start(port_cli, "authorino_tpu_torch",
+                       ["server", "--device", "cpu", a, d, b, d],
+                       monkeypatch)
+    want = _state_start(ref_cli, "authorino_tpu",
+                        ["server", "--jax-platform", "cpu", a, d, b, d],
+                        monkeypatch)
+    assert got == want
+    assert got[1] is None and "point at the same directory" in got[0]
+
+
 def test_malformed_tenant_weights_are_skipped_as_the_reference_does():
     pairs = ["ns/a=2", "junk", "=3", "ns/b=x", "ns/c=0.5", "ns/d==4"]
     assert port_cli._parse_tenant_weights(pairs) == \

@@ -1092,6 +1092,54 @@ def test_canary_parts_launch_on_their_generations_and_rollback_reserves(
         assert bool(np.all(skipped | rule)) == own
 
 
+def test_quarantined_out_config_fails_only_its_own_rows_on_the_card(card):
+    """A cut on the card holding rows for a config a guard-breach
+    quarantine removed and for one never compiled, beside two known rows:
+    the known rows get the oracle's verdicts from one launch, the others
+    answer UNAVAILABLE "policy evaluation unavailable" (the reference's
+    per-row answer), and the breaker counts no failure."""
+    from authorino_tpu_torch.utils.rpc import UNAVAILABLE, CheckAbort
+
+    def entries(cfgs):
+        return [EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                for c in cfgs]
+
+    engine = PolicyEngine(device=card, max_batch=8, verdict_cache_size=0,
+                          batch_dedup=False, canary_fraction=0.5,
+                          canary_window_s=600.0)
+    engine.apply_snapshot(entries(northstar.build_corpus(10, 10)))
+    engine.apply_snapshot(entries(northstar.build_corpus(11, 10)))
+    assert engine._canary is not None
+    assert engine._canary_rollback(engine._canary, reason="guard-breach",
+                                   detail={"suspects": ["cfg-10"]})
+    assert sorted(engine._quarantine["configs"]) == ["cfg-10"]
+    snap = engine._snapshot
+    docs = northstar.build_docs(4, seed=11)
+    names = ["cfg-0", "cfg-10", "cfg-unknown", "cfg-1"]
+
+    async def burst():
+        return await asyncio.gather(
+            *(engine.submit(d, n) for d, n in zip(docs, names)),
+            return_exceptions=True)
+
+    for _ in range(2):
+        l0 = fk.launches
+        out = asyncio.run(burst())
+        assert fk.launches - l0 >= 1
+        for k in (1, 2):
+            assert isinstance(out[k], CheckAbort)
+            assert (out[k].code, str(out[k])) == (
+                UNAVAILABLE, "policy evaluation unavailable")
+        for k in (0, 3):
+            rule, skipped = out[k]
+            own, _, _ = host_results(snap.policy, docs[k],
+                                     snap.policy.config_ids[names[k]])
+            assert bool(np.all(skipped | rule)) == own
+    assert engine.breaker.state == "closed"
+    assert engine.breaker._consecutive == 0
+    assert engine.stats["retries"] == 0
+
+
 def test_contained_tenant_rows_launch_as_their_own_part(card, monkeypatch):
     """With one tenant contained, each cut of a burst launches the other
     tenants' rows first and the contained tenant's rows as a part of their
@@ -1243,3 +1291,115 @@ def test_captured_firing_columns_equal_the_plain_version(card):
         _, rule, skipped = host_results(snap.policy, r["doc"], row)
         want = int(firing_columns(rule[None], skipped[None])[0])
         assert r["rule_index"] == int(firing[0]) == want
+
+
+def _published(tmp_path, cfgs, card):
+    """A strict-verify leader on the card over ``cfgs`` publishing into
+    ``tmp_path``; returns (leader, publisher, directory)."""
+    from authorino_tpu_torch.snapshots.distribution import SnapshotPublisher
+
+    d = str(tmp_path / "pub")
+    leader = PolicyEngine(device=card, max_batch=64, strict_verify=True,
+                          verdict_cache_size=0, batch_dedup=False)
+    pub = SnapshotPublisher(d)
+    pub.attach(leader)
+    leader.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    assert pub.flush()
+    return leader, pub, d
+
+
+def test_replica_readback_on_the_card_equals_the_leader_and_plain(
+        card, tmp_path):
+    """A replica on the card installs the leader's blob without compiling
+    (its params are its own upload of the loaded policy): one batch's
+    [B, W] readback is byte-equal to the leader's and to the plain
+    version's; a one-config republish lands as a delta with the same
+    readbacks as a full upload."""
+    from authorino_tpu_torch.snapshots.distribution import SnapshotReplica
+
+    cfgs = northstar.build_corpus(64, 10)
+    leader, pub, d = _published(tmp_path, cfgs, card)
+    replica = PolicyEngine(device=card, max_batch=64, verdict_cache_size=0,
+                           batch_dedup=False)
+    rep = SnapshotReplica(replica, d, poll_s=0.2)
+    assert rep.poll_once()
+    snap = replica._snapshot
+    assert snap.compile_report is None and snap.upload["mode"] == "full"
+    docs = northstar.build_docs(64, seed=5)
+    rows = [k % 64 for k in range(64)]
+    db = pack_batch(snap.policy, encode_batch(snap.policy, docs, rows))
+    got = fk.eval_fused_kernel(snap.params, db).cpu().numpy()
+    want = fk.eval_fused_kernel(leader._snapshot.params, db).cpu().numpy()
+    plain = fk.eval_fused_kernel(to_device(snap.policy, device="cpu"),
+                                 db).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, plain)
+    changed = northstar.build_corpus(64, 10, changed={9: "const"})
+    leader.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in changed])
+    assert pub.flush() and rep.poll_once()
+    snap2 = replica._snapshot
+    assert snap2.upload["mode"] == "delta"
+    assert snap2.upload["upload_bytes"] < snap2.upload["full_bytes"]
+    db2 = pack_batch(snap2.policy, encode_batch(snap2.policy, docs, rows))
+    np.testing.assert_array_equal(
+        fk.eval_fused_kernel(snap2.params, db2).cpu().numpy(),
+        fk.eval_fused_kernel(to_device(snap2.policy, device=card),
+                             db2).cpu().numpy())
+
+
+@pytest.mark.parametrize("bad", ["uncertified", "torn"])
+def test_rejected_blob_allocates_nothing_on_the_card(card, tmp_path, bad):
+    """An uncertified blob (rejected at admission) and a torn one
+    (rejected at load) leave the replica's card untouched: +0 B, no
+    mega-kernel or probe launch, the old generation still answering."""
+    import hashlib
+    import json
+    import os
+
+    from authorino_tpu_torch.compiler import compile_corpus as compile_
+    from authorino_tpu_torch.snapshots import (rules_fingerprint,
+                                               serialize_policy)
+    from authorino_tpu_torch.snapshots.distribution import SnapshotReplica
+
+    cfgs = northstar.build_corpus(16, 10)
+    leader, pub, d = _published(tmp_path, cfgs, card)
+    replica = PolicyEngine(device=card, max_batch=64, verdict_cache_size=0,
+                           batch_dedup=False)
+    rep = SnapshotReplica(replica, d, poll_s=0.2)
+    assert rep.poll_once()
+    snap = replica._snapshot
+    changed = northstar.build_corpus(16, 10, changed={2: "const"})
+    if bad == "uncertified":
+        pub.publish_blob(serialize_policy(compile_(changed, members_k=16),
+                         meta={"generation": 99, "certified": False,
+                               "fingerprints": {c.name: rules_fingerprint(c)
+                                                for c in changed},
+                               "entries": [{"id": c.name,
+                                            "hosts": [c.name]}
+                                           for c in changed]}), 99)
+    else:
+        man = json.load(open(os.path.join(d, "MANIFEST.json")))
+        p = os.path.join(d, man["current"])
+        raw = bytearray(open(p, "rb").read())
+        raw[len(raw) // 3] ^= 0xFF
+        open(p, "wb").write(bytes(raw))
+        man["sha256"] = hashlib.sha256(bytes(raw)).hexdigest()
+        open(os.path.join(d, "MANIFEST.json"), "w").write(json.dumps(man))
+    torch.cuda.synchronize(card)
+    mem0 = torch.cuda.memory_allocated(card)
+    l0, p0 = fk.launches, fk.probe_launches
+    assert rep.poll_once() is False
+    torch.cuda.synchronize(card)
+    assert torch.cuda.memory_allocated(card) == mem0
+    assert (fk.launches, fk.probe_launches) == (l0, p0)
+    assert replica._snapshot is snap
+    assert (rep.rejected, rep.errors) == ((1, 0) if bad == "uncertified"
+                                          else (0, 1))
+    docs = northstar.build_docs(32, seed=4)
+    names = [f"cfg-{k % 16}" for k in range(32)]
+    out = asyncio.run(_gather(replica, docs, names))
+    for (rule, skipped), dd, n in zip(out, docs, names):
+        own, _, _ = host_results(snap.policy, dd, snap.policy.config_ids[n])
+        assert bool(np.all(skipped | rule)) == own

@@ -100,7 +100,9 @@ def test_burst_costs_one_batch_and_one_plain_call():
 
 def test_unknown_config_and_missing_snapshot_raise():
     """No snapshot: the typed UNAVAILABLE the reference answers (nothing
-    can decide the request); an unknown config: KeyError."""
+    can decide the request); an unknown config: queued as the
+    reference's, and its row answered UNAVAILABLE at the encode stage,
+    the reference's answer after its part's retry and degrade."""
     engine = PolicyEngine(device="cpu")
     with pytest.raises(CheckAbort, match="snapshot") as info:
         run(engine.submit({}, "nope"))
@@ -108,5 +110,7 @@ def test_unknown_config_and_missing_snapshot_raise():
     engine.apply_snapshot([EngineEntry(
         id=c.name, hosts=[c.name], rules=c)
         for c in northstar.build_corpus(2, 4)])
-    with pytest.raises(KeyError):
+    with pytest.raises(CheckAbort,
+                       match="policy evaluation unavailable") as info:
         run(engine.submit({}, "nope"))
+    assert info.value.code == UNAVAILABLE

@@ -523,7 +523,9 @@ FAMILIES = ("batch_size", "batch_pad_occupancy", "batch_queue_wait",
             "degraded_decisions", "injected_faults", "compile_cache_events",
             "delta_upload_bytes", "full_upload_bytes", "canary_state",
             "snapshot_rollbacks", "quarantined_configs",
-            "canary_guard_delta")
+            "canary_guard_delta", "snapshot_distribution", "warm_restart",
+            "snapshot_age", "fleet_warm_join", "corpus_records",
+            "corpus_rows", "corpus_pregate", "corpus_synth")
 
 DESCRIBE = """
 import importlib, json, sys
