@@ -2,7 +2,7 @@
 policy corpus is as valuable as a fast one — "A New Language for Expressive,
 Fast, Safe, and Analyzable Authorization", PAPERS.md).
 
-Three independent layers, each pure-host and import-light:
+Four independent layers, each pure-host and import-light:
 
   - ``tensor_lint``   — structural invariants of a compiled snapshot that the
                         device kernels silently assume (index ranges, circuit
@@ -22,9 +22,14 @@ Three independent layers, each pure-host and import-light:
                         boolean circuits: constant-allow / constant-deny
                         rules, shadowed and duplicate rules, hosts routed to
                         more than one AuthConfig.  Warnings, never gates.
+  - ``code_lint``     — an AST linter for this repo's own async-hazard
+                        classes (blocking calls in ``async def``, a device
+                        synchronise among them, locks held across
+                        ``await``, tracer branches in jitted fns, bare
+                        excepts on completer/drain threads).
 
-Rule catalogue: docs/static_analysis.md.  The analysis CLI and the code
-linter are not in this package yet."""
+CLI: ``python -m authorino_tpu_torch.analysis`` (see __main__.py); rule
+catalogue: docs/static_analysis.md."""
 
 from __future__ import annotations
 

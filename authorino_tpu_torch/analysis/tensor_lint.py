@@ -16,10 +16,9 @@ Checks and their finding kinds (catalogue: docs/static_analysis.md):
   circuit-order      And/Or children reference strictly earlier buffer slots
                      (acyclic + topologically ordered by construction)
   operand-range      eval tables / leaf attrs / slot maps inside their grids
-  lane-contract      dtype + shape contracts of the fused lane's operand
-                     tree (to_device host build) and its per-config
-                     program (the JAX package also checks its gather and
-                     matmul lanes, which the port does not have)
+  lane-contract      dtype + shape contracts of the gather, matmul and
+                     fused lanes' operand trees (to_device host build)
+                     and the fused lane's per-config program
   scatter-cover      a dedup plan's fan-out reproduces the batch exactly
   pack-grid          packed DeviceBatch axes match the policy's padded grid
   shard-stack        every mesh shard's padded grid matches shard 0's — the
@@ -322,43 +321,115 @@ def _check_fused_layout(policy: CompiledPolicy, out: List[Finding]) -> None:
 
 
 def _check_lanes(policy: CompiledPolicy, out: List[Finding]) -> None:
-    """Dtype/shape contracts of the fused lane's operand tree, the one lane
-    the CUDA mega-kernel reads (host build, ``to_device(host=True)``: no
-    device, no transfer), then its per-config program: ``host_view``'s
-    range checks and ``_own_program`` (ops/operands.py), which the kernel
-    reads without bounds checks.  The JAX package checks its gather and
-    matmul lanes here too; the port has neither lane yet."""
-    from ..ops.operands import host_view, to_device
+    """Dtype/shape contracts of the device operand trees of all three
+    lanes (host build, ``to_device(host=True)``: no device, no transfer);
+    for the fused lane, the one the CUDA mega-kernel reads, then its
+    per-config program: ``host_view``'s range checks and ``_own_program``
+    (ops/operands.py), which the kernel reads without bounds checks."""
+    from ..ops.pattern_eval import _F32_EXACT, to_device
+
+    L, A, B = policy.n_leaves, policy.n_attrs, policy.buffer_size
+    G, E = policy.eval_rule.shape
+    for lane in ("gather", "matmul", "fused"):
+        try:
+            params = to_device(policy, host=True, lane=lane)
+        except Exception as e:
+            out.append(_err("lane-contract",
+                            f"{lane} lane operand build failed: {e!r}",
+                            f"to_device[{lane}]"))
+            continue
+        loc = f"params[{lane}]"
+        if params["leaf_op"].dtype not in _INT_DTYPES or \
+                params["leaf_op"].shape != (L,):
+            out.append(_err("lane-contract",
+                            f"leaf_op must be int32 [L={L}], got "
+                            f"{params['leaf_op'].dtype} "
+                            f"{params['leaf_op'].shape}", loc))
+        csi = params["cpu_scatter_idx"]
+        # padding columns target the dump slot at L (sliced off on device);
+        # anything past it clobbers memory the kernel never wrote
+        if csi.size and (int(csi.min()) < 0 or int(csi.max()) > L):
+            out.append(_err("lane-contract",
+                            f"cpu_scatter_idx outside [0, L={L}]", loc))
+        msl = params["member_slot_of_leaf"]
+        if msl.shape != (L,) or (msl.size and (
+                int(msl.min()) < 0
+                or int(msl.max()) >= policy.n_member_attrs)):
+            out.append(_err("lane-contract",
+                            f"member_slot_of_leaf must index [0, M="
+                            f"{policy.n_member_attrs}) over [L={L}]", loc))
+        if lane == "fused":
+            _check_fused_lane(policy, params, loc, out)
+            continue
+        mm = params.get("matmul")
+        if lane == "matmul" and mm is None:
+            # large interners legitimately force the gather lane; only a
+            # silent None on a small corpus is a contract break
+            if len(policy.interner) + 4 < _F32_EXACT:
+                out.append(_err("lane-contract",
+                                "matmul lane requested but operands missing",
+                                loc))
+            continue
+        if mm is None:
+            continue
+        expect = {
+            "attr_onehot": (A, L),
+            "memb_onehot": (policy.n_member_attrs, L),
+            "cpu_oh": (policy.n_cpu_leaves, L),
+            "rule_m": (G * E, B),
+            "cond_m": (G * E, B),
+        }
+        for name, shape in expect.items():
+            if tuple(mm[name].shape) != shape:
+                out.append(_err(
+                    "lane-contract",
+                    f"matmul operand {name} shape {tuple(mm[name].shape)} "
+                    f"!= {shape}", loc))
+        # selection matrices must be exact one-hots: a doubled or missing
+        # entry silently selects the wrong operand (or none)
+        for name, axis in (("attr_onehot", 0), ("rule_m", 1), ("cond_m", 1)):
+            sums = _float64(mm[name]).sum(axis=axis)
+            if sums.size and not np.allclose(sums, 1.0):
+                out.append(_err(
+                    "lane-contract",
+                    f"matmul operand {name} is not an exact one-hot "
+                    f"(per-{'column' if axis == 0 else 'row'} sum != 1)",
+                    loc))
+        cursor = _leaf_base() + L
+        for l, m in enumerate(mm["level_mats"]):
+            rows = int(policy.levels[l][0].shape[0])
+            if tuple(m.shape) != (rows, cursor):
+                out.append(_err(
+                    "lane-contract",
+                    f"level_mats[{l}] shape {tuple(m.shape)} != ({rows}, "
+                    f"{cursor}) (count matrix must cover exactly the buffer "
+                    f"prefix visible to its level)", loc))
+            cursor += rows
+        if policy.n_byte_attrs:
+            R = int(policy.dfa_table_of_row.shape[0])
+            S = int(policy.dfa_tables.shape[1])
+            if tuple(mm["dfa_tables_f"].shape) != (R, S, 256):
+                out.append(_err(
+                    "lane-contract",
+                    f"dfa_tables_f shape {tuple(mm['dfa_tables_f'].shape)} "
+                    f"!= ({R}, {S}, 256) (matmul lane expands per-row)",
+                    loc))
+
+
+def _float64(m) -> np.ndarray:
+    """A matmul-lane matrix as float64 numpy (a bf16 host matrix is a CPU
+    tensor: numpy has no bf16)."""
+    if hasattr(m, "double"):
+        return m.double().numpy()
+    return np.asarray(m, dtype=np.float64)
+
+
+def _check_fused_lane(policy: CompiledPolicy, params, loc: str,
+                      out: List[Finding]) -> None:
+    """The fused lane's own operands, then its per-config program."""
+    from ..ops.operands import host_view
 
     L = policy.n_leaves
-    lane = "fused"
-    loc = f"params[{lane}]"
-    try:
-        params = to_device(policy, host=True)
-    except Exception as e:
-        out.append(_err("lane-contract",
-                        f"{lane} lane operand build failed: {e!r}",
-                        f"to_device[{lane}]"))
-        return
-    if params["leaf_op"].dtype not in _INT_DTYPES or \
-            params["leaf_op"].shape != (L,):
-        out.append(_err("lane-contract",
-                        f"leaf_op must be int32 [L={L}], got "
-                        f"{params['leaf_op'].dtype} "
-                        f"{params['leaf_op'].shape}", loc))
-    csi = params["cpu_scatter_idx"]
-    # padding columns target the dump slot at L (sliced off on device);
-    # anything past it clobbers memory the kernel never wrote
-    if csi.size and (int(csi.min()) < 0 or int(csi.max()) > L):
-        out.append(_err("lane-contract",
-                        f"cpu_scatter_idx outside [0, L={L}]", loc))
-    msl = params["member_slot_of_leaf"]
-    if msl.shape != (L,) or (msl.size and (
-            int(msl.min()) < 0
-            or int(msl.max()) >= policy.n_member_attrs)):
-        out.append(_err("lane-contract",
-                        f"member_slot_of_leaf must index [0, M="
-                        f"{policy.n_member_attrs}) over [L={L}]", loc))
     fz = params.get("fused")
     if fz is None:
         out.append(_err("lane-contract",

@@ -182,8 +182,9 @@ def build_parser() -> argparse.ArgumentParser:
            "assist columns")
     a("--kernel-lane", choices=("auto", "fused", "gather", "matmul"),
       default=env_var("AUTHORINO_TPU_KERNEL_LANE", "auto"),
-      help="Device-eval kernel lane: the port runs the fused mega-kernel "
-           "('auto' or 'fused')")
+      help="Device-eval kernel lane: 'fused' (the CUDA mega-kernel), "
+           "'matmul' (one-hot products) or 'gather' (indexed op chain); "
+           "'auto' arms fused on a card and on the CPU")
     a("--no-metadata-prefetch", action="store_true",
       default=not env_var("AUTHORINO_TPU_METADATA_PREFETCH", True),
       help="Disable the metadata prefetch cache (relations/prefetch.py): "
@@ -250,7 +251,6 @@ def build_parser() -> argparse.ArgumentParser:
 UNPORTED_PLANES = {
     "brownout": 3, "lane selection": 3,
     "speculative dispatch": 3,
-    "kernel lanes": 9,
     "fleet": 13,
 }
 
@@ -273,11 +273,6 @@ def refuse_unported(args) -> None:
             raise SystemExit(
                 f"{flag}={value!r}: the {plane} plane is not in this server "
                 f"yet (ROADMAP.md queue 1 item {UNPORTED_PLANES[plane]})")
-    if args.kernel_lane not in ("auto", "fused"):
-        raise SystemExit(
-            f"--kernel-lane={args.kernel_lane!r}: this server runs the fused "
-            "mega-kernel only; the other kernel lanes are not in it yet "
-            f"(ROADMAP.md queue 1 item {UNPORTED_PLANES['kernel lanes']})")
 
 
 def _parse_tenant_weights(pairs) -> dict:
@@ -578,6 +573,12 @@ async def run_server(args, on_engine=None) -> None:
         args.strict_verify = True
 
     device_timeout_ms = int(args.device_timeout or 0)
+    kernel_lane = str(args.kernel_lane or "auto")
+    if kernel_lane != "auto":
+        # mirror the flag into the environment so lane-unaware
+        # ``to_device()`` calls (tooling, a loaded snapshot) resolve the
+        # same kernel lane
+        os.environ["AUTHORINO_TPU_KERNEL_LANE"] = kernel_lane
     # the engine resolves its device first: without a card (and without
     # --device cpu) the start raises here, before any port binds
     engine = PolicyEngine(
@@ -613,6 +614,7 @@ async def run_server(args, on_engine=None) -> None:
         replay_pregate_budget_s=float(args.replay_pregate_budget_ms) / 1e3,
         corpus_pregate=str(args.corpus_pregate or ""),
         corpus_pregate_budget_s=float(args.corpus_pregate_budget_ms) / 1e3,
+        kernel_lane=kernel_lane if kernel_lane != "auto" else None,
     )
     if engine.device.type == "cuda":
         import torch

@@ -22,8 +22,9 @@ from ..compiler.compile import CompiledPolicy, ConfigRules, compile_corpus
 from ..compiler.encode import encode_batch
 from ..compiler.pack import DeviceBatch, pack_batch
 from ..native import get_native_encoder
-from ..ops.fused_kernel import dispatch_megakernel, prewarm_fused
-from ..ops.operands import resolve_device, to_device, unpack_verdicts
+from ..ops.fused_kernel import prewarm_fused
+from ..ops.operands import resolve_device, unpack_verdicts
+from ..ops.pattern_eval import dispatch_fused, to_device
 
 __all__ = ["PolicyModel", "host_results", "apply_host_fallback",
            "FALLBACK_COUNTS"]
@@ -35,7 +36,10 @@ FALLBACK_COUNTS = {"decided": 0, "shed": 0}
 def apply_host_fallback(decide, fb, own_rule, own_skipped, cap) -> None:
     """Re-decide up to ``cap`` membership-overflow rows via ``decide(r) ->
     (rule_row, skipped_row)``; rows beyond the cap are denied fail-closed
-    (rule and skipped all False)."""
+    (rule and skipped all False).  Meters
+    auth_server_host_fallback_{total,shed_total}."""
+    from ..utils import metrics as metrics_mod
+
     decided = fb if cap is None else fb[:cap]
     shed = fb[len(decided):]
     for r in decided:
@@ -45,6 +49,10 @@ def apply_host_fallback(decide, fb, own_rule, own_skipped, cap) -> None:
         own_skipped[r] = False
     FALLBACK_COUNTS["decided"] += len(decided)
     FALLBACK_COUNTS["shed"] += len(shed)
+    if len(fb):
+        metrics_mod.host_fallback_total.inc(len(decided))
+        if len(shed):
+            metrics_mod.host_fallback_shed_total.inc(len(shed))
 
 
 def host_results(
@@ -111,11 +119,12 @@ class PolicyModel:
 
     def apply(self, db: DeviceBatch
               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """One launch → (own verdict [B], own rule [B, E], own skipped
-        [B, E]) as numpy.  The kernel computes only each row's own config,
-        so there is no [B, G] verdict matrix to return."""
+        """One batch on the params' lane (one launch on the fused lane) →
+        (own verdict [B], own rule [B, E], own skipped [B, E]) as numpy.
+        Only each row's own config is returned, so there is no [B, G]
+        verdict matrix."""
         E = int(self.policy.eval_rule.shape[1])
-        cols = unpack_verdicts(np.asarray(dispatch_megakernel(self.params, db)),
+        cols = unpack_verdicts(np.asarray(dispatch_fused(self.params, db)),
                                1 + 2 * E)
         return cols[:, 0], cols[:, 1:1 + E], cols[:, 1 + E:]
 

@@ -30,11 +30,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..compiler.compile import (
-    OP_CPU, OP_EQ, OP_EXCL, OP_INCL, OP_NEQ, OP_NUM_GE,
-    OP_NUM_GT, OP_NUM_LT, OP_REGEX_DFA, OP_RELATION, OP_TREE_CPU,
-    CompiledPolicy)
+from ..compiler.compile import CompiledPolicy
 from . import _build
+from . import pattern_eval as pe
 from .operands import _round16, check_batch, defuse, fuse_batch, packed_width
 
 __all__ = [
@@ -44,6 +42,7 @@ __all__ = [
     "prewarm_fused", "occupancy_pad", "reset_counts", "launches",
     "probe_launches", "plain_calls", "smem_bytes", "tables_in_smem",
     "launch_stamped", "forget_launch_words", "SMEM_LIMIT", "WARPS",
+    "dispatch_staged", "staged_fused", "staged_launches",
 ]
 
 # kernel launches on the card (the wrapper adds one where it launches)
@@ -75,72 +74,16 @@ def _count(name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _cpu_full(params, cpu_dense):
-    """Spread the dense [B, C] CPU lane onto the [B, L] leaf axis (padding
-    columns land in a dump slot at L, sliced off)."""
-    B = cpu_dense.shape[0]
-    L = params["leaf_op"].shape[0]
-    buf = torch.zeros((B, L + 1), dtype=torch.bool, device=cpu_dense.device)
-    buf[:, params["cpu_scatter_idx"].long()] = cpu_dense
-    return buf[:, :L]
-
-
-def _leaf_op_cascade(leaf_op, eq, incl, dfa_leaf_val, cpu_lane,
-                     num_cmp=None, rel_res=None, leaf_movf=None):
-    """Per-leaf results from the lanes' primitive comparisons by op code.
-    Under the membership-overflow mask both INCL and EXCL read the CPU lane
-    as it is: the encoder stores the final excl answer there."""
-    op = leaf_op[None, :]
-    false = torch.zeros_like(eq)
-    if leaf_movf is None:
-        incl_eff, excl_eff = incl, ~incl
-    else:
-        incl_eff = torch.where(leaf_movf, cpu_lane, incl)
-        excl_eff = torch.where(leaf_movf, cpu_lane, ~incl)
-    if num_cmp is None:
-        num_res = false
-    else:
-        gt, ge, lt, le = num_cmp
-        num_res = torch.where(
-            op == OP_NUM_GT, gt,
-            torch.where(op == OP_NUM_GE, ge,
-                        torch.where(op == OP_NUM_LT, lt, le)))
-    tail = torch.where(
-        (op == OP_CPU) | (op == OP_TREE_CPU), cpu_lane,
-        torch.where(op >= OP_NUM_GT,
-                    torch.where(op == OP_RELATION,
-                                rel_res if rel_res is not None else false,
-                                num_res),
-                    false))  # OP_ERROR → False
-    return torch.where(
-        op == OP_EQ, eq,
-        torch.where(
-            op == OP_NEQ, ~eq,
-            torch.where(
-                op == OP_INCL, incl_eff,
-                torch.where(
-                    op == OP_EXCL, excl_eff,
-                    torch.where(op == OP_REGEX_DFA, dfa_leaf_val, tail)))))
-
-
 def _eval_verdicts_plain(params, ops):
-    """Every config's verdict [B, G] and (rule, skipped) [B, G, E]."""
+    """Every config's verdict [B, G] and (rule, skipped) [B, G, E]: the
+    gather lane's stages (``pattern_eval``) over the fused layout, int8 op
+    codes and the DFA rows grouped by owning table."""
     fz = params["fused"]
-    attrs_val = ops["attrs_val"].to(torch.int32)
-    members_c = ops["members_c"].to(torch.int32)
     cpu_dense = ops["cpu_dense"]
     attr_bytes, byte_ovf = ops.get("attr_bytes"), ops.get("byte_ovf")
-    attrs_num, num_valid = ops.get("attrs_num"), ops.get("num_valid")
-    rel_rows, member_ovf = ops.get("rel_rows"), ops.get("member_ovf")
-    leaf_op = fz["leaf_op_i8"].to(torch.int32)
-    leaf_const = params["leaf_const"]
-    B = attrs_val.shape[0]
-
-    val = attrs_val[:, params["leaf_attr"].long()]                  # [B, L]
-    eq = val == leaf_const[None, :]
-    memb = members_c[:, params["member_slot_of_leaf"].long()]       # [B, L, K]
-    incl = (memb == leaf_const[None, :, None]).any(dim=-1)
-    cpu_lane = _cpu_full(params, cpu_dense)
+    eq, incl, cpu_lane = pe._gather_leaves(params, ops["attrs_val"],
+                                           ops["members_c"], cpu_dense)
+    B = eq.shape[0]
 
     if params["dfa_tables"] is not None and attr_bytes is not None:
         tables = params["dfa_tables"]                     # [T, S, 256] uint8
@@ -158,44 +101,24 @@ def _eval_verdicts_plain(params, ops):
     else:
         dfa_leaf_val = cpu_lane  # regexes ride the CPU lane entirely
 
-    num_cmp = None
-    if params["leaf_num_slot"] is not None and attrs_num is not None:
-        slot = params["leaf_num_slot"].long()
-        lv, lok = attrs_num[:, slot], num_valid[:, slot]
-        ic = leaf_const[None, :]
-        num_cmp = (lok & (lv > ic), lok & (lv >= ic),
-                   lok & (lv < ic), lok & (lv <= ic))
-
-    rel_res = None
-    if params["rel_bits"] is not None and rel_rows is not None:
-        rows_l = rel_rows[:, params["leaf_rel_slot"].long()].long()
-        col = params["leaf_rel_col"].long()
-        byte = params["rel_bits"][rows_l, (col >> 3)[None, :]].long()
-        rel_res = ((byte >> (col & 7)[None, :]) & 1) != 0
-
-    leaf_movf = None
-    if member_ovf is not None:
-        leaf_movf = member_ovf[:, params["member_slot_of_leaf"].long()]
-
-    res = _leaf_op_cascade(leaf_op, eq, incl, dfa_leaf_val, cpu_lane,
-                           num_cmp, rel_res, leaf_movf)
-
-    dev = res.device
-    buffer = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
-                        torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                        res], dim=1)
-    for children, is_and in params["levels"]:
-        ch = buffer[:, children.reshape(-1).long()]
-        ch = ch.reshape(B, children.shape[0], children.shape[1])
-        node = torch.where(is_and[None, :], ch.all(dim=-1), ch.any(dim=-1))
-        buffer = torch.cat([buffer, node], dim=1)
-
-    G, E = params["eval_rule"].shape
-    cond = buffer[:, params["eval_cond"].reshape(-1).long()].reshape(B, G, E)
-    rule = buffer[:, params["eval_rule"].reshape(-1).long()].reshape(B, G, E)
-    skipped = params["eval_has_cond"][None, :, :] & ~cond
-    verdict = torch.where(skipped, True, rule).all(dim=-1)         # [B, G]
+    num_cmp, rel_res, leaf_movf = pe._gather_value_lanes(
+        params, ops.get("attrs_num"), ops.get("num_valid"),
+        ops.get("rel_rows"), ops.get("member_ovf"))
+    res = pe._leaf_op_cascade(fz["leaf_op_i8"].to(torch.int32), eq, incl,
+                              dfa_leaf_val, cpu_lane, num_cmp, rel_res,
+                              leaf_movf)
+    verdict, (rule, skipped) = pe._gather_circuit(params, res)
     return verdict, rule, skipped
+
+
+def _own_columns(verdict, rule, skipped, config_id):
+    """[B, 1+2E] bool: each row's own verdict, rule results and skipped
+    flags."""
+    own_mask = pe._select_own(config_id, verdict.shape[1])
+    own = (verdict & own_mask).any(dim=1)
+    own_rule = (rule & own_mask[:, :, None]).any(dim=1)
+    own_skipped = (skipped & own_mask[:, :, None]).any(dim=1)
+    return torch.cat([own[:, None], own_rule, own_skipped], dim=1)
 
 
 def fused_packed_plain(params, ops: dict) -> torch.Tensor:
@@ -204,19 +127,8 @@ def fused_packed_plain(params, ops: dict) -> torch.Tensor:
     ``ops`` is the operand dict ``operands.defuse`` returns; absent lanes
     are absent keys."""
     verdict, rule, skipped = _eval_verdicts_plain(params, ops)
-    G = verdict.shape[1]
-    cid = ops["config_id"].to(torch.int64)
-    own_mask = cid[:, None] == torch.arange(G, device=cid.device)[None, :]
-    own = (verdict & own_mask).any(dim=1)
-    own_rule = (rule & own_mask[:, :, None]).any(dim=1)
-    own_skipped = (skipped & own_mask[:, :, None]).any(dim=1)
-    cols = torch.cat([own[:, None], own_rule, own_skipped], dim=1)
-    B, C = cols.shape
-    W = packed_width(C)
-    padded = torch.zeros((B, W * 8), dtype=torch.int32, device=cols.device)
-    padded[:, :C] = cols.to(torch.int32)
-    weights = (1 << torch.arange(8, dtype=torch.int32, device=cols.device))
-    return (padded.reshape(B, W, 8) * weights).sum(dim=-1).to(torch.uint8)
+    return pe._bitpack_rows(_own_columns(verdict, rule, skipped,
+                                         ops["config_id"]))
 
 
 # ---------------------------------------------------------------------------
@@ -581,16 +493,19 @@ class MegakernelHandle:
     were enqueued on.  ``is_ready()`` polls without blocking;
     ``np.asarray(handle)`` waits for the copy.  ``launches`` and
     ``plain_calls`` are this batch's own (1 and 0 on the card, 0 and 1 on
-    the CPU)."""
+    the CPU); a batch of the gather or matmul lane (``kernel=False``,
+    ``pattern_eval.dispatch_fused``) counts neither but one ``lane_calls``,
+    its op chain's one evaluation."""
 
-    def __init__(self, out: torch.Tensor, stream=None):
+    def __init__(self, out: torch.Tensor, stream=None, kernel: bool = True):
         self.nbytes = out.numel() * out.element_size()
         self.stream = stream
+        self.lane_calls = 0 if kernel else 1
         if out.device.type == "cpu":
             self._host, self._event = out, None
-            self.launches, self.plain_calls = 0, 1
+            self.launches, self.plain_calls = 0, int(kernel)
             return
-        self.launches, self.plain_calls = 1, 0
+        self.launches, self.plain_calls = int(kernel), 0
         self._host = torch.empty(out.shape, dtype=torch.uint8,
                                  pin_memory=True)
         self._host.copy_(out, non_blocking=True)
@@ -625,6 +540,94 @@ def dispatch_megakernel(params, db) -> MegakernelHandle:
     dev = params["leaf_op"].device
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     return MegakernelHandle(eval_fused_kernel(params, db), stream)
+
+
+# ---------------------------------------------------------------------------
+# the staged baseline: the same function cut into per-stage calls
+# ---------------------------------------------------------------------------
+#
+# The unfused shape of the hot path, for the launch comparison: the gather
+# lane's stages called one at a time over the compile-order layout, their
+# intermediates left on the device, the [B, W] readback byte-equal to the
+# kernel's.  The ledger counts one launch per stage, as the JAX package's
+# per-stage jits are; in eager PyTorch each stage is itself many CUDA
+# kernels.
+
+
+# the stages are the gather lane's, the DFA scan on the ungrouped
+# compile-order layout (the unfused hot path)
+_stage_leaves = pe._gather_leaves
+_stage_dfa = pe._gather_dfa
+_stage_value_lanes = pe._gather_value_lanes
+
+
+def _stage_circuit(params, config_id, eq, incl, dfa_leaf_val, cpu_lane,
+                   num_cmp, rel_res, leaf_movf):
+    res = pe._leaf_op_cascade(params["leaf_op"], eq, incl, dfa_leaf_val,
+                              cpu_lane, num_cmp, rel_res, leaf_movf)
+    verdict, (rule, skipped) = pe._gather_circuit(params, res)
+    return _own_columns(verdict, rule, skipped, config_id)
+
+
+_stage_pack = pe._bitpack_rows
+
+
+def staged_launches(params, db) -> int:
+    """How many stages ``dispatch_staged`` runs for this batch: leaves,
+    circuit and pack, plus the DFA and value-lane stages when those
+    operands ride."""
+    n = 3
+    if params["dfa_tables"] is not None and db.attr_bytes is not None:
+        n += 1
+    if any(a is not None
+           for a in (db.attrs_num, db.num_valid, db.rel_rows,
+                     db.member_ovf)):
+        n += 1
+    return n
+
+
+def staged_fused(params, buf: torch.Tensor, layout: tuple,
+                 ledger_lane: Optional[str] = None) -> torch.Tensor:
+    """The staged baseline over one staging buffer already on the params'
+    device (``operands.fuse_batch``): one call per stage, intermediates on
+    the device, the [B, W] uint8 readback.  With ``ledger_lane`` each stage
+    counts one launch on the cost ledger."""
+    def obs():
+        if ledger_lane is not None:
+            from ..runtime.kernel_cost import LEDGER
+            LEDGER.observe_launch(ledger_lane)
+
+    ops = defuse(buf, layout)
+    eq, incl, cpu_lane = _stage_leaves(params, ops["attrs_val"],
+                                       ops["members_c"], ops["cpu_dense"])
+    obs()
+    if params["dfa_tables"] is not None and "attr_bytes" in ops:
+        dfa_leaf_val = _stage_dfa(params, ops["attr_bytes"],
+                                  ops["byte_ovf"], cpu_lane)
+        obs()
+    else:
+        dfa_leaf_val = cpu_lane
+    extras = tuple(ops.get(n) for n in ("attrs_num", "num_valid",
+                                        "rel_rows", "member_ovf"))
+    if any(a is not None for a in extras):
+        num_cmp, rel_res, leaf_movf = _stage_value_lanes(params, *extras)
+        obs()
+    else:
+        num_cmp = rel_res = leaf_movf = None
+    cols = _stage_circuit(params, ops["config_id"], eq, incl, dfa_leaf_val,
+                          cpu_lane, num_cmp, rel_res, leaf_movf)
+    obs()
+    out = _stage_pack(cols)
+    obs()
+    return out
+
+
+def dispatch_staged(params, db, ledger_lane: Optional[str] = None):
+    """The unfused baseline of one batch: staged in one H2D copy, then
+    ``staged_fused``; the [B, W] uint8 readback on the params' device,
+    byte-equal to the kernel's (not synchronised)."""
+    buf, layout = pe._stage_batch(params, db)
+    return staged_fused(params, buf, layout, ledger_lane)
 
 
 # ---------------------------------------------------------------------------

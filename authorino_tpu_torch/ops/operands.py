@@ -1,16 +1,19 @@
-"""Operand and readback layer of the fused lane (host numpy + torch).
+"""Operand and readback layer of the lanes (host numpy + torch).
 
-Everything that surrounds the mega-kernel and runs on the host lives here:
+Everything that surrounds the lanes' evaluation and runs on the host lives
+here:
 
-  - ``host_operands`` builds the fused-lane operand tree of one compiled
-    corpus as numpy arrays, with ``None`` kept structural for absent lanes;
+  - ``host_operands`` builds one lane's operand tree of one compiled
+    corpus as numpy arrays, with ``None`` kept structural for absent lanes
+    (``pattern_eval.to_device`` resolves the lane);
   - ``params_from_numpy`` turns such a tree into torch tensors on a device
     in two steps: ``host_view`` checks on the host that every index operand
-    lies in range (so the kernel needs no bounds checks) and adds the
-    ``"kernel"`` subtree: the per-config program, each config's own leaves,
-    nodes and DFA rows with indices local to one row's circuit buffer;
-    then the tree goes to the device (a reconcile diffs two host views
-    first and ships only what changed, snapshots/delta.py);
+    lies in range (so neither the kernel nor the op-chain lanes index out
+    of bounds) and, on the fused lane, adds the ``"kernel"`` subtree: the
+    per-config program, each config's own leaves, nodes and DFA rows with
+    indices local to one row's circuit buffer; then the tree goes to the
+    device (a reconcile diffs two host views first and ships only what
+    changed, snapshots/delta.py);
   - ``fuse_batch`` concatenates one batch's operands into one uint8 staging
     buffer (one H2D copy per batch) and ``defuse`` decodes it in torch;
   - ``unpack_verdicts`` / ``firing_columns`` / ``unpack_attribution`` decode
@@ -36,6 +39,7 @@ from ..compiler.compile import (
 
 __all__ = [
     "resolve_device", "host_operands", "fused_operands", "host_view",
+    "host_array",
     "params_from_numpy", "to_device", "check_batch", "packed_width",
     "unpack_verdicts", "firing_columns", "unpack_attribution", "FUSED_FIELDS",
     "fuse_batch", "staged_h2d_bytes", "defuse",
@@ -83,10 +87,14 @@ def fused_operands(policy: CompiledPolicy, dfa_byte_slot: np.ndarray) -> dict:
     return fz
 
 
-def host_operands(policy: CompiledPolicy) -> dict:
-    """Numpy operand tree of the fused lane.  Leaf for leaf (names, dtypes,
-    shapes, ``None`` structure) the same tree the JAX package uploads for
-    its fused lane."""
+def host_operands(policy: CompiledPolicy, lane: str = "fused",
+                  device=None) -> dict:
+    """Numpy operand tree of one lane: the base tree every lane reads,
+    ``"fused"`` set only on the fused lane and ``"matmul"`` only on the
+    matmul lane (``None`` otherwise, structural).  Leaf for leaf (names,
+    dtypes, shapes, ``None`` structure) the tree the JAX package builds for
+    that lane.  ``device`` is the upload's target, which decides the matmul
+    lane's dtype."""
     n_num = getattr(policy, "n_num_attrs", 0)
     n_rel = getattr(policy, "n_rel_slots", 0)
     has_dfa = bool(policy.n_byte_attrs)
@@ -99,10 +107,17 @@ def host_operands(policy: CompiledPolicy) -> dict:
     cpu_scatter_idx = np.full((C,), L, dtype=np.int32)
     cpu_scatter_idx[: policy.cpu_leaf_list.shape[0]] = policy.cpu_leaf_list
     a = np.asarray
+    mm = fz = None
+    if lane == "matmul":
+        from .pattern_eval import _matmul_operands  # lazy: it imports us
+
+        mm = _matmul_operands(policy, dfa_byte_slot, device=device)
+    elif lane == "fused":
+        fz = {k: a(v) for k, v in
+              fused_operands(policy, dfa_byte_slot).items()}
     return {
-        "matmul": None,
-        "fused": {k: a(v) for k, v in
-                  fused_operands(policy, dfa_byte_slot).items()},
+        "matmul": mm,
+        "fused": fz,
         "leaf_op": a(policy.leaf_op),
         "leaf_attr": a(policy.leaf_attr),
         "leaf_const": a(policy.leaf_const),
@@ -147,26 +162,24 @@ def _round16(n: int) -> int:
     return (int(n) + 15) // 16 * 16
 
 
-def _kernel_layout(tree: dict) -> dict:
-    """Validate the tree's internal indices and build the kernel's
-    per-config program (``_own_program``).  Returns host numpy arrays plus
-    python ints, and ``bounds``: the largest index each leaf operand takes
-    into a batch operand, checked against each batch's shapes by
-    ``check_batch``."""
-    fz = tree["fused"]
+def _check_tree(tree: dict) -> dict:
+    """Validate the internal indices every lane reads (the compile-order
+    layout) and return ``bounds``: the largest index each leaf operand
+    takes into a batch operand, checked against each batch's shapes by
+    ``check_batch``.  On a card an index out of range would read past a
+    buffer (the kernel has no bounds checks) or fail a device-side assert
+    that poisons the context for every later launch (the op-chain lanes),
+    so no tree reaches the device without these checks."""
     L = int(tree["leaf_op"].shape[0])
     for name in ("leaf_attr", "leaf_const", "member_slot_of_leaf"):
         if tree[name].shape != (L,):
             raise ValueError(f"operand {name} has shape {tree[name].shape}, "
                              f"expected ({L},)")
-    for name, arr in (("leaf_op_i8", fz["leaf_op_i8"]),
-                      ("leaf_dfa_pos", fz.get("leaf_dfa_pos")),
-                      ("leaf_num_slot", tree["leaf_num_slot"]),
-                      ("leaf_rel_slot", tree["leaf_rel_slot"]),
-                      ("leaf_rel_col", tree["leaf_rel_col"])):
+    for name in ("leaf_dfa_row", "leaf_num_slot", "leaf_rel_slot",
+                 "leaf_rel_col"):
+        arr = tree[name]
         if arr is not None and arr.shape != (L,):
             raise ValueError(f"operand {name} does not span the leaf axis")
-    _check_range("leaf_op_i8", fz["leaf_op_i8"], 0, 128)
     _check_range("leaf_attr", tree["leaf_attr"], 0, 1 << 31)
     _check_range("member_slot_of_leaf", tree["member_slot_of_leaf"], 0,
                  1 << 31)
@@ -183,13 +196,12 @@ def _kernel_layout(tree: dict) -> dict:
             raise ValueError(f"level {lv}: is_and does not match children")
         _check_range(f"levels[{lv}].children", ch, 0, base)
         base += rows
-    buf_size = base
     G, E = tree["eval_rule"].shape
     for name in ("eval_cond", "eval_rule", "eval_has_cond"):
         if tree[name].shape != (G, E):
             raise ValueError(f"operand {name} is not [{G}, {E}]")
-    _check_range("eval_cond", tree["eval_cond"], 0, buf_size)
-    _check_range("eval_rule", tree["eval_rule"], 0, buf_size)
+    _check_range("eval_cond", tree["eval_cond"], 0, base)
+    _check_range("eval_rule", tree["eval_rule"], 0, base)
 
     bounds = {
         "attr": _max_or(tree["leaf_attr"]),
@@ -203,13 +215,13 @@ def _kernel_layout(tree: dict) -> dict:
         if tree["dfa_tables"].dtype != np.uint8:
             raise ValueError("dfa_tables must be uint8")
         _check_range("dfa_tables", tree["dfa_tables"], 0, S)
-        R = int(fz["dfa_table_of_row_g"].shape[0])
-        if fz["dfa_byte_slot_g"].shape != (R,):
-            raise ValueError("dfa_byte_slot_g does not match the DFA rows")
-        _check_range("dfa_table_of_row_g", fz["dfa_table_of_row_g"], 0, T)
-        _check_range("dfa_byte_slot_g", fz["dfa_byte_slot_g"], 0, 1 << 31)
-        _check_range("leaf_dfa_pos", fz["leaf_dfa_pos"], 0, R)
-        bounds["byte"] = _max_or(fz["dfa_byte_slot_g"])
+        R = int(tree["dfa_table_of_row"].shape[0])
+        if tree["dfa_byte_slot"].shape != (R,):
+            raise ValueError("dfa_byte_slot does not match the DFA rows")
+        _check_range("dfa_table_of_row", tree["dfa_table_of_row"], 0, T)
+        _check_range("dfa_byte_slot", tree["dfa_byte_slot"], 0, 1 << 31)
+        _check_range("leaf_dfa_row", tree["leaf_dfa_row"], 0, R)
+        bounds["byte"] = _max_or(tree["dfa_byte_slot"])
     if tree["leaf_num_slot"] is not None:
         _check_range("leaf_num_slot", tree["leaf_num_slot"], 0, 1 << 31)
         bounds["num"] = _max_or(tree["leaf_num_slot"])
@@ -219,6 +231,35 @@ def _kernel_layout(tree: dict) -> dict:
         _check_range("leaf_rel_col", tree["leaf_rel_col"], 0, RW * 8)
         bounds["rel"] = _max_or(tree["leaf_rel_slot"])
         bounds["rel_rows"] = int(Rp)
+    mm = tree.get("matmul")
+    if mm is not None and len(mm["level_mats"]) != len(tree["levels"]):
+        raise ValueError("matmul level_mats do not match the levels")
+    return bounds
+
+
+def _kernel_layout(tree: dict) -> dict:
+    """Validate the tree's internal indices (``_check_tree``, then the
+    fused layout's own) and build the kernel's per-config program
+    (``_own_program``).  Returns host numpy arrays plus python ints, and
+    ``bounds`` (``_check_tree``)."""
+    bounds = _check_tree(tree)
+    fz = tree["fused"]
+    L = int(tree["leaf_op"].shape[0])
+    for name, arr in (("leaf_op_i8", fz["leaf_op_i8"]),
+                      ("leaf_dfa_pos", fz.get("leaf_dfa_pos"))):
+        if arr is not None and arr.shape != (L,):
+            raise ValueError(f"operand {name} does not span the leaf axis")
+    _check_range("leaf_op_i8", fz["leaf_op_i8"], 0, 128)
+    buf_size = 2 + L + sum(int(c.shape[0]) for c, _ in tree["levels"])
+    if tree["dfa_tables"] is not None:
+        T = int(tree["dfa_tables"].shape[0])
+        R = int(fz["dfa_table_of_row_g"].shape[0])
+        if fz["dfa_byte_slot_g"].shape != (R,):
+            raise ValueError("dfa_byte_slot_g does not match the DFA rows")
+        _check_range("dfa_table_of_row_g", fz["dfa_table_of_row_g"], 0, T)
+        _check_range("dfa_byte_slot_g", fz["dfa_byte_slot_g"], 0, 1 << 31)
+        _check_range("leaf_dfa_pos", fz["leaf_dfa_pos"], 0, R)
+        bounds["byte"] = _max_or(fz["dfa_byte_slot_g"])
     prog = _own_program(tree, L, buf_size)
     prog["bounds"] = bounds
     return prog
@@ -421,42 +462,59 @@ def _put(x, device):
         return tuple(_put(v, device) for v in x)
     if isinstance(x, int):
         return x
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def host_array(x) -> np.ndarray:
+    """A host operand as numpy: a bf16 CPU tensor (numpy has no bf16) as
+    its int16 bit pattern, so byte comparisons and sizes stay exact."""
+    if isinstance(x, torch.Tensor):
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16
+                else x).numpy()
+    return np.asarray(x)
+
+
 def host_view(tree: dict) -> dict:
-    """The host step of an upload: a fused-lane numpy operand tree,
-    validated, with the ``"kernel"`` subtree (the per-config program) added
-    — the whole tree the kernel reads, as numpy arrays and python ints.
-    The range checks run on every call: the kernel reads without bounds
-    checks, so no tree reaches the device without them."""
-    host = {k: v for k, v in tree.items() if k != "kernel"}
-    host["kernel"] = _kernel_layout(host)
+    """The host step of an upload: a numpy operand tree of any lane,
+    validated, plus on the fused lane the ``"kernel"`` subtree (the
+    per-config program) and on the other lanes the ``"bounds"`` dict — the
+    whole tree the device reads, as numpy arrays (bf16 matrices as CPU
+    tensors) and python ints.  The range checks run on every call, for
+    every lane, so no tree reaches the device without them."""
+    host = {k: v for k, v in tree.items() if k not in ("kernel", "bounds")}
+    if host.get("fused") is not None:
+        host["kernel"] = _kernel_layout(host)
+    else:
+        host["bounds"] = _check_tree(host)
     return host
 
 
 def params_from_numpy(tree: dict, device=None) -> dict:
-    """The weight carry-over: a fused-lane numpy operand tree (the port's
+    """The weight carry-over: a numpy operand tree of any lane (the port's
     ``host_operands`` or the JAX package's ``to_device(policy, host=True,
-    lane="fused")``) → the port's tensor tree on ``device``, validated, with
-    the ``"kernel"`` subtree (the per-config program) added."""
+    lane=...)``) → the port's tensor tree on ``device``, validated
+    (``host_view``)."""
     dev = resolve_device(device)
     return _put(host_view(tree), dev)
 
 
-def to_device(policy: CompiledPolicy, device=None, host: bool = False) -> dict:
-    """Upload one compiled corpus's fused-lane operands.  ``host=True``
-    returns the numpy tree instead (no device needed)."""
-    tree = host_operands(policy)
-    if host:
-        return tree
-    return params_from_numpy(tree, device)
+def to_device(policy: CompiledPolicy, device=None, host: bool = False,
+              lane: Optional[str] = None) -> dict:
+    """``pattern_eval.to_device``, the one definition: one compiled
+    corpus's operands for the resolved lane (``host=True``: the numpy
+    tree, no device needed)."""
+    from .pattern_eval import to_device as _to_device
+
+    return _to_device(policy, device=device, lane=lane, host=host)
 
 
 def check_batch(params: dict, db) -> None:
     """Raise unless every index the params take into this batch's operands
     lies in range — the kernel reads without bounds checks."""
-    bd = params["kernel"]["bounds"]
+    bd = (params["kernel"] if params.get("fused") is not None
+          else params)["bounds"]
     A = db.attrs_val.shape[1]
     M = db.members_c.shape[1]
     if bd["attr"] >= A:

@@ -177,8 +177,9 @@ from ..index import HostIndex
 from ..models.policy_model import apply_host_fallback, host_results
 from ..native import get_native_encoder
 from ..ops import fused_kernel as fk
+from ..ops import pattern_eval as pe
 from ..ops.operands import (firing_columns, host_view, packed_width,
-                            resolve_device, staged_h2d_bytes, to_device,
+                            resolve_device, staged_h2d_bytes,
                             unpack_verdicts)
 from ..pipeline import AuthPipeline, AuthResult
 from ..relations.prefetch import MetadataPrefetcher
@@ -268,10 +269,18 @@ class _Snapshot:
     view, diff, upload, probe).  A gate between them (the replay pregate)
     rejects a candidate before any byte of it reaches the device."""
 
+    # the kernel lane this snapshot's operands are built for (None: the
+    # environment's, ``pattern_eval.to_device``).  A class-level default:
+    # a loaded snapshot (``from_published``) resolves the lane from the
+    # environment like any lane-unaware caller
+    kernel_lane: Optional[str] = None
+
     def __init__(self, entries: Sequence[EngineEntry], members_k: int,
                  ovf_assist: Optional[bool], compile_cache: CompileCache,
                  prev: "Optional[_Snapshot]" = None, override: bool = True,
-                 strict_verify: bool = False):
+                 strict_verify: bool = False,
+                 kernel_lane: Optional[str] = None):
+        self.kernel_lane = kernel_lane
         self.index: HostIndex[EngineEntry] = HostIndex()
         self.entries: List[EngineEntry] = list(entries)
         self.by_id: Dict[str, EngineEntry] = {e.id: e for e in entries}
@@ -368,7 +377,8 @@ class _Snapshot:
         self.encoder = get_native_encoder(self.policy)
         self.encoder_build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self.host_view = host_view(to_device(self.policy, host=True))
+        self.host_view = host_view(pe.to_device(
+            self.policy, device=device, host=True, lane=self.kernel_lane))
         plan = (plan_delta(prev.host_view, self.host_view)
                 if prev_ok and prev.params is not None else None)
         self.phase_s["diff"] = time.perf_counter() - t0
@@ -595,7 +605,8 @@ class PolicyEngine:
                  replay_pregate: bool = False,
                  replay_pregate_budget_s: float = 2.0,
                  corpus_pregate: str = "",
-                 corpus_pregate_budget_s: float = 2.0):
+                 corpus_pregate_budget_s: float = 2.0,
+                 kernel_lane: Optional[str] = None):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -678,6 +689,9 @@ class PolicyEngine:
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
+        # fused | gather | matmul, or None: the environment's lane
+        # (AUTHORINO_TPU_KERNEL_LANE, ``pattern_eval.to_device``)
+        self.kernel_lane = kernel_lane
         self.device = resolve_device(device)
         self.timeout_s = timeout_s
         self.max_inflight_batches = max(1, int(max_inflight_batches))
@@ -845,7 +859,8 @@ class PolicyEngine:
             snap = _Snapshot(entries, self.members_k, self.ovf_assist,
                              self.compile_cache, prev=prev,
                              override=override,
-                             strict_verify=self.strict_verify)
+                             strict_verify=self.strict_verify,
+                             kernel_lane=self.kernel_lane)
         except SnapshotRejected as e:
             metrics_mod.snapshot_rejected.labels("engine").inc()
             RECORDER.record("snapshot-rejected", lane="engine", detail={
@@ -933,6 +948,24 @@ class PolicyEngine:
         self._record_control_plane(snap)
         self.notify_swap_listeners()
         self._reconcile_prefetch(snap)
+        self._record_relation_tables(snap)
+
+    @staticmethod
+    def _record_relation_tables(snap: _Snapshot) -> None:
+        """The relation-table footprint gauges, from the serving
+        snapshot's policies.  Never fails a swap."""
+        try:
+            from ..analysis.translation_validate import snapshot_policies
+
+            rows = nbytes = 0
+            for pol in snapshot_policies(snap):
+                if getattr(pol, "rel_bits", None) is not None:
+                    rows += int(pol.rel_bits.shape[0])
+                    nbytes += int(pol.rel_bits.nbytes)
+            metrics_mod.relation_table_rows.set(rows)
+            metrics_mod.relation_table_bytes.set(nbytes)
+        except Exception:
+            log.exception("relation-table telemetry failed (swap unaffected)")
 
     def _reconcile_prefetch(self, snap: _Snapshot) -> None:
         """Register the served snapshot's request-independent metadata
@@ -2376,7 +2409,7 @@ class PolicyEngine:
             if faults.ACTIVE:
                 faults.FAULTS.check("h2d", "engine")
                 faults.FAULTS.check("kernel", "engine")
-            launched = fk.dispatch_megakernel(snap.params, db_u)
+            launched = pe.dispatch_fused(snap.params, db_u)
             if launched.nbytes != pad_u * W:
                 raise RuntimeError("readback is not [pad, W] uint8")
             # a hang or delay rule wraps the real launch's handle
@@ -2402,7 +2435,8 @@ class PolicyEngine:
         try:
             LEDGER.observe(
                 "engine", rows=n, device_rows=u,
-                launches=record["launches"] + record["plain_calls"],
+                launches=(record["launches"] + record["plain_calls"]
+                          + getattr(launched, "lane_calls", 0)),
                 h2d_bytes=record["h2d_bytes"], d2h_bytes=record["d2h_bytes"],
                 pad_rows=pad_u, dedup_avoided_rows=record["dedup_rows"],
                 cache_avoided_rows=record["cache_rows"])

@@ -328,11 +328,15 @@ def program_fingerprint(params, pad: int) -> str:
 
 
 def entry_points(policy=None) -> List[Dict[str, Any]]:
-    """The kernel entry points a serving snapshot dispatches through, with
-    the operand lanes each one stages.  The port dispatches one, the fused
-    mega-kernel; the reference's ``eval_bitpacked``/``eval_fused`` (XLA
-    lanes) and ``sharded_step`` come with ROADMAP queue 1 items 9 and
-    13."""
+    """The kernel entry points a serving snapshot can dispatch through,
+    with the operand lanes each one stages, as the JAX package lists them:
+    the op-chain lanes' bitpacked readback (``pattern_eval.eval_bitpacked``,
+    per-operand transfers) and its one-staging-buffer form
+    (``eval_fused``, what ``dispatch_fused`` runs for the gather and
+    matmul lanes), then the fused mega-kernel.  The last ``--kernel-lane
+    auto`` resolution rides the mega-kernel's entry as a field
+    (``kernel_lane_auto``).  The reference's ``sharded_step`` comes with
+    ROADMAP queue 1 item 13."""
     if policy is None:
         return []
     ops = ["attrs_val", "members_c", "cpu_dense", "config_id"]
@@ -344,14 +348,30 @@ def entry_points(policy=None) -> List[Dict[str, Any]]:
         ops += ["rel_rows"]                    # relation lane
     if getattr(policy, "ovf_assist", False):
         ops += ["member_ovf"]                  # membership-overflow assist
-    return [{
+    out = [{
+        "entry": "eval_bitpacked",
+        "kind": "single-corpus bitpacked readback [pad, W] uint8 "
+                "(gather/matmul op chain, one transfer per operand)",
+        "operands": list(ops),
+    }, {
+        "entry": "eval_fused",
+        "kind": "single fused H2D staging buffer (same compute as "
+                "eval_bitpacked), the gather/matmul lanes' serving entry",
+        "operands": list(ops),
+    }, {
         "entry": "fused_kernel",
         "kind": "one-launch mega-kernel, CUDA C++ sm_90a "
                 "(ops/csrc/fused_kernel.cu): every lane + circuit + "
                 "in-kernel bitpack, one fused staging buffer in, "
-                "[pad, W] uint8 out",
-        "operands": ops,
+                "[pad, W] uint8 out, armed by --kernel-lane fused/auto",
+        "operands": list(ops),
     }]
+    from ..ops.pattern_eval import last_auto_decision
+
+    dec = last_auto_decision()
+    if dec is not None:
+        out[-1]["kernel_lane_auto"] = dec
+    return out
 
 
 class CostModel:
@@ -405,8 +425,8 @@ class CostModel:
 
     @staticmethod
     def _model_entries(*, policy, params, pad: int) -> Dict[str, Dict[str, Any]]:
-        if policy is None or params is None:
-            return {}
+        if policy is None or params is None or params.get("kernel") is None:
+            return {}  # the model is the mega-kernel's (the fused lane)
         key = program_fingerprint(params, pad)
         hit = _ANALYSIS_MEMO.get(key)
         if hit is None:

@@ -98,7 +98,7 @@ from ..evaluators.base import DenyWithValues, RuntimeAuthConfig
 from ..evaluators.identity import MTLS, OIDC, APIKey, KubernetesAuth, \
     Noop, OAuth2
 from ..evaluators.identity.api_key import INVALID_API_KEY_MSG
-from ..ops import fused_kernel as fk
+from ..ops import pattern_eval as pe
 from ..ops.operands import firing_columns, packed_width, unpack_verdicts
 from ..pipeline.pipeline import AuthResult
 from ..protos import wire
@@ -1557,9 +1557,9 @@ class NativeFrontend:
             byte_ovf=(np.zeros(a["byte_ovf"][:pad].shape, dtype=bool)
                       if has_dfa else None),
             host_fallback=np.zeros((pad,), dtype=bool))
-        h = fk.dispatch_megakernel(rec.params, db)
+        h = pe.dispatch_lane(rec.params, db)
         h.wait()
-        self._count(warm_launches=h.launches + h.plain_calls)
+        self._count(warm_launches=h.launches + h.plain_calls + h.lane_calls)
 
     # ------------------------------------------------------------------
     def _fold_fc_counts(self) -> None:
@@ -1740,7 +1740,7 @@ class NativeFrontend:
             if faults.ACTIVE:
                 faults.FAULTS.check("h2d", "native")
                 faults.FAULTS.check("kernel", "native")
-            launched = fk.dispatch_megakernel(rec.params, db)
+            launched = pe.dispatch_fused(rec.params, db)
             handle = (faults.FAULTS.wrap_handle(launched, "native")
                       if faults.ACTIVE else launched)
             h2d = sum(x.nbytes for x in (db.attrs_val, db.members_c,
@@ -1751,7 +1751,8 @@ class NativeFrontend:
             # kernel's launch on a card, its plain version's call on the CPU
             LEDGER.observe(
                 "native", rows=count, device_rows=u,
-                launches=launched.launches + launched.plain_calls,
+                launches=(launched.launches + launched.plain_calls
+                          + getattr(launched, "lane_calls", 0)),
                 h2d_bytes=h2d, d2h_bytes=launched.nbytes, pad_rows=pad,
                 dedup_avoided_rows=dedup_n, cache_avoided_rows=cache_n)
             self._count(batches=1, launches=launched.launches,
@@ -2016,7 +2017,7 @@ class NativeFrontend:
         if rec.params["leaf_op"].device.type != "cpu":
             raise RuntimeError("the host degrade runs on a CPU engine only")
         db, _, _ = self._slot_batch(rec, slot, count)
-        packed = fk.eval_fused_kernel(rec.params, db).numpy()
+        packed = np.asarray(pe.dispatch_lane(rec.params, db))
         E = int(rec.policy.eval_rule.shape[1])
         cols = unpack_verdicts(packed[:count], 1 + 2 * E)
         return self._codes(rec, rows, cols, E)

@@ -17,8 +17,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..ops.operands import _put, resolve_device
+from ..ops.operands import _put, host_array, resolve_device
 from .diff import DeltaPlan
 
 __all__ = ["apply_delta", "full_upload", "view_bytes"]
@@ -39,7 +40,7 @@ def view_bytes(view: Dict[str, Any]) -> int:
             for x in v:
                 walk(x)
         else:
-            total += int(np.asarray(v).nbytes)
+            total += int(host_array(v).nbytes)
 
     walk(view)
     return total
@@ -71,14 +72,16 @@ def apply_delta(prev_params: Dict[str, Any], new_view: Dict[str, Any],
                 uploaded += int(np.asarray(new_h).nbytes)
             return int(new_h)
         if e is None or prev_d is None or e.mode == "full":
-            uploaded += int(np.asarray(new_h).nbytes)
+            uploaded += int(host_array(new_h).nbytes)
             return _put(new_h, dev)
         if e.mode == "reuse":
             return prev_d
         # rows: the changed leading-axis rows and their int32 indices
         # cross the link; the clone keeps the previous tensor unchanged
         uploaded += int(e.upload_bytes)
-        rows = _put(new_h[e.rows], dev)
+        rows = _put(new_h[torch.from_numpy(e.rows).long()]
+                    if isinstance(new_h, torch.Tensor) else new_h[e.rows],
+                    dev)
         idx = _put(e.rows, dev).long()
         out = prev_d.clone()
         out.index_copy_(0, idx, rows)

@@ -1,11 +1,12 @@
 """Snapshot diff plans — which configs changed, which operand rows they
 touch, and what a delta upload ships vs a full re-stage.
 
-Pure numpy (import-light): the same plan drives the reconcile-time delta
+Numpy over the host views: the same plan drives the reconcile-time delta
 H2D upload (snapshots/delta.py) and ``format_snapshot_diff``'s report.  A
 plan is computed between two HOST operand views (the port's
-``ops/operands.py::host_view``: the fused-lane operand tree plus the
-kernel's per-config program); per operand it picks:
+``ops/operands.py::host_view``: any lane's whole nested operand tree, the
+matmul subtree and its ``level_mats`` included, plus the fused lane's
+per-config program or the other lanes' bounds); per operand it picks:
 
   reuse — byte-identical array: the previous device tensor serves as-is,
           zero bytes cross the link
@@ -79,7 +80,10 @@ class DeltaPlan:
 def flatten_view(view: Dict[str, Any]) -> Dict[str, Optional[np.ndarray]]:
     """Flatten a host operand tree to named numpy leaves — generic over
     nested dicts/tuples (a python int, such as the program's ``S`` or a
-    ``bounds`` entry, becomes a 0-d array)."""
+    ``bounds`` entry, becomes a 0-d array; a bf16 matrix of the matmul
+    lane, a CPU tensor, its int16 bit pattern)."""
+    from ..ops.operands import host_array
+
     out: Dict[str, Optional[np.ndarray]] = {}
 
     def walk(prefix: str, v: Any) -> None:
@@ -92,7 +96,7 @@ def flatten_view(view: Dict[str, Any]) -> Dict[str, Optional[np.ndarray]]:
             for i, x in enumerate(v):
                 walk(f"{prefix}.{i}", x)
         else:
-            out[prefix] = np.asarray(v)
+            out[prefix] = host_array(v)
 
     walk("", view)
     return out
@@ -119,9 +123,9 @@ def _delta_one(name: str, old: np.ndarray, new: np.ndarray) -> ArrayDelta:
 def plan_delta(old_view: Optional[Dict[str, Any]],
                new_view: Dict[str, Any]) -> Optional[DeltaPlan]:
     """Diff two host operand views into a delta plan, or None when no
-    structure-preserving delta exists (level-count change, a DFA, numeric
-    or relation lane appearing/vanishing, or no previous view at all) —
-    the caller then uploads in full."""
+    structure-preserving delta exists (a kernel-lane change, a level-count
+    change, a DFA, numeric or relation lane appearing/vanishing, or no
+    previous view at all) — the caller then uploads in full."""
     if old_view is None:
         return None
     old_flat = flatten_view(old_view)

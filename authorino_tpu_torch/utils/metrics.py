@@ -3,9 +3,10 @@ buckets (ref: pkg/service/auth_pipeline.go:26-36, pkg/metrics/metrics.go):
 the auth pipeline's families, and those of the planes the port holds (the
 serving core, provenance, the per-batch and stage telemetry, the reconcile
 phases, the compile cache and the delta upload, the SLO tracker, the
-flight recorder, the kernel cost ledger, the circuit breaker, the degrade
-and the fault plane, the reconcile's verification planes, the metadata
-prefetch cache, traffic capture and the replay pregate).
+flight recorder, the kernel cost ledger and the kernel lanes, the circuit
+breaker, the degrade and the fault plane, the reconcile's verification
+planes, the relation tables, the metadata prefetch cache, traffic capture
+and the replay pregate, the host fallback).
 The families of planes not in the port yet come with them.
 
 Per-evaluator (deep) metrics are gated by the evaluator's ``metrics: true``
@@ -929,7 +930,26 @@ kernel_modeled_flops_per_row = _register(
     ("entry",),
 )
 
+kernel_lane = _register(
+    "counter", "auth_server_kernel_lane_total",
+    "Batches dispatched per kernel lane: fused = the one-launch CUDA "
+    "mega-kernel, matmul = the one-hot product lane, gather = the indexed "
+    "reference lane.  Selection is --kernel-lane / "
+    "AUTHORINO_TPU_KERNEL_LANE (auto arms fused).",
+    ("lane",),
+)
+
 _kernel_children: dict = {}
+_kernel_lane_children: dict = {}
+
+
+def observe_kernel_lane(lane: str) -> None:
+    """Count one dispatched batch on its kernel lane (cached label child,
+    once per micro-batch)."""
+    ch = _kernel_lane_children.get(lane)
+    if ch is None:
+        ch = _kernel_lane_children[lane] = kernel_lane.labels(lane)
+    ch.inc()
 
 
 def observe_kernel_cost(lane, launches, h2d_bytes, d2h_bytes,
@@ -1010,6 +1030,32 @@ lowerability_blocking = _register(
     "the lowerability report's blocking_reasons block, so per-reason "
     "progress trends across reconciles.",
     ("reason", "kind"),
+)
+relation_table_rows = _register(
+    "gauge", "auth_server_relation_table_rows",
+    "Entity rows of the compiled relation bitmatrix "
+    "(relations/closure.py): the per-snapshot ancestor-closure table the "
+    "kernel's OP_RELATION bitmask gather reads.  0 when the corpus "
+    "declares no relations.",
+    (),
+)
+relation_table_bytes = _register(
+    "gauge", "auth_server_relation_table_bytes",
+    "Bytes of the compiled relation bitmatrix uploaded with the snapshot "
+    "(rows x ceil(queried-group columns / 8)).",
+    (),
+)
+host_fallback_total = _register(
+    "counter", "auth_server_host_fallback_total",
+    "Requests re-decided by the host expression oracle because the compact "
+    "device payload was lossy for them (membership overflow past members_k).",
+    (),
+)
+host_fallback_shed_total = _register(
+    "counter", "auth_server_host_fallback_shed_total",
+    "Fallback requests denied (fail closed) because the per-batch host "
+    "fallback cap was exceeded.",
+    (),
 )
 metadata_prefetch = _register(
     "counter", "auth_server_metadata_prefetch_total",

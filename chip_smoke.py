@@ -145,7 +145,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      oracle the same way, every batch to the structural contract; (c) gRPC
      health, /metrics, /debug/vars, the wristband's OIDC discovery and
      JWKS, the webhooks server converting and validating a review, SpiceDB
-     allow and deny; (d) gRPC checks/s (median of 2 bursts), burst and
+     allow and deny; (d) gRPC checks/s (``SERVE_BURSTS`` timed), burst and
      lone p50/p99 beside phase 10 (a)'s ``engine.check()`` figures, the
      codec's host µs per Check(); then the server drained by cancelling
      its task; (e) ``python3 -m authorino_tpu_torch server`` as a
@@ -357,14 +357,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the first verdict warm against cold; (c) the corpus pregate rejects
      an edit that only synthetic witnesses catch before the upload (+0 B,
      no launch) and passes a clean one.
+ 22. the gather and matmul kernel lanes, the staged baseline and the
+     analysis CLI: (a) on the north-star corpus and phases 7's and 8's
+     corpora at B = 256, the gather lane, the matmul lane (bf16 operands),
+     the staged baseline, the mega-kernel and its plain version give
+     byte-equal readbacks, and on planted Ands of 300 and 2,100 children
+     with ids past 2^11 under TF32, each beside Ands of 5 and 3 children
+     in its level whose TRUE padding bf16 or TF32 cannot hold; (b) each lane's device time (one call, back to
+     back), CUDA kernels per batch and operand bytes; (c) the CLI server
+     with ``--kernel-lane matmul`` (4,096 ``engine.check()``s, 1,024 gRPC
+     Check()s on the native fast lane) and ``gather``: codes the
+     oracle's, ``auth_server_kernel_lane_total`` counting the batches,
+     the mega-kernel flat; ``auto`` arms fused on the card; (d)
+     ``python -m authorino_tpu_torch.analysis`` as processes: the lint
+     and fixture self-tests, the metrics catalogue, ``--snapshot-diff``
+     over phase 21's generations and ``--replay`` of phase 20's capture.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 21's ((a)'s replica), with every phase's under
-``launches_by_phase``; each kernel must have launched on the paths of
-phases 4, 6, 7, 8, 9, 10, 12-21, with the counts zeroed just before each.
+phase 22's ((c): the lane servers launch no mega-kernel, the auto engine's
+install and submits do), with every phase's under ``launches_by_phase``;
+each kernel must have launched on the paths of phases 4, 6, 7, 8, 9, 10,
+12-22, with the counts zeroed just before each.  An earlier line gives
+each phase's seconds.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -387,6 +404,21 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # Architecture whitepaper, SXM5 column; an IMAD counted as two operations)
 INT32_OPS_PER_S = 33.5e12
 T0 = time.monotonic()
+
+
+class PhaseClock:
+    """Seconds each phase of ``main`` took: ``start(name)`` closes the
+    running phase and opens ``name`` (None closes the last)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._name, self._t = None, time.monotonic()
+
+    def start(self, name) -> None:
+        now = time.monotonic()
+        if self._name is not None:
+            self.seconds[self._name] = round(now - self._t, 1)
+        self._name, self._t = name, now
 
 
 def log(msg: str) -> None:
@@ -1253,6 +1285,7 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
                              for i in rows[:256]]))
     max_err = max(kernel_vs_plain(params, db, dev),
                   kernel_vs_plain(params, db, dev, global_tables=True))
+    LANE_CORPORA["opa"] = (policy, db)   # phase 22 (a)
     buf, layout = fuse_batch(db)
     buf_dev = torch.from_numpy(buf).to(dev)
     kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
@@ -1526,6 +1559,7 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
                              for i in rows[:256]]))
     max_err = max(kernel_vs_plain(params, db, dev),
                   kernel_vs_plain(params, db, dev, global_tables=True))
+    LANE_CORPORA["keycloak"] = (policy, db)   # phase 22 (a)
     buf, layout = fuse_batch(db)
     buf_dev = torch.from_numpy(buf).to(dev)
     kout = torch.empty((256, W), dtype=torch.uint8, device=dev)
@@ -1979,6 +2013,18 @@ def write_manifests(d: Path, configs, key_gen, with_rsa_ca: bool, rsa_ca,
             path.write_text(text)
 
 
+def swap_split(swaps: list, first: int, t: float, engine) -> dict:
+    """Where a rebuild's seconds went: the times after ``t`` of the swaps
+    from index ``first`` of ``swaps`` (the swap listener's), the serving
+    snapshot's own phases (compile, validate, diff, upload, ...), and from
+    the last swap to now."""
+    now = time.perf_counter()
+    return {"swaps_at": [round(x - t, 3) for x in swaps[first:]],
+            "snapshot_phases": {k: round(v, 3) for k, v in
+                                engine._snapshot.phase_s.items()},
+            "after_last_swap": round(now - swaps[-1], 3) if swaps else None}
+
+
 def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
                   n_checks: int = 4096, ctx: dict = None) -> tuple:
     """Phase 10, the control plane on the card: (a) AuthConfig and Secret
@@ -2137,6 +2183,7 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
         # one rule flipped in its file: from the write to the first Check()
         # that sees the new rule
         gen0 = engine.generation
+        n_swaps = len(swap_times)
         t = time.perf_counter()
         rvs[flip_i] = "2"
         configs = cp.build_auth_configs(n, CP_RULES, flip=[flip_i])
@@ -2144,6 +2191,10 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
         await source.sync()
         r = await engine.check(reqs[flip_j])
         a["one_file_rebuild_s"] = time.perf_counter() - t
+        # its split: the write and the sync up to the swap (reading the
+        # manifests, translating every AuthConfig, building the snapshot),
+        # the snapshot's own phases, and the swap to the first Check()
+        a["one_file_split_s"] = swap_split(swap_times, n_swaps, t, engine)
         if r.code != want_new or engine.generation != gen0 + 1:
             raise AssertionError(f"flipped config {flip_i}: {r.code} != "
                                  f"{want_new}, generation {engine.generation}")
@@ -2211,7 +2262,8 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
         registry.policy = OPA_V1
         log(f"control plane (a): cold {a['cold_reconcile_s']:.2f}s, "
             f"burst {a['checks_per_s']:.0f} checks/s, one file "
-            f"{a['one_file_rebuild_s']:.2f}s, rotation "
+            f"{a['one_file_rebuild_s']:.2f}s ({a['one_file_split_s']}), "
+            f"rotation "
             f"{a['rotation_latency_s']:.2f}s, policy "
             f"{a['policy_follow_s']:.2f}s")
 
@@ -2228,6 +2280,9 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
             api.put("secrets", cp.ca_secret("ca-p256", ec_ca.pem))
             k_engine = PolicyEngine(max_batch=256, device=dev, **WIDE_ADMISSION)
             engines.append(k_engine)
+            k_swaps = []
+            k_engine.add_swap_listener(
+                lambda: k_swaps.append(time.perf_counter()))
             rest = RestCluster(api.url, token="authorino")
             k_rec = AuthConfigReconciler(k_engine, cluster=rest)
             watch = K8sWatchSource(rest, k_rec, SecretReconciler(k_engine),
@@ -2258,19 +2313,29 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
             revoked = next(j for j in range(len(reqs))
                            if known[j] and cfgs[j] != flip_i)
             api.delete("secrets", cp.NAMESPACE, f"key-{cfgs[revoked]}-0")
+            # the re-list after the 410 re-translates every AuthConfig and
+            # swaps once, as (a)'s changed file did: the window is two of
+            # this host's such rebuilds, and at least 20 s
+            window = max(20.0, 2.0 * a["one_file_rebuild_s"])
+            n_swaps = len(k_swaps)
             t = time.perf_counter()
-            while time.perf_counter() - t < 20:
+            while time.perf_counter() - t < window:
                 c1 = (await k_engine.check(reqs[flip_j])).code
                 c2 = (await k_engine.check(reqs[revoked])).code
                 if c1 == want_new and c2 == rpc.UNAUTHENTICATED:
                     break
                 await asyncio.sleep(0.05)
             else:
-                raise AssertionError(f"(b) the watch did not converge: "
-                                     f"{c1}, {c2}")
+                raise AssertionError(
+                    f"(b) the watch did not converge in {window:.1f}s: "
+                    f"{c1}, {c2}; swaps after the 410 at "
+                    f"{[round(x - t, 2) for x in k_swaps[n_swaps:]]}s")
             b["watch_converge_s"] = time.perf_counter() - t
+            b["watch_window_s"] = window
+            b["watch_split_s"] = swap_split(k_swaps, n_swaps, t, k_engine)
             log(f"control plane (b): cold {b['cold_reconcile_s']:.2f}s, "
-                f"the watch converged in {b['watch_converge_s']:.2f}s")
+                f"the watch converged in {b['watch_converge_s']:.2f}s "
+                f"({b['watch_split_s']}; window {window:.1f}s)")
             # every AuthConfig Ready, written by exactly one replica
             t = time.perf_counter()
             ids = set(api.objects["authconfigs"])
@@ -2506,7 +2571,7 @@ def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
 # phase 12: the serving surfaces
 # ---------------------------------------------------------------------------
 
-SERVE_BURSTS = 2          # timed gRPC bursts; checks/s is their median
+SERVE_BURSTS = 1          # timed gRPC bursts (checks/s: their median)
 SERVE_HTTP = 256          # burst requests also sent over HTTP /check
 SERVE_LONE = 200          # gRPC Check()s sent one at a time
 SERVE_SLO_MS = 250.0      # the server's --slo-ms (phase 13 (e))
@@ -2514,6 +2579,15 @@ ENTRY_CONFIGS = 16        # API-key configs the process entry point serves
 ENTRY_DRAIN_S = 10.0      # its --drain-timeout
 CHECK_METHOD = "/envoy.service.auth.v3.Authorization/Check"
 HEALTH_METHOD = "/grpc.health.v1.Health/Check"
+# Check()s in flight at once against an in-process grpc.aio server.  gRPC's
+# core cancels a call that waits unrequested longer than
+# grpc.server_max_unrequested_time_in_server (30 s by default; the client
+# sees CANCELLED "CANCELLED" from its peer), and a grpc.aio server requests
+# calls on the event loop that also runs each Check()'s host work (an RS256
+# verify, a pipeline): 4,096 sent at once leave the last ones unrequested
+# for as long as the whole burst takes, past 30 s on a slow host.  A window
+# bounds that wait to about its own width's host work.
+AIO_WINDOW = 1024
 WRISTBAND_HOST = "wristband.keys"
 SPICEDB_HOST = "spicedb.keys"
 MANAGED = {"authorino.kuadrant.io/managed-by": "authorino"}
@@ -2856,12 +2930,16 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
         engine.add_swap_listener(lambda: swaps.append(
             (time.perf_counter(), engine.generation)))
 
-    async def grpc_burst(call, items):
-        """Every payload at once over one channel: (bytes, seconds)."""
+    async def grpc_burst(call, items, window=None):
+        """Every payload at once over one channel, or at most ``window`` in
+        flight: (bytes, seconds)."""
+        gate = asyncio.Semaphore(window or len(items) or 1)
+
         async def one(p):
-            t = time.perf_counter()
-            raw = await call(p)
-            return raw, time.perf_counter() - t
+            async with gate:
+                t = time.perf_counter()
+                raw = await call(p)
+                return raw, time.perf_counter() - t
 
         return await asyncio.gather(*(one(p) for p in items))
 
@@ -3038,7 +3116,8 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                     async with grpc.aio.insecure_channel(
                             f"127.0.0.1:{aio.bound_port}") as ch2:
                         aio_out = await grpc_burst(
-                            ch2.unary_unary(CHECK_METHOD), payloads)
+                            ch2.unary_unary(CHECK_METHOD), payloads,
+                            window=AIO_WINDOW)
                 finally:
                     await aio.stop(None)
                 diff = [k for k, ((n_raw, _), (a_raw, _)) in enumerate(
@@ -3310,7 +3389,7 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
 
 ENCODE_RUNS = 5           # timed runs per encoder and batch size
 ENCODE_BATCHES = 20       # batches per timed run
-BURST_RUNS = 5            # phase 6's burst (and phase 4's submits) per
+BURST_RUNS = 3            # phase 6's burst (and phase 4's submits) per
                           # engine, in turns
 
 
@@ -3578,7 +3657,7 @@ PLANE_FAMILIES = (
 FLIGHT_KEEP = 2           # phase 13 (d)'s --flight-keep
 OVERLOAD_ENTRIES = 3      # entries into OVERLOADED (d) drives, at most
 OVERLOAD_BURSTS = 8       # warm bursts (d) may take to get them
-PLANE_PAIRS = 5           # (f): planes on / off pairs, order alternating
+PLANE_PAIRS = 3           # (f): planes on / off pairs, order alternating
 SLO_P50_TRIES = 5         # (c): runs the p50 target may take
 LEDGER_OF_RECORD = {"rows": "rows", "device_rows": "device_rows",
                     "pad_rows": "pad_rows", "dedup_avoided_rows": "dedup_rows",
@@ -3608,7 +3687,7 @@ def plane_surfaces(metrics: str, dv: dict, flight_dir: Path) -> dict:
     if (missing or not slo or slo["slo_ms"] != SERVE_SLO_MS or not fr
             or fr["dump_dir"] != str(flight_dir) or not kc
             or "engine" not in kc["ledger"]
-            or kc["entry_points"][0]["entry"] != "fused_kernel"
+            or kc["entry_points"][-1]["entry"] != "fused_kernel"
             or not kc["modeled"]["current"]["entries"] or not cp
             or set(cp["phases_ms"]) != reconcile_phases(cp)):
         raise AssertionError(f"(e) the planes through the wire: missing "
@@ -4658,16 +4737,23 @@ def serve_grpc_aio(aio: AioLoop, engine):
     return server.bound_port, lambda: aio.run(server.stop(1.0))
 
 
-def grpc_many(aio: AioLoop, port: int, payloads, timeout: float = 120.0):
-    """Every payload at once over one gRPC channel: raw response bytes, or
-    the exception of a failed call."""
+def grpc_many(aio: AioLoop, port: int, payloads, timeout: float = 120.0,
+              window: int = 0):
+    """Every payload at once over one gRPC channel, or at most ``window``
+    in flight (``AIO_WINDOW`` for an in-process grpc.aio server): raw
+    response bytes, or the exception of a failed call."""
     import grpc
 
     async def body():
         async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
             call = ch.unary_unary(CHECK_METHOD)
-            return await asyncio.gather(*(call(p, timeout=timeout)
-                                          for p in payloads),
+            gate = asyncio.Semaphore(window or len(payloads) or 1)
+
+            async def one(p):
+                async with gate:
+                    return await call(p, timeout=timeout)
+
+            return await asyncio.gather(*(one(p) for p in payloads),
                                         return_exceptions=True)
 
     return aio.run(body(), timeout + 60)
@@ -4997,7 +5083,7 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
         c0, s0 = dict(fe.counts), fe.stats()
         native_out = grpc_many(aio, port, reqs)
         c1, s1 = dict(fe.counts), fe.stats()
-        aio_out = grpc_many(aio, py_port, reqs)
+        aio_out = grpc_many(aio, py_port, reqs, window=AIO_WINDOW)
         for k, (n_raw, a_raw, want) in enumerate(zip(native_out, aio_out,
                                                      codes)):
             if not isinstance(n_raw, bytes) or n_raw != a_raw:
@@ -5324,7 +5410,7 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
 # ---------------------------------------------------------------------------
 
 DYN_TRIALS = 1            # load-generator passes per frontend setting
-DYN_PASS_S = (3.0, 1.0)   # (seconds measured, seconds of warm-up) per pass
+DYN_PASS_S = (2.0, 1.0)   # (seconds measured, seconds of warm-up) per pass
 EXP_AHEAD_S = 4           # (c): the short token's exp, seconds ahead
 JOSE_LEEWAY_S = 30        # the verifier's clock-skew leeway (utils/jose.py)
 HYB_CONFIGS, HYB_RULES = 1000, 10   # (f): the wire corpus's shape
@@ -5471,7 +5557,7 @@ def dyn_frontend(report: dict, card: str, dev, ctx8: dict,
     try:
         py_port, stop_py = serve_grpc_aio(aio, engine)
         t = time.perf_counter()
-        aio_out = grpc_many(aio, py_port, payloads)
+        aio_out = grpc_many(aio, py_port, payloads, window=AIO_WINDOW)
         numbers["grpc_aio_first_s"] = time.perf_counter() - t
         for k, (raw, o) in enumerate(zip(aio_out, oracle)):
             if not isinstance(raw, bytes) or code_of(raw) != want_code(o):
@@ -5622,7 +5708,7 @@ def dyn_frontend(report: dict, card: str, dev, ctx8: dict,
                       in certs]
             m_valid = sum(kind in ("good", "other-org") for _, _, kind, _
                           in certs)
-            m_aio = grpc_many(aio, py_port, m_pay)
+            m_aio = grpc_many(aio, py_port, m_pay, window=AIO_WINDOW)
             passes = []
             for _ in range(2):
                 c0 = lanes(fe)
@@ -5708,7 +5794,7 @@ def dyn_frontend(report: dict, card: str, dev, ctx8: dict,
                 time.sleep(0.05)
             time.sleep(0.5)
             counted = hyb_total() - tot0
-            h_aio = grpc_many(aio, py_port, h_pay)
+            h_aio = grpc_many(aio, py_port, h_pay, window=AIO_WINDOW)
             n_pass = sum(h_pass)
             for k, (raw, a, kp) in enumerate(zip(h_out, h_aio, h_pass)):
                 if raw != a or (not kp and code_of(raw)
@@ -7134,7 +7220,7 @@ TEN_SLO_MS = 250.0        # the goodput SLO (the reference bench's)
 TEN_BASE_SHARE = 0.6      # base rate over the closed-loop sustainable rate
 TEN_RELEASE_WAIT_S = 8.0  # (b): the wait for containment's release
 TEN_QUOTA_RPS = 50.0      # (d): the quota'd tenant's qos-quota-rps
-TEN_PLANE_PAIRS = 3       # (e): plane on / off burst pairs
+TEN_PLANE_PAIRS = 2       # (e): plane on / off burst pairs
 TEN_DUMP_INTERVAL_S = 30.0  # the flight recorder's own bundle rate limit
 
 
@@ -7888,7 +7974,7 @@ def tenancy(report: dict, card: str, dev, ctx6: dict, ns: dict) -> tuple:
 P20_CONFIGS = 1000        # phase 6's north-star AuthConfigs
 P20_BLOCKED_EVERY = 7     # (a): every 7th config's pinned document blocks
 P20_HOT = 512             # (b): requests to the hot host, sent first
-P20_OFF_CHECKS = 1024     # (a): the prefetch-off pass's checks (a live GET each)
+P20_OFF_CHECKS = 512      # (a): the prefetch-off pass's checks (a live GET each)
 P20_BUDGET_MS = 2000.0    # (c): the pregate's replay budget
 P20_EXACT = 512           # (c), (d): records replayed through submit()
 
@@ -8582,6 +8668,10 @@ def state_planes(report: dict, card: str, dev, ns: dict) -> tuple:
         if not pub.flush(60.0):
             raise AssertionError("(a) the republish did not land")
         shutil.copytree(pub_dir, gen_dirs[1])
+        for k, g in enumerate(gen_dirs, 1):  # phase 22 (d) diffs them
+            keep = Path("smoke_out") / f"p21-gen{k}"
+            shutil.rmtree(keep, ignore_errors=True)
+            shutil.copytree(g, keep)
         vc = leader._verdict_cache
         h0 = vc.hits
         out_l2 = _submits(leader, docs, names)
@@ -8939,6 +9029,588 @@ def state_planes(report: dict, card: str, dev, ns: dict) -> tuple:
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the gather and matmul lanes, the staged baseline, the analysis CLI
+# ---------------------------------------------------------------------------
+
+# phase 7's and phase 8's B=256 batches with their policies, kept for (a)
+LANE_CORPORA: dict = {}
+P22_LANES = ("gather", "matmul", "staged", "megakernel", "plain")
+P22_TIMED = 20            # (b): one-call timings per lane
+# (b): calls enqueued back to back behind one sleep.  The card holds about
+# 1,024 pending launches, so an op-chain lane of 150-230 kernels a call
+# (phase 22 (b)'s counts) fits 4 calls; the mega-kernel, one kernel, 200
+P22_B2B_CALLS = {"gather": 4, "matmul": 4, "staged": 4, "plain": 4,
+                 "megakernel": 200}
+P22_CONFIGS = 1000        # (c): the wire corpus's anonymous AuthConfigs
+P22_GATHER_CONFIGS = 250  # (c): the gather server's (a cut of the same)
+P22_CHECKS = 4096         # (c): engine.check()s on the matmul server
+P22_GRPC = 1024           # (c): gRPC Check()s through the fast lane
+P22_GATHER = 1024         # (c): engine.check()s on the gather server
+P22_AUTO = 256            # (c): submits on the auto engine
+P22_WIDTHS = (300, 2100)  # (a): children of the planted wide Ands
+P22_NARROW = (5, 3)       # (a): children of the Ands padded beside them
+P22_PREFILL = 3000        # (a): interner ids before the planted constants
+
+
+def lane_params(policy, dev) -> dict:
+    """Each lane's params of one corpus on the card."""
+    from authorino_tpu_torch.ops import pattern_eval as pe
+
+    return {lane: pe.to_device(policy, device=dev, lane=lane)
+            for lane in ("gather", "matmul", "fused")}
+
+
+def lane_fns(params, buf_dev, layout, out) -> dict:
+    """One batch's evaluation on each lane over a staging buffer already on
+    the card (as the kernel's timings take it): callables, unsynchronised."""
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops import pattern_eval as pe
+    from authorino_tpu_torch.ops.operands import defuse
+
+    return {
+        "gather": lambda: pe.eval_fused(params["gather"], buf_dev, layout),
+        "matmul": lambda: pe.eval_fused(params["matmul"], buf_dev, layout),
+        "staged": lambda: fk.staged_fused(params["fused"], buf_dev, layout),
+        "megakernel": lambda: fk.launch_kernel(params["fused"], buf_dev,
+                                               layout, out),
+        "plain": lambda: fk.fused_packed_plain(params["fused"],
+                                               defuse(buf_dev, layout)),
+    }
+
+
+def lane_readbacks(params, db, dev) -> dict:
+    """The [B, W] readbacks of one batch on every lane, the staged
+    baseline, the mega-kernel and its plain version; raises unless all are
+    byte-equal to the mega-kernel's."""
+    import torch
+
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import check_batch, fuse_batch
+
+    check_batch(params["fused"], db)
+    buf, layout = fuse_batch(db)
+    buf_dev = torch.from_numpy(buf).to(dev)
+    E = int(params["fused"]["eval_rule"].shape[1])
+    out = torch.empty((db.attrs_val.shape[0], fk.packed_width(1 + 2 * E)),
+                      dtype=torch.uint8, device=dev)
+    fns = lane_fns(params, buf_dev, layout, out)
+    got = {}
+    for name, fn in fns.items():
+        r = fn()
+        got[name] = out if name == "megakernel" else r
+    torch.cuda.synchronize()
+    for name in P22_LANES:
+        max_byte_err(got[name], got["megakernel"])
+    return {k: v.cpu().numpy() for k, v in got.items()}
+
+
+def cuda_kernels_per_call(fn) -> int:
+    """CUDA kernels one call of ``fn`` runs, counted by ``torch.profiler``
+    (memory copies and sets not counted); None when the profiler saw no
+    device activity.  Counted in a fresh process (``lane_kernel_counts``):
+    after another profiler session in the process (phase 12's
+    ``/debug/profile``) the counts came out short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if not n.lower().startswith(("memcpy",
+                                                             "memset"))]
+    return len(kernels) if names else None
+
+
+def lane_kernel_counts() -> None:
+    """Print, as one JSON line, the CUDA kernels one north-star batch
+    (B = 256, phase 4's docs and configs) runs on each lane, counted by
+    ``cuda_kernels_per_call`` in this (fresh) process; the mega-kernel,
+    one launch by construction, must count 1, else every count is None."""
+    import torch
+
+    from authorino_tpu_torch.compiler import compile_corpus
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+
+    dev = torch.device("cuda", 0)
+    policy = compile_corpus(northstar.build_corpus(1000, 10), members_k=16)
+    docs = northstar.build_docs(256, seed=7)
+    rng = random.Random(3)
+    rows = [policy.config_ids[f"cfg-{rng.randrange(1000)}"] for _ in docs]
+    db = pack_batch(policy, encode_batch(policy, docs, rows))
+    params = lane_params(policy, dev)
+    from authorino_tpu_torch.ops.operands import fuse_batch
+
+    buf, layout = fuse_batch(db)
+    out = torch.empty((256, fk.packed_width(1 + 2 * int(
+        policy.eval_rule.shape[1]))), dtype=torch.uint8, device=dev)
+    fns = lane_fns(params, torch.from_numpy(buf).to(dev), layout, out)
+    counts = {"megakernel": cuda_kernels_per_call(fns.pop("megakernel"))}
+    counts.update({k: cuda_kernels_per_call(fn) for k, fn in fns.items()})
+    if counts["megakernel"] != 1:
+        counts = dict.fromkeys(counts)
+    print(json.dumps(counts))
+
+
+def wide_and_policy(width: int):
+    """A planted corpus: one config of three evaluators, an And of
+    ``width`` EQ children and Ands of ``P22_NARROW`` children in its level
+    (the compiler pads each to ``width`` with TRUE: level-matrix counts of
+    ``width - 5`` and ``width - 3``, which bf16 cannot hold past 256 nor
+    TF32 past 2^11), its constants interned past ``P22_PREFILL`` fillers
+    (ids >= 2^11); and 20 requests: every child true, one child false in
+    each And in turn, no attributes."""
+    from authorino_tpu_torch.compiler import ConfigRules, compile_corpus
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.intern import StringInterner
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.expressions import All, Operator, Pattern
+
+    interner = StringInterner()
+    for i in range(P22_PREFILL):
+        interner.intern(f"filler-{i}")
+    evaluators = [(None, All(*[
+        Pattern(f"auth.identity.k{j}", Operator.EQ, f"v{j}")
+        for j in range(width)]))] + [
+        (None, All(*[Pattern(f"auth.identity.n{n}_{j}", Operator.EQ, f"w{j}")
+                     for j in range(n)])) for n in P22_NARROW]
+    policy = compile_corpus([ConfigRules(name="wide", evaluators=evaluators)],
+                            members_k=4, interner=interner)
+    full = {f"k{j}": f"v{j}" for j in range(width)}
+    for n in P22_NARROW:
+        full.update({f"n{n}_{j}": f"w{j}" for j in range(n)})
+    off = [dict(full, k7="nope")] + [dict(full, **{f"n{n}_1": "nope"})
+                                     for n in P22_NARROW]
+    docs = [{"auth": {"identity": d}} for d in [full, *off, {}]] * 4
+    return policy, pack_batch(policy, encode_batch(policy, docs,
+                                                   [0] * len(docs)))
+
+
+def wire_manifests(d: Path, n: int) -> None:
+    """The wire corpus as AuthConfig manifests: ``cfg-i`` on host
+    ``svc-i.bench``, an anonymous identity and config i's pattern (every
+    request rides the native frontend's fast lane)."""
+    from authorino_tpu_torch.models import wire_corpus as wc
+
+    for i in range(n):
+        (d / f"cfg-{i:04d}.json").write_text(json.dumps({
+            "apiVersion": "authorino.kuadrant.io/v1beta2",
+            "kind": "AuthConfig",
+            "metadata": {"name": f"cfg-{i}", "namespace": "wire"},
+            "spec": {"hosts": [wc.WIRE_HOST.format(i)],
+                     "authentication": {"anon": {"anonymous": {}}},
+                     "authorization": {"rules": {"patternMatching": {
+                         "patterns": wc._rule_patterns(i, WIRE_RULES)}}}}}))
+
+
+def lane_server(lane: str, d: Path, dev, payloads, oracle, n_checks: int,
+                n_grpc: int) -> dict:
+    """``run_server`` (the port's CLI) with ``--kernel-lane lane`` on the
+    manifests in ``d``: ``n_checks`` ``engine.check()``s and ``n_grpc``
+    gRPC Check()s through the native frontend's fast lane, every code the
+    oracle's; ``auth_server_kernel_lane_total{lane}`` counts exactly the
+    batches the engine and the frontend dispatched, and the mega-kernel
+    launches none.  Returns the counts and times."""
+    import grpc
+
+    from authorino_tpu_torch import cli
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.protos import wire
+    from authorino_tpu_torch.protos.ext_authz import request_model_from_proto
+
+    from authorino_tpu_torch.runtime.kernel_cost import LEDGER
+
+    ports = {k: free_port() for k in ("grpc", "http", "oidc")}
+    holder = {}
+
+    def dispatched() -> int:
+        """The native frontend's slots that reached a lane (the ledger
+        counts one device computation for each)."""
+        return LEDGER.snapshot("native")["launches"]
+
+    async def drive():
+        argv = ["server", "--watch-dir", str(d), "--kernel-lane", lane,
+                "--ext-auth-grpc-port", str(ports["grpc"]),
+                "--ext-auth-http-port", str(ports["http"]),
+                "--oidc-http-port", str(ports["oidc"])]
+        if dev.type != "cuda":
+            argv += ["--device", "cpu"]
+        args = cli.build_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(cli.run_server(
+            args, on_engine=lambda e: holder.setdefault("engine", e)))
+        while True:
+            if task.done():
+                task.result()
+            if "engine" in holder:
+                status, _, _ = await asyncio.to_thread(
+                    http_call, ports["http"], "/readyz", timeout=2)
+                if status == 200:
+                    break
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError(f"({lane}) the server never got ready")
+            await asyncio.sleep(0.05)
+        r = {"ready_s": time.perf_counter() - t0}
+        engine = holder["engine"]
+        from authorino_tpu_torch.ops import pattern_eval as pe
+
+        if pe.kernel_lane_of(engine._snapshot.params) != lane:
+            raise AssertionError(f"({lane}) the engine serves "
+                                 f"{pe.kernel_lane_of(engine._snapshot.params)}")
+
+        async def fe_stats():
+            _, _, dv = await asyncio.to_thread(http_call, ports["http"],
+                                               "/debug/vars")
+            fe = json.loads(dv)["native_frontend"]
+            if not fe.get("enabled"):
+                raise AssertionError(f"({lane}) no native frontend: {fe}")
+            return fe["stats"]
+
+        c0 = prom_sample("kernel_lane", "auth_server_kernel_lane_total",
+                         {"lane": lane})
+        l0, rec0 = fk.launches, len(engine.batch_records)
+        f0, n0 = await fe_stats(), dispatched()
+        models = [request_model_from_proto(wire.decode_check_request(p))
+                  for p in payloads[:n_checks]]
+        t = time.perf_counter()
+        res = await asyncio.gather(*(engine.check(m) for m in models))
+        r["checks_per_s"] = n_checks / (time.perf_counter() - t)
+        bad = sum(x.code != want for x, want in zip(res, oracle))
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports['grpc']}") as ch:
+            call = ch.unary_unary(CHECK_METHOD)
+            t = time.perf_counter()
+            raws = await asyncio.gather(*(call(p, timeout=60)
+                                          for p in payloads[:n_grpc]))
+            r["grpc_checks_per_s"] = n_grpc / (time.perf_counter() - t)
+        bad += sum(wire.decode_check_response(raw).status.code != want
+                   for raw, want in zip(raws, oracle))
+        s1 = await fe_stats()
+        recs = list(engine.batch_records)[rec0:]
+        if any(rec["launches"] or rec["plain_calls"] for rec in recs):
+            raise AssertionError(f"({lane}) a batch reached the fused lane")
+        eng_batches = sum(rec["device_rows"] > 0 for rec in recs)
+        fe_batches = dispatched() - n0
+        counted = prom_sample("kernel_lane", "auth_server_kernel_lane_total",
+                              {"lane": lane}) - c0
+        r.update({"bad": bad, "engine_batches": eng_batches,
+                  "frontend_batches": fe_batches,
+                  "fast": s1.get("fast", 0) - f0.get("fast", 0),
+                  "slow": s1.get("slow", 0) - f0.get("slow", 0),
+                  "lane_counted": counted,
+                  "megakernel_launches": fk.launches - l0})
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        return r
+
+    r = asyncio.run(drive())
+    if r["bad"]:
+        raise AssertionError(f"({lane}) {r['bad']} codes differ from the "
+                             f"oracle")
+    if r["megakernel_launches"]:
+        raise AssertionError(f"({lane}) the mega-kernel launched "
+                             f"{r['megakernel_launches']} times")
+    if r["lane_counted"] != r["engine_batches"] + r["frontend_batches"] \
+            or r["lane_counted"] < 1:
+        raise AssertionError(f"({lane}) kernel_lane_total counted "
+                             f"{r['lane_counted']} for {r['engine_batches']} "
+                             f"engine and {r['frontend_batches']} frontend "
+                             f"batches")
+    if n_grpc and r["fast"] != n_grpc:
+        raise AssertionError(f"({lane}) {r['fast']} of {n_grpc} gRPC "
+                             f"Check()s on the fast lane")
+    return r
+
+
+def analysis_cli(runs: dict) -> dict:
+    """``python -m authorino_tpu_torch.analysis`` once per entry of
+    ``runs`` ({label: (argv, exit codes allowed)}), the processes side by
+    side: each one's exit code, wall seconds (its own) and the JSON report
+    it printed."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+
+    def one(argv):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "authorino_tpu_torch.analysis", *argv],
+            cwd=str(root), env=env, capture_output=True, text=True,
+            timeout=300)
+        return proc, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = {label: pool.submit(one, argv)
+                for label, (argv, _) in runs.items()}
+    out = {}
+    for label, fut in done.items():
+        proc, wall = fut.result()
+        if proc.returncode not in runs[label][1]:
+            raise AssertionError(f"(d) {label}: exit {proc.returncode}: "
+                                 f"{proc.stdout[-1500:]} "
+                                 f"{proc.stderr[-1500:]}")
+        out[label] = {"rc": proc.returncode, "wall_s": wall,
+                      "report": json.loads(proc.stdout)}
+    return out
+
+
+def kernel_lanes(report: dict, card: str, dev, cycles_per_ms: float,
+                 ns: dict) -> tuple:
+    """Phase 22: the gather and matmul lanes, the staged baseline and the
+    analysis CLI on the card.  (a) on the north-star corpus (B = 256),
+    phase 7's OPA and phase 8's Keycloak RBAC corpora, gather, matmul
+    (bf16 operands on the card) and fused params on the card: the
+    readbacks of the gather lane, the matmul lane, the staged baseline,
+    the mega-kernel and its plain version byte-equal; then on two planted
+    corpora (``wide_and_policy``: Ands of 300 and 2,100 children beside
+    padded Ands of 5 and 3, one child false in each in turn; interner ids
+    past 2^11) the same with TF32 switched on for the run.  (b) each
+    lane's time (one call and back to back, in event pairs), its CUDA
+    kernels per batch
+    (``torch.profiler``) beside ``staged_launches``, and each lane's
+    operand bytes on the card.  (c) ``run_server --kernel-lane matmul`` on
+    the wire corpus: 4,096 ``engine.check()``s and 1,024 gRPC Check()s on
+    the native fast lane, every code the oracle's, ``kernel_lane_total``
+    counting the batches, the mega-kernel flat; ``--kernel-lane gather``
+    with 1,024 checks on 250 of the configs; then ``auto`` on a card
+    engine arms fused (``last_auto_decision()`` names only ``cuda``) and
+    serves.  (d) the analysis CLI as four processes side by side:
+    ``--self-lint --verify-fixtures``, ``--metrics-catalog``,
+    ``--snapshot-diff`` over phase 21's two published generations,
+    ``--replay`` of phase 20's capture across them.  Returns (the kernels' launches in (c), counts zeroed just
+    before it; the byte error of (a)'s comparisons)."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from authorino_tpu_torch.models import wire_corpus as wc
+    from authorino_tpu_torch.models.policy_model import host_results
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops import pattern_eval as pe
+    from authorino_tpu_torch.ops.operands import fuse_batch
+    from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+    from authorino_tpu_torch.utils import rpc
+
+    numbers = {"card": card}
+    t_phase = time.perf_counter()
+    # ---- (a) exactness across lanes ------------------------------------------
+    corpora = {"northstar": (ns["policy"], ns["db"]),
+               **{k: LANE_CORPORA[k] for k in ("opa", "keycloak")}}
+    params_of = {}
+    for name, (policy, db) in corpora.items():
+        params = lane_params(policy, dev)
+        mm = params["matmul"]["matmul"]
+        if mm is None or mm["rule_m"].dtype != torch.bfloat16 \
+                or mm["rule_m"].device.type != "cuda":
+            raise AssertionError(f"(a) {name}: the matmul lane's operands")
+        lane_readbacks(params, db, dev)
+        params_of[name] = params
+    planted = {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for width in P22_WIDTHS:
+            wide, wdb = wide_and_policy(width)
+            got = lane_readbacks(lane_params(wide, dev), wdb, dev)
+            # own verdict, then each evaluator's rule bit, per request
+            bits = [int(b) & 15 for b in got["matmul"][:5, 0]]
+            if bits != [15, 12, 10, 6, 0]:
+                raise AssertionError(f"(a) the planted Ands of {width}: "
+                                     f"{bits}")
+            planted[width] = {"max_id": int(wide.leaf_const.max()),
+                              "bits": bits}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    numbers["exact"] = {"corpora": {k: int(db.attrs_val.shape[0])
+                                    for k, (_, db) in corpora.items()},
+                        "planted": {"widths": list(P22_WIDTHS),
+                                    "narrow": list(P22_NARROW),
+                                    "tf32": True, "corpora": planted}}
+    log(f"kernel lanes (a): gather, matmul (bf16 operands), staged, "
+        f"mega-kernel and plain byte-equal on {list(corpora)} at B=256, and "
+        f"on planted Ands of {list(P22_WIDTHS)} children beside Ands of "
+        f"{list(P22_NARROW)} padded in their level (ids to "
+        f"{max(v['max_id'] for v in planted.values())}) with TF32 on")
+
+    # ---- (b) the lanes' times, kernels per batch, operand bytes --------------
+    policy, db = corpora["northstar"]
+    params = params_of["northstar"]
+    buf, layout = fuse_batch(db)
+    buf_dev = torch.from_numpy(buf).to(dev)
+    E = int(policy.eval_rule.shape[1])
+    out = torch.empty((db.attrs_val.shape[0], fk.packed_width(1 + 2 * E)),
+                      dtype=torch.uint8, device=dev)
+    fns = lane_fns(params, buf_dev, layout, out)
+    times = {}
+    for name, fn in fns.items():
+        one, host = device_times_ms(fn, P22_TIMED)
+        n = P22_B2B_CALLS[name]
+        b2b, covered = back_to_back_ms(fn, cycles_per_ms, n=n)
+        times[name] = {"one_call_ms": statistics.median(one),
+                       "back_to_back_ms": b2b, "back_to_back_calls": n,
+                       "sleep_covered": covered, "host_enqueue_ms": host}
+    staged_n = fk.staged_launches(params["fused"], db)
+    op_bytes = {lane: tensor_bytes(p) for lane, p in params.items()}
+    numbers["times"] = times
+    numbers["staged_launches"] = staged_n
+    numbers["operand_bytes"] = op_bytes
+    log(f"[{card}] kernel lanes (b), north-star B=256: " + "; ".join(
+        f"{k} {v['one_call_ms']:.4f} ms one call, {v['back_to_back_ms']:.4f} "
+        f"ms back to back ({v['back_to_back_calls']} calls, the sleep "
+        f"{'covered' if v['sleep_covered'] else 'did not cover'} the "
+        f"enqueue)" for k, v in times.items())
+        + f"; the staged ledger counts {staged_n} launches; operand bytes "
+        f"{op_bytes}")
+
+    # ---- (c) serving through the flag ----------------------------------------
+    # (b)'s kernel count runs in a fresh process beside (c) and (d)
+    root = Path(__file__).resolve().parent
+    counter = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.lane_kernel_counts()"], cwd=str(root),
+        env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    # a failure below ends the script: the count process ends with it
+    atexit.register(lambda: counter.poll() is None and counter.kill())
+    payloads = wc.wire_payloads(P22_CHECKS, WIRE_CONFIGS)
+    oracle = [rpc.OK if wc.expected_allow(p, WIRE_RULES)
+              else rpc.PERMISSION_DENIED for p in payloads]
+    env_lane = os.environ.get("AUTHORINO_TPU_KERNEL_LANE")
+    fk.reset_counts()
+    reset_host_counts()
+    servers = {}
+    tmp_ctx = tempfile.TemporaryDirectory()
+    try:
+        d = Path(tmp_ctx.name)
+        wire_manifests(d, P22_CONFIGS)
+        servers["matmul"] = lane_server("matmul", d, dev, payloads, oracle,
+                                        P22_CHECKS, P22_GRPC)
+        for f in d.glob("cfg-*.json"):
+            if int(f.stem.split("-")[1]) >= P22_GATHER_CONFIGS:
+                f.unlink()
+        g_pay = wc.wire_payloads(P22_GATHER, P22_GATHER_CONFIGS)
+        servers["gather"] = lane_server(
+            "gather", d, dev, g_pay,
+            [rpc.OK if wc.expected_allow(p, WIRE_RULES)
+             else rpc.PERMISSION_DENIED for p in g_pay], P22_GATHER, 0)
+    finally:
+        tmp_ctx.cleanup()
+        # the CLI mirrors --kernel-lane into the environment
+        if env_lane is None:
+            os.environ.pop("AUTHORINO_TPU_KERNEL_LANE", None)
+        else:
+            os.environ["AUTHORINO_TPU_KERNEL_LANE"] = env_lane
+    engine = PolicyEngine(max_batch=256, device=dev, **NO_REUSE)
+    cfgs = ns["cfgs"]
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    dec = pe.last_auto_decision()
+    if pe.kernel_lane_of(engine._snapshot.params) != "fused" or \
+            dec is None or dec["platforms"] != ["cuda"] or \
+            dec["lane"] != "fused":
+        raise AssertionError(f"(c) auto on the card: {dec}")
+    l0 = fk.launches
+    out_a = asyncio.run(serve(engine, ns["docs"][:P22_AUTO],
+                              ns["names"][:P22_AUTO]))
+    policy_a = engine._snapshot.policy
+    for (rule, skipped), doc, name in zip(out_a, ns["docs"], ns["names"]):
+        own, w_rule, w_skip = host_results(policy_a, doc,
+                                           policy_a.config_ids[name])
+        if skipped.tolist() != w_skip.tolist() or \
+                rule[~w_skip].tolist() != w_rule[~w_skip].tolist():
+            raise AssertionError("(c) the auto engine's verdicts")
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    if fk.launches - l0 < 1:
+        raise AssertionError("(c) the auto engine did not launch")
+    numbers["serving"] = servers
+    numbers["auto"] = {"decision": dec, "submits": P22_AUTO,
+                       "launches": launches}
+    m, g = servers["matmul"], servers["gather"]
+    log(f"[{card}] kernel lanes (c): --kernel-lane matmul ready in "
+        f"{m['ready_s']:.1f} s, {P22_CHECKS} engine.check()s at "
+        f"{m['checks_per_s']:.0f}/s and {P22_GRPC} gRPC Check()s on the "
+        f"fast lane ({m['fast']} fast, {m['slow']} slow) at "
+        f"{m['grpc_checks_per_s']:.0f}/s, all codes the oracle's; "
+        f"kernel_lane_total{{lane=\"matmul\"}} +{m['lane_counted']} = "
+        f"{m['engine_batches']} engine + {m['frontend_batches']} frontend "
+        f"batches, mega-kernel +0; --kernel-lane gather "
+        f"({P22_GATHER_CONFIGS} configs, ready in {g['ready_s']:.1f} s): "
+        f"{P22_GATHER} checks at {g['checks_per_s']:.0f}/s, "
+        f"+{g['lane_counted']} "
+        f"batches, mega-kernel +0; auto armed fused over {dec['platforms']}"
+        f": {P22_AUTO} submits exact, launches {launches}")
+
+    # ---- (d) the analysis CLI on the card's machine ---------------------------
+    gens = [str(Path("smoke_out") / f"p21-gen{k}") for k in (1, 2)]
+    cap = Path("smoke_out") / "capture"
+    if not cap.is_dir():
+        raise AssertionError("(d) phase 20's capture is not on disk")
+    cli = analysis_cli({
+        "lint_fixtures": (["--self-lint", "--verify-fixtures", "--json"],
+                          (0,)),
+        "catalog": (["--metrics-catalog", "--json"], (0,)),
+        "snapshot_diff": (["--snapshot-diff", *gens, "--json"], (0,)),
+        "replay": (["--replay", *gens, "--log", str(cap), "--json"],
+                   (0, 1))})
+    if not (cli["lint_fixtures"]["report"]["ok"]
+            and cli["catalog"]["report"]["ok"]):
+        raise AssertionError(f"(d) the analysis CLI: {cli}")
+    diff, rep = cli["snapshot_diff"], cli["replay"]
+    if diff["report"]["configs"]["changed"] != [f"cfg-{P21_CHANGED}"]:
+        raise AssertionError(f"(d) --snapshot-diff: {diff['report']}")
+    flips = rep["report"]["flips"]
+    if rep["rc"] != int(flips["total"] > 0) or any(
+            g["authconfig"] != f"cfg-{P21_CHANGED}"
+            for g in rep["report"]["by_rule"]):
+        raise AssertionError(f"(d) --replay: {rep['rc']} {flips} "
+                             f"{rep['report']['by_rule'][:4]}")
+    stdout, stderr = counter.communicate(timeout=300)
+    if counter.returncode != 0:
+        raise AssertionError(f"(b) the kernel count: {stderr[-1500:]}")
+    kernels = json.loads(stdout.strip().splitlines()[-1])
+    for name, k in kernels.items():
+        times[name]["cuda_kernels"] = k
+    log(f"[{card}] kernel lanes (b), CUDA kernels per north-star batch "
+        f"(torch.profiler, a fresh process): {kernels}")
+    numbers["cli"] = {k: {"rc": v["rc"], "wall_s": v["wall_s"]}
+                      for k, v in cli.items()}
+    numbers["cli"]["snapshot_diff"]["delta"] = diff["report"]["delta"]["mode"]
+    numbers["cli"]["replay"]["flips"] = flips
+    missing = rep["report"]["skipped"]["missing_config"]
+    numbers["cli"]["replay"]["missing_config"] = missing
+    shutil.rmtree(Path("smoke_out") / "p21-gen1", ignore_errors=True)
+    shutil.rmtree(Path("smoke_out") / "p21-gen2", ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    report["kernel_lanes"] = numbers
+    log(f"kernel lanes (d), four processes side by side: python -m "
+        f"authorino_tpu_torch.analysis --self-lint --verify-fixtures exit 0 "
+        f"in {cli['lint_fixtures']['wall_s']:.1f} s, --metrics-catalog exit "
+        f"0 in {cli['catalog']['wall_s']:.1f} s; --snapshot-diff over phase "
+        f"21's generations: {diff['report']['configs']['changed']} changed, "
+        f"{diff['report']['delta']['mode']} upload, in "
+        f"{diff['wall_s']:.1f} s; --replay of phase 20's capture: exit "
+        f"{rep['rc']}, {flips} ({missing} records of configs the "
+        f"generations lack) in "
+        f"{rep['wall_s']:.1f} s; phase 22 took {numbers['phase_s']:.1f} s")
+    return launches, 0
+
+
 def main() -> int:
     import torch
 
@@ -8960,11 +9632,13 @@ def main() -> int:
     from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
 
     report = {}
+    clock = PhaseClock()
     # the flight recorder is on by default, as the reference's: an anomaly
     # of any phase writes its bundle here, inside the checkout
     from authorino_tpu_torch.runtime.flight_recorder import RECORDER
 
     RECORDER.configure(dump_dir=str(Path("smoke_out") / "flight"))
+    clock.start("1")
     # ---- 1. the card ------------------------------------------------------
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -8974,9 +9648,28 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | device 0: {kind}")
 
+    clock.start("2")
     # ---- 2. build + probe -------------------------------------------------
+    # the native encoder's g++ build runs beside the kernel's nvcc build
+    import threading
+
+    native_build = {}
+
+    def build_native():
+        t0 = time.monotonic()
+        try:
+            native.load_library()
+        except BaseException as e:  # re-raised on the main thread
+            native_build["error"] = e
+        native_build["s"] = time.monotonic() - t0
+
+    builder = threading.Thread(target=build_native, name="native-build")
+    builder.start()
     t = time.monotonic()
-    _build.load_library("fused_kernel")
+    try:
+        _build.load_library("fused_kernel")
+    finally:
+        builder.join()
     report["build_s"] = time.monotonic() - t
     report["nvcc_s"] = _build.build_seconds("fused_kernel")
     log(f"built fused_kernel in {report['build_s']:.2f}s "
@@ -8986,13 +9679,14 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     fk.fused_kernel_supported(dev)
     log("probe kernel: int32[4] + 1 round-trips")
-    t = time.monotonic()
-    native.load_library()
-    report["native_build_s"] = time.monotonic() - t
+    if "error" in native_build:
+        raise native_build["error"]
+    report["native_build_s"] = native_build["s"]
     report["gxx_s"] = native.build_seconds()
     log(f"built the native encoder in {report['native_build_s']:.2f}s (g++ "
         f"{report['gxx_s']}) from authorino_tpu_torch/native/csrc")
 
+    clock.start("3")
     # ---- 3. kernel vs plain on the card -----------------------------------
     max_err = 0
     n_cases = n_global = 0
@@ -9076,6 +9770,7 @@ def main() -> int:
         "to plain (tolerance 0), with tables in shared memory and with the "
         "global-tables instance forced")
 
+    clock.start("4")
     # ---- 4. the main path -------------------------------------------------
     marks = failure_marks()
     engine_entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c)
@@ -9124,6 +9819,7 @@ def main() -> int:
 
     require_no_failure_handling("phase 4", marks)
 
+    clock.start("5")
     # ---- 5. numbers -------------------------------------------------------
     cycles_per_ms = sleep_cycles_per_ms()
     report["sm_clock_mhz"] = cycles_per_ms / 1e3
@@ -9263,6 +9959,7 @@ def main() -> int:
         f"p50 {numbers['batch_latency_ms_p50']:.2f} ms p99 "
         f"{numbers['batch_latency_ms_p99']:.2f} ms over {len(lat)} batches")
 
+    clock.start("6")
     # ---- 6. the Check() request path --------------------------------------
     ctx6 = {}
     marks = failure_marks()
@@ -9279,6 +9976,7 @@ def main() -> int:
         f"engine's submit alone in this run: "
         f"{numbers['engine_decisions_per_s_median']:.0f} decisions/s")
 
+    clock.start("7")
     # ---- 7. the OPA request path ------------------------------------------
     marks = failure_marks()
     opa_launches, opa_err = opa_path(report, card, dev, cycles_per_ms)
@@ -9301,6 +9999,7 @@ def main() -> int:
         f"{op['bound_ms']:.7f} ms by {op['bound_by']} "
         f"({op['kernel_bytes_moved']} B, {op['kernel_int_ops']} int ops)")
 
+    clock.start("8-9")
     # ---- 8. the JWT request path, 9. the serving core ---------------------
     # phase 8's fake Keycloak serves until phase 16 is done (its tokens and
     # entries are reused there); its serving thread is a daemon
@@ -9354,6 +10053,7 @@ def main() -> int:
         f"{jp['check_latency_ms_p50']:.2f} ms p99 "
         f"{jp['check_latency_ms_p99']:.2f} ms")
 
+    clock.start("10")
     # ---- 10. the control plane --------------------------------------------
     cp_ctx = {}
     marks = failure_marks()
@@ -9405,6 +10105,7 @@ def main() -> int:
         f"{cp_launches['fused_megakernel']} mega-kernel, "
         f"{cp_launches['probe_add_one']} probe")
 
+    clock.start("11")
     # ---- 11. the per-batch host work on either side of the launch ---------
     marks = failure_marks()
     host_work(report, card, ctx6,
@@ -9413,6 +10114,7 @@ def main() -> int:
               ns_policy, ns_docs, ns_rows, numbers["batch_latency_ms_p50"])
     require_no_failure_handling("phase 11", marks)
 
+    clock.start("12")
     # ---- 12. the serving surfaces -----------------------------------------
     marks = failure_marks()
     serve_launches, serve_err = serving_surfaces(report, card, dev,
@@ -9423,8 +10125,8 @@ def main() -> int:
     sn, sb = sv["numbers"], sv["burst"]
     log(f"[{card}] serving surfaces: {sv['configs']} AuthConfigs ready in "
         f"{sv['bootstrap']['ready_s']:.2f}s; gRPC "
-        f"{sn['checks_per_s_median']:.0f} checks/s median of "
-        f"{SERVE_BURSTS} bursts ({[round(r) for r in sn['checks_per_s']]}; "
+        f"{sn['checks_per_s_median']:.0f} checks/s over {SERVE_BURSTS} "
+        f"timed burst(s) ({[round(r) for r in sn['checks_per_s']]}; "
         f"the first, cache cold: {sn['first_burst_checks_per_s']:.0f}), "
         f"burst p50 {sn['burst_latency_ms_p50']:.2f} ms p99 "
         f"{sn['burst_latency_ms_p99']:.2f} ms (first burst "
@@ -9462,6 +10164,7 @@ def main() -> int:
         f" engine launches in the process) and control_plane "
         f"({sp['phases_ms']}) sections")
 
+    clock.start("13")
     # ---- 13. the observability planes -------------------------------------
     marks = failure_marks()
     plane_launches, plane_err = observability_planes(report, card, dev, ctx6,
@@ -9469,6 +10172,7 @@ def main() -> int:
     require_no_failure_handling("phase 13", marks)
     max_err = max(max_err, plane_err)
 
+    clock.start("14")
     # ---- 14. the failure handling -----------------------------------------
     fail_launches, fail_err = failure_handling(report, card, dev, ctx6)
     max_err = max(max_err, fail_err)
@@ -9477,12 +10181,14 @@ def main() -> int:
     if faults.ACTIVE:
         raise AssertionError("phase 14 left the fault plane armed")
 
+    clock.start("15")
     # ---- 15. the native gRPC frontend -------------------------------------
     fe_launches, fe_err = native_frontend(report, card, dev)
     max_err = max(max_err, fe_err)
     if faults.ACTIVE:
         raise AssertionError("phase 15 left the fault plane armed")
 
+    clock.start("16")
     # ---- 16. the verified-credential cache and the hybrid lane ------------
     marks = failure_marks()
     try:
@@ -9493,6 +10199,7 @@ def main() -> int:
     require_no_failure_handling("phase 16", marks)
     max_err = max(max_err, dyn_err)
 
+    clock.start("17")
     # ---- 17. the incremental reconcile and the snapshot container --------
     marks = failure_marks()
     inc_launches, inc_err = incremental_reconcile(
@@ -9500,11 +10207,13 @@ def main() -> int:
     require_no_failure_handling("phase 17", marks)
     max_err = max(max_err, inc_err)
 
+    clock.start("18")
     # ---- 18. change safety ------------------------------------------------
     cs_launches, cs_err = change_safety(
         report, card, dev, ctx6, {"docs": ns_docs, "names": ns_names})
     max_err = max(max_err, cs_err)
 
+    clock.start("19")
     # ---- 19. the tenant QoS plane -----------------------------------------
     marks = failure_marks()
     ten_launches, ten_err = tenancy(report, card, dev, ctx6,
@@ -9512,12 +10221,14 @@ def main() -> int:
     max_err = max(max_err, ten_err)
     require_no_failure_handling("phase 19", marks)
 
+    clock.start("20")
     # ---- 20. metadata prefetch, capture and the pregate, strict verify ----
     marks = failure_marks()
     vr_launches, vr_err = verify_and_replay(report, card, dev, ctx6)
     max_err = max(max_err, vr_err)
     require_no_failure_handling("phase 20", marks)
 
+    clock.start("21")
     # ---- 21. snapshot distribution, the state plane, the corpus pregate ---
     marks = failure_marks()
     sp_launches, sp_err = state_planes(report, card, dev,
@@ -9525,18 +10236,29 @@ def main() -> int:
     max_err = max(max_err, sp_err)
     require_no_failure_handling("phase 21", marks)
 
+    # ---- 22. the gather and matmul lanes, the analysis CLI ----------------
+    clock.start("22")
+    marks = failure_marks()
+    kl_launches, kl_err = kernel_lanes(
+        report, card, dev, cycles_per_ms,
+        {"policy": ns_policy, "db": batches[(256, 16)], "cfgs": ns_cfgs,
+         "docs": ns_docs, "names": ns_names})
+    max_err = max(max_err, kl_err)
+    require_no_failure_handling("phase 22", marks)
+    clock.start(None)
+
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": sp_launches["fused_megakernel"],
+         "launches": kl_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": sp_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": kl_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -9547,7 +10269,7 @@ def main() -> int:
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
                 "17": inc_launches, "18": cs_launches, "19": ten_launches,
-                "20": vr_launches, "21": sp_launches}
+                "20": vr_launches, "21": sp_launches, "22": kl_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}
@@ -9556,6 +10278,9 @@ def main() -> int:
             raise AssertionError(
                 f"{name} never launched on a path: {by_phase}")
     report["kernels"] = kernels
+    report["phase_seconds"] = clock.seconds
+    log(f"phase seconds: {json.dumps(clock.seconds)}; whole script "
+        f"{time.monotonic() - T0:.1f} s")
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))

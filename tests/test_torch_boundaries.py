@@ -85,6 +85,44 @@ def below_serving(mods):
     return [m for m in mods if m.split(".", 1)[1] not in SERVING_MODULES]
 
 
+# the kernel lanes with their router, and the offline analysis CLI with
+# the code lint and the metrics-catalog gate
+LANE_AND_ANALYSIS_MODULES = ("ops.pattern_eval", "analysis.code_lint",
+                             "analysis.metrics_catalog", "analysis.__main__")
+
+
+def test_lanes_and_analysis_cli_import_with_service_libraries_blocked():
+    """The kernel lanes and the analysis CLI import neither JAX nor the JAX
+    package, with ``grpc``, ``aiohttp`` and ``cryptography`` blocked; the
+    CLI no longer lists the kernel lanes as unported."""
+    from authorino_tpu_torch import cli as port_cli
+
+    mods = port_modules()
+    for m in LANE_AND_ANALYSIS_MODULES:
+        assert f"authorino_tpu_torch.{m}" in mods, m
+    assert "kernel lanes" not in port_cli.UNPORTED_PLANES
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'cryptography', 'jax', "
+        "'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {LANE_AND_ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module('authorino_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
+
+
 def test_port_imports_with_service_libraries_blocked():
     """Every module of the port below the serving modules (OPA, the
     Kubernetes reviews, SpiceDB, the protobuf codec and the native gRPC
@@ -491,6 +529,17 @@ def test_chip_smoke_imports_neither():
             assert "jax" not in s, s
             assert not s.split()[1].startswith("authorino_tpu.")
             assert s.split()[1] != "authorino_tpu", s
+
+
+@pytest.mark.parametrize("script", ["engine_probe.py", "reconcile_probe.py",
+                                    "grpc_window_probe.py"])
+def test_card_probes_import_neither(script):
+    src = (ROOT / script).read_text()
+    for line in src.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s, s
+            assert s.split()[1].split(".")[0] != "authorino_tpu", s
 
 
 def _no_cuda():

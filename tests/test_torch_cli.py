@@ -645,7 +645,7 @@ def test_run_server_serves_the_observability_planes(tmp_path):
     assert (fr["dump_dir"], fr["keep"]) == (str(flight), 3)
     assert {e["kind"] for e in fr["tail"]} >= {"snapshot-swap", "reconcile"}
     assert eng["kernel_cost"]["ledger"]["engine"]["rows"] >= len(reqs)
-    assert eng["kernel_cost"]["entry_points"][0]["entry"] == "fused_kernel"
+    assert eng["kernel_cost"]["entry_points"][-1]["entry"] == "fused_kernel"
     # the manifest source's first poll re-reads the directory: a swap of
     # the same corpus reuses the installed policy and params (no diff or
     # upload phase); the cold install has all three phases
@@ -661,8 +661,10 @@ def test_run_server_serves_the_observability_planes(tmp_path):
 
 
 def test_other_refusals_and_off_switches():
-    with pytest.raises(SystemExit, match="--kernel-lane"):
-        run(port_cli.run_server(server_args("--kernel-lane", "matmul")))
+    # every kernel lane is served; an unported plane's flag still refuses
+    port_cli.refuse_unported(server_args("--kernel-lane", "matmul"))
+    with pytest.raises(SystemExit, match="--lane-host-max-rows"):
+        run(port_cli.run_server(server_args("--lane-host-max-rows", "8")))
     # the native frontend does not terminate TLS: 'on' refuses TLS flags
     # before anything binds
     args = server_args("--native-frontend", "on", "--tls-cert", "/x.crt",

@@ -1403,3 +1403,108 @@ def test_rejected_blob_allocates_nothing_on_the_card(card, tmp_path, bad):
     for (rule, skipped), dd, n in zip(out, docs, names):
         own, _, _ = host_results(snap.policy, dd, snap.policy.config_ids[n])
         assert bool(np.all(skipped | rule)) == own
+
+
+# ---- the gather and matmul lanes and the staged baseline ------------------
+
+
+def lane_readbacks(policy, db, card):
+    """[B, W] readbacks of one batch: every lane and the staged baseline on
+    the card, the mega-kernel, and its plain version on the CPU."""
+    from authorino_tpu_torch.ops import pattern_eval as pe
+
+    out = {lane: np.asarray(pe.dispatch_fused(
+        pe.to_device(policy, device=card, lane=lane), db))
+        for lane in ("gather", "matmul", "fused")}
+    out["staged"] = fk.dispatch_staged(
+        pe.to_device(policy, device=card, lane="fused"), db).cpu().numpy()
+    out["plain"] = fk.eval_fused_kernel(to_device(policy, device="cpu"),
+                                        db).numpy()
+    return out
+
+
+@pytest.mark.parametrize("seed", [7, 19, 31])
+@pytest.mark.parametrize("assist", [True, False])
+def test_every_lane_equals_the_megakernel_on_the_card(card, seed, assist):
+    from authorino_tpu_torch.ops import pattern_eval as pe
+
+    policy, docs, rows = lanes_case(seed, assist)
+    db = pack_batch(policy, encode_batch(policy, docs, rows, batch_pad=64))
+    params = pe.to_device(policy, device=card, lane="matmul")
+    assert params["matmul"]["rule_m"].dtype == torch.bfloat16
+    assert params["matmul"]["rule_m"].device.type == "cuda"
+    got = lane_readbacks(policy, db, card)
+    for name, packed in got.items():
+        np.testing.assert_array_equal(packed, got["fused"], err_msg=name)
+
+
+@pytest.mark.parametrize("width", [300, 2100])
+def test_matmul_lane_exact_under_tf32_and_bf16_traps(card, width):
+    """An And of ``width`` children and, in its level, Ands of 5 and 3
+    children padded to ``width`` with TRUE (counts 295/297 that bf16 cannot
+    hold, or 2095/2097 that TF32 cannot), with one false child in each in
+    turn, and interner ids past 2^11, with TF32 switched on for the run:
+    the matmul readback is the gather lane's and the mega-kernel's."""
+    from authorino_tpu_torch.compiler import ConfigRules
+    from authorino_tpu_torch.compiler.intern import StringInterner
+    from authorino_tpu_torch.expressions import All, Operator, Pattern
+
+    narrow = (5, 3)
+    interner = StringInterner()
+    for i in range(3000):
+        interner.intern(f"filler-{i}")
+    rule = All(*[Pattern(f"auth.identity.k{j}", Operator.EQ, f"v{j}")
+                 for j in range(width)])
+    evaluators = [(None, rule)] + [
+        (None, All(*[Pattern(f"auth.identity.n{n}_{j}", Operator.EQ, f"w{j}")
+                     for j in range(n)])) for n in narrow]
+    policy = compile_corpus([ConfigRules(name="wide", evaluators=evaluators)],
+                            members_k=4, interner=interner)
+    assert int(policy.leaf_const.max()) >= 1 << 11
+    full = {f"k{j}": f"v{j}" for j in range(width)}
+    for n in narrow:
+        full.update({f"n{n}_{j}": f"w{j}" for j in range(n)})
+    off = [dict(full, k7="nope")] + [dict(full, **{f"n{n}_1": "nope"})
+                                     for n in narrow]
+    docs = [{"auth": {"identity": d}} for d in [full, *off, {}]] * 4
+    db = pack_batch(policy, encode_batch(policy, docs, [0] * len(docs)))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = lane_readbacks(policy, db, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for name, packed in got.items():
+        np.testing.assert_array_equal(packed, got["gather"], err_msg=name)
+    assert [bool(b & 1) for b in got["matmul"][:5, 0]] == \
+        [True, False, False, False, False]
+    assert [got["matmul"][d, 0] >> 1 & 7 for d in range(4)] == \
+        [7, 6, 5, 3]
+
+
+@pytest.mark.parametrize("lane", ["gather", "matmul"])
+def test_engine_on_a_lane_launches_no_megakernel(card, lane):
+    cfgs = northstar.build_corpus(40, 10)
+    engine = PolicyEngine(max_batch=64, device=card, kernel_lane=lane,
+                          verdict_cache_size=0, batch_dedup=False)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    docs = northstar.build_docs(128, seed=5)
+    names = [cfgs[i % len(cfgs)].name for i in range(len(docs))]
+    l0 = fk.launches
+
+    async def go():
+        return await asyncio.gather(*(engine.submit(d, n)
+                                      for d, n in zip(docs, names)))
+
+    loop = asyncio.new_event_loop()
+    try:
+        out = loop.run_until_complete(go())
+    finally:
+        loop.close()
+    assert fk.launches == l0
+    policy = engine._snapshot.policy
+    for (rule, skipped), d, n in zip(out, docs, names):
+        own, w_rule, w_skip = host_results(policy, d, policy.config_ids[n])
+        assert skipped.tolist() == w_skip.tolist()
+        assert rule[~w_skip].tolist() == w_rule[~w_skip].tolist()

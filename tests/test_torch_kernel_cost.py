@@ -262,8 +262,10 @@ BASE = ["attrs_val", "members_c", "cpu_dense", "config_id"]
 def test_entry_points_list_the_fused_kernel_and_its_lanes():
     assert kc.entry_points(None) == []
     plain = kc.entry_points(chain_corpus(2))
-    assert [e["entry"] for e in plain] == ["fused_kernel"]
-    assert plain[0]["operands"] == BASE
+    # the reference's list: the op-chain lanes' two entries, then the kernel
+    assert [e["entry"] for e in plain] == ["eval_bitpacked", "eval_fused",
+                                           "fused_kernel"]
+    assert all(e["operands"] == BASE for e in plain)
     regex = ConfigRules(name="r", evaluators=[(None, Pattern(
         "request.path", Operator.MATCHES, "^/api/v[0-9]+/"))])
     ops = kc.entry_points(compile_corpus([regex], members_k=4))[0]["operands"]
@@ -299,4 +301,5 @@ def test_engine_models_each_generation_and_sets_the_gauge():
     assert kcv["modeled"]["generations_analyzed"] == 2
     assert "flops_per_row" in {
         r["axis"] for r in kcv["modeled"]["current"]["regressions"]}
-    assert [e["entry"] for e in kcv["entry_points"]] == ["fused_kernel"]
+    assert [e["entry"] for e in kcv["entry_points"]] == [
+        "eval_bitpacked", "eval_fused", "fused_kernel"]
