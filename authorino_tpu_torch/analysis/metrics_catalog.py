@@ -43,12 +43,6 @@ NOT_YET_PORTED = {
     "auth_server_lane_cost_ewma_seconds": "item 3",
     "auth_server_lane_decisions_total": "item 3",
     "auth_server_speculative_dispatch_total": "item 3",
-    "auth_server_fleet_guard_breach_total": "item 13",
-    "auth_server_fleet_replicas": "item 13",
-    "auth_server_fleet_routed_total": "item 13",
-    "auth_server_mesh_shard_occupancy": "item 13",
-    "auth_server_mesh_shard_upload_bytes_total": "item 13",
-    "auth_server_device_failover_total": "item 13",
     "auth_server_jit_warm_cache_total": "divergence: no XLA warm grid",
 }
 

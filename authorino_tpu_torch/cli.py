@@ -251,7 +251,6 @@ def build_parser() -> argparse.ArgumentParser:
 UNPORTED_PLANES = {
     "brownout": 3, "lane selection": 3,
     "speculative dispatch": 3,
-    "fleet": 13,
 }
 
 # a flag of an unported plane → (its inert value, the plane).  A flag that

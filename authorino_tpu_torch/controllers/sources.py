@@ -27,6 +27,10 @@ __all__ = ["YamlDirSource", "K8sWatchSource", "load_manifests"]
 
 log = logging.getLogger(__name__)
 
+# libyaml's safe loader where PyYAML was built with it: the same documents
+# as yaml.SafeLoader's, about ten times faster on a directory of manifests
+_SAFE_LOADER = getattr(yaml, "CSafeLoader", yaml.SafeLoader)
+
 
 def load_manifests(path: str) -> Tuple[List[dict], List[Secret]]:
     """Parse all YAML docs under a file/dir into (authconfigs, secrets)."""
@@ -45,7 +49,7 @@ def load_manifests(path: str) -> Tuple[List[dict], List[Secret]]:
     for f in sorted(files):
         try:
             with open(f) as fh:
-                docs = list(yaml.safe_load_all(fh))
+                docs = list(yaml.load_all(fh, Loader=_SAFE_LOADER))
         except Exception as e:
             log.warning("skipping unparseable manifest %s: %s", f, e)
             continue

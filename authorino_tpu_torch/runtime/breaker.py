@@ -16,9 +16,13 @@ one breaker.  Every transition is counted in
 auth_server_circuit_transitions_total{lane,state}, logged at WARNING and
 recorded by the flight recorder (entering OPEN is an anomaly: it writes a
 bundle); the live state rides the auth_server_circuit_state{lane} gauge
-(0=closed, 1=half-open, 2=open), /readyz and /debug/vars.  The reference's
-per-device ``DeviceBreakerSet`` comes with the mesh (ROADMAP queue 1 item
-13).
+(0=closed, 1=half-open, 2=open), /readyz and /debug/vars.
+
+The mesh lane (parallel/sharded_eval.py) keeps one breaker per mesh device
+(``DeviceBreakerSet``): a sick device's batches fail over to a healthy one,
+and the engine's lane breaker opens only once the whole mesh stops
+answering.  The router ranks devices with the ``candidate()`` peek and
+claims a probe slot with ``admit_device()`` on the one it picks.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from typing import Any, Dict, List
 from ..utils import metrics as metrics_mod
 from .flight_recorder import RECORDER
 
-__all__ = ["CircuitBreaker", "CLOSED", "HALF_OPEN", "OPEN"]
+__all__ = ["CircuitBreaker", "DeviceBreakerSet", "CLOSED", "HALF_OPEN",
+           "OPEN"]
 
 log = logging.getLogger(__name__)
 
@@ -142,3 +147,67 @@ class CircuitBreaker:
                 out["retry_in_s"] = max(
                     0.0, self.reset_s - (time.monotonic() - self._opened_at))
             return out
+
+    # -- mesh routing peeks (no probe claim) --------------------------------
+
+    def candidate(self) -> bool:
+        """True when this breaker would plausibly admit a dispatch right
+        now: CLOSED, OPEN past its cooldown (a probe is due), or HALF_OPEN
+        with no probe in flight.  A pure peek: unlike ``admit_device`` it
+        never claims the half-open probe slot, so the mesh router can rank
+        many devices without stranding probes on the ones it skips."""
+        with self._lock:
+            if self._state == CLOSED:
+                return True
+            if self._state == OPEN:
+                return time.monotonic() - self._opened_at >= self.reset_s
+            return not self._probe_inflight
+
+
+class DeviceBreakerSet:
+    """Per-device circuit breakers for the mesh lane: one ``CircuitBreaker``
+    per mesh device, so a single sick device routes its batches to healthy
+    neighbours instead of tripping the whole lane.  The engine's lane
+    breaker stays the outer guard (it opens only once the whole mesh stops
+    answering)."""
+
+    def __init__(self, lane: str, device_ids, threshold: int = 3,
+                 reset_s: float = 5.0):
+        self.lane = lane
+        self.breakers: Dict[int, CircuitBreaker] = {
+            int(d): CircuitBreaker(f"{lane}-dev{int(d)}", threshold=threshold,
+                                   reset_s=reset_s)
+            for d in device_ids
+        }
+
+    def get(self, device_id: int) -> CircuitBreaker:
+        return self.breakers[int(device_id)]
+
+    def all_closed(self) -> bool:
+        """True when every mesh device is healthy: the full-mesh launch is
+        the plan."""
+        return all(b.state == CLOSED for b in self.breakers.values())
+
+    def candidates(self) -> List[int]:
+        """Device ids a single-device dispatch may target right now,
+        healthy (CLOSED) devices first.  A pure peek: the router claims the
+        probe slot with ``get(id).admit_device()`` only on the device it
+        picks."""
+        closed = [i for i, b in self.breakers.items() if b.state == CLOSED]
+        probing = [i for i, b in self.breakers.items()
+                   if b.state != CLOSED and b.candidate()]
+        return closed + probing
+
+    def record_failure(self, device_id: int) -> None:
+        b = self.breakers.get(int(device_id))
+        if b is not None:
+            b.record_failure()
+
+    def record_success(self, device_ids) -> None:
+        for d in device_ids:
+            b = self.breakers.get(int(d))
+            if b is not None:
+                b.record_success()
+
+    def to_json(self) -> Dict[str, Any]:
+        return {str(i): b.to_json() for i, b in sorted(self.breakers.items())}

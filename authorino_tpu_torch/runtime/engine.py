@@ -152,6 +152,15 @@ analysis and lowerability report (``analyze_policies``), and the metadata
 prefetcher (``metadata_prefetch``) pins the snapshot's request-independent
 metadata documents.  The per-batch fold offers each sampled decision to
 the capture log (``replay/capture.py``), whose own thread encodes it.
+
+The mesh lane (``mesh=``, parallel/sharded_eval.py): the corpus compiles as
+a ``ShardedPolicyModel``, its configs round-robined over the mesh's ``mp``
+shards, the batch split over ``dp``.  A batch's rows key dedup and the
+verdict cache by their (shard, row) tokens and launch through
+``dispatch_routed``: per-device breakers, failover to the emptiest healthy
+device, and with every device down the retry path (UNAVAILABLE on a card,
+the host oracle on the CPU).  The fleet plane (fleet/) reads
+``fleet_health`` and ``fleet_fold``.
 """
 
 from __future__ import annotations
@@ -279,7 +288,9 @@ class _Snapshot:
                  ovf_assist: Optional[bool], compile_cache: CompileCache,
                  prev: "Optional[_Snapshot]" = None, override: bool = True,
                  strict_verify: bool = False,
-                 kernel_lane: Optional[str] = None):
+                 kernel_lane: Optional[str] = None, mesh=None,
+                 breaker_threshold: int = 3,
+                 breaker_reset_s: float = 5.0):
         self.kernel_lane = kernel_lane
         self.index: HostIndex[EngineEntry] = HostIndex()
         self.entries: List[EngineEntry] = list(entries)
@@ -317,7 +328,17 @@ class _Snapshot:
         # (``from_published``), None for one compiled here: a publisher
         # never republishes a loaded snapshot (the fleet's loop breaker)
         self.published_origin: Optional[str] = None
+        # the mesh lane (parallel/sharded_eval.py): the rules-sharded
+        # corpus, and its verdict-cache tokens indexed [shard][row]
+        self.sharded = None
+        self.mesh_tokens = None
         if not rules:
+            return
+        if mesh is not None:
+            self._compile_mesh(rules, members_k, mesh, strict_verify, prev,
+                               breaker_threshold, breaker_reset_s,
+                               ovf_assist=ovf_assist,
+                               kernel_lane=kernel_lane)
             return
         prev_ok = prev is not None and prev.policy is not None
         t0 = time.perf_counter()
@@ -357,6 +378,50 @@ class _Snapshot:
             self._verify()
             self.phase_s["validate"] = time.perf_counter() - t0
 
+    def _compile_mesh(self, rules, members_k: int, mesh, strict_verify: bool,
+                      prev: "Optional[_Snapshot]", breaker_threshold: int,
+                      breaker_reset_s: float,
+                      ovf_assist: Optional[bool] = None,
+                      kernel_lane: Optional[str] = None) -> None:
+        """The host half of a mesh install: compile the shards with the
+        stacked host operands (``defer_upload``), fingerprint, strict
+        verify (the packed shards are linted before any byte is staged),
+        and the [shard][row] cache tokens.  The previous mesh snapshot's
+        interner is adopted (insert-only: ids stay stable), so an
+        untouched shard keeps its encoding epoch and its cached verdicts
+        across the swap."""
+        from ..parallel import ShardedPolicyModel
+
+        t0 = time.perf_counter()
+        prev_ok = (prev is not None and prev.sharded is not None
+                   and prev.sharded.mesh is mesh)
+        self.sharded = ShardedPolicyModel(
+            rules, mesh, members_k=members_k,
+            interner=(prev.sharded.interner if prev_ok else None),
+            defer_upload=True, breaker_threshold=breaker_threshold,
+            breaker_reset_s=breaker_reset_s, ovf_assist=ovf_assist,
+            kernel_lane=kernel_lane)
+        memo: Dict[int, str] = {}
+        self.fingerprints = {c.name: rules_fingerprint(c, memo)
+                             for c in rules}
+        self.phase_s["compile"] = time.perf_counter() - t0
+        if strict_verify:
+            t0 = time.perf_counter()
+            self._verify()
+            self.phase_s["validate"] = time.perf_counter() - t0
+        self.mesh_tokens = self.sharded.cache_tokens(self.fingerprints)
+
+    @property
+    def compiled(self) -> bool:
+        """True when the snapshot holds a compiled corpus (single or
+        mesh-sharded); False for the bootstrap deny-all."""
+        return self.policy is not None or self.sharded is not None
+
+    def has_config(self, name: str) -> bool:
+        if self.sharded is not None:
+            return name in self.sharded.locator
+        return self.policy is not None and name in self.policy.config_ids
+
     def stage(self, device, prev: "Optional[_Snapshot]" = None) -> None:
         """The device half of the install: the native encoder, the host
         view and its delta plan against ``prev`` (the serving snapshot the
@@ -365,7 +430,24 @@ class _Snapshot:
         the replay pregate), so a rejected candidate stages no byte.  A
         reused corpus has nothing to stage; a snapshot with no compiled
         config (the bootstrap deny-all) has nothing to upload, but the card
-        still proves it launches."""
+        still proves it launches.  A mesh snapshot stages each shard onto
+        its mesh column, per-shard delta against a previous mesh snapshot
+        on the same mesh."""
+        if self.sharded is not None:
+            if self.upload is not None:
+                return
+            prev_ok = (prev is not None and prev.sharded is not None
+                       and prev.sharded.mesh is self.sharded.mesh)
+            t0 = time.perf_counter()
+            self.upload = self.sharded.upload(
+                prev.sharded if prev_ok else None)
+            self.phase_s["upload"] = time.perf_counter() - t0
+            try:
+                self.heat = prov_mod.HeatMap.for_snapshot(
+                    None, sharded=self.sharded)
+            except Exception:
+                log.exception("rule heat map build failed (swap unaffected)")
+            return
         if self.policy is None:
             if device.type == "cuda":
                 fk.fused_kernel_supported(device, recheck=True)
@@ -540,7 +622,7 @@ class _Inflight:
     ``wait()`` (the readback as numpy) — tests substitute stubs."""
 
     __slots__ = ("engine", "batch", "handle", "finalize", "binfo", "waits",
-                 "t_launch", "snap", "attempt")
+                 "t_launch", "snap", "attempt", "route")
 
     def __init__(self, engine, batch, handle, finalize, binfo, waits,
                  snap=None, attempt=0):
@@ -553,6 +635,7 @@ class _Inflight:
         self.t_launch = time.monotonic()
         self.snap = snap          # pinned snapshot (retry path)
         self.attempt = attempt    # 0 = first dispatch, 1 = the one retry
+        self.route = None         # mesh lane: the occupied device windows
 
     def ready(self) -> bool:
         is_ready = getattr(self.handle, "is_ready", None)
@@ -606,7 +689,8 @@ class PolicyEngine:
                  replay_pregate_budget_s: float = 2.0,
                  corpus_pregate: str = "",
                  corpus_pregate_budget_s: float = 2.0,
-                 kernel_lane: Optional[str] = None):
+                 kernel_lane: Optional[str] = None,
+                 mesh: Any = "auto"):
         """``max_inflight_batches`` caps the dispatch window (launched
         batches awaiting readback); the adaptive controller tunes the live
         window inside it.  ``dispatch_workers`` sizes the process-wide
@@ -685,13 +769,24 @@ class PolicyEngine:
         to a zero-traffic rule is caught with zero live exposure; it runs
         after the replay pregate, still before the candidate is staged.  A
         missing or unreadable corpus skips, never blocks.
-        ``corpus_pregate_budget_s`` bounds its replay."""
+        ``corpus_pregate_budget_s`` bounds its replay.
+
+        ``mesh``: "auto" and None serve the single corpus, whose batch is
+        one mega-kernel launch on a card; an explicit
+        ``parallel.build_mesh(devices, dp=...)`` (logical slots may repeat
+        a device) always shards.  A mesh block runs the op chain, not the
+        mega-kernel, so "auto" does not shard over several cards.  The mesh's
+        per-device breakers take ``breaker_threshold`` and
+        ``breaker_reset_s`` at the first engine that touches the mesh."""
         self.max_batch = int(max_batch)
         self.members_k = members_k
         self.ovf_assist = ovf_assist
         # fused | gather | matmul, or None: the environment's lane
         # (AUTHORINO_TPU_KERNEL_LANE, ``pattern_eval.to_device``)
         self.kernel_lane = kernel_lane
+        # the mesh lane: "auto" and None serve the single corpus; an
+        # explicit ``parallel.build_mesh(...)`` always shards
+        self._mesh = mesh
         self.device = resolve_device(device)
         self.timeout_s = timeout_s
         self.max_inflight_batches = max(1, int(max_inflight_batches))
@@ -726,6 +821,10 @@ class PolicyEngine:
             enabled=adaptive_window)
         self.breaker = CircuitBreaker("engine", threshold=breaker_threshold,
                                       reset_s=breaker_reset_s)
+        # cumulative typed serving errors (the fleet fold): requests failed
+        # UNAVAILABLE with no lane left.  Deadline sheds stay out: they are
+        # the protection working
+        self.error_total = 0
         self._g_inflight = metrics_mod.inflight_batches.labels("engine")
         self._g_depth = metrics_mod.dispatch_queue_depth.labels("engine")
         self._swap_listeners: List[Any] = []
@@ -860,7 +959,10 @@ class PolicyEngine:
                              self.compile_cache, prev=prev,
                              override=override,
                              strict_verify=self.strict_verify,
-                             kernel_lane=self.kernel_lane)
+                             kernel_lane=self.kernel_lane,
+                             mesh=self._resolve_mesh(),
+                             breaker_threshold=self.breaker.threshold,
+                             breaker_reset_s=self.breaker.reset_s)
         except SnapshotRejected as e:
             metrics_mod.snapshot_rejected.labels("engine").inc()
             RECORDER.record("snapshot-rejected", lane="engine", detail={
@@ -899,6 +1001,14 @@ class PolicyEngine:
         if self.analyze_policies:
             self._run_policy_analysis(entries, snap)
             self._run_lowerability(entries, snap)
+
+    def _resolve_mesh(self):
+        # "auto" stays on the single corpus on every device: the
+        # reference shards over its visible devices, but a mesh block here
+        # runs the op chain, and a card's batch belongs to the mega-kernel
+        if isinstance(self._mesh, str) and self._mesh == "auto":
+            self._mesh = None
+        return self._mesh
 
     def apply_published(self, loaded) -> None:
         """A replica's swap: install a leader-serialized vetted snapshot
@@ -941,7 +1051,7 @@ class PolicyEngine:
             self._snapshot = snap
             metrics_mod.snapshot_generation.labels("engine").set(
                 self.generation)
-            if prev is not None and prev.policy is not None:
+            if prev is not None and prev.compiled:
                 self._history.append(prev)
         RECORDER.record("snapshot-swap", lane="engine", detail={
             "generation": snap.generation, "configs": len(snap.by_id)})
@@ -1023,7 +1133,8 @@ class PolicyEngine:
                 "compile": rep.to_json() if rep is not None else None,
                 "upload": snap.upload,
                 "compile_cache": self.compile_cache.stats(),
-                "per_config_cache_keying": snap.cache_tokens is not None,
+                "per_config_cache_keying": (snap.cache_tokens is not None
+                                            or snap.mesh_tokens is not None),
             }
         except Exception:
             log.exception("control-plane telemetry failed (swap unaffected)")
@@ -1080,8 +1191,10 @@ class PolicyEngine:
         snapshot: the precondition the canary split and the replay pregate
         share (an identical-fingerprint resync has nothing to prove)."""
         prev = self._snapshot
-        if prev is None or prev.policy is None or snap.policy is None:
+        if prev is None or not prev.compiled or not snap.compiled:
             return False
+        if (prev.sharded is None) != (snap.sharded is None):
+            return False  # a lane change swaps through: nothing to compare
         return snap.fingerprints != prev.fingerprints
 
     def _enter_canary(self, snap: _Snapshot,
@@ -1206,8 +1319,7 @@ class PolicyEngine:
             # the candidate already in place (never a torn read)
             self._snapshot = phase.snap
             self._canary = None
-            if phase.baseline is not None and \
-                    phase.baseline.policy is not None:
+            if phase.baseline is not None and phase.baseline.compiled:
                 self._history.append(phase.baseline)
             metrics_mod.snapshot_generation.labels("engine").set(
                 phase.snap.generation)
@@ -1767,7 +1879,8 @@ class PolicyEngine:
         try:
             from ..analysis.policy_analysis import analyze_snapshot
 
-            findings, summary = analyze_snapshot(entries, snap.policy)
+            findings, summary = analyze_snapshot(entries, snap.policy,
+                                                 sharded=snap.sharded)
             for f in findings:
                 metrics_mod.policy_analysis_findings.labels(
                     f.kind, str(f.detail.get("config", ""))).inc()
@@ -1951,6 +2064,13 @@ class PolicyEngine:
             # the pipeline by provider_for); fall back to the serving one
             if snap is None:
                 snap = self._snapshot
+            if snap is not None and snap.sharded is not None:
+                loc = snap.sharded.locator.get(config_name)
+                if loc is None or snap.heat is None:
+                    return None
+                src = snap.heat.source(loc[1], evaluator_slot, shard=loc[0])
+                return prov_mod.deny_provenance(config_name, evaluator_slot,
+                                                src, lane="engine")
             policy = snap.policy if snap is not None else None
             if policy is None or config_name not in policy.config_ids:
                 return None
@@ -2031,7 +2151,7 @@ class PolicyEngine:
             raise CheckAbort(code, f"server overloaded ({reason}): "
                                    "admission rejected")
         snap = phase.snap if in_canary else self._snapshot
-        if snap is None or snap.policy is None:
+        if snap is None or not snap.compiled:
             # typed, as the reference answers a batch cut with no compiled
             # snapshot: nothing (device or oracle) can decide it.  A config
             # the snapshot lacks (unknown, or quarantined out since the
@@ -2137,7 +2257,7 @@ class PolicyEngine:
         if not batch:
             self._launch_done()
             return
-        if snap is None or snap.policy is None:
+        if snap is None or not snap.compiled:
             self._resolve_error(batch, CheckAbort(
                 UNAVAILABLE, "no compiled policy snapshot"))
             self._launch_done()
@@ -2168,15 +2288,15 @@ class PolicyEngine:
         reference's row-by-row host degrade gives them; the rest of the
         part goes on to the launch.  Nothing reached the device, so the
         breaker counts no failure."""
-        ids = snap.policy.config_ids
-        unknown = [p for p in batch if p.config_name not in ids]
+        unknown = [p for p in batch if not snap.has_config(p.config_name)]
         if not unknown:
             return batch
         self._add_stats(failed_batches=1)
+        self.error_total += len(unknown)
         self._canary_errors(unknown, len(unknown))
         self._fail_all(unknown, CheckAbort(
             UNAVAILABLE, "policy evaluation unavailable"))
-        return [p for p in batch if p.config_name in ids]
+        return [p for p in batch if snap.has_config(p.config_name)]
 
     def _shed_expired(self, batch: List[_Pending]) -> List[_Pending]:
         """Requests whose propagated deadline lands inside one expected
@@ -2249,6 +2369,7 @@ class PolicyEngine:
         """An in-flight batch wedged past ``device_timeout_s``: abandon its
         handle (its readback buffer and stream go; a late readback lands
         nowhere) and take the retry path as a breaker-counted failure."""
+        self._route_done(item, ok=False)
         release = getattr(item.handle, "release", None)
         item.handle = None
         if release is not None:
@@ -2313,6 +2434,52 @@ class PolicyEngine:
                     self._inflight)
         return False
 
+    # ---- the fleet plane -------------------------------------------------
+
+    def fleet_health(self) -> Dict[str, Any]:
+        """The fleet router's per-replica health dict: the /readyz,
+        admission and breaker evidence (``admission.health_signal``), so
+        in-process replicas and replicas polled over HTTP publish one
+        shape.  Every read is atomic under the interpreter lock: safe from
+        the router's decision path under load."""
+        h = self.admission.health_signal(len(self._queue))
+        h["ready"] = self._snapshot is not None and not self._draining
+        h["draining"] = self._draining
+        h["breaker_open"] = self.breaker.state != "closed"
+        h["generation"] = self.generation
+        return h
+
+    def fleet_fold(self) -> Dict[str, Any]:
+        """One replica's fold for the fleet aggregator (fleet/aggregate.py):
+        health, cumulative counters (the aggregator differences consecutive
+        folds; cumulatives survive a missed publish) and the per-tenant
+        rate EWMAs whose fleet-wide sum is the global tenant share.  Small
+        and cadence-published, never anything per request."""
+        fold = self.fleet_health()
+        fold["errors"] = self.error_total
+        if self.slo is not None:
+            fold["slo_total"] = self.slo.total
+            fold["slo_bad"] = self.slo.bad_total
+        else:
+            fold["slo_total"] = fold["slo_bad"] = 0
+        ten = self.tenancy
+        if ten.enabled:
+            fold["tenants"] = ten.stats.export_fold()
+            fold["tenant_rejects"] = {
+                t: sum(r.values())
+                for t, r in list(ten.admission.rejected.items())}
+        else:
+            fold["tenants"] = {}
+            fold["tenant_rejects"] = {}
+        # the fleet-pressure gate of the global containment check: this
+        # replica's wait is hot or its admission gate left HEALTHY
+        fold["wait_hot"] = bool(
+            self.admission.wait_ewma > self.admission.target_s
+            or self.admission.overloaded)
+        fold["admission_state"] = ("OVERLOADED" if self.admission.overloaded
+                                   else "HEALTHY")
+        return fold
+
     # ---- dedup and the verdict cache ---------------------------------------
 
     def _cache_keys(self, keys, n, snap, rows):
@@ -2370,6 +2537,8 @@ class PolicyEngine:
         finalize closure runs on the completion stage with the readback
         and fans the verdicts back out (bit-identical: the kernel is a
         pure per-row function of the operand bytes)."""
+        if snap.sharded is not None:
+            return self._encode_and_launch_sharded(snap, batch)
         n = len(batch)
         pad = bucket_pow2(n)
         t0 = time.monotonic()
@@ -2487,6 +2656,146 @@ class PolicyEngine:
 
         return _Inflight(self, batch, handle, finalize, binfo, waits)
 
+    def _encode_and_launch_sharded(self, snap: _Snapshot,
+                                   batch: List[_Pending]) -> _Inflight:
+        """The mesh mirror of ``_encode_and_launch``: the row key folds in
+        shard_of/row_of (config identity on the mesh), cached rows answer
+        from the [shard][row] tokens, the unique rows re-pad to the
+        dp-aligned bucket, and the launch is the routed mesh dispatch
+        (per-device breakers, failover to the emptiest healthy device;
+        ``MeshUnavailable`` when every device is down takes the retry
+        path)."""
+        from ..parallel.sharded_eval import flat_config_rows
+
+        sharded = snap.sharded
+        n = len(batch)
+        pad = bucket_pow2(n)
+        t0 = time.monotonic()
+        waits = np.array([(t0 - p.t_enq) if p.t_enq else 0.0 for p in batch])
+        self.admission.observe_waits(waits, now=t0)
+        docs = [p.doc for p in batch]
+        names = [p.config_name for p in batch]
+        enc = sharded.encode(docs, names, batch_pad=pad)
+        keys = (sharded.row_keys(enc, n)
+                if self.batch_dedup or self._verdict_cache is not None
+                else None)
+        tokens = snap.mesh_tokens
+        ckeys = ([(tokens[enc.shard_of[r]][enc.row_of[r]], keys[r])
+                  for r in range(n)]
+                 if keys is not None and self._verdict_cache is not None
+                 else None)
+
+        def eligible(r: int) -> bool:
+            return (bool(sharded.config_cacheable[enc.shard_of[r],
+                                                  enc.row_of[r]])
+                    and not bool(enc.host_fallback[r]))
+
+        cached, miss_rows, unique_rows, inverse, elig_miss = self._dedup_plan(
+            keys, ckeys, n, eligible)
+        u = len(unique_rows)
+        E = sharded.E
+        W = packed_width(1 + 2 * E)
+        if u == n:
+            enc_u = enc
+        elif u:
+            enc_u = sharded.select_rows(enc, unique_rows,
+                                        batch_pad=bucket_pow2(u))
+        else:
+            enc_u = None  # every row from the cache: no launch
+        pad_u = int(enc_u.attrs_val.shape[0]) if enc_u is not None else 0
+        _observe_stage("encode", time.monotonic() - t0)
+        t1 = time.monotonic()
+        start_ns = time.time_ns()
+        route = None
+        if enc_u is not None:
+            if faults.ACTIVE:
+                faults.FAULTS.check("h2d", "engine")
+                faults.FAULTS.check("kernel", "engine")
+            launched, route = sharded.dispatch_routed(enc_u, lane="engine")
+            if launched.nbytes != pad_u * W:
+                sharded.complete_route(route, ok=False)
+                raise RuntimeError("readback is not [pad, W] uint8")
+            handle = (faults.FAULTS.wrap_handle(launched, "engine")
+                      if faults.ACTIVE else launched)
+        else:
+            launched = handle = _Resolved()
+        _observe_stage("launch", time.monotonic() - t1)
+        record = {"rows": n, "device_rows": u, "pad_rows": pad_u,
+                  "dedup_rows": len(miss_rows) - u, "cache_rows": len(cached),
+                  "degraded_rows": 0, "launches": 0, "plain_calls": 0,
+                  "h2d_bytes": (sharded._encoded_h2d_bytes(enc_u)
+                                if enc_u is not None else 0),
+                  "d2h_bytes": launched.nbytes}
+        self.batch_records.append(dict(
+            record, generation=snap.generation, lane="mesh",
+            devices=list(route.devices) if route is not None else [],
+            **({"contained": True} if batch[0].contained else {})))
+        self._add_stats(batches=1, cached_batches=int(u == 0), **record)
+        # the mesh lane's fold: the shard-step's launch and bytes were
+        # counted at the dispatch (failovers included); this adds the
+        # batch's rows, dedup and cache cuts and pad waste
+        try:
+            LEDGER.observe(
+                "mesh", rows=n, device_rows=u, pad_rows=pad_u,
+                dedup_avoided_rows=record["dedup_rows"],
+                cache_avoided_rows=record["cache_rows"])
+        except Exception:
+            log.exception("kernel cost fold failed (batch unaffected)")
+        binfo = {"batch_size": n, "device_rows": u, "t0": t0, "pad": pad_u,
+                 "eff": (int(enc_u.attr_bytes.shape[-1])
+                         if enc_u is not None and enc_u.attr_bytes is not None
+                         else 0),
+                 "start_ns": start_ns}
+        flat = flat_config_rows(enc.shard_of[:n], enc.row_of[:n],
+                                sharded.configs_per_shard)
+
+        def finalize(packed):
+            own_rule = np.ones((n, E), dtype=bool)
+            own_skipped = np.zeros((n, E), dtype=bool)
+            if u:
+                cols = unpack_verdicts(packed, 1 + 2 * E)
+                mr = np.asarray(miss_rows)
+                own_rule[mr] = cols[inverse, 1:1 + E]
+                own_skipped[mr] = cols[inverse, 1 + E:1 + 2 * E]
+            for r, (c_rule, c_skip) in cached.items():
+                own_rule[r] = c_rule
+                own_skipped[r] = c_skip
+            fb_n = sharded.apply_fallback(enc.host_fallback, docs, names,
+                                          own_rule, own_skipped)
+            binfo["fallback_n"] = fb_n
+            if fb_n:
+                self._add_stats(host_fallback=fb_n)
+            evicted = self._cache_insert(ckeys, unique_rows, eligible,
+                                         own_rule, own_skipped)
+            metrics_mod.observe_dedup("engine", n, u, len(cached),
+                                      elig_miss, evicted)
+            binfo["due"] = self._observe_provenance(
+                snap, batch, flat, own_rule, own_skipped, waits=waits)
+            return own_rule, own_skipped
+
+        item = _Inflight(self, batch, handle, finalize, binfo, waits)
+        item.route = route
+        return item
+
+    @staticmethod
+    def _route_done(item: _Inflight, ok: bool) -> None:
+        """Terminal mesh-route accounting for one in-flight batch: the
+        per-device breaker verdicts and the occupancy release (idempotent;
+        a no-op off the mesh)."""
+        route = item.route
+        if route is None:
+            return
+        item.route = None
+        try:
+            sharded = getattr(item.snap, "sharded", None) \
+                if item.snap is not None else None
+            if sharded is not None:
+                sharded.complete_route(route, ok, lane="engine")
+            else:
+                route.release()
+        except Exception:
+            log.exception("mesh route accounting failed (batch unaffected)")
+
     # ---- decision observability -------------------------------------------
 
     def _observe_provenance(self, snap: _Snapshot, pendings: List[_Pending],
@@ -2588,8 +2897,14 @@ class PolicyEngine:
         decided = []   # (pending, config row, rule [E], skipped [E])
         for p in batch:
             try:
-                row = snap.policy.config_ids[p.config_name]
-                _, rule, skipped = host_results(snap.policy, p.doc, row)
+                if snap.sharded is not None:
+                    s_, r_ = snap.sharded.locator[p.config_name]
+                    row = s_ * snap.sharded.configs_per_shard + r_
+                    rule, skipped = snap.sharded.host_decide(p.config_name,
+                                                             p.doc)
+                else:
+                    row = snap.policy.config_ids[p.config_name]
+                    _, rule, skipped = host_results(snap.policy, p.doc, row)
             except Exception:
                 log.exception("host oracle failed for config %r "
                               "(fail-closed UNAVAILABLE)", p.config_name)
@@ -2653,6 +2968,7 @@ class PolicyEngine:
             "generation": snap.generation, "degraded": reason})
         self._add_stats(degraded_rows=n_ok, degraded_batches=1,
                         failed_batches=int(n_failed > 0))
+        self.error_total += n_failed
         if n_failed and batch:
             # rows the oracle itself fails are serving errors: a canary
             # artifact broken on both lanes still feeds the guard
@@ -2683,6 +2999,12 @@ class PolicyEngine:
             "verdict_cache": (self._verdict_cache.counts()
                               if self._verdict_cache is not None else None),
             "breaker": self.breaker.to_json(),
+            # the mesh lane: per-device breakers and their trail,
+            # occupancy, launches, failovers, the per-shard upload
+            "sharded": snap is not None and snap.sharded is not None,
+            "mesh": (snap.sharded.mesh_vars()
+                     if snap is not None and snap.sharded is not None
+                     else None),
             "host_degrade": self.host_degrade,
             "draining": self._draining,
             "device_timeout_s": self.device_timeout_s,
@@ -2758,8 +3080,12 @@ class PolicyEngine:
             packed = item.handle.wait()
             own_rule, own_skipped = item.finalize(packed)
         except Exception as e:
+            # a mesh batch: its devices' breakers and windows first, then
+            # the retry (whose fresh dispatch routes around a sick device)
+            self._route_done(item, ok=False)
             self._batch_failed(item.snap, item.batch, item.attempt, e)
             return
+        self._route_done(item, ok=True)
         slo_counted = False
         due = item.binfo.get("due")
         try:
@@ -2852,6 +3178,7 @@ class PolicyEngine:
             exc = CheckAbort(UNAVAILABLE, "policy evaluation unavailable")
         if exc.code != DEADLINE_EXCEEDED:
             self._add_stats(failed_batches=1)
+            self.error_total += len(batch)
             if self.slo is not None and not slo_counted:
                 try:
                     self.slo.observe_errors(len(batch))

@@ -692,6 +692,21 @@ class _SnapRec:
     # native denials — kernel-allowed requests continue into the pipeline,
     # which observes them itself
     hybrid_rows: set = field(default_factory=set)
+    # the mesh lane: the engine snapshot's ShardedPolicyModel, whose rows
+    # key every per-row table here flat (shard * G + row), and each fast
+    # config's own shard compile (its per-key auth.* constants resolve
+    # against it)
+    sharded: Any = None
+    entry_policy: Dict[str, Any] = field(default_factory=dict)
+
+    def slot_rows(self, a: Dict[str, np.ndarray], count: int) -> np.ndarray:
+        """The kernel rows of a slot's first ``count`` requests (a copy):
+        the config row, or on a mesh the flat shard * G + row."""
+        rows = a["config_id"][:count].astype(np.int64)
+        if self.sharded is not None:
+            rows += (a["shard_of"][:count].astype(np.int64)
+                     * self.sharded.configs_per_shard)
+        return rows
 
 
 class NativeFrontend:
@@ -1201,20 +1216,24 @@ class NativeFrontend:
             return
         snap = self.engine._snapshot
         policy = snap.policy if snap is not None else None
+        sharded = snap.sharded if snap is not None else None
         mod = self._mod
 
         # the C++ encoder implements the id, membership and DFA lanes only:
         # a corpus with numeric or relation operands or the overflow assist
         # is served by the slow lane
-        if policy is not None and (
-                int(getattr(policy, "n_num_attrs", 0) or 0) > 0
-                or int(getattr(policy, "n_rel_slots", 0) or 0) > 0
-                or bool(getattr(policy, "ovf_assist", False))):
+        def outside(pol) -> bool:
+            return (int(getattr(pol, "n_num_attrs", 0) or 0) > 0
+                    or int(getattr(pol, "n_rel_slots", 0) or 0) > 0
+                    or bool(getattr(pol, "ovf_assist", False)))
+
+        if (policy is not None and outside(policy)) or (
+                sharded is not None and outside(sharded.shards[0])):
             log.warning(
                 "native fast lane off for this snapshot: the corpus uses "
                 "numeric/relation/overflow-assist lanes the C++ encoder "
                 "does not implement — the slow lane serves it")
-            policy = None
+            policy = sharded = None
 
         snap_id = self._next_snap_id
         self._next_snap_id += 1
@@ -1310,12 +1329,24 @@ class NativeFrontend:
                 }
                 rec.arrays.append(a)
                 spec["slots"].append({k: v.ctypes.data for k, v in a.items()})
+        elif sharded is not None:
+            policy = self._sharded_spec(rec, spec, sharded)
+            if policy is None:
+                sharded = None  # no native encoder: kernel lane off
         else:
             policy = rec.policy = None  # no native encoder: kernel lane off
 
         fast_ids = set()
         for entry in entries:
-            spec_fl = fast_lane_eligible(entry, policy)
+            # each entry is judged against its own compile: the single
+            # corpus, or its owning shard's on a mesh
+            policy_for = policy
+            if sharded is not None:
+                loc = (sharded.locator.get(entry.rules.name)
+                       if entry.rules is not None else None)
+                policy_for = (sharded.shards[loc[0]] if loc is not None
+                              else None)
+            spec_fl = fast_lane_eligible(entry, policy_for)
             if spec_fl is None:
                 continue
             if spec_fl.has_batch and policy is None:
@@ -1386,8 +1417,14 @@ class NativeFrontend:
                         add_listener(self._on_oidc_change)
                         self._change_wired.add(s.idc.evaluator)
             if spec_fl.has_batch:
-                row = int(policy.config_ids[entry.rules.name])
-                fc["row"] = row
+                if sharded is not None:
+                    shard, srow = sharded.locator[entry.rules.name]
+                    fc["row"], fc["shard"] = int(srow), int(shard)
+                    row = int(shard) * sharded.configs_per_shard + int(srow)
+                    rec.entry_policy[entry.id] = policy_for
+                else:
+                    row = int(policy.config_ids[entry.rules.name])
+                    fc["row"] = row
                 rec.row_labels[row] = (ns_l, nm_l)
                 if spec_fl.hybrid:
                     rec.hybrid_rows.add(row)
@@ -1423,6 +1460,84 @@ class NativeFrontend:
             "hosts": len(hosts)})
         log.info("native frontend snapshot %d: %d fast configs, %d host keys",
                  snap_id, len(fcs), len(hosts))
+
+    def _sharded_spec(self, rec: _SnapRec, spec: Dict[str, Any], sharded):
+        """The C++ snapshot of a mesh-sharded corpus: the shards share one
+        interner and ShapeTargets-unified shapes, so the encoder lays each
+        request into its owning shard's [B, S, ...] slice and one mesh
+        dispatch serves the slot.  Per-shard metadata stacks on the shard
+        axis, the DFA tables on the (shard-globalized) row axis.  Returns
+        the first shard's policy (the record's shapes), or None when the
+        corpus is outside the native encoder's domain."""
+        from ..native import get_native_encoder
+
+        enc = get_native_encoder(sharded.shards[0])
+        if enc is None:
+            return None
+        rec.encoder = enc
+        rec.sharded = sharded
+        p0 = rec.policy = sharded.shards[0]
+        spec["policy"] = enc._handle
+        S = sharded.n_shards
+        G = sharded.configs_per_shard
+        A, M, K = p0.n_attrs, p0.n_member_attrs, p0.members_k
+        C, NB = p0.n_cpu_leaves, max(p0.n_byte_attrs, 1)
+        # the mesh encode takes int32 operands: no 16-bit elements
+        spec.update(A=A, M=M, K=K, C=C, NB=NB, S=S, elem16=0)
+        ams = np.ascontiguousarray(
+            np.stack([p.member_attr_slot for p in sharded.shards]),
+            dtype=np.int32)
+        abs_v = np.ascontiguousarray(
+            np.stack([p.attr_byte_slot for p in sharded.shards]),
+            dtype=np.int32)
+        rec.keepalive += [ams, abs_v]
+        spec["attr_member_slot_addr"] = ams.ctypes.data
+        spec["attr_byte_slot_addr"] = abs_v.ctypes.data
+        rec.cacheable = np.concatenate(
+            [p.config_cacheable for p in sharded.shards])
+        rec.cache_tokens = ([t for toks in self.engine._snapshot.mesh_tokens
+                             for t in toks]
+                            if self.engine._snapshot.mesh_tokens is not None
+                            else None)
+        E = int(p0.eval_rule.shape[1])
+        rec.col_rank = np.tile(np.arange(max(E, 1), dtype=np.int16),
+                               (max(S * G, 1), 1))
+        attr_dfas: List[List[Tuple[int, int]]] = [[] for _ in range(S * A)]
+        if p0.n_byte_attrs > 0 and p0.dfa_tables.size:
+            R = int(p0.dfa_table_of_row.shape[0])
+            dt_tr = np.ascontiguousarray(
+                np.concatenate([p.dfa_tables_by_row for p in sharded.shards]),
+                dtype=np.uint8)
+            dt_ac = np.ascontiguousarray(
+                np.concatenate([p.dfa_accept_by_row for p in sharded.shards]),
+                dtype=np.uint8)
+            rec.keepalive += [dt_tr, dt_ac]
+            spec.update(dfa_R=int(dt_tr.shape[0]), dfa_S=int(dt_tr.shape[1]),
+                        dfa_trans_addr=dt_tr.ctypes.data,
+                        dfa_accept_addr=dt_ac.ctypes.data)
+            for s, p in enumerate(sharded.shards):
+                cpu_col = {int(l): i for i, l in enumerate(p.cpu_leaf_list)}
+                for leaf in range(p.n_leaves):
+                    if int(p.leaf_op[leaf]) == OP_REGEX_DFA and leaf in cpu_col:
+                        attr_dfas[s * A + int(p.leaf_attr[leaf])].append(
+                            (s * R + int(p.leaf_dfa_row[leaf]),
+                             cpu_col[leaf]))
+        spec["attr_dfas"] = attr_dfas
+        B = self.max_batch
+        for _ in range(self.slots):
+            a = {
+                "attrs_val": np.zeros((B, S, A), dtype=np.int32),
+                "members": np.full((B, S, M, K), PAD, dtype=np.int32),
+                "cpu_dense": np.zeros((B, S, C), dtype=np.uint8),
+                "config_id": np.zeros((B,), dtype=np.int32),
+                "shard_of": np.zeros((B,), dtype=np.int32),
+                "attr_bytes": np.zeros((B, S, NB, DFA_VALUE_BYTES),
+                                       dtype=np.uint8),
+                "byte_ovf": np.zeros((B, S, NB), dtype=np.uint8),
+            }
+            rec.arrays.append(a)
+            spec["slots"].append({k: v.ctypes.data for k, v in a.items()})
+        return p0
 
     def _on_oidc_change(self) -> None:
         """JWKS rotation: rebuild the C++ snapshot (fresh, empty variant
@@ -1514,11 +1629,12 @@ class NativeFrontend:
             return
         vplans: List[tuple] = []
         if spec.auth_attrs:
-            if rec.policy is None:
+            pol = rec.entry_policy.get(entry.id, rec.policy)
+            if pol is None:
                 return
             doc = _const_doc(obj)
             for attr in spec.auth_attrs:
-                p = _const_plan(rec.policy, attr, doc)
+                p = _const_plan(pol, attr, doc)
                 if p is None:
                     return  # this token's values do not fit the payload
                 vplans.append(p)
@@ -1544,6 +1660,12 @@ class NativeFrontend:
     def _warm_launch(self, rec: _SnapRec) -> None:
         """One launch of the mega-kernel on 16 zero rows of config 0 with
         this snapshot's params (its plain version on a CPU engine)."""
+        if rec.sharded is not None:
+            enc, _, _ = self._slot_batch(rec, 0, 0, zero=True)
+            h = rec.sharded.dispatch_full(enc)
+            h.wait()
+            self._count(warm_launches=h.lane_calls)
+            return
         a = rec.arrays[0]
         pad = min(16, self.max_batch)
         has_dfa = rec.params["dfa_tables"] is not None
@@ -1638,7 +1760,8 @@ class NativeFrontend:
         cache = self._verdict_cache
         if not self.batch_dedup and cache is None:
             return None
-        keys = row_key_bytes([a["config_id"], a["attrs_val"], a["members"],
+        keys = row_key_bytes([a["config_id"], a.get("shard_of"),
+                              a["attrs_val"], a["members"],
                               a["cpu_dense"], a["attr_bytes"], a["byte_ovf"]],
                              count)
         tok = rec.cache_tokens
@@ -1669,11 +1792,16 @@ class NativeFrontend:
         return ckeys, eligible, cached, miss_rows, unique_rows, inverse, elig_miss
 
     def _slot_batch(self, rec: _SnapRec, slot: int, count: int,
-                    unique_rows: Optional[List[int]] = None
-                    ) -> Tuple[DeviceBatch, int, int]:
+                    unique_rows: Optional[List[int]] = None,
+                    zero: bool = False) -> Tuple[Any, int, int]:
         """The DeviceBatch of one slot's rows (all, or the unique rows
         padded by repeating the first), at the staging's pad bucket and
-        byte-width bucket: (batch, pad, eff)."""
+        byte-width bucket: (batch, pad, eff).  A mesh record gives the
+        sharded encoding ([B, S, ...], dp-aligned); ``zero`` one of 16
+        zero rows (the swap's warm launch)."""
+        if rec.sharded is not None:
+            return self._sharded_slot_batch(rec, slot, count, unique_rows,
+                                            zero)
         a = rec.arrays[slot]
         has_dfa = rec.params["dfa_tables"] is not None
         u = count if unique_rows is None else len(unique_rows)
@@ -1702,6 +1830,48 @@ class NativeFrontend:
             byte_ovf=byte_ovf, host_fallback=np.zeros((pad,), dtype=bool))
         return db, pad, eff
 
+    def _sharded_slot_batch(self, rec: _SnapRec, slot: int, count: int,
+                            unique_rows: Optional[List[int]], zero: bool):
+        from ..parallel.sharded_eval import _ShardedEncoded
+
+        sh = rec.sharded
+        a = rec.arrays[slot]
+        if zero:
+            pad = sh._dp_pad(min(16, self.max_batch))
+
+            def take(name):
+                arr = a[name][:1]
+                out = np.zeros((pad,) + arr.shape[1:], dtype=arr.dtype)
+                if name == "members":
+                    out[:] = PAD
+                return out
+            u = 0
+        else:
+            u = count if unique_rows is None else len(unique_rows)
+            pad = sh._dp_pad(min(bucket_pow2(u), self.max_batch))
+            if unique_rows is None or u == count:
+                idx = np.asarray(list(range(u)) + [0] * (pad - u))
+            else:
+                idx = np.asarray(list(unique_rows)
+                                 + [unique_rows[0]] * (pad - u))
+
+            def take(name):
+                return a[name][idx]
+        eff = 0
+        attr_bytes = byte_ovf = None
+        if sh.has_dfa:
+            ab = take("attr_bytes")
+            eff = _trim_bytes(ab[:max(u, 1)]).shape[-1]
+            attr_bytes = np.ascontiguousarray(ab[..., :eff])
+            byte_ovf = take("byte_ovf").view(bool)
+        enc = _ShardedEncoded(
+            attrs_val=take("attrs_val"), members_c=take("members"),
+            cpu_dense=take("cpu_dense").view(bool), attr_bytes=attr_bytes,
+            byte_ovf=byte_ovf, shard_of=take("shard_of"),
+            row_of=take("config_id"),
+            host_fallback=np.zeros((pad,), dtype=bool))
+        return enc, pad, eff
+
     def _dispatch(self, snap_id: int, slot: int, count: int,
                   attempt: int = 0) -> None:
         """Launch stage of one C++-encoded slot: answer cached rows,
@@ -1717,8 +1887,9 @@ class NativeFrontend:
         a = rec.arrays[slot]
         # copy attribution rows BEFORE the slot can complete: once
         # fe_complete_batch runs, the C++ encoder may refill them
-        rows = a["config_id"][:count].copy()
+        rows = rec.slot_rows(a, count)
         fan = self._dedup_plan(rec, a, count, rows)
+        lane = "native" if rec.sharded is None else "mesh"
         unique_rows = fan[4] if fan is not None else None
         u = len(unique_rows) if unique_rows is not None else count
         t0 = time.monotonic()
@@ -1730,7 +1901,7 @@ class NativeFrontend:
             # with no device work at all
             pad = eff = 0
             handle = None
-            LEDGER.observe("native", rows=count,
+            LEDGER.observe(lane, rows=count,
                            dedup_avoided_rows=dedup_n,
                            cache_avoided_rows=cache_n)
             self._count(batches=1, cached_batches=1, rows=count,
@@ -1740,19 +1911,28 @@ class NativeFrontend:
             if faults.ACTIVE:
                 faults.FAULTS.check("h2d", "native")
                 faults.FAULTS.check("kernel", "native")
-            launched = pe.dispatch_fused(rec.params, db)
+            if rec.sharded is not None:
+                # one mesh dispatch per slot: the encoder laid each request
+                # into its owning shard's slice; the shard-step's launch is
+                # counted on the mesh lane at the dispatch
+                launched = rec.sharded.dispatch_full(db)
+                h2d = rec.sharded._encoded_h2d_bytes(db)
+                n_launch = 0
+            else:
+                launched = pe.dispatch_fused(rec.params, db)
+                h2d = sum(x.nbytes for x in (db.attrs_val, db.members_c,
+                                             db.cpu_dense, db.config_id,
+                                             db.attr_bytes, db.byte_ovf)
+                          if x is not None)
+                n_launch = (launched.launches + launched.plain_calls
+                            + getattr(launched, "lane_calls", 0))
             handle = (faults.FAULTS.wrap_handle(launched, "native")
                       if faults.ACTIVE else launched)
-            h2d = sum(x.nbytes for x in (db.attrs_val, db.members_c,
-                                         db.cpu_dense, db.config_id,
-                                         db.attr_bytes, db.byte_ovf)
-                      if x is not None)
             # one device computation per slot with a device row: the
             # kernel's launch on a card, its plain version's call on the CPU
             LEDGER.observe(
-                "native", rows=count, device_rows=u,
-                launches=(launched.launches + launched.plain_calls
-                          + getattr(launched, "lane_calls", 0)),
+                lane, rows=count, device_rows=u,
+                launches=n_launch,
                 h2d_bytes=h2d, d2h_bytes=launched.nbytes, pad_rows=pad,
                 dedup_avoided_rows=dedup_n, cache_avoided_rows=cache_n)
             self._count(batches=1, launches=launched.launches,
@@ -1976,7 +2156,7 @@ class NativeFrontend:
                         count)
             return
         code: Optional[np.ndarray] = None
-        rows = rec.arrays[slot]["config_id"][:count].copy()
+        rows = rec.slot_rows(rec.arrays[slot], count)
         firing = None
         if self.host_degrade:
             try:
@@ -2014,6 +2194,10 @@ class NativeFrontend:
                    rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """The kernel's plain version on one slot's encoded operands (a CPU
         engine's params only) → (verdict bytes, firing columns)."""
+        if rec.sharded is not None:
+            # as the reference's: a mesh-sharded corpus has no host lane
+            # here, its undecided rows answer UNAVAILABLE
+            raise RuntimeError("no host degrade for a mesh-sharded corpus")
         if rec.params["leaf_op"].device.type != "cpu":
             raise RuntimeError("the host degrade runs on a CPU engine only")
         db, _, _ = self._slot_batch(rec, slot, count)

@@ -139,10 +139,14 @@ class HeatMap:
     FLUSH_S = 2.0
 
     def __init__(self, names_by_row: Sequence[str],
-                 sources_by_row: Sequence[Sequence[str]], n_evaluators: int):
+                 sources_by_row: Sequence[Sequence[str]], n_evaluators: int,
+                 configs_per_shard: Optional[int] = None):
         self.names_by_row = list(names_by_row)
         self.sources_by_row = [list(s) for s in sources_by_row]
         self.E = int(n_evaluators)
+        # mesh corpora: rows arrive (shard, row) and flatten as
+        # shard * configs_per_shard + row; None = single corpus
+        self.configs_per_shard = configs_per_shard
         self._children: Dict[int, Any] = {}   # composite key -> counter child
         self._lock = threading.Lock()
         n_keys = max(1, len(self.names_by_row)) * (self.E + 1)
@@ -164,16 +168,33 @@ class HeatMap:
                    int(policy.eval_rule.shape[1]))
 
     @classmethod
-    def for_snapshot(cls, policy=None) -> "Optional[HeatMap]":
-        """The heat map of one snapshot's compiled corpus (None: the
-        snapshot compiled nothing, as the bootstrap deny-all)."""
+    def from_sharded(cls, sharded) -> "HeatMap":
+        """Mesh corpora: rows flatten as shard * G + row."""
+        G = sharded.configs_per_shard
+        names = [""] * (sharded.n_shards * G)
+        sources: List[List[str]] = [[] for _ in range(sharded.n_shards * G)]
+        for s, pol in enumerate(sharded.shards):
+            srcs = pol.rule_sources()
+            for name, row in pol.config_ids.items():
+                names[s * G + row] = name
+                sources[s * G + row] = srcs[row]
+        return cls(names, sources, int(sharded.shards[0].eval_rule.shape[1]),
+                   configs_per_shard=G)
+
+    @classmethod
+    def for_snapshot(cls, policy=None, sharded=None) -> "Optional[HeatMap]":
+        """The heat map of one snapshot's compiled corpus, single or
+        mesh-sharded (None: the snapshot compiled nothing, as the
+        bootstrap deny-all)."""
+        if sharded is not None:
+            return cls.from_sharded(sharded)
         if policy is not None:
             return cls.from_policy(policy)
         return None
 
     # -- folding -----------------------------------------------------------
 
-    def fold(self, rows, firing) -> None:
+    def fold(self, rows, firing, shards=None) -> None:
         """Fold one batch's attribution into the heat map: ONE vectorized
         np.add.at into the composite-key count array — Python work is O(1)
         per batch, independent of batch size AND of the number of distinct
@@ -188,6 +209,9 @@ class HeatMap:
         t0 = time.thread_time()
         rows = np.asarray(rows, dtype=np.int64)
         firing = np.asarray(firing, dtype=np.int64)
+        if shards is not None and self.configs_per_shard:
+            rows = np.asarray(shards, dtype=np.int64) * \
+                self.configs_per_shard + rows
         self.fold_calls += 1
         denied = firing >= 0
         if denied.any():
@@ -240,12 +264,16 @@ class HeatMap:
 
     # -- attribution lookups ----------------------------------------------
 
-    def source(self, row: int, col: int) -> str:
+    def source(self, row: int, col: int, shard: Optional[int] = None) -> str:
+        if shard is not None and self.configs_per_shard:
+            row = shard * self.configs_per_shard + row
         sources = self.sources_by_row[row] if 0 <= row < len(
             self.sources_by_row) else []
         return sources[col] if 0 <= col < len(sources) else ""
 
-    def name(self, row: int) -> str:
+    def name(self, row: int, shard: Optional[int] = None) -> str:
+        if shard is not None and self.configs_per_shard:
+            row = shard * self.configs_per_shard + row
         return self.names_by_row[row] if 0 <= row < len(
             self.names_by_row) else ""
 

@@ -102,7 +102,8 @@ def flatten_view(view: Dict[str, Any]) -> Dict[str, Optional[np.ndarray]]:
     return out
 
 
-def _delta_one(name: str, old: np.ndarray, new: np.ndarray) -> ArrayDelta:
+def _delta_one(name: str, old: np.ndarray, new: np.ndarray,
+               rows_win_factor: float = _ROWS_WIN_FACTOR) -> ArrayDelta:
     full = int(new.nbytes)
     if old.shape != new.shape or old.dtype != new.dtype:
         return ArrayDelta(name, "full", upload_bytes=full, full_bytes=full)
@@ -114,18 +115,24 @@ def _delta_one(name: str, old: np.ndarray, new: np.ndarray) -> ArrayDelta:
             diff = diff.reshape(diff.shape[0], -1).any(axis=1)
         idx = np.nonzero(diff)[0].astype(np.int32)
         row_bytes = int(new[idx].nbytes + idx.nbytes)
-        if row_bytes * _ROWS_WIN_FACTOR <= full:
+        if row_bytes * rows_win_factor <= full:
             return ArrayDelta(name, "rows", rows=idx,
                               upload_bytes=row_bytes, full_bytes=full)
     return ArrayDelta(name, "full", upload_bytes=full, full_bytes=full)
 
 
 def plan_delta(old_view: Optional[Dict[str, Any]],
-               new_view: Dict[str, Any]) -> Optional[DeltaPlan]:
+               new_view: Dict[str, Any],
+               rows_win_factor: float = _ROWS_WIN_FACTOR
+               ) -> Optional[DeltaPlan]:
     """Diff two host operand views into a delta plan, or None when no
     structure-preserving delta exists (a kernel-lane change, a level-count
     change, a DFA, numeric or relation lane appearing/vanishing, or no
-    previous view at all) — the caller then uploads in full."""
+    previous view at all) — the caller then uploads in full.
+
+    ``rows_win_factor`` sets how decisively a rows-delta must beat the full
+    upload.  The mesh lane passes 1.0: there the leading axis is the shard
+    axis, and shipping any strict subset of shards is the point."""
     if old_view is None:
         return None
     old_flat = flatten_view(old_view)
@@ -141,7 +148,7 @@ def plan_delta(old_view: Optional[Dict[str, Any]],
             continue  # e.g. no DFA lane on either side
         if o is None or n is None:
             return None  # a lane appeared/vanished: full restage
-        plan.entries.append(_delta_one(name, o, n))
+        plan.entries.append(_delta_one(name, o, n, rows_win_factor))
     plan.upload_bytes = sum(e.upload_bytes for e in plan.entries)
     plan.full_bytes = sum(e.full_bytes for e in plan.entries)
     return plan

@@ -840,6 +840,64 @@ snapshot_age = _register(
     "control-plane snapshot replaces it.",
     (),
 )
+# the mesh lane (parallel/sharded_eval.py): per-device occupancy,
+# breaker-aware failover and per-shard delta bytes
+mesh_shard_occupancy = _register(
+    "gauge", "auth_server_mesh_shard_occupancy",
+    "In-flight micro-batches currently occupying one mesh device (full-mesh "
+    "launches count on every device; failover single-device dispatches on "
+    "their target only).  The occupancy-aware router sends failover batches "
+    "to the emptiest window.",
+    ("device",),
+)
+device_failover = _register(
+    "counter", "auth_server_device_failover_total",
+    "Micro-batches re-dispatched AWAY from one mesh device after it failed "
+    "a launch/probe (per-device circuit breaker attribution) — the batch "
+    "resolved on a healthy device, not the host oracle.  device = the "
+    "device that FAILED.",
+    ("device",),
+)
+mesh_shard_upload_bytes = _register(
+    "counter", "auth_server_mesh_shard_upload_bytes_total",
+    "Reconcile upload bytes shipped to each mesh shard (the 'mp' rule "
+    "slice).  A one-config mutation ships rows only to the shard(s) owning "
+    "it; unchanged shards receive zero bytes (per-shard delta uploads).",
+    ("shard",),
+)
+# the fleet plane (fleet/): the router's decisions and replica states, and
+# the aggregator's global guard breaches
+fleet_routed = _register(
+    "counter", "auth_server_fleet_routed_total",
+    "Routing decisions by the fleet router shim, by outcome: primary (the "
+    "rendezvous-hash first choice took it — cache/dedup locality "
+    "preserved), spillover (deadline-aware spill to the second-choice "
+    "replica: the first choice's predicted wait could not meet the "
+    "request deadline), load-shift (least-loaded hybrid: the first "
+    "choice's backlog exceeded the second's by the imbalance factor), "
+    "unhealthy (the first choice was not ready / draining / breaker-open "
+    "and the second took it), failover (the routed replica failed typed "
+    "mid-flight and the request re-routed), no-replica (every candidate "
+    "was unroutable — the caller saw a typed UNAVAILABLE).",
+    ("outcome",),
+)
+fleet_replicas = _register(
+    "gauge", "auth_server_fleet_replicas",
+    "Replicas currently registered with the fleet router, by state: "
+    "ready (routable), draining (SIGTERM choreography in progress — no "
+    "new work), down (crashed/removed but not yet deregistered).",
+    ("state",),
+)
+fleet_guard_breach = _register(
+    "counter", "auth_server_fleet_guard_breach_total",
+    "Fleet-wide guard breaches raised by the fold aggregator, by guard "
+    "(the same guard names as auth_server_canary_guard_delta, judged on "
+    "GLOBAL cohort counts: the canary replica's fold vs the rest of the "
+    "fleet; plus global-tenant-share for the cross-replica containment "
+    "check that fires when every per-replica share is individually under "
+    "threshold).",
+    ("guard",),
+)
 fleet_warm_join = _register(
     "counter", "auth_server_fleet_warm_join_total",
     "Verdict-cache warm-join outcomes: imported (hot-set entries adopted "

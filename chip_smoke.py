@@ -9108,9 +9108,9 @@ def lane_readbacks(params, db, dev) -> dict:
 def cuda_kernels_per_call(fn) -> int:
     """CUDA kernels one call of ``fn`` runs, counted by ``torch.profiler``
     (memory copies and sets not counted); None when the profiler saw no
-    device activity.  Counted in a fresh process (``lane_kernel_counts``):
-    after another profiler session in the process (phase 12's
-    ``/debug/profile``) the counts came out short."""
+    device activity.  Counted in a fresh process (``lane_kernel_counts``,
+    ``mesh_kernel_counts``): after another profiler session in the
+    process (phase 12's ``/debug/profile``) the counts came out short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -9128,9 +9128,11 @@ def cuda_kernels_per_call(fn) -> int:
 
 def lane_kernel_counts() -> None:
     """Print, as one JSON line, the CUDA kernels one north-star batch
-    (B = 256, phase 4's docs and configs) runs on each lane, counted by
-    ``cuda_kernels_per_call`` in this (fresh) process; the mega-kernel,
-    one launch by construction, must count 1, else every count is None."""
+    (B = 256, phase 4's docs and configs) runs on each lane (``lanes``)
+    and on the mesh at each shape of phase 23 (a) (``mesh``, from
+    ``mesh_kernel_counts``), counted by ``cuda_kernels_per_call`` in this
+    (fresh) process; the mega-kernel, one launch by construction, must
+    count 1, else every count is None."""
     import torch
 
     from authorino_tpu_torch.compiler import compile_corpus
@@ -9154,9 +9156,11 @@ def lane_kernel_counts() -> None:
     fns = lane_fns(params, torch.from_numpy(buf).to(dev), layout, out)
     counts = {"megakernel": cuda_kernels_per_call(fns.pop("megakernel"))}
     counts.update({k: cuda_kernels_per_call(fn) for k, fn in fns.items()})
+    del fns, params, out
+    mesh = mesh_kernel_counts(dev)
     if counts["megakernel"] != 1:
-        counts = dict.fromkeys(counts)
-    print(json.dumps(counts))
+        counts, mesh = dict.fromkeys(counts), dict.fromkeys(mesh)
+    print(json.dumps({"lanes": counts, "mesh": mesh}))
 
 
 def wide_and_policy(width: int):
@@ -9584,10 +9588,12 @@ def kernel_lanes(report: dict, card: str, dev, cycles_per_ms: float,
     if counter.returncode != 0:
         raise AssertionError(f"(b) the kernel count: {stderr[-1500:]}")
     kernels = json.loads(stdout.strip().splitlines()[-1])
-    for name, k in kernels.items():
+    for name, k in kernels["lanes"].items():
         times[name]["cuda_kernels"] = k
+    # phase 23 (a)'s mesh, counted in the same fresh process
+    numbers["mesh_cuda_kernels"] = kernels["mesh"]
     log(f"[{card}] kernel lanes (b), CUDA kernels per north-star batch "
-        f"(torch.profiler, a fresh process): {kernels}")
+        f"(torch.profiler, a fresh process): {kernels['lanes']}")
     numbers["cli"] = {k: {"rc": v["rc"], "wall_s": v["wall_s"]}
                       for k, v in cli.items()}
     numbers["cli"]["snapshot_diff"]["delta"] = diff["report"]["delta"]["mode"]
@@ -9608,6 +9614,548 @@ def kernel_lanes(report: dict, card: str, dev, cycles_per_ms: float,
         f"{rep['rc']}, {flips} ({missing} records of configs the "
         f"generations lack) in "
         f"{rep['wall_s']:.1f} s; phase 22 took {numbers['phase_s']:.1f} s")
+    return launches, 0
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the mesh lane on logical slots of the card, and the fleet
+# ---------------------------------------------------------------------------
+
+P23_SHAPES = ((1, 1), (2, 1), (2, 2), (4, 2))   # (dp, mp): bench.py's defaults
+P23_FAULT_SHAPE = (2, 2)    # (a): the shape the fault drives run on
+P23_CHANGED = 11            # (a): the one config the delta changes
+P23_BATCH_RUNS = 5          # (a): timed dispatches per shape (median)
+P23_FAULT_BATCHES = 4       # (a): 256-row batches while slot 0 is down
+P23_RESET_S = 30.0          # (a): the breakers' cooldown (elapsed by hand)
+P23_REPLICAS = 3            # (b): replicas behind the router (and a leader)
+P23_THREADS = 32            # (b): concurrent callers of FleetHarness.check
+P23_GOODPUT = 1024          # (b): requests per goodput burst
+P23_CRASH = 256             # (b): requests of the burst a replica dies in
+P23_WARM = 512              # (b): the leader's requests the joiners replay
+P23_HOT = 7                 # (b): the canary's poisoned config
+P23_CANARY_ROUNDS = 12      # (b): rounds of traffic + folds + a tick
+P23_TH = {"min_requests": 8, "min_config_requests": 4,
+          "min_config_allows": 2, "min_tenant_attempts": 8}
+
+
+def mesh_kernel_counts(dev) -> dict:
+    """The CUDA kernels one 256-row north-star dispatch runs on the mesh
+    at each (dp, mp) of ``P23_SHAPES`` over logical slots of ``dev``
+    (phase 23 (a)'s configs, docs and names), by ``cuda_kernels_per_call``;
+    run in phase 22's fresh count process (``lane_kernel_counts``)."""
+    import numpy as np
+
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.parallel import ShardedPolicyModel, build_mesh
+
+    cfgs = northstar.build_corpus(1000, 10)
+    docs = northstar.build_docs(4096, seed=7)[:256]
+    drng = random.Random(3)
+    names = [f"cfg-{drng.randrange(1000)}" for _ in range(4096)][:256]
+    counts = {}
+    for dp, mp in P23_SHAPES:
+        sh = ShardedPolicyModel(cfgs, build_mesh([dev] * (dp * mp), dp=dp),
+                                members_k=16)
+        enc = sh.encode(docs, names)
+        counts[f"{dp}x{mp}"] = cuda_kernels_per_call(
+            lambda: np.asarray(sh.dispatch_full(enc)))
+        del sh, enc
+    return counts
+
+
+def _elapse_cooldown(*breakers) -> None:
+    """Let each open breaker's cooldown elapse without a wall-clock wait
+    (its state machine's own tests do the same): the drives then never
+    race a short cooldown on a slow host."""
+    for b in breakers:
+        b._opened_at -= b.reset_s + 1.0
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _fleet_burst(h, docs, names, threads: int = P23_THREADS,
+                 during=None) -> dict:
+    """``docs`` through ``FleetHarness.check`` from ``threads`` callers;
+    ``during(i)`` runs before request ``i`` is sent.  Every outcome is a
+    verdict or a typed ``CheckAbort``: a raw exception fails the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from authorino_tpu_torch.utils.rpc import CheckAbort
+
+    out = [None] * len(docs)
+    typed = []
+    raw = []
+
+    def one(i):
+        if during is not None:
+            during(i)
+        try:
+            out[i] = h.check(names[i], docs[i], timeout_s=60.0)
+        except CheckAbort as e:
+            typed.append((i, e.code))
+        except Exception as e:  # noqa: BLE001 - counted, then fails
+            raw.append((i, repr(e)))
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(one, range(len(docs))))
+    wall = time.perf_counter() - t
+    if raw:
+        raise AssertionError(f"raw exceptions out of the fleet: {raw[:3]}")
+    return {"out": out, "typed": typed, "wall_s": wall,
+            "ok": sum(o is not None for o in out)}
+
+
+def _fleet_pipelined(h, docs, names) -> dict:
+    """Every request placed by the fleet's router (its rendezvous choice
+    with health, spillover and load-shift) and submitted to that replica
+    at once, then gathered: the replicas' engines cut full batches, as
+    behind a proxy with many connections.  A typed rejection fails the
+    phase here (no replica is down in these bursts)."""
+    from authorino_tpu_torch.fleet import routing_key
+
+    t = time.perf_counter()
+    futs = []
+    for d, n in zip(docs, names):
+        first, _ = h.router.route(routing_key(n, d))
+        futs.append(h.replicas[first].check(n, d))
+    out = [f.result(timeout=120) for f in futs]
+    return {"out": out, "wall_s": time.perf_counter() - t, "ok": len(out)}
+
+
+def _hot_docs(n: int, method: str, start: int = 0):
+    """``n`` requests to config P23_HOT that allow at the base corpus (its
+    method, its org), over distinct paths (the cohort hash input)."""
+    return [{"request": {"method": method, "host": f"hot-{k}",
+                         "path": f"/hot/p{k}", "url_path": f"/hot/p{k}"},
+             "auth": {"identity": {"org": f"org-{P23_HOT}", "roles": [],
+                                   "groups": []}}}
+            for k in range(start, start + n)]
+
+
+def mesh_and_fleet(report: dict, card: str, dev, ns: dict) -> tuple:
+    """Phase 23: the rules-sharded mesh lane on logical slots of the card,
+    and the fleet plane of card engines, at the north-star width (1,000
+    configs x 10 rules).
+    (a) for each (dp, mp) of ``P23_SHAPES``, an engine over
+    ``build_mesh([card] * dp * mp, dp=dp)`` serves 4,096 north-star
+    submits with verdict and attribution columns equal to a single-corpus
+    card engine's (the mega-kernel path); one 256-row batch's [256, W]
+    readback is byte-equal, every row, to the same shards run on the CPU
+    (the op chain's plain run) and its columns equal the mega-kernel's
+    where neither side sent a row to the host fallback; per batch: the
+    dispatch's time, and its CUDA kernels (``torch.profiler``, counted by
+    ``mesh_kernel_counts`` in phase 22's fresh count process).  On the 2x2 mesh: a one-config
+    change ships bytes only to its owning shard; ``kernel:raise:device=0``
+    opens slot 0's breaker while every batch fails over with zero
+    undecided rows, and slot 0 rejoins after the fault ends; with every
+    slot down the engine answers UNAVAILABLE, then recovers.  (b) a leader
+    and 3 replicas (card engines installing the leader's blob) behind
+    ``FleetRouter``: 4,096 north-star checks bit-exact with the single
+    engine; goodput with 1, 2 and 3 replicas; a replica crashed
+    mid-burst (typed rejections only); a cold joiner's warm-join timed
+    against a cold join; a poisoned config canaried on one replica
+    breaches the global guard and the fleet rolls back through the
+    manifest (detection and MTTR).  Returns (the kernels' launches in (b),
+    counts zeroed just before it; the byte error of (a)'s readbacks)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from authorino_tpu_torch.compiler import compile_corpus
+    from authorino_tpu_torch.compiler.encode import encode_batch
+    from authorino_tpu_torch.compiler.pack import pack_batch
+    from authorino_tpu_torch.fleet import FleetHarness
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.ops.operands import (to_device,
+                                                  unpack_verdicts)
+    from authorino_tpu_torch.ops.operands import _put
+    from authorino_tpu_torch.parallel import build_mesh
+    from authorino_tpu_torch.parallel.sharded_eval import _slice_tree
+    from authorino_tpu_torch.runtime import EngineEntry, PolicyEngine
+    from authorino_tpu_torch.runtime import faults
+    from authorino_tpu_torch.runtime.change_safety import GuardThresholds
+    from authorino_tpu_torch.utils.rpc import UNAVAILABLE
+
+    numbers = {"card": card}
+    t_phase = time.perf_counter()
+    cfgs = ns["cfgs"]
+    docs, names = ns["docs"], ns["names"]
+    entries = [EngineEntry(id=c.name, hosts=[c.name], rules=c) for c in cfgs]
+
+    def verdict_lists(out):
+        return [(np.asarray(r).tolist(), np.asarray(s).tolist())
+                for r, s in out]
+
+    single = PolicyEngine(max_batch=256, device=dev, mesh=None,
+                          tenant_qos=False, **NO_REUSE, **WIDE_ADMISSION)
+    single.apply_snapshot(entries)
+    want = verdict_lists(asyncio.run(serve(single, docs, names)))
+    policy = compile_corpus(cfgs, members_k=16)
+    rows = [policy.config_ids[n] for n in names[:256]]
+    db = pack_batch(policy, encode_batch(policy, docs[:256], rows))
+    E = int(policy.eval_rule.shape[1])
+    mk = unpack_verdicts(fk.eval_fused_kernel(to_device(policy, device=dev),
+                                              db).cpu().numpy(), 1 + 2 * E)
+
+    # ---- (a) the mesh on logical slots --------------------------------------
+    shapes = {}
+    fault_engine = None
+    for dp, mp in P23_SHAPES:
+        label = f"{dp}x{mp}"
+        mesh = build_mesh([dev] * (dp * mp), dp=dp)
+        engine = PolicyEngine(max_batch=256, device=dev, mesh=mesh,
+                              tenant_qos=False, breaker_threshold=3,
+                              breaker_reset_s=P23_RESET_S, **NO_REUSE,
+                              **WIDE_ADMISSION)
+        t = time.perf_counter()
+        engine.apply_snapshot(entries)
+        install_s = time.perf_counter() - t
+        sh = engine._snapshot.sharded
+        if sh is None or sh.mesh.shape != {"dp": dp, "mp": mp}:
+            raise AssertionError(f"(a) {label}: no mesh snapshot")
+        t = time.perf_counter()
+        got = verdict_lists(asyncio.run(serve(engine, docs, names)))
+        serve_s = time.perf_counter() - t
+        if got != want:
+            bad = sum(g != w for g, w in zip(got, want))
+            raise AssertionError(f"(a) {label}: {bad} of {len(want)} "
+                                 f"verdicts differ from the single engine")
+        enc = sh.encode(docs[:256], names[:256])
+        on_card = np.asarray(sh.dispatch_full(enc))
+        # the plain run: every block of the same shards on the CPU, from
+        # the stacked host view, on the same 256 rows (uncounted)
+        cpu = torch.device("cpu")
+        t = time.perf_counter()
+        cpu_trees = [_put(_slice_tree(sh.host_view, j), cpu)
+                     for j in range(sh.n_shards)]
+        plain, _ = sh._run_blocks(
+            enc, [(0, i, j, cpu) for i in range(dp) for j in range(mp)],
+            lambda j, _d: cpu_trees[j])
+        plain = plain.numpy()
+        plain_s = time.perf_counter() - t
+        if on_card.shape != plain.shape or not np.array_equal(on_card,
+                                                              plain):
+            raise AssertionError(f"(a) {label}: the card's readback differs "
+                                 f"from the plain op chain's")
+        cols = unpack_verdicts(on_card, 1 + 2 * E)[:256]
+        ok = ~(enc.host_fallback[:256] | db.host_fallback[:256])
+        if not np.array_equal(cols[ok], mk[ok]):
+            raise AssertionError(f"(a) {label}: columns differ from the "
+                                 f"mega-kernel's")
+        times = []
+        for _ in range(P23_BATCH_RUNS):
+            _sync(dev)
+            t = time.perf_counter()
+            np.asarray(sh.dispatch_full(enc))
+            times.append((time.perf_counter() - t) * 1e3)
+        shapes[label] = {
+            "install_s": install_s, "serve_s": serve_s,
+            "checks_per_s": len(docs) / serve_s,
+            "batch_ms_median": statistics.median(times),
+            "batch_ms": times, "plain_rows": int(on_card.shape[0]),
+            "plain_s": plain_s,
+            "lane": sh.kernel_lane, "members_k_eff": sh.members_k_eff,
+            "host_fallback_rows": int(enc.host_fallback[:256].sum()),
+            "upload_bytes": sh.upload_report["upload_bytes"],
+            "per_shard_bytes": sh.upload_report["per_shard_bytes"]}
+        log(f"[{card}] mesh (a) {label} on {dp * mp} logical slots of "
+            f"{dev}: {len(docs)} submits equal to the single-corpus engine "
+            f"(the mega-kernel path) in {serve_s:.3f} s "
+            f"({len(docs) / serve_s:.0f} checks/s); the [256, W] readback's "
+            f"{on_card.shape[0]} rows equal to the plain op chain's on the "
+            f"CPU ({plain_s:.3f} s), and all 256 off the host-fallback rows "
+            f"equal to the mega-kernel's; one 256-row dispatch "
+            f"{statistics.median(times):.3f} ms median of "
+            f"{P23_BATCH_RUNS} ({sh.kernel_lane} lane); install "
+            f"{install_s:.3f} s, upload "
+            f"{sh.upload_report['upload_bytes']} B")
+        if (dp, mp) == P23_FAULT_SHAPE:
+            fault_engine = engine
+    numbers["shapes"] = shapes
+    # the CUDA kernels per batch, counted in phase 22's fresh process
+    # (after phase 12's profiler session a count in this one comes out
+    # short); None where phase 22 did not run
+    kernels = (report.get("kernel_lanes", {}).get("mesh_cuda_kernels")
+               or dict.fromkeys(shapes))
+    for label, k in kernels.items():
+        shapes[label]["cuda_kernels_per_batch"] = k
+    log(f"[{card}] mesh (a), CUDA kernels per 256-row dispatch "
+        f"(torch.profiler, phase 22's fresh process): {kernels}")
+
+    # one-config change on the 2x2 mesh: bytes only to the owning shard
+    engine = fault_engine
+    changed = northstar.build_corpus(len(cfgs), 10,
+                                     changed={P23_CHANGED: "const"})
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in changed])
+    sh = engine._snapshot.sharded
+    up = sh.upload_report
+    owner = sh.locator[f"cfg-{P23_CHANGED}"][0]
+    per_shard = up["per_shard_bytes"]
+    if up["mode"] != "delta" or per_shard[str(owner)] <= 0 or any(
+            b for s, b in per_shard.items() if s != str(owner)):
+        raise AssertionError(f"(a) the one-config delta: {up}")
+    numbers["delta"] = {"owner": owner, "per_shard_bytes": per_shard,
+                        "upload_bytes": up["upload_bytes"],
+                        "full_bytes": up["full_bytes"]}
+    log(f"[{card}] mesh (a) 2x2: cfg-{P23_CHANGED} changed; bytes per shard "
+        f"{per_shard} (owner shard {owner}), {up['upload_bytes']} B shipped "
+        f"against a full upload of {up['full_bytes']} B")
+    engine.apply_snapshot(entries)
+
+    # slot 0 down: every batch fails over, slot 0 rejoins after
+    state = engine._snapshot.sharded.state
+    b0 = state.breakers.get(0)
+    fo0 = state.failovers[0]
+    fault_docs = northstar.build_docs(256 * P23_FAULT_BATCHES, seed=29)
+    fault_names = [f"cfg-{(k * 13) % len(cfgs)}"
+                   for k in range(len(fault_docs))]
+    fault_want = verdict_lists(asyncio.run(serve(single, fault_docs,
+                                                 fault_names)))
+    st0 = dict(engine.stats)
+    faults.FAULTS.arm("kernel:raise:device=0")
+    try:
+        got = []
+        for k in range(P23_FAULT_BATCHES):
+            part = slice(256 * k, 256 * (k + 1))
+            got += verdict_lists(asyncio.run(serve(
+                engine, fault_docs[part], fault_names[part])))
+    finally:
+        faults.FAULTS.disarm()
+    if got != fault_want:
+        raise AssertionError("(a) slot 0 down: verdicts differ")
+    st1 = dict(engine.stats)
+    undecided = st1["failed_batches"] - st0["failed_batches"]
+    opened = b0.state
+    if opened != "open" or undecided or state.failovers[0] <= fo0:
+        raise AssertionError(f"(a) slot 0 down: breaker {b0.to_json()}, "
+                             f"{undecided} failed batches")
+    _elapse_cooldown(b0)
+    l0 = state.launches[0]
+    got = verdict_lists(asyncio.run(serve(engine, fault_docs[:1024],
+                                          fault_names[:1024])))
+    trail = [t["state"] for t in b0.to_json()["transitions"]]
+    if got != fault_want[:1024] or b0.state != "closed" or \
+            trail[-2:] != ["half-open", "closed"] or state.launches[0] <= l0:
+        raise AssertionError(f"(a) slot 0's rejoin: {trail}")
+    numbers["slot_down"] = {"batches": P23_FAULT_BATCHES,
+                            "failovers": state.failovers[0] - fo0,
+                            "undecided_batches": undecided,
+                            "breaker_trail": trail}
+    log(f"[{card}] mesh (a) 2x2, kernel:raise:device=0: "
+        f"{P23_FAULT_BATCHES * 256} requests exact with "
+        f"{state.failovers[0] - fo0} failovers and 0 undecided rows, slot "
+        f"0's breaker {opened}; after the fault and its cooldown, slot 0 "
+        f"rejoined "
+        f"({' -> '.join(trail)}) and full-mesh launches resumed")
+
+    # every slot down: UNAVAILABLE, then recovery
+    faults.FAULTS.arm(";".join(f"kernel:raise:device={d}"
+                               for d in state.device_ids))
+    try:
+        async def typed_burst():
+            return await asyncio.gather(
+                *(engine.submit(d, n) for d, n in
+                  zip(fault_docs[:256], fault_names[:256])),
+                return_exceptions=True)
+
+        res = asyncio.run(typed_burst())
+    finally:
+        faults.FAULTS.disarm()
+    codes = sorted({(type(r).__name__, getattr(r, "code", None))
+                    for r in res})
+    if codes != [("CheckAbort", UNAVAILABLE)]:
+        raise AssertionError(f"(a) every slot down: {codes}")
+    _elapse_cooldown(engine.breaker, *state.breakers.breakers.values())
+    got = verdict_lists(asyncio.run(serve(engine, fault_docs[:256],
+                                          fault_names[:256])))
+    got += verdict_lists(asyncio.run(serve(engine, fault_docs[256:1024],
+                                           fault_names[256:1024])))
+    if got != fault_want[:1024]:
+        raise AssertionError("(a) recovery after every slot down")
+    numbers["all_down"] = {"requests": len(res), "answers": codes}
+    log(f"[{card}] mesh (a) 2x2, every slot down: {len(res)} requests "
+        f"answered UNAVAILABLE (no host oracle on a card), then exact again "
+        f"after the breakers' cooldown")
+    del engine, fault_engine
+
+    # ---- (b) the fleet of card engines --------------------------------------
+    fk.reset_counts()
+    reset_host_counts()
+
+    def factory():
+        return PolicyEngine(max_batch=256, device=dev, strict_verify=True,
+                            **WIDE_ADMISSION)
+
+    tmp_ctx = tempfile.TemporaryDirectory()
+    h = FleetHarness(str(Path(tmp_ctx.name) / "fleet"), factory,
+                     poll_s=0.2)
+    try:
+        t = time.perf_counter()
+        h.add_leader(entries=entries)
+        leader_s = time.perf_counter() - t
+        # the leader compiles and publishes; replicas serve
+        h.router.remove_replica("leader")
+        join_s = []
+        goodput = {}
+        for k in range(1, P23_REPLICAS + 1):
+            t = time.perf_counter()
+            h.add_replica(f"r{k}", warm_join=False)
+            join_s.append(time.perf_counter() - t)
+            g_docs = northstar.build_docs(P23_GOODPUT, seed=100 + k)
+            g_names = [f"cfg-{(j * 7 + k) % len(cfgs)}"
+                       for j in range(P23_GOODPUT)]
+            b = _fleet_pipelined(h, g_docs, g_names)
+            goodput[k] = b["ok"] / b["wall_s"]
+        ratios = {k: goodput[k] / goodput[1] for k in goodput}
+        b = _fleet_pipelined(h, docs, names)
+        got = verdict_lists(b["out"])
+        if got != want:
+            bad = sum(g != w for g, w in zip(got, want))
+            raise AssertionError(f"(b) {bad} fleet verdicts differ from the "
+                                 f"single engine")
+        routed = dict(h.router.outcomes)
+        log(f"[{card}] fleet (b): leader installed {len(cfgs)} configs in "
+            f"{leader_s:.2f} s (strict verify, publish); replicas joined in "
+            f"{[round(s, 3) for s in join_s]} s; {len(docs)} north-star "
+            f"checks through FleetRouter bit-exact with a single card engine "
+            f"({b['ok'] / b['wall_s']:.0f} checks/s, all in flight); "
+            f"goodput with 1, 2, 3 replicas "
+            f"{[round(goodput[k]) for k in sorted(goodput)]} checks/s, "
+            f"ratios to 1 {[round(ratios[k], 3) for k in sorted(ratios)]}; "
+            f"routing "
+            f"outcomes {routed}")
+
+        # a replica crashed mid-burst: typed rejections only
+        crash_docs = northstar.build_docs(P23_CRASH, seed=211)
+        crash_names = [f"cfg-{(j * 3) % len(cfgs)}"
+                       for j in range(P23_CRASH)]
+
+        def crash_at(i):
+            if i == P23_CRASH // 4:
+                h.crash_replica("r2")
+
+        fo = h.router.outcomes.get("failover", 0)
+        cb = _fleet_burst(h, crash_docs, crash_names, during=crash_at)
+        typed_codes = sorted({c for _, c in cb["typed"]})
+        log(f"[{card}] fleet (b): r2 crashed a quarter into a "
+            f"{P23_CRASH}-check burst ({P23_THREADS} callers of "
+            f"FleetHarness.check): {cb['ok']} served, "
+            f"{len(cb['typed'])} typed rejections (codes {typed_codes}), 0 "
+            f"raw exceptions; {h.router.outcomes.get('failover', 0) - fo} "
+            f"failovers to the second hash choice")
+        h.remove_replica("r2", timeout_s=2.0)
+
+        # warm join against cold join
+        h.router.add_replica("leader", h.leader.health)
+        _fleet_pipelined(h, docs[:P23_WARM], names[:P23_WARM])
+        h.router.remove_replica("leader")
+        if not h.publish_hotset(k=1024):
+            raise AssertionError("(b) the leader published no hot set")
+        t = time.perf_counter()
+        cold = h.add_replica("cold", warm_join=False)
+        cold_s = time.perf_counter() - t
+        t = time.perf_counter()
+        warm = h.add_replica("warm", warm_join=True)
+        warm_s = time.perf_counter() - t
+        hits = {}
+        for name, rep in (("cold", cold), ("warm", warm)):
+            vc = rep.engine._verdict_cache
+            h0 = vc.hits
+            for fut in [rep.check(n, d) for d, n in zip(docs[:P23_WARM],
+                                                       names[:P23_WARM])]:
+                fut.result(timeout=60)
+            hits[name] = vc.hits - h0
+        if warm.warm_imported <= 0 or hits["warm"] <= hits["cold"]:
+            raise AssertionError(f"(b) warm join: {warm.warm_imported} "
+                                 f"imported, hits {hits}")
+        log(f"[{card}] fleet (b): cold join {cold_s:.3f} s, warm join "
+            f"{warm_s:.3f} s ({warm.warm_imported} hot-set entries "
+            f"imported); cache hits on the leader's first {P23_WARM} "
+            f"requests: "
+            f"cold {hits['cold']}, warm {hits['warm']}")
+
+        # the fleet canary: a poisoned config canaried on r1
+        method = next(p.value for p in cfgs[P23_HOT].evaluators[0][1]
+                      .children if getattr(p, "selector", "")
+                      == "request.method")
+        poison = northstar.build_corpus(len(cfgs), 10,
+                                        changed={P23_HOT: "method"})
+        h.publish_folds()
+        h.start_canary("r1", [EngineEntry(id=c.name, hosts=[c.name],
+                                          rules=c) for c in poison],
+                       changed={f"cfg-{P23_HOT}"},
+                       thresholds=GuardThresholds(**P23_TH), fraction=0.5)
+        rec = None
+        rounds = 0
+        for rnd in range(P23_CANARY_ROUNDS):
+            hot = _hot_docs(128, method, start=128 * rnd)
+            mix_docs = hot + list(docs[256 * rnd:256 * rnd + 128])
+            mix_names = ([f"cfg-{P23_HOT}"] * len(hot)
+                         + list(names[256 * rnd:256 * rnd + 128]))
+            _fleet_pipelined(h, mix_docs, mix_names)
+            h.publish_folds()
+            rounds += 1
+            rec = h.canary_tick()
+            if rec is not None:
+                break
+        if rec is None:
+            raise AssertionError(f"(b) the fleet canary never breached: "
+                                 f"{h.aggregator.to_json()['guard']}")
+        h.sync_replicas()
+        man = json.loads((Path(tmp_ctx.name) / "fleet" / "MANIFEST.json")
+                         .read_text())
+        r1_rule, _ = h.replicas["r1"].check(
+            f"cfg-{P23_HOT}", _hot_docs(1, method, start=99999)[0]
+        ).result(timeout=60)
+        if not bool(r1_rule[0]) or man.get("rollback", {}).get(
+                "reason") != "fleet-guard-breach" or \
+                man.get("quarantine", {}).get("configs") != \
+                [f"cfg-{P23_HOT}"]:
+            raise AssertionError(f"(b) the fleet rollback: {man.get('rollback')}"
+                                 f" {man.get('quarantine')}")
+        numbers["fleet"] = {
+            "leader_install_s": leader_s, "join_s": join_s,
+            "goodput_checks_per_s": goodput, "goodput_ratio": ratios,
+            "routing": routed,
+            "crash": {"served": cb["ok"], "typed": len(cb["typed"]),
+                      "codes": typed_codes},
+            "cold_join_s": cold_s, "warm_join_s": warm_s,
+            "warm_imported": warm.warm_imported, "join_hits": hits,
+            "canary": {"rounds": rounds, "guards": rec["breach"]["guards"],
+                       "suspects": sorted(rec["breach"].get("suspects")
+                                          or {}),
+                       "detection_s": rec["detection_s"],
+                       "mttr_s": rec["mttr_s"]}}
+        log(f"[{card}] fleet (b): cfg-{P23_HOT}'s method flipped and "
+            f"canaried on r1 (half the traffic pinned there): the global "
+            f"guard breached after {rounds} rounds "
+            f"({rec['breach']['guards']}, suspects "
+            f"{sorted(rec['breach'].get('suspects') or {})}), detected in "
+            f"{rec['detection_s']:.3f} s, rolled back fleet-wide through "
+            f"the manifest in {rec['mttr_s']:.3f} s; r1 allows again")
+    finally:
+        h.shutdown(timeout_s=5.0)
+        tmp_ctx.cleanup()
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    if dev.type == "cuda" and (launches["fused_megakernel"] < 1
+                               or launches["probe_add_one"] < 1):
+        raise AssertionError(f"(b) launches {launches}")
+    numbers["launches"] = launches
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    report["mesh_and_fleet"] = numbers
+    log(f"[{card}] phase 23 (b) launches: {launches['fused_megakernel']} "
+        f"mega-kernel, {launches['probe_add_one']} probe; phase 23 took "
+        f"{numbers['phase_s']:.1f} s")
     return launches, 0
 
 
@@ -10245,20 +10793,29 @@ def main() -> int:
          "docs": ns_docs, "names": ns_names})
     max_err = max(max_err, kl_err)
     require_no_failure_handling("phase 22", marks)
+
+    # ---- 23. the mesh lane on card slots, the fleet -----------------------
+    clock.start("23")
+    mf_launches, mf_err = mesh_and_fleet(
+        report, card, dev, {"cfgs": ns_cfgs, "docs": ns_docs,
+                            "names": ns_names})
+    max_err = max(max_err, mf_err)
+    if faults.ACTIVE:
+        raise AssertionError("phase 23 left the fault plane armed")
     clock.start(None)
 
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": kl_launches["fused_megakernel"],
+         "launches": mf_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": kl_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": mf_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
@@ -10269,7 +10826,8 @@ def main() -> int:
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
                 "17": inc_launches, "18": cs_launches, "19": ten_launches,
-                "20": vr_launches, "21": sp_launches, "22": kl_launches}
+                "20": vr_launches, "21": sp_launches, "22": kl_launches,
+                "23": mf_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}

@@ -467,6 +467,98 @@ def test_state_modules_import_alone_without_services_or_the_reference(mod):
             "BAD []") in proc.stdout, proc.stdout
 
 
+# the fleet plane: import-light (numpy and the package's own utils, no
+# evaluator, no engine, no torch), as the reference's docstring asks
+FLEET_MODULES = ("fleet", "fleet.router", "fleet.aggregate",
+                 "fleet.warmjoin", "fleet.replica", "fleet.harness")
+
+
+@pytest.mark.parametrize("mod", FLEET_MODULES)
+def test_fleet_modules_import_light_without_services_or_the_reference(mod):
+    """Each fleet module imports on its own with ``grpc``, ``aiohttp``,
+    ``jax``, the JAX package, ``cryptography`` and ``torch`` blocked, and
+    pulls in no evaluator and no engine; there the router places keys and
+    the aggregator judges a fold."""
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu', "
+        "'cryptography', 'torch')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "from authorino_tpu_torch.fleet import (FleetAggregator, "
+        "FleetRouter, routing_key)\n"
+        "r = FleetRouter()\n"
+        "r.add_replica('a', lambda: {'ready': True})\n"
+        "r.add_replica('b', lambda: {'ready': True})\n"
+        "picked = r.route(routing_key('c1', {'x': 1}))[0]\n"
+        "agg = FleetAggregator()\n"
+        "agg.ingest('a', {'tenants': {'t': {'requests': 1, 'denies': 0, "
+        "'rate': 1.0}}})\n"
+        "heavy = sorted(m for m in sys.modules if m.startswith("
+        "('authorino_tpu_torch.evaluators', 'authorino_tpu_torch.runtime."
+        "engine', 'authorino_tpu_torch.pipeline')))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('PICK', picked in ('a', 'b'), 'SHARES', agg.global_shares(), "
+        "'HEAVY', heavy, 'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PICK True SHARES {'t': 1.0} HEAVY [] BAD []" in proc.stdout, \
+        proc.stdout
+
+
+@pytest.mark.parametrize("mod", ["parallel", "parallel.sharded_eval"])
+def test_mesh_modules_import_without_services_or_the_reference(mod):
+    """The mesh lane imports with ``grpc``, ``aiohttp``, ``jax`` and the
+    JAX package blocked, and there a mesh of logical CPU slots decides a
+    request on every block; ``build_mesh()`` with no card raises rather
+    than guess a device."""
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'jax', 'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"importlib.import_module('authorino_tpu_torch.{mod}')\n"
+        "import torch\n"
+        "from authorino_tpu_torch.compiler import ConfigRules\n"
+        "from authorino_tpu_torch.expressions import Operator, Pattern\n"
+        "from authorino_tpu_torch.parallel import ShardedPolicyModel, "
+        "build_mesh\n"
+        "cfgs = [ConfigRules(name=f'c{i}', evaluators=[(None, Pattern("
+        "'request.path', Operator.EQ, f'/p{i}'))]) for i in range(5)]\n"
+        "m = ShardedPolicyModel(cfgs, build_mesh([torch.device('cpu')] * 4,"
+        " dp=2), members_k=4)\n"
+        "got = m.decide([{'request': {'path': f'/p{i % 5}'}} for i in "
+        "range(6)] + [{'request': {'path': '/x'}}], [f'c{i % 5}' for i in "
+        "range(7)])\n"
+        "try:\n"
+        "    build_mesh()\n"
+        "    raised = False\n"
+        "except RuntimeError:\n"
+        "    raised = True\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "print('GOT', got, 'RAISED', raised or torch.cuda.is_available(), "
+        "'BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert ("GOT [True, True, True, True, True, True, False] RAISED True "
+            "BAD []") in proc.stdout, proc.stdout
+
+
 def test_atomic_writer_ignores_the_reference_plane(tmp_path):
     """With both packages loaded, the reference's armed fs rule does not
     reach the port's writer (nor the port's the reference's): each writer

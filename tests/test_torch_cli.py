@@ -452,7 +452,7 @@ def test_a_state_plane_flag_reaches_the_port(case, tmp_path, monkeypatch):
     ``--strict-verify`` as in the reference."""
     assert not {"state plane", "snapshot distribution",
                 "corpus pregate"} & set(port_cli.UNPORTED_PLANES)
-    assert "fleet" in port_cli.UNPORTED_PLANES
+    assert "fleet" not in port_cli.UNPORTED_PLANES
     extra = [a.format(d=tmp_path) for a in STATE_FLAGS[case]]
     for sub in ("src",):
         (tmp_path / sub).mkdir(exist_ok=True)

@@ -1508,3 +1508,82 @@ def test_engine_on_a_lane_launches_no_megakernel(card, lane):
         own, w_rule, w_skip = host_results(policy, d, policy.config_ids[n])
         assert skipped.tolist() == w_skip.tolist()
         assert rule[~w_skip].tolist() == w_rule[~w_skip].tolist()
+
+
+@pytest.mark.parametrize("dp,mp", [(1, 1), (2, 1), (2, 2), (4, 2)])
+def test_mesh_on_card_slots_equals_plain_and_the_megakernel(card, dp, mp):
+    """The mesh over logical slots of one card: the [B, W] own-rows
+    readback is byte-equal to the same mesh over CPU slots (the op chain's
+    plain run) and its columns equal the single-corpus mega-kernel's on
+    every row neither side sent to the host fallback."""
+    from authorino_tpu_torch.ops.operands import unpack_verdicts
+    from authorino_tpu_torch.parallel import ShardedPolicyModel, build_mesh
+
+    cfgs = northstar.build_corpus(64, 10)
+    docs = northstar.build_docs(256, seed=5)
+    names = [cfgs[(k * 7) % 64].name for k in range(256)]
+    on_card = ShardedPolicyModel(cfgs, build_mesh([card] * (dp * mp), dp=dp))
+    on_cpu = ShardedPolicyModel(
+        cfgs, build_mesh([torch.device("cpu")] * (dp * mp), dp=dp))
+    enc = on_card.encode(docs, names)
+    got = np.asarray(on_card.dispatch_full(enc))
+    np.testing.assert_array_equal(got, np.asarray(on_cpu.dispatch_full(enc)))
+    policy = compile_corpus(cfgs)
+    rows = [policy.config_ids[n] for n in names]
+    db = pack_batch(policy, encode_batch(policy, docs, rows))
+    mk = fk.eval_fused_kernel(to_device(policy, device=card), db)
+    E = int(policy.eval_rule.shape[1])
+    assert on_card.E == E
+    a = unpack_verdicts(got, 1 + 2 * E)[:256]
+    b = unpack_verdicts(mk.cpu().numpy(), 1 + 2 * E)[:256]
+    ok = ~(enc.host_fallback[:256] | db.host_fallback[:256])
+    np.testing.assert_array_equal(a[ok], b[ok])
+
+
+def test_fleet_replica_readback_equals_its_leader(card, tmp_path):
+    """A fleet replica on the card installs the leader's published blob:
+    one batch's [B, W] mega-kernel readback is byte-equal to its
+    leader's, and the verdicts routed through the fleet equal a single
+    card engine's."""
+    from authorino_tpu_torch.fleet import FleetHarness
+
+    cfgs = northstar.build_corpus(64, 10)
+
+    def factory():
+        return PolicyEngine(device=card, max_batch=64, strict_verify=True,
+                            verdict_cache_size=0, batch_dedup=False)
+
+    h = FleetHarness(str(tmp_path / "fleet"), factory, poll_s=0.2)
+    try:
+        h.add_leader(entries=[EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                              for c in cfgs])
+        rep = h.add_replica("r1", warm_join=False)
+        lead_snap = h.leader.engine._snapshot
+        rep_snap = rep.engine._snapshot
+        assert rep_snap.compile_report is None
+        docs = northstar.build_docs(64, seed=5)
+        rows = [k % 64 for k in range(64)]
+        db = pack_batch(rep_snap.policy,
+                        encode_batch(rep_snap.policy, docs, rows))
+        np.testing.assert_array_equal(
+            fk.eval_fused_kernel(rep_snap.params, db).cpu().numpy(),
+            fk.eval_fused_kernel(lead_snap.params, db).cpu().numpy())
+        single = factory()
+        single.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name],
+                                           rules=c) for c in cfgs])
+        names = [cfgs[k % 64].name for k in range(64)]
+
+        async def go():
+            return await asyncio.gather(*(single.submit(d, n)
+                                          for d, n in zip(docs, names)))
+
+        loop = asyncio.new_event_loop()
+        try:
+            want = loop.run_until_complete(go())
+        finally:
+            loop.close()
+        for (wr, ws), d, n in zip(want, docs, names):
+            gr, gs = h.check(n, d)
+            assert gr.tolist() == wr.tolist() and gs.tolist() == ws.tolist()
+    finally:
+        h.shutdown()

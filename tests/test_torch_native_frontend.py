@@ -522,6 +522,138 @@ def test_responses_equal_reference_and_own_grpc_aio(reference):
         stack.close()
 
 
+def sharded_corpus(ns, engine):
+    """The reference's sharded fast-lane corpus
+    (``tests/test_native_frontend.py::test_sharded_engine_serves_fast_lane``)
+    built with ``ns``'s classes: ten configs over the mesh's shards, a
+    device-DFA regex, and API-key credential variants whose per-key
+    ``auth.*`` constants resolve against the owning shard's compile."""
+    P, Op = ns.Pattern, ns.Operator
+
+    def entry(cfg_id, hosts, rule):
+        pm = ns.PatternMatching(rule,
+                                batched_provider=engine.provider_for(cfg_id),
+                                evaluator_slot=0,
+                                attributor=engine.attribution_for(cfg_id))
+        nsp, _, nm = cfg_id.partition("/")
+        return ns.EngineEntry(
+            id=cfg_id, hosts=hosts, runtime=ns.RuntimeAuthConfig(
+                labels={"namespace": nsp, "name": nm},
+                identity=[ns.IdentityConfig("anon", ns.Noop())],
+                authorization=[ns.AuthorizationConfig("rules", pm)],
+                deny_with=ns.DenyWith()),
+            rules=ns.ConfigRules(name=cfg_id, evaluators=[(None, rule)]))
+
+    entries = [entry(f"ns/shard-{i}", [f"shard-{i}.test"],
+                     ns.All(P("request.headers.x-org", Op.EQ, f"org-{i}"),
+                            P("request.method", Op.NEQ, "DELETE")))
+               for i in range(10)]
+    entries.append(entry("ns/shard-rx", ["shard-rx.test"],
+                         P("request.url_path", Op.MATCHES, r"^/v[0-9]+/ok")))
+    aks = ns.APIKey("sh-keys", ns.LabelSelector.from_spec(
+        {"matchLabels": {"g": "sh"}}),
+        credentials=ns.AuthCredentials(key_selector="APIKEY"))
+    for name, role, key in (("sh-adm", "admin", b"sh-admin"),
+                            ("sh-usr", "user", b"sh-user")):
+        aks.add_k8s_secret_based_identity(ns.Secret(
+            namespace="ns", name=name, labels={"g": "sh"},
+            annotations={"role": role}, data={"api_key": key}))
+    rule_sh = P("auth.identity.metadata.annotations.role", Op.EQ, "admin")
+    pm_sh = ns.PatternMatching(
+        rule_sh, batched_provider=engine.provider_for("ns/shard-key"),
+        evaluator_slot=0, attributor=engine.attribution_for("ns/shard-key"))
+    entries.append(ns.EngineEntry(
+        id="ns/shard-key", hosts=["shard-key.test"],
+        runtime=ns.RuntimeAuthConfig(
+            labels={"namespace": "ns", "name": "shard-key"},
+            identity=[ns.IdentityConfig(
+                "sh-keys", aks,
+                credentials=ns.AuthCredentials(key_selector="APIKEY"))],
+            authorization=[ns.AuthorizationConfig("rules", pm_sh)]),
+        rules=ns.ConfigRules(name="ns/shard-key",
+                             evaluators=[(None, rule_sh)])))
+    return entries
+
+
+@bounded(300)
+def test_sharded_engine_serves_fast_lane():
+    """A mesh-sharded corpus rides the fast lane: the C++ encoder lays each
+    request into its owning shard's [B, S, ...] slice and one mesh dispatch
+    serves the slot.  What the reference's test asserts (its own run fails
+    on a shard_map pytree error there): every answer equal to the Python
+    server's on the same sharded engine, all but the 404 fast, and a
+    seeded sweep across shards, credentials and regex overflow with no
+    divergence.  The port's mesh is 8 logical slots over the CPU (dp = 2,
+    mp = 4); each answer is also equal to a single-corpus engine's."""
+    from authorino_tpu_torch.parallel import build_mesh
+    from authorino_tpu_torch.service.grpc_server import build_server
+
+    mesh = build_mesh([torch.device("cpu")] * 8, dp=2)
+    engine = PORT.PolicyEngine(max_batch=16, device="cpu", mesh=mesh)
+    engine.apply_snapshot(sharded_corpus(PORT, engine))
+    assert engine._snapshot.sharded is not None, "mesh path not engaged"
+    single = PORT.PolicyEngine(max_batch=16, device="cpu", mesh=None)
+    single.apply_snapshot(sharded_corpus(PORT, single))
+    fe = port_nf.NativeFrontend(engine, port=0, max_batch=16, window_us=500)
+    stops = []
+    try:
+        port = fe.start()
+        assert fe.wait_warm(60)
+        py_port, stop = serve_grpc_aio(build_server, engine)
+        stops.append(stop)
+        single_port, stop = serve_grpc_aio(build_server, single)
+        stops.append(stop)
+        reqs = []
+        for i in range(10):
+            reqs.append(make_req(f"shard-{i}.test",
+                                 headers={"x-org": f"org-{i}"}))
+            reqs.append(make_req(f"shard-{i}.test",
+                                 headers={"x-org": "evil"}))
+            reqs.append(make_req(f"shard-{i}.test", method="DELETE",
+                                 headers={"x-org": f"org-{i}"}))
+        reqs.append(make_req("shard-rx.test", path="/v2/ok"))
+        reqs.append(make_req("shard-rx.test", path="/nope"))
+        reqs.append(make_req("shard-rx.test", path="/v2/ok" + "x" * 200))
+        for key in ("APIKEY sh-admin", "APIKEY sh-user", "APIKEY nope"):
+            reqs.append(make_req("shard-key.test",
+                                 headers={"authorization": key}))
+        reqs.append(make_req("shard-key.test"))
+        reqs.append(make_req("unknown.test"))
+        for i, req in enumerate(reqs):
+            native = call(port, req)
+            assert native == call(py_port, req), f"sharded req #{i}"
+            assert as_dict(native) == as_dict(call(single_port, req)), \
+                f"sharded req #{i} vs the single corpus"
+        stats = fe.stats()
+        assert stats["fast"] > 0, f"sharded fast lane never engaged: {stats}"
+        assert stats["fast"] >= len(reqs) - 1  # all but the 404 ride fast
+        rng = __import__("random").Random(8)
+        mism = []
+        for i in range(120):
+            host = rng.choice([f"shard-{rng.randrange(10)}.test",
+                               "shard-rx.test", "shard-key.test",
+                               "nope.test"])
+            headers = {}
+            if rng.random() < 0.6:
+                headers["x-org"] = rng.choice(
+                    [f"org-{rng.randrange(10)}", "evil", ""])
+            if rng.random() < 0.5:
+                headers["authorization"] = rng.choice(
+                    ["APIKEY sh-admin", "APIKEY sh-user", "APIKEY zz", ""])
+            req = make_req(host, method=rng.choice(["GET", "DELETE"]),
+                           path=rng.choice(["/v2/ok", "/no",
+                                            "/v1/ok" + "y" * 180]),
+                           headers=headers)
+            if call(port, req) != call(py_port, req):
+                mism.append(i)
+        assert not mism, f"{len(mism)} diverged on the mesh: {mism[:5]}"
+        assert fe.stats()["fe_batches"] > 0
+    finally:
+        for stop in stops:
+            stop()
+        fe.stop()
+
+
 @bounded(240)
 def test_identity_templated_deny_carries_provenance(reference):
     """The identity-templated denial is decided on the fast lane and is
