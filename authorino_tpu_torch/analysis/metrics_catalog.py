@@ -38,11 +38,6 @@ DOC_PATH = os.path.join(
 # queue 1 item that brings each ("divergence" for a plane the port does not
 # have by design: the JAX package's XLA warm grid)
 NOT_YET_PORTED = {
-    "auth_server_brownout_batches_total": "item 3",
-    "auth_server_brownout_decisions_total": "item 3",
-    "auth_server_lane_cost_ewma_seconds": "item 3",
-    "auth_server_lane_decisions_total": "item 3",
-    "auth_server_speculative_dispatch_total": "item 3",
     "auth_server_jit_warm_cache_total": "divergence: no XLA warm grid",
 }
 

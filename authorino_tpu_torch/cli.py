@@ -27,6 +27,8 @@ import threading
 import time
 from typing import Any
 
+from .runtime.lane_select import CARD_RULE
+
 
 def env_var(name: str, default: Any) -> Any:
     """(ref: pkg/utils/envvar.go)"""
@@ -87,15 +89,22 @@ def build_parser() -> argparse.ArgumentParser:
     a("--no-adaptive-window", action="store_true", default=not env_var("ADAPTIVE_WINDOW", True),
       help="Disable the adaptive in-flight window")
     a("--no-brownout", action="store_true", default=not env_var("BROWNOUT", True),
-      help="Disable host-lane brownout (the port has none)")
+      help="Disable host-lane brownout (spilling small head-of-queue "
+           "batches to the exact host oracle while the device window is "
+           "saturated; a CPU engine only, off on a card)")
     a("--brownout-max-batch", type=int, default=env_var("BROWNOUT_MAX_BATCH", 32),
-      help="Rows per brownout spill batch (not in the port yet)")
+      help="Rows per brownout spill batch (a CPU engine only: on a card "
+           "any value but 32 stops the start)")
     a("--no-lane-select", action="store_true", default=not env_var("LANE_SELECT", True),
-      help="Disable cost-model lane selection (the port has none)")
+      help="Disable cost-model lane selection (the exact host oracle "
+           "answering a cut faster than the device; a CPU engine only, off "
+           "on a card)")
     a("--lane-host-max-rows", type=int, default=env_var("LANE_HOST_MAX_ROWS", 64),
-      help="Largest cut the host lane may answer (not in the port yet)")
+      help="Largest cut the host lane may answer (a CPU engine only: on a "
+           "card any value but 64 stops the start)")
     a("--no-speculative-dispatch", action="store_true", default=not env_var("SPECULATIVE_DISPATCH", True),
-      help="Disable speculative dual-dispatch (the port has none)")
+      help="Disable speculative dual-dispatch of the breaker's half-open "
+           "probe batch (a CPU engine only, off on a card)")
     a("--no-tenant-qos", action="store_true", default=not env_var("TENANT_QOS", True),
       help="Disable the tenant QoS plane: weighted-fair batch cuts over "
            "per-tenant virtual queues, per-tenant quotas and tenant-aware "
@@ -247,31 +256,47 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # the reference's planes the port does not hold yet, with the ROADMAP.md
-# item (queue 1) that brings each
-UNPORTED_PLANES = {
-    "brownout": 3, "lane selection": 3,
-    "speculative dispatch": 3,
-}
+# item (queue 1) that brings each: none
+UNPORTED_PLANES: dict = {}
 
-# a flag of an unported plane → (its inert value, the plane).  A flag that
-# only turns a plane off (--no-brownout, --no-lane-select, ...) is absent:
-# it is accepted with either value
-UNPORTED_FLAGS = {
+# a host-lane tuning flag → (its inert value, the plane).  The host lanes
+# run on a CPU engine only (runtime/lane_select.py): on a card any other
+# value stops the start.  A flag that only turns a plane off
+# (--no-brownout, --no-lane-select, ...) is absent: it is accepted anywhere
+CARD_REFUSED_FLAGS = {
     "brownout_max_batch": (32, "brownout"),
     "lane_host_max_rows": (64, "lane selection"),
 }
 
 
 def refuse_unported(args) -> None:
-    """Stop the start for a flag of a plane the port does not hold yet
-    that is set to anything but its inert value."""
-    for dest, (inert, plane) in UNPORTED_FLAGS.items():
+    """Stop the start for a flag the server would not honour: a host-lane
+    tuning flag set to anything but its inert value on a card, where only
+    the kernel answers a row."""
+    if str(getattr(args, "device", "cuda")).split(":")[0] == "cpu":
+        return
+    for dest, (inert, plane) in CARD_REFUSED_FLAGS.items():
         value = getattr(args, dest)
         if value != inert:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(
-                f"{flag}={value!r}: the {plane} plane is not in this server "
-                f"yet (ROADMAP.md queue 1 item {UNPORTED_PLANES[plane]})")
+                f"{flag}={value!r}: the {plane} plane does not run on "
+                f"--device {args.device} ({CARD_RULE}); it runs with "
+                "--device cpu")
+
+
+def host_lane_kwargs(args) -> dict:
+    """The host lanes' engine arguments: a ``--no-*`` flag asks for off,
+    its absence is "not asked" (None), which the engine resolves by its
+    device (all on for a CPU engine, all off on a card)."""
+    return {
+        "brownout": False if args.no_brownout else None,
+        "brownout_max_batch": int(args.brownout_max_batch),
+        "lane_select": False if args.no_lane_select else None,
+        "lane_host_max_rows": int(args.lane_host_max_rows),
+        "speculative_dispatch": (False if args.no_speculative_dispatch
+                                 else None),
+    }
 
 
 def _parse_tenant_weights(pairs) -> dict:
@@ -587,6 +612,7 @@ async def run_server(args, on_engine=None) -> None:
         admission_target_s=float(args.admission_target_ms) / 1e3,
         admission_queue_cap=int(args.admission_queue_cap),
         adaptive_window=not args.no_adaptive_window,
+        **host_lane_kwargs(args),
         max_inflight_batches=args.max_inflight_batches,
         dispatch_workers=args.dispatch_workers,
         verdict_cache_size=args.verdict_cache_size,
@@ -625,9 +651,10 @@ async def run_server(args, on_engine=None) -> None:
                  engine.device)
     if on_engine is not None:
         on_engine(engine)
-    log.info("this server runs without the reference's %s",
-             ", ".join(f"{plane} (ROADMAP item {item})"
-                       for plane, item in UNPORTED_PLANES.items()))
+    log.info("host lanes: brownout %s, lane selection %s, speculative "
+             "dispatch %s%s", engine.brownout, engine.lanes.enabled,
+             engine.lanes.speculative,
+             "" if engine.host_degrade else f" ({CARD_RULE})")
     snapshot_replica, state_plane, hotset_stop = start_state_planes(
         args, engine, log)
 
@@ -707,6 +734,10 @@ async def run_server(args, on_engine=None) -> None:
             breaker_threshold=int(args.breaker_threshold),
             breaker_reset_s=float(args.breaker_reset),
             admission_target_s=float(args.admission_target_ms) / 1e3,
+            brownout=False if args.no_brownout else None,
+            brownout_max_rows=int(args.brownout_max_batch),
+            lane_select=False if args.no_lane_select else None,
+            lane_host_max_rows=int(args.lane_host_max_rows),
             slo_ms=float(args.slo_ms),
         )
         try:

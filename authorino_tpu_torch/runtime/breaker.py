@@ -85,20 +85,29 @@ class CircuitBreaker:
         """True when this batch may touch the device.  OPEN past the
         cooldown atomically claims the single half-open probe slot; every
         other caller stays off the device until that probe resolves."""
+        return self.admit_device_probe()[0]
+
+    def admit_device_probe(self) -> "tuple[bool, bool]":
+        """(allowed, probe): ``admit_device`` that also says whether this
+        admission claimed the half-open probe slot (the reference's
+        ``admit_device``).  A CPU engine's speculative dual dispatch arms
+        exactly on probes: the probe batch rides both lanes and resolves
+        first-wins, while the device half's outcome still decides the
+        breaker."""
         with self._lock:
             if self._state == CLOSED:
-                return True
+                return True, False
             if self._state == OPEN:
                 if time.monotonic() - self._opened_at < self.reset_s:
-                    return False
+                    return False, False
                 self._transition(HALF_OPEN, "cooldown elapsed; probing")
                 self._probe_inflight = True
-                return True
+                return True, True
             # HALF_OPEN: exactly one probe at a time
             if self._probe_inflight:
-                return False
+                return False, False
             self._probe_inflight = True
-            return True
+            return True, True
 
     # -- batch outcomes ----------------------------------------------------
 

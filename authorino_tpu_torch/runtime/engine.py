@@ -212,6 +212,17 @@ from .admission import AdaptiveWindow, AdmissionController
 from .breaker import CircuitBreaker
 from .flight_recorder import RECORDER
 from .kernel_cost import LEDGER, CostModel
+from .lane_select import (
+    DEVICE as L_DEVICE,
+    HOST as L_HOST,
+    R_COST,
+    R_DEADLINE,
+    R_SPECULATIVE,
+    LaneSelector,
+    Speculation,
+    resolve_host_lanes,
+)
+from ..tenancy.quota import R_TENANT_CONTAINED as TEN_R_CONTAINED
 
 __all__ = ["EngineEntry", "PolicyEngine", "SnapshotRejected"]
 
@@ -225,7 +236,8 @@ _STAT_KEYS = ("batches", "launches", "plain_calls", "rows", "device_rows",
               "h2d_bytes", "d2h_bytes", "host_fallback", "retries",
               "failed_batches", "deadline_shed", "watchdog_timeouts",
               "degraded_rows", "degraded_batches", "breaker_open_batches",
-              "contained_parts", "contained_rows")
+              "contained_parts", "contained_rows", "host_lane_rows",
+              "brownout_rows")
 
 
 class SnapshotRejected(RuntimeError):
@@ -622,7 +634,7 @@ class _Inflight:
     ``wait()`` (the readback as numpy) — tests substitute stubs."""
 
     __slots__ = ("engine", "batch", "handle", "finalize", "binfo", "waits",
-                 "t_launch", "snap", "attempt", "route")
+                 "t_launch", "snap", "attempt", "route", "spec")
 
     def __init__(self, engine, batch, handle, finalize, binfo, waits,
                  snap=None, attempt=0):
@@ -636,6 +648,7 @@ class _Inflight:
         self.snap = snap          # pinned snapshot (retry path)
         self.attempt = attempt    # 0 = first dispatch, 1 = the one retry
         self.route = None         # mesh lane: the occupied device windows
+        self.spec = None          # speculative dual dispatch's token
 
     def ready(self) -> bool:
         is_ready = getattr(self.handle, "is_ready", None)
@@ -665,6 +678,11 @@ class PolicyEngine:
                  admission_queue_cap: int = 0,
                  admission_min_cap: Optional[int] = None,
                  adaptive_window: bool = True,
+                 brownout: Optional[bool] = None,
+                 brownout_max_batch: int = 32,
+                 lane_select: Optional[bool] = None,
+                 lane_host_max_rows: int = 64,
+                 speculative_dispatch: Optional[bool] = None,
                  device_timeout_s: Optional[float] = None,
                  slo_ms: float = 0.0,
                  breaker_threshold: int = 5,
@@ -707,7 +725,18 @@ class PolicyEngine:
         oracle on the CPU); ``breaker_reset_s`` later one half-open probe
         batch tests the card again.
         ``timeout_s`` bounds one Check()'s
-        pipeline.  ``slo_ms`` (0 = off) arms the SLO burn-rate tracker:
+        pipeline.
+
+        The host lanes (runtime/lane_select.py), on a CPU engine only: the
+        exact host oracle answers a cut when the cost model says it is
+        faster than the device (``lane_select``; cuts up to
+        ``lane_host_max_rows``), small head-of-queue batches of up to
+        ``brownout_max_batch`` rows while the window is saturated
+        (``brownout``), and the breaker's half-open probe batch rides both
+        lanes, first wins (``speculative_dispatch``).  None means "not
+        asked": all on for a CPU engine, as the reference's defaults; all
+        off on a card, where only the kernel answers a row, and an
+        explicit True there raises ValueError.  ``slo_ms`` (0 = off) arms the SLO burn-rate tracker:
         a request is bad when its queue wait plus its batch's device
         stage exceeds it, or when it fails with a serving error.
 
@@ -821,6 +850,28 @@ class PolicyEngine:
             enabled=adaptive_window)
         self.breaker = CircuitBreaker("engine", threshold=breaker_threshold,
                                       reset_s=breaker_reset_s)
+        # the host lanes: resolved off on a card (an explicit True raises)
+        self.brownout, lane_on, spec_on = resolve_host_lanes(
+            self.device, brownout, lane_select, speculative_dispatch)
+        self.brownout_max_batch = max(1, int(brownout_max_batch))
+        # concurrent brownout batches are bounded: the host lane absorbs
+        # overload, it must not become an unbounded CPU amplifier
+        self._brownout_limit = max(1, self.dispatch_workers // 2)
+        self._brownout_inflight = 0
+        self._brownout_total = 0
+        # lane selection: a per-cut cost model decides host vs device, the
+        # latency-critical head of a device cut is rescued host-side, and
+        # a half-open probe rides both lanes, first wins.  Off on a card:
+        # every cut counts device/disabled, and the cost model still
+        # learns the card's round trip
+        self.lanes = LaneSelector(
+            "engine", enabled=lane_on, host_max_rows=lane_host_max_rows,
+            speculative=spec_on,
+            host_concurrency=max(1, self.dispatch_workers // 2))
+        if lane_on:
+            # a deadline only the host lane can meet is not doomed at
+            # admission while the host lane has headroom
+            self.admission.lane_floor = self.lanes.admission_floor
         # cumulative typed serving errors (the fleet fold): requests failed
         # UNAVAILABLE with no lane left.  Deadline sheds stay out: they are
         # the protection working
@@ -2198,47 +2249,107 @@ class PolicyEngine:
 
         With the tenant plane on, a contended cut (more queued than it
         takes) is the weighted-fair cut; an uncontended one takes
-        everything in arrival order.  A contained tenant's rows then leave
-        the cut for parts of their own (one per cohort), launched on the
-        device behind the cut's other parts, each its own window slot:
-        the other tenants' rows never wait behind them."""
+        everything in arrival order.  A contained tenant's rows leave the
+        cut: on a CPU engine for the host-oracle lane while it has room
+        (the reference's route; past the cap they stay in the cut), on a
+        card for parts of their own launched behind the cut's other
+        parts, each its own window slot.
+
+        On a CPU engine the cost model then decides whether the cut rides
+        the host lane (no window slot), and with the window saturated and
+        a standing wait forming, small head-of-queue batches spill to the
+        host oracle (brownout).  On a card every cut rides the device."""
         ten = self.tenancy
         while True:
+            brown = False
+            hostsel = None
+            which = why = None
+            diverted = []
+            contained = []
+            inflight = None
             with self._queue_lock:
                 depth = len(self._queue)
-                if not depth or self._inflight >= self.controller.window:
+                if not depth:
                     break
-                n = min(depth, self.max_batch)
-                if ten.enabled and depth > n:
-                    batch = ten.cut(self._queue, n)
-                else:
-                    batch = [self._queue.popleft() for _ in range(n)]
-                ten.on_dequeue(batch)
                 phase = self._canary
-                contained = []
-                if ten.has_contained():
-                    batch, div = ten.split_contained(batch)
-                    if div:
-                        for p in div:
-                            p.contained = True
-                        contained = _split_cohorts(div, phase)
-                parts = (_split_cohorts(batch, phase) if batch else []) \
-                    + contained
-                self._inflight += len(parts)
-                self.inflight_peak = max(self.inflight_peak, self._inflight)
-                inflight = self._inflight
+                if self._inflight < self.controller.window:
+                    n = min(depth, self.max_batch)
+                    if ten.enabled and depth > n:
+                        batch = ten.cut(self._queue, n)
+                    else:
+                        batch = [self._queue.popleft() for _ in range(n)]
+                    ten.on_dequeue(batch)
+                    if ten.has_contained():
+                        keep, div = ten.split_contained(batch)
+                        if div and not self.host_degrade:
+                            batch = keep
+                            for p in div:
+                                p.contained = True
+                            contained = _split_cohorts(div, phase)
+                        elif div and (self.lanes.host_inflight
+                                      < self.lanes.host_limit):
+                            batch = keep
+                            diverted = _split_cohorts(div, phase)
+                            self.lanes.host_inflight += len(diverted)
+                    parts = []
+                    if batch:
+                        which, why = self.lanes.decide(
+                            len(batch), self._inflight,
+                            self.controller.window)
+                        parts = _split_cohorts(batch, phase)
+                        if which == L_HOST:
+                            self.lanes.host_inflight += len(parts)
+                            hostsel = why
+                    launched = (parts if hostsel is None else []) + contained
+                    if launched:
+                        self._inflight += len(launched)
+                        self.inflight_peak = max(self.inflight_peak,
+                                                 self._inflight)
+                        inflight = self._inflight
+                elif (self.brownout
+                      and self._brownout_inflight < self._brownout_limit
+                      and (time.monotonic() - self._queue[0].t_enq)
+                      > self.admission.target_s / 2):
+                    # the window is saturated and a standing wait forms:
+                    # the oldest requests spill to the host oracle, no
+                    # window slot taken
+                    n = min(depth, self.brownout_max_batch)
+                    batch = [self._queue.popleft() for _ in range(n)]
+                    ten.on_dequeue(batch)
+                    parts = _split_cohorts(batch, phase)
+                    self._brownout_inflight += len(parts)
+                    brown = True
+                else:
+                    break
+            if which is not None:
+                # one decision per cut, even when a canary splits it
+                self.lanes.count(which, why)
             if contained:
                 self._add_stats(
                     contained_parts=len(contained),
                     contained_rows=sum(len(part) for _, part in contained))
-            self._g_inflight.set(inflight)
-            for is_canary, part in parts:
+            if inflight is not None:
+                self._g_inflight.set(inflight)
+            pool = _encode_pool(self.dispatch_workers)
+            for is_canary, part in diverted:
+                # a contained tenant's rows: the host-oracle lane under a
+                # reason of their own, not brownout
+                self.lanes.count(L_HOST, TEN_R_CONTAINED)
+                pool.submit(self._host_lane_job,
+                            self._snap_for(phase, is_canary), part, None,
+                            TEN_R_CONTAINED)
+            for is_canary, part in parts + contained:
                 # pinned per part: a swap admitted later never relabels
                 # it.  A phase that concluded since the stamp collapses
                 # to the serving snapshot: still one generation
-                _encode_pool(self.dispatch_workers).submit(
-                    self._encode_launch_job,
-                    self._snap_for(phase, is_canary), part)
+                snap = self._snap_for(phase, is_canary)
+                if brown:
+                    pool.submit(self._brownout_job, snap, part)
+                elif hostsel is not None and not part[0].contained:
+                    pool.submit(self._host_lane_job, snap, part, None,
+                                hostsel)
+                else:
+                    pool.submit(self._encode_launch_job, snap, part)
         self._g_depth.set(len(self._queue))
 
     def _snap_for(self, phase, is_canary: bool) -> Optional[_Snapshot]:
@@ -2247,17 +2358,33 @@ class PolicyEngine:
         return phase.snap if is_canary else phase.baseline
 
     def _encode_launch_job(self, snap: Optional[_Snapshot],
-                           batch: List[_Pending], attempt: int = 0) -> None:
+                           batch: List[_Pending], attempt: int = 0,
+                           spec: Optional[Speculation] = None) -> None:
         """Encode stage (pool thread): shed the expired, encode + launch
         without waiting on the device, hand the batch to the completer.
         An open circuit breaker keeps the whole batch off the card
         (``_end_undecided``); a failure takes the retry path
-        (``_batch_failed``)."""
-        batch = self._shed_expired(batch)
+        (``_batch_failed``).
+
+        On a CPU engine with lane selection on, the latency-critical head
+        (deadlines the device cannot meet but the host lane can) is
+        rescued onto the host lane before the shedder would fail it, and a
+        dispatch that claims the breaker's half-open probe slot also rides
+        the host lane, first wins (``spec`` carries the token across the
+        retry)."""
+        if attempt == 0 and spec is None:
+            batch = self._rescue_urgent(snap, batch)
+        if spec is None:
+            # a speculative retry skips the shedder: the host twin owns the
+            # batch's deadlines (it answered, or sheds at horizon 0)
+            batch = self._shed_expired(batch)
         if not batch:
             self._launch_done()
             return
         if snap is None or not snap.compiled:
+            if spec is not None and not spec.acquire(L_DEVICE):
+                self._launch_done()
+                return  # the host twin answered: nothing left to fail
             self._resolve_error(batch, CheckAbort(
                 UNAVAILABLE, "no compiled policy snapshot"))
             self._launch_done()
@@ -2266,17 +2393,42 @@ class PolicyEngine:
         if not batch:
             self._launch_done()
             return
-        if not self.breaker.admit_device():
+        allowed, probe = self.breaker.admit_device_probe()
+        if not allowed:
+            # a speculative retry into a re-opened breaker acquires before
+            # it ends the batch: a host twin finishing meanwhile must not
+            # fold or count twice
+            if spec is not None and not spec.acquire(L_DEVICE):
+                self.lanes.count_speculative("device-fail")
+                self._launch_done()
+                return
             self._end_undecided(snap, batch, reason="breaker-open")
             return
+        if (probe and spec is None and attempt == 0
+                and self.lanes.enabled and self.lanes.speculative):
+            # the probe batch's device answer is in doubt: race the exact
+            # host twin against it.  The device half keeps the window slot
+            # and the breaker verdict; the host half is skipped, not
+            # queued, when the host cap is taken
+            with self._queue_lock:
+                if self.lanes.host_inflight < self.lanes.host_limit:
+                    self.lanes.host_inflight += 1
+                    spec = Speculation("engine")
+            if spec is not None:
+                self.lanes.count(L_HOST, R_SPECULATIVE)
+                self.lanes.count_speculative("launched")
+                _encode_pool(self.dispatch_workers).submit(
+                    self._host_lane_job, snap, list(batch), spec,
+                    R_SPECULATIVE)
         try:
             if faults.ACTIVE:
                 faults.FAULTS.check("encode", "engine")
             item = self._encode_and_launch(snap, batch)
             item.snap = snap
             item.attempt = attempt
+            item.spec = spec
         except Exception as e:
-            self._batch_failed(snap, batch, attempt, e)
+            self._batch_failed(snap, batch, attempt, e, spec=spec)
             return
         _completer_submit(item)
 
@@ -2298,13 +2450,17 @@ class PolicyEngine:
             UNAVAILABLE, "policy evaluation unavailable"))
         return [p for p in batch if snap.has_config(p.config_name)]
 
-    def _shed_expired(self, batch: List[_Pending]) -> List[_Pending]:
-        """Requests whose propagated deadline lands inside one expected
-        device round trip (EWMA) answer a typed DEADLINE_EXCEEDED here
-        instead of riding a launch whose answer would arrive dead."""
+    def _shed_expired(self, batch: List[_Pending],
+                      horizon_s: Optional[float] = None) -> List[_Pending]:
+        """Requests whose propagated deadline lands inside ``horizon_s``
+        (default: one expected device round trip, EWMA) answer a typed
+        DEADLINE_EXCEEDED here instead of riding a launch whose answer
+        would arrive dead.  The host lanes pass 0: the oracle answers in
+        microseconds, so only already-expired deadlines shed there."""
         if all(p.deadline is None for p in batch):
             return batch
-        horizon = time.monotonic() + self._device_ewma
+        horizon = time.monotonic() + (self._device_ewma if horizon_s is None
+                                      else horizon_s)
         live = [p for p in batch if p.deadline is None or p.deadline > horizon]
         shed = [p for p in batch if p.deadline is not None
                 and p.deadline <= horizon]
@@ -2316,23 +2472,214 @@ class PolicyEngine:
         return live
 
     def _batch_failed(self, snap: _Snapshot, batch: List[_Pending],
-                      attempt: int, exc: Exception) -> None:
+                      attempt: int, exc: Exception,
+                      spec: Optional[Speculation] = None) -> None:
         """A launched (or launching) batch failed: count it against the
         circuit breaker and retry it once on a fresh dispatch; a failed
         retry ends the batch (``_end_undecided``) on the encode pool, as
         the retry runs: this may be the completer's thread.  The window
-        slot stays held until the batch resolves."""
+        slot stays held until the batch resolves.
+
+        A speculative batch the host twin already won needs no retry: the
+        device half's only job was the breaker verdict, recorded here.
+        Otherwise the device half acquires the batch before ending it, so
+        a host twin finishing meanwhile never resolves or folds twice."""
         self.breaker.record_failure()
+        if spec is not None and spec.winner == L_HOST:
+            self.lanes.count_speculative("device-fail")
+            self._launch_done()
+            return
         if attempt == 0:
             metrics_mod.batch_retries.labels("engine").inc()
             self._add_stats(retries=1)
             log.warning("micro-batch of %d failed (%r): retrying once on a "
                         "fresh dispatch", len(batch), exc)
             _encode_pool(self.dispatch_workers).submit(
-                self._encode_launch_job, snap, batch, 1)
+                self._encode_launch_job, snap, batch, 1, spec)
+            return
+        if spec is not None and not spec.acquire(L_DEVICE):
+            # the host twin answered while the retry was in flight
+            self.lanes.count_speculative("device-fail")
+            self._launch_done()
             return
         _encode_pool(self.dispatch_workers).submit(
             self._end_undecided, snap, batch, exc)
+
+    def _rescue_urgent(self, snap: Optional[_Snapshot],
+                       batch: List[_Pending]) -> List[_Pending]:
+        """The latency-critical head of a device cut: requests whose
+        deadline lands inside the expected device answer, the set the
+        shedder would fail, are answered on the host lane instead when
+        its cost model says it can make them.  Bounded by the host
+        concurrency cap: past it the batch ships whole."""
+        if (not self.lanes.enabled or snap is None
+                or all(p.deadline is None for p in batch)):
+            return batch
+        # the device horizon is the larger of the cost model's estimate and
+        # the shedder's own EWMA: anything the shedder would fail is
+        # rescue-eligible, even before the model has seen a device batch
+        host = self.lanes.cost.host_cost(1)
+        dev = max(self.lanes.cost.device_cost(self._inflight,
+                                              self.controller.window),
+                  self._device_ewma)
+        if not (dev > 0.0) or host >= dev:
+            return batch
+        now = time.monotonic()
+        urgent = [p for p in batch
+                  if p.deadline is not None
+                  and p.deadline <= now + dev      # the device cannot
+                  and p.deadline > now + host]     # ... but the host can
+        if not urgent:
+            return batch
+        # bounded like any host cut (host_max_rows, tightest first), then
+        # re-tested against the capped batch's own host cost
+        urgent.sort(key=lambda p: p.deadline)
+        urgent = urgent[:self.lanes.host_max_rows]
+        bound = now + self.lanes.cost.host_cost(len(urgent))
+        urgent = [p for p in urgent if p.deadline > bound]
+        if not urgent:
+            return batch
+        with self._queue_lock:
+            if self.lanes.host_inflight >= self.lanes.host_limit:
+                return batch
+            self.lanes.host_inflight += 1
+        self.lanes.count(L_HOST, R_DEADLINE)
+        _encode_pool(self.dispatch_workers).submit(
+            self._host_lane_job, snap, urgent, None, R_DEADLINE)
+        u = set(id(p) for p in urgent)
+        return [p for p in batch if id(p) not in u]
+
+    def _host_lane_job(self, snap: Optional[_Snapshot],
+                       batch: List[_Pending],
+                       spec: Optional[Speculation] = None,
+                       reason: str = R_COST) -> None:
+        """The host serving lane of a CPU engine (encode-pool thread): one
+        batch decided through the exact host oracle because the cost model
+        chose it (a small cut, a deadline rescue, a speculative twin, a
+        contained tenant's rows): not a failure and not an overload spill,
+        so the breaker and the brownout counters stay untouched.  Holds no
+        window slot; bounded by the lane's own concurrency counter.
+
+        A speculative twin acquires the batch before any request-level
+        effect (resolution, SLO, admission's service count, the provenance
+        fold): whichever lane loses contributes nothing but its own cost
+        observation."""
+        released = False
+
+        def release_slot() -> None:
+            # the slot bounds oracle CPU, not resolution fan-out: free it
+            # once the decisions exist, so a caller's next small cut can
+            # land back on the host lane
+            nonlocal released
+            if released:
+                return
+            released = True
+            with self._queue_lock:
+                self.lanes.host_inflight -= 1
+
+        try:
+            live = self._shed_expired(batch, horizon_s=0.0)
+            if not live:
+                return
+            if snap is None or not snap.compiled:
+                if spec is None or spec.acquire(L_HOST):
+                    self._resolve_error(live, CheckAbort(
+                        UNAVAILABLE, "no compiled policy snapshot"))
+                return
+            by_loop, failed, n_ok, decided = self._host_decide_batch(
+                snap, live)
+            if spec is not None:
+                if failed:
+                    # exactness first: a partly failed host twin never
+                    # claims — the device half owns the whole batch
+                    self.lanes.count_speculative("host-fail")
+                    return
+                if not spec.acquire(L_HOST):
+                    return  # the device answered first: confirmation only
+                self.lanes.count_speculative("host-win")
+            due = self._fold_host(snap, decided, lane="engine-host")
+            if n_ok:
+                self.lanes.count_rows(L_HOST, n_ok)
+                self.admission.observe_service(n_ok)
+                n_bad = 0
+                if self.slo is not None:
+                    now = time.monotonic()
+                    n_bad = min(n_ok, sum(
+                        1 for p in live
+                        if p.t_enq and now - p.t_enq > self.slo.slo_s))
+                    self.slo.observe(n_ok, n_bad)
+                self.lanes.cost.observe_slo(L_HOST, n_ok, n_bad)
+            self._host_record(snap, live, n_ok, host_lane=reason)
+            release_slot()
+            self._resolve_after_guard(
+                due, lambda: self._resolve_host_decisions(by_loop, failed))
+        except Exception:
+            log.exception("host-lane batch failed")
+            if spec is not None:
+                self.lanes.count_speculative("host-fail")
+            else:
+                self._resolve_error(batch, CheckAbort(
+                    UNAVAILABLE, "policy evaluation unavailable"))
+        finally:
+            release_slot()
+            self._maybe_dispatch()
+
+    def _brownout_job(self, snap: Optional[_Snapshot],
+                      batch: List[_Pending]) -> None:
+        """The brownout lane of a CPU engine (encode-pool thread): a small
+        head-of-queue batch decided through the exact host oracle while
+        the device window is saturated.  Throughput degrades, correctness
+        never.  No window slot is held; its own counter bounds it."""
+        try:
+            # horizon 0: a deadline the device's inflated round trip could
+            # not meet is what this lane exists to rescue
+            batch = self._shed_expired(batch, horizon_s=0.0)
+            if not batch:
+                return
+            if snap is None or not snap.compiled:
+                self._resolve_error(batch, CheckAbort(
+                    UNAVAILABLE, "no compiled policy snapshot"))
+                return
+            by_loop, failed, n_ok, decided = self._host_decide_batch(
+                snap, batch)
+            due = self._fold_host(snap, decided)
+            if n_ok:
+                metrics_mod.brownout_decisions.labels("engine").inc(n_ok)
+                metrics_mod.brownout_batches.labels("engine").inc()
+                self._brownout_total += n_ok
+                self.admission.observe_service(n_ok)
+                if self.slo is not None:
+                    now = time.monotonic()
+                    n_bad = sum(1 for p in batch if p.t_enq
+                                and now - p.t_enq > self.slo.slo_s)
+                    self.slo.observe(n_ok, min(n_bad, n_ok))
+            self._host_record(snap, batch, n_ok, brownout=True)
+            self._resolve_after_guard(
+                due, lambda: self._resolve_host_decisions(by_loop, failed))
+        except Exception:
+            # a brownout fault fails its own batch typed, never leaks or
+            # wedges the queue
+            log.exception("brownout batch failed")
+            self._resolve_error(batch, CheckAbort(
+                UNAVAILABLE, "policy evaluation unavailable"))
+        finally:
+            with self._queue_lock:
+                self._brownout_inflight -= 1
+            self._maybe_dispatch()
+
+    def _host_record(self, snap: _Snapshot, batch: List[_Pending],
+                     n_ok: int, **kind) -> None:
+        """The batch record and stats of a host-lane or brownout batch: no
+        launch, no bytes (the ledger's ``host`` lane counted it)."""
+        self.batch_records.append(dict(
+            rows=len(batch), device_rows=0, pad_rows=0, dedup_rows=0,
+            cache_rows=0, degraded_rows=0, host_rows=n_ok, launches=0,
+            plain_calls=0, h2d_bytes=0, d2h_bytes=0,
+            generation=snap.generation, **kind))
+        if "brownout" in kind:
+            self._add_stats(brownout_rows=n_ok)
+        else:
+            self._add_stats(host_lane_rows=n_ok)
 
     @property
     def host_degrade(self) -> bool:
@@ -2386,7 +2733,8 @@ class PolicyEngine:
                     "device_timeout_s %.3fs: abandoning the handle",
                     len(item.batch), item.attempt, self.device_timeout_s)
         self._batch_failed(item.snap, item.batch, item.attempt,
-                           TimeoutError("device readback watchdog timeout"))
+                           TimeoutError("device readback watchdog timeout"),
+                           spec=item.spec)
 
     # ---- graceful drain ---------------------------------------------------
 
@@ -2426,12 +2774,17 @@ class PolicyEngine:
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             with self._queue_lock:
-                if not self._queue and self._inflight == 0:
-                    return True
+                # the host lanes' jobs hold no window slot: wait them out
+                idle = (not self._queue and self._inflight == 0
+                        and self._brownout_inflight == 0
+                        and self.lanes.host_inflight == 0)
+            if idle:
+                return True
             time.sleep(0.01)
         log.warning("engine drain timed out after %.1fs (queue=%d, "
-                    "inflight=%d)", timeout_s, len(self._queue),
-                    self._inflight)
+                    "inflight=%d, brownout=%d, host lane=%d)", timeout_s,
+                    len(self._queue), self._inflight,
+                    self._brownout_inflight, self.lanes.host_inflight)
         return False
 
     # ---- the fleet plane -------------------------------------------------
@@ -2799,7 +3152,8 @@ class PolicyEngine:
     # ---- decision observability -------------------------------------------
 
     def _observe_provenance(self, snap: _Snapshot, pendings: List[_Pending],
-                            rows, own_rule, own_skipped, waits=None):
+                            rows, own_rule, own_skipped, waits=None,
+                            lane: str = "engine"):
         """Per-batch decision-observability fold: which-rule-fired columns →
         the snapshot's heat map (one vectorized composite-key add), plus at
         most one head-sampled decision record per authconfig, and the
@@ -2817,7 +3171,7 @@ class PolicyEngine:
             p = pendings[0] if pendings else None
             now_m = time.monotonic()
             prov_mod.fold_and_sample(
-                heat, rows, firing, len(pendings), lane="engine",
+                heat, rows, firing, len(pendings), lane=lane,
                 host=_doc_host(p.doc) if p is not None else "",
                 latency_ms=((now_m - p.t_enq) * 1e3
                             if p is not None and p.t_enq else 0.0),
@@ -2840,14 +3194,14 @@ class PolicyEngine:
                     waits=(waits if waits is not None else sojourn),
                     bad_mask=(sojourn > self.slo.slo_s
                               if self.slo is not None else None),
-                    lane="engine")
+                    lane=lane)
             # traffic capture rides the same per-batch seam: one enabled
             # check per batch when off; when on, each sampled decision's
             # (authconfig, doc, firing column of the readback) is queued
             # for the capture log's own drain thread, which encodes and
             # persists it (never this thread)
             if CAPTURE.enabled:
-                self._offer_capture(snap, pendings, firing)
+                self._offer_capture(snap, pendings, firing, lane)
             # the canary guards read the same attribution columns: a part
             # rides one generation, so the evaluating snapshot names the
             # cohort
@@ -2864,7 +3218,7 @@ class PolicyEngine:
         return due
 
     def _offer_capture(self, snap: _Snapshot, pendings: List[_Pending],
-                       firing) -> None:
+                       firing, lane: str = "engine") -> None:
         """Queue this batch's sampled decisions for capture, each stamped
         with the digest of the pinned metadata documents its config was
         decided under (None: nothing pinned)."""
@@ -2878,7 +3232,7 @@ class PolicyEngine:
                     md_digests[pi.config_name] = pf.digest_for(
                         pi.config_name)
                 md = md_digests[pi.config_name]
-            CAPTURE.offer(pi.config_name, pi.doc, int(firing[i]), "engine",
+            CAPTURE.offer(pi.config_name, pi.doc, int(firing[i]), lane,
                           snap.generation, metadata_doc_digest=md)
 
     # ---- the host-oracle degrade ------------------------------------------
@@ -2887,11 +3241,14 @@ class PolicyEngine:
         """Row-by-row exact host decisions for one batch through the
         expression oracle (``host_results``, membership overflow
         included).  Returns (resolutions-by-loop, failed-futures-by-loop,
-        rows decided, the canary phase the fold left due); a row whose oracle run itself failed lands in
-        ``failed`` (typed UNAVAILABLE, fail closed).  The batch folds into
-        the cost ledger's ``host`` lane (no launch, no bytes) and its
-        columns into the same heat map and decision log as the device
-        lane's, through the same per-batch fold."""
+        rows decided, the decided rows as (pending, config row, rule,
+        skipped)); a row whose oracle run itself failed lands in
+        ``failed`` (typed UNAVAILABLE, fail closed).  Every host batch
+        (lane-selected, brownout, degrade) teaches the cost model its per
+        row service time and folds into the cost ledger's ``host`` lane
+        (no launch, no bytes); the caller folds the columns
+        (``_fold_host``), a speculative twin only once it has won."""
+        t0 = time.monotonic()
         by_loop: Dict[Any, list] = {}
         failed: Dict[Any, list] = {}
         decided = []   # (pending, config row, rule [E], skipped [E])
@@ -2914,17 +3271,24 @@ class PolicyEngine:
             by_loop.setdefault(p.loop, []).append(
                 (p.future, rule, skipped, snap))
         if batch:
+            self.lanes.cost.observe_host(time.monotonic() - t0, len(batch))
             try:
                 LEDGER.observe("host", rows=len(batch))
             except Exception:
                 log.exception("kernel cost fold failed (batch unaffected)")
-        due = None
-        if decided:
-            pendings, rows, rules, skips = zip(*decided)
-            due = self._observe_provenance(
-                snap, list(pendings), np.asarray(rows), np.stack(rules),
-                np.stack(skips))
-        return by_loop, failed, len(decided), due
+        return by_loop, failed, len(decided), decided
+
+    def _fold_host(self, snap: _Snapshot, decided,
+                   lane: str = "engine"):
+        """The host lanes' heat-map, decision-log and tenant fold, through
+        the same per-batch fold as the device lane's; returns the canary
+        phase it left due."""
+        if not decided:
+            return None
+        pendings, rows, rules, skips = zip(*decided)
+        return self._observe_provenance(
+            snap, list(pendings), np.asarray(rows), np.stack(rules),
+            np.stack(skips), lane=lane)
 
     @staticmethod
     def _resolve_host_decisions(by_loop, failed) -> None:
@@ -2948,7 +3312,8 @@ class PolicyEngine:
         ledger's ``host`` lane, a batch record with no launch) and fed to
         admission and the SLO once.  Typed UNAVAILABLE only for rows whose
         oracle run itself fails."""
-        by_loop, failed, n_ok, due = self._host_decide_batch(snap, batch)
+        by_loop, failed, n_ok, decided = self._host_decide_batch(snap, batch)
+        due = self._fold_host(snap, decided)
         n_failed = len(batch) - n_ok
         if n_ok:
             metrics_mod.degraded_decisions.labels("engine").inc(n_ok)
@@ -3011,6 +3376,16 @@ class PolicyEngine:
             "device_rtt_ewma_s": self._device_ewma,
             "admission": self.admission.to_json(),
             "adaptive": self.controller.to_json(),
+            # the host lanes (off on a card: enabled false, every cut
+            # device/disabled, the device RTT EWMA still fed)
+            "brownout": {
+                "enabled": self.brownout,
+                "max_batch": self.brownout_max_batch,
+                "inflight": self._brownout_inflight,
+                "concurrency_limit": self._brownout_limit,
+                "decisions": self._brownout_total,
+            },
+            "lane_select": self.lanes.to_json(),
             "control_plane": self._control_plane,
             # the reconcile's verification planes: the gate's setting, the
             # advisory passes' reports and the serving snapshot's
@@ -3078,12 +3453,18 @@ class PolicyEngine:
             if faults.ACTIVE:
                 faults.FAULTS.check("readback", "engine")
             packed = item.handle.wait()
-            own_rule, own_skipped = item.finalize(packed)
+            # speculative first-wins: acquire before finalize, so a batch
+            # the host twin already resolved skips finalize (the fold and
+            # the cache insert); the readback was the probe's verdict
+            spec_won = item.spec is None or item.spec.acquire(L_DEVICE)
+            if spec_won:
+                own_rule, own_skipped = item.finalize(packed)
         except Exception as e:
             # a mesh batch: its devices' breakers and windows first, then
             # the retry (whose fresh dispatch routes around a sick device)
             self._route_done(item, ok=False)
-            self._batch_failed(item.snap, item.batch, item.attempt, e)
+            self._batch_failed(item.snap, item.batch, item.attempt, e,
+                               spec=item.spec)
             return
         self._route_done(item, ok=True)
         slo_counted = False
@@ -3101,8 +3482,30 @@ class PolicyEngine:
             self._device_ewma = (dur if not self._device_ewma
                                  else 0.8 * self._device_ewma + 0.2 * dur)
             n = item.binfo["batch_size"]
+            # the lane cost model learns every batch that touched the
+            # device (on a card too): a cache-only batch's turnaround
+            # would read as a fast device
+            if item.binfo.get("device_rows", 1) != 0:
+                self.lanes.cost.observe_device(
+                    dur, n, len(self._queue), self._inflight,
+                    self.controller.window)
+            sharded = getattr(item.snap, "sharded", None)
+            if sharded is not None:
+                # a partly down mesh loads its survivors: the device cost
+                # the selector compares against rises
+                try:
+                    self.lanes.cost.mesh_penalty = sharded.cost_feed()
+                except Exception:
+                    pass
             self.controller.observe_batch(dur, n, len(self._queue),
                                           now=t_done)
+            if not spec_won:
+                # the host twin answered the clients: the request-level
+                # accounting happened once, on its side
+                return
+            if item.spec is not None:
+                self.lanes.count_speculative("device-win")
+            self.lanes.count_rows(L_DEVICE, n)
             self.admission.observe_service(n, now=t_done)
             slo_counted = self._observe_batch(item, dur)
             if tracing_mod.tracing_active():
@@ -3128,8 +3531,9 @@ class PolicyEngine:
         except Exception as e:
             log.exception("post-completion work failed (batch verdicts "
                           "already computed)")
-            self._resolve_after_guard(due, lambda: self._resolve_error(
-                item.batch, e, slo_counted=slo_counted))
+            if spec_won:
+                self._resolve_after_guard(due, lambda: self._resolve_error(
+                    item.batch, e, slo_counted=slo_counted))
         finally:
             self._launch_done()
 
@@ -3147,6 +3551,9 @@ class PolicyEngine:
                 n_bad = int(np.count_nonzero(lat > self.slo.slo_s))
                 self.slo.observe(len(item.batch), n_bad)
                 counted = True
+                # the per-lane burn bias: selection leans toward the lane
+                # that is not burning budget
+                self.lanes.cost.observe_slo(L_DEVICE, len(item.batch), n_bad)
                 # the SLO guard: per-cohort bad fractions from the same
                 # per-batch counts
                 phase = self._canary

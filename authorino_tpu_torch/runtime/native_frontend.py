@@ -75,6 +75,7 @@ import threading
 import time
 import urllib.parse
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -124,6 +125,8 @@ from .admission import AdmissionController
 from .breaker import CircuitBreaker
 from .flight_recorder import RECORDER
 from .kernel_cost import LEDGER
+from .lane_select import DEVICE as L_DEVICE, HOST as L_HOST, LaneSelector, \
+    resolve_host_lanes
 
 log = logging.getLogger("authorino_tpu_torch.native_frontend")
 
@@ -698,6 +701,8 @@ class _SnapRec:
     # against it)
     sharded: Any = None
     entry_policy: Dict[str, Any] = field(default_factory=dict)
+    # (pad, eff) shapes the host lane's plain version already ran on
+    host_warm: set = field(default_factory=set)
 
     def slot_rows(self, a: Dict[str, np.ndarray], count: int) -> np.ndarray:
         """The kernel rows of a slot's first ``count`` requests (a copy):
@@ -720,7 +725,14 @@ class NativeFrontend:
                  device_timeout_s: Optional[float] = None,
                  breaker_threshold: int = 5, breaker_reset_s: float = 5.0,
                  admission_target_s: float = 0.05,
+                 brownout: Optional[bool] = None, brownout_max_rows: int = 64,
+                 lane_select: Optional[bool] = None,
+                 lane_host_max_rows: int = 64,
                  slo_ms: float = 0.0):
+        """The host lanes (``brownout``, ``lane_select``; None = not asked)
+        resolve by the engine's device (runtime/lane_select.py): on a CPU
+        engine the reference's defaults, on a card off (an explicit True
+        raises there)."""
         self.engine = engine
         # a failed slot retries once; consecutive failures trip the breaker
         # and whole slots stay off the card; the readback watchdog abandons
@@ -799,6 +811,33 @@ class NativeFrontend:
             "native", target_s=admission_target_s,
             interval_s=max(1.0, 2 * self.hist_drain_s))
         self._slow_last: Dict[str, float] = {"slow": 0.0, "t": 0.0}
+        # the host lanes of a CPU engine (off on a card, where only the
+        # kernel answers a row).  Brownout: with nearly every slot in
+        # flight, a small slot is answered by the kernel's plain version
+        # on the host.  Lane selection: a small slot whose host cost beats
+        # the device round trip rides the host even when the window is not
+        # saturated.  Speculative dispatch stays an engine feature: a C++
+        # slot completes exactly once, so there is no first-wins seam here
+        brown_on, lane_on, _ = resolve_host_lanes(
+            engine.device, brownout, lane_select, None)
+        self.brownout = brown_on
+        self.brownout_max_rows = max(1, int(brownout_max_rows))
+        self._brownout_threshold = max(1, self.slots - 2)
+        self._brownout_total = 0
+        self._brownout_batches = 0
+        # live host-lane and brownout workers (under _rb_lock): stop()
+        # waits them out like in-flight device slots
+        self._brownout_live = 0
+        self.lanes = LaneSelector(
+            "native", enabled=lane_on,
+            host_max_rows=min(int(lane_host_max_rows), self.max_batch),
+            speculative=False, host_concurrency=2)
+        # persistent workers for cost-model-selected host slots: the light
+        # load latency path, where a thread per slot would eat the p50 it
+        # buys down
+        self._host_pool = ThreadPoolExecutor(
+            max_workers=self.lanes.host_limit,
+            thread_name_prefix="atpu-fe-lane-host")
         self.slo = None
         if slo_ms:
             from ..utils.slo import SloTracker
@@ -899,7 +938,7 @@ class NativeFrontend:
                         "slow_pending", "slow_queued", "batches_pending",
                         "filling", "done_queued")) and not (
                         self._rb_inflight or self._fail_live
-                        or self._done_buf):
+                        or self._brownout_live or self._done_buf):
                     break
                 time.sleep(0.02)
         self._running = False
@@ -930,6 +969,9 @@ class NativeFrontend:
             self._mod.fe_stop()
         self._drain_wake.set()
         self._done_evt.set()
+        # the host-lane pool's tasks are counted in _brownout_live, which
+        # the drain above waited out: the shutdown is bookkeeping
+        self._host_pool.shutdown(wait=False)
         for t in self._threads:
             t.join(timeout=5)
         self._threads = []
@@ -1018,6 +1060,21 @@ class NativeFrontend:
             "breaker": self.breaker.to_json(),
             "device_timeout_s": self.device_timeout_s,
             "admission": self.admission.to_json(),
+            "brownout": {
+                "enabled": self.brownout,
+                "max_rows": self.brownout_max_rows,
+                "slot_threshold": self._brownout_threshold,
+                "decisions": self._brownout_total,
+                "batches": self._brownout_batches,
+            },
+            # slot-level cost-model decisions, rows per lane, the cost
+            # EWMAs and the host lane's warmed shapes (a copy first: host
+            # workers add to the live set)
+            "lane_select": dict(
+                self.lanes.to_json(),
+                host_warm_shapes=(sorted(list(x)
+                                         for x in tuple(rec.host_warm))
+                                  if rec is not None else [])),
             "slo": self.slo.to_json() if self.slo is not None else None,
             # the shared tenant plane's view (both lanes fold into it)
             "tenancy": (self.tenancy.to_json()
@@ -1450,6 +1507,13 @@ class NativeFrontend:
             # happens here, off live requests (the launch words of a new
             # params tree are built at its first launch)
             self._warm_launch(rec)
+            if self.lanes.enabled:
+                # the next light-load slot may ride the host lane: run its
+                # small shapes once, off live requests
+                try:
+                    self._warm_host(rec)
+                except Exception:
+                    log.exception("host-lane warm-up failed")
         rec.warm_done.set()
         self._snaps[snap_id] = rec  # caller holds _lock
         self._cur_rec = rec
@@ -1666,10 +1730,18 @@ class NativeFrontend:
             h.wait()
             self._count(warm_launches=h.lane_calls)
             return
+        h = pe.dispatch_lane(rec.params,
+                             self._zero_batch(rec, min(16, self.max_batch)))
+        h.wait()
+        self._count(warm_launches=h.launches + h.plain_calls + h.lane_calls)
+
+    @staticmethod
+    def _zero_batch(rec: _SnapRec, pad: int) -> DeviceBatch:
+        """``pad`` zero rows of config 0 at the narrowest byte bucket: the
+        warm-ups' batch."""
         a = rec.arrays[0]
-        pad = min(16, self.max_batch)
         has_dfa = rec.params["dfa_tables"] is not None
-        db = DeviceBatch(
+        return DeviceBatch(
             attrs_val=np.zeros_like(a["attrs_val"][:pad]),
             members_c=np.full_like(a["members"][:pad], PAD),
             cpu_dense=np.zeros(a["cpu_dense"][:pad].shape, dtype=bool),
@@ -1679,9 +1751,28 @@ class NativeFrontend:
             byte_ovf=(np.zeros(a["byte_ovf"][:pad].shape, dtype=bool)
                       if has_dfa else None),
             host_fallback=np.zeros((pad,), dtype=bool))
-        h = pe.dispatch_lane(rec.params, db)
-        h.wait()
-        self._count(warm_launches=h.launches + h.plain_calls + h.lane_calls)
+
+    def _warm_host(self, rec: _SnapRec) -> None:
+        """Run the host lane's plain version on the small pad shapes the
+        cost model routes host-side (16 and 32 rows), so the first light
+        load slot after a swap finds them warm.  Large pads stay cold: the
+        cost model never routes a large slot host-side."""
+        if rec.sharded is not None or rec.policy is None:
+            return
+        for pad in (16, 32):
+            if pad > self.max_batch:
+                break
+            if not self._running:
+                return
+            self._warm_host_one(rec, pad)
+
+    def _warm_host_one(self, rec: _SnapRec, pad: int) -> None:
+        """One plain-version call on ``pad`` zero rows of config 0,
+        recorded in ``rec.host_warm``."""
+        db = self._zero_batch(rec, pad)
+        pe.dispatch_lane(rec.params, db).wait()
+        rec.host_warm.add((pad, 0 if db.attr_bytes is None
+                           else db.attr_bytes.shape[-1]))
 
     # ------------------------------------------------------------------
     def _fold_fc_counts(self) -> None:
@@ -1873,16 +1964,56 @@ class NativeFrontend:
         return enc, pad, eff
 
     def _dispatch(self, snap_id: int, slot: int, count: int,
-                  attempt: int = 0) -> None:
+                  attempt: int = 0, spill: bool = True) -> None:
         """Launch stage of one C++-encoded slot: answer cached rows,
         collapse the rest to unique rows and launch the mega-kernel ONCE
         on them (none at all when the cache answered every row), then park
         the in-flight slot on the readback queue.  ``attempt`` is the retry
-        generation; an OPEN breaker keeps the slot off the card."""
+        generation; an OPEN breaker keeps the slot off the card.
+
+        On a CPU engine a small slot may ride the host lane instead: the
+        cost model's choice (lane selection), or the saturated window's
+        spill (brownout); ``spill=False`` (a host eval that failed) keeps
+        it on the device path."""
         rec = self._snaps[snap_id]
-        if not self.breaker.admit_device():
+        allowed, probe = self.breaker.admit_device_probe()
+        if not allowed:
             self._count(breaker_open_batches=1)
             self._degrade_slot(rec, snap_id, slot, count)
+            return
+        # a claimed half-open probe must reach the device: routed host-side
+        # it would strand the probe slot, and no breaker verdict would land
+        host_ok = (spill and not probe and rec.sharded is None
+                   and rec.policy is not None)
+        if host_ok and self.lanes.enabled and count <= self.lanes.host_max_rows:
+            which, why = self.lanes.decide(count, self._rb_inflight,
+                                           self.slots)
+            if which == L_HOST:
+                taken = False
+                with self._rb_lock:
+                    if self.lanes.host_inflight < self.lanes.host_limit:
+                        self.lanes.host_inflight += 1
+                        self._brownout_live += 1
+                        taken = True
+                if taken:
+                    self.lanes.count(L_HOST, why)
+                    self._host_pool.submit(self._brownout_slot, rec,
+                                           snap_id, slot, count, why)
+                    return
+                # a concurrent host worker took the cap between decide()
+                # and the re-check: the slot rides the device, counted so
+                which, why = L_DEVICE, "host-busy"
+            self.lanes.count(L_DEVICE, why)
+        if (host_ok and self.brownout and count <= self.brownout_max_rows
+                and self._rb_inflight >= self._brownout_threshold):
+            # nearly every slot is in flight and this one is small: the
+            # plain version answers it on the host (exact) on a worker of
+            # its own, counted in _brownout_live so stop() waits it out
+            with self._rb_lock:
+                self._brownout_live += 1
+            threading.Thread(target=self._brownout_slot,
+                             args=(rec, snap_id, slot, count),
+                             name="atpu-fe-brownout", daemon=True).start()
             return
         a = rec.arrays[slot]
         # copy attribution rows BEFORE the slot can complete: once
@@ -2190,6 +2321,57 @@ class NativeFrontend:
             except Exception:
                 log.exception("degrade provenance fold failed")
 
+    def _brownout_slot(self, rec: _SnapRec, snap_id: int, slot: int,
+                       count: int, why: str = "brownout") -> None:
+        """Answer one small slot with the kernel's plain version on the
+        host (a worker thread; a CPU engine only).  Two triggers share
+        this path: ``why="brownout"``, the saturated window's spill
+        (brownout counters), and any other reason, the cost model's
+        choice (lane-selection counters).  A host eval that fails sends
+        the slot down the device path (``spill=False``).  Exact: the same
+        encoded operands, the kernel's own reference."""
+        lane_sel = why != "brownout"
+        try:
+            t0 = time.monotonic()
+            t0_ns = time.time_ns()
+            rows = rec.slot_rows(rec.arrays[slot], count)
+            try:
+                code, firing = self._host_eval(rec, slot, count, rows)
+            except Exception:
+                log.exception("native host-lane eval failed; the slot "
+                              "rides the device instead")
+                try:
+                    self._dispatch(snap_id, slot, count, spill=False)
+                except Exception as e:
+                    log.exception("post-host-lane device dispatch failed")
+                    self._native_batch_failed(snap_id, slot, count, 0, e)
+                return
+            dur = time.monotonic() - t0
+            self.lanes.cost.observe_host(dur, count)
+            # no launch and no device bytes: the ledger's host lane
+            LEDGER.observe("host", rows=count)
+            if lane_sel:
+                self.lanes.count_rows(L_HOST, count)
+            else:
+                metrics_mod.brownout_decisions.labels("native").inc(count)
+                metrics_mod.brownout_batches.labels("native").inc()
+                self._brownout_total += count
+                self._brownout_batches += 1
+            if not self._fe_stopped:
+                self._mod.fe_complete_batch(
+                    snap_id, slot, np.ascontiguousarray(code).ctypes.data)
+            try:
+                self._post_complete_telemetry(rec, count, 0, 0, rows, code,
+                                              dur, t0_ns, device_rows=0,
+                                              firing=firing, device=False)
+            except Exception:
+                log.exception("host-lane telemetry failed")
+        finally:
+            with self._rb_lock:
+                self._brownout_live -= 1
+                if lane_sel:
+                    self.lanes.host_inflight -= 1
+
     def _host_eval(self, rec: _SnapRec, slot: int, count: int,
                    rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """The kernel's plain version on one slot's encoded operands (a CPU
@@ -2210,11 +2392,14 @@ class NativeFrontend:
                                  eff: int, rows: np.ndarray,
                                  code: np.ndarray, dispatch_s: float,
                                  t0_ns: int, device_rows: int,
-                                 firing: Optional[np.ndarray] = None) -> None:
+                                 firing: Optional[np.ndarray] = None,
+                                 device: bool = True) -> None:
         """Per-slot telemetry after completion (responses are already on
         their way): the rule heat map, the tenant plane's counters, the
         SLO, the batch series, the DeviceBatch span and the per-authconfig
-        counters."""
+        counters.  ``device=False`` (a host-lane slot) keeps the
+        per-authconfig counters but stays out of the device's batch and
+        round-trip series: a host eval must not read as a fast device."""
         heat = rec.heat
         if heat is not None and firing is not None and count:
             prov_mod.fold_and_sample(heat, rows, firing, count,
@@ -2246,10 +2431,22 @@ class NativeFrontend:
             # waits are C++-clocked): every member shares it
             n_bad = count if dispatch_s > self.slo.slo_s else 0
             self.slo.observe(count, n_bad)
-        metrics_mod.observe_batch("native", count, pad, None, dispatch_s,
-                                  device_rows=device_rows)
-        metrics_mod.observe_pipeline_stage("native", "device", dispatch_s)
-        if tracing_mod.tracing_active():
+            # the per-lane burn bias: selection leans toward the lane that
+            # is not burning budget
+            self.lanes.cost.observe_slo(L_DEVICE if device else L_HOST,
+                                        count, n_bad)
+        if device:
+            if device_rows > 0:
+                # the cost model learns every slot that touched the device
+                # (a cache-only slot's turnaround would read as fast)
+                self.lanes.cost.observe_device(dispatch_s, count, 0,
+                                               self._rb_inflight, self.slots)
+            self.lanes.count_rows(L_DEVICE, count)
+            metrics_mod.observe_batch("native", count, pad, None, dispatch_s,
+                                      device_rows=device_rows)
+            metrics_mod.observe_pipeline_stage("native", "device",
+                                               dispatch_s)
+        if device and tracing_mod.tracing_active():
             tracing_mod.export_device_batch_span(count, pad, eff, [],
                                                  t0_ns, dispatch_s)
         allowed = (code == V_ALLOW).astype(np.int64)

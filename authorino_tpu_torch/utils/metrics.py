@@ -271,6 +271,60 @@ adaptive_batch_cut = _register(
     "clamped to [1, max_batch]).",
     _LANE_LABELS,
 )
+brownout_decisions = _register(
+    "counter", "auth_server_brownout_decisions_total",
+    "Requests decided on the exact host lane because the device pipeline "
+    "was saturated (window full + standing queue): overload degrades "
+    "throughput, never correctness.  Engine lane: the host expression "
+    "oracle; native lane: the kernel's plain version on the CPU.  A card "
+    "engine has no host lane: it never counts here.",
+    _LANE_LABELS,
+)
+brownout_batches = _register(
+    "counter", "auth_server_brownout_batches_total",
+    "Micro-batches spilled to the host lane under device-pipeline "
+    "saturation (the per-batch companion of "
+    "auth_server_brownout_decisions_total).",
+    _LANE_LABELS,
+)
+
+# ---------------------------------------------------------------------------
+# Lane selection: the host twin as a first-class serving lane on a CPU
+# engine (per-batch-cut cost-model decisions, speculative dual dispatch
+# while the breaker is half-open).  On a card every cut counts
+# <lane>-device/disabled.  See runtime/lane_select.py.
+# ---------------------------------------------------------------------------
+
+lane_decisions = _register(
+    "counter", "auth_server_lane_decisions_total",
+    "Batch-cut lane decisions by the cost model (runtime/lane_select.py): "
+    "lane = <serving lane>-host / <serving lane>-device, reason = "
+    "cost-model (the winning cost estimate), deadline (latency-critical "
+    "head rescued host-side), speculative (dual-dispatch twin while the "
+    "breaker is half-open), batch (cut too large for the host lane), "
+    "host-busy (host concurrency cap), slo-burn (burn bias flipped the "
+    "raw cost verdict), explore (periodic device probe keeping the RTT "
+    "EWMA fresh during host-only regimes), disabled (off, as on a card).",
+    _LANE_LABELS + ("reason",),
+)
+lane_cost_ewma = _register(
+    "gauge", "auth_server_lane_cost_ewma_seconds",
+    "Live cost-model EWMAs per lane: host = seconds per host-decided ROW, "
+    "device = seconds per device batch round trip.  The decision law "
+    "compares host_row x cut_size against device_rtt x (1 + occupancy).",
+    _LANE_LABELS + ("which",),
+)
+speculative_dispatch = _register(
+    "counter", "auth_server_speculative_dispatch_total",
+    "Speculative dual-dispatch outcomes (breaker half-open): launched = "
+    "one batch sent to BOTH lanes, host-win / device-win = which lane "
+    "resolved the futures first (the loser's work is ignored — verdicts "
+    "are bit-identical by construction), host-fail = the host twin "
+    "raised or partially failed (the device half owns the batch), "
+    "device-fail = the device half failed while the host half answered "
+    "(the probe's breaker verdict).",
+    ("outcome",),
+)
 
 _dedup_children: dict = {}
 

@@ -37,7 +37,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      plus the V2 checks (with and without a key, an admin path, OPTIONS,
      ``host:port``, an unknown host), every result held to the expression
      oracle with its deny provenance, one launch per batch and a pad × W
-     readback; then checks/s (median of 3 runs) and per-Check() latency
+     readback; then checks/s (median of TIMED_RUNS runs) and per-Check() latency
      p50/p99 beside the batch count, rows per batch and phase 5's
      submit-only decisions/s, and the latency of a lone Check() (200
      sent one at a time);
@@ -52,7 +52,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      pad × W readback; every lowered config's kernel bit held to
      ``lower_verdict(module).matches(doc)`` and the interpreter's
      ``allow``; the mega-kernel's [256, W] readback on this corpus
-     byte-equal to its plain version; then checks/s (median of 3 runs),
+     byte-equal to its plain version; then checks/s (median of TIMED_RUNS runs),
      per-Check() p50/p99 under the burst and alone, the share of configs
      lowered, the interpreter's host time per Check(), and the kernel's
      device time on this corpus beside its bound;
@@ -71,7 +71,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      readback per batch, the [256, W] readback on this corpus byte-equal
      to plain; the full and introspection configs as expected (the
      wristband verifies against its JWKS, its ``sub`` is the SHA-256 of
-     the identity, one callback per check); then checks/s (median of 3
+     the identity, one callback per check); then checks/s (median of TIMED_RUNS
      runs) beside phase 6's, p50/p99 under the burst and alone, the host
      time of an RS256 verify, an ES256 verify and an ES256 wristband sign,
      and the kernel's device time on this corpus beside its bound;
@@ -88,7 +88,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      in eight doomed by a deadline inside one device round trip (each
      DEADLINE_EXCEEDED with no batch row, the rest equal to the oracle); a
      burst against a queue cap of 64 (the excess RESOURCE_EXHAUSTED, typed
-     and counted); then checks/s (median of 3), burst and lone p50/p99,
+     and counted); then checks/s (median of TIMED_RUNS), burst and lone p50/p99,
      device rows and the rows saved by dedup and by the cache, each run
      beside one of phase 8's engine (dedup and cache off) in the same
      call, and beside phase 8's figures.
@@ -372,16 +372,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``python -m authorino_tpu_torch.analysis`` as processes: the lint
      and fixture self-tests, the metrics catalogue, ``--snapshot-diff``
      over phase 21's generations and ``--replay`` of phase 20's capture.
+ 23. the mesh lane on logical slots of the card and the fleet of card
+     replicas (``mesh_and_fleet``).
+ 24. the host lanes (``host_lanes``): (a) a card engine at its defaults
+     over phase 6's corpus (its compile cache: nothing compiles again),
+     phase 6's 4,096 Check()s and 64 lone ones held to the oracle, lane
+     selection and brownout ``enabled: false``, no row on a host lane, by
+     brownout or speculation, every cut ``device/disabled``, one
+     mega-kernel launch per batch with a device row, the cost model's
+     device RTT EWMA fed; ``lane_select=True`` on a card raises, the CLI
+     refuses ``--lane-host-max-rows 8`` on a card; (b) CPU engines in
+     this process at the reference's defaults: the burst's cuts on the
+     plain version, the lone checks on the host lane, a one-batch
+     window's burst decided in part by brownout, every verdict equal to
+     (a)'s, no launch.
+
+Phases 10, 17, 18 and 21 run in a side process (``side_main``), started
+where phase 10 stood and joined before phase 22 (which reads phase 21's
+generations): they share no state with phases 11-16, 19 and 20, so the
+two processes overlap; the side process's lines are printed, prefixed
+``[side]``, when it joins.  Server processes that a phase drives late
+(12 (e), 14 (f), 15 (e) and its grpc.aio processes, 20 (e)) start at the
+phase's start (``ServerStart``), and phase 8's keys and tokens are made
+during phase 2's compilers.
 
 Every phase that serves batches names the encoder that served them
 (native by mode, or Python and why) and fails if it is not the one the
 reference would pick: native for phases 4, 6, 8-10 and 12, Python for
 phase 7's numeric lanes.  The kernels' launch counts in the summary are
-phase 22's ((c): the lane servers launch no mega-kernel, the auto engine's
-install and submits do), with every phase's under ``launches_by_phase``;
-each kernel must have launched on the paths of phases 4, 6, 7, 8, 9, 10,
-12-22, with the counts zeroed just before each.  An earlier line gives
-each phase's seconds.
+phase 24's ((a): the card engine's batches and its install's probe), with
+every phase's under ``launches_by_phase``; each kernel must have launched
+on the paths of phases 4, 6, 7, 8, 9, 10, 12-24, with the counts zeroed
+just before each (in the side process for its phases).  An earlier line
+gives each phase's seconds, the side process's beside them.
 
 The last lines are the kernels' JSON summary, the card line and
 ``{"ok": true, "device": {...}}``.  Everything measured also goes to
@@ -738,6 +761,10 @@ async def serve(engine, docs, names):
 # phases 4 and 6-8 run with batch dedup and the verdict cache off, so every
 # row reaches the kernel and their figures compare with earlier runs
 NO_REUSE = {"verdict_cache_size": 0, "batch_dedup": False}
+# timed runs of phases 5-9's checks/s and latency figures after each
+# phase's checked run: the port's benchmark cells carry the repetitions,
+# this script the exactness and one sample
+TIMED_RUNS = 1
 
 
 def checked_records(engine, start: int = 0):
@@ -745,8 +772,9 @@ def checked_records(engine, start: int = 0):
     structural contract: one launch for a batch with a device row and none
     for one the cache answered whole, the device rows padded to a power of
     two >= 16, D2H = pad x W, rows = device rows + rows saved by dedup +
-    rows saved by the cache + degraded rows (a batch the host oracle
-    decided has no launch).  Raises on the first batch that breaks it."""
+    rows saved by the cache + degraded rows + host rows (a batch the host
+    oracle decided, a CPU engine's host lane or brownout, has no launch).
+    Raises on the first batch that breaks it."""
     from authorino_tpu_torch.utils import bucket_pow2
 
     W = engine._snapshot.policy.fused_pack_w
@@ -759,13 +787,14 @@ def checked_records(engine, start: int = 0):
                 "pad_rows": bucket_pow2(u) if u else 0,
                 "d2h_bytes": (bucket_pow2(u) if u else 0) * W,
                 "rows": (u + r["dedup_rows"] + r["cache_rows"]
-                         + r["degraded_rows"])}
+                         + r["degraded_rows"] + r.get("host_rows", 0))}
         got = {k: r[k] for k in want}
         if got != want:
             raise AssertionError(f"batch breaks the structural contract: "
                                  f"{r} (expected {want})")
         if not engine.batch_dedup and engine._verdict_cache is None \
-                and "degraded" not in r and u != r["rows"]:
+                and not {"degraded", "host_lane", "brownout"} & set(r) \
+                and u != r["rows"]:
             raise AssertionError(f"a row skipped the kernel with dedup and "
                                  f"the cache off: {r}")
     return recs
@@ -1089,7 +1118,7 @@ def request_path(report: dict, card: str, ctx: dict) -> dict:
     ctx.update(engine=engine, entries=entries, reqs=ns_reqs, hold=hold)
 
     runs = []
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         b0, r0 = engine.stats["batches"], engine.stats["rows"]
         t = time.perf_counter()
         timed = asyncio.run(timed_checks(engine, ns_reqs))
@@ -1307,7 +1336,7 @@ def opa_path(report: dict, card: str, dev, cycles_per_ms: float) -> dict:
         f"byte-equal to plain; {fmt_encoder(enc)}")
 
     runs = []
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         b0, r0 = engine.stats["batches"], engine.stats["rows"]
         t = time.perf_counter()
         timed = asyncio.run(timed_checks(engine, reqs))
@@ -1440,6 +1469,23 @@ def jwt_full_checks(engine, idp, keys, entries):
     return es256, wristband
 
 
+def jwt_material() -> dict:
+    """Phase 8's keys (pure Python, from a seed), its running fake
+    Keycloak and the 4,096 requests with their minted tokens.  Made on a
+    thread during phase 2, whose compilers leave the interpreter idle."""
+    from authorino_tpu_torch.models import oidc_corpus as oc
+
+    t = time.perf_counter()
+    keys = oc.make_keys(42)
+    keygen_s = time.perf_counter() - t
+    idp = oc.FakeKeycloak(keys).start()
+    t = time.perf_counter()
+    reqs, kinds, claims = oc.build_check_requests(idp, 4096, 1000)
+    return {"keys": keys, "keygen_s": keygen_s, "idp": idp, "reqs": reqs,
+            "kinds": kinds, "claims": claims,
+            "mint_s": time.perf_counter() - t}
+
+
 def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
              ctx: dict) -> dict:
     """Phase 8: keys and a fake Keycloak, the Keycloak RBAC corpus
@@ -1466,13 +1512,10 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
     from authorino_tpu_torch.runtime import PolicyEngine
     from authorino_tpu_torch.utils import jose, rpc
 
-    t = time.perf_counter()
-    keys = oc.make_keys(42)
-    t_keygen = time.perf_counter() - t
-    idp = ctx["idp"] = oc.FakeKeycloak(keys).start()
-    t = time.perf_counter()
-    reqs, kinds, claims = oc.build_check_requests(idp, 4096, 1000)
-    t_mint = time.perf_counter() - t
+    jm = ctx.pop("jwt_material", None) or jwt_material()
+    keys, t_keygen, t_mint = jm["keys"], jm["keygen_s"], jm["mint_s"]
+    idp = ctx["idp"] = jm["idp"]
+    reqs, kinds, claims = jm["reqs"], jm["kinds"], jm["claims"]
     n_tokens = len({r.http.headers["authorization"]
                     for r, k in zip(reqs, kinds) if k is None})
     log(f"JWT path: keys made in {t_keygen:.2f}s (2 x RSA-2048, 2 x "
@@ -1582,7 +1625,7 @@ def jwt_path(report: dict, card: str, dev, cycles_per_ms: float,
         f"readback byte-equal to plain; {fmt_encoder(enc)}")
 
     runs = []
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         b0, r0 = engine.stats["batches"], engine.stats["rows"]
         t = time.perf_counter()
         timed = asyncio.run(timed_checks(engine, reqs))
@@ -1854,7 +1897,7 @@ def serving_core(report: dict, card: str, dev, ctx: dict) -> dict:
         return [(await timed_checks(e, [r]))[0][1] for r in rs]
 
     runs = {"on": [], "off": []}
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         runs["on"].append(timed(engine))
         runs["off"].append(timed(off))
     lone = {}
@@ -2023,6 +2066,55 @@ def swap_split(swaps: list, first: int, t: float, engine) -> dict:
             "snapshot_phases": {k: round(v, 3) for k, v in
                                 engine._snapshot.phase_s.items()},
             "after_last_swap": round(now - swaps[-1], 3) if swaps else None}
+
+
+def log_control_plane(report: dict, card: str, cp_launches: dict) -> None:
+    """Phase 10's lines of figures, from its report."""
+    cpn = report["control_plane"]
+    a, kb, sw = cpn["manifests"], cpn["kubernetes"], cpn["swaps"]
+    log(f"control plane (a): {cpn['configs']} AuthConfigs + {cpn['secrets']} "
+        f"Secrets as manifests; bootstrap deny-all swapped in "
+        f"{a['bootstrap_swap_s']:.3f}s (a Check() meanwhile: "
+        f"{a['bootstrap_check']}), ready in {a['cold_reconcile_s']:.2f}s; "
+        f"{a['burst_checks']} concurrent Check()s equal the oracle "
+        f"({a['burst_allowed']} API-key requests allowed, mTLS good, other "
+        f"organization, expired and foreign-CA certificates as expected); "
+        f"{a['rotated_keys']} API keys rotated with no swap; the RSA CA's "
+        f"clients UNAUTHENTICATED after its removal; the external policy "
+        f"followed its registry in {a['policy_follow_s']:.2f}s (TTL "
+        f"{OPA_TTL_S}s) with no reconcile")
+    log(f"control plane (b): {kb['cold_reconcile_s']:.2f}s cold reconcile "
+        f"through K8sWatchSource + RestCluster ({kb['api_requests']} API "
+        f"requests); a 410 and a dropped watch, converged in "
+        f"{kb['watch_converge_s']:.2f}s; {kb['status_writes']} status writes, "
+        f"all by {kb['status_writer']}, every AuthConfig Ready")
+    log(f"control plane (c): {sw['burst_checks']} Check()s across three "
+        f"reconciles, every verdict equal to its batch's generation "
+        f"{sw['verdicts_by_generation']}; device memory over the swaps "
+        f"past a full history of {sw['snapshot_history']} "
+        f"{sw['memory_growth_bytes']:+d} B (one snapshot: "
+        f"{sw['snapshot_upload_bytes']} B); host RSS after ten swaps "
+        f"{sw['host_rss_growth_bytes']:+d} B; {sw['native_encoders_built']} "
+        f"native encoders built, {sw['native_encoders_alive']} alive after "
+        f"the swaps; {fmt_encoder(cpn['encoder'])}")
+    log(f"[{card}] control plane: cold reconcile {a['cold_reconcile_s']:.3f}s "
+        f"(bootstrap swap {a['bootstrap_swap_s']:.3f}s); rebuild for one "
+        f"changed file {a['one_file_rebuild_s']:.3f}s; Secret rotation "
+        f"{a['rotation_latency_s']:.3f}s from the write to the first Check() "
+        f"with the new key (the sync {a['rotation_sync_s']:.3f}s); "
+        f"{a['checks_per_s']:.0f} checks/s, p50 "
+        f"{a['check_latency_ms_p50']:.2f} ms p99 "
+        f"{a['check_latency_ms_p99']:.2f} ms; host per mTLS verify "
+        f"{a['mtls_verify_us_rsa2048']:.1f} us RSA-2048, "
+        f"{a['mtls_verify_us_p256']:.1f} us P-256 (certificate parse "
+        f"{a['mtls_parse_us']:.1f} us); one reconcile of (c)'s corpus "
+        f"{sw['reconcile_s']:.3f}s, of which the native encoder's build "
+        f"(policy_new) {statistics.median(sw['encoder_build_s']) * 1e3:.2f} "
+        f"ms median over {len(sw['encoder_build_s'])} swaps; phase 10 "
+        f"launches: "
+        f"{cp_launches['fused_megakernel']} mega-kernel, "
+        f"{cp_launches['probe_add_one']} probe")
+
 
 
 def control_plane(report: dict, card: str, dev, n: int = CP_CONFIGS,
@@ -2730,17 +2822,112 @@ def latency_ms(xs) -> tuple:
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
 
 
-def entry_point_drain(extra_argv, on_card: bool, log_path: Path) -> dict:
+class ServerStart:
+    """A server process started ahead of the part that drives it: started
+    now, its ``/readyz`` polled on a thread of its own, so the 8-18 s it
+    takes to import torch, reach the card and load its corpus overlap the
+    work before that part.  ``ready_s`` is the time from the start to the
+    first 200 (``ready``: that response), as when the part waited for it
+    itself."""
+
+    def __init__(self, argv, http_port: int, log_path: Path, label: str):
+        import atexit
+        import os
+        import threading
+
+        root = Path(__file__).resolve().parent
+        log_path.parent.mkdir(exist_ok=True)
+        self.label, self.log_path, self.port = label, log_path, http_port
+        self.ready_s, self.ready = None, None
+        self.t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            self.proc = subprocess.Popen(
+                argv, cwd=str(root), env=dict(os.environ,
+                                              PYTHONPATH=str(root)),
+                stdout=logf, stderr=subprocess.STDOUT)
+        self._poller = threading.Thread(target=self._poll, daemon=True,
+                                        name=f"ready-{label}")
+        self._poller.start()
+        atexit.register(self.kill)
+
+    def _poll(self) -> None:
+        while self.proc.poll() is None and \
+                time.perf_counter() - self.t0 < 180:
+            r = http_call(self.port, "/readyz", timeout=2)
+            if r[0] == 200:
+                self.ready_s, self.ready = time.perf_counter() - self.t0, r
+                return
+            time.sleep(0.1)
+
+    def wait_ready(self) -> float:
+        """Until ready; raises when the process exited or never got
+        ready."""
+        self._poller.join(timeout=200)
+        if self.ready_s is None:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"({self.label}) the server exited "
+                    f"{self.proc.returncode}: "
+                    f"{self.log_path.read_text()[-2000:]}")
+            raise AssertionError(f"({self.label}) the server never got "
+                                 "ready")
+        return self.ready_s
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def entry_manifests(extra=()) -> str:
+    """A temporary directory of the ENTRY_CONFIGS API-key AuthConfigs,
+    their Secrets and ``extra``, one JSON manifest each: a server
+    process's corpus.  The caller removes it."""
+    import tempfile
+
+    from authorino_tpu_torch.models import control_plane as cp
+
+    d = tempfile.mkdtemp()
+    docs = cp.build_auth_configs(ENTRY_CONFIGS, CP_RULES) + [
+        cp.api_key_secret(i) for i in range(ENTRY_CONFIGS)] + list(extra)
+    for k, doc in enumerate(docs):
+        (Path(d) / f"{k:03d}.json").write_text(json.dumps(doc))
+    return d
+
+
+def entry_point_start(extra_argv, on_card: bool, log_path: Path) -> dict:
+    """Phase 12 (e)'s and 15 (e)'s server over its manifests, started
+    now (``ServerStart``); ``entry_point_drain`` drives and drains it."""
+    from authorino_tpu_torch.models import control_plane as cp
+
+    st = {"eports": [free_port() for _ in range(3)],
+          "slow": cp.SlowEndpoint(0.3)}
+    st["slow"].__enter__()
+    st["tmp"] = entry_manifests(
+        [cp.callback_auth_config(st["slow"].url + "/done")])
+    eports = st["eports"]
+    argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
+            "--watch-dir", st["tmp"], "--ext-auth-grpc-port",
+            str(eports[0]), "--ext-auth-http-port", str(eports[1]),
+            "--oidc-http-port", str(eports[2]), "--drain-timeout",
+            str(ENTRY_DRAIN_S)] + list(extra_argv)
+    if not on_card:
+        argv += ["--device", "cpu"]
+    st["server"] = ServerStart(argv, eports[1], log_path, "e")
+    return st
+
+
+def entry_point_drain(st: dict, on_card: bool) -> dict:
     """Phase 12 (e) and 15 (e): ``python3 -m authorino_tpu_torch server``
     (plus ``extra_argv``) as a subprocess over 16 API-key configs and a
     config whose callback keeps each Check() in flight after its verdict:
     32 gRPC and 8 HTTP Check()s equal to the oracle, its log naming the
     device, SIGTERM with 64 Check()s in flight — all 64 answered, exit 0
-    within --drain-timeout + 5 s.  Returns its figures (``log_head`` and
+    within --drain-timeout + 5 s.  ``st`` is ``entry_point_start``'s
+    server, started ahead.  Returns its figures (``log_head`` and
     ``log_tail``: its log)."""
-    import os
+    import shutil
     import signal
-    import tempfile
 
     import grpc
 
@@ -2753,42 +2940,14 @@ def entry_point_drain(extra_argv, on_card: bool, log_path: Path) -> dict:
     from authorino_tpu_torch.utils import rpc
 
     e = {}
-    eports = [free_port() for _ in range(3)]
+    eports, slow, srv = st["eports"], st["slow"], st["server"]
+    proc, log_path = srv.proc, srv.log_path
     n_e = ENTRY_CONFIGS
     e_rules = cp.config_rules(n_e, CP_RULES)
     e_reqs, e_cfgs, e_known = cp.build_check_requests(32, n_e, seed=9)
-    with tempfile.TemporaryDirectory() as tmp, \
-            cp.SlowEndpoint(0.3) as slow:
-        d2 = Path(tmp)
-        docs = cp.build_auth_configs(n_e, CP_RULES) + [
-            cp.api_key_secret(i) for i in range(n_e)] + [
-            cp.callback_auth_config(slow.url + "/done")]
-        for k, doc in enumerate(docs):
-            (d2 / f"{k:03d}.json").write_text(json.dumps(doc))
-        log_path.parent.mkdir(exist_ok=True)
-        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
-                "--watch-dir", str(d2), "--ext-auth-grpc-port",
-                str(eports[0]), "--ext-auth-http-port", str(eports[1]),
-                "--oidc-http-port", str(eports[2]), "--drain-timeout",
-                str(ENTRY_DRAIN_S)] + list(extra_argv)
-        if not on_card:
-            argv += ["--device", "cpu"]
-        root = Path(__file__).resolve().parent
-        env = dict(os.environ, PYTHONPATH=str(root))
-        t0 = time.perf_counter()
-        with open(log_path, "w") as logf:
-            proc = subprocess.Popen(argv, cwd=str(root), env=env,
-                                    stdout=logf, stderr=subprocess.STDOUT)
+    try:
         try:
-            while http_call(eports[1], "/readyz", timeout=2)[0] != 200:
-                if proc.poll() is not None:
-                    raise AssertionError(f"(e) the server exited "
-                                         f"{proc.returncode}: "
-                                         f"{log_path.read_text()[-2000:]}")
-                if time.perf_counter() - t0 > 180:
-                    raise AssertionError("(e) the server never got ready")
-                time.sleep(0.1)
-            e["ready_s"] = time.perf_counter() - t0
+            e["ready_s"] = srv.wait_ready()
             e_payloads = [wire.encode_check_request(
                 request_proto_from_model(q)) for q in e_reqs]
             cb_payload = wire.encode_check_request(wire.CheckRequest(
@@ -2810,8 +2969,12 @@ def entry_point_drain(extra_argv, on_card: bool, log_path: Path) -> dict:
                     async def rows() -> int:
                         body = (await asyncio.to_thread(
                             http_call, eports[1], "/debug/vars"))[2]
-                        return json.loads(body)["engine"]["kernel_cost"][
-                            "ledger"]["engine"]["rows"]
+                        # a CPU server's host lane folds its rows into
+                        # the ledger's host lane
+                        ledger = json.loads(body)["engine"]["kernel_cost"][
+                            "ledger"]
+                        return sum(ledger.get(k, {}).get("rows", 0)
+                                   for k in ("engine", "host"))
 
                     rows0 = await rows()
                     futs = [asyncio.ensure_future(call(cb_payload))
@@ -2832,10 +2995,11 @@ def entry_point_drain(extra_argv, on_card: bool, log_path: Path) -> dict:
             rc = proc.wait(timeout=ENTRY_DRAIN_S + 30)
             e["sigterm_to_exit_s"] = time.perf_counter() - t_term
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            srv.kill()
         e["callback_hits"] = slow.hits
+    finally:
+        slow.__exit__(None, None, None)
+        shutil.rmtree(st["tmp"], ignore_errors=True)
     text = log_path.read_text()
     want = [cp.expected_code(q, i, e_rules, good)
             for q, i, good in zip(e_reqs, e_cfgs, e_known)]
@@ -2906,6 +3070,9 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
     from authorino_tpu_torch.utils import rpc
 
     on_card = dev.type == "cuda"
+    # (e)'s process starts now: its start-up overlaps (a)-(d)
+    entry = entry_point_start([], on_card,
+                              Path("smoke_out") / "entry_point.log")
     rsa_ca, ec_ca, certs = material
     base = cp.build_auth_configs(n, CP_RULES)
     rules = cp.config_rules(n, CP_RULES)
@@ -3367,7 +3534,7 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
                       kernel_vs_plain(params, db, dev, global_tables=True))
 
     # ---- (e) the process entry point -----------------------------------------
-    e = entry_point_drain([], on_card, Path("smoke_out") / "entry_point.log")
+    e = entry_point_drain(entry, on_card)
     e = {k: v for k, v in e.items() if not k.startswith("log_")}
     numbers["entry_point"] = e
     log(f"serving surfaces (e), served by the "
@@ -3387,9 +3554,9 @@ def serving_surfaces(report: dict, card: str, dev, material: tuple,
 # phase 11: the per-batch host work on either side of the launch
 # ---------------------------------------------------------------------------
 
-ENCODE_RUNS = 5           # timed runs per encoder and batch size
+ENCODE_RUNS = 3           # timed runs per encoder and batch size
 ENCODE_BATCHES = 20       # batches per timed run
-BURST_RUNS = 3            # phase 6's burst (and phase 4's submits) per
+BURST_RUNS = 1            # phase 6's burst (and phase 4's submits) per
                           # engine, in turns
 
 
@@ -3657,7 +3824,7 @@ PLANE_FAMILIES = (
 FLIGHT_KEEP = 2           # phase 13 (d)'s --flight-keep
 OVERLOAD_ENTRIES = 3      # entries into OVERLOADED (d) drives, at most
 OVERLOAD_BURSTS = 8       # warm bursts (d) may take to get them
-PLANE_PAIRS = 3           # (f): planes on / off pairs, order alternating
+PLANE_PAIRS = 1           # (f): planes on / off pairs, order alternating
 SLO_P50_TRIES = 5         # (c): runs the p50 target may take
 LEDGER_OF_RECORD = {"rows": "rows", "device_rows": "device_rows",
                     "pad_rows": "pad_rows", "dedup_avoided_rows": "dedup_rows",
@@ -4206,6 +4373,19 @@ def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
                            "auth_server_degraded_decisions_total", lane)
 
     on_card = dev.type == "cuda"
+    # (f)'s process starts now, over its manifests: its start-up overlaps
+    # (a)-(e)
+    f_ports = [free_port() for _ in range(3)]
+    f_tmp = entry_manifests()
+    f_server = ServerStart(
+        [sys.executable, "-m", "authorino_tpu_torch", "server",
+         "--watch-dir", f_tmp, "--ext-auth-grpc-port", str(f_ports[0]),
+         "--ext-auth-http-port", str(f_ports[1]), "--oidc-http-port",
+         str(f_ports[2]), "--fault-profile", "device-down",
+         "--breaker-threshold", "1", "--drain-timeout", "5",
+         "--flight-dir", str(flight / "cli")]
+        + ([] if on_card else ["--device", "cpu"]),
+        f_ports[1], Path("smoke_out") / "fault_profile.log", "f")
 
     def device_calls() -> int:
         """The kernel's launches (on the CPU: its plain version's calls)."""
@@ -4540,43 +4720,15 @@ def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
 
     # ---- (f) the CLI with a fault profile, as a process -------------------
     f = {}
-    ports = [free_port() for _ in range(3)]
     n_e = ENTRY_CONFIGS
     e_rules = cp.config_rules(n_e, CP_RULES)
     e_reqs, e_cfgs, e_known = cp.build_check_requests(32, n_e, seed=9)
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        docs = cp.build_auth_configs(n_e, CP_RULES) + [
-            cp.api_key_secret(i) for i in range(n_e)]
-        for k, doc in enumerate(docs):
-            (d / f"{k:03d}.json").write_text(json.dumps(doc))
-        log_path = Path("smoke_out") / "fault_profile.log"
-        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
-                "--watch-dir", str(d), "--ext-auth-grpc-port", str(ports[0]),
-                "--ext-auth-http-port", str(ports[1]), "--oidc-http-port",
-                str(ports[2]), "--fault-profile", "device-down",
-                "--breaker-threshold", "1", "--drain-timeout", "5",
-                "--flight-dir", str(flight / "cli")]
-        if not on_card:
-            argv += ["--device", "cpu"]
-        root = Path(__file__).resolve().parent
-        env = dict(os.environ, PYTHONPATH=str(root))
-        t0 = time.perf_counter()
-        with open(log_path, "w") as logf:
-            proc = subprocess.Popen(argv, cwd=str(root), env=env,
-                                    stdout=logf, stderr=subprocess.STDOUT)
+    ports, srv = f_ports, f_server
+    proc, log_path = srv.proc, srv.log_path
+    try:
         try:
-            ready0 = None
-            while ready0 is None or ready0[0] != 200:
-                if proc.poll() is not None:
-                    raise AssertionError(f"(f) the server exited "
-                                         f"{proc.returncode}: "
-                                         f"{log_path.read_text()[-2000:]}")
-                if time.perf_counter() - t0 > 180:
-                    raise AssertionError("(f) the server never got ready")
-                time.sleep(0.1)
-                ready0 = http_call(ports[1], "/readyz", timeout=2)
-            f["ready_s"] = time.perf_counter() - t0
+            f["ready_s"] = srv.wait_ready()
+            ready0 = srv.ready
             payloads = [wire.encode_check_request(request_proto_from_model(q))
                         for q in e_reqs]
 
@@ -4594,9 +4746,9 @@ def failure_handling(report: dict, card: str, dev, ctx6: dict) -> tuple:
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=30)
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            srv.kill()
+    finally:
+        shutil.rmtree(f_tmp, ignore_errors=True)
     want = [cp.expected_code(q, i, e_rules, good)
             for q, i, good in zip(e_reqs, e_cfgs, e_known)]
     # the engine decides a request that got past its identity: on a card it
@@ -4804,10 +4956,13 @@ def grpc_aio_server_main(port_file: str, no_reuse: bool,
 
 
 class AioServerProcess:
-    """One ``grpc_aio_server_main`` process: started, ready (its port
-    file), then stopped by SIGTERM (its counts back) or killed."""
+    """One ``grpc_aio_server_main`` process: started (ahead of its passes:
+    its start-up overlaps the phase's work before them), ready (its port
+    file, ``wait_ready``), then stopped by SIGTERM (its counts back) or
+    killed."""
 
     def __init__(self, tmpdir: str, no_reuse: bool, device: str, tag: str):
+        import atexit
         import os
 
         self.port_file = os.path.join(tmpdir, f"aio-{tag}.port")
@@ -4819,7 +4974,21 @@ class AioServerProcess:
             [sys.executable, "-c", code], cwd=str(root),
             env=dict(os.environ, PYTHONPATH=str(root)),
             stdout=self.log, stderr=subprocess.STDOUT)
-        t0 = time.monotonic()
+        self.t0 = time.monotonic()
+        self.port = None
+        atexit.register(self.kill)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait_ready(self) -> None:
+        """Until its port file exists (its engine installed, its server
+        bound); raises when it exited or did not start in 180 s."""
+        import os
+
+        t0 = self.t0
         while not os.path.exists(self.port_file):
             if self.proc.poll() is not None or time.monotonic() - t0 > 180:
                 self.stop()
@@ -5008,6 +5177,9 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
 
     on_card = dev.type == "cuda"
     numbers = {"card": card}
+    # (e)'s process starts now: its start-up overlaps (a)-(d), (f)
+    entry = entry_point_start(["--native-frontend", "on"], on_card,
+                              Path("smoke_out") / "native_frontend.log")
     # ---- (a) build ----------------------------------------------------------
     t = time.monotonic()
     mod = native.load_library()
@@ -5034,6 +5206,12 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
     with open(light_path, "wb") as f:
         for b in payloads[:LIGHT_PAYLOADS]:
             f.write(struct.pack(">I", len(b)) + b)
+    # (c)/(d)'s grpc.aio server processes, one per setting, start now:
+    # their start-ups overlap the work before their passes
+    aio_servers = {no_reuse: AioServerProcess(tmpdir, no_reuse, dev.type,
+                                              tag)
+                   for no_reuse, tag in ((False, "defaults"),
+                                         (True, "no-reuse"))}
 
     # the first frontend batch of each pad of 256 rows or more, held to
     # plain after the counted window, so the saturation passes' pad
@@ -5147,8 +5325,8 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
         wait_idle(engine)
         out = {"sat": [native_pass("sat") for _ in range(FE_TRIALS)],
                "native": [], "grpc_aio": [], "shallow": {}}
-        srv = AioServerProcess(tmpdir, no_reuse, dev.type,
-                               label[3:].replace(" ", "-"))
+        srv = aio_servers[no_reuse]
+        srv.wait_ready()
         try:
             order = ["native", "grpc_aio", "grpc_aio", "native", "native",
                      "grpc_aio"][:2 * FE_TRIALS]
@@ -5330,6 +5508,8 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
         cap.restore()
         faults.FAULTS.disarm()
         aio.close()
+        for srv in aio_servers.values():
+            srv.kill()
         shutil.rmtree(tmpdir, ignore_errors=True)
     launches = {"fused_megakernel": fk.launches,
                 "probe_add_one": fk.probe_launches}
@@ -5389,8 +5569,7 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
         f"the card by the open breaker")
 
     # ---- (e) the CLI as a process with --native-frontend on ---------------
-    e = entry_point_drain(["--native-frontend", "on"], on_card,
-                          Path("smoke_out") / "native_frontend.log")
+    e = entry_point_drain(entry, on_card)
     if "native grpc ext_authz listening" not in e["log_tail"] + e["log_head"]:
         raise AssertionError(f"(e) the process did not serve through the "
                              f"native frontend: {e['log_head'][-2000:]}")
@@ -5410,6 +5589,12 @@ def native_frontend(report: dict, card: str, dev) -> tuple:
 # ---------------------------------------------------------------------------
 
 DYN_TRIALS = 1            # load-generator passes per frontend setting
+# (a): first-pass requests in flight.  All 4,092 at once queue on the slow
+# lane, whose admission feed (queued over the routed rate) reads a slow
+# host's drain of them, once no more arrive, as a standing wait and sheds
+# typed RESOURCE_EXHAUSTED (the parent tree too, on such a host); the
+# last window drains within the feed's 4 s interval
+DYN_FIRST_WINDOW = 256
 DYN_PASS_S = (2.0, 1.0)   # (seconds measured, seconds of warm-up) per pass
 EXP_AHEAD_S = 4           # (c): the short token's exp, seconds ahead
 JOSE_LEEWAY_S = 30        # the verifier's clock-skew leeway (utils/jose.py)
@@ -5601,7 +5786,8 @@ def dyn_frontend(report: dict, card: str, dev, ctx8: dict,
             out = {}
             c0 = lanes(fe)
             t = time.perf_counter()
-            first_out = grpc_many(aio, port, [payloads[k] for k in first])
+            first_out = grpc_many(aio, port, [payloads[k] for k in first],
+                                  window=DYN_FIRST_WINDOW)
             wall = time.perf_counter() - t
             c1 = lanes(fe)
             d = diff(c0, c1)
@@ -7220,7 +7406,7 @@ TEN_SLO_MS = 250.0        # the goodput SLO (the reference bench's)
 TEN_BASE_SHARE = 0.6      # base rate over the closed-loop sustainable rate
 TEN_RELEASE_WAIT_S = 8.0  # (b): the wait for containment's release
 TEN_QUOTA_RPS = 50.0      # (d): the quota'd tenant's qos-quota-rps
-TEN_PLANE_PAIRS = 2       # (e): plane on / off burst pairs
+TEN_PLANE_PAIRS = 1       # (e): plane on / off burst pairs
 TEN_DUMP_INTERVAL_S = 30.0  # the flight recorder's own bundle rate limit
 
 
@@ -8110,6 +8296,17 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
     from authorino_tpu_torch.utils import rpc
 
     numbers = {"card": card}
+    # (e)'s process starts now, over its manifests: its start-up overlaps
+    # (a)-(d)
+    e_ports = [free_port() for _ in range(3)]
+    e_tmp = entry_manifests()
+    e_server = ServerStart(
+        [sys.executable, "-m", "authorino_tpu_torch", "server",
+         "--watch-dir", e_tmp, "--ext-auth-grpc-port", str(e_ports[0]),
+         "--ext-auth-http-port", str(e_ports[1]), "--oidc-http-port",
+         str(e_ports[2]), "--capture", "--replay-pregate",
+         "--strict-verify", "--drain-timeout", "5"],
+        e_ports[1], Path("smoke_out") / "verify_replay_cli.log", "e")
     reqs = ctx6["reqs"]
     jwt = northstar.JWT_FILTER
     rules = [c.evaluators[0][1]
@@ -8425,45 +8622,19 @@ def verify_and_replay(report: dict, card: str, dev, ctx6: dict) -> tuple:
 
     # ---- (e) the CLI ---------------------------------------------------------
     e = {}
-    ports = [free_port() for _ in range(3)]
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        docs = cp.build_auth_configs(ENTRY_CONFIGS, CP_RULES) + [
-            cp.api_key_secret(i) for i in range(ENTRY_CONFIGS)]
-        for k, doc in enumerate(docs):
-            (d / f"{k:03d}.json").write_text(json.dumps(doc))
-        log_path = Path("smoke_out") / "verify_replay_cli.log"
-        argv = [sys.executable, "-m", "authorino_tpu_torch", "server",
-                "--watch-dir", str(d), "--ext-auth-grpc-port", str(ports[0]),
-                "--ext-auth-http-port", str(ports[1]), "--oidc-http-port",
-                str(ports[2]), "--capture", "--replay-pregate",
-                "--strict-verify", "--drain-timeout", "5"]
-        root = Path(__file__).resolve().parent
-        env = dict(os.environ, PYTHONPATH=str(root))
-        t0 = time.perf_counter()
-        with open(log_path, "w") as logf:
-            proc = subprocess.Popen(argv, cwd=str(root), env=env,
-                                    stdout=logf, stderr=subprocess.STDOUT)
+    ports, srv = e_ports, e_server
+    proc, log_path = srv.proc, srv.log_path
+    try:
         try:
-            ready = None
-            while ready is None or ready[0] != 200:
-                if proc.poll() is not None:
-                    raise AssertionError(f"(e) the server exited "
-                                         f"{proc.returncode}: "
-                                         f"{log_path.read_text()[-2000:]}")
-                if time.perf_counter() - t0 > 180:
-                    raise AssertionError("(e) the server never got ready")
-                time.sleep(0.1)
-                ready = http_call(ports[1], "/readyz", timeout=2)
-            e["ready_s"] = time.perf_counter() - t0
+            e["ready_s"] = srv.wait_ready()
             rp = http_call(ports[1], "/debug/replay")
             dv = json.loads(http_call(ports[1], "/debug/vars")[2])["engine"]
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=30)
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            srv.kill()
+    finally:
+        shutil.rmtree(e_tmp, ignore_errors=True)
     replay = json.loads(rp[2]) if rp[0] == 200 else {}
     e.update(replay_status=rp[0], replay_keys=sorted(replay), exit_code=rc,
              strict_verify=dv.get("strict_verify"),
@@ -10159,6 +10330,323 @@ def mesh_and_fleet(report: dict, card: str, dev, ns: dict) -> tuple:
     return launches, 0
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the host lanes (brownout, lane selection, speculative dispatch)
+# ---------------------------------------------------------------------------
+
+P24_LONE = 64             # (a), (b): lone Check()s, one at a time
+
+
+def host_lanes(report: dict, card: str, dev, ctx6: dict) -> tuple:
+    """Phase 24, the host lanes: on a card they resolve off, on a CPU
+    engine they are the reference's.  (a) A card engine at its defaults
+    over phase 6's translated corpus (its compile cache: no config
+    compiled again): phase 6's 4,096-Check() burst and 64 lone Check()s
+    held to the oracle; lane selection and brownout off, no row on a host
+    lane, by brownout or speculation, every cut counted device/disabled,
+    one mega-kernel launch per batch with a device row, the cost model's
+    device RTT EWMA fed from the card's batches; ``lane_select=True`` on a
+    card raises, and the CLI refuses a host-lane tuning flag on a card.
+    (b) CPU engines in this process (``device="cpu"``, the caller's
+    choice) over the same corpus at the reference's defaults: the same
+    burst (its 256-row cuts ride the kernel's plain version) and lone
+    Check()s (the cost model's choice: the host lane), then the burst into
+    a one-batch window (brownout decides rows), every verdict equal to
+    (a)'s; no kernel launch in (b).  Returns ((a)'s kernel launch counts,
+    counts zeroed just before it; 0, the phase holds no readback against
+    plain)."""
+    import numpy as np
+
+    from authorino_tpu_torch import cli
+    from authorino_tpu_torch.ops import fused_kernel as fk
+    from authorino_tpu_torch.runtime import PolicyEngine
+    from authorino_tpu_torch.runtime.lane_select import CARD_RULE
+
+    entries, reqs, hold = ctx6["entries"], ctx6["reqs"], ctx6["hold"]
+    cache = ctx6["engine"].compile_cache
+    numbers = {"card": card}
+    t_phase = time.perf_counter()
+
+    def install(**kw):
+        engine = PolicyEngine(max_batch=256, **kw)
+        engine.compile_cache = cache   # phase 6's: nothing compiles again
+        bind(entries, engine)
+        engine.apply_snapshot(entries)
+        rep = engine._snapshot.compile_report
+        if rep is None or rep.compiled:
+            raise AssertionError(f"phase 24 compiled again: {rep}")
+        return engine
+
+    async def lone(engine):
+        return [(await timed_checks(engine, [r]))[0] for r in
+                reqs[:P24_LONE]]
+
+    def verdicts(out):
+        return [(r.code, r.status, r.message, r.metadata) for r, _ in out]
+
+    def p50_ms(out):
+        return float(np.percentile([x for _, x in out], 50)) * 1e3
+
+    # ---- (a) the card engine at its defaults: the counted window -------
+    marks = failure_marks()
+    fk.reset_counts()
+    reset_host_counts()
+    engine = install(device=dev)
+    out_a = asyncio.run(timed_checks(engine, reqs))
+    batch_p50 = float(np.percentile(engine.batch_latency_s, 50)) * 1e3
+    lone_a = asyncio.run(lone(engine))
+    launches = {"fused_megakernel": fk.launches,
+                "probe_add_one": fk.probe_launches}
+    hold(out_a, "host lanes (a)")
+    hold(lone_a, "host lanes (a), lone")
+    require_no_failure_handling("phase 24 (a)", marks)
+    st = dict(engine.stats)
+    recs = checked_records(engine)
+    dv = engine.debug_vars()
+    ls, bo = dv["lane_select"], dv["brownout"]
+    device_batches = sum(1 for r in recs if r["device_rows"])
+    if (ls["enabled"] or ls["speculative"] or bo["enabled"]
+            or ls["rows"]["host"] or bo["decisions"]
+            or ls["speculative_outcomes"]
+            or st["host_lane_rows"] or st["brownout_rows"]
+            or st["degraded_rows"]):
+        raise AssertionError(f"(a) a card engine served a row off the "
+                             f"mega-kernel: {ls} {bo} {st}")
+    if ls["decisions"] != {"device:disabled": st["batches"]} or \
+            ls["rows"]["device"] != st["rows"]:
+        raise AssertionError(f"(a) cuts not all device/disabled: "
+                             f"{ls['decisions']} {st}")
+    if launches["fused_megakernel"] != device_batches or \
+            st["launches"] != device_batches or \
+            launches["probe_add_one"] < 1:
+        raise AssertionError(f"(a) launches {launches} against "
+                             f"{device_batches} batches with a device row")
+    cost = ls["cost"]
+    if not cost["device_rtt_ewma_s"] > 0 or \
+            cost["device_batches"] != device_batches:
+        raise AssertionError(f"(a) the cost model was not fed: {cost}")
+    try:
+        PolicyEngine(device=dev, lane_select=True)
+        raise AssertionError("(a) lane_select=True on a card did not raise")
+    except ValueError as e:
+        if CARD_RULE not in str(e):
+            raise
+        refused = str(e)
+    try:
+        cli.refuse_unported(cli.build_parser().parse_args(
+            ["server", "--device", "cuda", "--lane-host-max-rows", "8"]))
+        raise AssertionError("(a) the CLI took --lane-host-max-rows on a "
+                             "card")
+    except SystemExit as e:
+        if "--lane-host-max-rows" not in str(e):
+            raise
+        cli_refusal = str(e)
+    numbers["card_engine"] = {
+        "checks": len(out_a), "lone": len(lone_a), "stats": st,
+        "decisions": ls["decisions"], "device_rtt_ewma_ms":
+        cost["device_rtt_ewma_s"] * 1e3, "batch_p50_ms": batch_p50,
+        "check_p50_ms": p50_ms(out_a), "lone_p50_ms": p50_ms(lone_a),
+        "launches": launches, "refused": refused,
+        "cli_refusal": cli_refusal}
+    log(f"[{card}] host lanes (a), a card engine at its defaults: "
+        f"{len(out_a)} + {len(lone_a)} lone Check()s equal the oracle; "
+        f"lane_select and brownout enabled: false, 0 host-lane, brownout "
+        f"and speculative rows; {st['batches']} cuts, all device/disabled; "
+        f"{launches['fused_megakernel']} mega-kernel launches for "
+        f"{device_batches} batches with a device row "
+        f"({launches['probe_add_one']} probe at the install); the cost "
+        f"model's device RTT EWMA {cost['device_rtt_ewma_s'] * 1e3:.3f} ms "
+        f"beside the burst's batch p50 {batch_p50:.3f} ms; a lone Check() "
+        f"p50 {p50_ms(lone_a):.3f} ms; lane_select=True raised; the CLI "
+        f"refused --lane-host-max-rows 8 on a card")
+
+    # ---- (b) CPU engines at the reference's defaults -------------------
+    # their host-lane and brownout rows fold into the ledger's host lane;
+    # nothing degrades and no breaker moves
+    marks = failure_marks()
+    l0 = fk.launches
+    cpu = install(device="cpu")
+    out_b = asyncio.run(timed_checks(cpu, reqs))
+    dec_burst = dict(cpu.lanes.decisions)
+    lone_b = asyncio.run(lone(cpu))
+    dec_lone = {k: v - dec_burst.get(k, 0)
+                for k, v in cpu.lanes.decisions.items()
+                if v != dec_burst.get(k, 0)}
+    st_b = dict(cpu.stats)
+    brown = install(device="cpu", max_inflight_batches=1,
+                    admission_min_cap=1 << 20)
+    out_br = asyncio.run(timed_checks(brown, reqs))
+    if fk.launches != l0:
+        raise AssertionError(f"(b) a CPU engine launched the mega-kernel "
+                             f"{fk.launches - l0} times")
+    for label, got, want in (("burst", out_b, out_a),
+                             ("lone", lone_b, lone_a),
+                             ("brownout burst", out_br, out_a)):
+        g, w = verdicts(got), verdicts(want)
+        if g != w:
+            k = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+            raise AssertionError(f"(b) {label}: check {k} {g[k]} != the "
+                                 f"card's {w[k]}")
+    checked_records(cpu)
+    checked_records(brown)
+    moved = {k: v - marks[k] for k, v in failure_marks().items()}
+    host_rows = st_b["host_lane_rows"] + brown.stats["host_lane_rows"] + \
+        brown.stats["brownout_rows"]
+    if moved != {"host_rows": host_rows, "degraded": 0, "transitions": 0}:
+        raise AssertionError(f"(b) the ledger's host rows and the failure "
+                             f"handling moved {moved}, host-lane and "
+                             f"brownout rows {host_rows}")
+    if (not cpu.lanes.enabled or not cpu.brownout
+            or dec_burst.get("device:batch", 0) < 1 or st_b["plain_calls"] < 1
+            or dec_lone.get("host:cost-model", 0) < 1
+            or sum(dec_lone.values()) != len(lone_b)
+            or brown._brownout_total < 1):
+        raise AssertionError(f"(b) burst {dec_burst}, lone {dec_lone}, "
+                             f"stats {st_b}, brownout rows "
+                             f"{brown._brownout_total}")
+    host_row_us = cpu.lanes.cost.host_row_s * 1e6
+    numbers["cpu_engine"] = {
+        "decisions_burst": dec_burst, "decisions_lone": dec_lone,
+        "host_row_us": host_row_us, "stats": st_b,
+        "check_p50_ms": p50_ms(out_b), "lone_p50_ms": p50_ms(lone_b),
+        "cost": cpu.lanes.cost.to_json(),
+        "brownout": {"rows": brown._brownout_total,
+                     "decisions": dict(brown.lanes.decisions),
+                     "stats": dict(brown.stats),
+                     "check_p50_ms": p50_ms(out_br)}}
+    numbers["launches"] = launches
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    report["host_lanes"] = numbers
+    log(f"[{card}] host lanes (b), CPU engines in this process at the "
+        f"reference's defaults, every verdict equal to (a)'s: the burst's "
+        f"cuts {dec_burst} ({st_b['plain_calls']} plain-version calls); "
+        f"{len(lone_b)} lone Check()s {dec_lone}, host_row_s "
+        f"{host_row_us:.1f} us per row on this host, lone p50 "
+        f"{p50_ms(lone_b):.3f} ms with lane selection on against "
+        f"{p50_ms(lone_a):.3f} ms on the card; a one-batch window's burst: "
+        f"{brown._brownout_total} rows decided by brownout "
+        f"({dict(brown.lanes.decisions)}); no mega-kernel launch; phase 24 "
+        f"in {numbers['phase_s']:.1f} s")
+    return launches, 0
+
+
+# ---------------------------------------------------------------------------
+# the side process: phases 10, 17, 18 and 21 beside the main process
+# ---------------------------------------------------------------------------
+
+SIDE_PHASES = ("10", "17", "18", "21")
+
+
+def side_main(out_path: str) -> int:
+    """Phases 10, 17, 18 and 21 in a process of their own.  They share no
+    state with the main process's phases: each builds its corpora from its
+    seeds (phase 17's and 18's requests and north-star documents are phase
+    6's and 4's, rebuilt here from the same seeds) and loads the kernels
+    the main process built into the checkout.  Writes their report
+    sections, kernel launch counts, max abs byte error and phase seconds
+    to ``out_path``; raises (exit non-zero) on a failed check, as the main
+    process does."""
+    import torch
+
+    from authorino_tpu_torch.models import northstar
+    from authorino_tpu_torch.runtime import faults
+    from authorino_tpu_torch.runtime.flight_recorder import RECORDER
+
+    if not torch.cuda.is_available():
+        print("side process: no CUDA device is visible", file=sys.stderr)
+        return 2
+    RECORDER.configure(dump_dir=str(Path("smoke_out") / "flight-side"))
+    t0 = time.monotonic()
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    report, launches, errs = {}, {}, {}
+    docs = northstar.build_docs(4096, seed=7)
+    drng = random.Random(3)
+    ns = {"docs": docs, "names": [f"cfg-{drng.randrange(1000)}"
+                                  for _ in docs]}
+    ctx6 = {"reqs": northstar.build_check_requests(4096, 1000)}
+    clock = PhaseClock()
+    clock.start("10")
+    marks = failure_marks()
+    launches["10"], errs["10"] = control_plane(report, card, dev, ctx={})
+    require_no_failure_handling("phase 10", marks)
+    log_control_plane(report, card, launches["10"])
+    clock.start("17")
+    marks = failure_marks()
+    launches["17"], errs["17"] = incremental_reconcile(report, card, dev,
+                                                       ctx6, ns)
+    require_no_failure_handling("phase 17", marks)
+    clock.start("18")
+    launches["18"], errs["18"] = change_safety(report, card, dev, ctx6, ns)
+    clock.start("21")
+    marks = failure_marks()
+    launches["21"], errs["21"] = state_planes(report, card, dev, ns)
+    require_no_failure_handling("phase 21", marks)
+    clock.start(None)
+    if faults.ACTIVE:
+        raise AssertionError("the side process left the fault plane armed")
+    Path(out_path).write_text(json.dumps({
+        "report": report, "launches": launches,
+        "max_err": max(errs.values()), "seconds": clock.seconds,
+        "wall_s": time.monotonic() - t0}, default=str))
+    return 0
+
+
+class SideProcess:
+    """``side_main`` started now in a child process (its log in
+    ``smoke_out/side.log``), joined by ``join()``: its lines re-printed
+    here, its exit checked, its output read.  A main process that fails
+    first kills it on exit."""
+
+    def __init__(self):
+        import atexit
+        import os
+
+        Path("smoke_out").mkdir(exist_ok=True)
+        self.out = Path("smoke_out") / "side.json"
+        self.out.unlink(missing_ok=True)
+        self.log_path = Path("smoke_out") / "side.log"
+        root = Path(__file__).resolve().parent
+        code = (f"import sys, chip_smoke as cs; "
+                f"sys.exit(cs.side_main({str(self.out)!r}))")
+        # a session of its own: a kill takes its own children with it
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", code], cwd=str(root),
+                env=dict(os.environ, PYTHONPATH=str(root)), stdout=logf,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        atexit.register(self.kill)
+        log(f"side process {self.proc.pid} started: phases "
+            f"{', '.join(SIDE_PHASES)}")
+
+    def kill(self) -> None:
+        import os
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+    def join(self, timeout: float = 1200.0) -> dict:
+        t = time.monotonic()
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        text = self.log_path.read_text(errors="replace")
+        for line in text.splitlines():
+            print(f"[side] {line}", flush=True)
+        if rc != 0 or not self.out.exists():
+            raise AssertionError(f"the side process exited {rc}: "
+                                 f"{text[-3000:]}")
+        out = json.loads(self.out.read_text())
+        log(f"side process joined after a wait of "
+            f"{time.monotonic() - t:.1f} s")
+        return out
+
+
 def main() -> int:
     import torch
 
@@ -10211,13 +10699,28 @@ def main() -> int:
             native_build["error"] = e
         native_build["s"] = time.monotonic() - t0
 
+    # phase 8's keys and tokens (pure Python) are made meanwhile: the
+    # compilers leave this process's interpreter idle
+    jwt_pre = {}
+
+    def make_jwt_material():
+        try:
+            jwt_pre.update(jwt_material())
+        except BaseException as e:  # re-raised on the main thread
+            jwt_pre["error"] = e
+
     builder = threading.Thread(target=build_native, name="native-build")
     builder.start()
+    minter = threading.Thread(target=make_jwt_material, name="jwt-mint")
+    minter.start()
     t = time.monotonic()
     try:
         _build.load_library("fused_kernel")
     finally:
         builder.join()
+        minter.join()
+    if "error" in jwt_pre:
+        raise jwt_pre["error"]
     report["build_s"] = time.monotonic() - t
     report["nvcc_s"] = _build.build_seconds("fused_kernel")
     log(f"built fused_kernel in {report['build_s']:.2f}s "
@@ -10445,9 +10948,10 @@ def main() -> int:
     prl_b2b, _ = back_to_back_ms(lambda: probe_x + 1, cycles_per_ms)
     pr_bound, pr_by = bound_ms(32, 4)
 
-    # engine throughput: three more 4,096-request runs on the warm engine
+    # engine throughput: TIMED_RUNS more 4,096-request runs on the warm
+    # engine
     runs = []
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         engine.batch_latency_s.clear()
         t = time.monotonic()
         asyncio.run(serve(engine, ns_docs, ns_names))
@@ -10515,7 +11019,7 @@ def main() -> int:
     require_no_failure_handling("phase 6", marks)
     rp = report["request_path"]
     log(f"[{card}] request path: {rp['checks_per_s_median']:.0f} checks/s "
-        f"median of 3 runs ({[round(r) for r in rp['checks_per_s']]}), "
+        f"median of {TIMED_RUNS} run(s) ({[round(r) for r in rp['checks_per_s']]}), "
         f"per-Check() latency p50 {rp['check_latency_ms_p50']:.2f} ms p99 "
         f"{rp['check_latency_ms_p99']:.2f} ms; {rp['batches_timed']} "
         f"batches, {rp['mean_rows_per_batch']:.1f} rows per batch; a lone "
@@ -10532,7 +11036,7 @@ def main() -> int:
     max_err = max(max_err, opa_err)
     op = report["opa_path"]
     log(f"[{card}] OPA path: {op['checks_per_s_median']:.0f} checks/s "
-        f"median of 3 runs ({[round(r) for r in op['checks_per_s']]}; phase "
+        f"median of {TIMED_RUNS} run(s) ({[round(r) for r in op['checks_per_s']]}; phase "
         f"6: {rp['checks_per_s_median']:.0f}), per-Check() latency p50 "
         f"{op['check_latency_ms_p50']:.2f} ms p99 "
         f"{op['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
@@ -10551,7 +11055,7 @@ def main() -> int:
     # ---- 8. the JWT request path, 9. the serving core ---------------------
     # phase 8's fake Keycloak serves until phase 16 is done (its tokens and
     # entries are reused there); its serving thread is a daemon
-    ctx = {}
+    ctx = {"jwt_material": jwt_pre}
     marks = failure_marks()
     jwt_launches, jwt_err = jwt_path(report, card, dev, cycles_per_ms, ctx)
     require_no_failure_handling("phase 8", marks)
@@ -10560,7 +11064,7 @@ def main() -> int:
     max_err = max(max_err, jwt_err, core_err)
     jp = report["jwt_path"]
     log(f"[{card}] JWT path: {jp['checks_per_s_median']:.0f} checks/s "
-        f"median of 3 runs ({[round(r) for r in jp['checks_per_s']]}; phase "
+        f"median of {TIMED_RUNS} run(s) ({[round(r) for r in jp['checks_per_s']]}; phase "
         f"6 in this run: {rp['checks_per_s_median']:.0f}), per-Check() "
         f"latency p50 {jp['check_latency_ms_p50']:.2f} ms p99 "
         f"{jp['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
@@ -10582,7 +11086,7 @@ def main() -> int:
                        ("no_reuse", "dedup and cache off")):
         f = sc[key]
         log(f"[{card}] serving core, {label}: {f['checks_per_s_median']:.0f} "
-            f"checks/s median of 3 runs "
+            f"checks/s median of {TIMED_RUNS} run(s) "
             f"({[round(r) for r in f['checks_per_s']]}), per-Check() "
             f"latency p50 {f['check_latency_ms_p50']:.2f} ms p99 "
             f"{f['check_latency_ms_p99']:.2f} ms; a lone Check() p50 "
@@ -10601,57 +11105,14 @@ def main() -> int:
         f"{jp['check_latency_ms_p50']:.2f} ms p99 "
         f"{jp['check_latency_ms_p99']:.2f} ms")
 
-    clock.start("10")
-    # ---- 10. the control plane --------------------------------------------
-    cp_ctx = {}
-    marks = failure_marks()
-    cp_launches, cp_err = control_plane(report, card, dev, ctx=cp_ctx)
-    require_no_failure_handling("phase 10", marks)
-    max_err = max(max_err, cp_err)
-    cpn = report["control_plane"]
-    a, kb, sw = cpn["manifests"], cpn["kubernetes"], cpn["swaps"]
-    log(f"control plane (a): {cpn['configs']} AuthConfigs + {cpn['secrets']} "
-        f"Secrets as manifests; bootstrap deny-all swapped in "
-        f"{a['bootstrap_swap_s']:.3f}s (a Check() meanwhile: "
-        f"{a['bootstrap_check']}), ready in {a['cold_reconcile_s']:.2f}s; "
-        f"{a['burst_checks']} concurrent Check()s equal the oracle "
-        f"({a['burst_allowed']} API-key requests allowed, mTLS good, other "
-        f"organization, expired and foreign-CA certificates as expected); "
-        f"{a['rotated_keys']} API keys rotated with no swap; the RSA CA's "
-        f"clients UNAUTHENTICATED after its removal; the external policy "
-        f"followed its registry in {a['policy_follow_s']:.2f}s (TTL "
-        f"{OPA_TTL_S}s) with no reconcile")
-    log(f"control plane (b): {kb['cold_reconcile_s']:.2f}s cold reconcile "
-        f"through K8sWatchSource + RestCluster ({kb['api_requests']} API "
-        f"requests); a 410 and a dropped watch, converged in "
-        f"{kb['watch_converge_s']:.2f}s; {kb['status_writes']} status writes, "
-        f"all by {kb['status_writer']}, every AuthConfig Ready")
-    log(f"control plane (c): {sw['burst_checks']} Check()s across three "
-        f"reconciles, every verdict equal to its batch's generation "
-        f"{sw['verdicts_by_generation']}; device memory over the swaps "
-        f"past a full history of {sw['snapshot_history']} "
-        f"{sw['memory_growth_bytes']:+d} B (one snapshot: "
-        f"{sw['snapshot_upload_bytes']} B); host RSS after ten swaps "
-        f"{sw['host_rss_growth_bytes']:+d} B; {sw['native_encoders_built']} "
-        f"native encoders built, {sw['native_encoders_alive']} alive after "
-        f"the swaps; {fmt_encoder(cpn['encoder'])}")
-    log(f"[{card}] control plane: cold reconcile {a['cold_reconcile_s']:.3f}s "
-        f"(bootstrap swap {a['bootstrap_swap_s']:.3f}s); rebuild for one "
-        f"changed file {a['one_file_rebuild_s']:.3f}s; Secret rotation "
-        f"{a['rotation_latency_s']:.3f}s from the write to the first Check() "
-        f"with the new key (the sync {a['rotation_sync_s']:.3f}s); "
-        f"{a['checks_per_s']:.0f} checks/s, p50 "
-        f"{a['check_latency_ms_p50']:.2f} ms p99 "
-        f"{a['check_latency_ms_p99']:.2f} ms; host per mTLS verify "
-        f"{a['mtls_verify_us_rsa2048']:.1f} us RSA-2048, "
-        f"{a['mtls_verify_us_p256']:.1f} us P-256 (certificate parse "
-        f"{a['mtls_parse_us']:.1f} us); one reconcile of (c)'s corpus "
-        f"{sw['reconcile_s']:.3f}s, of which the native encoder's build "
-        f"(policy_new) {statistics.median(sw['encoder_build_s']) * 1e3:.2f} "
-        f"ms median over {len(sw['encoder_build_s'])} swaps; phase 10 "
-        f"launches: "
-        f"{cp_launches['fused_megakernel']} mega-kernel, "
-        f"{cp_launches['probe_add_one']} probe")
+    # ---- 10, 17, 18, 21: the side process ---------------------------------
+    # phases 10, 17, 18 and 21 share no state with the phases here: they
+    # run in a process of their own, beside phases 11-16, 19 and 20, and
+    # join before phase 22 reads phase 21's generations
+    side = SideProcess()
+    # phase 12's and 16's mTLS keys and certificates (seeded: phase 10
+    # makes the same in the side process)
+    cp_ctx = {"material": mtls_material()}
 
     clock.start("11")
     # ---- 11. the per-batch host work on either side of the launch ---------
@@ -10690,10 +11151,8 @@ def main() -> int:
         f"{sn['in_process_latency_ms_p50']:.2f} ms p99 "
         f"{sn['in_process_latency_ms_p99']:.2f} ms, "
         f"{sn['in_process_batches']['rows'] / max(1, sn['in_process_batches']['batches']):.2f}"
-        f" rows per batch; phase 10 (a) engine.check() in this run: "
-        f"{a['checks_per_s']:.0f} checks/s, p50 "
-        f"{a['check_latency_ms_p50']:.2f} ms p99 "
-        f"{a['check_latency_ms_p99']:.2f} ms; codec host per Check(): "
+        f" rows per batch (phase 10 (a)'s engine.check() figures are on "
+        f"the side process's lines); codec host per Check(): "
         f"decode {sn['decode_us']:.1f} us + encode {sn['encode_us']:.1f} us "
         f"= {sn['codec_us_per_check']:.1f} us (CheckRequestModel "
         f"{sn['model_us']:.1f} us); first burst {sb['first_burst']}; "
@@ -10747,20 +11206,6 @@ def main() -> int:
     require_no_failure_handling("phase 16", marks)
     max_err = max(max_err, dyn_err)
 
-    clock.start("17")
-    # ---- 17. the incremental reconcile and the snapshot container --------
-    marks = failure_marks()
-    inc_launches, inc_err = incremental_reconcile(
-        report, card, dev, ctx6, {"docs": ns_docs, "names": ns_names})
-    require_no_failure_handling("phase 17", marks)
-    max_err = max(max_err, inc_err)
-
-    clock.start("18")
-    # ---- 18. change safety ------------------------------------------------
-    cs_launches, cs_err = change_safety(
-        report, card, dev, ctx6, {"docs": ns_docs, "names": ns_names})
-    max_err = max(max_err, cs_err)
-
     clock.start("19")
     # ---- 19. the tenant QoS plane -----------------------------------------
     marks = failure_marks()
@@ -10776,13 +11221,13 @@ def main() -> int:
     max_err = max(max_err, vr_err)
     require_no_failure_handling("phase 20", marks)
 
-    clock.start("21")
-    # ---- 21. snapshot distribution, the state plane, the corpus pregate ---
-    marks = failure_marks()
-    sp_launches, sp_err = state_planes(report, card, dev,
-                                       {"docs": ns_docs, "names": ns_names})
-    max_err = max(max_err, sp_err)
-    require_no_failure_handling("phase 21", marks)
+    # ---- the side process's phases join here: phase 22 reads phase 21's
+    # kept generations
+    clock.start("side join")
+    side_out = side.join()
+    report.update(side_out["report"])
+    max_err = max(max_err, side_out["max_err"])
+    side_launches = side_out["launches"]
 
     # ---- 22. the gather and matmul lanes, the analysis CLI ----------------
     clock.start("22")
@@ -10802,32 +11247,39 @@ def main() -> int:
     max_err = max(max_err, mf_err)
     if faults.ACTIVE:
         raise AssertionError("phase 23 left the fault plane armed")
+
+    # ---- 24. the host lanes: off on a card, the reference's on the CPU ----
+    clock.start("24")
+    hl_launches, hl_err = host_lanes(report, card, dev, ctx6)
+    max_err = max(max_err, hl_err)
     clock.start(None)
 
     kernels = [
         {"name": "fused_megakernel", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:237",
-         "launches": mf_launches["fused_megakernel"],
+         "launches": hl_launches["fused_megakernel"],
          "max_abs_err": max_err, "ms": numbers["kernel_ms_median"],
          "plain_ms": numbers["plain_ms_median"], "bound_ms": k_bound,
          "bound_by": k_by, "library_ms": None},
         {"name": "probe_add_one", "route": "cuda",
          "source": "authorino_tpu_torch/ops/csrc/fused_kernel.cu",
          "replaces": "authorino_tpu/ops/fused_kernel.py:259",
-         "launches": mf_launches["probe_add_one"], "max_abs_err": pr_err,
+         "launches": hl_launches["probe_add_one"], "max_abs_err": pr_err,
          "ms": numbers["probe_ms_median"],
          "plain_ms": numbers["probe_plain_ms_median"], "bound_ms": pr_bound,
          "bound_by": pr_by,
          "library_ms": numbers["probe_library_ms_median"]},
     ]
     by_phase = {"4": main_launches, "6": path_launches, "7": opa_launches,
-                "8": jwt_launches, "9": core_launches, "10": cp_launches,
+                "8": jwt_launches, "9": core_launches,
+                "10": side_launches["10"],
                 "12": serve_launches, "13": plane_launches,
                 "14": fail_launches, "15": fe_launches, "16": dyn_launches,
-                "17": inc_launches, "18": cs_launches, "19": ten_launches,
-                "20": vr_launches, "21": sp_launches, "22": kl_launches,
-                "23": mf_launches}
+                "17": side_launches["17"], "18": side_launches["18"],
+                "19": ten_launches, "20": vr_launches,
+                "21": side_launches["21"], "22": kl_launches,
+                "23": mf_launches, "24": hl_launches}
     for k in kernels:
         k["launches_by_phase"] = {ph: c[k["name"]]
                                   for ph, c in by_phase.items()}
@@ -10837,8 +11289,10 @@ def main() -> int:
                 f"{name} never launched on a path: {by_phase}")
     report["kernels"] = kernels
     report["phase_seconds"] = clock.seconds
-    log(f"phase seconds: {json.dumps(clock.seconds)}; whole script "
-        f"{time.monotonic() - T0:.1f} s")
+    report["side_phase_seconds"] = side_out["seconds"]
+    log(f"phase seconds: {json.dumps(clock.seconds)}; the side process "
+        f"{json.dumps(side_out['seconds'])} in {side_out['wall_s']:.1f} s "
+        f"from its start; whole script {time.monotonic() - T0:.1f} s")
     Path("smoke_out").mkdir(exist_ok=True)
     Path("smoke_out/chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))

@@ -213,7 +213,10 @@ def test_check_passes_its_deadline_to_the_engine():
             "authorization": {"r": {"patternMatching": {"patterns": [
                 {"selector": "request.method", "operator": "eq",
                  "value": "GET"}]}}}}
-    engine = PolicyEngine(max_batch=8, device="cpu")
+    # lane selection off: its admission floor would admit this deadline
+    # (the reference's tests/test_overload.py pins the contract so)
+    engine = PolicyEngine(max_batch=8, device="cpu", lane_select=False,
+                          brownout=False)
     req = CheckRequestModel(http=HttpRequestAttributes(
         method="GET", path="/", host="d.test"))
 

@@ -53,7 +53,7 @@ def engine(n, **kw):
     if n is REF:
         return n.engine_mod.PolicyEngine(mesh=None, lane_select=False,
                                           kernel_lane="fused", **kw)
-    return n.engine_mod.PolicyEngine(device="cpu", **kw)
+    return n.engine_mod.PolicyEngine(device="cpu", lane_select=False, **kw)
 
 
 def entries(n, configs):

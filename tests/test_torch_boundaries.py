@@ -123,6 +123,46 @@ def test_lanes_and_analysis_cli_import_with_service_libraries_blocked():
     assert "BAD []" in proc.stdout
 
 
+# the host lanes: the cost model, the selector, the first-wins token and
+# the port's rule for a card
+HOST_LANE_MODULES = ("runtime.lane_select",)
+
+
+def test_host_lanes_import_with_service_libraries_blocked():
+    """The host lanes import neither JAX nor the JAX package, nor a serving
+    module or the engine, with ``grpc``, ``aiohttp`` and ``cryptography``
+    blocked; the CLI lists no unported plane."""
+    from authorino_tpu_torch import cli as port_cli
+
+    mods = port_modules()
+    for m in HOST_LANE_MODULES:
+        assert f"authorino_tpu_torch.{m}" in mods, m
+    assert port_cli.UNPORTED_PLANES == {}
+    code = (
+        "import importlib, sys\n"
+        "BLOCKED = ('aiohttp', 'grpc', 'cryptography', 'jax', "
+        "'authorino_tpu')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {HOST_LANE_MODULES!r}:\n"
+        "    importlib.import_module('authorino_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED\n"
+        "             or m.startswith('authorino_tpu_torch.service')\n"
+        "             or m in ('authorino_tpu_torch.cli',\n"
+        "                      'authorino_tpu_torch.runtime.engine'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
+
+
 def test_port_imports_with_service_libraries_blocked():
     """Every module of the port below the serving modules (OPA, the
     Kubernetes reviews, SpiceDB, the protobuf codec and the native gRPC
@@ -776,7 +816,7 @@ def test_request_path_runs_without_the_reference_or_its_services():
         "{'anonymous': {}}}, 'authorization': {'s': {'spicedb': {"
         "'endpoint': '127.0.0.1:1', 'insecure': True}}}}\n"
         "async def main():\n"
-        "    engine = PolicyEngine(device='cpu')\n"
+        "    engine = PolicyEngine(device='cpu', lane_select=False)\n"
         "    engine.apply_snapshot([\n"
         "        await translate_auth_config('anon', 'ns', anon, engine=engine),\n"
         "        await translate_auth_config('plain', 'ns', plain, engine=engine),\n"
@@ -901,7 +941,7 @@ def test_jwt_request_path_runs_without_the_reference_or_its_services():
         "from authorino_tpu_torch.utils import jose\n"
         "keys = oc.make_keys(5, rsa_bits=1024)\n"
         "async def main(idp):\n"
-        "    engine = PolicyEngine(device='cpu')\n"
+        "    engine = PolicyEngine(device='cpu', lane_select=False)\n"
         "    cluster = InMemoryCluster()\n"
         "    for s in oc.cluster_secrets(keys): cluster.put_secret(Secret(**s))\n"
         "    specs = oc.build_auth_configs(2, 6, idp.issuer) + [\n"

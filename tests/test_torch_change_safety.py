@@ -54,7 +54,7 @@ def ref_engine(**kw):
 
 
 def port_engine(**kw):
-    return PolicyEngine(members_k=4, device="cpu", **kw)
+    return PolicyEngine(members_k=4, device="cpu", lane_select=False, **kw)
 
 
 REF = SimpleNamespace(name="ref", ns=REF_NS, cs=r_cs, Entry=RefEntry,

@@ -150,17 +150,60 @@ def run(coro):
         loop.close()
 
 
-@pytest.mark.parametrize("dest", sorted(port_cli.UNPORTED_FLAGS))
-def test_an_unported_planes_flag_stops_the_start(dest):
-    inert, plane = port_cli.UNPORTED_FLAGS[dest]
+# each host-lane tuning flag, a value other than its inert one, and the
+# engine attribute that holds it
+HOST_LANE_TUNING = {
+    "brownout_max_batch": lambda e: e.brownout_max_batch,
+    "lane_host_max_rows": lambda e: e.lanes.host_max_rows,
+}
+
+
+@pytest.mark.parametrize("dest", sorted(port_cli.CARD_REFUSED_FLAGS))
+def test_an_unported_planes_flag_stops_the_start(dest, monkeypatch):
+    """The host lanes are in the port, on a CPU engine only: each tuning
+    flag reaches a ``--device cpu`` engine with the value the reference's
+    CLI gives the reference's engine, and on a card it stops the start
+    naming the flag and the port's rule, before anything binds."""
+    import authorino_tpu.runtime.engine as ref_engine_mod
+
+    assert sorted(port_cli.CARD_REFUSED_FLAGS) == sorted(HOST_LANE_TUNING)
+    assert port_cli.UNPORTED_PLANES == {}
+    inert, plane = port_cli.CARD_REFUSED_FLAGS[dest]
     flag = "--" + dest.replace("_", "-")
-    extra = ([flag] if isinstance(inert, bool)
-             else [flag, "ns/a=2"] if isinstance(inert, list)
-             else [flag, "/x" if isinstance(inert, str) else "9"])
-    args = server_args(*extra)
+    port_cli.refuse_unported(server_args(flag, "9"))
+
+    def stop(engine):
+        raise _Built(engine)
+
+    with pytest.raises(_Built) as got:
+        run(port_cli.run_server(server_args(flag, "9"), on_engine=stop))
+    ref_kwargs = {}
+    real = ref_engine_mod.PolicyEngine
+
+    def capture(**kw):
+        ref_kwargs.update(kw)
+        raise _Built()
+
+    monkeypatch.setattr(ref_engine_mod, "PolicyEngine", capture)
+    ref_args = ref_cli.build_parser().parse_args(
+        ["server", "--jax-platform", "cpu", flag, "9"])
+    with pytest.raises(_Built):
+        run(ref_cli.run_server(ref_args))
+    monkeypatch.setattr(ref_engine_mod, "PolicyEngine", real)
+    ref_engine = real(mesh=None, **{dest: ref_kwargs[dest]})
+    read = HOST_LANE_TUNING[dest]
+    assert read(got.value.args[0]) == read(ref_engine) == 9 != inert
+    # on a card: refused before the engine, whatever the machine has
+    args = server_args(flag, "9")
+    args.device = "cuda"
     with pytest.raises(SystemExit, match=re.escape(flag)) as e:
         run(port_cli.run_server(args))
-    assert "ROADMAP.md queue 1 item" in str(e.value)
+    assert plane in str(e.value) and "--device cpu" in str(e.value)
+    assert "only the mega-kernel answers a row" in str(e.value)
+    assert not listening(args.ext_auth_http_port)
+    args.device = "cuda:0"
+    with pytest.raises(SystemExit, match=re.escape(flag)):
+        port_cli.refuse_unported(args)
 
 
 class _Built(Exception):
@@ -644,7 +687,13 @@ def test_run_server_serves_the_observability_planes(tmp_path):
     fr = eng["flight_recorder"]
     assert (fr["dump_dir"], fr["keep"]) == (str(flight), 3)
     assert {e["kind"] for e in fr["tail"]} >= {"snapshot-swap", "reconcile"}
-    assert eng["kernel_cost"]["ledger"]["engine"]["rows"] >= len(reqs)
+    # a CPU engine serves with the host lanes at the defaults: a cut the
+    # cost model answers host-side folds into the ledger's host lane
+    ledger = eng["kernel_cost"]["ledger"]
+    assert ledger["engine"]["rows"] + ledger.get("host", {}).get("rows", 0) \
+        >= len(reqs)
+    assert eng["lane_select"]["enabled"] is True
+    assert sum(eng["lane_select"]["rows"].values()) == len(reqs)
     assert eng["kernel_cost"]["entry_points"][-1]["entry"] == "fused_kernel"
     # the manifest source's first poll re-reads the directory: a swap of
     # the same corpus reuses the installed policy and params (no diff or
@@ -663,8 +712,12 @@ def test_run_server_serves_the_observability_planes(tmp_path):
 def test_other_refusals_and_off_switches():
     # every kernel lane is served; an unported plane's flag still refuses
     port_cli.refuse_unported(server_args("--kernel-lane", "matmul"))
+    # a host-lane tuning flag refuses on a card only
+    port_cli.refuse_unported(server_args("--lane-host-max-rows", "8"))
+    on_card = server_args("--lane-host-max-rows", "8")
+    on_card.device = "cuda"
     with pytest.raises(SystemExit, match="--lane-host-max-rows"):
-        run(port_cli.run_server(server_args("--lane-host-max-rows", "8")))
+        run(port_cli.run_server(on_card))
     # the native frontend does not terminate TLS: 'on' refuses TLS flags
     # before anything binds
     args = server_args("--native-frontend", "on", "--tls-cert", "/x.crt",

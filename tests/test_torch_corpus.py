@@ -64,7 +64,7 @@ def ref_engine(**kw):
 
 
 def port_engine(**kw):
-    return PolicyEngine(device="cpu", **kw)
+    return PolicyEngine(device="cpu", lane_select=False, **kw)
 
 
 REF = SimpleNamespace(

@@ -1587,3 +1587,49 @@ def test_fleet_replica_readback_equals_its_leader(card, tmp_path):
             assert gr.tolist() == wr.tolist() and gs.tolist() == ws.tolist()
     finally:
         h.shutdown()
+
+
+def test_card_engine_at_its_defaults_puts_no_row_on_a_host_lane(card):
+    """The host lanes resolve off on a card: a burst and lone submits at
+    the engine's defaults ride the mega-kernel (one launch per batch with
+    a device row), every cut counts device/disabled, no row on the host
+    lane, by brownout or speculation; the cost model still learns the
+    card's round trip; an explicit lane_select=True raises."""
+    cfgs = northstar.build_corpus(40, 10)
+    engine = PolicyEngine(max_batch=64, device=card)
+    engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
+                           for c in cfgs])
+    docs = northstar.build_docs(160, seed=9)
+    names = [cfgs[i % len(cfgs)].name for i in range(len(docs))]
+    l0 = fk.launches
+
+    async def go():
+        out = await asyncio.gather(*(engine.submit(d, n)
+                                     for d, n in zip(docs[:128],
+                                                     names[:128])))
+        for d, n in zip(docs[128:], names[128:]):
+            out.append(await engine.submit(d, n))
+        return out
+
+    loop = asyncio.new_event_loop()
+    try:
+        out = loop.run_until_complete(go())
+    finally:
+        loop.close()
+    policy = engine._snapshot.policy
+    for (rule, skipped), d, n in zip(out, docs, names):
+        own, w_rule, w_skip = host_results(policy, d, policy.config_ids[n])
+        assert skipped.tolist() == w_skip.tolist()
+        assert rule[~w_skip].tolist() == w_rule[~w_skip].tolist()
+    ls = engine.debug_vars()["lane_select"]
+    st = engine.stats
+    assert not ls["enabled"] and not engine.brownout
+    assert ls["rows"]["host"] == 0 and ls["speculative_outcomes"] == {}
+    assert st["host_lane_rows"] == st["brownout_rows"] == 0
+    assert ls["decisions"] == {"device:disabled": st["batches"]}
+    device_batches = sum(1 for r in engine.batch_records if r["device_rows"])
+    assert fk.launches - l0 == st["launches"] == device_batches
+    assert ls["cost"]["device_batches"] == device_batches
+    assert ls["cost"]["device_rtt_ewma_s"] > 0
+    with pytest.raises(ValueError, match="only the mega-kernel"):
+        PolicyEngine(device=card, lane_select=True)

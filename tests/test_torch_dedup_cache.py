@@ -148,7 +148,8 @@ def test_engine_verdicts_and_row_counts_equal_reference(kind, on):
     ref = ref_engine(**knobs)
     ref.apply_snapshot([RefEntry(id=c.name, hosts=[c.name], runtime=None,
                                  rules=c) for c in r_cfgs])
-    port = PolicyEngine(device="cpu", **knobs)
+    port = PolicyEngine(device="cpu", lane_select=False, brownout=False,
+                        **knobs)
     port.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                          for c in p_cfgs])
 
@@ -185,7 +186,9 @@ def test_structural_contract_with_dedup_and_cache():
     W; rows = device rows + rows saved by dedup + rows saved by the
     cache."""
     cfgs = northstar_corpus(PORT, 20)
-    engine = PolicyEngine(max_batch=64, device="cpu")
+    # the host lanes off: every cut rides the cache and the plain version
+    engine = PolicyEngine(max_batch=64, device="cpu", lane_select=False,
+                          brownout=False)
     engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                            for c in cfgs])
     W = engine._snapshot.policy.fused_pack_w
@@ -228,6 +231,9 @@ def entry(name, rule):
 
 def build_engine(rule=RULE_ACME, **kw) -> PolicyEngine:
     kw.setdefault("max_batch", 8)
+    # the host lanes off: lane selection decides ahead of the verdict cache
+    kw.setdefault("lane_select", False)
+    kw.setdefault("brownout", False)
     engine = PolicyEngine(members_k=4, device="cpu", **kw)
     engine.apply_snapshot([entry("c", rule)])
     return engine
@@ -325,7 +331,8 @@ def test_snapshot_swap_never_serves_stale_cached_verdict():
 def test_swap_keeps_an_unchanged_configs_entries():
     """A swap that changes one config: the changed one misses and answers
     its new rule, the unchanged one is answered from the cache."""
-    engine = PolicyEngine(members_k=4, device="cpu", max_batch=8)
+    engine = PolicyEngine(members_k=4, device="cpu", max_batch=8,
+                          lane_select=False, brownout=False)
     engine.apply_snapshot([entry("a", RULE_ACME), entry("b", RULE_ACME)])
 
     async def both():

@@ -50,6 +50,11 @@ def entries(rule):
 
 def build_engine(rule=RULE_ACME, **kw) -> PolicyEngine:
     kw.setdefault("max_batch", 8)
+    # the device path's contract: the host lanes off, as the reference's
+    # tests pin it (tests/test_overload.py), or a small cut may ride the
+    # host oracle instead of the stub device
+    for knob in ("lane_select", "brownout", "speculative_dispatch"):
+        kw.setdefault(knob, False)
     engine = PolicyEngine(members_k=4, device="cpu", **kw)
     engine.apply_snapshot(entries(rule))
     return engine

@@ -51,7 +51,7 @@ def ref_engine(**kw):
 
 
 def port_engine(**kw):
-    return PolicyEngine(members_k=K, device="cpu", **kw)
+    return PolicyEngine(members_k=K, device="cpu", lane_select=False, **kw)
 
 
 REF = SimpleNamespace(name="ref", ns=REF_NS, Entry=RefEntry, make=ref_engine,

@@ -58,7 +58,7 @@ def test_engine_matches_reference_engine(kind, ovf_assist):
     ref.apply_snapshot([RefEntry(id=c.name, hosts=[c.name], runtime=None,
                                  rules=c) for c in r_cfgs])
     port = PolicyEngine(max_batch=32, members_k=k, ovf_assist=ovf_assist,
-                        device="cpu")
+                        device="cpu", lane_select=False)
     port.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                          for c in p_cfgs])
 
@@ -75,8 +75,10 @@ def test_burst_costs_one_batch_and_one_plain_call():
     # dedup and the verdict cache off: every row reaches the kernel's entry
     # point (the contract with them on is tests/test_torch_dedup_cache.py's)
     cfgs = northstar.build_corpus(20, 10)
+    # and the host lanes off: a one-row cut would ride the host oracle
     engine = PolicyEngine(max_batch=64, device="cpu", verdict_cache_size=0,
-                          batch_dedup=False)
+                          batch_dedup=False, lane_select=False,
+                          brownout=False)
     engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                            for c in cfgs])
     policy = engine._snapshot.policy

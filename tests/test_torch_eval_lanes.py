@@ -463,7 +463,7 @@ def test_engine_on_each_lane_matches_reference_engine(lane):
     ref.apply_snapshot([RefEntry(id=c.name, hosts=[c.name], runtime=None,
                                  rules=c) for c in r_cfgs])
     port = PolicyEngine(max_batch=32, members_k=4, ovf_assist=True,
-                        device="cpu", kernel_lane=lane,
+                        device="cpu", kernel_lane=lane, lane_select=False,
                         verdict_cache_size=0, batch_dedup=False)
     port.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                          for c in p_cfgs])

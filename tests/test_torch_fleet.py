@@ -51,7 +51,7 @@ def _ref_engine(**kw):
 
 
 def _port_engine(**kw):
-    return PEngine(members_k=4, device="cpu", **kw)
+    return PEngine(members_k=4, device="cpu", lane_select=False, **kw)
 
 
 REF = SimpleNamespace(name="ref", fleet=r_fleet, warmjoin=r_warmjoin,

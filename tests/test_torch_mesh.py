@@ -71,6 +71,7 @@ def _ref_engine(**kw):
 
 
 def _port_engine(**kw):
+    kw.setdefault("lane_select", False)
     return PEngine(device="cpu", **kw)
 
 

@@ -65,7 +65,8 @@ def test_relation_table_gauges_equal_reference(with_relations):
     want = [sample(n) for n in RELATION]
     for n in RELATION:  # the port must set them itself
         REGISTRY._names_to_collectors[n].set(-1)
-    port = PolicyEngine(max_batch=16, members_k=4, device="cpu")
+    port = PolicyEngine(max_batch=16, members_k=4, device="cpu",
+                        lane_select=False)
     port.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                          for c in p_cfgs])
     got = [sample(n) for n in RELATION]
@@ -76,3 +77,37 @@ def test_relation_table_gauges_equal_reference(with_relations):
             and got[0] > 0
     else:
         assert got == [0, 0]
+
+
+HOST_LANE_FAMILIES = ("brownout_decisions", "brownout_batches",
+                      "lane_decisions", "lane_cost_ewma",
+                      "speculative_dispatch")
+
+
+@pytest.mark.parametrize("attr", HOST_LANE_FAMILIES)
+def test_host_lane_families_equal_the_reference(attr):
+    """The five families of the host lanes are in the port's registry with
+    the reference's name, type and labels, and one selector's feeds move
+    them as the reference's move (deltas: one registry holds both)."""
+    from authorino_tpu.runtime import lane_select as r_ls
+    from authorino_tpu.utils import metrics as r_metrics
+    from authorino_tpu_torch.runtime import lane_select as p_ls
+    from authorino_tpu_torch.utils import metrics as p_metrics
+
+    got, want = getattr(p_metrics, attr), getattr(r_metrics, attr)
+    assert type(got) is type(want)
+    assert (got._name, got._labelnames) == (want._name, want._labelnames)
+
+    def feed(ls):
+        s = ls.LaneSelector(f"fam-{attr}")
+        s.count(ls.HOST, ls.R_COST, 3)
+        s.count_speculative("launched")
+        s.cost.observe_host(0.002, 4)
+        return [REGISTRY.get_sample_value(n, lab) or 0.0 for n, lab in (
+            ("auth_server_lane_decisions_total",
+             {"lane": f"fam-{attr}-host", "reason": "cost-model"}),
+            ("auth_server_lane_cost_ewma_seconds",
+             {"lane": f"fam-{attr}", "which": "host"}))]
+
+    assert feed(r_ls) == [3.0, 0.0005]
+    assert feed(p_ls) == [6.0, 0.0005]

@@ -456,11 +456,15 @@ def reference():
 
 class PortStack:
     """The port's CPU engine over the corpus, its NativeFrontend and its
-    grpc.aio server; ``close()`` stops both."""
+    grpc.aio server; ``close()`` stops both.  The frontend's host lanes are
+    off unless asked for, as the reference fixture's, so every fast-lane
+    slot rides the kernel's path."""
 
     def __init__(self, **fe_kw):
         from authorino_tpu_torch.service.grpc_server import build_server
 
+        fe_kw.setdefault("lane_select", False)
+        fe_kw.setdefault("brownout", False)
         self.engine = PORT.PolicyEngine(max_batch=64, device="cpu")
         self.engine.apply_snapshot(build_corpus(PORT, self.engine))
         self.fe = port_nf.NativeFrontend(
@@ -765,7 +769,12 @@ def test_stats_and_debug_vars_keys(reference):
             "dispatch_threads", "inflight_batches", "inflight_peak",
             "trace_sample_n", "batch_dedup", "verdict_cache", "breaker",
             "device_timeout_s", "admission", "slo", "provenance",
-            "kernel_cost", "change_safety", "snapshot", "tenancy"}
+            "kernel_cost", "change_safety", "snapshot", "tenancy",
+            "brownout", "lane_select"}
+        # the host lanes' blocks, the reference's keys
+        ref_dv = reference.fe.debug_vars()
+        assert set(dv["brownout"]) == set(ref_dv["brownout"])
+        assert set(dv["lane_select"]) == set(ref_dv["lane_select"])
         assert dv["change_safety"] == stack.engine.change_safety_vars()
         # the engine's tenant plane, shared (the reference's key)
         assert "tenancy" in reference.fe.debug_vars()

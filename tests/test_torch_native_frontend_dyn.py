@@ -255,8 +255,9 @@ class Stack:
 
     def __init__(self, ns, w, **fe_kw):
         engine_kw = ({"device": "cpu"} if ns is PORT else {"mesh": None})
-        if ns is REF:
-            fe_kw = dict(dict(lane_select=False, brownout=False), **fe_kw)
+        # the frontends' host lanes off in both packages: every fast-lane
+        # slot rides the kernel's path
+        fe_kw = dict(dict(lane_select=False, brownout=False), **fe_kw)
         self.ns = ns
         self.engine = ns.PolicyEngine(max_batch=16, **engine_kw)
         self.entries, self.parts = build_dyn_corpus(ns, self.engine, w)

@@ -69,6 +69,9 @@ async def burst(engine, docs, names):
 
 def engine_of(cfgs, **kw):
     kw.setdefault("max_batch", 64)
+    # the host lanes off: the ledger's device lane counts every batch
+    kw.setdefault("lane_select", False)
+    kw.setdefault("brownout", False)
     engine = PolicyEngine(device="cpu", **kw)
     engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                            for c in cfgs])

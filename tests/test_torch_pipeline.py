@@ -49,7 +49,8 @@ def engine_of(ns, max_batch=8, **kw):
         return ns.runtime.PolicyEngine(max_batch=max_batch, mesh=None,
                                        lane_select=False, kernel_lane="fused",
                                        **kw)
-    return ns.runtime.PolicyEngine(max_batch=max_batch, device="cpu", **kw)
+    return ns.runtime.PolicyEngine(max_batch=max_batch, device="cpu",
+                                   lane_select=False, **kw)
 
 
 def run(coro):

@@ -278,7 +278,7 @@ def test_engine_reconcile_registers_the_snapshot_equal():
             (None, n.Pattern("request.method", n.Operator.EQ, "GET"))])
         runtime = type("RT", (), {"metadata": [conf], "authorization": []})()
         kw = ({"mesh": None, "lane_select": False, "kernel_lane": "fused"}
-              if n is REF else {"device": "cpu"})
+              if n is REF else {"device": "cpu", "lane_select": False})
         eng = n.engine_mod.PolicyEngine(members_k=4, metadata_prefetch=True,
                                         **kw)
         eng.metadata_prefetcher._fetcher = lambda ev: {"ok": True}
@@ -307,7 +307,7 @@ def test_engine_without_prefetch_reports_none_equal():
     got = []
     for n in BOTH:
         kw = ({"mesh": None, "lane_select": False, "kernel_lane": "fused"}
-              if n is REF else {"device": "cpu"})
+              if n is REF else {"device": "cpu", "lane_select": False})
         eng = n.engine_mod.PolicyEngine(metadata_prefetch=False, **kw)
         got.append((eng.metadata_prefetcher,
                     eng.debug_vars()["metadata_prefetch"]))
@@ -338,7 +338,7 @@ def test_translate_marks_request_independent_metadata():
     for n in BOTH:
         tr = importlib.import_module(f"{n.root}.controllers.translate")
         kw = ({"mesh": None, "lane_select": False, "kernel_lane": "fused"}
-              if n is REF else {"device": "cpu"})
+              if n is REF else {"device": "cpu", "lane_select": False})
         eng = n.engine_mod.PolicyEngine(**kw)
         spec = {"hosts": ["md.test"],
                 "authentication": {"anon": {"anonymous": {}}},

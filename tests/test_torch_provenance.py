@@ -44,6 +44,9 @@ def reset_fired():
 
 
 def build_engine(configs, **kw) -> PolicyEngine:
+    # the host lanes off: every batch folds as the device lane's
+    kw.setdefault("lane_select", False)
+    kw.setdefault("brownout", False)
     engine = PolicyEngine(max_batch=32, members_k=4, device="cpu", **kw)
     engine.apply_snapshot([EngineEntry(id=c.name, hosts=[c.name], rules=c)
                            for c in configs])

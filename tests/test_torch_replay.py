@@ -447,7 +447,8 @@ def build_engine(n, cfgs=None, **kw):
                                         lane_select=False,
                                         kernel_lane="fused", **kw)
     else:
-        eng = n.engine_mod.PolicyEngine(members_k=4, device="cpu", **kw)
+        eng = n.engine_mod.PolicyEngine(members_k=4, device="cpu",
+                                        lane_select=False, **kw)
     if cfgs is not None:
         eng.apply_snapshot(entries_of(n, cfgs))
     return eng

@@ -102,7 +102,9 @@ def engine_of(ns, **kw):
         engine.apply_snapshot([RefEntry(id="c", hosts=["c"], runtime=None,
                                         rules=rules_of(REF))])
     else:
-        engine = PolicyEngine(members_k=4, device="cpu", **kw)
+        engine = PolicyEngine(members_k=4, device="cpu", lane_select=False,
+                              brownout=False, speculative_dispatch=False,
+                              **kw)
         engine.apply_snapshot([EngineEntry(id="c", hosts=["c"],
                                            rules=rules_of(PORT))])
     return engine

@@ -123,7 +123,8 @@ def ref_entries(cfgs):
 def port_engine(cfgs=None, **kw):
     kw.setdefault("max_batch", 8)
     kw.setdefault("verdict_cache_size", 4096)
-    engine = PolicyEngine(members_k=K, device="cpu", **kw)
+    engine = PolicyEngine(members_k=K, device="cpu", lane_select=False,
+                          **kw)
     if cfgs is not None:
         engine.apply_snapshot(port_entries(cfgs))
     return engine

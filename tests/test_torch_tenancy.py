@@ -94,7 +94,8 @@ def make_engine(p, **kw):
         return p.runtime.PolicyEngine(members_k=4, mesh=None,
                                       lane_select=False, kernel_lane="fused",
                                       brownout=False, **kw)
-    return p.runtime.PolicyEngine(members_k=4, device="cpu", **kw)
+    return p.runtime.PolicyEngine(members_k=4, device="cpu",
+                                  lane_select=False, brownout=False, **kw)
 
 
 def entries(p, n_tenants=3, annotations=None, rule=None):
@@ -961,16 +962,26 @@ class TestContainment:
 
     def test_contained_rows_ride_their_own_parts(self):
         """A contained tenant's admitted rows are decided exactly as the
-        reference decides them (its host-oracle lane), and count against
-        the same tenant.  The port cuts them into parts of their own on
-        the device path, after the cut's other parts; the fields that
-        differ are the reference's host-lane decision count and the
-        port's contained-part counts."""
+        reference decides them, and count against the same tenant.  On a
+        CPU engine the port routes them as the reference does, to the
+        host-oracle lane (``host:tenant-contained``); an engine with no
+        host lane (a card's) cuts them into parts of their own on the
+        device path, after the cut's other parts — the divergence by
+        design, counted as contained parts."""
         docs = [doc(i, allow=(i % 4 != 1)) for i in range(48)]
         names = [f"t{i % 3}" for i in range(48)]
 
-        def scenario(p):
-            engine = build_engine(p)
+        class CardShaped(PORT.runtime.PolicyEngine):
+            host_degrade = property(lambda self: False)
+
+        def scenario(p, card=False):
+            if card:
+                engine = CardShaped(members_k=4, device="cpu",
+                                    lane_select=False, brownout=False,
+                                    verdict_cache_size=0, max_batch=8)
+                engine.apply_snapshot(entries(p))
+            else:
+                engine = build_engine(p)
             det = engine.tenancy.detector
             det._contained["t0"] = {"since": time.monotonic()}
             det._pacers["t0"] = p.quota.TokenBucket(1e9)
@@ -979,9 +990,9 @@ class TestContainment:
             if p is PORT:
                 real = engine._encode_launch_job
 
-                def spy(snap, part, attempt=0):
+                def spy(snap, part, attempt=0, spec=None):
                     parts.append([(x.config_name, x.contained) for x in part])
-                    return real(snap, part, attempt)
+                    return real(snap, part, attempt, spec)
 
                 engine._encode_launch_job = spy
 
@@ -998,8 +1009,17 @@ class TestContainment:
         got, got_counts, engine, parts = scenario(PORT)
         assert got == want and got_counts == want_counts
         assert want_counts["t0"] == (16, 4, 0)
-        # named divergence: where each package counts the contained rows
+        # a CPU engine: the reference's route and its counts
         assert ref_engine.lanes.decisions.get("host:tenant-contained", 0) >= 1
+        assert engine.lanes.decisions.get("host:tenant-contained", 0) >= 1
+        assert engine.stats["contained_parts"] == 0
+        # past the host cap a contained row stays in the cut (the
+        # reference's rule), so at most its 16 rows ride the host lane
+        assert 1 <= engine.lanes.rows["host"] <= 16
+        # no host lane: the contained rows ride parts of their own
+        got, got_counts, engine, parts = scenario(PORT, card=True)
+        assert got == want and got_counts == want_counts
+        assert "host:tenant-contained" not in engine.lanes.decisions
         assert engine.stats["contained_rows"] == 16
         assert engine.stats["contained_parts"] >= 1
         for part in parts:

@@ -185,7 +185,7 @@ def test_engine_exports_one_device_batch_span_per_batch():
                  "value": "GET"}]}}}}
 
     async def body():
-        engine = PolicyEngine(max_batch=4, device="cpu",
+        engine = PolicyEngine(max_batch=4, device="cpu", lane_select=False,
                               verdict_cache_size=0, batch_dedup=False)
         engine.apply_snapshot([await translate_auth_config(
             "t", "ns", spec, engine=engine)])

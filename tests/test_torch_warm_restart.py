@@ -66,7 +66,7 @@ def ref_engine(**kw):
 
 
 def port_engine(**kw):
-    return PolicyEngine(members_k=4, device="cpu", **kw)
+    return PolicyEngine(members_k=4, device="cpu", lane_select=False, **kw)
 
 
 REF = SimpleNamespace(name="ref", ns=REF_NS, Entry=RefEntry, make=ref_engine,
